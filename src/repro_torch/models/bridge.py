@@ -1,0 +1,37 @@
+"""Weights from the JAX package's parameter tree into the port's state dict.
+
+The JAX ``TransformerLM`` (dense family) keeps its parameters as a nested
+dict with the layers stacked on a leading L axis (``layers/attn/wq`` is
+``[L, D, H, hd]``).  ``params_from_jax`` takes that tree with numpy arrays
+at the leaves (``jax.tree.map(np.asarray, params)``) and returns the port's
+``{name: array}``, one entry per layer.  ``jax.random`` and
+``torch.Generator`` draw different numbers from one seed, so this is how
+both packages are made to compute the same function.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def params_from_jax(tree: dict) -> dict:
+    """JAX param tree (numpy leaves) -> port state dict (numpy arrays)."""
+    state = {}
+    for name, arr in _flatten(tree).items():
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            for i in range(arr.shape[0]):
+                state[f"layers.{i}.{rest}"] = arr[i]
+        else:
+            state[name] = arr
+    return state

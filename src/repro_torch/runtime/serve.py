@@ -1,0 +1,96 @@
+"""Serving runtime: batched prefill + greedy decode with KV caches, FLARE
+daemon attached.
+
+Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
+card and no explicit CPU, ``Server`` raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+from repro_torch.models.layers import Policy
+from repro_torch.models.transformer import TransformerLM
+
+
+@dataclass
+class ServeConfig:
+    model: ModelConfig
+    batch: int = 4
+    max_seq: int = 256
+    compute_dtype: str = "bfloat16"
+    seed: int = 0
+    device: str = "cuda"
+    log_path: Optional[str] = None   # the daemon's JSONL spill
+
+    def policy(self) -> Policy:
+        return Policy(getattr(torch, self.compute_dtype))
+
+
+class Server:
+    """``params``: a state dict (see ``TransformerLM.load_params``); without
+    one the weights are drawn from ``cfg.seed``."""
+
+    def __init__(self, cfg: ServeConfig, params: Optional[dict] = None):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Server: no CUDA device; pass ServeConfig(device='cpu') to "
+                "serve on the CPU")
+        self.model = TransformerLM(cfg.model, cfg.policy(), self.device)
+        if params is not None:
+            self.model.load_params(params)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            self.model.init(gen)
+        self.daemon = TracingDaemon(DaemonConfig(
+            rank=0, backend=f"{cfg.model.family}-serve",
+            hang_timeout=300.0, log_path=cfg.log_path)).attach()
+
+    def close(self):
+        """Detach the daemon (final spill); later calls run untraced."""
+        if self.daemon:
+            self.daemon.detach()
+            self.daemon = None
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, new_tokens: int = 16) -> np.ndarray:
+        """prompts [B, S0] int -> [B, S0+new_tokens] greedy tokens."""
+        B, S0 = prompts.shape
+        if S0 + new_tokens > self.cfg.max_seq:
+            raise ValueError(f"prompt {S0} + {new_tokens} new tokens exceeds "
+                             f"max_seq {self.cfg.max_seq}")
+        d = self.daemon
+        cache = self.model.init_cache(B, self.cfg.max_seq)
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                               device=self.device)
+        if d:
+            d.step_begin(0)
+        logits = self.model.prefill(toks, cache)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out = [np.asarray(prompts)]
+        # each step ends after its token reaches the host, so the step span
+        # covers its device work
+        tok_host = tok.cpu().numpy()
+        if d:
+            # the JAX server leaves step 0 open (step_begin(1) overwrites
+            # it), so its prefill kernels nest under no step span
+            d.step_end(tokens=B * S0)
+        # as in the JAX server, the last decode's token goes unused
+        for i in range(new_tokens):
+            if d:
+                d.step_begin(i + 1)
+            out.append(tok_host)
+            logits = self.model.decode_step(tok, cache, S0 + i)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            tok_host = tok.cpu().numpy()
+            if d:
+                d.step_end(tokens=B)
+        return np.concatenate(out, axis=1).astype(prompts.dtype)

@@ -1,0 +1,185 @@
+"""The port's serving slice against the JAX package, on the CPU.
+
+* the port's ``Server`` and the JAX ``Server`` generate the same tokens from
+  the same weights;
+* the port's JSONL trace reads back in the JAX package's event codec and
+  metrics, with the JAX kernels' ``_meta`` flops;
+* the port imports neither ``jax`` nor ``repro``;
+* without an explicit CPU the port refuses to run where there is no card,
+  and the kernel builder names ``nvcc`` when it is missing.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_get_reduced
+from repro.core.events import EventKind, load_jsonl
+from repro.core.metrics import aggregate_step, steps_in
+from repro.kernels.flash_attention.ops import _meta as jax_flash_meta
+from repro.kernels.fused_norm.ops import _meta as jax_fused_meta
+from repro.runtime.serve import ServeConfig as JaxServeConfig
+from repro.runtime.serve import Server as JaxServer
+from repro_torch import kernels as tk
+from repro_torch.configs import get_reduced
+from repro_torch.models.bridge import params_from_jax
+from repro_torch.runtime.serve import ServeConfig, Server
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b"]
+
+
+def _serve_pair(arch, tmp_path, B=2, S0=10, new=6):
+    """(JAX tokens, port tokens, port trace path) from one set of weights."""
+    jcfg = JaxServeConfig(model=jax_get_reduced(arch), batch=B, max_seq=32,
+                          compute_dtype="float32")
+    jserver = JaxServer(jcfg)
+    state = params_from_jax(jax.tree.map(np.asarray, jserver.params))
+    trace = tmp_path / f"{arch}.jsonl"
+    tserver = Server(ServeConfig(model=get_reduced(arch), batch=B, max_seq=32,
+                                 compute_dtype="float32", device="cpu",
+                                 log_path=str(trace)), params=state)
+    prompts = np.random.default_rng(7).integers(
+        0, jcfg.model.vocab_size, (B, S0)).astype(np.int32)
+    try:
+        want = jserver.generate(prompts, new_tokens=new)
+        got = tserver.generate(prompts, new_tokens=new)
+    finally:
+        jserver.close()
+        tserver.close()
+    return want, got, trace
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_jax_server(arch, tmp_path):
+    want, got, _ = _serve_pair(arch, tmp_path)
+    assert got.shape == want.shape == (2, 16)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_trace_reads_back_in_the_jax_package(tmp_path):
+    B, S0, new = 2, 10, 6
+    _, _, trace = _serve_pair("llama3.2-1b", tmp_path, B, S0, new)
+    events = load_jsonl(str(trace))
+    cfg = get_reduced("llama3.2-1b")
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+
+    steps = {e.step: e for e in events if e.kind == EventKind.STEP}
+    assert sorted(steps) == list(range(new + 1))
+    assert steps[0].meta["tokens"] == B * S0
+    assert all(steps[i].meta["tokens"] == B for i in range(1, new + 1))
+
+    comp = [e for e in events if e.kind == EventKind.KERNEL_COMPUTE]
+    flash = [e for e in comp if e.name == "flash_attention"]
+    fused = [e for e in comp if e.name == "fused_residual_rmsnorm"]
+    assert len(flash) == L
+    assert len(fused) == 2 * L * (1 + new)
+    q = jnp.zeros((B, S0, H, hd), jnp.float32)
+    want = jax_flash_meta(q, None, None, causal=True)
+    for e in flash:
+        assert e.step == 0 and e.meta["parent"] == "step_0"
+        assert e.meta["flops"] == want["flops"]
+        assert e.meta["shape"] == want["shape"]
+    for e in fused:
+        R = B * S0 if e.step == 0 else B
+        x = jnp.zeros((R, cfg.d_model), jnp.float32)
+        w = jax_fused_meta(x, x, None)
+        assert (e.meta["flops"], e.meta["bytes"], e.meta["shape"]) == (
+            w["flops"], w["bytes"], w["shape"])
+        assert e.meta["parent"] == f"step_{e.step}"
+        assert e.start_ts >= e.issue_ts and e.end_ts >= e.start_ts
+
+    by_rank = {0: events}
+    assert steps_in(by_rank) == list(range(new + 1))
+    m = aggregate_step(by_rank, 0)
+    assert m.throughput > 0
+    assert set(m.flops) == {"flash_attention", "fused_residual_rmsnorm"}
+
+
+_BLOCK_IMPORTS = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+print(len(mods))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module imports with jax and repro blocked, and no source of the
+    port or of chip_smoke.py names them in an import, even in a function."""
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+    files = [ROOT / "chip_smoke.py",
+             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{f}: imports {n}"
+
+
+def test_server_needs_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: Server runs on it")
+    assert ServeConfig(model=get_reduced("llama3.2-1b")).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(ServeConfig(model=get_reduced("llama3.2-1b")))
+
+
+def test_builder_names_nvcc_when_missing(monkeypatch, tmp_path):
+    monkeypatch.setattr(tk.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(tk, "CUDA_ROOTS", (str(tmp_path / "no-cuda"),))
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    kernel = tk.CudaKernel("fused_norm.cu", "fused_residual_rmsnorm_launch",
+                           [])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel.launch()
+    assert kernel.launches == 0
+
+
+def test_daemon_times_cpu_ops_on_the_host(tmp_path):
+    """A traced op on CPU tensors gets a host-timed k_comp span nested under
+    its step, with the JAX kernel meta."""
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+    from repro_torch.kernels.fused_norm.ops import fused_residual_rmsnorm
+
+    path = tmp_path / "t.jsonl"
+    d = TracingDaemon(DaemonConfig(log_path=str(path),
+                                   drain_interval=0.001)).attach()
+    try:
+        d.step_begin(0)
+        x = torch.ones(4, 8)
+        fused_residual_rmsnorm(x, x, torch.ones(8))
+        d.step_end(tokens=4)
+    finally:
+        d.detach()
+    ev = {e.kind: e for e in load_jsonl(str(path))}
+    k = ev[EventKind.KERNEL_COMPUTE]
+    assert k.name == "fused_residual_rmsnorm"
+    assert k.meta["parent"] == "step_0" and k.meta["bytes"] == 4 * 32 * 4
+    assert ev[EventKind.STEP].start_ts <= k.issue_ts <= k.start_ts <= k.end_ts

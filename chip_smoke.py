@@ -5,19 +5,23 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
-  2. build    — nvcc builds every kernel of the serving path from
-                src/repro_torch/kernels/csrc/, one nvcc per source, together;
+  2. build    — nvcc builds every kernel of the serving paths from
+                src/repro_torch/kernels/csrc/ (flash attention, fused
+                residual+RMSNorm, SSD scan), one nvcc per source, together;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the serving path's shapes (fp32 3e-4, bf16 5e-2), timed
-                beside its plain version and a PyTorch library call;
-  4. serve    — Server.generate for llama3.2-1b at full width (batch 8,
-                1024-token prompts, 32 new tokens, random weights from
-                --seed) with the FLARE daemon attached; the launch counts
-                of that run; fp32 prefill logits on the card against the
-                plain path on the CPU;
-  5. trace    — the daemon's JSONL spill read back: step spans and kernel
+                at the serving paths' shapes (fp32 3e-4, bf16 5e-2), timed
+                beside its plain version and a PyTorch library call where
+                one computes the same function;
+  4. serve    — for each serving path, llama3.2-1b (dense) and mamba2-780m
+                (ssm): Server.generate at full width (batch 8, 1024-token
+                prompts, 32 new tokens, random weights from --seed) with the
+                FLARE daemon attached; the launch counts of that run;
+                untraced and traced walls; a profiler breakdown; fp32
+                prefill logits on the card against the plain path on the
+                CPU;
+  5. trace    — each path's JSONL spill read back: step spans and kernel
                 spans with device durations from CUDA events.
-The trace and a details.json are written to smoke_out/.
+The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -148,96 +152,191 @@ def check_flash(gen, device):
 
 
 def check_fused(gen, device):
+    """Checked and timed at both serving paths' widths (D 2048 llama,
+    D 1536 mamba2), prefill (R 8192) and decode (R 8) rows.  Returns the
+    llama prefill summary and the other three by (R, D)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fused_norm import ops
 
     cases, timed = [], {}
-    D = 2048
-    for R in (8192, 8):
+    for D in (2048, 1536):
+        for R in (8192, 8):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                x = torch.randn(R, D, generator=gen, device=device).to(dt)
+                r = torch.randn(R, D, generator=gen, device=device).to(dt)
+                s = torch.randn(D, generator=gen, device=device)
+                y, h = ops.fused_cuda(x, r, s)
+                yr, hr = ops.fused_ref(x, r, s)
+                torch.cuda.synchronize()
+                err = max(max_err(y, yr, dtype), max_err(h, hr, dtype))
+                cases.append(dict(shape=[R, D], dtype=dtype, max_abs_err=err))
+                log("kernels", f"fused_residual_rmsnorm R{R} D{D} {dtype}: "
+                    f"max_abs_err {err:.3e}")
+                if dtype != "bfloat16":
+                    continue
+                # at R 8 a launch costs more host time than the device
+                # needs, so these times are the host's per-call cost
+                ms = time_ms(lambda: ops.fused_cuda(x, r, s), 100)
+                plain_ms = time_ms(lambda: ops.fused_ref(x, r, s), 20)
+                # library yardstick: the norm alone (F.rms_norm computes no
+                # residual add, so it moves half the bytes)
+                hh = x + r
+                library_ms = time_ms(
+                    lambda: F.rms_norm(hh, (D,), s.to(dt), 1e-5), 100)
+                nbytes = 4 * R * D * x.element_size() + D * 4
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_ops = 6.0 * R * D / PEAK_FP32_FLOPS * 1e3
+                timed[(R, D)] = t = dict(
+                    name="fused_residual_rmsnorm", route="cuda",
+                    source="src/repro_torch/kernels/csrc/fused_norm.cu",
+                    replaces="src/repro/kernels/fused_norm/kernel.py:29",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=library_ms,
+                    library_call="torch.nn.functional.rms_norm (norm only)",
+                    shape=[R, D], dtype="bfloat16")
+                log("kernels", f"fused_residual_rmsnorm timed at R{R} D{D} "
+                    f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}, F.rms_norm "
+                    f"{library_ms:.4f}, bound {t['bound_ms']:.5f} "
+                    f"by {t['bound_by']})")
+    main = timed.pop((8192, 2048))
+    return main, {f"R{R} D{D}": t for (R, D), t in timed.items()}, cases
+
+
+def ssd_inputs(gen, device, B, L, H, N, dtype):
+    """SSD-scan inputs as the model makes them: dt = softplus of a normal
+    draw (> 0), A = -exp(log(linspace(1, 16, H)))."""
+    import torch
+    import torch.nn.functional as F
+    dt_ = getattr(torch, dtype)
+    x = torch.randn(B, L, H, 64, generator=gen, device=device).to(dt_)
+    dt = F.softplus(torch.randn(B, L, H, generator=gen, device=device))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=device)))
+    Bm = torch.randn(B, L, N, generator=gen, device=device).to(dt_)
+    Cm = torch.randn(B, L, N, generator=gen, device=device).to(dt_)
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd(gen, device):
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+
+    cases = []
+    H, N, chunk = 48, 128, 256
+    for (B, L, init) in [(8, 1024, False), (8, 1000, False), (2, 1000, True),
+                         (1, 320, True)]:
         for dtype in ("bfloat16", "float32"):
-            dt = getattr(torch, dtype)
-            x = torch.randn(R, D, generator=gen, device=device).to(dt)
-            r = torch.randn(R, D, generator=gen, device=device).to(dt)
-            s = torch.randn(D, generator=gen, device=device)
-            y, h = ops.fused_cuda(x, r, s)
-            yr, hr = ops.fused_ref(x, r, s)
+            x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+            s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
+                  if init else None)
+            y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+            yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
             torch.cuda.synchronize()
-            err = max(max_err(y, yr, dtype), max_err(h, hr, dtype))
-            cases.append(dict(shape=[R, D], dtype=dtype, max_abs_err=err))
-            log("kernels", f"fused_residual_rmsnorm R{R} D{D} {dtype}: "
-                f"max_abs_err {err:.3e}")
-            if dtype != "bfloat16":
-                continue
-            ms = time_ms(lambda: ops.fused_cuda(x, r, s), 100)
-            plain_ms = time_ms(lambda: ops.fused_ref(x, r, s), 20)
-            # library yardstick: the norm alone (F.rms_norm computes no
-            # residual add, so it moves half the bytes)
-            hh = x + r
-            library_ms = time_ms(
-                lambda: F.rms_norm(hh, (D,), s.to(dt), 1e-5), 100)
-            nbytes = 4 * R * D * x.element_size() + D * 4
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = 6.0 * R * D / PEAK_FP32_FLOPS * 1e3
-            timed[R] = dict(
-                name="fused_residual_rmsnorm", route="cuda",
-                source="src/repro_torch/kernels/csrc/fused_norm.cu",
-                replaces="src/repro/kernels/fused_norm/kernel.py:29",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms,
-                library_call="torch.nn.functional.rms_norm (norm only)",
-                shape=[R, D], dtype="bfloat16")
-            log("kernels", f"fused_residual_rmsnorm timed at R{R} D{D} "
-                f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}, F.rms_norm "
-                f"{library_ms:.4f}, bound {timed[R]['bound_ms']:.4f} "
-                f"by {timed[R]['bound_by']})")
-    decode = dict(timed[8])
-    decode["name"] = "fused_residual_rmsnorm@decode"
-    return timed[8192], decode, cases
+            err_y = max_err(y, yr, dtype)
+            err_s = max_err(st, sr, dtype)
+            cases.append(dict(shape=[B, L, H, 64, N], chunk=chunk, dtype=dtype,
+                              initial_state=init, max_abs_err_y=err_y,
+                              max_abs_err_state=err_s))
+            log("kernels", f"ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk} "
+                f"{dtype} initial_state={init}: max_abs_err y {err_y:.3e}, "
+                f"final_state {err_s:.3e}")
+            del x, dt, Bm, Cm, y, st, yr, sr
+
+    # the serving path's shape, timed
+    B, L = 8, 1024
+    x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, "bfloat16")
+    y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk)
+    yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk)
+    err = max(max_err(y, yr, "bfloat16"), max_err(st, sr, "bfloat16"))
+    del yr, sr
+    ms = time_ms(lambda: ops.ssd_cuda(x, dt, A, Bm, Cm, chunk), 10)
+    plain_ms = time_ms(lambda: ops.ssd_ref(x, dt, A, Bm, Cm, chunk), 3, 1)
+    flops = ops._meta(x, dt, A, Bm, Cm, chunk=chunk)["flops"]
+    nbytes = ((2 * x.numel() + 2 * Bm.numel()) * x.element_size()
+              + 4 * (dt.numel() + A.numel() + st.numel()))
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    summary = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:53",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, shape=[B, L, H, 64, N], chunk=chunk,
+        dtype="bfloat16")
+    log("kernels", f"ssd_scan timed at B{B} L{L} H{H} P64 N{N} chunk {chunk} "
+        f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}, no library call, bound "
+        f"{summary['bound_ms']:.4f} by {summary['bound_by']}: "
+        f"{flops:.3e} flops, {nbytes:.3e} bytes)")
+    del x, dt, Bm, Cm, y, st
+    torch.cuda.empty_cache()
+    return summary, cases
 
 
 # --------------------------------------------------------------------------- #
 # phase 4: serve
 # --------------------------------------------------------------------------- #
-def serve(seed: int, trace_path: Path):
+def path_kernels(arch: str) -> dict:
+    """The kernels a serving path runs, by traced-op name, and the launches
+    of one generate of ``new`` tokens after a prefill (L layers)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    if arch == "llama3.2-1b":   # flash per layer at prefill; 2 norms/layer
+        return {"flash_attention": (fa.KERNEL, lambda L, new: L),
+                "fused_residual_rmsnorm": (fn.KERNEL,
+                                           lambda L, new: 2 * L * (1 + new))}
+    if arch == "mamba2-780m":   # scan per layer at prefill; 1 norm/layer
+        return {"ssd_scan": (ssd.KERNEL, lambda L, new: L),
+                "fused_residual_rmsnorm": (fn.KERNEL,
+                                           lambda L, new: L * (1 + new))}
+    raise KeyError(arch)
+
+
+def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
+    """Server.generate at full width, batch 8, 1024-token prompts, 32 new
+    tokens, daemon attached with a JSONL spill; launch counts of that run
+    (counts set to 0 just before it); then untraced and traced walls in
+    turns, and a profiler breakdown."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.daemon import DaemonConfig, TracingDaemon
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.runtime.serve import ServeConfig, Server
 
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
+    backend = f"{cfg.family}-serve"
+    kernels = path_kernels(arch)
     B, S0, new = 8, 1024, 32
     server = Server(ServeConfig(model=cfg, batch=B, max_seq=2048, seed=seed,
                                 log_path=str(trace_path)))
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S0)).astype(np.int32)
-    fa.KERNEL.launches = 0
-    fn.KERNEL.launches = 0
+    for k, _ in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     out = server.generate(prompts, new_tokens=new)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.KERNEL.launches,
-                "fused_residual_rmsnorm": fn.KERNEL.launches}
+    launches = {name: k.launches for name, (k, _) in kernels.items()}
     server.close()                      # detaches the daemon: final spill
-    L = cfg.num_layers
-    want = {"flash_attention": L, "fused_residual_rmsnorm": 2 * L * (1 + new)}
-    log("serve", f"llama3.2-1b B{B} prompt {S0} new {new}: launches "
-        f"{launches} (expected {want}); wall {wall:.3f} s")
+    want = {name: n(cfg.num_layers, new) for name, (_, n) in kernels.items()}
+    log("serve", f"{arch} B{B} prompt {S0} new {new}: launches {launches} "
+        f"(expected {want}); wall {wall:.3f} s")
     if launches != want:
-        fail(f"launch counts {launches} != {want}")
+        fail(f"{arch}: launch counts {launches} != {want}")
     if out.shape != (B, S0 + new) or not np.array_equal(out[:, :S0], prompts):
-        fail(f"generate returned {out.shape}, prompts not preserved")
+        fail(f"{arch}: generate returned {out.shape}, prompts not preserved")
     gen_toks = out[:, S0:]
     if gen_toks.min() < 0 or gen_toks.max() >= cfg.vocab_size:
-        fail(f"token outside [0, {cfg.vocab_size})")
+        fail(f"{arch}: token outside [0, {cfg.vocab_size})")
 
     # steady state, and the daemon's cost: the same server untraced and
-    # with a daemon attached again (no spill), in turns
+    # with a daemon of the served family attached again (no spill), in turns
     def timed_generate():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -249,45 +348,47 @@ def serve(seed: int, trace_path: Path):
     for mode in ("untraced", "traced", "traced", "untraced"):
         if mode == "traced":
             server.daemon = TracingDaemon(DaemonConfig(
-                backend="dense-serve", hang_timeout=300.0)).attach()
+                backend=backend, hang_timeout=300.0)).attach()
         walls[mode].append(timed_generate())
         server.close()
     warm = min(walls["untraced"])
-    # the same per launch: host time of one fused-norm call at the decode
-    # shape, with and without a daemon attached, in turns
-    x = torch.randn(B, cfg.d_model, device="cuda", dtype=torch.bfloat16)
-    sc = torch.ones(cfg.d_model, device="cuda")
-    per_call = {"untraced": [], "traced": []}
-    for mode in ("untraced", "traced", "traced", "untraced"):
-        d = (TracingDaemon(DaemonConfig(backend="dense-serve")).attach()
-             if mode == "traced" else None)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2000):
-            fn.fused_residual_rmsnorm(x, x, sc)
-        torch.cuda.synchronize()
-        per_call[mode].append((time.perf_counter() - t0) / 2000 * 1e6)
-        if d:
-            d.detach()
-    log("serve", f"fused_residual_rmsnorm call at R{B}, host us per call "
-        f"(2000 calls): {per_call}")
-    log("serve", f"second and later runs, generate wall s: {walls}; "
+    log("serve", f"{arch} second and later runs, generate wall s: {walls}; "
         f"tracing costs {min(walls['traced']) / warm - 1:+.2%} (best of 2 "
         f"each)")
+    calls = None
+    if per_call:
+        # the same per launch: host time of one fused-norm call at the
+        # decode shape, with and without a daemon attached, in turns
+        x = torch.randn(B, cfg.d_model, device="cuda", dtype=torch.bfloat16)
+        sc = torch.ones(cfg.d_model, device="cuda")
+        calls = {"untraced": [], "traced": []}
+        for mode in ("untraced", "traced", "traced", "untraced"):
+            d = (TracingDaemon(DaemonConfig(backend=backend)).attach()
+                 if mode == "traced" else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn.fused_residual_rmsnorm(x, x, sc)
+            torch.cuda.synchronize()
+            calls[mode].append((time.perf_counter() - t0) / 2000 * 1e6)
+            if d:
+                d.detach()
+        log("serve", f"fused_residual_rmsnorm call at R{B}, host us per "
+            f"call (2000 calls): {calls}")
     prof = {"prefill": profile(lambda: server.generate(prompts, 0)),
             "generate": profile(lambda: server.generate(prompts, new))}
     for part, p in prof.items():
-        log("profile", f"{part}: wall {p['wall_s'] * 1e3:.3f} ms, device "
-            f"busy {p['device_s'] * 1e3:.3f} ms, idle share "
+        log("profile", f"{arch} {part}: wall {p['wall_s'] * 1e3:.3f} ms, "
+            f"device busy {p['device_s'] * 1e3:.3f} ms, idle share "
             f"{p['idle_share']}")
         for k in p["top"]:
             log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x "
                 f"{k['name']}")
     del server
     torch.cuda.empty_cache()
-    return dict(B=B, S0=S0, new=new, launches=launches, wall_s=wall,
-                warm_wall_s=warm, walls=walls, per_call_us=per_call,
-                profile=prof)
+    return dict(arch=arch, B=B, S0=S0, new=new, launches=launches,
+                wall_s=wall, warm_wall_s=warm, walls=walls,
+                per_call_us=calls, profile=prof)
 
 
 def profile(fn, top: int = 10) -> dict:
@@ -320,39 +421,39 @@ def profile(fn, top: int = 10) -> dict:
                 top=kernels[:top])
 
 
-def agreement(seed: int):
-    """fp32 prefill logits: the kernel path on the card against the plain
-    path on the CPU, same weights, B 1, S 64."""
+def agreement(arch: str, seed: int, S: int):
+    """fp32 prefill logits of the full-width model: the kernel path on the
+    card against the plain path on the CPU, same weights, B 1."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.models.layers import Policy
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.registry import build_model
 
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
+    kernels = [k for k, _ in path_kernels(arch).values()]
     pol = Policy(torch.float32)
-    cpu = TransformerLM(cfg, pol, "cpu").init(
+    cpu = build_model(cfg, pol, "cpu").init(
         torch.Generator().manual_seed(seed))
-    gpu = TransformerLM(cfg, pol, "cuda").load_params(cpu.state_dict())
-    toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, 64))
+    gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
+    toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, S))
     t = torch.as_tensor(toks, dtype=torch.long)
-    n0 = (fa.KERNEL.launches, fn.KERNEL.launches)
-    got = gpu.prefill(t.cuda(), gpu.init_cache(1, 64)).cpu()
-    if (fa.KERNEL.launches, fn.KERNEL.launches) == n0:
-        fail("fp32 agreement run did not launch the kernels")
-    want = cpu.prefill(t, cpu.init_cache(1, 64))
+    n0 = [k.launches for k in kernels]
+    got = gpu.prefill(t.cuda(), gpu.init_cache(1, S)).cpu()
+    if any(k.launches == n for k, n in zip(kernels, n0)):
+        fail(f"{arch}: fp32 agreement run did not launch every kernel")
+    want = cpu.prefill(t, cpu.init_cache(1, S))
     diff = (got - want).abs()
     err = float(diff.max())
     # the JAX package's model tests hold fp32 logits to rtol = atol = 2e-3
     ok = bool((diff <= 2e-3 + 2e-3 * want.abs()).all())
     same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
-    log("serve", f"fp32 prefill logits B1 S64, card kernels vs CPU plain: "
-        f"max_abs_err {err:.3e} (|logits| max {float(want.abs().max()):.2f}, "
-        f"rtol = atol = 2e-3: {ok}); argmax equal: {same_argmax}")
+    log("serve", f"{arch} fp32 prefill logits B1 S{S}, card kernels vs CPU "
+        f"plain: max_abs_err {err:.3e} (|logits| max "
+        f"{float(want.abs().max()):.2f}, rtol = atol = 2e-3: {ok}); argmax "
+        f"equal: {same_argmax}")
     if not (ok and same_argmax):
-        fail("fp32 prefill logits disagree between card and CPU")
+        fail(f"{arch}: fp32 prefill logits disagree between card and CPU")
     del gpu, cpu
     torch.cuda.empty_cache()
     return err
@@ -361,43 +462,60 @@ def agreement(seed: int):
 # --------------------------------------------------------------------------- #
 # phase 5: trace
 # --------------------------------------------------------------------------- #
-def check_trace(trace_path: Path, new: int):
+META_KEYS = {"flash_attention": {"flops", "shape"},
+             "ssd_scan": {"flops", "shape"},
+             "fused_residual_rmsnorm": {"flops", "bytes", "shape"}}
+PREFILL_ONLY = ("flash_attention", "ssd_scan")
+
+
+def check_trace(arch: str, trace_path: Path, new: int):
     from collections import Counter
     from repro_torch.core.events import EventKind, load_jsonl
 
     events = load_jsonl(str(trace_path))
     kinds = Counter(e.kind.value for e in events)
-    log("trace", f"{len(events)} events by kind: {dict(kinds)}")
+    log("trace", f"{arch}: {len(events)} events by kind: {dict(kinds)}")
     steps = {e.step: e for e in events if e.kind == EventKind.STEP}
     if sorted(steps) != list(range(new + 1)):
-        fail(f"step spans {sorted(steps)} != 0..{new}")
-    keys = {"flash_attention": {"flops", "shape"},
-            "fused_residual_rmsnorm": {"flops", "bytes", "shape"}}
+        fail(f"{arch}: step spans {sorted(steps)} != 0..{new}")
     comp = [e for e in events if e.kind == EventKind.KERNEL_COMPUTE]
     per_name = {}
-    for name, want_keys in keys.items():
+    for name in path_kernels(arch):
+        want_keys = META_KEYS[name]
         evs = [e for e in comp if e.name == name]
         if not evs:
-            fail(f"no k_comp span named {name}")
+            fail(f"{arch}: no k_comp span named {name}")
         if any(not want_keys <= set(e.meta) for e in evs):
-            fail(f"{name} span lacks meta keys {want_keys}")
+            fail(f"{arch}: {name} span lacks meta keys {want_keys}")
         if any(e.duration <= 0 for e in evs):
-            fail(f"{name} span with device duration <= 0")
+            fail(f"{arch}: {name} span with device duration <= 0")
         if any(e.issue_latency < 0 for e in evs):
-            fail(f"{name} span starts before its issue")
+            fail(f"{arch}: {name} span starts before its issue")
         if any(e.meta.get("parent") != f"step_{e.step}" for e in evs):
-            fail(f"{name} span not nested under its step")
+            fail(f"{arch}: {name} span not nested under its step")
+        if name in PREFILL_ONLY and any(e.step != 0 for e in evs):
+            fail(f"{arch}: {name} span outside step_0 (the prefill)")
         per_name[name] = dict(n=len(evs),
                               device_s=sum(e.duration for e in evs))
     kern_s = sum(e.duration for e in comp)
     step_s = sum(e.duration for e in steps.values())
-    log("trace", f"kernel spans {per_name}; kernels {kern_s:.6f} s of "
-        f"{step_s:.6f} s step wall time")
+    log("trace", f"{arch}: kernel spans {per_name}; kernels {kern_s:.6f} s "
+        f"of {step_s:.6f} s step wall time")
     if kern_s > step_s:
-        fail("kernel device time exceeds the steps' wall time")
+        fail(f"{arch}: kernel device time exceeds the steps' wall time")
     prefill = steps[0].duration
     decode = [steps[i].duration for i in range(1, new + 1)]
+    dec = sorted(decode)
+    dec_med = dec[len(dec) // 2] * 1e3
+    log("serve", f"{arch} traced run: prefill step {prefill * 1e3:.3f} ms; "
+        f"decode step median {dec_med:.3f} ms, min {dec[0] * 1e3:.3f}, max "
+        f"{dec[-1] * 1e3:.3f} over {len(dec)} steps")
     return dict(prefill_s=prefill, decode_s=decode, per_name=per_name)
+
+
+# (arch, agreement prompt length): mamba2's S 320 is one full chunk of 256
+# and a ragged one
+PATHS = (("llama3.2-1b", 64), ("mamba2-780m", 320))
 
 
 def main():
@@ -418,6 +536,7 @@ def main():
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.ssd_scan import ops as ssd
 
     # 1. device
     smi = subprocess.run(
@@ -432,10 +551,11 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    build_all([fa.KERNEL, fn.KERNEL])
-    log("build", f"built {fa.KERNEL.source}, {fn.KERNEL.source} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for k in (fa.KERNEL, fn.KERNEL):
+    all_kernels = (fa.KERNEL, fn.KERNEL, ssd.KERNEL)
+    build_all(list(all_kernels))
+    log("build", f"built {', '.join(k.source for k in all_kernels)} for "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    for k in all_kernels:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
@@ -443,39 +563,39 @@ def main():
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash, flash_cases = check_flash(gen, "cuda")
-    fused, fused_decode, fused_cases = check_fused(gen, "cuda")
+    fused, fused_rows, fused_cases = check_fused(gen, "cuda")
+    scan, ssd_cases = check_ssd(gen, "cuda")
 
-    # 4. serve
+    # 4. serve, and 5. trace, for each path
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    trace_path = OUT_DIR / "serve_trace.jsonl"
-    trace_path.unlink(missing_ok=True)
-    run = serve(args.seed, trace_path)
-    err = agreement(args.seed)
+    runs, traces, errs = {}, {}, {}
+    for arch, agree_s in PATHS:
+        trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
+        trace_path.unlink(missing_ok=True)
+        run = runs[arch] = serve(arch, args.seed, trace_path,
+                                 per_call=arch == "llama3.2-1b")
+        errs[arch] = agreement(arch, args.seed, agree_s)
+        traces[arch] = check_trace(arch, trace_path, run["new"])
+        B, new = run["B"], run["new"]
+        dec = sorted(traces[arch]["decode_s"])
+        dec_med = dec[len(dec) // 2]
+        log("serve", f"{arch}: {B / dec_med:.1f} tokens/s at the median "
+            f"decode step; generate wall {run['wall_s']:.3f} s traced "
+            f"(first run), {run['warm_wall_s']:.3f} s untraced (best later "
+            f"run, {B * new / run['warm_wall_s']:.1f} new tokens/s)")
 
-    # 5. trace
-    tr = check_trace(trace_path, run["new"])
-    B, new = run["B"], run["new"]
-    dec = sorted(tr["decode_s"])
-    dec_med = dec[len(dec) // 2] * 1e3
-    log("serve", f"traced run: prefill step {tr['prefill_s'] * 1e3:.3f} ms "
-        f"({B}x{run['S0']} tokens); decode step median {dec_med:.3f} ms, "
-        f"min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f} over {len(dec)} "
-        f"steps of {B} tokens ({B / dec_med * 1e3:.1f} tokens/s at the "
-        f"median); generate wall {run['wall_s']:.3f} s traced (first run), "
-        f"{run['warm_wall_s']:.3f} s untraced (best later run, "
-        f"{B * new / run['warm_wall_s']:.1f} new tokens/s)")
-
-    flash["launches"] = run["launches"]["flash_attention"]
-    fused["launches"] = run["launches"]["fused_residual_rmsnorm"]
-    fused_decode["launches"] = fused["launches"]
+    by_path = {arch: run["launches"] for arch, run in runs.items()}
+    for summary in (flash, fused, scan):
+        per = {arch: n[summary["name"]] for arch, n in by_path.items()
+               if summary["name"] in n}
+        summary["launches"] = sum(per.values())
+        summary["launches_by_path"] = per
     details = dict(card=card, seed=args.seed, flash_cases=flash_cases,
-                   fused_cases=fused_cases, fused_decode=fused_decode,
-                   fp32_prefill_max_abs_err=err, serve=run,
-                   trace=dict(prefill_s=tr["prefill_s"],
-                              decode_s=tr["decode_s"],
-                              per_name=tr["per_name"]))
+                   fused_cases=fused_cases, fused_rows=fused_rows,
+                   ssd_cases=ssd_cases, fp32_prefill_max_abs_err=errs,
+                   serve=runs, trace=traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [flash, fused]}), flush=True)
+    print(json.dumps({"kernels": [flash, fused, scan]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,8 @@ version and the FLARE registration):
 
   flash_attention — causal / full GQA attention forward (prefill)
   fused_norm      — residual add + RMSNorm
+  ssd_scan        — Mamba2 chunked SSD scan with initial / final state
+                    (prefill)
 
 Build: each source is compiled on first use by ``nvcc`` into its own shared
 library under ``kernels/build/`` and loaded with ``ctypes``.  Every tensor

@@ -1,6 +1,7 @@
 """Serving launcher CLI (batched prefill + greedy decode) on the CUDA card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-seq", type=int, default=128,
+                    help="KV-cache length (dense family; the SSM cache has "
+                    "no length)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-path", default=None,

@@ -1,12 +1,16 @@
 """Weights from the JAX package's parameter tree into the port's state dict.
 
-The JAX ``TransformerLM`` (dense family) keeps its parameters as a nested
-dict with the layers stacked on a leading L axis (``layers/attn/wq`` is
-``[L, D, H, hd]``).  ``params_from_jax`` takes that tree with numpy arrays
-at the leaves (``jax.tree.map(np.asarray, params)``) and returns the port's
-``{name: array}``, one entry per layer.  ``jax.random`` and
-``torch.Generator`` draw different numbers from one seed, so this is how
-both packages are made to compute the same function.
+The JAX models keep their parameters as a nested dict with the layers
+stacked on a leading L axis: ``layers/attn/wq`` is ``[L, D, H, hd]`` in the
+dense ``TransformerLM``, ``layers/mamba/in_x`` is ``[L, D, di]`` and
+``layers/ln/scale`` ``[L, D]`` in ``MambaLM``.  ``params_from_jax`` takes
+that tree with numpy arrays at the leaves (``jax.tree.map(np.asarray,
+params)``) and returns the port's ``{name: array}``, one entry per layer
+(``layers.<i>.attn.wq``, ``layers.<i>.mamba.in_x``, ...).  Leaves keep
+their dtype (the JAX init's float32); ``load_params`` casts each once to
+the dtype the port stores it in.  ``jax.random`` and ``torch.Generator``
+draw different numbers from one seed, so this is how both packages are
+made to compute the same function.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, rotary embeddings, SwiGLU MLP, embedding and head,
+"""Shared layers: RMSNorm, gated RMSNorm, rotary embeddings, SwiGLU MLP, embedding and head,
 dtype policy.  Plain tensor functions with the JAX package's layouts
 (``wi_gate [D,F]``, ``wo [F,D]``, ``embedding [V,D]``, ``head [D,V]``).
 
@@ -28,6 +28,12 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-5):
+    """Mamba2-style norm: RMSNorm(x * silu(z)), ``z`` cast to x's dtype."""
+    return rmsnorm(scale, x * F.silu(z.to(x.dtype)), eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

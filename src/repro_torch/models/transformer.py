@@ -15,25 +15,13 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.fused_norm.ops import fused_residual_rmsnorm
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-
-
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, d, device):
-        super().__init__()
-        self.scale = _param((d,), torch.float32, device)
+from repro_torch.models.lm import LM, RMSNorm, fused, param
 
 
 class Attention(nn.Module):
@@ -41,14 +29,14 @@ class Attention(nn.Module):
         super().__init__()
         D, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim)
-        self.wq = _param((D, H, hd), dtype, device)
-        self.wk = _param((D, KV, hd), dtype, device)
-        self.wv = _param((D, KV, hd), dtype, device)
-        self.wo = _param((H, hd, D), dtype, device)
+        self.wq = param((D, H, hd), dtype, device)
+        self.wk = param((D, KV, hd), dtype, device)
+        self.wv = param((D, KV, hd), dtype, device)
+        self.wo = param((H, hd, D), dtype, device)
         if cfg.qkv_bias:
-            self.bq = _param((H, hd), dtype, device)
-            self.bk = _param((KV, hd), dtype, device)
-            self.bv = _param((KV, hd), dtype, device)
+            self.bq = param((H, hd), dtype, device)
+            self.bk = param((KV, hd), dtype, device)
+            self.bv = param((KV, hd), dtype, device)
         else:
             self.bq = self.bk = self.bv = None
 
@@ -56,9 +44,9 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, d_model, d_ff, dtype, device):
         super().__init__()
-        self.wi_gate = _param((d_model, d_ff), dtype, device)
-        self.wi_up = _param((d_model, d_ff), dtype, device)
-        self.wo = _param((d_ff, d_model), dtype, device)
+        self.wi_gate = param((d_model, d_ff), dtype, device)
+        self.wi_up = param((d_model, d_ff), dtype, device)
+        self.wo = param((d_ff, d_model), dtype, device)
 
 
 class Block(nn.Module):
@@ -70,53 +58,21 @@ class Block(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
-class Embed(nn.Module):
-    def __init__(self, vocab, d_model, dtype, device):
-        super().__init__()
-        self.embedding = _param((vocab, d_model), dtype, device)
-
-
-class Head(nn.Module):
-    def __init__(self, d_model, vocab, dtype, device):
-        super().__init__()
-        self.w = _param((d_model, vocab), dtype, device)
-
-
-def _fused(x, res, scale, eps):
-    """Residual add + RMSNorm over [..., D] through the [R, D] op."""
-    D = x.shape[-1]
-    y, h = fused_residual_rmsnorm(x.reshape(-1, D), res.reshape(-1, D),
-                                  scale, eps=eps)
-    return y.view(x.shape), h.view(x.shape)
-
-
-class TransformerLM(nn.Module):
+class TransformerLM(LM):
     """Weights live in the compute dtype, cast once at load (the JAX model
     casts them at each use: same values); norm scales stay float32."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
                  device="cuda"):
-        super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"the port serves the dense family, not {cfg.family!r}")
-        self.cfg = cfg
-        self.policy = policy
-        self.device = torch.device(device)
-        cd = policy.compute_dtype
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, cd, self.device)
-        self.final_norm = RMSNorm(cfg.d_model, self.device)
-        self.head = (None if cfg.tie_embeddings else
-                     Head(cfg.d_model, cfg.vocab_size, cd, self.device))
+                f"TransformerLM serves the dense family, not {cfg.family!r}")
+        super().__init__(cfg, policy, device)
         self.layers = nn.ModuleList(
-            Block(cfg, cd, self.device) for _ in range(cfg.num_layers))
+            Block(cfg, policy.compute_dtype, self.device)
+            for _ in range(cfg.num_layers))
 
-    # ------------------------------------------------------------------ #
-    # Init / load
-    # ------------------------------------------------------------------ #
     def _init_std(self, name: str) -> Optional[float]:
-        """Stddev of the JAX init's normal draw for a parameter, None for
-        the ones it sets to a constant (norm scales 1, biases 0)."""
         cfg = self.cfg
         leaf = name.rsplit(".", 2)[-2:]
         if leaf[-1] == "scale" or leaf[-1] in ("bq", "bk", "bv"):
@@ -128,40 +84,6 @@ class TransformerLM(nn.Module):
         if leaf == ["mlp", "wo"]:
             return cfg.d_ff ** -0.5
         return cfg.d_model ** -0.5   # wq, wk, wv, wi_gate, wi_up, head.w
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "TransformerLM":
-        """Random weights with the JAX init's distributions (normal draws
-        in float32), from ``generator``, which must live on this model's
-        device."""
-        for name, p in self.named_parameters():
-            std = self._init_std(name)
-            if std is None:
-                p.fill_(1.0 if name.endswith("scale") else 0.0)
-                continue
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=self.device) * std
-            p.copy_(w)
-        return self
-
-    @torch.no_grad()
-    def load_params(self, state: dict) -> "TransformerLM":
-        """Copy a state dict (tensors or numpy arrays, any float dtype)
-        into the parameters, casting each once to its stored dtype."""
-        own = dict(self.named_parameters())
-        if set(state) != set(own):
-            raise KeyError(f"parameter names differ: missing "
-                           f"{sorted(set(own) - set(state))}, unexpected "
-                           f"{sorted(set(state) - set(own))}")
-        for name, p in own.items():
-            v = state[name]
-            if not isinstance(v, torch.Tensor):
-                v = torch.from_numpy(np.array(v))   # a writable copy
-            if tuple(v.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(v.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(v)
-        return self
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -189,22 +111,13 @@ class TransformerLM(nn.Module):
                 cache["v"][i, :, pos] = v[:, 0]
                 o = attn_lib.decode_attention(q, cache["k"][i],
                                               cache["v"][i], pos)
-            h, x = _fused(attn_lib.project_out(a.wo, o), x, blk.ln2.scale, eps)
+            h, x = fused(attn_lib.project_out(a.wo, o), x, blk.ln2.scale, eps)
             m = blk.mlp
             y = L.mlp_apply(m.wi_gate, m.wi_up, m.wo, h)
             nxt = (self.layers[i + 1].ln1 if i + 1 < n
                    else self.final_norm).scale
-            h, x = _fused(y, x, nxt, eps)
+            h, x = fused(y, x, nxt, eps)
         return h, kvs
-
-    def _head(self, h):
-        if self.cfg.tie_embeddings:
-            return L.tied_head_apply(self.embed.embedding, h)
-        return L.head_apply(self.head.w, h)
-
-    def _embed(self, tokens):
-        return L.embed_apply(self.embed.embedding, tokens,
-                             self.policy.compute_dtype)
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:

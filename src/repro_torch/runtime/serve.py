@@ -1,5 +1,5 @@
-"""Serving runtime: batched prefill + greedy decode with KV caches, FLARE
-daemon attached.
+"""Serving runtime: batched prefill + greedy decode with KV caches (dense)
+or recurrent SSM state (ssm), FLARE daemon attached.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Server`` raises.
@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.daemon import DaemonConfig, TracingDaemon
 from repro_torch.models.layers import Policy
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.registry import build_model
 
 
 @dataclass
@@ -33,8 +33,9 @@ class ServeConfig:
 
 
 class Server:
-    """``params``: a state dict (see ``TransformerLM.load_params``); without
-    one the weights are drawn from ``cfg.seed``."""
+    """``params``: a state dict (see ``LM.load_params``); without one the
+    weights are drawn from ``cfg.seed``.  The model is the config family's
+    (``build_model``): ``TransformerLM`` or ``MambaLM``."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[dict] = None):
         self.cfg = cfg
@@ -43,7 +44,7 @@ class Server:
             raise RuntimeError(
                 "Server: no CUDA device; pass ServeConfig(device='cpu') to "
                 "serve on the CPU")
-        self.model = TransformerLM(cfg.model, cfg.policy(), self.device)
+        self.model = build_model(cfg.model, cfg.policy(), self.device)
         if params is not None:
             self.model.load_params(params)
         else:
@@ -64,7 +65,8 @@ class Server:
     def generate(self, prompts: np.ndarray, new_tokens: int = 16) -> np.ndarray:
         """prompts [B, S0] int -> [B, S0+new_tokens] greedy tokens."""
         B, S0 = prompts.shape
-        if S0 + new_tokens > self.cfg.max_seq:
+        # the KV cache holds max_seq positions; the SSM state has no length
+        if self.cfg.model.family != "ssm" and S0 + new_tokens > self.cfg.max_seq:
             raise ValueError(f"prompt {S0} + {new_tokens} new tokens exceeds "
                              f"max_seq {self.cfg.max_seq}")
         d = self.daemon

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention.ops import (attention_ref,
                                                      flash_attention)
 from repro_torch.kernels.fused_norm.ops import (fused_ref,
                                                 fused_residual_rmsnorm)
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
         "bfloat16": dict(rtol=5e-2, atol=5e-2)}
@@ -91,14 +92,20 @@ def test_fused_ref_is_the_unfused_math(rng):
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("op", ["fused", "flash"])
+@pytest.mark.parametrize("op", ["fused", "flash", "ssd"])
 def test_wrappers_refuse_other_devices(op):
     """Only CPU tensors take the plain version; others launch or raise."""
     if op == "fused":
         x = torch.empty(4, 8, device="meta")
         with pytest.raises(ValueError, match="device"):
             fused_residual_rmsnorm(x, x, torch.empty(8, device="meta"))
-    else:
+    elif op == "flash":
         q = torch.empty(1, 4, 2, 64, device="meta")
         with pytest.raises(ValueError, match="device"):
             flash_attention(q, q, q)
+    else:
+        x = torch.empty(1, 4, 2, 64, device="meta")
+        bm = torch.empty(1, 4, 128, device="meta")
+        with pytest.raises(ValueError, match="device"):
+            ssd_scan(x, torch.empty(1, 4, 2, device="meta"),
+                     torch.empty(2, device="meta"), bm, bm, chunk=256)

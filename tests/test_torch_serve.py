@@ -1,7 +1,7 @@
 """The port's serving slice against the JAX package, on the CPU.
 
 * the port's ``Server`` and the JAX ``Server`` generate the same tokens from
-  the same weights;
+  the same weights, for each family the port serves (dense, ssm);
 * the port's JSONL trace reads back in the JAX package's event codec and
   metrics, with the JAX kernels' ``_meta`` flops;
 * the port imports neither ``jax`` nor ``repro``;
@@ -24,6 +24,7 @@ from repro.core.events import EventKind, load_jsonl
 from repro.core.metrics import aggregate_step, steps_in
 from repro.kernels.flash_attention.ops import _meta as jax_flash_meta
 from repro.kernels.fused_norm.ops import _meta as jax_fused_meta
+from repro.kernels.ssd_scan.ops import _meta as jax_ssd_meta
 from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import Server as JaxServer
 from repro_torch import kernels as tk
@@ -32,11 +33,15 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.runtime.serve import ServeConfig, Server
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3.2-1b", "qwen2-0.5b"]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m"]
+# prompt lengths: the mamba2 prompt spans two chunks of the reduced config
+# (chunk 16), the second one ragged
+PROMPT = {"llama3.2-1b": 10, "qwen2-0.5b": 10, "mamba2-780m": 20}
 
 
-def _serve_pair(arch, tmp_path, B=2, S0=10, new=6):
+def _serve_pair(arch, tmp_path, B=2, new=6):
     """(JAX tokens, port tokens, port trace path) from one set of weights."""
+    S0 = PROMPT[arch]
     jcfg = JaxServeConfig(model=jax_get_reduced(arch), batch=B, max_seq=32,
                           compute_dtype="float32")
     jserver = JaxServer(jcfg)
@@ -59,13 +64,14 @@ def _serve_pair(arch, tmp_path, B=2, S0=10, new=6):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_matches_jax_server(arch, tmp_path):
     want, got, _ = _serve_pair(arch, tmp_path)
-    assert got.shape == want.shape == (2, 16)
+    assert got.shape == want.shape == (2, PROMPT[arch] + 6)
     np.testing.assert_array_equal(got, want)
 
 
 def test_trace_reads_back_in_the_jax_package(tmp_path):
-    B, S0, new = 2, 10, 6
-    _, _, trace = _serve_pair("llama3.2-1b", tmp_path, B, S0, new)
+    B, new = 2, 6
+    S0 = PROMPT["llama3.2-1b"]
+    _, _, trace = _serve_pair("llama3.2-1b", tmp_path, B, new)
     events = load_jsonl(str(trace))
     cfg = get_reduced("llama3.2-1b")
     L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
@@ -102,6 +108,41 @@ def test_trace_reads_back_in_the_jax_package(tmp_path):
     assert set(m.flops) == {"flash_attention", "fused_residual_rmsnorm"}
 
 
+def test_mamba_trace_reads_back_in_the_jax_package(tmp_path):
+    """The ssm server's spans: one ``ssd_scan`` per layer at the prefill,
+    with the JAX ``_meta`` flops of the same call (chunk passed as a
+    keyword), and L fused norms per forward."""
+    B, new = 2, 6
+    arch = "mamba2-780m"
+    S0 = PROMPT[arch]
+    _, _, trace = _serve_pair(arch, tmp_path, B, new)
+    events = load_jsonl(str(trace))
+    cfg = get_reduced(arch)
+    L, H, P, N = (cfg.num_layers, cfg.ssm_heads, cfg.ssm_head_dim,
+                  cfg.ssm_state)
+
+    steps = {e.step: e for e in events if e.kind == EventKind.STEP}
+    assert sorted(steps) == list(range(new + 1))
+    comp = [e for e in events if e.kind == EventKind.KERNEL_COMPUTE]
+    ssd = [e for e in comp if e.name == "ssd_scan"]
+    fused = [e for e in comp if e.name == "fused_residual_rmsnorm"]
+    assert len(ssd) == L
+    assert len(fused) == L * (1 + new)
+    want = jax_ssd_meta(jnp.zeros((B, S0, H, P)), None, None,
+                        jnp.zeros((B, S0, N)), None, chunk=cfg.ssm_chunk)
+    for e in ssd:
+        assert e.step == 0 and e.meta["parent"] == "step_0"
+        assert e.meta["flops"] == want["flops"]
+        assert e.meta["shape"] == want["shape"]
+        assert e.start_ts >= e.issue_ts and e.end_ts >= e.start_ts
+    for e in fused:
+        R = B * S0 if e.step == 0 else B
+        assert e.meta["shape"] == [R, cfg.d_model]
+        assert e.meta["parent"] == f"step_{e.step}"
+    m = aggregate_step({0: events}, 0)
+    assert set(m.flops) == {"ssd_scan", "fused_residual_rmsnorm"}
+
+
 _BLOCK_IMPORTS = """
 import importlib, pkgutil, sys
 class Block:
@@ -127,7 +168,7 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 30
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:

@@ -13,10 +13,13 @@
 // final_state [B,H,P,N] fp32, the model's layout (the TPU kernel keeps
 // [N,P] and returns nothing).  An optional initial_state [B,H,P,N] seeds S.
 //
-// Bound on an H100: operations.  At the serving shape (B 8, L 1024, H 48,
-// P 64, N 128, chunk 256) the work is ~5.2e10 flops by the JAX _meta
-// formula against ~119 MB of traffic (x, y, Bm, Cm, dt, state), so ~52 us
-// at the bf16 tensor-core peak against ~36 us of memory time.
+// Bound on an H100: bytes.  At the serving shape (B 8, L 1024, H 48,
+// P 64, N 128, chunk 256) the traffic is ~119 MB (x, y, Bm, Cm, dt,
+// state), ~36 us at the HBM rate.  The work is ~2.0e10 flops: C.B^T once
+// per (b, chunk), since Bm and Cm do not depend on the head, and only the
+// causal halves of the Q x Q products; that is ~20 us at the bf16
+// tensor-core peak.  (The JAX _meta formula, which the trace keeps, counts
+// C.B^T per head and whole: ~5.2e10.)
 //
 // This first version runs on the FP32 pipes, not the tensor cores, so it
 // sits well above that bound; mma.sync/wgmma, TMA, and one load of Bm/Cm
@@ -27,9 +30,10 @@
 //     for the whole loop;
 //   * per chunk, the 256 threads load dt and scan dt*A (warp shuffles, then
 //     one value per warp) into cum[] in shared memory.  The scan sums in
-//     fp64: cum reaches -1e3 within a chunk, where fp32 prefix sums carry
-//     ~1e-4 of relative error into exp(cum_t - cum_s) on terms that
-//     matter; differences are taken in fp64 and rounded to fp32 for expf;
+//     fp64: at the model's dt, cum reaches ~-700 within a chunk for the
+//     fastest-decaying head, where one fp32 ulp is ~6e-5 and becomes that
+//     much relative error in exp(cum_t - cum_s); differences are taken in
+//     fp64 and rounded to fp32 for expf;
 //   * a chunk's Q x Q matrix C.B^T (256 KB at Q 256) does not fit in shared
 //     memory, so it is tiled: for each 64-row t tile, the y tile [64,P]
 //     sits in registers (4x4 per thread), starts as the inter-chunk term

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_scan/kernel.py``
 unlike the TPU kernel it takes an initial state and returns the final
 state (``[B,H,P,N]`` fp32, the model's layout), which prefill hands to
 decode.  With ``initial_state=None`` its ``y`` is what ``ssd_scan_fwd``
-computes.  Bound on an H100: operations (the JAX ``_meta`` flops) at the
-serving shape.  The kernel (``csrc/ssd_scan.cu``) runs one block per
+computes.  Bound on an H100: bytes at the serving shape (the work it
+needs is less than the JAX ``_meta`` flops, which count C·Bᵀ per head and
+whole).  The kernel (``csrc/ssd_scan.cu``) runs one block per
 (batch, head) that walks the chunks in order with the ``[P,N]`` state in
 shared memory, on the FP32 pipes; it masks the ragged last chunk, so any
 L is taken.
@@ -29,6 +30,13 @@ KERNEL = CudaKernel(
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def kernel_takes(P: int, N: int, chunk: int) -> bool:
+    """Whether the CUDA kernel has an instance for head_dim ``P``, state
+    ``N`` and ``chunk``; the wrapper raises on anything else."""
+    return (P in HEAD_DIMS and N in STATE_DIMS and chunk % TILE == 0
+            and TILE <= chunk <= 4 * TILE)
+
+
 def _meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     """The JAX ``ssd_scan/ops.py::_meta`` keys and formula."""
     B, L, H, P = x.shape
@@ -47,7 +55,8 @@ def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
 
 def ssd_ref(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     """Plain PyTorch version: the chunked math of the JAX ``ssd_chunked``,
-    in fp32 but for the cumulative decay (fp64).  x [B,L,H,P], dt [B,L,H], A [H], Bm/Cm [B,L,N] ->
+    in fp32 but for the cumulative decay (fp64).  x [B,L,H,P], dt [B,L,H],
+    A [H], Bm/Cm [B,L,N] ->
     (y [B,L,H,P] in x's dtype, final_state [B,H,P,N] fp32).
 
     A ragged last chunk is padded with rows of ``dt = 0, x = 0``, which add
@@ -66,8 +75,8 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     Cc = _pad_rows(Cm, pad).view(Bsz, nc, Q, N)
 
     # cumulative decay [B,nc,Q,H] (<= 0), summed in fp64 as the kernel
-    # does: it reaches -1e3 within a chunk, where fp32 prefix sums put
-    # ~1e-4 of relative error on exp(cum_t - cum_s)
+    # does: it reaches ~-700 within a chunk at the model's dt, where an
+    # fp32 prefix sum puts ~1e-4 of relative error on exp(cum_t - cum_s)
     cum = torch.cumsum((dtc * A.float()).double(), dim=2)
     # intra-chunk: (C_t . B_s) exp(cum_t - cum_s) dt_s x_s for s <= t
     cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
@@ -109,12 +118,10 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
         raise ValueError(f"ssd_scan: shapes disagree: x {tuple(x.shape)}, "
                          f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
-    if P not in HEAD_DIMS or N not in STATE_DIMS:
-        raise ValueError(f"ssd_scan kernel has head_dim {HEAD_DIMS} and "
-                         f"state {STATE_DIMS}, not P {P}, N {N}")
-    if chunk % TILE or not TILE <= chunk <= 4 * TILE:
-        raise ValueError(f"ssd_scan kernel takes chunk 64, 128, 192 or 256, "
-                         f"not {chunk}")
+    if not kernel_takes(P, N, chunk):
+        raise ValueError(f"ssd_scan kernel takes head_dim {HEAD_DIMS}, state "
+                         f"{STATE_DIMS} and chunk 64, 128, 192 or 256, not "
+                         f"P {P}, N {N}, chunk {chunk}")
     if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x/Bm/Cm "
                         f"of one dtype; got {x.dtype}, {Bm.dtype}, "

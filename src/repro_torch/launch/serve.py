@@ -11,13 +11,18 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_reduced, list_archs
+from repro_torch.kernels.ssd_scan.ops import kernel_takes
 from repro_torch.runtime.serve import ServeConfig, Server
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
-    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced config; the reduced "
+                    "mamba2-780m runs only with --device cpu, since the "
+                    "SSD-scan kernel takes head_dim 64, state 64 or 128 "
+                    "and chunk 64-256")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -31,6 +36,11 @@ def main():
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if (cfg.family == "ssm" and args.device != "cpu" and not kernel_takes(
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)):
+        ap.error(f"the SSD-scan kernel has no instance for head_dim "
+                 f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                 f"{cfg.ssm_chunk}; serve this config with --device cpu")
     server = Server(ServeConfig(model=cfg, batch=args.batch,
                                 max_seq=args.max_seq, seed=args.seed,
                                 device=args.device, log_path=args.log_path))

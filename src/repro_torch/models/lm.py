@@ -66,6 +66,11 @@ class LM(nn.Module):
         the ones it sets to a constant."""
         raise NotImplementedError
 
+    def max_tokens(self, max_seq: int) -> Optional[int]:
+        """Most tokens (prompt and new) that a cache from
+        ``init_cache(batch, max_seq)`` holds; None if it has no length."""
+        raise NotImplementedError
+
     def _init_const(self, name: str, p: torch.Tensor):
         """The constant (scalar or tensor) of a parameter the JAX init does
         not draw: norm scales 1, biases 0."""

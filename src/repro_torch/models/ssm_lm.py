@@ -106,6 +106,9 @@ class MambaLM(LM):
     # ------------------------------------------------------------------ #
     # Recurrent-state serving
     # ------------------------------------------------------------------ #
+    def max_tokens(self, max_seq: int) -> Optional[int]:
+        return None                     # the recurrent state has no length
+
     def init_cache(self, batch: int, max_seq: int) -> dict:
         """``state`` [L,B,H,P,N] fp32 and ``conv`` [L,B,W-1,di+2N]; neither
         depends on ``max_seq``."""

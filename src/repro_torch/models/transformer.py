@@ -130,6 +130,9 @@ class TransformerLM(LM):
     # ------------------------------------------------------------------ #
     # KV cache serving
     # ------------------------------------------------------------------ #
+    def max_tokens(self, max_seq: int) -> Optional[int]:
+        return max_seq                  # the KV cache's positions
+
     def init_cache(self, batch: int, max_seq: int) -> dict:
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,

@@ -65,10 +65,11 @@ class Server:
     def generate(self, prompts: np.ndarray, new_tokens: int = 16) -> np.ndarray:
         """prompts [B, S0] int -> [B, S0+new_tokens] greedy tokens."""
         B, S0 = prompts.shape
-        # the KV cache holds max_seq positions; the SSM state has no length
-        if self.cfg.model.family != "ssm" and S0 + new_tokens > self.cfg.max_seq:
+        limit = self.model.max_tokens(self.cfg.max_seq)
+        if limit is not None and S0 + new_tokens > limit:
             raise ValueError(f"prompt {S0} + {new_tokens} new tokens exceeds "
-                             f"max_seq {self.cfg.max_seq}")
+                             f"the cache's {limit} positions (max_seq "
+                             f"{self.cfg.max_seq})")
         d = self.daemon
         cache = self.model.init_cache(B, self.cfg.max_seq)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,

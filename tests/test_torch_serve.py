@@ -191,6 +191,41 @@ def test_server_needs_a_card_unless_cpu_is_asked():
         Server(ServeConfig(model=get_reduced("llama3.2-1b")))
 
 
+@pytest.mark.parametrize("arch, limited", [("llama3.2-1b", True),
+                                           ("mamba2-780m", False)])
+def test_generate_checks_the_models_cache_length(arch, limited):
+    """The KV cache holds max_seq positions; the SSM state has no length."""
+    server = Server(ServeConfig(model=get_reduced(arch), batch=1, max_seq=8,
+                                compute_dtype="float32", device="cpu"))
+    prompts = np.zeros((1, 6), np.int32)
+    try:
+        if limited:
+            with pytest.raises(ValueError, match="max_seq 8"):
+                server.generate(prompts, new_tokens=3)
+        else:
+            assert server.generate(prompts, new_tokens=3).shape == (1, 9)
+    finally:
+        server.close()
+
+
+@pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
+def test_launcher_serves_reduced_mamba_on_the_cpu_only(monkeypatch, capsys,
+                                                        device, ok):
+    from repro_torch.launch import serve as launch
+
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "mamba2-780m", "--reduced", "--device", device,
+        "--batch", "1", "--prompt-len", "20", "--new-tokens", "2"])
+    if ok:
+        launch.main()
+        assert "generated (1, 22) tokens" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit) as e:
+            launch.main()
+        assert e.value.code == 2
+        assert "--device cpu" in capsys.readouterr().err
+
+
 def test_builder_names_nvcc_when_missing(monkeypatch, tmp_path):
     monkeypatch.setattr(tk.shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)

@@ -24,7 +24,9 @@ from repro.kernels.ssd_scan.ops import _meta as jax_meta
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro.models.mamba2 import ssd_sequential as jax_ssd_sequential
-from repro_torch.kernels.ssd_scan.ops import _meta, ssd_ref, ssd_scan
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.kernels.ssd_scan.ops import (_meta, kernel_takes, ssd_ref,
+                                             ssd_scan)
 from repro_torch.models.mamba2 import ssd_sequential
 
 TOLS = {"float32": dict(rtol=4e-4, atol=4e-4),
@@ -128,3 +130,12 @@ def test_meta_matches_jax(chunk):
     want = jax_meta(jnp.zeros((B, L, H, P)), None, None,
                     jnp.zeros((B, L, N)), None, chunk=chunk)
     assert _meta(x, None, None, bm, None, chunk=chunk) == want
+
+
+@pytest.mark.parametrize("cfg, takes", [(get_config("mamba2-780m"), True),
+                                        (get_reduced("mamba2-780m"), False)])
+def test_kernel_takes_the_full_config_only(cfg, takes):
+    """The CUDA kernel has an instance for the full mamba2-780m (P 64,
+    N 128, chunk 256), not for the reduced one (P 16, N 16, chunk 16)."""
+    assert kernel_takes(cfg.ssm_head_dim, cfg.ssm_state,
+                        cfg.ssm_chunk) is takes

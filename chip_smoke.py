@@ -5,22 +5,34 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
-  2. build    — nvcc builds every kernel of the serving paths from
+  2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention, fused
-                residual+RMSNorm, SSD scan), one nvcc per source, together;
+                residual+RMSNorm, SSD scan, padded matmul, ring combine),
+                one nvcc per source, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the serving paths' shapes (fp32 3e-4, bf16 5e-2), timed
-                beside its plain version and a PyTorch library call where
-                one computes the same function;
-  4. serve    — for each serving path, llama3.2-1b (dense) and mamba2-780m
+                at its paths' shapes (fp32 3e-4, bf16 5e-2; the padded
+                matmul's atol at least 2e-3·√K; the ring combine bitwise,
+                with its pinned progress counters read while a queued
+                combine has not run), timed beside its plain version and a
+                PyTorch library call where one computes the same function;
+  4. case2    — the Case-2 op as called: one traced padded_matmul at the
+                paper's FFN shape (4096 x 8192 @ 8192 x 8484, bf16), its
+                launch count and span;
+     ring     — 4 ranks on the card (launch/mesh.py, gloo through pinned
+                host memory): a traced ring all-reduce of one 25 MB fp32
+                bucket per rank, bitwise against the plain ring order, with
+                its ring_combine launches and spans per rank; then the hang
+                drill (link f -> f+1 broken, f in 0, 2), whose live progress
+                must name the link;
+  5. serve    — for each serving path, llama3.2-1b (dense) and mamba2-780m
                 (ssm): Server.generate at full width (batch 8, 1024-token
                 prompts, 32 new tokens, random weights from --seed) with the
                 FLARE daemon attached; the launch counts of that run;
                 untraced and traced walls; a profiler breakdown; fp32
                 prefill logits on the card against the plain path on the
                 CPU;
-  5. trace    — each path's JSONL spill read back: step spans and kernel
-                spans with device durations from CUDA events.
+  6. trace    — each serving path's JSONL spill read back: step spans and
+                kernel spans with device durations from CUDA events.
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -28,6 +40,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -55,14 +68,20 @@ def log(phase: str, msg: str):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn`` over ``iters`` calls."""
+def time_ms(fn, iters: int, warmup: int = 3,
+            behind_sleep: bool = False) -> float:
+    """Mean device time of one call of ``fn`` over ``iters`` calls.  With
+    ``behind_sleep``, for calls whose host cost exceeds their device time,
+    a sleep queued first keeps the card busy while the host queues all the
+    calls, which then run back to back between the two events."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    if behind_sleep:
+        torch.cuda._sleep(200_000_000)      # ~0.1 s at the card's clock
     e0.record()
     for _ in range(iters):
         fn()
@@ -71,11 +90,12 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def max_err(got, want, dtype: str) -> float:
-    """Max |got - want|; fails unless |got - want| <= atol + rtol*|want|."""
+def max_err(got, want, dtype: str, tol: dict | None = None) -> float:
+    """Max |got - want|; fails unless |got - want| <= atol + rtol*|want|
+    (``tol``, else the dtype's)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    tol = TOLS[dtype]
+    tol = tol or TOLS[dtype]
     bad = diff > tol["atol"] + tol["rtol"] * w.abs()
     if not bool(g.isfinite().all()):
         raise AssertionError("kernel output is not finite")
@@ -318,8 +338,364 @@ def check_ssd(gen, device):
     return summary, cases
 
 
+# the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
+# 4096-token microbatch: N 8484 is padded to 8576
+CASE2 = (4096, 8192, 8484)
+MATMUL_SWEEP = [(128, 128, 128), (64, 100, 212), (256, 384, 212),
+                (32, 848, 96)]
+
+
+def matmul_tol(dtype: str, K: int) -> dict:
+    """tests/test_kernels.py's padded-matmul tolerance: atol >= 2e-3·√K."""
+    tol = dict(TOLS[dtype])
+    tol["atol"] = max(tol["atol"], 2e-3 * K ** 0.5)
+    return tol
+
+
+def check_padded_matmul(gen, device):
+    """The JAX sweep through the op (padded) and through the kernel on the
+    ragged shapes (masked edges), fp32 and bf16, against ``matmul_ref``;
+    then the Case-2 shape, timed: the kernel on the padded shape, the op
+    with its pads and slice, the plain version, torch.matmul at N 8484 and
+    at the aligned 8576."""
+    import torch
+    from repro_torch.kernels.padded_matmul import ops
+
+    cases = []
+    for (M, K, N) in MATMUL_SWEEP:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            a = torch.randn(M, K, generator=gen, device=device).to(dt)
+            b = torch.randn(K, N, generator=gen, device=device).to(dt)
+            want = ops.matmul_ref(a, b)
+            got = ops.padded_matmul(a, b)
+            ragged = ops.matmul_cuda(a, b)
+            torch.cuda.synchronize()
+            err = max(max_err(got, want, dtype, matmul_tol(dtype, K)),
+                      max_err(ragged, want, dtype, matmul_tol(dtype, K)))
+            cases.append(dict(shape=[M, K, N], dtype=dtype, max_abs_err=err))
+            log("kernels", f"padded_matmul M{M} K{K} N{N} {dtype} (op, and "
+                f"kernel on the ragged shape): max_abs_err {err:.3e}")
+
+    M, K, N = CASE2
+    dt = torch.bfloat16
+    a = torch.randn(M, K, generator=gen, device=device).to(dt)
+    b = torch.randn(K, N, generator=gen, device=device).to(dt)
+    bp = ops._pad_to(b, ops.TILE, ops.TILE)
+    Np = bp.shape[1]
+    want = ops.matmul_ref(a, b)
+    got = ops.padded_matmul(a, b)
+    err = max_err(got, want, "bfloat16", matmul_tol("bfloat16", K))
+    del got, want
+    ms = time_ms(lambda: ops.matmul_cuda(a, bp), 5, 1)
+    op_ms = time_ms(lambda: ops.padded_matmul(a, b), 5, 1)
+    plain_ms = time_ms(lambda: ops.matmul_ref(a, b), 5, 1)
+    lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
+    lib_aligned_ms = time_ms(lambda: torch.matmul(a, bp), 20)
+    flops = 2.0 * M * K * N
+    nbytes = (M * K + K * N + M * N) * a.element_size()
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    summary = dict(
+        name="padded_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/padded_matmul.cu",
+        replaces="src/repro/kernels/padded_matmul/kernel.py:39",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bytes_bound_ms=t_bytes, library_ms=lib_ms,
+        library_call=f"torch.matmul bf16 at N {N}",
+        library_aligned_ms=lib_aligned_ms, op_ms=op_ms,
+        shape=[M, K, N], padded_shape=[M, K, Np], dtype="bfloat16",
+        flops=flops, bytes=nbytes)
+    log("kernels", f"padded_matmul timed at the Case-2 shape M{M} K{K} N{N} "
+        f"bf16: kernel on the padded N {Np} {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of the unpadded work), the op with "
+        f"pads and slice {op_ms:.4f} ms, plain (fp32 product) "
+        f"{plain_ms:.4f} ms, torch.matmul at N {N} {lib_ms:.4f} ms and at "
+        f"N {Np} {lib_aligned_ms:.4f} ms; bound {summary['bound_ms']:.4f} ms "
+        f"by {summary['bound_by']} ({flops:.3e} flops = {t_ops:.4f} ms, "
+        f"{nbytes:.3e} bytes = {t_bytes:.4f} ms)")
+    del a, b, bp
+    torch.cuda.empty_cache()
+    return summary, cases
+
+
+# the ring path: one 25 MB fp32 bucket per rank (PyTorch DDP's default
+# bucket_cap_mb), 4 ranks on the one card
+RING_WORLD = 4
+RING_NUMEL = 25 * 2 ** 20 // 4          # 6,553,600
+RING_CHUNK = RING_NUMEL // RING_WORLD   # 1,638,400
+
+
+def check_ring_combine(gen, device):
+    """Bitwise against acc + incoming with progress 1..n at the JAX cases
+    and the ring's chunk, fp32 and bf16; the host-visibility check; a
+    host poll of a large combine; timed at the ring's chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ring_reduce import ops
+
+    cases = []
+    for (C, block) in [(4096, 512), (2048, 1024), (1024, 1024),
+                       (RING_CHUNK, 1024)]:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            acc = torch.randn(C, generator=gen, device=device).to(dt)
+            inc = torch.randn(C, generator=gen, device=device).to(dt)
+            out, prog = ops.ring_combine_cuda(acc, inc, block)
+            torch.cuda.synchronize()
+            want = ops.combine_ref(acc, inc)
+            if not torch.equal(out, want):
+                fail(f"ring_combine C{C} block {block} {dtype}: not bitwise "
+                     f"equal to acc + incoming (max abs err "
+                     f"{float((out.float() - want.float()).abs().max()):.3e})")
+            if not torch.equal(prog, ops.progress_ref(C, block)):
+                fail(f"ring_combine C{C} block {block} {dtype}: progress "
+                     f"{prog[:8].tolist()}... != 1..{C // block}")
+            cases.append(dict(C=C, block=block, dtype=dtype, bitwise=True))
+            log("kernels", f"ring_combine C{C} block {block} {dtype}: bitwise "
+                f"equal, progress 1..{C // block}")
+
+    # host visibility: the combine queued behind a sleep on a side stream;
+    # its pinned counters read without a synchronise are all zero, and
+    # complete after it
+    C = RING_CHUNK
+    acc = torch.randn(C, generator=gen, device=device)
+    inc = torch.randn(C, generator=gen, device=device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)       # ~0.1 s at the card's clock
+        out, prog = ops.ring_combine_cuda(acc, inc, 1024)
+    before = prog.numpy().copy()
+    side.synchronize()
+    after = prog.numpy().copy()
+    if before.any():
+        fail(f"ring_combine: {int((before != 0).sum())} counters set before "
+             f"the queued kernel could run")
+    if not (after == ops.progress_ref(C, 1024).numpy()).all():
+        fail("ring_combine: counters incomplete after the stream synchronised")
+    log("kernels", f"ring_combine host visibility: {C // 1024} pinned "
+        f"counters read unsynchronised behind a sleep: all 0; after the "
+        f"sync: 1..{C // 1024}")
+
+    # a large combine polled from the host while it runs (printed, not held)
+    Cbig = 64 * 2 ** 20
+    big_a = torch.randn(Cbig, generator=gen, device=device)
+    big_b = torch.randn(Cbig, generator=gen, device=device)
+    nb = Cbig // 1024
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        _, prog = ops.ring_combine_cuda(big_a, big_b, 1024)
+    view = prog.numpy()
+    seen, polls = set(), 0
+    t_end = time.perf_counter() + 10.0
+    while time.perf_counter() < t_end:
+        done = int(np.count_nonzero(view))
+        polls += 1
+        if 0 < done < nb:
+            seen.add(done)
+        if done == nb:
+            break
+    side.synchronize()
+    log("kernels", f"ring_combine C{Cbig} ({nb} blocks): a host poll saw "
+        f"{len(seen)} intermediate counts in {polls} polls"
+        + (f" (from {min(seen)} to {max(seen)} of {nb})" if seen else ""))
+    del big_a, big_b
+
+    # timed at the ring's chunk, fp32: device time per call with the
+    # inputs cycled through 5 pairs (131 MB with the outputs, more than the
+    # 50 MB L2), so each call reads them from device memory as the bound
+    # counts; one pair left in L2 is timed too; and the wrapper's host cost
+    # per call (pinned counters, launch, event)
+    pairs = [(acc, inc)] + [
+        (torch.randn(C, generator=gen, device=device),
+         torch.randn(C, generator=gen, device=device)) for _ in range(4)]
+
+    def cold(fn):
+        it = itertools.cycle(pairs)
+        return time_ms(lambda: fn(*next(it)), 200, behind_sleep=True)
+
+    ms = cold(lambda a, b: ops.ring_combine_cuda(a, b, 1024))
+    plain_ms = cold(ops.combine_ref)
+    library_ms = cold(torch.add)
+    hot_ms = time_ms(lambda: ops.ring_combine_cuda(acc, inc, 1024), 200,
+                     behind_sleep=True)
+    hot_library_ms = time_ms(lambda: torch.add(acc, inc), 200,
+                             behind_sleep=True)
+    host_ms = time_ms(lambda: ops.ring_combine_cuda(acc, inc, 1024), 200)
+    nbytes = 3 * C * acc.element_size()
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = C / PEAK_FP32_FLOPS * 1e3
+    summary = dict(
+        name="ring_combine", route="cuda",
+        source="src/repro_torch/kernels/csrc/ring_combine.cu",
+        replaces="src/repro/kernels/ring_reduce/kernel.py:26",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms, library_call="torch.add",
+        l2_resident_ms=hot_ms, l2_resident_library_ms=hot_library_ms,
+        host_ms_per_call=host_ms,
+        shape=[C], block=1024, dtype="float32", bytes=nbytes,
+        host_poll=dict(C=Cbig, polls=polls, intermediate=len(seen)))
+    log("kernels", f"ring_combine timed at the ring's chunk C{C} fp32: "
+        f"{ms:.4f} ms of device time per call from device memory (plain "
+        f"{plain_ms:.4f}, torch.add {library_ms:.4f}, bound "
+        f"{summary['bound_ms']:.5f} by {summary['bound_by']}); with the "
+        f"inputs in L2 {hot_ms:.4f} (torch.add {hot_library_ms:.4f}); "
+        f"{host_ms:.4f} ms per call in a loop that waits on the host "
+        f"(pinned counters, launch, event)")
+    del acc, inc, out, pairs
+    torch.cuda.empty_cache()
+    return summary, cases
+
+
 # --------------------------------------------------------------------------- #
-# phase 4: serve
+# phase 4: the Case-2 op and the ring path
+# --------------------------------------------------------------------------- #
+def case2_path(seed: int, trace_path: Path):
+    """The Case-2 op as a user calls it: one traced ``padded_matmul`` at the
+    Case-2 shape in a daemon step (launch count set to 0 just before, read
+    just after), its result held to the plain version, its span read
+    back."""
+    import torch
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+    from repro_torch.core.events import EventKind, load_jsonl
+    from repro_torch.kernels.padded_matmul import ops
+
+    trace_path.unlink(missing_ok=True)
+    M, K, N = CASE2
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16)
+    daemon = TracingDaemon(DaemonConfig(backend="case2",
+                                        log_path=str(trace_path))).attach()
+    try:
+        daemon.step_begin(0)
+        ops.KERNEL.launches = 0
+        out = ops.padded_matmul(a, b)
+        launches = ops.KERNEL.launches
+        torch.cuda.synchronize()
+        daemon.step_end()
+    finally:
+        daemon.detach()
+    if launches != 1:
+        fail(f"case2: padded_matmul launched its kernel {launches} times, "
+             f"not once")
+    if out.shape != (M, N):
+        fail(f"case2: padded_matmul returned {tuple(out.shape)}")
+    err = max_err(out, ops.matmul_ref(a, b), "bfloat16",
+                  matmul_tol("bfloat16", K))
+    spans = [e for e in load_jsonl(str(trace_path))
+             if e.kind == EventKind.KERNEL_COMPUTE]
+    if (len(spans) != 1 or spans[0].name != "padded_matmul"
+            or spans[0].meta.get("flops") != 2.0 * M * K * N
+            or spans[0].meta.get("shape") != [M, K, N]
+            or spans[0].meta.get("parent") != "step_0"
+            or spans[0].duration <= 0):
+        fail(f"case2: trace holds {[(e.name, e.meta) for e in spans]}")
+    log("case2", f"padded_matmul M{M} K{K} N{N} bf16, traced: 1 launch, "
+        f"max_abs_err {err:.3e} against the plain version; span "
+        f"{spans[0].duration * 1e3:.3f} ms of device time, flops "
+        f"{spans[0].meta['flops']:.4e}")
+    del a, b, out
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=err,
+                span_ms=spans[0].duration * 1e3)
+
+
+def ring_phase_rank(ctx, numel: int, seed: int):
+    """One rank of the ring phase: the traced bucket all-reduce (step 0),
+    then the hang drill (steps 1 and 2)."""
+    from repro_torch.launch import mesh
+    return dict(bucket=mesh.allreduce_rank(ctx, numel, seed),
+                hang=mesh.hang_rank(ctx))
+
+
+def ring_path(seed: int, trace_dir: Path):
+    """4 ranks on the card, gloo, through launch/mesh.py: the bucket
+    all-reduce checked bit for bit against the plain ring order, with n - 1
+    ring_combine launches per rank (kernel counts and the ranks' traces);
+    then the hang drill, whose live progress must name the broken link."""
+    from repro_torch.core.events import EventKind, load_jsonl
+    from repro_torch.launch.mesh import (HANG_FAULTS, HANG_GROUP_TIMEOUT,
+                                         run_ranks)
+
+    n = RING_WORLD
+    for old in trace_dir.glob("rank*.jsonl"):
+        old.unlink()
+    t0 = time.perf_counter()
+    ranks = run_ranks(ring_phase_rank, n, RING_NUMEL, seed, device="cuda",
+                      timeout=300.0, log_dir=str(trace_dir))
+    wall = time.perf_counter() - t0
+    buckets = [r["bucket"] for r in ranks]
+    for b in buckets:
+        if not (b["bitwise_equal"] and b["finite"]):
+            fail(f"ring: rank {b['rank']} all-reduce differs from the plain "
+                 f"ring order (max abs err {b['max_abs_err']:.3e})")
+        if b["progress"] != [1] * (2 * (n - 1)):
+            fail(f"ring: rank {b['rank']} progress {b['progress']}")
+        if b["launches"] != n - 1:
+            fail(f"ring: rank {b['rank']} launched ring_combine "
+                 f"{b['launches']} times, not {n - 1}")
+    span_ms = []
+    for r in range(n):
+        evs = [e for e in load_jsonl(str(trace_dir / f"rank{r}.jsonl"))
+               if e.name == "ring_combine" and e.step == 0]
+        if (len(evs) != n - 1
+                or any(e.kind != EventKind.KERNEL_COMM for e in evs)
+                or any(e.meta.get("bytes") != 3 * RING_CHUNK * 4
+                       for e in evs)
+                or any(e.duration <= 0 for e in evs)):
+            fail(f"ring: rank {r} trace has {len(evs)} ring_combine spans in "
+                 f"step 0: {[(e.kind.value, e.meta) for e in evs]}")
+        span_ms += [e.duration * 1e3 for e in evs]
+    log("ring", f"{n} ranks, gloo through pinned host memory, one "
+        f"{RING_NUMEL * 4 / 2 ** 20:.0f} MB fp32 bucket each: bitwise equal "
+        f"to the plain ring order on every rank; progress all ones; "
+        f"ring_combine launches {[b['launches'] for b in buckets]} (kernel "
+        f"counts) and {n - 1} spans per rank with bytes "
+        f"{3 * RING_CHUNK * 4} in the traces (device {min(span_ms):.4f}-"
+        f"{max(span_ms):.4f} ms); all-reduce wall "
+        f"{[round(b['wall_s'] * 1e3, 3) for b in buckets]} ms")
+    drills = []
+    for i, fault in enumerate(HANG_FAULTS):
+        ds = [r["hang"][i] for r in ranks]
+        steps = [d["steps"] for d in ds]
+        if any(s is None or d["error"] is None for s, d in zip(steps, ds)):
+            fail(f"ring: hang drill {fault}: a rank saw no hang report or "
+                 f"its collective did not end in the timeout: {ds}")
+        stacks = [d["report"]["stack"] for d in ds]
+        if any(s[-1] != "ring_all_reduce" for s in stacks):
+            fail(f"ring: hang drill {fault}: stacks {stacks}")
+        # core/inspecting.diagnose_ring: the receiver with the unique
+        # minimum of completed steps names the stalled link
+        lo = min(steps)
+        rx = steps.index(lo)
+        link = ((rx - 1) % n, rx)
+        if steps.count(lo) != 1 or link != (fault, (fault + 1) % n):
+            fail(f"ring: hang drill {fault}: progress {steps} gives link "
+                 f"{link}, not {(fault, (fault + 1) % n)}")
+        secs = max(d["seconds"] for d in ds)
+        if secs > HANG_GROUP_TIMEOUT + 5.0:
+            fail(f"ring: hang drill {fault} took {secs:.1f} s to tear down")
+        drills.append(dict(fault=fault, steps=steps, link=list(link),
+                           seconds=secs))
+        log("ring", f"hang drill: link {fault}->{(fault + 1) % n} broken from "
+            f"ring step 1: live progress {steps} (published from each "
+            f"rank's daemon hang callback) names link {link[0]}->{link[1]}; "
+            f"torn down in {secs:.2f} s (group timeout "
+            f"{HANG_GROUP_TIMEOUT} s)")
+    log("ring", f"phase wall {wall:.1f} s (4 spawned ranks, CUDA start-up "
+        f"included)")
+    return dict(buckets=buckets, drills=drills, wall_s=wall,
+                launches=sum(b["launches"] for b in buckets))
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: serve
 # --------------------------------------------------------------------------- #
 def path_kernels(arch: str) -> dict:
     """The kernels a serving path runs, by traced-op name, and the launches
@@ -501,7 +877,7 @@ def agreement(arch: str, seed: int, S: int):
 
 
 # --------------------------------------------------------------------------- #
-# phase 5: trace
+# phase 6: trace
 # --------------------------------------------------------------------------- #
 META_KEYS = {"flash_attention": {"flops", "shape"},
              "ssd_scan": {"flops", "shape"},
@@ -577,6 +953,8 @@ def main():
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.padded_matmul import ops as mm
+    from repro_torch.kernels.ring_reduce import ops as ring
     from repro_torch.kernels.ssd_scan import ops as ssd
 
     # 1. device
@@ -592,7 +970,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    all_kernels = (fa.KERNEL, fn.KERNEL, ssd.KERNEL)
+    all_kernels = (fa.KERNEL, fn.KERNEL, ssd.KERNEL, mm.KERNEL, ring.KERNEL)
     build_all(list(all_kernels))
     log("build", f"built {', '.join(k.source for k in all_kernels)} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -606,9 +984,15 @@ def main():
     flash, flash_cases = check_flash(gen, "cuda")
     fused, fused_rows, fused_cases = check_fused(gen, "cuda")
     scan, ssd_cases = check_ssd(gen, "cuda")
+    matmul, matmul_cases = check_padded_matmul(gen, "cuda")
+    combine, combine_cases = check_ring_combine(gen, "cuda")
 
-    # 4. serve, and 5. trace, for each path
+    # 4. the Case-2 op and the ring path, traced
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    case2 = case2_path(args.seed, OUT_DIR / "case2_trace.jsonl")
+    ring_run = ring_path(args.seed, OUT_DIR / "ring_traces")
+
+    # 5. serve, and 6. trace, for each serving path
     runs, traces, errs = {}, {}, {}
     for arch, agree_s in PATHS:
         trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
@@ -631,12 +1015,19 @@ def main():
                if summary["name"] in n}
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
+    matmul["launches"] = case2["launches"]
+    matmul["launches_by_path"] = {"case2 padded_matmul": case2["launches"]}
+    combine["launches"] = ring_run["launches"]
+    combine["launches_by_path"] = {
+        f"ring all-reduce ({RING_WORLD} ranks)": ring_run["launches"]}
     details = dict(card=card, seed=args.seed, flash_cases=flash_cases,
                    fused_cases=fused_cases, fused_rows=fused_rows,
-                   ssd_cases=ssd_cases, fp32_prefill_max_abs_err=errs,
-                   serve=runs, trace=traces)
+                   ssd_cases=ssd_cases, matmul_cases=matmul_cases,
+                   combine_cases=combine_cases, case2=case2, ring=ring_run,
+                   fp32_prefill_max_abs_err=errs, serve=runs, trace=traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [flash, fused, scan]}), flush=True)
+    print(json.dumps({"kernels": [flash, fused, scan, matmul, combine]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

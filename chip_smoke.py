@@ -21,9 +21,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      ring     — 4 ranks on the card (launch/mesh.py, gloo through pinned
                 host memory): a traced ring all-reduce of one 25 MB fp32
                 bucket per rank, bitwise against the plain ring order, with
-                its ring_combine launches and spans per rank; then the hang
-                drill (link f -> f+1 broken, f in 0, 2), whose live progress
-                must name the link;
+                its ring_combine launches and spans per rank; the hang
+                drill (link f -> f+1 broken, f in 0, 2), whose live
+                progress, read from the frozen combine counters, must name
+                the link; the all-reduce of a bucket of an odd size;
   5. serve    — for each serving path, llama3.2-1b (dense) and mamba2-780m
                 (ssm): Server.generate at full width (batch 8, 1024-token
                 prompts, 32 new tokens, random weights from --seed) with the
@@ -343,6 +344,9 @@ def check_ssd(gen, device):
 CASE2 = (4096, 8192, 8484)
 MATMUL_SWEEP = [(128, 128, 128), (64, 100, 212), (256, 384, 212),
                 (32, 848, 96)]
+# shapes matmul_tiled takes unpadded: each dimension a multiple of the 128
+# tile or below it, so the kernel's masked edges run
+MATMUL_BELOW_TILE = [(64, 100, 96), (32, 768, 100), (256, 100, 384)]
 
 
 def matmul_tol(dtype: str, K: int) -> dict:
@@ -353,29 +357,30 @@ def matmul_tol(dtype: str, K: int) -> dict:
 
 
 def check_padded_matmul(gen, device):
-    """The JAX sweep through the op (padded) and through the kernel on the
-    ragged shapes (masked edges), fp32 and bf16, against ``matmul_ref``;
-    then the Case-2 shape, timed: the kernel on the padded shape, the op
-    with its pads and slice, the plain version, torch.matmul at N 8484 and
-    at the aligned 8576."""
+    """The JAX sweep through the op (padded), and ``matmul_tiled`` on shapes
+    with dimensions below the tile (masked edges), fp32 and bf16, against
+    ``matmul_ref``; then the Case-2 shape, timed: the kernel on the padded
+    shape, the op with its pads and slice, the plain version, torch.matmul
+    at N 8484 and at the aligned 8576."""
     import torch
     from repro_torch.kernels.padded_matmul import ops
 
     cases = []
-    for (M, K, N) in MATMUL_SWEEP:
-        for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            a = torch.randn(M, K, generator=gen, device=device).to(dt)
-            b = torch.randn(K, N, generator=gen, device=device).to(dt)
-            want = ops.matmul_ref(a, b)
-            got = ops.padded_matmul(a, b)
-            ragged = ops.matmul_cuda(a, b)
-            torch.cuda.synchronize()
-            err = max(max_err(got, want, dtype, matmul_tol(dtype, K)),
-                      max_err(ragged, want, dtype, matmul_tol(dtype, K)))
-            cases.append(dict(shape=[M, K, N], dtype=dtype, max_abs_err=err))
-            log("kernels", f"padded_matmul M{M} K{K} N{N} {dtype} (op, and "
-                f"kernel on the ragged shape): max_abs_err {err:.3e}")
+    for fn, shapes in ((ops.padded_matmul, MATMUL_SWEEP),
+                       (ops.matmul_tiled, MATMUL_BELOW_TILE)):
+        for (M, K, N) in shapes:
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                a = torch.randn(M, K, generator=gen, device=device).to(dt)
+                b = torch.randn(K, N, generator=gen, device=device).to(dt)
+                got = fn(a, b)
+                torch.cuda.synchronize()
+                err = max_err(got, ops.matmul_ref(a, b), dtype,
+                              matmul_tol(dtype, K))
+                cases.append(dict(fn=fn.__name__, shape=[M, K, N],
+                                  dtype=dtype, max_abs_err=err))
+                log("kernels", f"{fn.__name__} M{M} K{K} N{N} {dtype}: "
+                    f"max_abs_err {err:.3e}")
 
     M, K, N = CASE2
     dt = torch.bfloat16
@@ -426,12 +431,18 @@ def check_padded_matmul(gen, device):
 RING_WORLD = 4
 RING_NUMEL = 25 * 2 ** 20 // 4          # 6,553,600
 RING_CHUNK = RING_NUMEL // RING_WORLD   # 1,638,400
+# a bucket of any other size: its chunk, 1,638,401, is not a multiple of the
+# 1024-element combine block, so it travels padded to 1,639,424 (1601 blocks)
+RING_ODD_NUMEL = RING_NUMEL + 1
+RING_ODD_CHUNK = 1601 * 1024
 
 
 def check_ring_combine(gen, device):
     """Bitwise against acc + incoming with progress 1..n at the JAX cases
-    and the ring's chunk, fp32 and bf16; the host-visibility check; a
-    host poll of a large combine; timed at the ring's chunk."""
+    and the ring's chunk, fp32 and bf16; the counters written into rows of
+    one caller's pinned buffer, as the collective passes them; the
+    host-visibility check; a host poll of a large combine; timed at the
+    ring's chunk."""
     import numpy as np
     import torch
     from repro_torch.kernels.ring_reduce import ops
@@ -456,6 +467,32 @@ def check_ring_combine(gen, device):
             cases.append(dict(C=C, block=block, dtype=dtype, bitwise=True))
             log("kernels", f"ring_combine C{C} block {block} {dtype}: bitwise "
                 f"equal, progress 1..{C // block}")
+
+    # the collective's counters: step s's combine writes row s of one
+    # pinned buffer (parallel/collectives.combine_counters), through a
+    # pointer inside the buffer's allocation
+    nb = RING_CHUNK // 1024
+    rows = torch.zeros((RING_WORLD - 1, nb), dtype=torch.int32,
+                       pin_memory=True)
+    for s in range(RING_WORLD - 1):
+        acc = torch.randn(RING_CHUNK, generator=gen, device=device)
+        inc = torch.randn(RING_CHUNK, generator=gen, device=device)
+        out, prog = ops.ring_combine_cuda(acc, inc, 1024, progress=rows[s])
+        torch.cuda.synchronize()
+        if prog.data_ptr() != rows[s].data_ptr():
+            fail("ring_combine: the caller's counters were not the ones "
+                 "written")
+        if not torch.equal(out, ops.combine_ref(acc, inc)):
+            fail(f"ring_combine with the caller's counters, row {s}: not "
+                 f"bitwise equal to acc + incoming")
+        want = torch.zeros_like(rows)
+        want[:s + 1] = ops.progress_ref(RING_CHUNK, 1024)
+        if not torch.equal(rows, want):
+            fail(f"ring_combine: after row {s}'s combine the caller's "
+                 f"counters read {rows[:, :4].tolist()}...")
+    log("kernels", f"ring_combine into rows of one pinned [{RING_WORLD - 1}, "
+        f"{nb}] buffer (the collective's counters): each row 1..{nb} after "
+        f"its combine, the later rows untouched")
 
     # host visibility: the combine queued behind a sleep on a side stream;
     # its pinned counters read without a synchronise are all zero, and
@@ -508,7 +545,8 @@ def check_ring_combine(gen, device):
     # inputs cycled through 5 pairs (131 MB with the outputs, more than the
     # 50 MB L2), so each call reads them from device memory as the bound
     # counts; one pair left in L2 is timed too; and the wrapper's host cost
-    # per call (pinned counters, launch, event)
+    # per call (launch and event, with fresh pinned counters or with the
+    # caller's, as the collective passes them)
     pairs = [(acc, inc)] + [
         (torch.randn(C, generator=gen, device=device),
          torch.randn(C, generator=gen, device=device)) for _ in range(4)]
@@ -525,6 +563,8 @@ def check_ring_combine(gen, device):
     hot_library_ms = time_ms(lambda: torch.add(acc, inc), 200,
                              behind_sleep=True)
     host_ms = time_ms(lambda: ops.ring_combine_cuda(acc, inc, 1024), 200)
+    host_given_ms = time_ms(lambda: ops.ring_combine_cuda(
+        acc, inc, 1024, progress=rows[0]), 200)
     nbytes = 3 * C * acc.element_size()
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = C / PEAK_FP32_FLOPS * 1e3
@@ -537,7 +577,7 @@ def check_ring_combine(gen, device):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=library_ms, library_call="torch.add",
         l2_resident_ms=hot_ms, l2_resident_library_ms=hot_library_ms,
-        host_ms_per_call=host_ms,
+        host_ms_per_call=host_ms, host_ms_per_call_given=host_given_ms,
         shape=[C], block=1024, dtype="float32", bytes=nbytes,
         host_poll=dict(C=Cbig, polls=polls, intermediate=len(seen)))
     log("kernels", f"ring_combine timed at the ring's chunk C{C} fp32: "
@@ -546,7 +586,8 @@ def check_ring_combine(gen, device):
         f"{summary['bound_ms']:.5f} by {summary['bound_by']}); with the "
         f"inputs in L2 {hot_ms:.4f} (torch.add {hot_library_ms:.4f}); "
         f"{host_ms:.4f} ms per call in a loop that waits on the host "
-        f"(pinned counters, launch, event)")
+        f"(fresh pinned counters, launch, event), {host_given_ms:.4f} ms "
+        f"with the caller's counters")
     del acc, inc, out, pairs
     torch.cuda.empty_cache()
     return summary, cases
@@ -606,19 +647,22 @@ def case2_path(seed: int, trace_path: Path):
                 span_ms=spans[0].duration * 1e3)
 
 
-def ring_phase_rank(ctx, numel: int, seed: int):
+def ring_phase_rank(ctx, numel: int, odd_numel: int, seed: int):
     """One rank of the ring phase: the traced bucket all-reduce (step 0),
-    then the hang drill (steps 1 and 2)."""
+    the hang drill (steps 1 and 2), the odd bucket's all-reduce (step 3)."""
     from repro_torch.launch import mesh
     return dict(bucket=mesh.allreduce_rank(ctx, numel, seed),
-                hang=mesh.hang_rank(ctx))
+                hang=mesh.hang_rank(ctx),
+                odd=mesh.allreduce_rank(ctx, odd_numel, seed, step=3))
 
 
 def ring_path(seed: int, trace_dir: Path):
     """4 ranks on the card, gloo, through launch/mesh.py: the bucket
     all-reduce checked bit for bit against the plain ring order, with n - 1
     ring_combine launches per rank (kernel counts and the ranks' traces);
-    then the hang drill, whose live progress must name the broken link."""
+    the hang drill, whose live progress, read from the frozen combine
+    counters, must name the broken link; and a bucket of an odd size,
+    whose chunks travel padded to whole combine blocks."""
     from repro_torch.core.events import EventKind, load_jsonl
     from repro_torch.launch.mesh import (HANG_FAULTS, HANG_GROUP_TIMEOUT,
                                          run_ranks)
@@ -627,31 +671,37 @@ def ring_path(seed: int, trace_dir: Path):
     for old in trace_dir.glob("rank*.jsonl"):
         old.unlink()
     t0 = time.perf_counter()
-    ranks = run_ranks(ring_phase_rank, n, RING_NUMEL, seed, device="cuda",
-                      timeout=300.0, log_dir=str(trace_dir))
+    ranks = run_ranks(ring_phase_rank, n, RING_NUMEL, RING_ODD_NUMEL, seed,
+                      device="cuda", timeout=300.0, log_dir=str(trace_dir))
     wall = time.perf_counter() - t0
     buckets = [r["bucket"] for r in ranks]
-    for b in buckets:
-        if not (b["bitwise_equal"] and b["finite"]):
-            fail(f"ring: rank {b['rank']} all-reduce differs from the plain "
-                 f"ring order (max abs err {b['max_abs_err']:.3e})")
-        if b["progress"] != [1] * (2 * (n - 1)):
-            fail(f"ring: rank {b['rank']} progress {b['progress']}")
-        if b["launches"] != n - 1:
-            fail(f"ring: rank {b['rank']} launched ring_combine "
-                 f"{b['launches']} times, not {n - 1}")
+    odd = [r["odd"] for r in ranks]
     span_ms = []
-    for r in range(n):
-        evs = [e for e in load_jsonl(str(trace_dir / f"rank{r}.jsonl"))
-               if e.name == "ring_combine" and e.step == 0]
-        if (len(evs) != n - 1
-                or any(e.kind != EventKind.KERNEL_COMM for e in evs)
-                or any(e.meta.get("bytes") != 3 * RING_CHUNK * 4
-                       for e in evs)
-                or any(e.duration <= 0 for e in evs)):
-            fail(f"ring: rank {r} trace has {len(evs)} ring_combine spans in "
-                 f"step 0: {[(e.kind.value, e.meta) for e in evs]}")
-        span_ms += [e.duration * 1e3 for e in evs]
+    for step, runs, chunk in ((0, buckets, RING_CHUNK),
+                              (3, odd, RING_ODD_CHUNK)):
+        for b in runs:
+            if not (b["bitwise_equal"] and b["finite"]):
+                fail(f"ring: rank {b['rank']} all-reduce of {b['numel']} "
+                     f"differs from the plain ring order (max abs err "
+                     f"{b['max_abs_err']:.3e})")
+            if b["progress"] != [1] * (2 * (n - 1)):
+                fail(f"ring: rank {b['rank']} progress {b['progress']}")
+            if b["launches"] != n - 1:
+                fail(f"ring: rank {b['rank']} launched ring_combine "
+                     f"{b['launches']} times, not {n - 1}")
+        for r in range(n):
+            evs = [e for e in load_jsonl(str(trace_dir / f"rank{r}.jsonl"))
+                   if e.name == "ring_combine" and e.step == step]
+            if (len(evs) != n - 1
+                    or any(e.kind != EventKind.KERNEL_COMM for e in evs)
+                    or any(e.meta.get("bytes") != 3 * chunk * 4
+                           or e.meta.get("shape") != [chunk] for e in evs)
+                    or any(e.duration <= 0 for e in evs)):
+                fail(f"ring: rank {r} trace has {len(evs)} ring_combine "
+                     f"spans in step {step}: "
+                     f"{[(e.kind.value, e.meta) for e in evs]}")
+            if step == 0:
+                span_ms += [e.duration * 1e3 for e in evs]
     log("ring", f"{n} ranks, gloo through pinned host memory, one "
         f"{RING_NUMEL * 4 / 2 ** 20:.0f} MB fp32 bucket each: bitwise equal "
         f"to the plain ring order on every rank; progress all ones; "
@@ -660,6 +710,11 @@ def ring_path(seed: int, trace_dir: Path):
         f"{3 * RING_CHUNK * 4} in the traces (device {min(span_ms):.4f}-"
         f"{max(span_ms):.4f} ms); all-reduce wall "
         f"{[round(b['wall_s'] * 1e3, 3) for b in buckets]} ms")
+    log("ring", f"odd bucket, {RING_ODD_NUMEL} elements: chunks padded to "
+        f"{RING_ODD_CHUNK} ({RING_ODD_CHUNK // 1024} whole combine blocks), "
+        f"bitwise equal to the plain ring order on every rank, "
+        f"{[b['launches'] for b in odd]} launches; all-reduce wall "
+        f"{[round(b['wall_s'] * 1e3, 3) for b in odd]} ms")
     drills = []
     for i, fault in enumerate(HANG_FAULTS):
         ds = [r["hang"][i] for r in ranks]
@@ -670,6 +725,17 @@ def ring_path(seed: int, trace_dir: Path):
         stacks = [d["report"]["stack"] for d in ds]
         if any(s[-1] != "ring_all_reduce" for s in stacks):
             fail(f"ring: hang drill {fault}: stacks {stacks}")
+        # the steps come from the frozen combine counters: each agrees with
+        # the host's own count, and each row is whole or untouched
+        for r, d in enumerate(ds):
+            done = min(d["steps"], n - 1)
+            rows = d["counters"]
+            if (d["steps"] != d["host_steps"]
+                    or any(row != [1] for row in rows[:done])
+                    or any(row != [0] for row in rows[done:])):
+                fail(f"ring: hang drill {fault}: rank {r} published "
+                     f"{d['steps']} steps from the counters {rows}, the host "
+                     f"counted {d['host_steps']}")
         # core/inspecting.diagnose_ring: the receiver with the unique
         # minimum of completed steps names the stalled link
         lo = min(steps)
@@ -684,14 +750,16 @@ def ring_path(seed: int, trace_dir: Path):
         drills.append(dict(fault=fault, steps=steps, link=list(link),
                            seconds=secs))
         log("ring", f"hang drill: link {fault}->{(fault + 1) % n} broken from "
-            f"ring step 1: live progress {steps} (published from each "
-            f"rank's daemon hang callback) names link {link[0]}->{link[1]}; "
+            f"ring step 1: live progress {steps} (the frozen combine "
+            f"counters, published from each rank's daemon hang callback) "
+            f"names link {link[0]}->{link[1]}; "
             f"torn down in {secs:.2f} s (group timeout "
             f"{HANG_GROUP_TIMEOUT} s)")
     log("ring", f"phase wall {wall:.1f} s (4 spawned ranks, CUDA start-up "
         f"included)")
-    return dict(buckets=buckets, drills=drills, wall_s=wall,
-                launches=sum(b["launches"] for b in buckets))
+    return dict(buckets=buckets, odd_buckets=odd, drills=drills,
+                wall_s=wall, launches=sum(b["launches"] for b in buckets),
+                odd_launches=sum(b["launches"] for b in odd))
 
 
 # --------------------------------------------------------------------------- #
@@ -1019,7 +1087,10 @@ def main():
     matmul["launches_by_path"] = {"case2 padded_matmul": case2["launches"]}
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
-        f"ring all-reduce ({RING_WORLD} ranks)": ring_run["launches"]}
+        f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
+            ring_run["launches"],
+        f"ring all-reduce, {RING_ODD_NUMEL}-element bucket":
+            ring_run["odd_launches"]}
     details = dict(card=card, seed=args.seed, flash_cases=flash_cases,
                    fused_cases=fused_cases, fused_rows=fused_rows,
                    ssd_cases=ssd_cases, matmul_cases=matmul_cases,

@@ -49,23 +49,25 @@ def matmul_ref(a, b):
     return (a.float() @ b.float()).to(a.dtype)
 
 
-def _check_aligned(a, b, block_m: int, block_n: int, block_k: int):
-    """The TPU kernel's contract: each dimension a multiple of its block,
-    the block cut to the dimension (``kernel.py:43-49``)."""
+def _check_aligned(a, b):
+    """The TPU kernel's contract: each dimension a multiple of the 128
+    tile, the tile cut to the dimension (``kernel.py:43-49``), so a
+    dimension below 128 may have any length."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul_tiled wants a [M,K], b [K,N]; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     (M, K), N = a.shape, b.shape[1]
-    for dim, blk in ((M, block_m), (N, block_n), (K, block_k)):
-        blk = min(blk, dim)
+    for dim in (M, N, K):
+        blk = min(TILE, dim)
         if blk <= 0 or dim % blk:
             raise ValueError(f"matmul_tiled requires aligned shapes, got "
                              f"(M, N, K) = {(M, N, K)}: use padded_matmul")
 
 
 def matmul_cuda(a, b):
-    """Launch the CUDA kernel on a [M,K] @ b [K,N] (any shape; the kernel
-    masks ragged edges); raises on anything it does not take."""
+    """Launch the CUDA kernel on a [M,K] @ b [K,N]; raises on anything it
+    does not take.  The kernel masks ragged edges, which the contract
+    leaves to dimensions below the tile."""
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"matmul_tiled kernel takes float32 or bfloat16 a/b "
                         f"of one dtype; got {a.dtype}, {b.dtype}")
@@ -80,11 +82,11 @@ def matmul_cuda(a, b):
     return out
 
 
-def matmul_tiled(a, b, block_m=TILE, block_n=TILE, block_k=TILE):
+def matmul_tiled(a, b):
     """a [M,K] @ b [K,N] in a's dtype; every dimension must be a multiple
-    of its block (``padded_matmul`` pads).  CUDA tensors go to the kernel;
-    CPU tensors to the plain version."""
-    _check_aligned(a, b, block_m, block_n, block_k)
+    of the 128 tile or below it (``padded_matmul`` pads).  CUDA tensors go
+    to the kernel; CPU tensors to the plain version."""
+    _check_aligned(a, b)
     if a.device.type == "cuda":
         return matmul_cuda(a, b)
     if a.device.type == "cpu":
@@ -96,8 +98,12 @@ def matmul_tiled(a, b, block_m=TILE, block_n=TILE, block_k=TILE):
 def padded_matmul(a, b, block=TILE):
     """a [M,K] @ b [K,N] for any shape: M, K and N are padded with zeros up
     to a multiple of ``block``, multiplied by ``matmul_tiled`` and the
-    result sliced back to [M,N] (a view of the padded product)."""
+    result sliced back to [M,N] (a view of the padded product).  ``block``
+    must be a multiple of the kernel's 128 tile."""
+    if block <= 0 or block % TILE:
+        raise ValueError(f"padded_matmul: block {block} is not a multiple "
+                         f"of the {TILE} tile")
     M, N = a.shape[0], b.shape[1]
     ap = _pad_to(a, block, block)
     bp = _pad_to(b, block, block)
-    return matmul_tiled(ap, bp, block, block, block)[:M, :N]
+    return matmul_tiled(ap, bp)[:M, :N]

@@ -12,11 +12,14 @@ on an H100: memory, ``3·C·itemsize`` bytes.  The kernel
 pinned (page-locked) CPU tensor that the kernel writes through its device
 pointer, block by block, with a system-scope store after a device-scope
 fence: a host thread can read it while the kernel runs, and a hung kernel
-leaves it frozen where it stopped.  The wrapper returns before the kernel ends: synchronise the
-stream before taking ``progress`` as final.  PyTorch's pinned-memory cache
-would hand a freed block out again while the kernel still writes it, so
-the wrapper keeps each launch's counters referenced until an event
-recorded after the launch has completed.
+leaves it frozen where it stopped.  A caller that reads the counters live
+(the ring collectives, whose hang callback publishes them) passes its own
+``progress``; otherwise the wrapper allocates it.  The wrapper returns
+before the kernel ends: synchronise the stream before taking ``progress``
+as final.  PyTorch's pinned-memory cache would hand a freed block out
+again while the kernel still writes it, so the wrapper keeps each launch's
+counters referenced until an event recorded after the launch has
+completed.
 """
 from __future__ import annotations
 
@@ -78,7 +81,23 @@ def progress_ref(C: int, block: int):
     return torch.arange(1, C // block + 1, dtype=torch.int32)
 
 
-def ring_combine_cuda(acc, incoming, block=1024):
+def _counters(progress, n_blocks: int, pinned: bool):
+    """The caller's ``progress`` checked against the launch, or fresh
+    zeroed counters."""
+    if progress is None:
+        return torch.zeros(n_blocks, dtype=torch.int32, pin_memory=pinned)
+    if (progress.shape != (n_blocks,) or progress.dtype != torch.int32
+            or progress.device.type != "cpu"
+            or not progress.is_contiguous()
+            or (pinned and not progress.is_pinned())):
+        raise ValueError(
+            f"ring_combine: progress must be contiguous int32 [{n_blocks}] in "
+            f"{'pinned ' if pinned else ''}host memory; got {progress.dtype} "
+            f"{tuple(progress.shape)} on {progress.device}")
+    return progress
+
+
+def ring_combine_cuda(acc, incoming, block=1024, progress=None):
     """Launch the CUDA kernel; raises on anything it does not take.
     Returns ``(out, progress)`` without waiting for the kernel."""
     block, n_blocks = _blocks(acc, incoming, block)
@@ -90,7 +109,7 @@ def ring_combine_cuda(acc, incoming, block=1024):
         raise ValueError("ring_combine: tensors on different devices")
     if not (acc.is_contiguous() and incoming.is_contiguous()):
         raise ValueError("ring_combine kernel takes contiguous acc/incoming")
-    progress = torch.zeros(n_blocks, dtype=torch.int32, pin_memory=True)
+    progress = _counters(progress, n_blocks, pinned=True)
     out = torch.empty_like(acc)
     KERNEL.launch(ptr(acc), ptr(incoming), ptr(out), ptr(progress), n_blocks,
                   block, _DTYPE_CODE[acc.dtype], stream_ptr(acc.device))
@@ -99,14 +118,19 @@ def ring_combine_cuda(acc, incoming, block=1024):
 
 
 @traced_op("ring_combine", "comm", _meta)
-def ring_combine(acc, incoming, block=1024):
+def ring_combine(acc, incoming, block=1024, progress=None):
     """acc, incoming [C] -> (acc + incoming [C], progress [C // block]
     int32 in host memory; pinned on a CUDA tensor, see the module note).
+    ``progress``, if given, is the caller's counters to write (not
+    cleared first).
 
     CUDA tensors go to the kernel; CPU tensors to the plain version."""
     if acc.device.type == "cuda":
-        return ring_combine_cuda(acc, incoming, block)
+        return ring_combine_cuda(acc, incoming, block, progress)
     if acc.device.type == "cpu":
-        block, _ = _blocks(acc, incoming, block)
-        return combine_ref(acc, incoming), progress_ref(acc.shape[0], block)
+        block, n_blocks = _blocks(acc, incoming, block)
+        done = progress_ref(acc.shape[0], block)
+        if progress is not None:
+            done = _counters(progress, n_blocks, pinned=False).copy_(done)
+        return combine_ref(acc, incoming), done
     raise ValueError(f"ring_combine: unsupported device {acc.device}")

@@ -162,18 +162,19 @@ def _bucket(numel: int, seed: int, rank: int,
     return torch.randn(numel, generator=gen, device=device)
 
 
-def allreduce_rank(ctx: RankContext, numel: int, seed: int) -> dict:
-    """One data-parallel bucket all-reduce in traced step 0: this rank's
-    fp32 bucket through ``ring_all_reduce``, checked bit for bit against
-    ``ring_reduce_ref`` of every rank's bucket (each rank draws all W).
-    Returns the check, this rank's progress, the ring-combine kernel's
+def allreduce_rank(ctx: RankContext, numel: int, seed: int,
+                   step: int = 0) -> dict:
+    """One data-parallel bucket all-reduce in traced step ``step``: this
+    rank's fp32 bucket through ``ring_all_reduce``, checked bit for bit
+    against ``ring_reduce_ref`` of every rank's bucket (each rank draws all
+    W).  Returns the check, this rank's progress, the ring-combine kernel's
     launches in the all-reduce (0 on the CPU, where the plain version runs)
     and its wall time."""
     n, dev = ctx.world_size, ctx.device
     x = _bucket(numel, seed, ctx.rank, dev)
     daemon = ctx.daemon
-    daemon.step_begin(0)
-    daemon.set_stack(["step_0", "ring_all_reduce"])
+    daemon.step_begin(step)
+    daemon.set_stack([f"step_{step}", "ring_all_reduce"])
     _sync(dev)
     COMBINE_KERNEL.launches = 0
     t0 = time.perf_counter()
@@ -222,10 +223,13 @@ def hang_rank(ctx: RankContext) -> list:
     ``ring_all_reduce_local`` inside a daemon step, with rank f's sends on
     link f -> f+1 dropped from ring step ``HANG_FROM_STEP``.  The ring
     stalls; the daemon (``HANG_TIMEOUT`` of silence) calls its ``on_hang``
-    callback, which publishes the ring steps this rank has completed; the
+    callback, which publishes the ring steps this rank has completed as
+    the device shows them: the reduce-scatter steps whose combine counters
+    (pinned, written by the kernel) are complete, plus the all-gather steps
+    done, beside the host's own step count and the frozen counters.  The
     stalled receives end at the group's timeout.  Returns, per fault, the
-    last published step count, the daemon's hang report (with the
-    published stack) and the error that ended the collective."""
+    last published values, the daemon's hang report (with the published
+    stack) and the error that ended the collective."""
     n, daemon = ctx.world_size, ctx.daemon
     transport = coll.exchange
     timeout0 = daemon.cfg.hang_timeout
@@ -235,10 +239,16 @@ def hang_rank(ctx: RankContext) -> list:
         group = dist.new_group(backend="gloo", timeout=datetime.timedelta(
             seconds=HANG_GROUP_TIMEOUT))
         progress = torch.zeros(2 * max(n - 1, 1), dtype=torch.int32)
+        counters = coll.combine_counters(x, n)
         seen: dict = {"reports": 0}
 
-        def publish(report, progress=progress, seen=seen):
-            seen.update(steps=int(progress.sum()), report=report,
+        def publish(report, progress=progress, counters=counters, seen=seen):
+            blocks = counters.clone()
+            full = torch.arange(1, blocks.shape[1] + 1, dtype=torch.int32)
+            combined = int((blocks == full).all(1).sum())
+            seen.update(steps=combined + int(progress[len(blocks):].sum()),
+                        host_steps=int(progress.sum()),
+                        counters=blocks.tolist(), report=report,
                         reports=seen["reports"] + 1)
 
         step = 1 + i
@@ -252,7 +262,8 @@ def hang_rank(ctx: RankContext) -> list:
             daemon.set_stack([f"step_{step}", "ring_all_reduce"])
             t0 = time.perf_counter()
             try:
-                coll.ring_all_reduce_local(x, group, progress=progress)
+                coll.ring_all_reduce_local(x, group, progress=progress,
+                                           counters=counters)
             except RuntimeError as e:   # the stalled receive's timeout
                 error = f"{type(e).__name__}: {str(e)[:200]}"
             seconds = time.perf_counter() - t0
@@ -263,6 +274,8 @@ def hang_rank(ctx: RankContext) -> list:
             daemon.cfg.hang_timeout = timeout0
         drills.append(dict(fault=fault, from_step=HANG_FROM_STEP,
                            steps=seen.get("steps"),
+                           host_steps=seen.get("host_steps"),
+                           counters=seen.get("counters"),
                            steps_at_end=int(progress.sum()),
                            report=seen.get("report"),
                            reports=seen["reports"], error=error,

@@ -9,6 +9,11 @@ ring step this rank has completed.  A caller that passes its own
 ``progress`` tensor can read it while the collective runs, so that under a
 hang the frozen counts are the state ``core/inspecting.diagnose_ring``
 needs (the daemon's ``on_hang`` callback is the place to read them).
+Beside it, each reduce-scatter combine leaves the ring-combine kernel's
+per-block counters in a row of ``counters`` (:func:`combine_counters`,
+pinned host memory on the card): a caller that passes its own reads them
+frozen under a hang, and a row is complete once that step's combine has
+run on the device.
 
 The schedule is the JAX package's, rank for rank and step for step, so the
 results are equal: at ring step s rank r sends its chunk (r - s) mod n to
@@ -25,7 +30,6 @@ pinned host buffers.  The combine always runs on the tensor's device.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -34,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ring_reduce.ops import ring_combine
 
-COMBINE_BLOCK = 1024   # the TPU kernel's block; cut to divide the chunk
+COMBINE_BLOCK = 1024   # the TPU kernel's block
 
 
 def _pinned_like(t: torch.Tensor) -> torch.Tensor:
@@ -81,10 +85,11 @@ def _ring(group) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
-def _progress(n: int, progress: Optional[torch.Tensor]) -> torch.Tensor:
-    """The progress vector of one ring phase: ``max(n - 1, 1)`` int32
-    counters, the caller's tensor if given (written in place)."""
-    steps = max(n - 1, 1)
+def _progress(n: int, progress: Optional[torch.Tensor],
+              phases: int = 1) -> torch.Tensor:
+    """The progress vector of ``phases`` ring phases: ``max(n - 1, 1)``
+    int32 counters each, the caller's tensor if given (written in place)."""
+    steps = phases * max(n - 1, 1)
     if progress is None:
         return torch.zeros(steps, dtype=torch.int32)
     if progress.shape != (steps,) or progress.dtype != torch.int32:
@@ -93,39 +98,67 @@ def _progress(n: int, progress: Optional[torch.Tensor]) -> torch.Tensor:
     return progress
 
 
+def _chunk_pad(chunk: int) -> int:
+    """Zeros that bring a chunk longer than one combine block to a multiple
+    of it, so the ring-combine kernel always runs whole blocks."""
+    return (-chunk) % COMBINE_BLOCK if chunk > COMBINE_BLOCK else 0
+
+
+def combine_counters(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The ring-combine kernel's counters for one reduce-scatter of ``x``
+    over ``n`` ranks: int32 [max(n - 1, 1), blocks per chunk], zeros, in
+    pinned host memory for a CUDA ``x``.  Row s is step s's combine; a host
+    thread reads it while the collective runs (see ``kernels/ring_reduce``)."""
+    chunk = x.numel() // n
+    chunk += _chunk_pad(chunk)
+    blocks = chunk // min(COMBINE_BLOCK, chunk) if chunk else 0
+    return torch.zeros((max(n - 1, 1), blocks), dtype=torch.int32,
+                       pin_memory=x.is_cuda)
+
+
 def ring_reduce_scatter_local(x: torch.Tensor, group=None,
-                              with_progress: bool = True,
-                              progress: Optional[torch.Tensor] = None):
+                              progress: Optional[torch.Tensor] = None,
+                              counters: Optional[torch.Tensor] = None):
     """Per-rank body: x [n*chunk, ...] -> (owned chunk [chunk, ...],
     progress).
 
     Classic ring reduce-scatter: n - 1 steps; at step s each rank sends the
     chunk it just accumulated to its right neighbour and combines the one it
     receives; progress[s] = 1 once step s completed on this rank.  Rank r
-    ends owning the fully reduced chunk (r + 1) mod n.
+    ends owning the fully reduced chunk (r + 1) mod n.  Each combine is the
+    ring-combine kernel, whose per-block counters go to row s of
+    ``counters`` (:func:`combine_counters`; allocated if not given).  A
+    flattened chunk longer than one combine block travels padded with zeros
+    to a multiple of it.
     """
     rank, n = _ring(group)
     if x.shape[0] % n:
         raise ValueError(f"ring_reduce_scatter: leading dim {x.shape[0]} is "
                          f"not a multiple of the group size {n}")
     chunk_shape = (x.shape[0] // n,) + tuple(x.shape[1:])
-    acc = list(x.reshape(n, -1).unbind(0))    # flat chunks, views of x
-    block = math.gcd(acc[0].numel(), COMBINE_BLOCK)
+    flat = x.reshape(n, -1)
+    chunk = flat.shape[1]
+    pad = _chunk_pad(chunk)
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    acc = list(flat.unbind(0))    # flat chunks, views of x unless padded
     progress = _progress(n, progress)
+    if counters is None:
+        counters = combine_counters(x, n)
     right, left = (rank + 1) % n, (rank - 1) % n
     for s in range(n - 1):
         send_idx = (rank - s) % n
         recv_idx = (rank - s - 1) % n
         sent = exchange(acc[send_idx], torch.empty_like(acc[recv_idx]),
                         right, left, group)
-        acc[recv_idx], _ = ring_combine(acc[recv_idx], sent, block=block)
-        if with_progress:
-            progress[s] = 1
-    return acc[(rank + 1) % n].reshape(chunk_shape), progress
+        acc[recv_idx], _ = ring_combine(acc[recv_idx], sent,
+                                        block=COMBINE_BLOCK,
+                                        progress=counters[s])
+        progress[s] = 1
+    return acc[(rank + 1) % n][:chunk].reshape(chunk_shape), progress
 
 
-def ring_all_gather_local(x: torch.Tensor, group=None,
-                          with_progress: bool = True, slot_offset: int = 0,
+def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,
                           progress: Optional[torch.Tensor] = None):
     """Per-rank body: x [chunk, ...] -> (gathered [n*chunk, ...], progress).
 
@@ -143,31 +176,26 @@ def ring_all_gather_local(x: torch.Tensor, group=None,
         cur = exchange(cur, torch.empty_like(cur), right, left, group)
         # the received chunk originated at rank (rank - s - 1)
         out[(rank - s - 1 + slot_offset) % n] = cur
-        if with_progress:
-            progress[s] = 1
+        progress[s] = 1
     return out.reshape((n * x.shape[0],) + tuple(x.shape[1:])), progress
 
 
 def ring_all_reduce_local(x: torch.Tensor, group=None,
-                          with_progress: bool = True,
-                          progress: Optional[torch.Tensor] = None):
+                          progress: Optional[torch.Tensor] = None,
+                          counters: Optional[torch.Tensor] = None):
     """Reduce-scatter then all-gather; 2·max(n - 1, 1) progress steps.
-    ``progress``, if given, is written in place as the steps complete."""
+    ``progress``, if given, is written in place as the steps complete;
+    ``counters`` are the reduce-scatter's combine counters."""
     n = dist.get_world_size(group)
     steps = max(n - 1, 1)
-    if progress is None:
-        progress = torch.zeros(2 * steps, dtype=torch.int32)
-    elif progress.shape != (2 * steps,) or progress.dtype != torch.int32:
-        raise ValueError(f"progress must be int32 of shape ({2 * steps},); "
-                         f"got {progress.dtype} {tuple(progress.shape)}")
-    owned, _ = ring_reduce_scatter_local(x, group, with_progress,
-                                         progress[:steps])
-    full, _ = ring_all_gather_local(owned, group, with_progress,
-                                    slot_offset=1, progress=progress[steps:])
+    progress = _progress(n, progress, phases=2)
+    owned, _ = ring_reduce_scatter_local(x, group, progress[:steps], counters)
+    full, _ = ring_all_gather_local(owned, group, slot_offset=1,
+                                    progress=progress[steps:])
     return full, progress
 
 
-def ring_all_reduce(x: torch.Tensor, group=None, with_progress: bool = True):
+def ring_all_reduce(x: torch.Tensor, group=None):
     """All-reduce ``x`` of any shape over the group's ring; returns
     (result of x's shape, this rank's progress [2·max(n - 1, 1)]).  The
     flattened input is padded with zeros to a multiple of the group size,
@@ -177,7 +205,7 @@ def ring_all_reduce(x: torch.Tensor, group=None, with_progress: bool = True):
     pad = (-flat.numel()) % n
     if pad:
         flat = F.pad(flat, (0, pad))
-    full, progress = ring_all_reduce_local(flat, group, with_progress)
+    full, progress = ring_all_reduce_local(flat, group)
     return full[:x.numel()].reshape(x.shape), progress
 
 

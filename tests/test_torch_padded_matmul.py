@@ -82,3 +82,21 @@ def test_matmul_tiled_takes_blocks_cut_to_small_dims(rng):
     want = jax_matmul_tiled(jnp.asarray(a), jnp.asarray(b), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
                                atol=3e-4)
+
+
+def test_matmul_tiled_takes_ragged_dims_below_the_tile(rng):
+    """Below the tile a dimension may have any length (the tile is cut to
+    it): M 64, K 100, N 96 run unpadded, as in JAX."""
+    a = rng.standard_normal((64, 100)).astype(np.float32)
+    b = rng.standard_normal((100, 96)).astype(np.float32)
+    got = matmul_tiled(torch.from_numpy(a), torch.from_numpy(b))
+    want = jax_matmul_tiled(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_padded_matmul_refuses_a_block_off_the_tile():
+    a = torch.ones(64, 64)
+    with pytest.raises(ValueError, match="multiple of the 128 tile"):
+        padded_matmul(a, a, block=64)
+    assert padded_matmul(a, a, block=256).shape == (64, 64)

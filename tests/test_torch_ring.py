@@ -11,9 +11,10 @@
   JAX device): reduce-scatter, all-gather (slot offsets 0 and 1) and
   all-reduce equal in fp32, with equal progress; ``compressed_psum_local``
   within 1e-6;
-* in the same spawn: a traced bucket all-reduce checked bit for bit
-  against the plain ring order; the hang drill, whose live ring progress
-  ``diagnose_hang`` turns into the broken link; a traced
+* in the same spawn: traced bucket all-reduces checked bit for bit
+  against the plain ring order, one of a chunk that the combine block does
+  not divide; the hang drill, whose live ring progress (from the frozen
+  combine counters) ``diagnose_hang`` turns into the broken link; a traced
   ``padded_matmul``; the traces read back in the JAX package's codec and
   metrics.
 """
@@ -39,12 +40,14 @@ from repro.parallel.collectives import dequantize_int8 as jax_dequantize_int8
 from repro.parallel.collectives import quantize_int8 as jax_quantize_int8
 from repro_torch.kernels.ring_reduce.ops import _meta, ring_combine
 from repro_torch.launch.mesh import run_ranks
-from repro_torch.parallel.collectives import dequantize_int8, quantize_int8
+from repro_torch.parallel.collectives import (COMBINE_BLOCK, combine_counters,
+                                              dequantize_int8, quantize_int8)
 from torch_ring_ranks import failing_rank, semantics_rank
 
 ROOT = Path(__file__).resolve().parents[1]
 W = 4
 BUCKET = 1001          # not a multiple of W: ring_all_reduce pads
+ODD_BUCKET = 5003      # chunk 1251: padded to 2048, two combine blocks
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -72,6 +75,27 @@ def test_ring_combine_refuses_a_block_that_does_not_divide():
         jax_ring_combine(jnp.asarray(x), jnp.asarray(x), block=1024)
     with pytest.raises(ValueError, match="multiple of block"):
         ring_combine(torch.from_numpy(x), torch.from_numpy(x), block=1024)
+
+
+def test_ring_combine_writes_the_callers_counters(rng):
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    counters = torch.zeros((2, 4), dtype=torch.int32)
+    out, prog = ring_combine(x, x, block=1024, progress=counters[1])
+    assert torch.equal(out, x + x)
+    assert prog.data_ptr() == counters[1].data_ptr()
+    np.testing.assert_array_equal(counters.numpy(), [[0] * 4, [1, 2, 3, 4]])
+    with pytest.raises(ValueError, match="progress must be"):
+        ring_combine(x, x, block=1024, progress=counters[:, 0])
+
+
+@pytest.mark.parametrize("numel,blocks", [
+    (4 * 1000, 1), (4 * 1024, 1), (4 * 1025, 2), (4 * 1638401, 1601)])
+def test_combine_counters_cover_the_padded_chunk(numel, blocks):
+    """One row per reduce-scatter step; a chunk longer than a combine block
+    is padded to whole blocks."""
+    c = combine_counters(torch.zeros(numel), W)
+    assert c.shape == (W - 1, blocks) and c.dtype == torch.int32
+    assert not c.any() and not c.is_pinned()
 
 
 def test_quantize_int8_matches_jax(rng):
@@ -181,8 +205,9 @@ def ring_run(tmp_path_factory):
          str(tmp / "jax.npz")], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
-        ranks = run_ranks(semantics_rank, W, inputs, BUCKET, 5, device="cpu",
-                          timeout=90.0, log_dir=str(tmp / "traces"))
+        ranks = run_ranks(semantics_rank, W, inputs, BUCKET, ODD_BUCKET, 5,
+                          device="cpu", timeout=90.0,
+                          log_dir=str(tmp / "traces"))
         log, _ = jax_proc.communicate(timeout=120)
     finally:
         if jax_proc.poll() is None:
@@ -230,6 +255,25 @@ def test_bucket_all_reduce_equals_the_plain_ring_order(ring_run):
         assert b["launches"] == 0      # the CPU runs the plain version
 
 
+def test_odd_bucket_combines_whole_blocks(ring_run):
+    """A chunk of 1251 elements travels padded to 2048: each of the n - 1
+    combines runs two whole 1024-element blocks; the result is still bit
+    for bit the plain ring order."""
+    ranks, _, traces, _ = ring_run
+    for r in ranks:
+        b = r["odd_bucket"]
+        assert b["numel"] == ODD_BUCKET
+        assert b["bitwise_equal"] and b["finite"], b
+        assert b["progress"] == [1] * (2 * (W - 1))
+    for rank in range(W):
+        ring = [e for e in load_jsonl(str(traces / f"rank{rank}.jsonl"))
+                if e.name == "ring_combine" and e.step == 4]
+        assert len(ring) == W - 1
+        for e in ring:
+            assert e.meta["shape"] == [2 * COMBINE_BLOCK]
+            assert e.meta["parent"] == "step_4"
+
+
 @pytest.mark.parametrize("fault", [0, 2])
 def test_hang_drill_names_the_broken_link(ring_run, fault):
     """Rank f drops its sends to f+1 from ring step 1; the steps each rank
@@ -239,7 +283,13 @@ def test_hang_drill_names_the_broken_link(ring_run, fault):
               for r in ranks]
     for d in drills:
         assert d["reports"] >= 1 and d["error"] is not None, d
-        assert d["steps"] == d["steps_at_end"], d
+        assert d["steps"] == d["host_steps"] == d["steps_at_end"], d
+        # the frozen combine counters: a row per reduce-scatter step, whole
+        # where the step's combine ran, zero where it never started
+        blocks = np.array(d["counters"])
+        assert blocks.shape == (W - 1, 1), d
+        done = min(d["steps"], W - 1)
+        assert (blocks[:done] == 1).all() and (blocks[done:] == 0).all(), d
     stacks = {r: d["report"]["stack"] for r, d in enumerate(drills)}
     progress = np.array([d["steps"] for d in drills])
     diag = diagnose_hang(stacks, progress)

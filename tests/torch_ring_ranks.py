@@ -8,11 +8,14 @@ from repro_torch.launch import mesh
 from repro_torch.parallel import collectives as coll
 
 
-def semantics_rank(ctx, inputs: dict, numel: int, seed: int) -> dict:
+def semantics_rank(ctx, inputs: dict, numel: int, odd_numel: int,
+                   seed: int) -> dict:
     """This rank's share of ``inputs`` (numpy arrays [W, ...]) through each
     ring body and ``compressed_psum_local``; then a traced bucket
-    all-reduce (step 0), the hang drill for faults 0 and 2 (steps 1, 2) and
-    a traced ``padded_matmul`` (step 3)."""
+    all-reduce (step 0), the hang drill for faults 0 and 2 (steps 1, 2), a
+    traced ``padded_matmul`` (step 3) and a traced all-reduce of a bucket
+    whose chunk is longer than a combine block and not a multiple of it
+    (step 4)."""
     r = ctx.rank
 
     def mine(name):
@@ -40,6 +43,7 @@ def semantics_rank(ctx, inputs: dict, numel: int, seed: int) -> dict:
     b = torch.from_numpy(inputs["mm_b"])
     out["matmul"] = padded_matmul(a, b).numpy()
     ctx.daemon.step_end()
+    out["odd_bucket"] = mesh.allreduce_rank(ctx, odd_numel, seed, step=4)
     return out
 
 

@@ -6,18 +6,27 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the port from
-                src/repro_torch/kernels/csrc/ (flash attention, fused
-                residual+RMSNorm, SSD scan, padded matmul, ring combine),
-                one nvcc per source, all started together;
+                src/repro_torch/kernels/csrc/ (flash attention and the
+                padded matmul, each a bf16 tensor-core kernel and an fp32
+                one; fused residual+RMSNorm, SSD scan, ring combine), one
+                nvcc per source, all started together; registers and spills
+                from ptxas, and whether each library's SASS holds HGMMA
+                (the bf16 routes must, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at its paths' shapes (fp32 3e-4, bf16 5e-2; the padded
-                matmul's atol at least 2e-3·√K; the ring combine bitwise,
-                with its pinned progress counters read while a queued
-                combine has not run), timed beside its plain version and a
-                PyTorch library call where one computes the same function;
+                at its paths' shapes and, for the two kernels with a bf16
+                and an fp32 route, at the edges of the tensor-core kernels
+                (fp32 3e-4, bf16 5e-2; the padded matmul's atol at least
+                2e-3·√K; the ring combine bitwise, with its pinned progress
+                counters read while a queued combine has not run), each
+                call on the route of its dtype by the routes' launch
+                counts, timed beside its plain version and a PyTorch library
+                call where one computes the same function; a [kernels] line
+                per tensor-core kernel (TFLOP/s, share of the bound, factor
+                against the library, registers, spills, HGMMA);
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
-                paper's FFN shape (4096 x 8192 @ 8192 x 8484, bf16), its
-                launch count and span;
+                paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
+                one in fp32, each on its route by the launch counts, and
+                their spans;
      ring     — 4 ranks on the card (launch/mesh.py, gloo through pinned
                 host memory): a traced ring all-reduce of one 25 MB fp32
                 bucket per rank, bitwise against the plain ring order, with
@@ -30,8 +39,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 prompts, 32 new tokens, random weights from --seed) with the
                 FLARE daemon attached; the launch counts of that run;
                 untraced and traced walls; a profiler breakdown; fp32
-                prefill logits on the card against the plain path on the
-                CPU;
+                prefill logits on the card (the fp32 routes) against the
+                plain path on the CPU;
   6. trace    — each serving path's JSONL spill read back: step spans and
                 kernel spans with device durations from CUDA events.
 The traces and a details.json are written to smoke_out/.
@@ -107,69 +116,154 @@ def max_err(got, want, dtype: str, tol: dict | None = None) -> float:
     return float(diff.max())
 
 
+def ptxas_usage(build_log: str) -> list[dict]:
+    """Registers and spill bytes per entry function, from the ``-Xptxas
+    -v`` lines of a build log."""
+    import re
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '([^']+)'.*?"
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+            r"Used (\d+) registers", build_log, re.S):
+        out.append(dict(function=m.group(1), spill_stores=int(m.group(2)),
+                        spill_loads=int(m.group(3)),
+                        registers=int(m.group(4))))
+    return out
+
+
+def sass_hgmma(kernel) -> int:
+    """How many HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in the
+    kernel's built library."""
+    from repro_torch.kernels import _lib_path, find_nvcc
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_lib_path(kernel.source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sass.count("HGMMA")
+
+
+def on_route(kernels: dict, route: str, fn):
+    """Call ``fn``; fail unless it launched the kernel of ``route`` once and
+    no other route's kernel."""
+    before = {r: k.launches for r, k in kernels.items()}
+    out = fn()
+    ran = {r: k.launches - before[r] for r, k in kernels.items()}
+    if ran != {r: int(r == route) for r in kernels}:
+        fail(f"expected one launch on the {route} route, got {ran}")
+    return out
+
+
+def tensor_core_fields(summary: dict, kernel, flops: float) -> dict:
+    """The fields of a tensor-core kernel's [kernels] line: TFLOP/s, share of
+    the bound, factor against the library call, ptxas registers and
+    spills, HGMMA in the SASS."""
+    ms = summary["ms"]
+    fields = dict(tflops=flops / ms / 1e9,
+                  bound_fraction=summary["bound_ms"] / ms,
+                  library_factor=ms / summary["library_ms"],
+                  ptxas=ptxas_usage(kernel.build_log),
+                  hgmma=sass_hgmma(kernel))
+    if not fields["hgmma"]:
+        fail(f"{kernel.source}: no HGMMA in its SASS, so its bf16 route does "
+             f"not run on the tensor cores")
+    summary.update(fields)
+    regs = ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
+                     f"{u['spill_loads']} bytes spilled (stores/loads)"
+                     for u in fields["ptxas"])
+    log("kernels", f"{summary['name']} [wgmma] "
+        f"{ms:.4f} ms = {fields['tflops']:.1f} TFLOP/s, "
+        f"{fields['bound_fraction']:.3f} of the bound "
+        f"({summary['bound_ms']:.4f} ms), {fields['library_factor']:.2f}x "
+        f"{summary['library_call']}; ptxas: {regs}; "
+        f"HGMMA in the SASS: {fields['hgmma']}")
+    return summary
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
+# flash attention at the paths' shapes (both routes), and the tensor-core
+# kernel's edges: S of 1, 63 and 129 around its 128-row tiles, hd 128
+FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
+                (2, 1000, 16, 4, 128)]
+FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129) for hd in (64, 128)]
+
+
 def check_flash(gen, device):
+    """Every shape on the route of its dtype against ``attention_ref``; the
+    serving shape timed on both routes.  Returns the bf16 (tensor-core)
+    and the fp32 summaries and the cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
 
-    cases = []
-    for (B, S, H, KV, hd) in [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
-                              (2, 1000, 16, 4, 128)]:
-        for dtype in ("bfloat16", "float32"):
-            for causal in (True, False):
-                dt = getattr(torch, dtype)
-                q = torch.randn(B, S, H, hd, generator=gen, device=device).to(dt)
-                k = torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt)
-                v = torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt)
-                got = ops.attention_cuda(q, k, v, causal)
-                want = ops.attention_ref(q, k, v, causal)
-                torch.cuda.synchronize()
-                err = max_err(got, want, dtype)
-                cases.append(dict(shape=[B, S, H, KV, hd], dtype=dtype,
-                                  causal=causal, max_abs_err=err))
-                log("kernels", f"flash_attention B{B} S{S} H{H} KV{KV} "
-                    f"hd{hd} {dtype} causal={causal}: max_abs_err {err:.3e}")
+    def qkv(B, S, H, KV, hd, dt):
+        return (torch.randn(B, S, H, hd, generator=gen, device=device).to(dt),
+                torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt),
+                torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt))
 
-    # the serving path's shape, timed
+    cases = []
+    for (B, S, H, KV, hd), dtype in (
+            [(sh, d) for sh in FLASH_SHAPES for d in ("bfloat16", "float32")]
+            + [(sh, "bfloat16") for sh in FLASH_EDGES]):
+        for causal in (True, False):
+            dt = getattr(torch, dtype)
+            q, k, v = qkv(B, S, H, KV, hd, dt)
+            route = ops.route(dt, hd)
+            got = on_route(ops.KERNELS, route,
+                           lambda: ops.attention_cuda(q, k, v, causal))
+            want = ops.attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            err = max_err(got, want, dtype)
+            cases.append(dict(shape=[B, S, H, KV, hd], dtype=dtype,
+                              causal=causal, route=route, max_abs_err=err))
+            log("kernels", f"flash_attention B{B} S{S} H{H} KV{KV} hd{hd} "
+                f"{dtype} causal={causal} [{route}]: max_abs_err {err:.3e}")
+
+    # the serving path's shape, timed on each route
     B, S, H, KV, hd = 8, 1024, 32, 8, 64
-    dt = torch.bfloat16
-    q = torch.randn(B, S, H, hd, generator=gen, device=device).to(dt)
-    k = torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt)
-    v = torch.randn(B, S, KV, hd, generator=gen, device=device).to(dt)
-    err = max_err(ops.attention_cuda(q, k, v, True),
-                  ops.attention_ref(q, k, v, True), "bfloat16")
-    ms = time_ms(lambda: ops.attention_cuda(q, k, v, True), 20)
-    plain_ms = time_ms(lambda: ops.attention_ref(q, k, v, True), 5)
-    # library yardstick: SDPA on [B,H,S,hd] with the KV heads expanded
-    # beforehand (outside the timed call)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
     pairs = S * (S + 1) / 2                      # causal (query, key) pairs
     flops = 4.0 * B * H * hd * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    summary = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:61",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=library_ms,
-        library_call="torch.nn.functional.scaled_dot_product_attention",
-        shape=[B, S, H, KV, hd], dtype="bfloat16", causal=True)
-    log("kernels", f"flash_attention timed at B{B} S{S} H{H} KV{KV} hd{hd} "
-        f"bf16 causal: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
-        f"{library_ms:.4f}, bound {summary['bound_ms']:.4f} "
-        f"by {summary['bound_by']})")
-    return summary, cases
+    summaries = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v = qkv(B, S, H, KV, hd, dt)
+        route = ops.route(dt, hd)
+        err = max_err(ops.attention_cuda(q, k, v, True),
+                      ops.attention_ref(q, k, v, True), dtype)
+        ms = time_ms(lambda: ops.attention_cuda(q, k, v, True), 20)
+        plain_ms = time_ms(lambda: ops.attention_ref(q, k, v, True), 5)
+        # library yardstick: SDPA on [B,H,S,hd] with the KV heads expanded
+        # beforehand (outside the timed call)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        summaries[route] = summary = dict(
+            name="flash_attention" if route == "wgmma"
+            else "flash_attention_fp32", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
+            replaces="src/repro/kernels/flash_attention/kernel.py:61",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=library_ms,
+            library_call="torch.nn.functional.scaled_dot_product_attention",
+            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+        log("kernels", f"flash_attention [{route}] timed at B{B} S{S} H{H} "
+            f"KV{KV} hd{hd} {dtype} causal: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound "
+            f"{summary['bound_ms']:.4f} by {summary['bound_by']} at the "
+            f"{'bf16 tensor-core' if route == 'wgmma' else 'fp32'} peak)")
+        del q, k, v, qt, kt, vt
+    tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
+    return tc, summaries["fp32"], cases
 
 
 def check_fused(gen, device):
@@ -358,10 +452,12 @@ def matmul_tol(dtype: str, K: int) -> dict:
 
 def check_padded_matmul(gen, device):
     """The JAX sweep through the op (padded), and ``matmul_tiled`` on shapes
-    with dimensions below the tile (masked edges), fp32 and bf16, against
-    ``matmul_ref``; then the Case-2 shape, timed: the kernel on the padded
-    shape, the op with its pads and slice, the plain version, torch.matmul
-    at N 8484 and at the aligned 8576."""
+    with dimensions below the tile (masked edges; for bf16 K or N off the
+    multiple of 8 that TMA needs), fp32 and bf16, each on the route of its
+    dtype, against ``matmul_ref``; then the Case-2 shape, timed on each
+    route: the kernel on the padded shape, the op with its pads and slice,
+    the plain version, torch.matmul at N 8484 and at the aligned 8576.
+    Returns the bf16 (tensor-core) and the fp32 summaries and the cases."""
     import torch
     from repro_torch.kernels.padded_matmul import ops
 
@@ -373,57 +469,73 @@ def check_padded_matmul(gen, device):
                 dt = getattr(torch, dtype)
                 a = torch.randn(M, K, generator=gen, device=device).to(dt)
                 b = torch.randn(K, N, generator=gen, device=device).to(dt)
-                got = fn(a, b)
+                route = ops.route(dt)
+                got = on_route(ops.KERNELS, route, lambda: fn(a, b))
                 torch.cuda.synchronize()
                 err = max_err(got, ops.matmul_ref(a, b), dtype,
                               matmul_tol(dtype, K))
                 cases.append(dict(fn=fn.__name__, shape=[M, K, N],
-                                  dtype=dtype, max_abs_err=err))
-                log("kernels", f"{fn.__name__} M{M} K{K} N{N} {dtype}: "
-                    f"max_abs_err {err:.3e}")
+                                  dtype=dtype, route=route, max_abs_err=err))
+                log("kernels", f"{fn.__name__} M{M} K{K} N{N} {dtype} "
+                    f"[{route}]: max_abs_err {err:.3e}")
 
     M, K, N = CASE2
-    dt = torch.bfloat16
-    a = torch.randn(M, K, generator=gen, device=device).to(dt)
-    b = torch.randn(K, N, generator=gen, device=device).to(dt)
-    bp = ops._pad_to(b, ops.TILE, ops.TILE)
-    Np = bp.shape[1]
-    want = ops.matmul_ref(a, b)
-    got = ops.padded_matmul(a, b)
-    err = max_err(got, want, "bfloat16", matmul_tol("bfloat16", K))
-    del got, want
-    ms = time_ms(lambda: ops.matmul_cuda(a, bp), 5, 1)
-    op_ms = time_ms(lambda: ops.padded_matmul(a, b), 5, 1)
-    plain_ms = time_ms(lambda: ops.matmul_ref(a, b), 5, 1)
-    lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
-    lib_aligned_ms = time_ms(lambda: torch.matmul(a, bp), 20)
     flops = 2.0 * M * K * N
-    nbytes = (M * K + K * N + M * N) * a.element_size()
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    summary = dict(
-        name="padded_matmul", route="cuda",
-        source="src/repro_torch/kernels/csrc/padded_matmul.cu",
-        replaces="src/repro/kernels/padded_matmul/kernel.py:39",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        bytes_bound_ms=t_bytes, library_ms=lib_ms,
-        library_call=f"torch.matmul bf16 at N {N}",
-        library_aligned_ms=lib_aligned_ms, op_ms=op_ms,
-        shape=[M, K, N], padded_shape=[M, K, Np], dtype="bfloat16",
-        flops=flops, bytes=nbytes)
-    log("kernels", f"padded_matmul timed at the Case-2 shape M{M} K{K} N{N} "
-        f"bf16: kernel on the padded N {Np} {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s of the unpadded work), the op with "
-        f"pads and slice {op_ms:.4f} ms, plain (fp32 product) "
-        f"{plain_ms:.4f} ms, torch.matmul at N {N} {lib_ms:.4f} ms and at "
-        f"N {Np} {lib_aligned_ms:.4f} ms; bound {summary['bound_ms']:.4f} ms "
-        f"by {summary['bound_by']} ({flops:.3e} flops = {t_ops:.4f} ms, "
-        f"{nbytes:.3e} bytes = {t_bytes:.4f} ms)")
-    del a, b, bp
-    torch.cuda.empty_cache()
-    return summary, cases
+    summaries = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        a = torch.randn(M, K, generator=gen, device=device).to(dt)
+        b = torch.randn(K, N, generator=gen, device=device).to(dt)
+        bp = ops._pad_to(b, ops.TILE, ops.TILE)
+        Np = bp.shape[1]
+        route = ops.route(dt)
+        want = ops.matmul_ref(a, b)
+        got = on_route(ops.KERNELS, route, lambda: ops.padded_matmul(a, b))
+        err = max_err(got, want, dtype, matmul_tol(dtype, K))
+        cases.append(dict(fn="padded_matmul", shape=[M, K, N], dtype=dtype,
+                          route=route, max_abs_err=err))
+        del got, want
+        iters = 20 if route == "wgmma" else 5
+        ms = time_ms(lambda: ops.matmul_cuda(a, bp), iters, 1)
+        op_ms = time_ms(lambda: ops.padded_matmul(a, b), iters, 1)
+        plain_ms = time_ms(lambda: ops.matmul_ref(a, b), 5, 1)
+        lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
+        lib_aligned_ms = time_ms(lambda: torch.matmul(a, bp), 20)
+        nbytes = (M * K + K * N + M * N) * a.element_size()
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        summaries[route] = summary = dict(
+            name="padded_matmul" if route == "wgmma" else "padded_matmul_fp32",
+            route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
+            replaces="src/repro/kernels/padded_matmul/kernel.py:39",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bytes_bound_ms=t_bytes, library_ms=lib_ms,
+            library_call=f"torch.matmul {dtype} at N {N}",
+            library_aligned_ms=lib_aligned_ms, op_ms=op_ms,
+            shape=[M, K, N], padded_shape=[M, K, Np], dtype=dtype,
+            flops=flops, bytes=nbytes)
+        log("kernels", f"padded_matmul [{route}] timed at the Case-2 shape "
+            f"M{M} K{K} N{N} {dtype}: kernel on the padded N {Np} "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the unpadded "
+            f"work), the op with pads and slice {op_ms:.4f} ms, plain (fp32 "
+            f"product) {plain_ms:.4f} ms, torch.matmul at N {N} "
+            f"{lib_ms:.4f} ms and at N {Np} {lib_aligned_ms:.4f} ms; bound "
+            f"{summary['bound_ms']:.4f} ms by {summary['bound_by']} "
+            f"({flops:.3e} flops = {t_ops:.4f} ms at the "
+            f"{'bf16 tensor-core' if route == 'wgmma' else 'fp32'} peak, "
+            f"{nbytes:.3e} bytes = {t_bytes:.4f} ms)")
+        del a, b, bp
+        torch.cuda.empty_cache()
+    tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
+    tc["library_aligned_factor"] = tc["ms"] / tc["library_aligned_ms"]
+    log("kernels", f"padded_matmul [wgmma] against torch.matmul at the "
+        f"aligned N {tc['padded_shape'][2]}: "
+        f"{tc['library_aligned_factor']:.2f}x")
+    return tc, summaries["fp32"], cases
 
 
 # the ring path: one 25 MB fp32 bucket per rank (PyTorch DDP's default
@@ -598,9 +710,10 @@ def check_ring_combine(gen, device):
 # --------------------------------------------------------------------------- #
 def case2_path(seed: int, trace_path: Path):
     """The Case-2 op as a user calls it: one traced ``padded_matmul`` at the
-    Case-2 shape in a daemon step (launch count set to 0 just before, read
-    just after), its result held to the plain version, its span read
-    back."""
+    Case-2 shape in bf16 (step 0) and one in fp32 (step 1), in daemon steps
+    (the routes' launch counts set to 0 just before each, read just after:
+    one launch on the route of its dtype), each result held to the plain
+    version, their spans read back."""
     import torch
     from repro_torch.core.daemon import DaemonConfig, TracingDaemon
     from repro_torch.core.events import EventKind, load_jsonl
@@ -609,42 +722,51 @@ def case2_path(seed: int, trace_path: Path):
     trace_path.unlink(missing_ok=True)
     M, K, N = CASE2
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
-    b = torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16)
     daemon = TracingDaemon(DaemonConfig(backend="case2",
                                         log_path=str(trace_path))).attach()
+    runs = {}
     try:
-        daemon.step_begin(0)
-        ops.KERNEL.launches = 0
-        out = ops.padded_matmul(a, b)
-        launches = ops.KERNEL.launches
-        torch.cuda.synchronize()
-        daemon.step_end()
+        for step, dtype in enumerate(("bfloat16", "float32")):
+            dt = getattr(torch, dtype)
+            a = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+            b = torch.randn(K, N, generator=gen, device="cuda").to(dt)
+            daemon.step_begin(step)
+            for k in ops.KERNELS.values():
+                k.launches = 0
+            out = ops.padded_matmul(a, b)
+            launches = {r: k.launches for r, k in ops.KERNELS.items()}
+            torch.cuda.synchronize()
+            daemon.step_end()
+            route = ops.route(dt)
+            if launches != {r: int(r == route) for r in ops.KERNELS}:
+                fail(f"case2: padded_matmul {dtype} launched {launches}, not "
+                     f"once on the {route} route")
+            if out.shape != (M, N):
+                fail(f"case2: padded_matmul returned {tuple(out.shape)}")
+            err = max_err(out, ops.matmul_ref(a, b), dtype,
+                          matmul_tol(dtype, K))
+            runs[dtype] = dict(route=route, launches=launches, max_abs_err=err)
+            del a, b, out
     finally:
         daemon.detach()
-    if launches != 1:
-        fail(f"case2: padded_matmul launched its kernel {launches} times, "
-             f"not once")
-    if out.shape != (M, N):
-        fail(f"case2: padded_matmul returned {tuple(out.shape)}")
-    err = max_err(out, ops.matmul_ref(a, b), "bfloat16",
-                  matmul_tol("bfloat16", K))
     spans = [e for e in load_jsonl(str(trace_path))
              if e.kind == EventKind.KERNEL_COMPUTE]
-    if (len(spans) != 1 or spans[0].name != "padded_matmul"
-            or spans[0].meta.get("flops") != 2.0 * M * K * N
-            or spans[0].meta.get("shape") != [M, K, N]
-            or spans[0].meta.get("parent") != "step_0"
-            or spans[0].duration <= 0):
-        fail(f"case2: trace holds {[(e.name, e.meta) for e in spans]}")
-    log("case2", f"padded_matmul M{M} K{K} N{N} bf16, traced: 1 launch, "
-        f"max_abs_err {err:.3e} against the plain version; span "
-        f"{spans[0].duration * 1e3:.3f} ms of device time, flops "
-        f"{spans[0].meta['flops']:.4e}")
-    del a, b, out
+    if (len(spans) != 2 or any(
+            e.name != "padded_matmul" or e.meta.get("flops") != 2.0 * M * K * N
+            or e.meta.get("shape") != [M, K, N]
+            or e.meta.get("parent") != f"step_{e.step}" or e.duration <= 0
+            for e in spans) or sorted(e.step for e in spans) != [0, 1]):
+        fail(f"case2: trace holds {[(e.name, e.step, e.meta) for e in spans]}")
+    for e in spans:
+        dtype = ("bfloat16", "float32")[e.step]
+        runs[dtype]["span_ms"] = e.duration * 1e3
+        log("case2", f"padded_matmul M{M} K{K} N{N} {dtype}, traced: 1 launch "
+            f"on the {runs[dtype]['route']} route, max_abs_err "
+            f"{runs[dtype]['max_abs_err']:.3e} against the plain version; span "
+            f"{e.duration * 1e3:.3f} ms of device time, flops "
+            f"{e.meta['flops']:.4e}")
     torch.cuda.empty_cache()
-    return dict(launches=launches, max_abs_err=err,
-                span_ms=spans[0].duration * 1e3)
+    return runs
 
 
 def ring_phase_rank(ctx, numel: int, odd_numel: int, seed: int):
@@ -766,19 +888,28 @@ def ring_path(seed: int, trace_dir: Path):
 # phase 5: serve
 # --------------------------------------------------------------------------- #
 def path_kernels(arch: str) -> dict:
-    """The kernels a serving path runs, by traced-op name, and the launches
-    of one generate of ``new`` tokens after a prefill (L layers)."""
+    """The kernels a serving path can launch, by label (the traced-op name,
+    with the route for a kernel of two routes), as (traced-op name, route,
+    kernel, launches of one bf16 generate of ``new`` tokens after a prefill
+    of L layers).  bf16 serving takes no fp32 route."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.kernels.ssd_scan import ops as ssd
     if arch == "llama3.2-1b":   # flash per layer at prefill; 2 norms/layer
-        return {"flash_attention": (fa.KERNEL, lambda L, new: L),
-                "fused_residual_rmsnorm": (fn.KERNEL,
-                                           lambda L, new: 2 * L * (1 + new))}
+        return {
+            "flash_attention[wgmma]": ("flash_attention", "wgmma",
+                                       fa.KERNELS["wgmma"], lambda L, new: L),
+            "flash_attention[fp32]": ("flash_attention", "fp32",
+                                      fa.KERNELS["fp32"], lambda L, new: 0),
+            "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
+                                       fn.KERNEL,
+                                       lambda L, new: 2 * L * (1 + new))}
     if arch == "mamba2-780m":   # scan per layer at prefill; 1 norm/layer
-        return {"ssd_scan": (ssd.KERNEL, lambda L, new: L),
-                "fused_residual_rmsnorm": (fn.KERNEL,
-                                           lambda L, new: L * (1 + new))}
+        return {
+            "ssd_scan": ("ssd_scan", None, ssd.KERNEL, lambda L, new: L),
+            "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
+                                       fn.KERNEL,
+                                       lambda L, new: L * (1 + new))}
     raise KeyError(arch)
 
 
@@ -802,14 +933,15 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
                                 log_path=str(trace_path)))
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S0)).astype(np.int32)
-    for k, _ in kernels.values():
+    for _, _, k, _ in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
     out = server.generate(prompts, new_tokens=new)
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, (k, _) in kernels.items()}
+    launches = {label: k.launches for label, (_, _, k, _) in kernels.items()}
     server.close()                      # detaches the daemon: final spill
-    want = {name: n(cfg.num_layers, new) for name, (_, n) in kernels.items()}
+    want = {label: n(cfg.num_layers, new)
+            for label, (_, _, _, n) in kernels.items()}
     log("serve", f"{arch} B{B} prompt {S0} new {new}: launches {launches} "
         f"(expected {want}); wall {wall:.3f} s")
     if launches != want:
@@ -908,7 +1040,9 @@ def profile(fn, top: int = 10) -> dict:
 
 def agreement(arch: str, seed: int, S: int):
     """fp32 prefill logits of the full-width model: the kernel path on the
-    card against the plain path on the CPU, same weights, B 1."""
+    card against the plain path on the CPU, same weights, B 1.  The fp32
+    run takes every kernel of the path but the tensor-core ones.  Returns
+    the max abs error and the launches of the card's prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -916,17 +1050,22 @@ def agreement(arch: str, seed: int, S: int):
     from repro_torch.models.registry import build_model
 
     cfg = get_config(arch)
-    kernels = [k for k, _ in path_kernels(arch).values()]
+    kernels = {label: (route, k)
+               for label, (_, route, k, _) in path_kernels(arch).items()}
     pol = Policy(torch.float32)
     cpu = build_model(cfg, pol, "cpu").init(
         torch.Generator().manual_seed(seed))
     gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
     toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, S))
     t = torch.as_tensor(toks, dtype=torch.long)
-    n0 = [k.launches for k in kernels]
+    n0 = {label: k.launches for label, (_, k) in kernels.items()}
     got = gpu.prefill(t.cuda(), gpu.init_cache(1, S)).cpu()
-    if any(k.launches == n for k, n in zip(kernels, n0)):
-        fail(f"{arch}: fp32 agreement run did not launch every kernel")
+    launches = {label: k.launches - n0[label]
+                for label, (_, k) in kernels.items()}
+    if any((n > 0) == (kernels[label][0] == "wgmma")
+           for label, n in launches.items()):
+        fail(f"{arch}: the fp32 agreement run launched {launches}: every "
+             f"fp32 kernel of the path, and no tensor-core one, should run")
     want = cpu.prefill(t, cpu.init_cache(1, S))
     diff = (got - want).abs()
     err = float(diff.max())
@@ -941,7 +1080,7 @@ def agreement(arch: str, seed: int, S: int):
         fail(f"{arch}: fp32 prefill logits disagree between card and CPU")
     del gpu, cpu
     torch.cuda.empty_cache()
-    return err
+    return err, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -965,7 +1104,7 @@ def check_trace(arch: str, trace_path: Path, new: int):
         fail(f"{arch}: step spans {sorted(steps)} != 0..{new}")
     comp = [e for e in events if e.kind == EventKind.KERNEL_COMPUTE]
     per_name = {}
-    for name in path_kernels(arch):
+    for name in sorted({op for op, *_ in path_kernels(arch).values()}):
         want_keys = META_KEYS[name]
         evs = [e for e in comp if e.name == name]
         if not evs:
@@ -1038,7 +1177,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    all_kernels = (fa.KERNEL, fn.KERNEL, ssd.KERNEL, mm.KERNEL, ring.KERNEL)
+    all_kernels = (*fa.KERNELS.values(), fn.KERNEL, ssd.KERNEL,
+                   *mm.KERNELS.values(), ring.KERNEL)
     build_all(list(all_kernels))
     log("build", f"built {', '.join(k.source for k in all_kernels)} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -1046,13 +1186,19 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
+    # the tensor-core routes hold wgmma (HGMMA) in their SASS (the kernels
+    # phase fails if not); the fp32 routes run on the FP32 pipes
+    for mod in (fa, mm):
+        for route, k in mod.KERNELS.items():
+            n = sass_hgmma(k)
+            log("build", f"{k.source} [{route}]: {n} HGMMA in the SASS")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flash, flash_cases = check_flash(gen, "cuda")
+    flash, flash_fp32, flash_cases = check_flash(gen, "cuda")
     fused, fused_rows, fused_cases = check_fused(gen, "cuda")
     scan, ssd_cases = check_ssd(gen, "cuda")
-    matmul, matmul_cases = check_padded_matmul(gen, "cuda")
+    matmul, matmul_fp32, matmul_cases = check_padded_matmul(gen, "cuda")
     combine, combine_cases = check_ring_combine(gen, "cuda")
 
     # 4. the Case-2 op and the ring path, traced
@@ -1061,13 +1207,13 @@ def main():
     ring_run = ring_path(args.seed, OUT_DIR / "ring_traces")
 
     # 5. serve, and 6. trace, for each serving path
-    runs, traces, errs = {}, {}, {}
+    runs, traces, errs, fp32_launches = {}, {}, {}, {}
     for arch, agree_s in PATHS:
         trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
         trace_path.unlink(missing_ok=True)
         run = runs[arch] = serve(arch, args.seed, trace_path,
                                  per_call=arch == "llama3.2-1b")
-        errs[arch] = agreement(arch, args.seed, agree_s)
+        errs[arch], fp32_launches[arch] = agreement(arch, args.seed, agree_s)
         traces[arch] = check_trace(arch, trace_path, run["new"])
         B, new = run["B"], run["new"]
         dec = sorted(traces[arch]["decode_s"])
@@ -1078,13 +1224,20 @@ def main():
             f"run, {B * new / run['warm_wall_s']:.1f} new tokens/s)")
 
     by_path = {arch: run["launches"] for arch, run in runs.items()}
-    for summary in (flash, fused, scan):
-        per = {arch: n[summary["name"]] for arch, n in by_path.items()
-               if summary["name"] in n}
+    for summary, label in ((flash, "flash_attention[wgmma]"),
+                           (fused, "fused_residual_rmsnorm"),
+                           (scan, "ssd_scan")):
+        per = {arch: n[label] for arch, n in by_path.items() if label in n}
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
-    matmul["launches"] = case2["launches"]
-    matmul["launches_by_path"] = {"case2 padded_matmul": case2["launches"]}
+    n = fp32_launches["llama3.2-1b"]["flash_attention[fp32]"]
+    flash_fp32["launches"] = n
+    flash_fp32["launches_by_path"] = {"llama3.2-1b fp32 prefill": n}
+    for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
+                                  (matmul_fp32, "float32", "fp32")):
+        n = case2[dtype]["launches"][route]
+        summary["launches"] = n
+        summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -1095,10 +1248,12 @@ def main():
                    fused_cases=fused_cases, fused_rows=fused_rows,
                    ssd_cases=ssd_cases, matmul_cases=matmul_cases,
                    combine_cases=combine_cases, case2=case2, ring=ring_run,
-                   fp32_prefill_max_abs_err=errs, serve=runs, trace=traces)
+                   fp32_prefill_max_abs_err=errs,
+                   fp32_prefill_launches=fp32_launches, serve=runs,
+                   trace=traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [flash, fused, scan, matmul, combine]}),
-          flush=True)
+    print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, matmul,
+                                  matmul_fp32, combine]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,10 +4,21 @@ Kernels (each: ``csrc/<name>.cu`` = the CUDA source with a plain C launch
 function, ``<name>/ops.py`` = the PyTorch wrapper, its plain PyTorch
 version and the FLARE registration):
 
-  flash_attention — causal / full GQA attention forward (prefill)
+  flash_attention — causal / full GQA attention forward (prefill): bf16 on
+                    the tensor cores (``flash_attention_wgmma.cu``), fp32
+                    on the FP32 pipes (``flash_attention.cu``)
   fused_norm      — residual add + RMSNorm
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
                     (prefill)
+  padded_matmul   — the Case-2 matmul: bf16 on the tensor cores
+                    (``padded_matmul_wgmma.cu``), fp32 on the FP32 pipes
+                    (``padded_matmul.cu``)
+  ring_reduce     — the ring-combine step with host-visible progress
+
+The tensor-core kernels share ``csrc/hopper.cuh`` (TMA tensor maps and
+loads, mbarriers, wgmma descriptors and instructions).  A kernel with two
+routes picks one by dtype alone in its wrapper's ``route``, and each
+route's ``CudaKernel`` counts its own launches.
 
 Build: each source is compiled on first use by ``nvcc`` into its own shared
 library under ``kernels/build/`` and loaded with ``ctypes``.  Every tensor

@@ -1,4 +1,6 @@
-// Blocked causal / full GQA flash-attention forward for Hopper (sm_90a).
+// Blocked causal / full GQA flash-attention forward for Hopper (sm_90a) on
+// the FP32 pipes: the fp32 route of the port's flash attention (bf16 takes
+// flash_attention_wgmma.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, body _attn_kernel): q [B,S,H,hd], k/v [B,S,KV,hd],
@@ -10,8 +12,9 @@
 // serving shape (B 8, S 1024, H 32, hd 64, bf16) that is ~35 us of tensor-core
 // time against ~25 us of memory time.
 //
-// This first version runs on the FP32 pipes, not the tensor cores, so it
-// sits well above that bound; wgmma/TMA are later work.  Design:
+// It runs on the FP32 pipes on purpose, so that its fp32 result is held to
+// a full-fp32 reference and not to TF32; it sits well above the bound.
+// Design:
 //   * grid (ceil(S/64), H, B): one block per 64-row q tile of one head;
 //     blocks run in any order, so the TPU grid's sequential axis becomes the
 //     KV loop inside the block;
@@ -182,18 +185,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, o: [B,S,H,hd]; k, v: [B,S,KV,hd]; all contiguous in `dtype` and 16-byte
+// q, o: [B,S,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32 and 16-byte
 // aligned.  Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, int B, int S,
                                           int H, int KV, int hd, int causal,
-                                          int dtype, void* stream) {
+                                          void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FLARE_F32)
-    return launch_hd<float>(q, k, v, o, B, S, H, KV, hd, causal, s);
-  if (dtype == FLARE_BF16)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hd<float>(q, k, v, o, B, S, H, KV, hd, causal,
+                          static_cast<cudaStream_t>(stream));
 }

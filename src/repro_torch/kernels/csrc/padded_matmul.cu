@@ -1,18 +1,15 @@
-// Tiled matmul with an fp32 accumulator for Hopper (sm_90a), the kernel of
-// the Case-2 padded matmul.
+// Tiled fp32 matmul for Hopper (sm_90a) on the FP32 pipes: the fp32 route
+// of the Case-2 padded matmul (bf16 takes padded_matmul_wgmma.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/padded_matmul/kernel.py
-// (matmul_tiled, body _mm_kernel): out = a @ b over (M/128, N/128) output
-// tiles, the K axis walked inside the tile, inputs widened to fp32 before
-// the products, one fp32 sum per output, rounded once to a's dtype.
+// (matmul_tiled, body _mm_kernel) for fp32 inputs: out = a @ b over
+// (M/128, N/128) output tiles, the K axis walked inside the tile, one fp32
+// sum per output.
 //
-// Bound on an H100: operations.  At the Case-2 shape (M 4096, K 8192,
-// N 8484 padded to 8576) the work is ~5.8e11 flops against ~0.3 GB, far
-// above the ~295 flop/byte ridge.  This first version runs on the FP32
-// pipes on purpose: IEEE fp32 fused multiply-adds for fp32 and bf16 inputs
-// alike, so the fp32 result is held to a full-fp32 reference and not to
-// TF32; its ceiling is the 67 TFLOP/s of those pipes, not the 989 of the
-// bf16 tensor cores (mma.sync, then wgmma with TMA, are later work).
+// Bound on an H100: operations.  This kernel runs on the FP32 pipes on
+// purpose: IEEE fp32 fused multiply-adds, so the fp32 result is held to a
+// full-fp32 reference and not to TF32 (the tensor cores take fp32 only as
+// TF32); its ceiling is the 67 TFLOP/s of those pipes.
 // Design: one block of 256 threads per 128x128 output tile; K steps of 16
 // staged in shared memory as fp32 (a transposed, so each thread reads its
 // rows as float4), double-buffered with the next step's loads held in
@@ -164,18 +161,11 @@ void launch_typed(const void* a, const void* b, void* out, int M, int N, int K,
 
 }  // namespace
 
-// a [M,K], b [K,N], out [M,N]: contiguous, row-major, all in `dtype`.
+// a [M,K], b [K,N], out [M,N]: contiguous, row-major fp32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int matmul_tiled_launch(const void* a, const void* b, void* out,
-                                   int M, int N, int K, int dtype,
-                                   void* stream) {
+                                   int M, int N, int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FLARE_F32)
-    launch_typed<float>(a, b, out, M, N, K, s);
-  else if (dtype == FLARE_BF16)
-    launch_typed<__nv_bfloat16>(a, b, out, M, N, K, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  launch_typed<float>(a, b, out, M, N, K, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Case-2 padded matmul: CUDA kernel wrapper, plain version, tracing.
+"""Case-2 padded matmul: CUDA kernel wrappers, plain version, tracing.
 
 Replaces the TPU kernel ``src/repro/kernels/padded_matmul/kernel.py``
 (``matmul_tiled``) and its wrapper ``ops.py::padded_matmul``: the paper's
@@ -6,10 +6,16 @@ Case-2 fix pads a misaligned dimension (the FFN width 8484) up to the 128
 tile, runs the tiled kernel on aligned shapes and slices the result back.
 Bound on an H100: operations at the Case-2 shape.
 
-The kernel (``csrc/padded_matmul.cu``) widens bf16 and fp32 inputs to fp32
-and sums with IEEE fp32 fused multiply-adds on the FP32 pipes, chosen on
-purpose: its fp32 result is held to a full-fp32 product, not to TF32.  A
-first version; tensor cores are later work.
+Two hand-written kernels, one route per dtype (``route``):
+  * bf16 -> ``csrc/padded_matmul_wgmma.cu``: wgmma on the tensor cores
+    with an fp32 accumulator, operands brought by TMA; TMA needs 16-byte
+    rows, so a call whose K or N is not a multiple of 8 runs on operands
+    padded with zeros to that and is sliced back (``tma_operands``);
+  * fp32 -> ``csrc/padded_matmul.cu``: IEEE fp32 fused multiply-adds on the
+    FP32 pipes, chosen on purpose: its result is held to a full-fp32
+    product, not to TF32.
+Each route counts its own launches.  A bf16 call never takes the FP32
+pipes.
 """
 from __future__ import annotations
 
@@ -22,10 +28,14 @@ from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
 
 TILE = 128
 
-KERNEL = CudaKernel(
-    "padded_matmul.cu", "matmul_tiled_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TMA_ALIGN = 8      # bf16 elements in the 16 bytes a TMA row stride needs
+
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+KERNELS = {
+    "wgmma": CudaKernel("padded_matmul_wgmma.cu", "matmul_wgmma_launch", _ARGS),
+    "fp32": CudaKernel("padded_matmul.cu", "matmul_tiled_launch", _ARGS),
+}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
 
 
 def _pad_to(x, m0: int, m1: int):
@@ -64,22 +74,64 @@ def _check_aligned(a, b):
                              f"(M, N, K) = {(M, N, K)}: use padded_matmul")
 
 
-def matmul_cuda(a, b):
-    """Launch the CUDA kernel on a [M,K] @ b [K,N]; raises on anything it
-    does not take.  The kernel masks ragged edges, which the contract
-    leaves to dimensions below the tile."""
-    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
-        raise TypeError(f"matmul_tiled kernel takes float32 or bfloat16 a/b "
-                        f"of one dtype; got {a.dtype}, {b.dtype}")
+def route(dtype) -> str:
+    """The kernel that a CUDA call in ``dtype`` launches, by dtype alone:
+    bf16 -> "wgmma" (tensor cores), fp32 -> "fp32" (FP32 pipes)."""
+    if dtype not in ROUTES:
+        raise TypeError(f"matmul_tiled kernels take float32 or bfloat16, "
+                        f"not {dtype}")
+    return ROUTES[dtype]
+
+
+def tma_operands(a, b):
+    """a [M,K], b [K,N] as the wgmma kernel takes them: K and N padded with
+    zeros to a multiple of ``TMA_ALIGN`` (zeros in K add nothing to the
+    sum; the caller slices the extra columns off)."""
+    K, N = b.shape
+    pk, pn = (-K) % TMA_ALIGN, (-N) % TMA_ALIGN
+    if pk:
+        a = F.pad(a, (0, pk))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    return a, b
+
+
+def check_operands(a, b) -> str:
+    """Everything the kernels need of a and b but their device: shapes,
+    dtypes, contiguity, alignment.  Returns the route."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul_tiled wants a [M,K], b [K,N]; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if b.dtype != a.dtype:
+        raise TypeError(f"matmul_tiled kernels take a/b of one dtype; got "
+                        f"{a.dtype}, {b.dtype}")
+    r = route(a.dtype)
     if b.device != a.device:
         raise ValueError("matmul_tiled: tensors on different devices")
     if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul_tiled kernel takes contiguous a/b")
-    (M, K), N = a.shape, b.shape[1]
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    KERNEL.launch(ptr(a), ptr(b), ptr(out), M, N, K, _DTYPE_CODE[a.dtype],
-                  stream_ptr(a.device))
-    return out
+        raise ValueError("matmul_tiled kernels take contiguous a/b")
+    if r == "wgmma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("matmul_tiled's wgmma kernel takes 16-byte-aligned "
+                         "a/b (TMA)")
+    return r
+
+
+def matmul_cuda(a, b):
+    """Launch the kernel of a's dtype on a [M,K] @ b [K,N]; raises on
+    anything it does not take.  The kernels mask ragged edges, which the
+    contract leaves to dimensions below the tile."""
+    r = check_operands(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"matmul_tiled kernels take CUDA tensors, not "
+                         f"{a.device}")
+    M, N = a.shape[0], b.shape[1]
+    if r == "wgmma":
+        a, b = tma_operands(a, b)
+    K, Nk = b.shape
+    out = torch.empty((M, Nk), dtype=a.dtype, device=a.device)
+    KERNELS[r].launch(ptr(a), ptr(b), ptr(out), M, Nk, K,
+                      stream_ptr(a.device))
+    return out if Nk == N else out[:, :N].contiguous()
 
 
 def matmul_tiled(a, b):

@@ -11,6 +11,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_reduced, list_archs
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels.ssd_scan.ops import kernel_takes
 from repro_torch.runtime.serve import ServeConfig, Server
 
@@ -19,10 +20,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
-                    help="the arch's reduced config; the reduced "
-                    "mamba2-780m runs only with --device cpu, since the "
-                    "SSD-scan kernel takes head_dim 64, state 64 or 128 "
-                    "and chunk 64-256")
+                    help="the arch's reduced config; the reduced configs "
+                    "run only with --device cpu, since the flash-attention "
+                    "kernels take head_dim 64 or 128 and the SSD-scan "
+                    "kernel head_dim 64, state 64 or 128 and chunk 64-256")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -41,6 +42,10 @@ def main():
         ap.error(f"the SSD-scan kernel has no instance for head_dim "
                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
                  f"{cfg.ssm_chunk}; serve this config with --device cpu")
+    if (cfg.family == "dense" and args.device != "cpu"
+            and cfg.head_dim not in HEAD_DIMS):
+        ap.error(f"the flash-attention kernels take head_dim {HEAD_DIMS}, "
+                 f"not {cfg.head_dim}; serve this config with --device cpu")
     server = Server(ServeConfig(model=cfg, batch=args.batch,
                                 max_seq=args.max_seq, seed=args.seed,
                                 device=args.device, log_path=args.log_path))

@@ -226,6 +226,28 @@ def test_launcher_serves_reduced_mamba_on_the_cpu_only(monkeypatch, capsys,
         assert "--device cpu" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
+def test_launcher_serves_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
+                                                        device, ok):
+    """The reduced llama has head_dim 16, which the flash-attention kernels
+    do not take: on the card the launcher refuses it before it builds a
+    model."""
+    from repro_torch.launch import serve as launch
+
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "llama3.2-1b", "--reduced", "--device", device,
+        "--batch", "1", "--prompt-len", "20", "--new-tokens", "2"])
+    if ok:
+        launch.main()
+        assert "generated (1, 22) tokens" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit) as e:
+            launch.main()
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "head_dim (64, 128), not 16" in err and "--device cpu" in err
+
+
 def test_builder_names_nvcc_when_missing(monkeypatch, tmp_path):
     monkeypatch.setattr(tk.shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)

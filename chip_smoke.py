@@ -6,23 +6,25 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the port from
-                src/repro_torch/kernels/csrc/ (flash attention and the
-                padded matmul, each a bf16 tensor-core kernel and an fp32
-                one; fused residual+RMSNorm, SSD scan, ring combine), one
-                nvcc per source, all started together; registers and spills
-                from ptxas, and whether each library's SASS holds HGMMA
-                (the bf16 routes must, or the phase fails);
+                src/repro_torch/kernels/csrc/ (flash attention, the SSD scan
+                and the padded matmul, each a bf16 tensor-core kernel and an
+                fp32 one; fused residual+RMSNorm, ring combine), one nvcc per
+                source, all started together; registers and spills from
+                ptxas, and the HGMMA / HMMA count of each library's SASS
+                (the bf16 routes must have tensor-core instructions and the
+                fp32 routes none, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at its paths' shapes and, for the two kernels with a bf16
-                and an fp32 route, at the edges of the tensor-core kernels
-                (fp32 3e-4, bf16 5e-2; the padded matmul's atol at least
-                2e-3·√K; the ring combine bitwise, with its pinned progress
-                counters read while a queued combine has not run), each
-                call on the route of its dtype by the routes' launch
-                counts, timed beside its plain version and a PyTorch library
-                call where one computes the same function; a [kernels] line
-                per tensor-core kernel (TFLOP/s, share of the bound, factor
-                against the library, registers, spills, HGMMA);
+                at its paths' shapes and, for the kernels with a bf16 and an
+                fp32 route, on both routes and at the edges of the
+                tensor-core kernels (fp32 3e-4, bf16 5e-2; the padded
+                matmul's atol at least 2e-3·√K; the ring combine bitwise,
+                with its pinned progress counters read while a queued
+                combine has not run), each call on the route of its dtype
+                by the routes' launch counts, timed beside its plain version
+                and a PyTorch library call where one computes the same
+                function; a [kernels] line per tensor-core kernel (TFLOP/s,
+                share of the bound, factor against the library, registers,
+                spills, HGMMA / HMMA);
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -131,16 +133,16 @@ def ptxas_usage(build_log: str) -> list[dict]:
     return out
 
 
-def sass_hgmma(kernel) -> int:
-    """How many HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in the
-    kernel's built library."""
+def sass_mma(kernel) -> dict:
+    """How many tensor-core instructions ``cuobjdump -sass`` finds in the
+    kernel's built library: HGMMA (wgmma) and HMMA (mma.sync)."""
     from repro_torch.kernels import _lib_path, find_nvcc
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_lib_path(kernel.source))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sass.count("HGMMA")
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA")}
 
 
 def on_route(kernels: dict, route: str, fn):
@@ -156,27 +158,30 @@ def on_route(kernels: dict, route: str, fn):
 
 def tensor_core_fields(summary: dict, kernel, flops: float) -> dict:
     """The fields of a tensor-core kernel's [kernels] line: TFLOP/s, share of
-    the bound, factor against the library call, ptxas registers and
-    spills, HGMMA in the SASS."""
+    the bound, factor against the library call (where there is one), ptxas
+    registers and spills, HGMMA and HMMA in the SASS."""
     ms = summary["ms"]
+    sass = sass_mma(kernel)
+    lib = summary["library_ms"]
     fields = dict(tflops=flops / ms / 1e9,
                   bound_fraction=summary["bound_ms"] / ms,
-                  library_factor=ms / summary["library_ms"],
+                  library_factor=ms / lib if lib else None,
                   ptxas=ptxas_usage(kernel.build_log),
-                  hgmma=sass_hgmma(kernel))
-    if not fields["hgmma"]:
-        fail(f"{kernel.source}: no HGMMA in its SASS, so its bf16 route does "
-             f"not run on the tensor cores")
+                  hgmma=sass["HGMMA"], hmma=sass["HMMA"])
+    if not (fields["hgmma"] or fields["hmma"]):
+        fail(f"{kernel.source}: no HGMMA or HMMA in its SASS, so its bf16 "
+             f"route does not run on the tensor cores")
     summary.update(fields)
     regs = ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
                      f"{u['spill_loads']} bytes spilled (stores/loads)"
                      for u in fields["ptxas"])
+    versus = (f"{fields['library_factor']:.2f}x {summary['library_call']}"
+              if lib else "no library call")
     log("kernels", f"{summary['name']} [wgmma] "
         f"{ms:.4f} ms = {fields['tflops']:.1f} TFLOP/s, "
         f"{fields['bound_fraction']:.3f} of the bound "
-        f"({summary['bound_ms']:.4f} ms), {fields['library_factor']:.2f}x "
-        f"{summary['library_call']}; ptxas: {regs}; "
-        f"HGMMA in the SASS: {fields['hgmma']}")
+        f"({summary['bound_ms']:.4f} ms), {versus}; ptxas: {regs}; "
+        f"HGMMA / HMMA in the SASS: {fields['hgmma']} / {fields['hmma']}")
     return summary
 
 
@@ -295,11 +300,15 @@ def check_fused(gen, device):
                 # needs, so these times are the host's per-call cost
                 ms = time_ms(lambda: ops.fused_cuda(x, r, s), 100)
                 plain_ms = time_ms(lambda: ops.fused_ref(x, r, s), 20)
-                # library yardstick: the norm alone (F.rms_norm computes no
-                # residual add, so it moves half the bytes)
+                # no single PyTorch call computes residual add + RMSNorm:
+                # F.rms_norm alone is the norm (half the bytes), and
+                # torch.add then F.rms_norm is the function in two calls
                 hh = x + r
-                library_ms = time_ms(
-                    lambda: F.rms_norm(hh, (D,), s.to(dt), 1e-5), 100)
+                sd = s.to(dt)
+                norm_only_ms = time_ms(
+                    lambda: F.rms_norm(hh, (D,), sd, 1e-5), 100)
+                two_call_ms = time_ms(
+                    lambda: F.rms_norm(torch.add(x, r), (D,), sd, 1e-5), 100)
                 nbytes = 4 * R * D * x.element_size() + D * 4
                 t_bytes = nbytes / PEAK_BYTES * 1e3
                 t_ops = 6.0 * R * D / PEAK_FP32_FLOPS * 1e3
@@ -310,13 +319,14 @@ def check_fused(gen, device):
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=max(t_ops, t_bytes),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=library_ms,
-                    library_call="torch.nn.functional.rms_norm (norm only)",
+                    library_ms=None, library_call=None,
+                    norm_only_ms=norm_only_ms, two_call_ms=two_call_ms,
                     shape=[R, D], dtype="bfloat16")
                 log("kernels", f"fused_residual_rmsnorm timed at R{R} D{D} "
-                    f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}, F.rms_norm "
-                    f"{library_ms:.4f}, bound {t['bound_ms']:.5f} "
-                    f"by {t['bound_by']})")
+                    f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}; no single "
+                    f"library call: F.rms_norm alone {norm_only_ms:.4f}, "
+                    f"torch.add + F.rms_norm {two_call_ms:.4f}; bound "
+                    f"{t['bound_ms']:.5f} by {t['bound_by']})")
     main = timed.pop((8192, 2048))
     return main, {f"R{R} D{D}": t for (R, D), t in timed.items()}, cases
 
@@ -357,6 +367,12 @@ def ssd_work_flops(B, L, H, P, N, chunk) -> float:
 
 
 def check_ssd(gen, device):
+    """The four cases (ragged L and an initial state among them) on both
+    routes, bf16 on the tensor cores and fp32 on the FP32 pipes, each call
+    on the route of its dtype by the routes' launch counts, against
+    ``ssd_ref``; then the serving shape timed on each route beside the plain
+    version, with the same work (``ssd_work_flops``) for both.  Returns the
+    bf16 (tensor-core) and the fp32 summaries and the cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
@@ -368,13 +384,15 @@ def check_ssd(gen, device):
             x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
             s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
                   if init else None)
-            y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+            route = ops.route(x.dtype)
+            y, st = on_route(ops.KERNELS, route, lambda: ops.ssd_cuda(
+                x, dt, A, Bm, Cm, chunk, s0))
             yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
             torch.cuda.synchronize()
             err_y = max_err(y, yr, dtype)
             err_s = max_err(st, sr, dtype)
             case = dict(shape=[B, L, H, 64, N], chunk=chunk, dtype=dtype,
-                        initial_state=init, max_abs_err_y=err_y,
+                        route=route, initial_state=init, max_abs_err_y=err_y,
                         max_abs_err_state=err_s)
             if init:
                 # the check sees a kernel that drops the carried state only
@@ -392,45 +410,59 @@ def check_ssd(gen, device):
                          f"cannot see the carried state")
             cases.append(case)
             log("kernels", f"ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk} "
-                f"{dtype} initial_state={init}: max_abs_err y {err_y:.3e}, "
-                f"final_state {err_s:.3e}" + (
+                f"{dtype} initial_state={init} [{route}]: max_abs_err y "
+                f"{err_y:.3e}, final_state {err_s:.3e}" + (
                     f"; the initial state moves y by "
                     f"{case['initial_state_reach_y']:.3e} and the final "
                     f"state by {case['initial_state_reach_state']:.3e}"
                     if init else ""))
             del x, dt, Bm, Cm, y, st, yr, sr
 
-    # the serving path's shape, timed
+    # the serving path's shape, timed on each route
     B, L = 8, 1024
-    x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, "bfloat16")
-    y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk)
-    yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk)
-    err = max(max_err(y, yr, "bfloat16"), max_err(st, sr, "bfloat16"))
-    del yr, sr
-    ms = time_ms(lambda: ops.ssd_cuda(x, dt, A, Bm, Cm, chunk), 10)
-    plain_ms = time_ms(lambda: ops.ssd_ref(x, dt, A, Bm, Cm, chunk), 3, 1)
     flops = ssd_work_flops(B, L, H, 64, N, chunk)
-    nbytes = ((2 * x.numel() + 2 * Bm.numel()) * x.element_size()
-              + 4 * (dt.numel() + A.numel() + st.numel()))
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    summary = dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/kernel.py:53",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, shape=[B, L, H, 64, N], chunk=chunk,
-        dtype="bfloat16", flops=flops, bytes=nbytes)
-    log("kernels", f"ssd_scan timed at B{B} L{L} H{H} P64 N{N} chunk {chunk} "
-        f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}, no library call, bound "
-        f"{summary['bound_ms']:.4f} by {summary['bound_by']}: "
-        f"{flops:.3e} flops = {t_ops:.4f} ms, {nbytes:.3e} bytes = "
-        f"{t_bytes:.4f} ms)")
-    del x, dt, Bm, Cm, y, st
-    torch.cuda.empty_cache()
-    return summary, cases
+    summaries = {}
+    for dtype in ("bfloat16", "float32"):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+        route = ops.route(x.dtype)
+        y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk)
+        yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk)
+        err = max(max_err(y, yr, dtype), max_err(st, sr, dtype))
+        del yr, sr
+        ms = time_ms(lambda: ops.ssd_cuda(x, dt, A, Bm, Cm, chunk), 20)
+        plain_ms = time_ms(lambda: ops.ssd_ref(x, dt, A, Bm, Cm, chunk), 3, 1)
+        nbytes = ((2 * x.numel() + 2 * Bm.numel()) * x.element_size()
+                  + 4 * (dt.numel() + A.numel() + st.numel()))
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        summaries[route] = summary = dict(
+            name="ssd_scan" if route == "wgmma" else "ssd_scan_fp32",
+            route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:53",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, library_call=None, shape=[B, L, H, 64, N],
+            chunk=chunk, dtype=dtype, flops=flops, bytes=nbytes)
+        log("kernels", f"ssd_scan [{route}] timed at B{B} L{L} H{H} P64 N{N} "
+            f"chunk {chunk} {dtype}: {ms:.4f} ms (plain {plain_ms:.4f}, no "
+            f"library call, bound {summary['bound_ms']:.4f} by "
+            f"{summary['bound_by']}: {flops:.3e} flops = {t_ops:.4f} ms at "
+            f"the {'bf16 tensor-core' if route == 'wgmma' else 'fp32'} "
+            f"peak, {nbytes:.3e} bytes = {t_bytes:.4f} ms)")
+        del x, dt, Bm, Cm, y, st
+        torch.cuda.empty_cache()
+    tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
+    tc["fp32_route_factor"] = summaries["fp32"]["ms"] / tc["ms"]
+    fp32 = summaries["fp32"]
+    fp32["ptxas"] = ptxas_usage(ops.KERNELS["fp32"].build_log)
+    log("kernels", f"ssd_scan [fp32] ptxas: " + ", ".join(
+        f"{u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} bytes spilled" for u in fp32["ptxas"])
+        + f"; the wgmma route is {tc['fp32_route_factor']:.1f}x faster")
+    return tc, fp32, cases
 
 
 # the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
@@ -560,12 +592,21 @@ def check_ring_combine(gen, device):
     from repro_torch.kernels.ring_reduce import ops
 
     cases = []
-    for (C, block) in [(4096, 512), (2048, 1024), (1024, 1024),
-                       (RING_CHUNK, 1024)]:
+    # the JAX cases, the ring's chunk, the odd bucket's padded chunk, a
+    # block that is not a multiple of 16 bytes and inputs that do not start
+    # on 16 bytes (both one element an access)
+    for (C, block, offset) in [(4096, 512, 0), (2048, 1024, 0),
+                               (1024, 1024, 0), (RING_CHUNK, 1024, 0),
+                               (RING_ODD_CHUNK, 1024, 0), (3 * 1022, 1022, 0),
+                               (8192, 1024, 1)]:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            acc = torch.randn(C, generator=gen, device=device).to(dt)
-            inc = torch.randn(C, generator=gen, device=device).to(dt)
+            acc = torch.randn(C + offset, generator=gen,
+                              device=device).to(dt)[offset:]
+            inc = torch.randn(C + offset, generator=gen,
+                              device=device).to(dt)[offset:]
+            vec = ops.combine_vec(block, acc.element_size(), acc.data_ptr(),
+                                  inc.data_ptr())
             out, prog = ops.ring_combine_cuda(acc, inc, block)
             torch.cuda.synchronize()
             want = ops.combine_ref(acc, inc)
@@ -576,9 +617,11 @@ def check_ring_combine(gen, device):
             if not torch.equal(prog, ops.progress_ref(C, block)):
                 fail(f"ring_combine C{C} block {block} {dtype}: progress "
                      f"{prog[:8].tolist()}... != 1..{C // block}")
-            cases.append(dict(C=C, block=block, dtype=dtype, bitwise=True))
-            log("kernels", f"ring_combine C{C} block {block} {dtype}: bitwise "
-                f"equal, progress 1..{C // block}")
+            cases.append(dict(C=C, block=block, dtype=dtype, vec=vec,
+                              bitwise=True))
+            log("kernels", f"ring_combine C{C} block {block} {dtype}, "
+                f"{vec} element(s) an access: bitwise equal, progress "
+                f"1..{C // block}")
 
     # the collective's counters: step s's combine writes row s of one
     # pinned buffer (parallel/collectives.combine_counters), through a
@@ -906,7 +949,10 @@ def path_kernels(arch: str) -> dict:
                                        lambda L, new: 2 * L * (1 + new))}
     if arch == "mamba2-780m":   # scan per layer at prefill; 1 norm/layer
         return {
-            "ssd_scan": ("ssd_scan", None, ssd.KERNEL, lambda L, new: L),
+            "ssd_scan[wgmma]": ("ssd_scan", "wgmma", ssd.KERNELS["wgmma"],
+                                lambda L, new: L),
+            "ssd_scan[fp32]": ("ssd_scan", "fp32", ssd.KERNELS["fp32"],
+                               lambda L, new: 0),
             "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
                                        fn.KERNEL,
                                        lambda L, new: L * (1 + new))}
@@ -1063,9 +1109,12 @@ def agreement(arch: str, seed: int, S: int):
     launches = {label: k.launches - n0[label]
                 for label, (_, k) in kernels.items()}
     if any((n > 0) == (kernels[label][0] == "wgmma")
-           for label, n in launches.items()):
+           for label, n in launches.items()) or any(
+               n != cfg.num_layers for label, n in launches.items()
+               if kernels[label][0] == "fp32"):
         fail(f"{arch}: the fp32 agreement run launched {launches}: every "
-             f"fp32 kernel of the path, and no tensor-core one, should run")
+             f"fp32 kernel of the path (an fp32 route once per layer), and "
+             f"no tensor-core one, should run")
     want = cpu.prefill(t, cpu.init_cache(1, S))
     diff = (got - want).abs()
     err = float(diff.max())
@@ -1177,7 +1226,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    all_kernels = (*fa.KERNELS.values(), fn.KERNEL, ssd.KERNEL,
+    all_kernels = (*fa.KERNELS.values(), fn.KERNEL, *ssd.KERNELS.values(),
                    *mm.KERNELS.values(), ring.KERNEL)
     build_all(list(all_kernels))
     log("build", f"built {', '.join(k.source for k in all_kernels)} for "
@@ -1186,18 +1235,21 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
-    # the tensor-core routes hold wgmma (HGMMA) in their SASS (the kernels
-    # phase fails if not); the fp32 routes run on the FP32 pipes
-    for mod in (fa, mm):
+    # the tensor-core routes hold wgmma (HGMMA) in their SASS, the fp32
+    # routes no tensor-core instruction at all: they run on the FP32 pipes
+    for mod in (fa, ssd, mm):
         for route, k in mod.KERNELS.items():
-            n = sass_hgmma(k)
-            log("build", f"{k.source} [{route}]: {n} HGMMA in the SASS")
+            n = sass_mma(k)
+            log("build", f"{k.source} [{route}]: {n['HGMMA']} HGMMA, "
+                f"{n['HMMA']} HMMA in the SASS")
+            if (route == "fp32") == bool(n["HGMMA"] or n["HMMA"]):
+                fail(f"{k.source} [{route}]: {n} tensor-core instructions")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash, flash_fp32, flash_cases = check_flash(gen, "cuda")
     fused, fused_rows, fused_cases = check_fused(gen, "cuda")
-    scan, ssd_cases = check_ssd(gen, "cuda")
+    scan, scan_fp32, ssd_cases = check_ssd(gen, "cuda")
     matmul, matmul_fp32, matmul_cases = check_padded_matmul(gen, "cuda")
     combine, combine_cases = check_ring_combine(gen, "cuda")
 
@@ -1226,13 +1278,16 @@ def main():
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     for summary, label in ((flash, "flash_attention[wgmma]"),
                            (fused, "fused_residual_rmsnorm"),
-                           (scan, "ssd_scan")):
+                           (scan, "ssd_scan[wgmma]")):
         per = {arch: n[label] for arch, n in by_path.items() if label in n}
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
-    n = fp32_launches["llama3.2-1b"]["flash_attention[fp32]"]
-    flash_fp32["launches"] = n
-    flash_fp32["launches_by_path"] = {"llama3.2-1b fp32 prefill": n}
+    for summary, arch, label in (
+            (flash_fp32, "llama3.2-1b", "flash_attention[fp32]"),
+            (scan_fp32, "mamba2-780m", "ssd_scan[fp32]")):
+        n = fp32_launches[arch][label]
+        summary["launches"] = n
+        summary["launches_by_path"] = {f"{arch} fp32 prefill": n}
     for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
                                   (matmul_fp32, "float32", "fp32")):
         n = case2[dtype]["launches"][route]
@@ -1252,8 +1307,8 @@ def main():
                    fp32_prefill_launches=fp32_launches, serve=runs,
                    trace=traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, matmul,
-                                  matmul_fp32, combine]}), flush=True)
+    print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, scan_fp32,
+                                  matmul, matmul_fp32, combine]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

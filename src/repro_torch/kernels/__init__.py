@@ -9,7 +9,9 @@ version and the FLARE registration):
                     on the FP32 pipes (``flash_attention.cu``)
   fused_norm      — residual add + RMSNorm
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
-                    (prefill)
+                    (prefill): bf16 on the tensor cores
+                    (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes
+                    (``ssd_scan.cu``)
   padded_matmul   — the Case-2 matmul: bf16 on the tensor cores
                     (``padded_matmul_wgmma.cu``), fp32 on the FP32 pipes
                     (``padded_matmul.cu``)

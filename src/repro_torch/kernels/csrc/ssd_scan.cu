@@ -1,29 +1,30 @@
-// Mamba2 chunked SSD scan forward for Hopper (sm_90a).
+// Mamba2 chunked SSD scan forward in fp32 on the FP32 pipes (sm_90a): the
+// fp32 route of the port's SSD scan.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py
 // (ssd_scan_fwd, body _ssd_kernel), and with it, on the prefill path, the
-// model's ssd_chunked (src/repro/models/mamba2.py).  For one (batch b,
+// model's ssd_chunked (src/repro/models/mamba2.py), for fp32 inputs (bf16
+// inputs take ssd_scan_wgmma.cu, on the tensor cores).  For one (batch b,
 // head h), with chunks of Q rows and the within-chunk inclusive cumulative
 // decay cum_t = sum_{r <= t} dt_r * A:
 //   y_t  = sum_{s <= t} (C_t . B_s) exp(cum_t - cum_s) dt_s x_s   (intra)
 //        + exp(cum_t) C_t . S                                     (inter)
 //   S   <- exp(cum_last) S + sum_s x_s (exp(cum_last - cum_s) dt_s) B_s
-// x [B,L,H,P], dt [B,L,H] fp32, A [H] fp32, Bm/Cm [B,L,N] (x's dtype);
-// y [B,L,H,P] in x's dtype; the state S is [P,N] per (b, h) and leaves as
+// x [B,L,H,P], dt [B,L,H], A [H], Bm/Cm [B,L,N], all fp32; y [B,L,H,P]
+// fp32; the state S is [P,N] per (b, h) and leaves as
 // final_state [B,H,P,N] fp32, the model's layout (the TPU kernel keeps
 // [N,P] and returns nothing).  An optional initial_state [B,H,P,N] seeds S.
 //
-// Bound on an H100: bytes.  At the serving shape (B 8, L 1024, H 48,
-// P 64, N 128, chunk 256) the traffic is ~119 MB (x, y, Bm, Cm, dt,
-// state), ~36 us at the HBM rate.  The work is ~2.0e10 flops: C.B^T once
-// per (b, chunk), since Bm and Cm do not depend on the head, and only the
-// causal halves of the Q x Q products; that is ~20 us at the bf16
-// tensor-core peak.  (The JAX _meta formula, which the trace keeps, counts
-// C.B^T per head and whole: ~5.2e10.)
+// Bound on an H100 in fp32: operations.  At the serving shape (B 8,
+// L 1024, H 48, P 64, N 128, chunk 256) the work is ~2.0e10 flops (C.B^T
+// once per (b, chunk), since Bm and Cm do not depend on the head, and only
+// the causal halves of the Q x Q products), ~0.29 ms at the 67 TFLOP/s of
+// the FP32 pipes; the traffic is ~224 MB (x, y, Bm, Cm, dt, state),
+// ~67 us at the HBM rate.  (The JAX _meta formula, which the trace keeps,
+// counts C.B^T per head and whole: ~5.2e10.)
 //
-// This first version runs on the FP32 pipes, not the tensor cores, so it
-// sits well above that bound; mma.sync/wgmma, TMA, and one load of Bm/Cm
-// shared across the heads of a batch row are later work.  Design:
+// It runs on the FP32 pipes, not the tensor cores, so that an fp32 result
+// is held to a full-fp32 reference and not to TF32.  Design:
 //   * one block of 256 threads per (b, h); blocks run in any order, so the
 //     TPU grid's sequential chunk axis becomes a loop inside the block;
 //   * the [P,N] fp32 state (32 KB at P 64, N 128) stays in shared memory
@@ -91,14 +92,14 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 
 // Rows [0, valid) of a [*, N] matrix (row stride N) into dst[64][N + 4] as
 // fp32; rows >= valid are zero.
-template <typename T, int N>
-__device__ __forceinline__ void load_rows(const T* src, int valid, float* dst) {
+template <int N>
+__device__ __forceinline__ void load_rows(const float* src, int valid, float* dst) {
   constexpr int C4 = N / 4;
   for (int i = threadIdx.x; i < kTile * C4; i += kThreads) {
     const int r = i / C4;
     const int c4 = i % C4;
     const float4 v = r < valid
-                         ? flare::Pack4<T>::load(src + static_cast<size_t>(r) * N + 4 * c4)
+                         ? flare::Pack4<float>::load(src + static_cast<size_t>(r) * N + 4 * c4)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * (N + 4) + 4 * c4) = v;
   }
@@ -107,13 +108,12 @@ __device__ __forceinline__ void load_rows(const T* src, int valid, float* dst) {
 // Rows [0, valid) of x (row stride `stride`, P = 64 columns) transposed into
 // dst[P][kRowT] as fp32; rows >= valid are zero.  Neighbouring threads take
 // neighbouring rows, so the transposed stores are conflict-free.
-template <typename T>
-__device__ __forceinline__ void load_x_t(const T* src, size_t stride, int valid,
+__device__ __forceinline__ void load_x_t(const float* src, size_t stride, int valid,
                                          float* dst) {
   for (int i = threadIdx.x; i < kTile * (kP / 4); i += kThreads) {
     const int r = i % kTile;
     const int g = i / kTile;
-    const float4 v = r < valid ? flare::Pack4<T>::load(src + r * stride + 4 * g)
+    const float4 v = r < valid ? flare::Pack4<float>::load(src + r * stride + 4 * g)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
     dst[(4 * g + 0) * kRowT + r] = v.x;
     dst[(4 * g + 1) * kRowT + r] = v.y;
@@ -122,12 +122,12 @@ __device__ __forceinline__ void load_x_t(const T* src, size_t stride, int valid,
   }
 }
 
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, const float* __restrict__ init,
-                    T* __restrict__ y, float* __restrict__ final_state, int L,
+ssd_scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ init,
+                    float* __restrict__ y, float* __restrict__ final_state, int L,
                     int H, int chunk) {
   using Lay = Layout<N>;
   constexpr int kRowN = Lay::kRowN;
@@ -154,11 +154,11 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const size_t xrow = static_cast<size_t>(H) * kP;  // x/y stride per position
   const size_t xoff = static_cast<size_t>(b) * L * xrow + static_cast<size_t>(h) * kP;
-  const T* xb = x + xoff;
-  T* yb = y + xoff;
+  const float* xb = x + xoff;
+  float* yb = y + xoff;
   const float* dtb = dt + static_cast<size_t>(b) * L * H + h;  // stride H
-  const T* Bb = Bm + static_cast<size_t>(b) * L * N;
-  const T* Cb = Cm + static_cast<size_t>(b) * L * N;
+  const float* Bb = Bm + static_cast<size_t>(b) * L * N;
+  const float* Cb = Cm + static_cast<size_t>(b) * L * N;
   const size_t st_off = (static_cast<size_t>(b) * H + h) * kP * N;
 
   for (int i = tid; i < kP * N; i += kThreads)
@@ -199,7 +199,7 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int tr0 = t0 + ti * kTile;
       const int tvalid = min(kTile, L - tr0);
       __syncthreads();  // every thread is done with cs, bs, xs, gs
-      load_rows<T, N>(Cb + static_cast<size_t>(tr0) * N, tvalid, cs);
+      load_rows<N>(Cb + static_cast<size_t>(tr0) * N, tvalid, cs);
       __syncthreads();
 
       // inter-chunk term: exp(cum_t) * C_t . S_p from the chunk-start state
@@ -232,8 +232,8 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int sr0 = t0 + sj * kTile;
         const int svalid = min(kTile, L - sr0);
         __syncthreads();  // the previous s tile's bs, xs, gs are consumed
-        load_rows<T, N>(Bb + static_cast<size_t>(sr0) * N, svalid, bs);
-        load_x_t<T>(xb + sr0 * xrow, xrow, svalid, xs);
+        load_rows<N>(Bb + static_cast<size_t>(sr0) * N, svalid, bs);
+        load_x_t(xb + sr0 * xrow, xrow, svalid, xs);
         __syncthreads();
 
         float g[4][4];
@@ -286,9 +286,9 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
         if (r < tvalid) {
-          T* yr = yb + static_cast<size_t>(tr0 + r) * xrow;
+          float* yr = yb + static_cast<size_t>(tr0 + r) * xrow;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) yr[tx + 16 * j] = flare::from_float<T>(acc[i][j]);
+          for (int j = 0; j < 4; ++j) yr[tx + 16 * j] = acc[i][j];
         }
       }
     }
@@ -308,8 +308,8 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int sr0 = t0 + sj * kTile;
       const int svalid = min(kTile, L - sr0);
       __syncthreads();
-      load_rows<T, N>(Bb + static_cast<size_t>(sr0) * N, svalid, bs);
-      load_x_t<T>(xb + sr0 * xrow, xrow, svalid, xs);
+      load_rows<N>(Bb + static_cast<size_t>(sr0) * N, svalid, bs);
+      load_x_t(xb + sr0 * xrow, xrow, svalid, xs);
       if (tid < kTile) {
         const int sl = sj * kTile + tid;
         ws[tid] = expf(static_cast<float>(cl - cum[sl])) * dts[sl];
@@ -342,56 +342,48 @@ ssd_scan_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     final_state[st_off + i] = ss[(i / N) * kRowN + i % N];
 }
 
-template <typename T, int N>
+template <int N>
 int launch_typed(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, const void* init, void* y, void* final_state,
                  int B, int L, int H, int chunk, cudaStream_t stream) {
   const int smem = Layout<N>::total * static_cast<int>(sizeof(float));
-  auto kernel = ssd_scan_fwd_kernel<T, N>;
+  auto kernel = ssd_scan_fwd_kernel<N>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(init),
-      static_cast<T*>(y), static_cast<float*>(final_state), L, H, chunk);
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(init),
+      static_cast<float*>(y), static_cast<float*>(final_state), L, H, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* init, void* y, void* final_state,
              int B, int L, int H, int N, int chunk, cudaStream_t stream) {
   if (N == 128)
-    return launch_typed<T, 128>(x, dt, A, Bm, Cm, init, y, final_state, B, L,
-                                H, chunk, stream);
+    return launch_typed<128>(x, dt, A, Bm, Cm, init, y, final_state, B,
+                                    L, H, chunk, stream);
   if (N == 64)
-    return launch_typed<T, 64>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H,
-                               chunk, stream);
+    return launch_typed<64>(x, dt, A, Bm, Cm, init, y, final_state, B,
+                                   L, H, chunk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x, y: [B,L,H,P]; Bm, Cm: [B,L,N] in `dtype`; dt: [B,L,H], A: [H],
-// init (may be null) and final_state: [B,H,P,N], all float32.  All
-// contiguous and 16-byte aligned.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// x, y: [B,L,H,P]; Bm, Cm: [B,L,N]; dt: [B,L,H], A: [H], init (may be null)
+// and final_state: [B,H,P,N]; all float32, contiguous and 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int ssd_scan_fwd_launch(const void* x, const void* dt, const void* A,
                                    const void* Bm, const void* Cm,
                                    const void* init, void* y, void* final_state,
                                    int B, int L, int H, int P, int N, int chunk,
-                                   int dtype, void* stream) {
+                                   void* stream) {
   if (B == 0 || H == 0) return 0;
   if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk || L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FLARE_F32)
-    return launch_n<float>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H, N,
-                           chunk, s);
-  if (dtype == FLARE_BF16)
-    return launch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, init, y, final_state, B,
-                                   L, H, N, chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_n(x, dt, A, Bm, Cm, init, y, final_state, B, L, H, N, chunk,
+                  static_cast<cudaStream_t>(stream));
 }

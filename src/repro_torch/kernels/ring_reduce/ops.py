@@ -6,7 +6,11 @@ Replaces the TPU kernel ``src/repro/kernels/ring_reduce/kernel.py``
 blocks, with ``progress[i] = i + 1`` once block ``i`` has combined, the
 counters FLARE reads out of a hung collective (paper §5.1, Fig 6).  Bound
 on an H100: memory, ``3·C·itemsize`` bytes.  The kernel
-(``csrc/ring_combine.cu``) is one pass with 16-byte accesses.
+(``csrc/ring_combine.cu``) gives whole ring blocks to warps, one wave of
+CUDA blocks walking them in a grid stride (``combine_grid``,
+``worker_ring_blocks``), each lane issuing all its loads of a ring block
+before its stores (``lane_elements``), 16 bytes an access where the
+pointers and the block allow (``combine_vec``).
 
 ``progress`` always lives in host memory.  On a CUDA tensor it is a
 pinned (page-locked) CPU tensor that the kernel writes through its device
@@ -24,6 +28,7 @@ completed.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections import deque
 
@@ -33,7 +38,12 @@ from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
 
 KERNEL = CudaKernel(
     "ring_combine.cu", "ring_combine_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# the kernel's CUDA block (4 warps; __launch_bounds__ keeps 4 of them
+# resident on an SM) and the elements a warp loads before it stores
+WARPS_PER_CTA = 4
+CTAS_PER_SM = 4
+WARP_STEP = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (event after the launch, its pinned counters), oldest first
 _IN_FLIGHT: deque = deque()
@@ -69,6 +79,47 @@ def _blocks(acc, incoming, block: int) -> tuple[int, int]:
         raise ValueError(f"ring_combine: C {C} is not a multiple of block "
                          f"{block}")
     return block, C // block
+
+
+def combine_vec(block: int, itemsize: int, *ptrs: int) -> int:
+    """Elements per access: 16 bytes' worth when every pointer is 16-byte
+    aligned and ``block`` is a multiple of it, else 1."""
+    vec = 16 // itemsize
+    if block % vec or any(p % 16 for p in ptrs):
+        return 1
+    return vec
+
+
+def combine_grid(n_blocks: int, sms: int) -> int:
+    """CUDA blocks for ``n_blocks`` ring blocks: one warp a ring block, at
+    most one wave of resident blocks (``CTAS_PER_SM`` on each of ``sms``
+    SMs), whose warps then walk the rest in a grid stride."""
+    return max(1, min(-(-n_blocks // WARPS_PER_CTA), CTAS_PER_SM * sms))
+
+
+def worker_ring_blocks(worker: int, n_blocks: int, grid: int) -> range:
+    """The ring blocks that warp ``worker`` of a ``grid``-block launch
+    combines, in the order it combines them (and stores their counters)."""
+    return range(worker, n_blocks, grid * WARPS_PER_CTA)
+
+
+def lane_elements(lane: int, block: int, vec: int) -> list[int]:
+    """The offsets in a ring block that ``lane`` of its warp combines, in
+    its order: ``WARP_STEP`` elements a warp at a time, each lane's ``vec``
+    elements at ``(u·32 + lane)·vec`` of a step; within a step every load
+    comes before the first store."""
+    out = []
+    for i0 in range(0, block, WARP_STEP):
+        for u in range(WARP_STEP // (32 * vec)):
+            i = i0 + (u * 32 + lane) * vec
+            if i < block:
+                out.extend(range(i, i + vec))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def combine_ref(acc, incoming):
@@ -111,8 +162,12 @@ def ring_combine_cuda(acc, incoming, block=1024, progress=None):
         raise ValueError("ring_combine kernel takes contiguous acc/incoming")
     progress = _counters(progress, n_blocks, pinned=True)
     out = torch.empty_like(acc)
+    vec = combine_vec(block, acc.element_size(), acc.data_ptr(),
+                      incoming.data_ptr(), out.data_ptr())
+    grid = combine_grid(n_blocks, _sm_count(acc.device.index))
     KERNEL.launch(ptr(acc), ptr(incoming), ptr(out), ptr(progress), n_blocks,
-                  block, _DTYPE_CODE[acc.dtype], stream_ptr(acc.device))
+                  block, _DTYPE_CODE[acc.dtype], vec, grid,
+                  stream_ptr(acc.device))
     _hold_until_done(progress, torch.cuda.current_stream(acc.device))
     return out, progress
 

@@ -1,4 +1,4 @@
-"""Mamba2 chunked SSD scan: CUDA kernel wrapper, plain version, tracing.
+"""Mamba2 chunked SSD scan: CUDA kernel wrappers, plain version, tracing.
 
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan/kernel.py``
 (``ssd_scan_fwd``) and, on the prefill path, the model's ``ssd_chunked``:
@@ -7,10 +7,19 @@ state (``[B,H,P,N]`` fp32, the model's layout), which prefill hands to
 decode.  With ``initial_state=None`` its ``y`` is what ``ssd_scan_fwd``
 computes.  Bound on an H100: bytes at the serving shape (the work it
 needs is less than the JAX ``_meta`` flops, which count C·Bᵀ per head and
-whole).  The kernel (``csrc/ssd_scan.cu``) runs one block per
-(batch, head) that walks the chunks in order with the ``[P,N]`` state in
-shared memory, on the FP32 pipes; it masks the ragged last chunk, so any
-L is taken.
+whole).  Two hand-written kernels, one route per dtype (``route``), each a
+block per (batch, head) that walks the chunks in order and masks the
+ragged last chunk, so any L is taken:
+  * bf16 -> ``csrc/ssd_scan_wgmma.cu``: all four products on the tensor
+    cores by wgmma (bf16 operands, fp32 accumulators), tiles by TMA, the
+    ``[P,N]`` fp32 state in the accumulator registers; the scores, the
+    scaled ``w∘x`` and the chunk-start state are rounded to bf16 as
+    operands;
+  * fp32 -> ``csrc/ssd_scan.cu``: the state in shared memory and every
+    product on the FP32 pipes, so that the fp32 result is held to a
+    full-fp32 reference and not to TF32.
+Both sum the cumulative decay in fp64.  Each route counts its own
+launches.  A bf16 call never takes the FP32 pipes.
 """
 from __future__ import annotations
 
@@ -22,16 +31,18 @@ from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
 
 HEAD_DIMS = (64,)
 STATE_DIMS = (64, 128)
-TILE = 64          # the kernel's row tile; a chunk is 1 to 4 tiles
+TILE = 64          # the kernels' row tile; a chunk is 1 to 4 tiles
 
-KERNEL = CudaKernel(
-    "ssd_scan.cu", "ssd_scan_fwd_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+KERNELS = {
+    "wgmma": CudaKernel("ssd_scan_wgmma.cu", "ssd_scan_wgmma_launch", _ARGS),
+    "fp32": CudaKernel("ssd_scan.cu", "ssd_scan_fwd_launch", _ARGS),
+}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
 
 
 def kernel_takes(P: int, N: int, chunk: int) -> bool:
-    """Whether the CUDA kernel has an instance for head_dim ``P``, state
+    """Whether the CUDA kernels have an instance for head_dim ``P``, state
     ``N`` and ``chunk``; the wrapper raises on anything else."""
     return (P in HEAD_DIMS and N in STATE_DIMS and chunk % TILE == 0
             and TILE <= chunk <= 4 * TILE)
@@ -104,8 +115,19 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     return y.to(x.dtype), S
 
 
-def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
-    """Launch the CUDA kernel; raises on anything it does not take."""
+def route(dtype) -> str:
+    """The kernel that a CUDA call with x in ``dtype`` launches, by dtype
+    alone: bf16 -> "wgmma" (tensor cores), fp32 -> "fp32" (FP32 pipes)."""
+    if dtype not in ROUTES:
+        raise TypeError(f"ssd_scan kernels take float32 or bfloat16 x/Bm/Cm, "
+                        f"not {dtype}")
+    return ROUTES[dtype]
+
+
+def check_operands(x, dt, A, Bm, Cm, chunk=256, initial_state=None) -> str:
+    """Everything the kernels need of their operands but the device:
+    shapes, instances, dtypes, contiguity, alignment.  Returns the
+    route."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3:
         raise ValueError(f"ssd_scan wants x [B,L,H,P], dt [B,L,H], A [H], "
                          f"Bm/Cm [B,L,N]; got {tuple(x.shape)}, "
@@ -119,15 +141,15 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
                          f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                          f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if not kernel_takes(P, N, chunk):
-        raise ValueError(f"ssd_scan kernel takes head_dim {HEAD_DIMS}, state "
+        raise ValueError(f"ssd_scan kernels take head_dim {HEAD_DIMS}, state "
                          f"{STATE_DIMS} and chunk 64, 128, 192 or 256, not "
                          f"P {P}, N {N}, chunk {chunk}")
-    if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x/Bm/Cm "
-                        f"of one dtype; got {x.dtype}, {Bm.dtype}, "
-                        f"{Cm.dtype}")
+    r = route(x.dtype)
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernels take x/Bm/Cm of one dtype; got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"ssd_scan kernel takes float32 dt and A; got "
+        raise TypeError(f"ssd_scan kernels take float32 dt and A; got "
                         f"{dt.dtype}, {A.dtype}")
     tensors = [x, dt, A, Bm, Cm]
     if initial_state is not None:
@@ -142,14 +164,26 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
         raise ValueError("ssd_scan: tensors on different devices")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("ssd_scan kernel takes contiguous, "
+            raise ValueError("ssd_scan kernels take contiguous, "
                              "16-byte-aligned tensors")
+    return r
+
+
+def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
+    """Launch the kernel of x's dtype; raises on anything it does not
+    take."""
+    r = check_operands(x, dt, A, Bm, Cm, chunk, initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan kernels take CUDA tensors, not "
+                         f"{x.device}")
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     init = None if initial_state is None else ptr(initial_state)
-    KERNEL.launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init, ptr(y),
-                  ptr(state), B, L, H, P, N, chunk, _DTYPE_CODE[x.dtype],
-                  stream_ptr(x.device))
+    KERNELS[r].launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init,
+                      ptr(y), ptr(state), B, L, H, P, N, chunk,
+                      stream_ptr(x.device))
     return y, state
 
 

@@ -38,7 +38,11 @@ from repro.kernels.ring_reduce.ops import ring_combine as jax_ring_combine
 from repro.kernels.ring_reduce.ref import progress_ref as jax_progress_ref
 from repro.parallel.collectives import dequantize_int8 as jax_dequantize_int8
 from repro.parallel.collectives import quantize_int8 as jax_quantize_int8
-from repro_torch.kernels.ring_reduce.ops import _meta, ring_combine
+from repro_torch.kernels.ring_reduce.ops import (CTAS_PER_SM, WARPS_PER_CTA,
+                                                 _meta, combine_grid,
+                                                 combine_vec, lane_elements,
+                                                 ring_combine,
+                                                 worker_ring_blocks)
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.parallel.collectives import (COMBINE_BLOCK, combine_counters,
                                               dequantize_int8, quantize_int8)
@@ -86,6 +90,58 @@ def test_ring_combine_writes_the_callers_counters(rng):
     np.testing.assert_array_equal(counters.numpy(), [[0] * 4, [1, 2, 3, 4]])
     with pytest.raises(ValueError, match="progress must be"):
         ring_combine(x, x, block=1024, progress=counters[:, 0])
+
+
+# (C, block, itemsize): the ring's chunk of a 25 MB fp32 bucket, the odd
+# bucket's chunk padded to 1601 blocks (fp32 and bf16), a block that is not
+# a multiple of the 16-byte access, a block above the warp's 1024-element
+# step, and the JAX cases' smaller blocks
+SCHEDULES = [(1638400, 1024, 4), (1601 * 1024, 1024, 4),
+             (1601 * 1024, 1024, 2), (3 * 1022, 1022, 4), (3 * 1022, 1022, 2),
+             (4 * 2048, 2048, 4), (4096, 512, 2), (1024, 1024, 4)]
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("C,block,itemsize", SCHEDULES)
+def test_combine_schedule_covers_every_ring_block_once(C, block, itemsize,
+                                                       sms):
+    """The kernel's grid (``combine_grid``) is at most one wave, its warps
+    take every ring block exactly once, each in increasing order (so each
+    warp's counters rise in order), and a warp's lanes cover every element
+    of a ring block exactly once."""
+    n = C // block
+    grid = combine_grid(n, sms)
+    assert 1 <= grid <= CTAS_PER_SM * sms
+    assert grid * WARPS_PER_CTA >= min(n, CTAS_PER_SM * sms * WARPS_PER_CTA)
+    seen = []
+    for w in range(grid * WARPS_PER_CTA):
+        mine = list(worker_ring_blocks(w, n, grid))
+        assert mine == sorted(mine)
+        seen += mine
+    assert sorted(seen) == list(range(n))
+    vec = combine_vec(block, itemsize, 0, 16, 4096)
+    assert vec == (16 // itemsize if block % (16 // itemsize) == 0 else 1)
+    lanes = [lane_elements(lane, block, vec) for lane in range(32)]
+    assert sorted(e for lane in lanes for e in lane) == list(range(block))
+
+
+def test_combine_one_warp_a_ring_block_at_the_rings_chunk():
+    """At the ring's chunk (1600 ring blocks) on 132 SMs the grid is one
+    wave in which each warp combines one ring block, with 16-byte accesses:
+    8 loads an input a lane (fp32), all before its first store."""
+    n = 1638400 // 1024
+    grid = combine_grid(n, 132)
+    assert grid == n // WARPS_PER_CTA <= CTAS_PER_SM * 132
+    assert all(len(worker_ring_blocks(w, n, grid)) == 1
+               for w in range(grid * WARPS_PER_CTA))
+    assert combine_vec(1024, 4, 0, 16, 32) == 4
+    assert len(lane_elements(0, 1024, 4)) == 8 * 4
+
+
+@pytest.mark.parametrize("ptrs", [(4, 0, 0), (0, 2, 0), (0, 0, 8)])
+def test_combine_vec_falls_back_on_unaligned_pointers(ptrs):
+    assert combine_vec(1024, 4, *ptrs) == 1
+    assert combine_vec(1024, 2, *ptrs) == 1
 
 
 @pytest.mark.parametrize("numel,blocks", [

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""The two tensor-core kernels of the port at more shapes than the smoke run.
+"""The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul]
 
-On one CUDA card: builds ``flash_attention_wgmma.cu`` and
-``padded_matmul_wgmma.cu``, prints their ptxas lines and the HGMMA count
-of their SASS, holds each against its plain version at a few shapes
-(bf16 5e-2; the matmul's atol at least 2e-3·√K), then times each at
-shapes beyond the serving path's (long sequences, hd 128, square
-matmuls) beside the one PyTorch call that computes the same function
-(SDPA with the KV heads expanded beforehand; ``torch.matmul``), in the
-order kernel, library, library, kernel.  Exits non-zero on a mismatch or
-without a card.  A short first call for a changed kernel: it builds in
-seconds and runs in under a minute.
+On one CUDA card: builds the tensor-core kernels (flash attention, the
+padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
+combine; prints their ptxas lines and the HGMMA / HMMA counts of their
+SASS; holds each against its plain version at a few shapes (bf16 5e-2,
+fp32 3e-4; the matmul's atol at least 2e-3·√K; the combine bitwise),
+then times each beside its yardstick, in turns (the order kernel,
+yardstick, yardstick, kernel, best of two each):
+  * flash attention against SDPA with the KV heads expanded beforehand,
+    at long sequences and hd 128; the matmul against ``torch.matmul``;
+  * the SSD scan's two routes against each other (bf16 on the tensor
+    cores, fp32 on the FP32 pipes) at L 1024 and 4096, B 8, H 48;
+  * the ring combine against ``torch.add`` at the ring's chunk, from
+    device memory (inputs cycled past the 50 MB L2) and in L2.
+Exits non-zero on a mismatch or without a card.  A short first call for a
+changed kernel: it builds in seconds and runs in about a minute.
 """
 from __future__ import annotations
 
+import argparse
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -29,107 +36,183 @@ FLASH_TIME = [(8, 1024, 32, 8, 64), (8, 4096, 32, 8, 64),
 MATMUL_CHECK = [(128, 128, 128), (64, 104, 96), (300, 1000, 520),
                 (4096, 8192, 8576)]
 MATMUL_TIME = [(4096, 8192, 8576), (4096, 4096, 4096), (8192, 8192, 8192)]
+# (B, L, H, N, chunk, initial state): the serving shape, ragged L, short L,
+# state 64 and the smaller chunks
+SSD_CHECK = [(8, 1024, 48, 128, 256, False), (2, 1000, 48, 128, 256, True),
+             (1, 320, 48, 128, 256, True), (2, 1, 8, 128, 256, True),
+             (2, 100, 8, 128, 256, False), (2, 700, 8, 128, 192, True),
+             (2, 300, 8, 64, 64, True), (1, 1000, 8, 64, 128, False)]
+SSD_TIME = [(8, 1024), (8, 4096)]
 
 
-def time_ms(fn, iters=30):
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def in_turns(kernel, library):
-    """Best of two each, timed kernel, library, library, kernel."""
-    k0, l0, l1, k1 = (time_ms(f) for f in (kernel, library, library, kernel))
+def in_turns(kernel, yardstick, iters=30, **kw):
+    """Best of two each, timed kernel, yardstick, yardstick, kernel."""
+    from chip_smoke import time_ms
+    k0, l0, l1, k1 = (time_ms(f, iters, **kw)
+                      for f in (kernel, yardstick, yardstick, kernel))
     return min(k0, k1), min(l0, l1)
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="ssd,combine,flash,matmul",
+                    help="comma-separated parts to run")
+    parts = set(ap.parse_args().only.split(","))
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _lib_path, build_all, find_nvcc
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (RING_CHUNK, RING_ODD_CHUNK, ptxas_usage, sass_mma,
+                            ssd_inputs, ssd_work_flops, time_ms)
+    from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.padded_matmul import ops as mm
+    from repro_torch.kernels.ring_reduce import ops as ring
+    from repro_torch.kernels.ssd_scan import ops as ssd
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    kernels = [fa.KERNELS["wgmma"], mm.KERNELS["wgmma"]]
+    kernels = {"flash": [fa.KERNELS["wgmma"]], "matmul": [mm.KERNELS["wgmma"]],
+               "ssd": list(ssd.KERNELS.values()), "combine": [ring.KERNEL]}
+    kernels = [k for part, ks in kernels.items() if part in parts for k in ks]
     build_all(kernels)
-    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     for k in kernels:
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "arning" in line:
+            if "arning" in line or "rror" in line:
                 print(f"[build] {k.source}: {line.strip()}")
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(_lib_path(k.source))], capture_output=True,
-                              text=True, check=True, timeout=120).stdout
-        print(f"[build] {k.source}: {sass.count('HGMMA')} HGMMA", flush=True)
+        for u in ptxas_usage(k.build_log):
+            print(f"[build] {k.source}: {u['function'][:60]}: "
+                  f"{u['registers']} registers, {u['spill_stores']}/"
+                  f"{u['spill_loads']} bytes spilled")
+        n = sass_mma(k)
+        print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
+              flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
     bad = 0
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    def close(got, want, atol):
+    def close(got, want, atol, rtol=5e-2):
         g, w = got.float(), want.float()
-        return bool(((g - w).abs() <= atol + 5e-2 * w.abs()).all()), float(
-            (g - w).abs().max())
+        ok = bool(((g - w).abs() <= atol + rtol * w.abs()).all()
+                  and g.isfinite().all())
+        return ok, float((g - w).abs().max())
 
-    for (B, S, H, KV, hd) in FLASH_CHECK:
-        for causal in (True, False):
-            q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
-            ok, err = close(fa.attention_cuda(q, k, v, causal),
-                            fa.attention_ref(q, k, v, causal), 5e-2)
+    if "ssd" in parts:
+        for (B, L, H, N, chunk, init) in SSD_CHECK:
+            for dtype in ("bfloat16", "float32"):
+                x, dt, A, Bm, Cm = ssd_inputs(gen, "cuda", B, L, H, N, dtype)
+                s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen,
+                                        device="cuda") if init else None)
+                y, st = ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+                yr, sr = ssd.ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
+                tol = 5e-2 if dtype == "bfloat16" else 3e-4
+                ok_y, err_y = close(y, yr, tol, tol)
+                ok_s, err_s = close(st, sr, tol, tol)
+                bad += not (ok_y and ok_s)
+                print(f"[check] ssd_scan [{ssd.route(x.dtype)}] B{B} L{L} H{H} "
+                      f"N{N} chunk {chunk} init={init}: max_abs_err y "
+                      f"{err_y:.3e}, state {err_s:.3e} "
+                      f"{'ok' if ok_y and ok_s else 'FAIL'}", flush=True)
+    if "combine" in parts:
+        for (C, block, offset) in [(4096, 512, 0), (RING_CHUNK, 1024, 0),
+                                   (RING_ODD_CHUNK, 1024, 0),
+                                   (3 * 1022, 1022, 0), (8192, 1024, 1)]:
+            for dtype in (torch.float32, bf):
+                a = randn(C + offset, dtype=dtype)[offset:]
+                b = randn(C + offset, dtype=dtype)[offset:]
+                out, prog = ring.ring_combine_cuda(a, b, block)
+                torch.cuda.synchronize()
+                ok = (torch.equal(out, a + b)
+                      and torch.equal(prog, ring.progress_ref(C, block)))
+                bad += not ok
+                print(f"[check] ring_combine C{C} block {block} {dtype} "
+                      f"offset {offset}: {'bitwise' if ok else 'FAIL'}",
+                      flush=True)
+    if "flash" in parts:
+        for (B, S, H, KV, hd) in FLASH_CHECK:
+            for causal in (True, False):
+                q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(
+                    B, S, KV, hd)
+                ok, err = close(fa.attention_cuda(q, k, v, causal),
+                                fa.attention_ref(q, k, v, causal), 5e-2)
+                bad += not ok
+                print(f"[check] flash B{B} S{S} H{H} KV{KV} hd{hd} "
+                      f"causal={causal}: max_abs_err {err:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+    if "matmul" in parts:
+        for (M, K, N) in MATMUL_CHECK:
+            a, b = randn(M, K), randn(K, N)
+            ok, err = close(mm.matmul_cuda(a, b), mm.matmul_ref(a, b),
+                            max(5e-2, 2e-3 * K ** 0.5))
             bad += not ok
-            print(f"[check] flash B{B} S{S} H{H} KV{KV} hd{hd} causal={causal}: "
-                  f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
-    for (M, K, N) in MATMUL_CHECK:
-        a, b = randn(M, K), randn(K, N)
-        ok, err = close(mm.matmul_cuda(a, b), mm.matmul_ref(a, b),
-                        max(5e-2, 2e-3 * K ** 0.5))
-        bad += not ok
-        print(f"[check] matmul M{M} K{K} N{N}: max_abs_err {err:.3e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+            print(f"[check] matmul M{M} K{K} N{N}: max_abs_err {err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
 
-    for (B, S, H, KV, hd) in FLASH_TIME:
-        for causal in (True, False):
-            q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
-            qt = q.transpose(1, 2).contiguous()
-            kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
-            vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
-            ms, lib = in_turns(
-                lambda: fa.attention_cuda(q, k, v, causal),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=causal))
-            pairs = S * (S + 1) / 2 if causal else S * S
-            flops = 4.0 * B * H * hd * pairs
-            print(f"[time] flash B{B} S{S} H{H} KV{KV} hd{hd} causal={causal}: "
-                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA "
-                  f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
-            del q, k, v, qt, kt, vt
-    for (M, K, N) in MATMUL_TIME:
-        a, b = randn(M, K), randn(K, N)
-        ms, lib = in_turns(lambda: mm.matmul_cuda(a, b), lambda: a @ b)
-        flops = 2.0 * M * K * N
-        print(f"[time] matmul M{M} K{K} N{N}: {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib:.4f} ms "
-              f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
-        del a, b
+    if "ssd" in parts:
+        H, N, chunk = 48, 128, 256
+        for (B, L) in SSD_TIME:
+            xb = ssd_inputs(gen, "cuda", B, L, H, N, "bfloat16")
+            xf = [t.float() for t in xb]
+            ms, fp32_ms = in_turns(lambda: ssd.ssd_cuda(*xb, chunk),
+                                   lambda: ssd.ssd_cuda(*xf, chunk), iters=10)
+            flops = ssd_work_flops(B, L, H, 64, N, chunk)
+            print(f"[time] ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk}: "
+                  f"wgmma (bf16) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+                  f"of the work), fp32 route {fp32_ms:.4f} ms "
+                  f"({flops / fp32_ms / 1e9:.1f}): {fp32_ms / ms:.1f}x",
+                  flush=True)
+            del xb, xf
+    if "combine" in parts:
+        C = RING_CHUNK
+        pairs = [(randn(C, dtype=torch.float32), randn(C, dtype=torch.float32))
+                 for _ in range(5)]
+        for label, pick in (
+                ("from device memory", lambda it=itertools.cycle(pairs): next(it)),
+                ("in L2", lambda: pairs[0])):
+            ms, add_ms = in_turns(
+                lambda: ring.ring_combine_cuda(*pick(), 1024),
+                lambda: torch.add(*pick()), iters=200, behind_sleep=True)
+            print(f"[time] ring_combine C{C} fp32 {label}: {ms:.4f} ms, "
+                  f"torch.add {add_ms:.4f} ms ({ms / add_ms:.2f}x); bound "
+                  f"{3 * C * 4 / 3.35e12 * 1e3:.4f} ms", flush=True)
+        del pairs
+    if "flash" in parts:
+        for (B, S, H, KV, hd) in FLASH_TIME:
+            for causal in (True, False):
+                q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(
+                    B, S, KV, hd)
+                qt = q.transpose(1, 2).contiguous()
+                kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+                vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+                ms, lib = in_turns(
+                    lambda: fa.attention_cuda(q, k, v, causal),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=causal))
+                pairs = S * (S + 1) / 2 if causal else S * S
+                flops = 4.0 * B * H * hd * pairs
+                print(f"[time] flash B{B} S{S} H{H} KV{KV} hd{hd} "
+                      f"causal={causal}: {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), SDPA {lib:.4f} ms "
+                      f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
+                del q, k, v, qt, kt, vt
+    if "matmul" in parts:
+        for (M, K, N) in MATMUL_TIME:
+            a, b = randn(M, K), randn(K, N)
+            ms, lib = in_turns(lambda: mm.matmul_cuda(a, b), lambda: a @ b)
+            flops = 2.0 * M * K * N
+            print(f"[time] matmul M{M} K{K} N{N}: {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib:.4f} "
+                  f"ms ({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
+            del a, b
     if bad:
         print(f"FAIL: {bad} checks outside tolerance")
         sys.exit(1)

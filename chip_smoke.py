@@ -8,11 +8,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention, the SSD scan
                 and the padded matmul, each a bf16 tensor-core kernel and an
-                fp32 one; fused residual+RMSNorm, ring combine), one nvcc per
-                source, all started together; registers and spills from
-                ptxas, and the HGMMA / HMMA count of each library's SASS
-                (the bf16 routes must have tensor-core instructions and the
-                fp32 routes none, or the phase fails);
+                fp32 one; fused residual+RMSNorm, ring combine; the flash
+                and fused-norm backward kernels), one nvcc per source, all
+                started together; registers and spills from ptxas, and the
+                HGMMA / HMMA count of each library's SASS (the bf16 routes
+                must have tensor-core instructions, and the fp32 routes and
+                the two backward kernels, which run on the FP32 pipes, none,
+                or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -24,7 +26,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and a PyTorch library call where one computes the same
                 function; a [kernels] line per tensor-core kernel (TFLOP/s,
                 share of the bound, factor against the library, registers,
-                spills, HGMMA / HMMA);
+                spills, HGMMA / HMMA); the flash backward (the training
+                shape in bf16, fp32, hd 128, ragged S) and the fused-norm
+                backward (R 4096 D 2048, bf16 and fp32, with and without
+                dh) against their plain versions, timed beside them and
+                beside autograd of SDPA (flash); the flash forward's time
+                with its lse output beside its time without;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -43,8 +50,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 untraced and traced walls; a profiler breakdown; fp32
                 prefill logits on the card (the fp32 routes) against the
                 plain path on the CPU;
-  6. trace    — each serving path's JSONL spill read back: step spans and
-                kernel spans with device durations from CUDA events.
+  6. train    — Trainer.train of llama3.2-1b at full width and depth (B 8 x
+                S 512, bf16 compute, fp32 parameters and AdamW moments, 12
+                traced steps): each step's loss, step time, tokens/s, MFU
+                and the peak memory; the launch counts of every step (flash
+                forward and backward 16, fused forward and backward 32, no
+                plain version); the loss finite and falling; 8 traced and
+                8 untraced steps in turn (the tracing overhead, with the
+                steps' ranges); a profiler breakdown of one
+                step; one fp32 step of the 2-layer cut, card against CPU
+                (loss, grad_norm, three gradients); a checkpoint saved and
+                restored bitwise;
+  7. trace    — each serving path's and the training run's JSONL spill
+                read back: step spans and kernel spans with device
+                durations from CUDA events; the training run's dataloader
+                and train_step_exec spans with their meta.
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -116,6 +136,18 @@ def max_err(got, want, dtype: str, tol: dict | None = None) -> float:
             f"{int(bad.sum())} elements outside tolerance {tol}; "
             f"max abs err {float(diff.max()):.3e}")
     return float(diff.max())
+
+
+def scaled_err(got, want, frac: float) -> float:
+    """max|got - want| / max|want|; fails above ``frac``.  Holds a bf16
+    output to its own scale, where the elementwise bf16 tolerance would
+    pass an error of half a typical value."""
+    diff = float((got.float() - want.float()).abs().max())
+    rel = diff / max(float(want.float().abs().max()), 1e-30)
+    if rel > frac:
+        raise AssertionError(f"max abs err {diff:.3e} is {rel:.3e} of the "
+                             f"largest magnitude, above {frac}")
+    return rel
 
 
 def ptxas_usage(build_log: str) -> list[dict]:
@@ -329,6 +361,205 @@ def check_fused(gen, device):
                     f"{t['bound_ms']:.5f} by {t['bound_by']})")
     main = timed.pop((8192, 2048))
     return main, {f"R{R} D{D}": t for (R, D), t in timed.items()}, cases
+
+
+# the flash backward: the training shape (bf16, causal), fp32 on a smaller
+# shape, hd 128, and a ragged S; each with its forward's lse
+FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
+                   ((8, 512, 32, 8, 64), "float32", True),
+                   ((2, 256, 16, 4, 64), "float32", True),
+                   ((2, 256, 16, 4, 128), "bfloat16", True),
+                   ((2, 256, 16, 4, 128), "float32", False),
+                   ((2, 200, 16, 4, 64), "bfloat16", True),
+                   ((2, 200, 16, 4, 64), "float32", False)]
+TRAIN_B, TRAIN_S = 8, 512
+# a bf16 backward output: at most this fraction of its largest magnitude
+# off the plain version (one bf16 rounding of the largest is 2^-7 of it)
+BWD_BF16_SCALED = 1e-2
+
+
+def flash_bwd_bound(B, S, H, KV, hd, causal, itemsize, peak):
+    """(bound ms, by what) of the flash backward: 2.5x the forward's
+    operations (five products of its size against its two) at ``peak``;
+    bytes: q, k, v, o, dO and lse read, dq, dk, dv written."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    t_ops = 2.5 * 4.0 * B * H * hd * pairs / peak * 1e3
+    nbytes = 4 * B * S * (H + KV) * hd * itemsize + B * H * S * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_flash_bwd(gen, device):
+    """The flash backward kernel against ``attention_bwd_ref`` and the
+    forward's lse against ``attention_ref``'s, one launch per call; timed
+    at the training shape beside the plain version and autograd of SDPA
+    (KV heads expanded beforehand; for timing only); the forward's time
+    with lse beside its time without, at the training and serving
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    bwd = {"bwd": ops.BWD_KERNEL}
+    cases = []
+    for (B, S, H, KV, hd), dtype, causal in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
+                                   device=device).to(dt)
+                       for n in (H, KV, KV, H))
+        route = ops.route(dt, hd)
+        o, lse = on_route(ops.KERNELS, route, lambda: ops.attention_cuda(
+            q, k, v, causal, return_lse=True))
+        got = on_route(bwd, "bwd", lambda: ops.attention_bwd_cuda(
+            q, k, v, o, do, lse, causal))
+        _, lse_ref = ops.attention_ref(q, k, v, causal, return_lse=True)
+        want = ops.attention_bwd_ref(q, k, v, o, do, lse, causal)
+        torch.cuda.synchronize()
+        errs = [max_err(lse, lse_ref, "float32")] + [
+            max_err(g, w, dtype) for g, w in zip(got, want)]
+        case = dict(shape=[B, S, H, KV, hd], dtype=dtype, causal=causal,
+                    max_abs_err=dict(zip(("lse", "dq", "dk", "dv"), errs)))
+        scaled = ""
+        if dtype == "bfloat16":
+            rel = [scaled_err(g, w, BWD_BF16_SCALED)
+                   for g, w in zip(got, want)]
+            case["scaled_err"] = dict(zip(("dq", "dk", "dv"), rel))
+            scaled = (f"; of the largest magnitude dq {rel[0]:.2e}, dk "
+                      f"{rel[1]:.2e}, dv {rel[2]:.2e} (at most "
+                      f"{BWD_BF16_SCALED})")
+        cases.append(case)
+        log("kernels", f"flash_attention backward B{B} S{S} H{H} KV{KV} "
+            f"hd{hd} {dtype} causal={causal}: max_abs_err lse {errs[0]:.3e}"
+            f" (fwd [{route}]), dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
+            f"{errs[3]:.3e}{scaled}")
+        del q, k, v, do, o, lse, got, want
+
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+    q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
+                               device=device).to(torch.bfloat16)
+                   for n in (H, KV, KV, H))
+    o, lse = ops.attention_cuda(q, k, v, True, return_lse=True)
+    pairs = list(zip(ops.attention_bwd_cuda(q, k, v, o, do, lse, True),
+                     ops.attention_bwd_ref(q, k, v, o, do, lse, True)))
+    err = max(max_err(g, w, "bfloat16") for g, w in pairs)
+    for g, w in pairs:
+        scaled_err(g, w, BWD_BF16_SCALED)
+    del pairs
+    ms = time_ms(lambda: ops.attention_bwd_cuda(q, k, v, o, do, lse, True),
+                 10)
+    plain_ms = time_ms(lambda: ops.attention_bwd_ref(q, k, v, o, do, lse,
+                                                     True), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k.repeat_interleave(H // KV, dim=2),
+                            v.repeat_interleave(H // KV, dim=2)))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    bound_ms, bound_by = flash_bwd_bound(B, S, H, KV, hd, True, 2,
+                                         PEAK_BF16_FLOPS)
+    summary = dict(
+        name="flash_attention_bwd", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNEL.source}",
+        replaces="src/repro/models/attention.py:164 (XLA recompute "
+        "backward; port-only: the reference's backward has no Pallas "
+        "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        library_call="autograd of torch.nn.functional."
+        "scaled_dot_product_attention (KV heads expanded)",
+        shape=[B, S, H, KV, hd], dtype="bfloat16", causal=True,
+        fp32_pipes=True)
+    log("kernels", f"flash_attention backward timed at B{B} S{S} H{H} KV{KV} "
+        f"hd{hd} bf16 causal (FP32 pipes): {ms:.4f} ms (plain {plain_ms:.4f},"
+        f" SDPA backward {library_ms:.4f}, {ms / library_ms:.2f}x; bound "
+        f"{bound_ms:.4f} by {bound_by} at the bf16 tensor-core peak, "
+        f"{bound_ms / ms:.3f} of it)")
+    del qt, kt, vt, out, dot
+    # the forward with and without the lse output, on its route
+    lse_times = {}
+    for (B, S) in ((TRAIN_B, TRAIN_S), (8, 1024)):
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen,
+                               device=device).to(torch.bfloat16)
+                   for n in (H, KV, KV))
+        plain_fwd = time_ms(lambda: ops.attention_cuda(q, k, v, True), 20)
+        with_lse = time_ms(lambda: ops.attention_cuda(q, k, v, True, True),
+                           20)
+        lse_times[f"B{B} S{S}"] = dict(ms=plain_fwd, with_lse_ms=with_lse)
+        log("kernels", f"flash_attention forward [wgmma] B{B} S{S} H{H} "
+            f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
+            f"{with_lse:.4f} ms with it")
+    summary["forward_lse_ms"] = lse_times
+    return summary, cases
+
+
+def check_fused_bwd(gen, device):
+    """The fused-norm backward against ``fused_bwd_ref`` at the training
+    rows (R 4096 D 2048), bf16 and fp32, with and without dh, one launch
+    per call; timed in bf16 with dh beside the plain version (no single
+    PyTorch call computes it).  dscale sums R rows in fp32 in another
+    order than the plain version: its atol is 3e-4·√R."""
+    import torch
+    from repro_torch.kernels.fused_norm import ops
+
+    bwd = {"bwd": ops.BWD_KERNEL}
+    R, D = TRAIN_B * TRAIN_S, 2048
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for with_dh in (True, False):
+            x, r, dy, dh = (torch.randn(R, D, generator=gen,
+                                        device=device).to(dt)
+                            for _ in range(4))
+            dh = dh if with_dh else None
+            s = torch.randn(D, generator=gen, device=device)
+            dx, ds = on_route(bwd, "bwd",
+                              lambda: ops.fused_bwd_cuda(x, r, s, dy, dh))
+            dxr, dsr = ops.fused_bwd_ref(x, r, s, dy, dh)
+            torch.cuda.synchronize()
+            e_dx = max_err(dx, dxr, dtype)
+            e_ds = max_err(ds, dsr, "float32",
+                           dict(rtol=3e-4, atol=3e-4 * R ** 0.5))
+            cases.append(dict(shape=[R, D], dtype=dtype, dh=with_dh,
+                              max_abs_err=dict(dx=e_dx, dscale=e_ds)))
+            log("kernels", f"fused_residual_rmsnorm backward R{R} D{D} "
+                f"{dtype} dh={with_dh}: max_abs_err dx {e_dx:.3e}, dscale "
+                f"{e_ds:.3e}")
+    dt = torch.bfloat16
+    x, r, dy, dh = (torch.randn(R, D, generator=gen, device=device).to(dt)
+                    for _ in range(4))
+    s = torch.randn(D, generator=gen, device=device)
+    err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
+                  ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
+    ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50)
+    plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = min(R, ops.BWD_BLOCKS_PER_SM * sms)
+    # the function's bytes: x, res, dy, dh read, dx written; scale read,
+    # dscale written.  The kernel's dscale partials (its two-pass design,
+    # not the function) are printed apart.
+    nbytes = 5 * R * D * 2 + 2 * D * 4
+    partial_bytes = 2 * blocks * D * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
+    summary = dict(
+        name="fused_residual_rmsnorm_bwd", route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNEL.source}",
+        replaces="src/repro/kernels/fused_norm/ref.py:6 (autodiff of "
+        "fused_ref; port-only: the reference's backward has no Pallas "
+        "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, library_call=None, shape=[R, D], dtype="bfloat16",
+        partial_bytes=partial_bytes,
+        partial_ms=partial_bytes / PEAK_BYTES * 1e3)
+    log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} bf16 "
+        f"with dh: {ms:.4f} ms (plain {plain_ms:.4f}; no single library "
+        f"call computes it; bound {summary['bound_ms']:.4f} by "
+        f"{summary['bound_by']}, {summary['bound_ms'] / ms:.3f} of it; the "
+        f"kernel's {blocks} dscale partial rows add {partial_bytes} bytes "
+        f"written and read, {summary['partial_ms']:.4f} ms at the memory "
+        f"rate)")
+    return summary, cases
 
 
 def ssd_inputs(gen, device, B, L, H, N, dtype):
@@ -1133,7 +1364,335 @@ def agreement(arch: str, seed: int, S: int):
 
 
 # --------------------------------------------------------------------------- #
-# phase 6: trace
+# phase 6: train
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
+
+
+def train_kernels() -> dict:
+    """The kernels a training step can launch, by label, with their
+    launches per step of an L-layer dense model: flash forward (on the
+    route of the compute dtype) and backward once per layer, the fused
+    norm forward and backward twice per layer."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+    return {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1),
+            "flash_attention[fp32]": (fa.KERNELS["fp32"], 1),
+            "flash_attention_bwd": (fa.BWD_KERNEL, 1),
+            "fused_residual_rmsnorm": (fn.KERNEL, 2),
+            "fused_residual_rmsnorm_bwd": (fn.BWD_KERNEL, 2)}
+
+
+def expected_step_launches(L: int, route: str) -> dict:
+    other = "fp32" if route == "wgmma" else "wgmma"
+    return {label: 0 if label == f"flash_attention[{other}]" else n * L
+            for label, (_, n) in train_kernels().items()}
+
+
+class PlainCalls:
+    """Counts the calls of the kernels' plain versions while it is
+    entered (the ops modules look them up at each call)."""
+    NAMES = {"flash_attention": ("attention_ref", "attention_bwd_ref"),
+             "fused_norm": ("fused_ref", "fused_bwd_ref")}
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = {}, []
+        for mod_name, fns in self.NAMES.items():
+            mod = importlib.import_module(
+                f"repro_torch.kernels.{mod_name}.ops")
+            for fn_name in fns:
+                orig = getattr(mod, fn_name)
+                self.calls[fn_name] = 0
+                self.saved.append((mod, fn_name, orig))
+
+                def counted(*a, _f=orig, _n=fn_name, **kw):
+                    self.calls[_n] += 1
+                    return _f(*a, **kw)
+                setattr(mod, fn_name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+
+
+def tracing_overhead(trainer, log_path: Path) -> dict:
+    """The daemon's cost on the training step: 2·TRAIN_OVERHEAD_PAIRS
+    steps that continue the trainer's run, traced and untraced in turn
+    (ABBA order, so a drift over the run weighs on both alike), each timed
+    from dispatch to the loss read, as ``train_step_exec``.  A traced step
+    runs under a daemon attached just before it (spilling to
+    ``log_path``) and detached just after, outside the timed window.  The
+    difference of the medians is called unresolved when the traced median
+    lies inside the untraced steps' range."""
+    import time
+    import torch
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+
+    _, opt_state = trainer.final_state
+    loader = trainer._loader(TRAIN_STEPS)
+    ms = {"traced": [], "untraced": []}
+    for i in range(2 * TRAIN_OVERHEAD_PAIRS):
+        step = TRAIN_STEPS + i
+        traced = (i % 4) in (1, 2)
+        batch = trainer._to_device(loader.next_batch())
+        daemon = TracingDaemon(DaemonConfig(
+            rank=0, backend="dense-train", log_path=str(log_path),
+            hang_timeout=300.0)).attach() if traced else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if daemon:
+            daemon.step_begin(step)
+        opt_state, metrics = trainer.step_fn(opt_state, batch, step)
+        float(metrics["loss"])
+        if daemon:
+            daemon.step_end(tokens=TRAIN_B * TRAIN_S)
+        ms["traced" if traced else "untraced"].append(
+            (time.perf_counter() - t0) * 1e3)
+        if daemon:
+            daemon.detach()
+    trainer.final_state = (trainer.final_state[0], opt_state)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    lo, hi = min(ms["untraced"]), max(ms["untraced"])
+    diff = med["traced"] / med["untraced"] - 1
+    resolved = not lo <= med["traced"] <= hi
+    log("train", f"tracing overhead, {TRAIN_OVERHEAD_PAIRS} traced and "
+        f"{TRAIN_OVERHEAD_PAIRS} untraced steps in turn (ABBA): median "
+        f"{med['traced']:.1f} ms traced (range {min(ms['traced']):.1f}-"
+        f"{max(ms['traced']):.1f}), {med['untraced']:.1f} ms untraced (range "
+        f"{lo:.1f}-{hi:.1f}): {diff:+.2%}"
+        f"{'' if resolved else ', unresolved (inside the untraced range)'}")
+    return dict(ms=ms, median_ms=med, overhead=diff, resolved=resolved)
+
+
+def train(seed: int, trace_path: Path) -> dict:
+    """Trainer.train of llama3.2-1b at full width and depth: B 8 x S 512
+    from the synthetic corpus, bf16 compute, fp32 parameters and AdamW
+    moments, 12 traced steps (4 warm-up steps in the schedule), the daemon
+    spilling to ``trace_path``; the launch counts of that run and of each
+    of its steps, no plain version called; then the tracing overhead
+    (``tracing_overhead``) and a profiler breakdown of one step."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.train import RunConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH)
+    kernels = train_kernels()
+    run = RunConfig(model=cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                    steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, seed=seed,
+                    flare_log=str(trace_path))
+    snaps = []
+    trainer = Trainer(run, fault_hook=lambda step: snaps.append(
+        {label: k.launches for label, (k, _) in kernels.items()}))
+    for k, _ in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with PlainCalls() as plain:
+        hist = trainer.train()
+    launches = {label: k.launches for label, (k, _) in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    snaps.append(launches)
+    per_step = [{label: b[label] - a[label] for label in launches}
+                 for a, b in zip(snaps, snaps[1:])]
+    want = expected_step_launches(cfg.num_layers, "wgmma")
+    log("train", f"{TRAIN_ARCH} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
+        f"parameters and moments: launches of one step {per_step[0]} "
+        f"(expected {want}); plain versions called {plain.calls}")
+    if any(n != want for n in per_step) or len(per_step) != TRAIN_STEPS:
+        fail(f"training launch counts per step {per_step} != {want}")
+    if any(plain.calls.values()):
+        fail(f"training called plain versions on the card: {plain.calls}")
+    n_params = cfg.active_param_count()
+    tokens = TRAIN_B * TRAIN_S
+    for rec in hist:
+        mfu = 6.0 * n_params * tokens / rec["step_time_s"] / PEAK_BF16_FLOPS
+        rec["mfu"] = mfu
+        log("train", f"step {rec['step']:2d}: loss {rec['loss']:.4f}, "
+            f"grad_norm {rec['grad_norm']:.4f}, lr {rec['lr']:.3e}, step "
+            f"{rec['step_time_s'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} "
+            f"tokens/s, MFU {mfu:.3f}")
+    losses = [rec["loss"] for rec in hist]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"training loss not finite and falling: {losses}")
+    traced_ms = sorted(r["step_time_s"] * 1e3 for r in hist[1:])
+    med_t = traced_ms[len(traced_ms) // 2]
+    overhead = tracing_overhead(trainer, trace_path.with_name(
+        "train_overhead.jsonl"))
+    log("train", f"step time median {med_t:.1f} ms traced (steps 1-"
+        f"{TRAIN_STEPS - 1}); {tokens / med_t * 1e3:.0f} tokens/s and MFU "
+        f"{6.0 * n_params * tokens / (med_t / 1e3) / PEAK_BF16_FLOPS:.3f}"
+        f" traced; peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    # one more step under the profiler
+    _, opt_state = trainer.final_state
+    step = TRAIN_STEPS + 2 * TRAIN_OVERHEAD_PAIRS
+    batch = trainer._to_device(trainer._loader(step).next_batch())
+    prof = profile(lambda: trainer.step_fn(opt_state, batch, step))
+    log("profile", f"{TRAIN_ARCH} train step: wall {prof['wall_s'] * 1e3:.3f}"
+        f" ms, device busy {prof['device_s'] * 1e3:.3f} ms, idle share "
+        f"{prof['idle_share']}")
+    for k in prof["top"]:
+        log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
+    del trainer, batch, opt_state
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, history=hist,
+                launches=launches, launches_per_step=per_step[0],
+                plain_calls=plain.calls, peak_memory_gb=peak_gb,
+                step_ms_traced=traced_ms, tracing_overhead=overhead,
+                profile=prof,
+                n_params=n_params, mfu_median=6.0 * n_params * tokens
+                / (med_t / 1e3) / PEAK_BF16_FLOPS)
+
+
+def train_agreement(seed: int, ckpt_dir: Path) -> dict:
+    """One fp32 training step of llama3.2-1b cut to 2 layers (widths kept),
+    B 2 S 128: loss and gradients on the card (the fp32 forward routes and
+    the backward kernels) against the plain path on the CPU, same weights
+    and batch.  Loss, grad_norm and the gradients of ``embed.embedding``,
+    ``layers.0.attn.wq`` and ``layers.1.ln2.scale`` each within 3e-4 of its
+    largest magnitude.  Then a checkpoint of the card's parameters and
+    bf16 AdamW moments saved and restored bitwise."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, global_norm)
+    from repro_torch.runtime.train import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    pol = Policy(torch.float32, torch.float32)
+    cpu = build_model(cfg, pol, "cpu").init(
+        torch.Generator().manual_seed(seed))
+    gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
+    b = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                 seq_len=128, seed=seed)).next_batch()
+    toks, labs = (torch.as_tensor(b[k], dtype=torch.long)
+                  for k in ("tokens", "labels"))
+    kernels = train_kernels()
+    n0 = {label: k.launches for label, (k, _) in kernels.items()}
+    loss_g, grads_g = loss_and_grads(gpu, toks.cuda(), labs.cuda(),
+                                     dict(gpu.named_parameters()))
+    torch.cuda.synchronize()
+    launches = {label: k.launches - n0[label]
+                for label, (k, _) in kernels.items()}
+    want_launches = expected_step_launches(cfg.num_layers, "fp32")
+    if launches != want_launches:
+        fail(f"the fp32 training step launched {launches}, not "
+             f"{want_launches}")
+    loss_c, grads_c = loss_and_grads(cpu, toks, labs,
+                                     dict(cpu.named_parameters()))
+    res = {}
+    pairs = [("loss", loss_g.cpu(), loss_c),
+             ("grad_norm", global_norm(grads_g.values()).cpu(),
+              global_norm(grads_c.values()))]
+    pairs += [(n, grads_g[n].cpu(), grads_c[n]) for n in (
+        "embed.embedding", "layers.0.attn.wq", "layers.1.ln2.scale")]
+    for name, got, want in pairs:
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        res[name] = dict(max_abs_err=err, max_abs=scale)
+        ok = err <= 3e-4 * max(scale, 1e-12)
+        log("train", f"fp32 agreement, {cfg.num_layers} layers B2 S128, card "
+            f"vs CPU: {name} max_abs_err {err:.3e} (|max| {scale:.3e}, "
+            f"3e-4 of it: {ok})")
+        if not ok:
+            fail(f"fp32 training step disagrees between card and CPU: {name}")
+    log("train", f"fp32 agreement step launched {launches} (expected "
+        f"{want_launches})")
+
+    # checkpoint: the card's parameters and bf16 moments after one update
+    params = dict(gpu.named_parameters())
+    opt_cfg = AdamWConfig(state_dtype="bfloat16")
+    opt = adamw_init(params, opt_cfg)
+    adamw_update(grads_g, opt, params, opt_cfg, 1e-4)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir))
+    t0 = time.perf_counter()
+    mgr.save(0, {"params": params, "opt": opt}, {"loss": float(loss_g)})
+    save_s = time.perf_counter() - t0
+    fresh = build_model(cfg, pol, "cuda")
+    fresh_opt = adamw_init(dict(fresh.named_parameters()), opt_cfg)
+    t0 = time.perf_counter()
+    mgr.restore({"params": dict(fresh.named_parameters()), "opt": fresh_opt})
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(fresh.state_dict()[n], p) for n, p in
+               params.items()) and all(
+        torch.equal(fresh_opt["mu_nu"][n][m], opt["mu_nu"][n][m])
+        for n in params for m in ("m", "v")) and torch.equal(
+        fresh_opt["count"], opt["count"])
+    log("train", f"checkpoint of the 2-layer cut (parameters fp32, moments "
+        f"bf16) to {ckpt_dir.relative_to(ROOT)}: saved in {save_s:.2f} s, "
+        f"restored in {restore_s:.2f} s, bitwise equal: {same}")
+    if not same:
+        fail("checkpoint restore differs from what was saved")
+    del cpu, gpu, fresh, grads_g, grads_c, opt, fresh_opt
+    torch.cuda.empty_cache()
+    return dict(errors=res, launches=launches, checkpoint_save_s=save_s,
+                checkpoint_restore_s=restore_s)
+
+
+def check_train_trace(trace_path: Path, steps: int, layers: int) -> dict:
+    """The training trace read back: step spans 0..steps-1, a
+    ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
+    span with ``flops`` = 6·N·tokens in each, and the flash and fused
+    spans (L and 2L a step) with CUDA-event durations, nested under their
+    step."""
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import EventKind, load_jsonl
+
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6.0 * cfg.active_param_count() * tokens
+    events = load_jsonl(str(trace_path))
+    kinds = Counter(e.kind.value for e in events)
+    log("trace", f"{TRAIN_ARCH} train: {len(events)} events by kind: "
+        f"{dict(kinds)}")
+    steps_seen = sorted(e.step for e in events if e.kind == EventKind.STEP)
+    if steps_seen != list(range(steps)):
+        fail(f"train: step spans {steps_seen} != 0..{steps - 1}")
+    data = [e for e in events if e.kind == EventKind.DATALOADER]
+    execs = [e for e in events if e.name == "train_step_exec"]
+    if (sorted(e.step for e in data) != steps_seen
+            or any(e.name != "dataloader.next_batch"
+                   or e.meta.get("tokens") != tokens for e in data)):
+        fail("train: a dataloader.next_batch span per step with tokens")
+    if (sorted(e.step for e in execs) != steps_seen
+            or any(e.kind != EventKind.KERNEL_COMPUTE
+                   or e.meta.get("flops") != flops for e in execs)):
+        fail(f"train: a train_step_exec k_comp span per step with flops "
+             f"{flops}")
+    per_name = {}
+    for name, n in (("flash_attention", layers),
+                    ("fused_residual_rmsnorm", 2 * layers)):
+        evs = [e for e in events if e.name == name]
+        if len(evs) != n * steps or Counter(e.step for e in evs) != {
+                s: n for s in range(steps)}:
+            fail(f"train: {name} spans {len(evs)}, not {n} a step")
+        if any(e.duration <= 0 or e.issue_latency < 0
+               or e.meta.get("parent") != f"step_{e.step}" for e in evs):
+            fail(f"train: a {name} span without a device duration or "
+                 f"outside its step")
+        per_name[name] = dict(n=len(evs),
+                              device_s=sum(e.duration for e in evs))
+    exec_s = sorted(e.duration for e in execs)
+    log("trace", f"train: kernel spans {per_name}; train_step_exec median "
+        f"{exec_s[len(exec_s) // 2] * 1e3:.1f} ms with flops {flops:.4e}")
+    return dict(kinds=dict(kinds), per_name=per_name,
+                train_step_exec_s=exec_s)
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: trace
 # --------------------------------------------------------------------------- #
 META_KEYS = {"flash_attention": {"flops", "shape"},
              "ssd_scan": {"flops", "shape"},
@@ -1206,6 +1765,7 @@ def main():
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's package is not at {src / 'repro_torch'}")
     sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
@@ -1227,7 +1787,8 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     all_kernels = (*fa.KERNELS.values(), fn.KERNEL, *ssd.KERNELS.values(),
-                   *mm.KERNELS.values(), ring.KERNEL)
+                   *mm.KERNELS.values(), ring.KERNEL, fa.BWD_KERNEL,
+                   fn.BWD_KERNEL)
     build_all(list(all_kernels))
     log("build", f"built {', '.join(k.source for k in all_kernels)} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -1244,6 +1805,13 @@ def main():
                 f"{n['HMMA']} HMMA in the SASS")
             if (route == "fp32") == bool(n["HGMMA"] or n["HMMA"]):
                 fail(f"{k.source} [{route}]: {n} tensor-core instructions")
+    for k in (fa.BWD_KERNEL, fn.BWD_KERNEL):
+        n = sass_mma(k)
+        log("build", f"{k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA in "
+            f"the SASS (a backward kernel on the FP32 pipes: no tensor-core "
+            f"instructions)")
+        if n["HGMMA"] or n["HMMA"]:
+            fail(f"{k.source}: {n} tensor-core instructions")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1252,6 +1820,8 @@ def main():
     scan, scan_fp32, ssd_cases = check_ssd(gen, "cuda")
     matmul, matmul_fp32, matmul_cases = check_padded_matmul(gen, "cuda")
     combine, combine_cases = check_ring_combine(gen, "cuda")
+    flash_bwd, flash_bwd_cases = check_flash_bwd(gen, "cuda")
+    fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
 
     # 4. the Case-2 op and the ring path, traced
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1275,7 +1845,16 @@ def main():
             f"(first run), {run['warm_wall_s']:.3f} s untraced (best later "
             f"run, {B * new / run['warm_wall_s']:.1f} new tokens/s)")
 
+    # 6. train, and 7. its trace
+    train_trace_path = OUT_DIR / "train_trace.jsonl"
+    train_trace_path.unlink(missing_ok=True)
+    train_run = train(args.seed, train_trace_path)
+    train_agree = train_agreement(args.seed, OUT_DIR / "ckpt")
+    train_trace = check_train_trace(train_trace_path, TRAIN_STEPS,
+                                    get_config(TRAIN_ARCH).num_layers)
+
     by_path = {arch: run["launches"] for arch, run in runs.items()}
+    by_path[f"{TRAIN_ARCH} train"] = train_run["launches"]
     for summary, label in ((flash, "flash_attention[wgmma]"),
                            (fused, "fused_residual_rmsnorm"),
                            (scan, "ssd_scan[wgmma]")):
@@ -1293,6 +1872,11 @@ def main():
         n = case2[dtype]["launches"][route]
         summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
+    for summary, label in ((flash_bwd, "flash_attention_bwd"),
+                           (fused_bwd, "fused_residual_rmsnorm_bwd")):
+        summary["launches"] = train_run["launches"][label]
+        summary["launches_by_path"] = {f"{TRAIN_ARCH} train":
+                                       summary["launches"]}
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -1305,10 +1889,13 @@ def main():
                    combine_cases=combine_cases, case2=case2, ring=ring_run,
                    fp32_prefill_max_abs_err=errs,
                    fp32_prefill_launches=fp32_launches, serve=runs,
-                   trace=traces)
+                   trace=traces, flash_bwd_cases=flash_bwd_cases,
+                   fused_bwd_cases=fused_bwd_cases, train=train_run,
+                   train_agreement=train_agree, train_trace=train_trace)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
     print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, scan_fp32,
-                                  matmul, matmul_fp32, combine]}), flush=True)
+                                  matmul, matmul_fp32, combine, flash_bwd,
+                                  fused_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

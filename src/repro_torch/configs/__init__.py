@@ -49,6 +49,46 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
+    # ------------------------------------------------------------------ #
+    # The JAX package's analytic counts, for the families the port builds
+    # (used for the 6*N*D flops of a training step).
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, v, L = self.d_model, self.vocab_size, self.num_layers
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # lm head
+        n += d  # final norm
+        hd = self.head_dim
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d if self.num_heads else 0
+        if self.qkv_bias and self.num_heads:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        ff_dense = 3 * d * self.d_ff  # SwiGLU: gate, up, down
+        per_layer_norms = 2 * d
+        if self.family == "dense":
+            n += L * (attn + ff_dense + per_layer_norms)
+        elif self.family == "ssm":
+            n += L * (self._mamba_block_params() + d)
+        else:
+            raise NotImplementedError(
+                f"the port counts no {self.family!r} parameters")
+        return n
+
+    def _mamba_block_params(self) -> int:
+        d, di = self.d_model, self.d_inner
+        h = self.ssm_heads
+        n = d * (2 * di + 2 * self.ssm_state + h) + di  # in_proj(z,x,B,C,dt)
+        n += self.conv_width * (di + 2 * self.ssm_state)  # conv over x,B,C
+        n += h + h  # A_log, D
+        n += di * d  # out_proj
+        n += di  # gate norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token: every one, as the port has no MoE."""
+        return self.param_count()
+
 
 ARCH_MODULES: dict[str, str] = {
     "llama3.2-1b": "llama3p2_1b",

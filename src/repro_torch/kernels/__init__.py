@@ -4,10 +4,13 @@ Kernels (each: ``csrc/<name>.cu`` = the CUDA source with a plain C launch
 function, ``<name>/ops.py`` = the PyTorch wrapper, its plain PyTorch
 version and the FLARE registration):
 
-  flash_attention — causal / full GQA attention forward (prefill): bf16 on
-                    the tensor cores (``flash_attention_wgmma.cu``), fp32
-                    on the FP32 pipes (``flash_attention.cu``)
-  fused_norm      — residual add + RMSNorm
+  flash_attention — causal / full GQA attention forward (prefill and
+                    training): bf16 on the tensor cores
+                    (``flash_attention_wgmma.cu``), fp32 on the FP32 pipes
+                    (``flash_attention.cu``); its backward on the FP32 pipes
+                    (``flash_attention_bwd.cu``)
+  fused_norm      — residual add + RMSNorm (``fused_norm.cu``) and its
+                    backward (``fused_norm_bwd.cu``)
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
                     (prefill): bf16 on the tensor cores
                     (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes

@@ -47,8 +47,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBlockQ * (HD / kDimsPerThread))
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int KV, float sm_scale, int causal) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int S, int H, int KV,
+                           float sm_scale, int causal) {
   constexpr int TPR = HD / kDimsPerThread;  // threads per q row
   constexpr int NCH = kDimsPerThread / 4;   // float4 chunks per thread
   constexpr int NT = kBlockQ * TPR;
@@ -150,6 +151,10 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (valid) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    // lse in the scaled-score domain (q was scaled on load), [B,H,S]
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * H + h) * S + qpos] =
+          m + logf(fmaxf(l, 1e-30f));
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const int d = 4 * (lane + TPR * c);
@@ -161,23 +166,26 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-void launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                  int S, int H, int KV, int causal, cudaStream_t stream) {
+void launch_typed(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int S, int H, int KV, int causal,
+                  cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const int threads = kBlockQ * (HD / kDimsPerThread);
   const float sm_scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_attention_fwd_kernel<T, HD><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, sm_scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, sm_scale,
+      causal);
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int hd, int causal, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int S, int H, int KV, int hd, int causal,
+              cudaStream_t stream) {
   if (hd == 64)
-    launch_typed<T, 64>(q, k, v, o, B, S, H, KV, causal, stream);
+    launch_typed<T, 64>(q, k, v, o, lse, B, S, H, KV, causal, stream);
   else if (hd == 128)
-    launch_typed<T, 128>(q, k, v, o, B, S, H, KV, causal, stream);
+    launch_typed<T, 128>(q, k, v, o, lse, B, S, H, KV, causal, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -186,13 +194,15 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, o: [B,S,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32 and 16-byte
-// aligned.  Returns cudaGetLastError() after the launch (0 = launched).
+// aligned.  lse: [B,H,S] fp32, the rows' log-sum-exp of the scaled scores
+// (what the backward needs), or null to write none.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
-                                          const void* v, void* o, int B, int S,
-                                          int H, int KV, int hd, int causal,
-                                          void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int B, int S, int H, int KV, int hd,
+                                          int causal, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_hd<float>(q, k, v, o, B, S, H, KV, hd, causal,
-                          static_cast<cudaStream_t>(stream));
+  return launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, S, H, KV,
+                          hd, causal, static_cast<cudaStream_t>(stream));
 }

@@ -115,8 +115,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
                    __grid_constant__ const CUtensorMap map_k,
                    __grid_constant__ const CUtensorMap map_v,
-                   __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
-                   float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int B, int S, int H, int KV, float scale_log2, int causal) {
   constexpr int kCols = HD / 64;                       // column blocks
   constexpr int kStages = stages<HD>();
   constexpr uint32_t kTileBytes = kBlockK * HD * 2;
@@ -355,6 +355,11 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
         const float inv = 1.f / fmaxf(t, 1e-30f);
         const int qpos = qpos0 + r * 8;
         if (qpos >= S) continue;
+        // lse in the scaled-score domain: m is the raw score max, and the
+        // exponentials took (s - m) * scale
+        if (lse != nullptr && lane % 4 == 0)
+          lse[(static_cast<size_t>(it.b) * H + it.h) * S + qpos] =
+              m[r] * (scale_log2 / kLog2e) + logf(fmaxf(t, 1e-30f));
         __nv_bfloat16* orow =
             o + (static_cast<size_t>(it.b * S + qpos) * H + it.h) * HD;
 #pragma unroll
@@ -384,8 +389,8 @@ int make_map(CUtensorMap* map, const void* p, int B, int S, int heads,
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int causal, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int S, int H, int KV, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (int e = make_map(&mq, q, B, S, H, HD)) return e;
   if (int e = make_map(&mk, k, B, S, KV, HD)) return e;
@@ -407,23 +412,26 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   const int items = B * H * ((S + kBlockQ - 1) / kBlockQ);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(HD));
   flash_wgmma_kernel<HD><<<min(items, sms), kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, scale_log2,
-      causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, B, S, H, KV,
+      scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: [B,S,H,hd]; k, v: [B,S,KV,hd]; contiguous bf16, 16-byte aligned.
+// lse: [B,H,S] fp32, the rows' log-sum-exp of the scaled scores (what the
+// backward needs), or null to write none (serving).
 // Returns 0 or a cudaError_t (the launch's, or the tensor maps').
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* o, int B,
-                                            int S, int H, int KV, int hd,
-                                            int causal, void* stream) {
+                                            const void* v, void* o, void* lse,
+                                            int B, int S, int H, int KV,
+                                            int hd, int causal, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_hd<64>(q, k, v, o, B, S, H, KV, causal, s);
-  if (hd == 128) return launch_hd<128>(q, k, v, o, B, S, H, KV, causal, s);
+  float* l = static_cast<float*>(lse);
+  if (hd == 64) return launch_hd<64>(q, k, v, o, l, B, S, H, KV, causal, s);
+  if (hd == 128) return launch_hd<128>(q, k, v, o, l, B, S, H, KV, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

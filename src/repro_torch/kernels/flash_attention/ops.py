@@ -1,11 +1,12 @@
-"""Flash-attention forward: CUDA kernel wrappers, plain version, tracing.
+"""Flash attention, forward and backward: CUDA kernel wrappers, plain
+versions, autograd, tracing.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_fwd``): causal or full GQA attention with ``S == T``,
-which is what prefill computes.  Bound on an H100: operations
-(4*B*S^2*H*hd flops, half of it causal).  Two hand-written kernels, one
-route per dtype (``route``), head_dim 64 and 128, any S (each masks its
-ragged edge):
+which is what prefill and training compute.  Bound on an H100: operations
+(4*B*S^2*H*hd flops, half of it causal).  Two hand-written forward
+kernels, one route per dtype (``route``), head_dim 64 and 128, any S (each
+masks its ragged edge):
   * bf16 -> ``csrc/flash_attention_wgmma.cu``: Q.K^T and P.V by wgmma on
     the tensor cores, Q/K/V brought by TMA, online softmax in fp32
     registers, P rounded to bf16 for P.V;
@@ -13,7 +14,15 @@ ragged edge):
     with an fp32 online softmax on the FP32 pipes, so that the fp32 result
     is held to a full-fp32 reference and not to TF32.
 Each route counts its own launches.  A bf16 call never takes the FP32
-pipes.
+pipes.  Both write, on request, the rows' log-sum-exp ``lse`` [B,H,S]
+(fp32, scaled scores) that the backward needs; serving asks for none.
+
+The backward (``csrc/flash_attention_bwd.cu``, bf16 and fp32 instances of
+one template on the FP32 pipes) is the recompute backward that the JAX
+package runs through XLA (``src/repro/models/attention.py:164-235``): it
+has no Pallas kernel, so it has no traced-op name either, and its time
+falls in the training step's span.  ``flash_attention`` is a
+``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNELS = {
     "wgmma": CudaKernel("flash_attention_wgmma.cu",
                         "flash_attention_wgmma_launch", _ARGS),
@@ -34,6 +43,10 @@ KERNELS = {
                        _ARGS),
 }
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+BWD_KERNEL = CudaKernel(
+    "flash_attention_bwd.cu", "flash_attention_bwd_launch",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _meta(q, k, v, causal=True):
@@ -43,9 +56,8 @@ def _meta(q, k, v, causal=True):
             "shape": list(q.shape)}
 
 
-def attention_ref(q, k, v, causal=True):
-    """Plain PyTorch version. q [B,S,H,hd]; k/v [B,T,KV,hd] -> [B,S,H,hd];
-    fp32 softmax, output in ``q.dtype``."""
+def _scores(q, k, causal):
+    """fp32 scaled scores [B,KV,G,S,T], masked with NEG_INF."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd).float()
@@ -54,9 +66,45 @@ def attention_ref(q, k, v, causal=True):
         mask = (torch.arange(S, device=q.device)[:, None]
                 >= torch.arange(T, device=q.device)[None, :])
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def attention_ref(q, k, v, causal=True, return_lse=False):
+    """Plain PyTorch version. q [B,S,H,hd]; k/v [B,T,KV,hd] -> [B,S,H,hd];
+    fp32 softmax, output in ``q.dtype``.  With ``return_lse`` also the
+    rows' log-sum-exp of the scaled scores, [B,H,S] fp32."""
+    B, S, H, hd = q.shape
+    s = _scores(q, k, causal)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", w, v.float())
-    return o.reshape(B, S, H, hd).to(q.dtype)
+    o = o.reshape(B, S, H, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    return o
+
+
+def attention_bwd_ref(q, k, v, o, do, lse, causal=True):
+    """Plain PyTorch version of the backward kernel, step by step in fp32:
+    delta = rowsum(dO*O); P = exp(s - lse); dP = dO.V^T;
+    dS = P*(dP - delta)*scale; dQ = dS.K, dK = dS^T.Q and dV = P^T.dO
+    summed over the query heads of each KV head.  Returns (dq, dk, dv) in
+    the inputs' dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf = q.reshape(B, S, KV, G, hd).float()
+    dof = do.reshape(B, S, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.reshape(B, S, KV, G, hd).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                     # [B,KV,G,S]
+    p = torch.exp(_scores(q, k, causal) - lse.reshape(B, KV, G, S, 1))
+    dp = torch.einsum("bskgh,btkh->bkgst", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf).reshape(B, S, H, hd)
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qf)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def route(dtype, head_dim: int) -> str:
@@ -98,27 +146,90 @@ def check_operands(q, k, v) -> str:
     return r
 
 
-def attention_cuda(q, k, v, causal=True):
-    """Launch the kernel of q's dtype; raises on anything it does not
-    take."""
-    r = check_operands(q, k, v)
+def _check_cuda(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernels take CUDA tensors, not "
                          f"{q.device}")
+
+
+def attention_cuda(q, k, v, causal=True, return_lse=False):
+    """Launch the kernel of q's dtype; raises on anything it does not
+    take.  With ``return_lse`` the kernel also writes lse [B,H,S] fp32."""
+    r = check_operands(q, k, v)
+    _check_cuda(q)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
-    KERNELS[r].launch(ptr(q), ptr(k), ptr(v), ptr(o), B, S, H, k.shape[2],
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    KERNELS[r].launch(ptr(q), ptr(k), ptr(v), ptr(o),
+                      ptr(lse) if return_lse else None, B, S, H, k.shape[2],
                       hd, int(bool(causal)), stream_ptr(q.device))
-    return o
+    return (o, lse) if return_lse else o
+
+
+def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
+    """Launch the backward kernel; raises on anything it does not take.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    check_operands(q, k, v)
+    _check_cuda(q)
+    B, S, H, hd = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must match q "
+                             f"{tuple(q.shape)} {q.dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward takes a contiguous, "
+                             f"16-byte-aligned {name}")
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward wants lse [B,H,S] = "
+                         f"{(B, H, S)} contiguous float32 on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    BWD_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
+                      ptr(delta), ptr(dq), ptr(dk), ptr(dv), B, S, H,
+                      k.shape[2], hd, int(bool(causal)),
+                      _DTYPE_CODE[q.dtype], stream_ptr(q.device))
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal, return_lse=False):
+    if q.device.type == "cuda":
+        return attention_cuda(q, k, v, causal, return_lse)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal, return_lse)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with lse, and the backward kernel (plain versions
+    for CPU tensors).  Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = _forward(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (attention_bwd_cuda if q.device.type == "cuda"
+               else attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, ctx.causal)
+        return dq, dk, dv, None
 
 
 @traced_op("flash_attention", "compute", _meta)
 def flash_attention(q, k, v, causal=True):
     """q [B,S,H,hd]; k/v [B,S,KV,hd] -> [B,S,H,hd].
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
-    if q.device.type == "cuda":
-        return attention_cuda(q, k, v, causal)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
-    raise ValueError(f"flash_attention: unsupported device {q.device}")
+    CUDA tensors go to the kernels; CPU tensors to the plain versions.
+    When a gradient is wanted the call goes through ``FlashAttention``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)

@@ -1,4 +1,5 @@
-"""Fused residual add + RMSNorm: CUDA kernel wrapper, plain version, tracing.
+"""Fused residual add + RMSNorm, forward and backward: CUDA kernel
+wrappers, plain versions, autograd, tracing.
 
 Replaces the TPU kernel ``src/repro/kernels/fused_norm/kernel.py``
 (``fused_residual_rmsnorm_fwd``).  Bound on an H100: memory, 4*R*D*itemsize
@@ -6,6 +7,11 @@ bytes (x, res read; y, h written); the kernel (``csrc/fused_norm.cu``) reads
 each row once with 16-byte accesses, one block per row, and keeps the
 sum of squares in fp32.  At decode (R = batch) a launch costs more than its
 bytes.
+
+The backward (``csrc/fused_norm_bwd.cu``) is what the JAX package gets by
+autodiff of ``kernels/fused_norm/ref.py::fused_ref``: no Pallas kernel, so
+no traced-op name of its own.  ``fused_residual_rmsnorm`` is a
+``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -19,6 +25,12 @@ KERNEL = CudaKernel(
     "fused_norm.cu", "fused_residual_rmsnorm_launch",
     [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                              ctypes.c_int, ctypes.c_void_p])
+BWD_KERNEL = CudaKernel(
+    "fused_norm_bwd.cu", "fused_residual_rmsnorm_bwd_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                  ctypes.c_int,
+                                                  ctypes.c_void_p])
+BWD_BLOCKS_PER_SM = 4          # rows_kernel's grid, and dscale's partials
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,8 +48,22 @@ def fused_ref(x, res, scale, eps=1e-5):
     return y.to(x.dtype), h.to(x.dtype)
 
 
-def fused_cuda(x, res, scale, eps=1e-5):
-    """Launch the CUDA kernel; raises on anything it does not take."""
+def fused_bwd_ref(x, res, scale, dy, dh=None, eps=1e-5):
+    """Plain PyTorch version of the backward kernel, step by step in fp32:
+    h = x + res, r = rsqrt(mean(h^2) + eps), g = dy*scale,
+    dh_total = dh + r*g - h*r^3*mean(h*g), dscale = sum_rows dy*h*r.
+    Returns (dx, dscale): dx (= dres) in x's dtype, dscale float32."""
+    h = x.float() + res.float()
+    r = torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    dyf = dy.float()
+    g = dyf * scale.float()
+    dt = r * g - h * r ** 3 * torch.mean(h * g, dim=-1, keepdim=True)
+    if dh is not None:
+        dt = dt + dh.float()
+    return dt.to(x.dtype), (dyf * h * r).sum(0)
+
+
+def _check(x, res, scale):
     if x.dim() != 2 or res.shape != x.shape or scale.shape != x.shape[-1:]:
         raise ValueError(f"fused_residual_rmsnorm wants x,res [R,D] and "
                          f"scale [D]; got {tuple(x.shape)}, "
@@ -50,6 +76,11 @@ def fused_cuda(x, res, scale, eps=1e-5):
         raise ValueError("fused_residual_rmsnorm: tensors on different devices")
     if not (x.is_contiguous() and res.is_contiguous()):
         raise ValueError("fused_residual_rmsnorm kernel takes contiguous x/res")
+
+
+def fused_cuda(x, res, scale, eps=1e-5):
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    _check(x, res, scale)
     scale = scale.to(torch.float32).contiguous()
     R, D = x.shape
     y = torch.empty_like(x)
@@ -59,13 +90,79 @@ def fused_cuda(x, res, scale, eps=1e-5):
     return y, h
 
 
-@traced_op("fused_residual_rmsnorm", "compute", _meta)
-def fused_residual_rmsnorm(x, res, scale, eps=1e-5):
-    """x, res [R, D]; scale [D] -> (normed [R, D], new residual [R, D]).
+def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
+    """Launch the backward kernel; raises on anything it does not take.
+    Returns (dx, dscale) as ``fused_bwd_ref``."""
+    _check(x, res, scale)
+    for name, t in (("dy", dy), ("dh", dh)):
+        if t is None and name == "dh":
+            continue
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"fused_residual_rmsnorm backward: {name} must "
+                             f"match x {tuple(x.shape)} {x.dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_residual_rmsnorm backward takes a "
+                             f"contiguous {name}")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_residual_rmsnorm kernels take CUDA tensors, "
+                         f"not {x.device}")
+    scale = scale.to(torch.float32).contiguous()
+    R, D = x.shape
+    dx = torch.empty_like(x)
+    if R == 0:
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(R, BWD_BLOCKS_PER_SM * sms)
+    partial = torch.empty(blocks, D, dtype=torch.float32, device=x.device)
+    dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+    BWD_KERNEL.launch(ptr(x), ptr(res), ptr(scale), ptr(dy),
+                      None if dh is None else ptr(dh), ptr(dx), ptr(partial),
+                      ptr(dscale), R, D, blocks, float(eps),
+                      _DTYPE_CODE[x.dtype], stream_ptr(x.device))
+    return dx, dscale
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+
+def _forward(x, res, scale, eps):
     if x.device.type == "cuda":
         return fused_cuda(x, res, scale, eps)
     if x.device.type == "cpu":
         return fused_ref(x, res, scale, eps)
     raise ValueError(f"fused_residual_rmsnorm: unsupported device {x.device}")
+
+
+class FusedResidualRMSNorm(torch.autograd.Function):
+    """The forward kernel, and the backward kernel on the cotangents of y
+    and h (h's may be absent: the final norm's h is unused).  Saves x, res
+    and scale; dx and dres are the same tensor."""
+
+    @staticmethod
+    def forward(ctx, x, res, scale, eps):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, res, scale)
+        ctx.eps = eps
+        return _forward(x, res, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, res, scale = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if dh is not None:
+            dh = dh.contiguous()
+        bwd = fused_bwd_cuda if x.device.type == "cuda" else fused_bwd_ref
+        dx, dscale = bwd(x, res, scale, dy.contiguous(), dh, ctx.eps)
+        return dx, dx, dscale.to(scale.dtype), None
+
+
+@traced_op("fused_residual_rmsnorm", "compute", _meta)
+def fused_residual_rmsnorm(x, res, scale, eps=1e-5):
+    """x, res [R, D]; scale [D] -> (normed [R, D], new residual [R, D]).
+
+    CUDA tensors go to the kernels; CPU tensors to the plain versions.
+    When a gradient is wanted the call goes through
+    ``FusedResidualRMSNorm``."""
+    if torch.is_grad_enabled() and (x.requires_grad or res.requires_grad
+                                    or scale.requires_grad):
+        return FusedResidualRMSNorm.apply(x, res, scale, eps)
+    return _forward(x, res, scale, eps)

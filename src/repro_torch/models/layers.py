@@ -1,14 +1,17 @@
 """Shared layers: RMSNorm, gated RMSNorm, rotary embeddings, SwiGLU MLP, embedding and head,
-dtype policy.  Plain tensor functions with the JAX package's layouts
-(``wi_gate [D,F]``, ``wo [F,D]``, ``embedding [V,D]``, ``head [D,V]``).
+cross-entropy, dtype policy.  Plain tensor functions with the JAX package's
+layouts (``wi_gate [D,F]``, ``wo [F,D]``, ``embedding [V,D]``,
+``head [D,V]``).
 
-Weights arrive already in the compute dtype (cast once at load), where the
-JAX functions cast them at each use; the values are the same.  Norm scales
-stay float32 because the JAX ``rmsnorm`` upcasts them.
+Callers pass weights already in the compute dtype: the models cast each
+stored weight at its use, as the JAX functions do (``Tensor.to`` returns the
+weight itself when it is stored in the compute dtype, as for serving).
+Norm scales stay float32 because the JAX ``rmsnorm`` upcasts them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,11 +19,18 @@ import torch.nn.functional as F
 
 @dataclass(frozen=True)
 class Policy:
-    """Mixed-precision policy: the dtype weights and activations compute
-    in.  Weights are drawn and loaded in float32 (the JAX default
-    ``param_dtype``) and cast once to it."""
+    """Mixed-precision policy: the dtype weights are stored in
+    (``param_dtype``, the JAX ``RunConfig.policy``'s) and the dtype weights
+    and activations compute in.  Training keeps float32 parameters cast at
+    each use; serving stores them in the compute dtype (``param_dtype``
+    None), drawn and loaded in float32 and cast once."""
 
     compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        if self.param_dtype is None:
+            object.__setattr__(self, "param_dtype", self.compute_dtype)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
@@ -70,3 +80,14 @@ def head_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def tied_head_apply(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x @ embedding.t()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE. logits [..., V] upcast to fp32; labels int [...].
+
+    The JAX version picks the label's logit by a one-hot contraction (for
+    GSPMD); a gather gives the same fp32 value, as one term is nonzero."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)

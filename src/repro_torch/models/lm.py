@@ -15,8 +15,8 @@ from repro_torch.models import layers as L
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """A trainable parameter; serving runs under ``torch.no_grad``."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class RMSNorm(nn.Module):
@@ -48,18 +48,25 @@ def fused(x, res, scale, eps):
 class LM(nn.Module):
     """Base of the port's models: ``embed``, ``final_norm``, ``head``
     (None when tied), init and load.  A subclass gives each parameter's
-    init by ``_init_std`` (normal stddev) or ``_init_const``."""
+    init by ``_init_std`` (normal stddev) or ``_init_const``.  Weights are
+    stored in ``policy.param_dtype`` and cast to the compute dtype at use
+    (``cast``)."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy, device):
         super().__init__()
         self.cfg = cfg
         self.policy = policy
         self.device = torch.device(device)
-        cd = policy.compute_dtype
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, cd, self.device)
+        pd = policy.param_dtype
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, pd, self.device)
         self.final_norm = RMSNorm(cfg.d_model, self.device)
         self.head = (None if cfg.tie_embeddings else
-                     Head(cfg.d_model, cfg.vocab_size, cd, self.device))
+                     Head(cfg.d_model, cfg.vocab_size, pd, self.device))
+
+    def cast(self, w: torch.Tensor) -> torch.Tensor:
+        """A stored weight in the compute dtype: the weight itself when it
+        is stored so (serving), else a cast that autograd sees through."""
+        return w.to(self.policy.compute_dtype)
 
     def _init_std(self, name: str) -> Optional[float]:
         """Stddev of the JAX init's normal draw for a parameter, None for
@@ -116,8 +123,8 @@ class LM(nn.Module):
 
     def _head(self, h):
         if self.cfg.tie_embeddings:
-            return L.tied_head_apply(self.embed.embedding, h)
-        return L.head_apply(self.head.w, h)
+            return L.tied_head_apply(self.cast(self.embed.embedding), h)
+        return L.head_apply(self.cast(self.head.w), h)
 
     def _embed(self, tokens):
         return L.embed_apply(self.embed.embedding, tokens,

@@ -45,6 +45,9 @@ class MambaLM(LM):
         self.layers = nn.ModuleList(
             MambaLayer(cfg, policy.compute_dtype, self.device)
             for _ in range(cfg.num_layers))
+        # serving only: the SSD scan has no backward yet, so a gradient
+        # through its kernel would be lost without a word
+        self.requires_grad_(False)
 
     def _init_std(self, name: str) -> Optional[float]:
         cfg = self.cfg

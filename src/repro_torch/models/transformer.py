@@ -59,8 +59,11 @@ class Block(nn.Module):
 
 
 class TransformerLM(LM):
-    """Weights live in the compute dtype, cast once at load (the JAX model
-    casts them at each use: same values); norm scales stay float32."""
+    """Weights live in ``policy.param_dtype`` and are cast to the compute
+    dtype at each use, as in the JAX model (serving stores them in the
+    compute dtype, so the cast is the weight itself); norm scales stay
+    float32.  ``loss`` trains: its forward and backward go through the
+    flash-attention and fused-norm kernels on CUDA tensors."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
                  device="cuda"):
@@ -69,7 +72,7 @@ class TransformerLM(LM):
                 f"TransformerLM serves the dense family, not {cfg.family!r}")
         super().__init__(cfg, policy, device)
         self.layers = nn.ModuleList(
-            Block(cfg, policy.compute_dtype, self.device)
+            Block(cfg, policy.param_dtype, self.device)
             for _ in range(cfg.num_layers))
 
     def _init_std(self, name: str) -> Optional[float]:
@@ -92,15 +95,17 @@ class TransformerLM(LM):
         """Runs every block; returns the final-normed hidden state.
         ``cache`` None: full causal self-attention, returns (h, [(k, v)]).
         ``cache`` given: one decode token at ``pos``."""
-        cfg, eps = self.cfg, self.cfg.norm_eps
+        cfg, eps, w = self.cfg, self.cfg.norm_eps, self.cast
         h = L.rmsnorm(self.layers[0].ln1.scale, x, eps)
         kvs = []
         n = len(self.layers)
         for i, blk in enumerate(self.layers):
             a = blk.attn
+            bias = ((None,) * 3 if a.bq is None
+                    else (w(a.bq), w(a.bk), w(a.bv)))
             q, k, v = attn_lib.project_qkv(
-                a.wq, a.wk, a.wv, h, positions, cfg.rope_theta,
-                a.bq, a.bk, a.bv)
+                w(a.wq), w(a.wk), w(a.wv), h, positions, cfg.rope_theta,
+                *bias)
             if cache is None:
                 o = attn_lib.attention(q, k, v, causal=True)
                 kvs.append((k, v))
@@ -111,21 +116,32 @@ class TransformerLM(LM):
                 cache["v"][i, :, pos] = v[:, 0]
                 o = attn_lib.decode_attention(q, cache["k"][i],
                                               cache["v"][i], pos)
-            h, x = fused(attn_lib.project_out(a.wo, o), x, blk.ln2.scale, eps)
+            h, x = fused(attn_lib.project_out(w(a.wo), o), x, blk.ln2.scale,
+                         eps)
             m = blk.mlp
-            y = L.mlp_apply(m.wi_gate, m.wi_up, m.wo, h)
+            y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
             nxt = (self.layers[i + 1].ln1 if i + 1 < n
                    else self.final_norm).scale
             h, x = fused(y, x, nxt, eps)
         return h, kvs
 
-    @torch.no_grad()
-    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B,S] -> logits [B,S,V]."""
+    def logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B,S] -> logits [B,S,V], recording autograd's graph
+        where grad mode is on (training)."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
         h, _ = self._blocks(self._embed(tokens), positions)
         return self._head(h)
+
+    @torch.no_grad()
+    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B,S] -> logits [B,S,V]."""
+        return self.logits(tokens)
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` against ``labels``
+        (the JAX ``loss`` of a dense model without MoE)."""
+        return L.cross_entropy(self.logits(tokens), labels)
 
     # ------------------------------------------------------------------ #
     # KV cache serving

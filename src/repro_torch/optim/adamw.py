@@ -1,0 +1,136 @@
+"""AdamW with a global-norm clip and optional compressed optimizer state,
+the port of the JAX package's ``optim/adamw.py``.
+
+``state_dtype``:
+  float32  — classic m/v
+  bfloat16 — halves the optimizer's memory
+  int8     — block-wise absmax-quantized m/v (8-bit-Adam style): an int8
+             payload of the parameter's shape, fp32 scales on a
+             ``[..., n_blocks]`` tail (blocks of ``QBLOCK`` along the last
+             axis)
+
+Parameters, gradients and state are dicts keyed by parameter name.  The
+update is plain tensor code under ``no_grad`` (the JAX package leaves it to
+XLA, outside any Pallas kernel) and writes the parameters and the state in
+place, where the JAX arrays are replaced: at full width that saves a copy
+of every parameter and moment.  The arithmetic is the JAX update's, in its
+order, in float32.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+QBLOCK = 256
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_dtype: str = "float32"  # float32 | bfloat16 | int8
+    grad_clip: float = 1.0
+
+
+# ---------------------------------------------------------------- int8 state
+def _nblocks(last: int) -> int:
+    return max((last + QBLOCK - 1) // QBLOCK, 1)
+
+
+def _q_init(x: torch.Tensor) -> dict:
+    last = x.shape[-1] if x.dim() else 1
+    lead = tuple(x.shape[:-1]) if x.dim() else ()
+    return {"q": torch.zeros(tuple(x.shape) if x.dim() else (1,),
+                             dtype=torch.int8, device=x.device),
+            "scale": torch.zeros(lead + (_nblocks(last),),
+                                 dtype=torch.float32, device=x.device)}
+
+
+def _blocked(x: torch.Tensor, nb: int) -> torch.Tensor:
+    """x [..., last] float32, zero-padded to nb * QBLOCK -> [..., nb, QBLOCK]."""
+    pad = nb * QBLOCK - x.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, pad))
+    return xp.reshape(tuple(x.shape[:-1]) + (nb, QBLOCK))
+
+
+def _q_enc(x: torch.Tensor) -> dict:
+    if x.dim() == 0:
+        x = x[None]
+    last = x.shape[-1]
+    blocks = _blocked(x.float(), _nblocks(last))
+    scale = torch.clamp(blocks.abs().amax(dim=-1) / 127.0, min=1e-20)
+    q = torch.clamp(torch.round(blocks / scale[..., None]), -127, 127)
+    q = q.reshape(tuple(x.shape[:-1]) + (-1,))[..., :last].to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def _q_dec(s: dict, shape) -> torch.Tensor:
+    q = s["q"]
+    last = q.shape[-1]
+    blocks = _blocked(q.float(), s["scale"].shape[-1])
+    x = (blocks * s["scale"][..., None]).reshape(tuple(q.shape[:-1]) + (-1,))
+    return x[..., :last].reshape(shape)
+
+
+# --------------------------------------------------------------------- AdamW
+def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
+    def one(p):
+        if cfg.state_dtype == "int8":
+            return {"m": _q_init(p), "v": _q_init(p)}
+        dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
+        return {"m": torch.zeros(p.shape, dtype=dt, device=p.device),
+                "v": torch.zeros(p.shape, dtype=dt, device=p.device)}
+
+    with torch.no_grad():
+        dev = next(iter(params.values())).device if params else "cpu"
+        return {"mu_nu": {k: one(p) for k, p in params.items()},
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tensors))
+
+
+@torch.no_grad()
+def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
+                 lr) -> tuple[dict, dict, dict]:
+    """One AdamW step, in place on ``params`` and ``state``.  Returns
+    (params, state, {"grad_norm": fp32 scalar})."""
+    count = state["count"] + 1
+    gnorm = global_norm(grads[k] for k in params)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    cf = count.float()
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
+    for name, p in params.items():
+        s = state["mu_nu"][name]
+        g = grads[name].float() * clip
+        if cfg.state_dtype == "int8":
+            m = _q_dec(s["m"], p.shape)
+            v = _q_dec(s["v"], p.shape)
+        else:
+            m = s["m"].float()
+            v = s["v"].float()
+        m = cfg.b1 * m + (1.0 - cfg.b1) * g
+        v = cfg.b2 * v + (1.0 - cfg.b2) * g * g
+        mhat = m / b1c
+        vhat = v / b2c
+        upd = mhat / (torch.sqrt(vhat) + cfg.eps)
+        pf = p.float()
+        p.copy_(pf - lr * (upd + cfg.weight_decay * pf))
+        if cfg.state_dtype == "int8":
+            for key, val in (("m", m), ("v", v)):
+                enc = _q_enc(val)
+                s[key]["q"].copy_(enc["q"])
+                s[key]["scale"].copy_(enc["scale"])
+        else:
+            s["m"].copy_(m)
+            s["v"].copy_(v)
+    state["count"].copy_(count)
+    return params, state, {"grad_norm": gnorm}

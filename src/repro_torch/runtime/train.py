@@ -1,0 +1,221 @@
+"""Training runtime: the train step and the FLARE-instrumented training
+loop, the port of the JAX package's ``runtime/train.py``.
+
+``make_train_step`` builds the step (microbatched gradient accumulation,
+AdamW with compressed state, LR schedule).  ``Trainer`` runs the loop: it
+owns the dataloader, attaches the FLARE daemon, emits step/dataloader
+events, checkpoints, and exposes fault hooks for the supervisor.  Its
+trace carries the JAX Trainer's span names and meta keys.
+
+Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
+card and no explicit CPU, ``Trainer`` raises.  On the card the forward and
+backward of attention and of the fused residual + RMSNorm are the port's
+kernels.  The dense family trains; the ssm family does not yet (the SSD
+scan has no backward).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+from repro_torch.core.events import EventKind
+from repro_torch.data import DataConfig, ShardedLoader
+from repro_torch.models.layers import Policy
+from repro_torch.models.registry import build_model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.schedule import warmup_cosine
+
+
+@dataclass
+class RunConfig:
+    model: ModelConfig
+    global_batch: int = 8
+    seq_len: int = 128
+    num_microbatches: int = 1
+    steps: int = 50
+    warmup_steps: int = 20
+    peak_lr: float = 3e-4
+    grad_accum_dtype: str = "float32"  # float32 | bfloat16 (microbatching)
+    opt: AdamWConfig = field(default_factory=AdamWConfig)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    seed: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 25
+    flare: bool = True
+    flare_log: Optional[str] = None
+    mask_mode: str = "none"   # none | naive | fast (Case-3)
+    data_prefetch: bool = True  # False = synchronous dataloader (Case-3)
+    device: str = "cuda"
+
+    def policy(self) -> Policy:
+        return Policy(getattr(torch, self.compute_dtype),
+                      getattr(torch, self.param_dtype))
+
+
+def loss_and_grads(model, tokens: torch.Tensor, labels: torch.Tensor,
+                   params: dict) -> tuple[torch.Tensor, dict]:
+    """The mean cross-entropy of one batch and its gradient for each of
+    ``params`` (name -> parameter)."""
+    loss = model.loss(tokens, labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def make_train_step(model, cfg: RunConfig):
+    """Returns step_fn(opt_state, batch, step) -> (opt_state, metrics).
+
+    The parameters are the model's own and are updated in place; ``batch``
+    holds ``tokens`` and ``labels`` [B, S] on the model's device; the
+    metrics (``loss``, ``lr``, ``grad_norm``) are device scalars."""
+    params = dict(model.named_parameters())
+    M = cfg.num_microbatches
+    acc_dt = getattr(torch, cfg.grad_accum_dtype)
+
+    def step_fn(opt_state, batch, step):
+        lr = warmup_cosine(step, peak_lr=cfg.peak_lr,
+                           warmup_steps=cfg.warmup_steps,
+                           total_steps=cfg.steps).to(model.device)
+        tokens, labels = batch["tokens"], batch["labels"]
+        if M <= 1:
+            loss, grads = loss_and_grads(model, tokens, labels, params)
+        else:
+            B = tokens.shape[0]
+            if B % M:
+                raise ValueError(f"batch {B} does not split into {M} "
+                                 f"microbatches")
+            gacc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                     for k, p in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            for tok, lab in zip(tokens.chunk(M), labels.chunk(M)):
+                lm, g = loss_and_grads(model, tok, lab, params)
+                for k in gacc:
+                    gacc[k] += g[k].to(acc_dt)
+                loss = loss + lm
+            grads = {k: g / M for k, g in gacc.items()}
+            loss = loss / M
+        _, opt_state, om = adamw_update(grads, opt_state, params, cfg.opt, lr)
+        return opt_state, {"loss": loss, "lr": lr, **om}
+
+    return step_fn
+
+
+class Trainer:
+    """FLARE-instrumented training loop with checkpoint/restart support."""
+
+    def __init__(self, cfg: RunConfig, fault_hook: Optional[Callable] = None):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Trainer: no CUDA device; pass RunConfig(device='cpu') to "
+                "train on the CPU")
+        if cfg.model.family != "dense":
+            raise NotImplementedError(
+                f"the port trains the dense family, not "
+                f"{cfg.model.family!r}: the SSD scan has no backward yet")
+        self.model = build_model(cfg.model, cfg.policy(), self.device)
+        self.step_fn = make_train_step(self.model, cfg)
+        self.fault_hook = fault_hook
+        self.daemon = None
+        self.ckpt = None
+        if cfg.checkpoint_dir:
+            from repro_torch.checkpoint import CheckpointManager
+            self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+        self.history: list[dict] = []
+
+    # ------------------------------------------------------------------ #
+    def params(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        self.model.init(gen)
+        opt_state = adamw_init(self.params(), self.cfg.opt)
+        return self.params(), opt_state, 0
+
+    def restore_or_init(self):
+        params, opt_state, start = self.init_state()
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            self.ckpt.restore({"params": params, "opt": opt_state})
+            start = self.ckpt.latest_step() + 1
+        return params, opt_state, start
+
+    def _loader(self, start: int = 0) -> ShardedLoader:
+        c = self.cfg
+        return ShardedLoader(DataConfig(
+            vocab_size=c.model.vocab_size, batch=c.global_batch,
+            seq_len=c.seq_len, seed=c.seed, mask_mode=c.mask_mode),
+            start_step=start)
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.long,
+                                   device=self.device)
+                for k in ("tokens", "labels")}
+
+    # ------------------------------------------------------------------ #
+    def train(self, steps: Optional[int] = None) -> list[dict]:
+        cfg = self.cfg
+        steps = steps if steps is not None else cfg.steps
+        self.daemon = None
+        if cfg.flare:
+            self.daemon = TracingDaemon(DaemonConfig(
+                rank=0, backend=f"{cfg.model.family}-train",
+                log_path=cfg.flare_log, hang_timeout=300.0))
+            self.daemon.attach()
+        params, opt_state, start = self.restore_or_init()
+        loader = self._loader(start)
+        if cfg.data_prefetch:
+            loader.start()
+        tokens_per_step = cfg.global_batch * cfg.seq_len
+        try:
+            for step in range(start, steps):
+                if self.daemon:
+                    self.daemon.step_begin(step)
+                    self.daemon.set_stack(["Trainer.train", "next_batch"])
+                t0 = time.perf_counter()
+                batch = loader.next_batch()
+                t_data = time.perf_counter()
+                if self.daemon:
+                    self.daemon.record_span(
+                        EventKind.DATALOADER, "dataloader.next_batch",
+                        t0, t_data, tokens=tokens_per_step)
+                    self.daemon.set_stack(["Trainer.train", "train_step"])
+                tb = self._to_device(batch)
+                if self.fault_hook:
+                    self.fault_hook(step)
+                t_dispatch = time.perf_counter()
+                opt_state, metrics = self.step_fn(opt_state, tb, step)
+                loss = float(metrics["loss"])  # sync point
+                t_done = time.perf_counter()
+                if self.daemon:
+                    # whole-step device occupancy, from dispatch to the
+                    # loss read, as the JAX Trainer's jitted step
+                    self.daemon.record_span(
+                        EventKind.KERNEL_COMPUTE, "train_step_exec",
+                        t_dispatch, t_done,
+                        flops=6.0 * cfg.model.active_param_count()
+                        * tokens_per_step)
+                    self.daemon.step_end(tokens=tokens_per_step, loss=loss)
+                rec = {"step": step, "loss": loss,
+                       "lr": float(metrics["lr"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "step_time_s": time.perf_counter() - t0,
+                       "tokens_per_s": tokens_per_step
+                       / max(time.perf_counter() - t0, 1e-9)}
+                self.history.append(rec)
+                if self.ckpt and (step + 1) % cfg.checkpoint_every == 0:
+                    self.ckpt.save(step, {"params": params, "opt": opt_state},
+                                   {"loss": loss})
+        finally:
+            loader.stop()
+            if self.daemon:
+                self.daemon.detach()
+        self.final_state = (params, opt_state)
+        return self.history

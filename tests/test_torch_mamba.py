@@ -210,3 +210,32 @@ def test_registry_builds_each_family():
         num_kv_heads=1, d_ff=8, vocab_size=8)
     with pytest.raises(NotImplementedError, match="hybrid"):
         build_model(other, device="cpu")
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_short_prompts_decode_like_the_full_sequence(monkeypatch, S):
+    """Prompts of 1 and 2 tokens, shorter than the conv history of W - 1 =
+    3 columns: the port pads the history with zeros.  The JAX package
+    raises here (its ``mamba2.py:186`` keeps fewer columns), so the
+    oracles are the port's own forward over the whole sequence, with its
+    chunked SSD scan and with the step recurrence ``ssd_sequential``:
+    prefill + 2 decode steps give their logits (reduced config, fp32)."""
+    _, _, state = _jax_model("float32")
+    tm = _port_model("float32", state)
+    n = 3
+    toks = torch.from_numpy(
+        np.random.default_rng(S).integers(0, 256, (2, S + n)))
+    full = tm.apply(toks)
+    cache = tm.init_cache(2, S + n)
+    steps = [tm.prefill(toks[:, :S], cache)]
+    for i in range(n - 1):
+        steps.append(tm.decode_step(toks[:, S + i:S + i + 1], cache, S + i))
+    got = torch.stack(steps, dim=1)
+    torch.testing.assert_close(got, full[:, S - 1:S + n - 1], rtol=2e-3,
+                               atol=2e-3)
+    monkeypatch.setattr(
+        TM, "ssd_scan", lambda x, dt, A, Bm, Cm, chunk, initial_state=None:
+        TM.ssd_sequential(x, dt, A, Bm, Cm, initial_state))
+    sequential = tm.apply(toks)
+    torch.testing.assert_close(got, sequential[:, S - 1:S + n - 1],
+                               rtol=2e-3, atol=2e-3)

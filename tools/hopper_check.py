@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul]
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd]
 
 On one CUDA card: builds the tensor-core kernels (flash attention, the
 padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
@@ -15,7 +15,12 @@ yardstick, yardstick, kernel, best of two each):
   * the SSD scan's two routes against each other (bf16 on the tensor
     cores, fp32 on the FP32 pipes) at L 1024 and 4096, B 8, H 48;
   * the ring combine against ``torch.add`` at the ring's chunk, from
-    device memory (inputs cycled past the 50 MB L2) and in L2.
+    device memory (inputs cycled past the 50 MB L2) and in L2;
+  * (``bwd``) the flash forward's lse output on both routes, the flash
+    backward (bf16 and fp32, hd 64 and 128, causal and full, ragged S)
+    and the fused-norm backward (with and without dh) against their plain
+    versions; the flash backward timed beside autograd of SDPA and the
+    fused backward alone, at the training shapes.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -43,6 +48,9 @@ SSD_CHECK = [(8, 1024, 48, 128, 256, False), (2, 1000, 48, 128, 256, True),
              (2, 100, 8, 128, 256, False), (2, 700, 8, 128, 192, True),
              (2, 300, 8, 64, 64, True), (1, 1000, 8, 64, 128, False)]
 SSD_TIME = [(8, 1024), (8, 4096)]
+# (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S
+BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
+             (1, 1, 4, 1, 64), (2, 77, 4, 4, 128)]
 
 
 def in_turns(kernel, yardstick, iters=30, **kw):
@@ -53,11 +61,137 @@ def in_turns(kernel, yardstick, iters=30, **kw):
     return min(k0, k1), min(l0, l1)
 
 
+def check_backward():
+    """The backward kernels and the forward's lse: checks, then times."""
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import ptxas_usage, sass_mma, time_ms
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    kernels = [*fa.KERNELS.values(), fa.BWD_KERNEL, fn.KERNEL, fn.BWD_KERNEL]
+    build_all(kernels)
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if "arning" in line or "rror" in line:
+                print(f"[build] {k.source}: {line.strip()}")
+        for u in ptxas_usage(k.build_log):
+            print(f"[build] {k.source}: {u['function'][:70]}: "
+                  f"{u['registers']} registers, {u['spill_stores']}/"
+                  f"{u['spill_loads']} bytes spilled")
+        n = sass_mma(k)
+        print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def close(got, want, tol):
+        g, w = got.float(), want.float()
+        ok = bool(((g - w).abs() <= tol + tol * w.abs()).all()
+                  and g.isfinite().all())
+        return ok, float((g - w).abs().max())
+
+    for (B, S, H, KV, hd) in BWD_CHECK:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = 5e-2 if dtype == torch.bfloat16 else 3e-4
+            for causal in (True, False):
+                q, k, v = (randn(B, S, H, hd, dtype=dtype),
+                           randn(B, S, KV, hd, dtype=dtype),
+                           randn(B, S, KV, hd, dtype=dtype))
+                o, lse = fa.attention_cuda(q, k, v, causal, return_lse=True)
+                o_r, lse_r = fa.attention_ref(q, k, v, causal,
+                                              return_lse=True)
+                do = randn(B, S, H, hd, dtype=dtype)
+                got = fa.attention_bwd_cuda(q, k, v, o, do, lse, causal)
+                want = fa.attention_bwd_ref(q, k, v, o, do, lse, causal)
+                torch.cuda.synchronize()
+                res = [close(lse, lse_r, 3e-4), close(o, o_r, tol)] + [
+                    close(g, w, tol) for g, w in zip(got, want)]
+                ok = all(r[0] for r in res)
+                bad += not ok
+                print(f"[check] flash bwd B{B} S{S} H{H} KV{KV} hd{hd} "
+                      f"{dtype} causal={causal}: max_abs_err lse, o, dq, dk, "
+                      f"dv {[f'{r[1]:.2e}' for r in res]} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+    for (R, D) in ((4096, 2048), (300, 1536), (7, 100)):
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = 5e-2 if dtype == torch.bfloat16 else 3e-4
+            for with_dh in (True, False):
+                x, r, dy = (randn(R, D, dtype=dtype) for _ in range(3))
+                dh = randn(R, D, dtype=dtype) if with_dh else None
+                s = randn(D, dtype=torch.float32)
+                dx, ds = fn.fused_bwd_cuda(x, r, s, dy, dh)
+                dxr, dsr = fn.fused_bwd_ref(x, r, s, dy, dh)
+                torch.cuda.synchronize()
+                ok1, e1 = close(dx, dxr, tol)
+                # dscale sums R rows: fp32 sums in another order
+                ok2, e2 = close(ds, dsr, 3e-4 * max(1.0, R ** 0.5))
+                bad += not (ok1 and ok2)
+                print(f"[check] fused bwd R{R} D{D} {dtype} dh={with_dh}: "
+                      f"max_abs_err dx {e1:.2e}, dscale {e2:.2e} "
+                      f"{'ok' if ok1 and ok2 else 'FAIL'}", flush=True)
+
+    B, S, H, KV, hd = 8, 512, 32, 8, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (randn(B, S, H, hd, dtype=dtype),
+                   randn(B, S, KV, hd, dtype=dtype),
+                   randn(B, S, KV, hd, dtype=dtype))
+        fwd = time_ms(lambda: fa.attention_cuda(q, k, v, True), 20)
+        fwd_lse = time_ms(lambda: fa.attention_cuda(q, k, v, True, True), 20)
+        o, lse = fa.attention_cuda(q, k, v, True, True)
+        do = randn(B, S, H, hd, dtype=dtype)
+        bwd = time_ms(lambda: fa.attention_bwd_cuda(q, k, v, o, do, lse), 10)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k.repeat_interleave(H // KV, 2),
+                                v.repeat_interleave(H // KV, 2)))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
+        print(f"[time] flash B{B} S{S} H{H} KV{KV} hd{hd} {dtype} causal: "
+              f"forward {fwd:.4f} ms, with lse {fwd_lse:.4f}; backward "
+              f"{bwd:.4f} ms ({flops / bwd / 1e9:.1f} TFLOP/s of 5 "
+              f"products), SDPA backward {lib:.4f} ms", flush=True)
+        del q, k, v, o, do, qt, kt, vt, out, dot
+    for dtype in (torch.bfloat16, torch.float32):
+        R, D = 4096, 2048
+        x, r, dy, dh = (randn(R, D, dtype=dtype) for _ in range(4))
+        s = randn(D, dtype=torch.float32)
+        ms = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy, dh), 50)
+        ms_nodh = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy), 50)
+        nbytes = 5 * R * D * x.element_size()
+        print(f"[time] fused bwd R{R} D{D} {dtype}: {ms:.4f} ms with dh "
+              f"({nbytes / ms / 1e6:.0f} GB/s of x, res, dy, dh, dx), "
+              f"{ms_nodh:.4f} without", flush=True)
+    if bad:
+        print(f"FAIL: {bad} checks outside tolerance")
+        sys.exit(1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="ssd,combine,flash,matmul",
                     help="comma-separated parts to run")
     parts = set(ap.parse_args().only.split(","))
+    if "bwd" in parts:
+        check_backward()
+        parts.discard("bwd")
+        if not parts:
+            return
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():

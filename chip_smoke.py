@@ -6,15 +6,15 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the port from
-                src/repro_torch/kernels/csrc/ (flash attention, the SSD scan
-                and the padded matmul, each a bf16 tensor-core kernel and an
-                fp32 one; fused residual+RMSNorm, ring combine; the flash
-                and fused-norm backward kernels), one nvcc per source, all
+                src/repro_torch/kernels/csrc/ (flash attention forward and
+                backward, the SSD scan and the padded matmul, each a bf16
+                tensor-core kernel and an fp32 one; fused residual+RMSNorm
+                and its backward, ring combine), one nvcc per source, all
                 started together; registers and spills from ptxas, and the
                 HGMMA / HMMA count of each library's SASS (the bf16 routes
-                must have tensor-core instructions, and the fp32 routes and
-                the two backward kernels, which run on the FP32 pipes, none,
-                or the phase fails);
+                must have HGMMA, and the fp32 routes and the fused-norm
+                backward, which run on the FP32 pipes, no tensor-core
+                instruction, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -26,12 +26,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and a PyTorch library call where one computes the same
                 function; a [kernels] line per tensor-core kernel (TFLOP/s,
                 share of the bound, factor against the library, registers,
-                spills, HGMMA / HMMA); the flash backward (the training
-                shape in bf16, fp32, hd 128, ragged S) and the fused-norm
-                backward (R 4096 D 2048, bf16 and fp32, with and without
-                dh) against their plain versions, timed beside them and
-                beside autograd of SDPA (flash); the flash forward's time
-                with its lse output beside its time without;
+                spills, HGMMA / HMMA); the flash backward on each route
+                (the training shape in bf16 and fp32, full attention, hd
+                128, ragged S) and the fused-norm backward (R 4096 D 2048,
+                bf16 and fp32, with and without dh) against their plain
+                versions, timed beside them; the flash backward of each
+                route in turns with autograd of SDPA pinned to each backend
+                that runs (flash, efficient, cuDNN; the fastest is the
+                yardstick); the flash forward's time with its lse output
+                beside its time without;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -54,12 +57,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 S 512, bf16 compute, fp32 parameters and AdamW moments, 12
                 traced steps): each step's loss, step time, tokens/s, MFU
                 and the peak memory; the launch counts of every step (flash
-                forward and backward 16, fused forward and backward 32, no
-                plain version); the loss finite and falling; 8 traced and
+                forward and backward 16, on the wgmma routes and none on
+                fp32, fused forward and backward 32, no plain version); the
+                loss finite and falling; 8 traced and
                 8 untraced steps in turn (the tracing overhead, with the
                 steps' ranges); a profiler breakdown of one
                 step; one fp32 step of the 2-layer cut, card against CPU
-                (loss, grad_norm, three gradients); a checkpoint saved and
+                (loss, grad_norm, three gradients; flash forward and
+                backward on the fp32 routes); a checkpoint saved and
                 restored bitwise;
   7. trace    — each serving path's and the training run's JSONL spill
                 read back: step spans and kernel spans with device
@@ -363,19 +368,25 @@ def check_fused(gen, device):
     return main, {f"R{R} D{D}": t for (R, D), t in timed.items()}, cases
 
 
-# the flash backward: the training shape (bf16, causal), fp32 on a smaller
-# shape, hd 128, and a ragged S; each with its forward's lse
+# the flash backward: the training shape (bf16, causal) and the same in
+# fp32, each route's masking (full attention, ragged S, hd 128); each with
+# its forward's lse
 FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((8, 512, 32, 8, 64), "float32", True),
+                   ((2, 256, 16, 4, 64), "bfloat16", False),
                    ((2, 256, 16, 4, 64), "float32", True),
                    ((2, 256, 16, 4, 128), "bfloat16", True),
                    ((2, 256, 16, 4, 128), "float32", False),
                    ((2, 200, 16, 4, 64), "bfloat16", True),
-                   ((2, 200, 16, 4, 64), "float32", False)]
+                   ((2, 200, 16, 4, 64), "float32", False),
+                   ((2, 77, 8, 2, 128), "bfloat16", False),
+                   ((2, 333, 8, 2, 128), "bfloat16", True)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
 BWD_BF16_SCALED = 1e-2
+# the SDPA backends timed as the flash backward's yardstick
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
 def flash_bwd_bound(B, S, H, KV, hd, causal, itemsize, peak):
@@ -389,18 +400,70 @@ def flash_bwd_bound(B, S, H, KV, hd, causal, itemsize, peak):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_flash_bwd(gen, device):
-    """The flash backward kernel against ``attention_bwd_ref`` and the
-    forward's lse against ``attention_ref``'s, one launch per call; timed
-    at the training shape beside the plain version and autograd of SDPA
-    (KV heads expanded beforehand; for timing only); the forward's time
-    with lse beside its time without, at the training and serving
-    shapes."""
+def in_turns(fns: dict, iters: int, **kw) -> dict:
+    """Each callable's mean device time (``time_ms(fn, iters, **kw)``),
+    best of two, timed in the order given and then reversed (a, b, c, c,
+    b, a), so that a drift of the card's clock weighs on all alike."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(time_ms(fns[n], iters, **kw))
+    return {n: min(t) for n, t in times.items()}
+
+
+def sdpa_backward_fns(q, k, v, do, causal) -> dict:
+    """For each SDPA backend of ``SDPA_BACKENDS`` that takes these inputs,
+    a callable that computes the backward of attention: autograd of
+    ``scaled_dot_product_attention`` pinned to the backend with
+    ``sdpa_kernel``, the KV heads expanded and the forward run beforehand.
+    A yardstick only: the port never calls SDPA."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    H, KV = q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k.repeat_interleave(H // KV, dim=2),
+                            v.repeat_interleave(H // KV, dim=2)))
+    dot = do.transpose(1, 2).contiguous()
+    fns = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError:
+            continue            # the backend does not take these inputs
+        fns[name.lower()] = (lambda out=out: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    return fns
+
+
+def time_flash_bwd(ops, q, k, v, do, causal, iters):
+    """The backward kernel of q's dtype and each SDPA backend's backward
+    that runs, in turns, each behind a queued sleep (autograd's host cost
+    per call exceeds the device time of SDPA's backward, so timed back to
+    back its calls would measure the host); (kernel ms, {backend: ms})."""
+    o, lse = ops.attention_cuda(q, k, v, causal, return_lse=True)
+    fns = {"kernel": lambda: ops.attention_bwd_cuda(q, k, v, o, do, lse,
+                                                    causal)}
+    fns.update(sdpa_backward_fns(q, k, v, do, causal))
+    times = in_turns(fns, iters, behind_sleep=True)
+    return times.pop("kernel"), times
+
+
+def check_flash_bwd(gen, device):
+    """The flash backward against ``attention_bwd_ref`` and the forward's
+    lse against ``attention_ref``'s, each call on the route of its dtype
+    (one launch of that route's kernel, none of the other); each route
+    timed at the training shape beside its plain version and, in turns
+    (at least 50 iterations each), beside autograd of SDPA pinned to each
+    backend that runs (the fastest is ``library_ms``); the forward's time
+    with lse beside its time without, at the training and serving shapes.
+    Returns the bf16 (tensor-core) and fp32 summaries and the cases."""
+    import torch
     from repro_torch.kernels.flash_attention import ops
 
-    bwd = {"bwd": ops.BWD_KERNEL}
     cases = []
     for (B, S, H, KV, hd), dtype, causal in FLASH_BWD_CASES:
         dt = getattr(torch, dtype)
@@ -410,14 +473,16 @@ def check_flash_bwd(gen, device):
         route = ops.route(dt, hd)
         o, lse = on_route(ops.KERNELS, route, lambda: ops.attention_cuda(
             q, k, v, causal, return_lse=True))
-        got = on_route(bwd, "bwd", lambda: ops.attention_bwd_cuda(
-            q, k, v, o, do, lse, causal))
+        got = on_route(ops.BWD_KERNELS, ops.BWD_ROUTES[dt],
+                       lambda: ops.attention_bwd_cuda(q, k, v, o, do, lse,
+                                                      causal))
         _, lse_ref = ops.attention_ref(q, k, v, causal, return_lse=True)
         want = ops.attention_bwd_ref(q, k, v, o, do, lse, causal)
         torch.cuda.synchronize()
         errs = [max_err(lse, lse_ref, "float32")] + [
             max_err(g, w, dtype) for g, w in zip(got, want)]
         case = dict(shape=[B, S, H, KV, hd], dtype=dtype, causal=causal,
+                    route=ops.BWD_ROUTES[dt],
                     max_abs_err=dict(zip(("lse", "dq", "dk", "dv"), errs)))
         scaled = ""
         if dtype == "bfloat16":
@@ -428,53 +493,64 @@ def check_flash_bwd(gen, device):
                       f"{rel[1]:.2e}, dv {rel[2]:.2e} (at most "
                       f"{BWD_BF16_SCALED})")
         cases.append(case)
-        log("kernels", f"flash_attention backward B{B} S{S} H{H} KV{KV} "
-            f"hd{hd} {dtype} causal={causal}: max_abs_err lse {errs[0]:.3e}"
-            f" (fwd [{route}]), dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
-            f"{errs[3]:.3e}{scaled}")
+        log("kernels", f"flash_attention backward [{case['route']}] B{B} S{S}"
+            f" H{H} KV{KV} hd{hd} {dtype} causal={causal}: max_abs_err lse "
+            f"{errs[0]:.3e} (fwd [{route}]), dq {errs[1]:.3e}, dk "
+            f"{errs[2]:.3e}, dv {errs[3]:.3e}{scaled}")
         del q, k, v, do, o, lse, got, want
 
     B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
-    q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
-                               device=device).to(torch.bfloat16)
-                   for n in (H, KV, KV, H))
-    o, lse = ops.attention_cuda(q, k, v, True, return_lse=True)
-    pairs = list(zip(ops.attention_bwd_cuda(q, k, v, o, do, lse, True),
-                     ops.attention_bwd_ref(q, k, v, o, do, lse, True)))
-    err = max(max_err(g, w, "bfloat16") for g, w in pairs)
-    for g, w in pairs:
-        scaled_err(g, w, BWD_BF16_SCALED)
-    del pairs
-    ms = time_ms(lambda: ops.attention_bwd_cuda(q, k, v, o, do, lse, True),
-                 10)
-    plain_ms = time_ms(lambda: ops.attention_bwd_ref(q, k, v, o, do, lse,
-                                                     True), 3)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k.repeat_interleave(H // KV, dim=2),
-                            v.repeat_interleave(H // KV, dim=2)))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2).contiguous()
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 10)
-    bound_ms, bound_by = flash_bwd_bound(B, S, H, KV, hd, True, 2,
-                                         PEAK_BF16_FLOPS)
-    summary = dict(
-        name="flash_attention_bwd", route="cuda",
-        source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNEL.source}",
-        replaces="src/repro/models/attention.py:164 (XLA recompute "
-        "backward; port-only: the reference's backward has no Pallas "
-        "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        library_call="autograd of torch.nn.functional."
-        "scaled_dot_product_attention (KV heads expanded)",
-        shape=[B, S, H, KV, hd], dtype="bfloat16", causal=True,
-        fp32_pipes=True)
-    log("kernels", f"flash_attention backward timed at B{B} S{S} H{H} KV{KV} "
-        f"hd{hd} bf16 causal (FP32 pipes): {ms:.4f} ms (plain {plain_ms:.4f},"
-        f" SDPA backward {library_ms:.4f}, {ms / library_ms:.2f}x; bound "
-        f"{bound_ms:.4f} by {bound_by} at the bf16 tensor-core peak, "
-        f"{bound_ms / ms:.3f} of it)")
-    del qt, kt, vt, out, dot
+    summaries = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        r = ops.BWD_ROUTES[dt]
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
+                                   device=device).to(dt)
+                       for n in (H, KV, KV, H))
+        o, lse = ops.attention_cuda(q, k, v, True, return_lse=True)
+        pairs = list(zip(ops.attention_bwd_cuda(q, k, v, o, do, lse, True),
+                         ops.attention_bwd_ref(q, k, v, o, do, lse, True)))
+        err = max(max_err(g, w, dtype) for g, w in pairs)
+        if dtype == "bfloat16":
+            for g, w in pairs:
+                scaled_err(g, w, BWD_BF16_SCALED)
+        del pairs
+        ms, sdpa = time_flash_bwd(ops, q, k, v, do, True, 50)
+        if not sdpa:
+            fail(f"no SDPA backend computes the {dtype} backward")
+        plain_ms = time_ms(lambda: ops.attention_bwd_ref(q, k, v, o, do, lse,
+                                                         True), 3)
+        fastest = min(sdpa, key=sdpa.get)
+        peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_FP32_FLOPS
+        bound_ms, bound_by = flash_bwd_bound(B, S, H, KV, hd, True,
+                                             q.element_size(), peak)
+        # the function's five products; both designs do seven (S and dP in
+        # both of their kernels), whose floor is 1.4x the operations bound
+        flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
+        summaries[r] = summary = dict(
+            name="flash_attention_bwd" if r == "wgmma"
+            else "flash_attention_bwd_fp32", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
+            replaces="src/repro/models/attention.py:164 (XLA recompute "
+            "backward; port-only: the reference's backward has no Pallas "
+            "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa[fastest],
+            library_call=f"autograd of torch.nn.functional."
+            f"scaled_dot_product_attention pinned to the {fastest} backend "
+            f"(KV heads expanded)", sdpa_backward_ms=sdpa,
+            design_floor_ms=max(bound_ms, 1.4 * flops / peak * 1e3),
+            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+        log("kernels", f"flash_attention backward [{r}] timed at B{B} S{S} "
+            f"H{H} KV{KV} hd{hd} {dtype} causal, in turns with SDPA: "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}; SDPA backward by backend "
+            + ", ".join(f"{n} {t:.4f}" for n, t in sdpa.items())
+            + f"; {ms / sdpa[fastest]:.2f}x the fastest, {fastest}; bound "
+            f"{bound_ms:.4f} by {bound_by} at the "
+            f"{'bf16 tensor-core' if r == 'wgmma' else 'fp32'} peak, "
+            f"{bound_ms / ms:.3f} of it)")
+        del q, k, v, do, o, lse
+    tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
+                            summaries["wgmma"]["flops"])
     # the forward with and without the lse output, on its route
     lse_times = {}
     for (B, S) in ((TRAIN_B, TRAIN_S), (8, 1024)):
@@ -488,8 +564,8 @@ def check_flash_bwd(gen, device):
         log("kernels", f"flash_attention forward [wgmma] B{B} S{S} H{H} "
             f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
             f"{with_lse:.4f} ms with it")
-    summary["forward_lse_ms"] = lse_times
-    return summary, cases
+    tc["forward_lse_ms"] = lse_times
+    return tc, summaries["fp32"], cases
 
 
 def check_fused_bwd(gen, device):
@@ -530,7 +606,12 @@ def check_fused_bwd(gen, device):
     s = torch.randn(D, generator=gen, device=device)
     err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
                   ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
-    ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50)
+    # device time: behind a queued sleep, the wrapper's host cost per call
+    # (allocations, the launch) does not count
+    ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
+                 behind_sleep=True)
+    no_dh_ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy), 50,
+                       behind_sleep=True)
     plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = min(R, ops.BWD_BLOCKS_PER_SM * sms)
@@ -551,14 +632,20 @@ def check_fused_bwd(gen, device):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, library_call=None, shape=[R, D], dtype="bfloat16",
         partial_bytes=partial_bytes,
-        partial_ms=partial_bytes / PEAK_BYTES * 1e3)
+        partial_ms=partial_bytes / PEAK_BYTES * 1e3, no_dh_ms=no_dh_ms,
+        no_dh_bound_ms=(4 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3,
+        ptxas=ptxas_usage(ops.BWD_KERNEL.build_log))
     log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} bf16 "
         f"with dh: {ms:.4f} ms (plain {plain_ms:.4f}; no single library "
         f"call computes it; bound {summary['bound_ms']:.4f} by "
         f"{summary['bound_by']}, {summary['bound_ms'] / ms:.3f} of it; the "
         f"kernel's {blocks} dscale partial rows add {partial_bytes} bytes "
         f"written and read, {summary['partial_ms']:.4f} ms at the memory "
-        f"rate)")
+        f"rate); without dh {no_dh_ms:.4f} ms (bound "
+        f"{summary['no_dh_bound_ms']:.4f}); ptxas: "
+        + ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
+                    f"{u['spill_loads']} bytes spilled"
+                    for u in summary["ptxas"]))
     return summary, cases
 
 
@@ -1285,10 +1372,20 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
                 per_call_us=calls, profile=prof)
 
 
+# the port's own kernels, by a part of their device function names
+PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_fwd_kernel",
+                "dkdv_kernel", "dq_kernel", "delta_kernel",
+                "fused_residual_rmsnorm_kernel", "rows_kernel",
+                "reduce_kernel", "ssd_wgmma_kernel", "ssd_scan_fwd_kernel",
+                "matmul_wgmma_kernel", "matmul_tiled_kernel",
+                "ring_combine_kernel")
+
+
 def profile(fn, top: int = 10) -> dict:
     """Device kernel time under torch.profiler beside the host wall time of
     one call; idle share = 1 - device busy / wall ("not measured" if the
-    profiler saw no device time)."""
+    profiler saw no device time).  Besides the ``top`` kernels, every
+    kernel of the port (``PORT_KERNELS``) with its time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.autograd import DeviceType
@@ -1306,13 +1403,16 @@ def profile(fn, top: int = 10) -> dict:
             continue
         us = getattr(item, "self_device_time_total",
                      getattr(item, "self_cuda_time_total", 0.0))
-        kernels.append(dict(name=item.key[:100], count=item.count,
+        kernels.append(dict(name=item.key[:120], count=item.count,
                             ms=us / 1e3))
     kernels.sort(key=lambda k: -k["ms"])
     busy = sum(k["ms"] for k in kernels) / 1e3
     return dict(wall_s=wall, device_s=busy,
                 idle_share=(1 - busy / wall) if busy > 0 else "not measured",
-                top=kernels[:top])
+                top=kernels[:top],
+                port=[k for k in kernels if "at::native" not in k["name"]
+                      and any(f"(anonymous namespace)::{n}" in k["name"]
+                              for n in PORT_KERNELS)])
 
 
 def agreement(arch: str, seed: int, S: int):
@@ -1372,21 +1472,22 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
 
 def train_kernels() -> dict:
     """The kernels a training step can launch, by label, with their
-    launches per step of an L-layer dense model: flash forward (on the
-    route of the compute dtype) and backward once per layer, the fused
-    norm forward and backward twice per layer."""
+    launches per step of an L-layer dense model: flash forward and
+    backward once per layer, each on the route of the compute dtype, the
+    fused norm forward and backward twice per layer."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     return {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1),
             "flash_attention[fp32]": (fa.KERNELS["fp32"], 1),
-            "flash_attention_bwd": (fa.BWD_KERNEL, 1),
+            "flash_attention_bwd[wgmma]": (fa.BWD_KERNELS["wgmma"], 1),
+            "flash_attention_bwd[fp32]": (fa.BWD_KERNELS["fp32"], 1),
             "fused_residual_rmsnorm": (fn.KERNEL, 2),
             "fused_residual_rmsnorm_bwd": (fn.BWD_KERNEL, 2)}
 
 
 def expected_step_launches(L: int, route: str) -> dict:
     other = "fp32" if route == "wgmma" else "wgmma"
-    return {label: 0 if label == f"flash_attention[{other}]" else n * L
+    return {label: 0 if label.endswith(f"[{other}]") else n * L
             for label, (_, n) in train_kernels().items()}
 
 
@@ -1536,6 +1637,9 @@ def train(seed: int, trace_path: Path) -> dict:
         f" ms, device busy {prof['device_s'] * 1e3:.3f} ms, idle share "
         f"{prof['idle_share']}")
     for k in prof["top"]:
+        log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
+    log("profile", f"{TRAIN_ARCH} train step, the port's kernels:")
+    for k in prof["port"]:
         log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
     del trainer, batch, opt_state
     torch.cuda.empty_cache()
@@ -1787,8 +1891,8 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     all_kernels = (*fa.KERNELS.values(), fn.KERNEL, *ssd.KERNELS.values(),
-                   *mm.KERNELS.values(), ring.KERNEL, fa.BWD_KERNEL,
-                   fn.BWD_KERNEL)
+                   *mm.KERNELS.values(), ring.KERNEL,
+                   *fa.BWD_KERNELS.values(), fn.BWD_KERNEL)
     build_all(list(all_kernels))
     log("build", f"built {', '.join(k.source for k in all_kernels)} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -1796,22 +1900,23 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
-    # the tensor-core routes hold wgmma (HGMMA) in their SASS, the fp32
-    # routes no tensor-core instruction at all: they run on the FP32 pipes
-    for mod in (fa, ssd, mm):
-        for route, k in mod.KERNELS.items():
+    # the tensor-core routes (the flash backward's too) hold wgmma (HGMMA)
+    # in their SASS; the fp32 routes and the fused-norm backward no
+    # tensor-core instruction at all: they run on the FP32 pipes
+    for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS):
+        for route, k in routes.items():
             n = sass_mma(k)
             log("build", f"{k.source} [{route}]: {n['HGMMA']} HGMMA, "
                 f"{n['HMMA']} HMMA in the SASS")
-            if (route == "fp32") == bool(n["HGMMA"] or n["HMMA"]):
+            if route == "wgmma" and not n["HGMMA"]:
+                fail(f"{k.source} [{route}]: no HGMMA in its SASS")
+            if route == "fp32" and (n["HGMMA"] or n["HMMA"]):
                 fail(f"{k.source} [{route}]: {n} tensor-core instructions")
-    for k in (fa.BWD_KERNEL, fn.BWD_KERNEL):
-        n = sass_mma(k)
-        log("build", f"{k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA in "
-            f"the SASS (a backward kernel on the FP32 pipes: no tensor-core "
-            f"instructions)")
-        if n["HGMMA"] or n["HMMA"]:
-            fail(f"{k.source}: {n} tensor-core instructions")
+    n = sass_mma(fn.BWD_KERNEL)
+    log("build", f"{fn.BWD_KERNEL.source}: {n['HGMMA']} HGMMA, {n['HMMA']} "
+        f"HMMA in the SASS (memory-bound, on the FP32 pipes: none)")
+    if n["HGMMA"] or n["HMMA"]:
+        fail(f"{fn.BWD_KERNEL.source}: {n} tensor-core instructions")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1820,7 +1925,8 @@ def main():
     scan, scan_fp32, ssd_cases = check_ssd(gen, "cuda")
     matmul, matmul_fp32, matmul_cases = check_padded_matmul(gen, "cuda")
     combine, combine_cases = check_ring_combine(gen, "cuda")
-    flash_bwd, flash_bwd_cases = check_flash_bwd(gen, "cuda")
+    flash_bwd, flash_bwd_fp32, flash_bwd_cases = check_flash_bwd(gen,
+                                                                  "cuda")
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
 
     # 4. the Case-2 op and the ring path, traced
@@ -1872,11 +1978,15 @@ def main():
         n = case2[dtype]["launches"][route]
         summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
-    for summary, label in ((flash_bwd, "flash_attention_bwd"),
+    for summary, label in ((flash_bwd, "flash_attention_bwd[wgmma]"),
                            (fused_bwd, "fused_residual_rmsnorm_bwd")):
         summary["launches"] = train_run["launches"][label]
         summary["launches_by_path"] = {f"{TRAIN_ARCH} train":
                                        summary["launches"]}
+    n = train_agree["launches"]["flash_attention_bwd[fp32]"]
+    flash_bwd_fp32["launches"] = n
+    flash_bwd_fp32["launches_by_path"] = {
+        f"{TRAIN_ARCH} fp32 2-layer agreement step": n}
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -1895,7 +2005,7 @@ def main():
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
     print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, scan_fp32,
                                   matmul, matmul_fp32, combine, flash_bwd,
-                                  fused_bwd]}), flush=True)
+                                  flash_bwd_fp32, fused_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

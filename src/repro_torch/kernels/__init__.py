@@ -5,12 +5,13 @@ function, ``<name>/ops.py`` = the PyTorch wrapper, its plain PyTorch
 version and the FLARE registration):
 
   flash_attention — causal / full GQA attention forward (prefill and
-                    training): bf16 on the tensor cores
-                    (``flash_attention_wgmma.cu``), fp32 on the FP32 pipes
-                    (``flash_attention.cu``); its backward on the FP32 pipes
-                    (``flash_attention_bwd.cu``)
+                    training) and backward: bf16 on the tensor cores
+                    (``flash_attention_wgmma.cu``,
+                    ``flash_attention_bwd_wgmma.cu``), fp32 on the FP32
+                    pipes (``flash_attention.cu``,
+                    ``flash_attention_bwd.cu``)
   fused_norm      — residual add + RMSNorm (``fused_norm.cu``) and its
-                    backward (``fused_norm_bwd.cu``)
+                    backward (``fused_norm_bwd.cu``, rows by TMA bulk copy)
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
                     (prefill): bf16 on the tensor cores
                     (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes
@@ -21,7 +22,8 @@ version and the FLARE registration):
   ring_reduce     — the ring-combine step with host-visible progress
 
 The tensor-core kernels share ``csrc/hopper.cuh`` (TMA tensor maps and
-loads, mbarriers, wgmma descriptors and instructions).  A kernel with two
+loads, mbarriers, wgmma descriptors and instructions, programmatic
+dependent launch).  A kernel with two
 routes picks one by dtype alone in its wrapper's ``route``, and each
 route's ``CudaKernel`` counts its own launches.
 

@@ -1,5 +1,8 @@
-// Causal / full GQA flash-attention backward for Hopper (sm_90a) on the FP32
-// pipes, bf16 and fp32 instances of one template.
+// Causal / full GQA flash-attention backward in fp32 on the FP32 pipes
+// (sm_90a): the fp32 route of the port's flash-attention backward.  bf16
+// inputs take flash_attention_bwd_wgmma.cu, on the tensor cores; this
+// route serves the fp32 training step, whose result is held to a full-fp32
+// reference and not to TF32 or bf16 operands.
 //
 // The JAX package trains attention through XLA: its backward is the
 // recompute backward of src/repro/models/attention.py:164-235
@@ -14,11 +17,8 @@
 //
 // Bound on an H100: operations.  Five products of the forward's size
 // against its two, 2.5x the forward's 4*B*H*hd flops per (query, key) pair
-// (half the pairs when causal); at the training shape (B 8, S 512, H 32,
-// KV 8, hd 64) ~21.5 GFLOP, 22 us at the bf16 tensor-core peak.  This first
-// kernel runs on the FP32 pipes (no tensor-core instruction), recomputes S
-// and dP in both of its passes (seven products), and sits far above that
-// bound; the tensor cores are later work.
+// (half the pairs when causal), at the fp32 peak of 67 TFLOP/s.  This
+// kernel recomputes S and dP in both of its passes (seven products).
 //
 // Design (deterministic: no atomics; every sum has one owner):
 //   * delta_kernel: one warp per (b, s, h) row, delta[b,h,s] in fp32;
@@ -70,9 +70,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 // delta[b,h,s] = sum_d dO[b,s,h,d] * O[b,s,h,d]; rows in [b][s][h] order
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
              float* __restrict__ delta, int B, int S, int H) {
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -80,8 +80,8 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const size_t base = static_cast<size_t>(row) * HD;
   float acc = 0.f;
   for (int d = 4 * lane; d < HD; d += 128)
-    acc = dot4(flare::Pack4<T>::load(o + base + d),
-               flare::Pack4<T>::load(dout + base + d), acc);
+    acc = dot4(flare::Pack4<float>::load(o + base + d),
+               flare::Pack4<float>::load(dout + base + d), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -95,8 +95,9 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // rows r0 .. r0+63 of head hh of a [B,S,heads,HD] tensor into a shared
 // [64][HD+4] fp32 tile; rows >= S are zeros
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int b, int S, int heads, int hh,
                                           int r0) {
   constexpr int C4 = HD / 4;
@@ -105,7 +106,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     const int c = 4 * (i % C4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < S)
-      v = flare::Pack4<T>::load(
+      v = flare::Pack4<float>::load(
           src + ((static_cast<size_t>(b) * S + r0 + r) * heads + hh) * HD + c);
     *reinterpret_cast<float4*>(dst + r * row_stride<HD>() + c) = v;
   }
@@ -179,8 +180,8 @@ __device__ __forceinline__ void tn_product(float (&acc)[4][NC], const float* A,
 }
 
 // rows r0 + 4tm + a (< S) of an [.., HD] output held as acc[a][col(c)]
-template <typename T, int NC>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+template <int NC>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float (&acc)[4][NC], int b,
                                            int S, int heads, int hh, int r0,
                                            int tm, int tn) {
@@ -189,10 +190,10 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
   for (int a = 0; a < 4; ++a) {
     const int r = r0 + 4 * tm + a;
     if (r >= S) continue;
-    T* row = dst + ((static_cast<size_t>(b) * S + r) * heads + hh) * HD;
+    float* row = dst + ((static_cast<size_t>(b) * S + r) * heads + hh) * HD;
 #pragma unroll
     for (int q = 0; q < NC / 4; ++q)
-      flare::Pack4<T>::store(row + 64 * q + 4 * tn,
+      flare::Pack4<float>::store(row + 64 * q + 4 * tn,
                              make_float4(acc[a][4 * q], acc[a][4 * q + 1],
                                          acc[a][4 * q + 2], acc[a][4 * q + 3]));
   }
@@ -221,13 +222,13 @@ __device__ __forceinline__ void probs_and_dscores(
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-            float scale, int causal) {
+            float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+            int KV, float scale, int causal) {
   constexpr int ST = row_stride<HD>();
   constexpr int NC = HD / 16;
   extern __shared__ float4 smem4[];
@@ -248,8 +249,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int group = H / KV;
 
-  load_tile<T, HD>(ks, k, b, S, KV, kvh, k0);
-  load_tile<T, HD>(vs, v, b, S, KV, kvh, k0);
+  load_tile<HD>(ks, k, b, S, KV, kvh, k0);
+  load_tile<HD>(vs, v, b, S, KV, kvh, k0);
 
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
@@ -262,8 +263,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + g;
     for (int q0 = q_begin; q0 < S; q0 += kTile) {
       __syncthreads();   // the previous tile's P, dS, Q and dO are read
-      load_tile<T, HD>(qs, q, b, S, H, h, q0);
-      load_tile<T, HD>(dos, dout, b, S, H, h, q0);
+      load_tile<HD>(qs, q, b, S, H, h, q0);
+      load_tile<HD>(dos, dout, b, S, H, h, q0);
       load_row_stats(lse_s, delta_s, lse, delta, b, h, H, S, q0);
       __syncthreads();
       float s[4][4], dp[4][4];
@@ -284,16 +285,17 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tn_product<NC>(dk_acc, dss, kTileStride, qs, ST, tm, tn);
     }
   }
-  store_rows<T, NC>(dk, dk_acc, b, S, KV, kvh, k0, tm, tn);
-  store_rows<T, NC>(dv, dv_acc, b, S, KV, kvh, k0, tm, tn);
+  store_rows<NC>(dk, dk_acc, b, S, KV, kvh, k0, tm, tn);
+  store_rows<NC>(dv, dv_acc, b, S, KV, kvh, k0, tm, tn);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int S, int H, int KV, float scale, int causal) {
+          float* __restrict__ dq, int S, int H, int KV, float scale,
+          int causal) {
   constexpr int ST = row_stride<HD>();
   constexpr int NC = HD / 16;
   extern __shared__ float4 smem4[];
@@ -313,8 +315,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
 
-  load_tile<T, HD>(qs, q, b, S, H, h, q0);
-  load_tile<T, HD>(dos, dout, b, S, H, h, q0);
+  load_tile<HD>(qs, q, b, S, H, h, q0);
+  load_tile<HD>(dos, dout, b, S, H, h, q0);
   load_row_stats(lse_s, delta_s, lse, delta, b, h, H, S, q0);
 
   float dq_acc[4][NC];
@@ -326,8 +328,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(S, q0 + kTile) : S;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();   // the previous tile's K and dS^T are read
-    load_tile<T, HD>(ks, k, b, S, KV, kvh, k0);
-    load_tile<T, HD>(vs, v, b, S, KV, kvh, k0);
+    load_tile<HD>(ks, k, b, S, KV, kvh, k0);
+    load_tile<HD>(vs, v, b, S, KV, kvh, k0);
     __syncthreads();
     float s[4][4], dp[4][4];
     nt_product<HD>(s, qs, ks, tm, tn);
@@ -343,82 +345,68 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dQ[i] += sum_j dS[i][j] K[j]
     tn_product<NC>(dq_acc, dst, kTileStride, ks, ST, tm, tn);
   }
-  store_rows<T, NC>(dq, dq_acc, b, S, H, h, q0, tm, tn);
+  store_rows<NC>(dq, dq_acc, b, S, H, h, q0, tm, tn);
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_typed(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const void* lse, void* delta, void* dq,
                  void* dk, void* dv, int B, int S, int H, int KV, int causal,
                  cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
 
   const int rows = B * S * H;
-  delta_kernel<T, HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
-                        kThreads, 0, stream>>>(static_cast<const T*>(o), dop,
-                                               dp, B, S, H);
+  delta_kernel<HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads,
+                     0, stream>>>(static_cast<const float*>(o), dop, dp, B, S,
+                                  H);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
   const int tiles = (S + kTile - 1) / kTile;
   const size_t smem_kv = dkdv_smem_floats<HD>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<T, HD><<<dim3(tiles, KV, B), kThreads, smem_kv, stream>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
-      KV, scale, causal);
+  dkdv_kernel<HD><<<dim3(tiles, KV, B), kThreads, smem_kv, stream>>>(
+      qp, kp, vp, dop, lp, dp, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, KV, scale, causal);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   const size_t smem_q = dq_smem_floats<HD>() * sizeof(float);
-  e = cudaFuncSetAttribute(dq_kernel<T, HD>,
+  e = cudaFuncSetAttribute(dq_kernel<HD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem_q));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq_kernel<T, HD><<<dim3(tiles, H, B), kThreads, smem_q, stream>>>(
-      qp, kp, vp, dop, lp, dp, static_cast<T*>(dq), S, H, KV, scale, causal);
+  dq_kernel<HD><<<dim3(tiles, H, B), kThreads, smem_q, stream>>>(
+      qp, kp, vp, dop, lp, dp, static_cast<float*>(dq), S, H, KV, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, void* delta, void* dq,
-              void* dk, void* dv, int B, int S, int H, int KV, int hd,
-              int causal, cudaStream_t stream) {
-  if (hd == 64)
-    return launch_typed<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
-                               H, KV, causal, stream);
-  if (hd == 128)
-    return launch_typed<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                S, H, KV, causal, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, o, dout, dq: [B,S,H,hd]; k, v, dk, dv: [B,S,KV,hd]; contiguous, 16-byte
-// aligned, all in `dtype`.  lse: [B,H,S] fp32 from the forward; delta:
-// [B,H,S] fp32 scratch.  Launches delta_kernel, dkdv_kernel and dq_kernel
-// in that order on `stream`.  Returns 0 or the first cudaError_t.
+// aligned fp32.  lse: [B,H,S] fp32 from the forward; delta: [B,H,S] fp32
+// scratch.  Launches delta_kernel, dkdv_kernel and dq_kernel in that order
+// on `stream`.  Returns 0 or the first cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int S, int H, int KV, int hd, int causal, int dtype,
-    void* stream) {
+    void* dv, int B, int S, int H, int KV, int hd, int causal, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FLARE_F32)
-    return launch_hd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
-                            KV, hd, causal, s);
-  if (dtype == FLARE_BF16)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, S, H, KV, hd, causal, s);
+  if (hd == 64)
+    return launch_typed<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                            KV, causal, s);
+  if (hd == 128)
+    return launch_typed<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                             H, KV, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

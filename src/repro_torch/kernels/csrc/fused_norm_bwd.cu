@@ -10,148 +10,256 @@
 //
 // Bound on an H100: memory.  The function reads x, res, dy and dh and
 // writes dx (5 * R * D * itemsize bytes), against ~12 flops an element.
-// The dscale partials below (2 * blocks * D * 4 bytes written and read)
-// are this design's own traffic on top of that bound.
+// The dscale partials below (2 * blocks * D * 4 bytes written and read,
+// ~5 % of the function's bytes at the training shape) are this design's
+// own traffic on top of that bound.
 //
-// Design: rows_kernel runs a grid of at most a few blocks per SM, each of
-// 256 threads walking rows; one row at a time, pass 1 reads x, res and dy
-// with 16-byte accesses and reduces sum(h^2) and sum(h*g) (warp shuffles,
-// then one value per warp in shared memory), pass 2 reads them again (the
-// row is still in L1/L2), writes dx and adds dy*h*r into the block's dscale
-// partial.  A thread owns the same columns in every row, so the partial
-// lives in shared memory without atomics and goes out as one row of
-// `partial` [blocks, D]; reduce_kernel then sums the partials of each
-// column in block order.  Deterministic: no atomics anywhere.
+// Design: one pass over the function's bytes.  rows_kernel runs two blocks
+// of 256 threads per SM, each walking rows, one row at a time across the
+// whole block:
+//   * one thread keeps the block's next rows in flight: x, res, dy and dh
+//     of a row go by bulk copy (TMA, no tensor map) into a ring of 2-4
+//     stages in shared memory (up to 96 KB a block), filled up to 3 rows
+//     ahead, with an mbarrier per stage; a stage is refilled once every
+//     thread has passed the next row's barrier;
+//   * a thread owns NV vectors of VEC elements of a row (16-byte vectors
+//     t, t + 256, ...: conflict-free reads of the stage) and the same
+//     columns in every row, so scale is loaded into registers once per
+//     block, and h = x + res and dy stay in fp32 registers across the
+//     row's reduction of sum(h^2) and sum(h * dy * scale) (warp shuffles,
+//     then the warps' sums through a double-buffered slot in shared
+//     memory: one barrier per row), and dx is written from them;
+//   * the dscale partial dy * h * r lives in registers and goes out once,
+//     as the block's row of `partial` [blocks, D].
+// reduce_kernel then sums the partials of 32 columns per block, a warp
+// over every 8th partial row and the 8 warps' sums in warp order; it is
+// launched while rows_kernel runs (programmatic dependent launch) and
+// waits for the partials on the card, so no launch gap separates the two.
+// Deterministic: no atomics anywhere.  The columns a thread owns (NV * VEC)
+// are the template parameter: NV 1 covers D up to 2048 in bf16 (llama
+// 2048, mamba2 1536, qwen2 896) and 1024 in fp32, NV 2 and 4 up to 4096.
+// Rows without 16-byte alignment (D not a multiple of 16 bytes, or an
+// unaligned pointer) take the generic instance: one element a vector, NV
+// 8 (D up to 2048), each thread loading its own columns from device
+// memory, no ring.  The wrapper refuses D above 4096.
+
+#include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace flare::hopper;
+
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxStages = 4;
+constexpr size_t kRingBytes = 96 * 1024;   // the ring's budget per block
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[VEC]) {
-  const Vec<T, VEC> a = *reinterpret_cast<const Vec<T, VEC>*>(p);
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) out[k] = flare::to_float(a.v[k]);
-}
-
-// both sums over the block; every thread gets them
-__device__ __forceinline__ float2 block_sum2(float a, float b, float2* warp_sums,
-                                             float2* total) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = make_float2(a, b);
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float2 t = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x]
-                                           : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      t.x += __shfl_xor_sync(0xffffffffu, t.x, off);
-      t.y += __shfl_xor_sync(0xffffffffu, t.y, off);
-    }
-    if (threadIdx.x == 0) *total = t;
-  }
-  __syncthreads();
-  return *total;
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int VEC, int NV, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 2)
 rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
             const float* __restrict__ scale, const T* __restrict__ dy,
             const T* __restrict__ dh, T* __restrict__ dx,
-            float* __restrict__ partial, int R, int D, float eps) {
-  extern __shared__ float ds_acc[];   // [D]: this block's dscale partial
-  __shared__ float2 warp_sums[kThreads / 32];
-  __shared__ float2 total;
-  const int first = threadIdx.x * VEC;
-  constexpr int kStep = kThreads * VEC;
-  for (int i = first; i < D; i += kStep)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) ds_acc[i + k] = 0.f;
-
-  for (int row = blockIdx.x; row < R; row += gridDim.x) {
-    const size_t base = static_cast<size_t>(row) * D;
-    float ss = 0.f, hg = 0.f;
-    for (int i = first; i < D; i += kStep) {
-      float xv[VEC], rv[VEC], gv[VEC];
-      load_vec<T, VEC>(x + base + i, xv);
-      load_vec<T, VEC>(res + base + i, rv);
-      load_vec<T, VEC>(dy + base + i, gv);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float h = xv[k] + rv[k];
-        ss += h * h;
-        hg += h * gv[k] * scale[i + k];
-      }
+            float* __restrict__ partial, int R, int D, float eps,
+            int stages) {
+  // the ring: [stages][x, res, dy, dh][D], then a full barrier per stage
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float2 sums[2][kWarps];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int vecs = D / VEC;
+  const float inv_d = 1.f / static_cast<float>(D);
+  const int tensors = dh != nullptr ? 4 : 3;
+  const uint32_t row_bytes = static_cast<uint32_t>(D) * sizeof(T);
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + static_cast<size_t>(stages) * tensors * row_bytes);
+  // this block's rows: blockIdx.x + i * gridDim.x, i < rows
+  const int rows =
+      blockIdx.x < R ? (R - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+                     : 0;
+  auto stage_of = [&](int i) {
+    return ring + static_cast<size_t>(i % stages) * tensors * D;
+  };
+  // thread 0: the inputs of this block's i-th row into its stage
+  auto fill = [&](int i) {
+    const size_t base = (blockIdx.x + static_cast<size_t>(i) * gridDim.x) * D;
+    T* dst = stage_of(i);
+    uint64_t* bar = &full[i % stages];
+    mbar_expect_tx(bar, tensors * row_bytes);
+    bulk_load(dst, x + base, row_bytes, bar);
+    bulk_load(dst + D, res + base, row_bytes, bar);
+    bulk_load(dst + 2 * D, dy + base, row_bytes, bar);
+    if (dh != nullptr) bulk_load(dst + 3 * D, dh + base, row_bytes, bar);
+  };
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
+      fence_barrier_init();
     }
-    const float2 sums = block_sum2(ss, hg, warp_sums, &total);
-    const float r = rsqrtf(sums.x / static_cast<float>(D) + eps);
-    const float c = r * r * r * (sums.y / static_cast<float>(D));
-    for (int i = first; i < D; i += kStep) {
-      float xv[VEC], rv[VEC], gv[VEC], hv[VEC];
-      load_vec<T, VEC>(x + base + i, xv);
-      load_vec<T, VEC>(res + base + i, rv);
-      load_vec<T, VEC>(dy + base + i, gv);
-      if (dh != nullptr) {
-        load_vec<T, VEC>(dh + base + i, hv);
-      } else {
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < min(stages, rows); ++i) fill(i);
+  }
+
+  float sc[NV][VEC], ds[NV][VEC];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) hv[k] = 0.f;
-      }
-      Vec<T, VEC> o;
+  for (int j = 0; j < NV; ++j) {
+    const int v = threadIdx.x + j * kThreads;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float h = xv[k] + rv[k];
-        o.v[k] = flare::from_float<T>(hv[k] + r * gv[k] * scale[i + k] - h * c);
-        ds_acc[i + k] += gv[k] * h * r;
-      }
-      *reinterpret_cast<Vec<T, VEC>*>(dx + base + i) = o;
+    for (int k = 0; k < VEC; ++k) {
+      sc[j][k] = v < vecs ? scale[v * VEC + k] : 0.f;
+      ds[j][k] = 0.f;
     }
   }
-  float* out = partial + static_cast<size_t>(blockIdx.x) * D;
-  for (int i = first; i < D; i += kStep)
+
+  for (int i = 0; i < rows; ++i) {
+    const size_t base = (blockIdx.x + static_cast<size_t>(i) * gridDim.x) * D;
+    const T *xs, *rs, *ys, *hs;
+    if constexpr (kStaged) {
+      mbar_wait(&full[i % stages], (i / stages) & 1);
+      xs = stage_of(i);
+      rs = xs + D;
+      ys = xs + 2 * D;
+      hs = dh != nullptr ? xs + 3 * D : nullptr;
+    } else {
+      xs = x + base;
+      rs = res + base;
+      ys = dy + base;
+      hs = dh != nullptr ? dh + base : nullptr;
+    }
+    float h[NV][VEC], g[NV][VEC];
+    float ss = 0.f, hg = 0.f;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) out[i + k] = ds_acc[i + k];
+    for (int j = 0; j < NV; ++j) {
+      const int v = threadIdx.x + j * kThreads;
+      Vec<T, VEC> xa, ra, ya;
+      if (v < vecs) {
+        xa = *reinterpret_cast<const Vec<T, VEC>*>(xs + v * VEC);
+        ra = *reinterpret_cast<const Vec<T, VEC>*>(rs + v * VEC);
+        ya = *reinterpret_cast<const Vec<T, VEC>*>(ys + v * VEC);
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        h[j][k] = v < vecs ? flare::to_float(xa.v[k]) +
+                                 flare::to_float(ra.v[k])
+                           : 0.f;
+        g[j][k] = v < vecs ? flare::to_float(ya.v[k]) : 0.f;
+        ss += h[j][k] * h[j][k];
+        hg += h[j][k] * g[j][k] * sc[j][k];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      hg += __shfl_xor_sync(0xffffffffu, hg, off);
+    }
+    // one barrier per row: the slot alternates, so a row's writes never
+    // race the previous row's reads
+    if (lane == 0) sums[i & 1][warp] = make_float2(ss, hg);
+    __syncthreads();
+    // every thread is done with row i - 1: its stage takes a row ahead
+    if constexpr (kStaged) {
+      if (threadIdx.x == 0 && i >= 1 && i - 1 + stages < rows)
+        fill(i - 1 + stages);
+    }
+    float2 tot = sums[i & 1][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      tot.x += sums[i & 1][w].x;
+      tot.y += sums[i & 1][w].y;
+    }
+    const float r = rsqrtf(tot.x * inv_d + eps);
+    const float c = r * r * r * (tot.y * inv_d);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = threadIdx.x + j * kThreads;
+      if (v >= vecs) continue;
+      Vec<T, VEC> ha, o;
+      if (hs != nullptr)
+        ha = *reinterpret_cast<const Vec<T, VEC>*>(hs + v * VEC);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float dhk = hs != nullptr ? flare::to_float(ha.v[k]) : 0.f;
+        o.v[k] = flare::from_float<T>(dhk + r * g[j][k] * sc[j][k] -
+                                      h[j][k] * c);
+        ds[j][k] += g[j][k] * h[j][k] * r;
+      }
+      *reinterpret_cast<Vec<T, VEC>*>(dx + base +
+                                      static_cast<size_t>(v) * VEC) = o;
+    }
+  }
+
+  // this block's rows are done: the reduce kernel may take its place
+  pdl_launch_dependents();
+  float* out = partial + static_cast<size_t>(blockIdx.x) * D;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = threadIdx.x + j * kThreads;
+    if (v < vecs)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) out[v * VEC + k] = ds[j][k];
+  }
 }
 
-// dscale[i] = sum over blocks of partial[b][i], in block order
+// dscale[c] = sum over blocks b of partial[b][c]: a block owns 32 columns;
+// warp w sums rows w, w + 8, ... in order, then the 8 warps' sums are
+// added in warp order
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
               int blocks, int D) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= D) return;
+  __shared__ float warp_sums[kWarps][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
+  pdl_wait();                          // rows_kernel's partials are written
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * D + i];
-  dscale[i] = s;
+  if (c < D) {
+#pragma unroll 8
+    for (int b = warp; b < blocks; b += kWarps)
+      s += partial[static_cast<size_t>(b) * D + c];
+  }
+  warp_sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float t = warp_sums[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += warp_sums[w][lane];
+    dscale[c] = t;
+  }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int NV, bool kStaged>
 int launch_rows(const T* x, const T* res, const float* scale, const T* dy,
                 const T* dh, T* dx, float* partial, int R, int D, int blocks,
                 float eps, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(D) * sizeof(float);
-  if (smem > 48 * 1024) {
+  int stages = 0;
+  size_t smem = 0;
+  if (kStaged) {
+    const size_t stage_bytes =
+        static_cast<size_t>(dh != nullptr ? 4 : 3) * D * sizeof(T);
+    stages = static_cast<int>(
+        std::max<size_t>(2, std::min<size_t>(kMaxStages,
+                                             kRingBytes / stage_bytes)));
+    smem = stages * (stage_bytes + sizeof(uint64_t));
     const cudaError_t e = cudaFuncSetAttribute(
-        rows_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        rows_kernel<T, VEC, NV, kStaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  rows_kernel<T, VEC><<<blocks, kThreads, smem, stream>>>(
-      x, res, scale, dy, dh, dx, partial, R, D, eps);
+  rows_kernel<T, VEC, NV, kStaged><<<blocks, kThreads, smem, stream>>>(
+      x, res, scale, dy, dh, dx, partial, R, D, eps, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instance whose NV vectors a thread cover D
 template <typename T>
 int launch_typed(const void* x, const void* res, const void* scale,
                  const void* dy, const void* dh, void* dx, void* partial,
@@ -170,15 +278,30 @@ int launch_typed(const void* x, const void* res, const void* scale,
   const T* dhp = static_cast<const T*>(dh);
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(partial);
-  const int e = aligned
-      ? launch_rows<T, VEC>(xp, rp, sp, dyp, dhp, dxp, pp, R, D, blocks, eps,
-                            stream)
-      : launch_rows<T, 1>(xp, rp, sp, dyp, dhp, dxp, pp, R, D, blocks, eps,
-                          stream);
+#define FLARE_ROWS(V, NV, STAGED)                                             \
+  launch_rows<T, V, NV, STAGED>(xp, rp, sp, dyp, dhp, dxp, pp, R, D, blocks, \
+                                eps, stream)
+  const int per_pass = kThreads * VEC;          // elements with NV 1
+  int e;
+  if (!aligned) {
+    if (D > kThreads * 8) return static_cast<int>(cudaErrorInvalidValue);
+    e = FLARE_ROWS(1, 8, false);
+  } else if (D <= per_pass) {
+    e = FLARE_ROWS(VEC, 1, true);
+  } else if (D <= 2 * per_pass) {
+    e = FLARE_ROWS(VEC, 2, true);
+  } else if constexpr (VEC == 4) {              // fp32 up to 4096
+    if (D > 4 * per_pass) return static_cast<int>(cudaErrorInvalidValue);
+    e = FLARE_ROWS(VEC, 4, true);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLARE_ROWS
   if (e != 0) return e;
-  reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      pp, static_cast<float*>(dscale), blocks, D);
-  return static_cast<int>(cudaGetLastError());
+  // launched while rows_kernel runs; it waits for the partials itself
+  return static_cast<int>(launch_overlapped(
+      reduce_kernel, dim3((D + 31) / 32), dim3(kThreads), 0, stream, pp,
+      static_cast<float*>(dscale), blocks, D));
 }
 
 }  // namespace

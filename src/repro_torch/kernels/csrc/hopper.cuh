@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// repro_torch: TMA tensor maps (host), TMA loads with mbarrier completion,
+// repro_torch: TMA tensor maps (host), TMA loads with mbarrier completion
+// (tiles by tensor map, contiguous rows by bulk copy),
 // wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
 // fence / commit / wait, the async-proxy fence for operands that threads
 // write, transposed ldmatrix, warpgroup register hand-over (setmaxnreg),
-// and the bf16 wgmma instructions the kernels issue.
+// the bf16 wgmma instructions the kernels issue, and programmatic dependent
+// launch.
 //
 // Layout convention: every shared-memory tile an operand is read from is a
 // stack of 128-byte rows (64 bf16) written by TMA with
@@ -157,6 +159,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bulk copy (no tensor map): `bytes` contiguous bytes of global memory
+// into shared memory, both 16-byte aligned, `bytes` a multiple of 16;
+// completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -400,6 +414,37 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// ---- programmatic dependent launch (PDL).  A kernel launched with
+// launch_overlapped() may start once every block of the kernel before it in
+// the stream has called pdl_launch_dependents() (or exited); pdl_wait()
+// then blocks until that kernel has completed and its memory writes are
+// visible.  A kernel that overlaps its predecessor without depending on
+// its output still calls pdl_wait() before it exits, so that work after it
+// in the stream also comes after the predecessor.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 }  // namespace hopper

@@ -17,12 +17,20 @@ Each route counts its own launches.  A bf16 call never takes the FP32
 pipes.  Both write, on request, the rows' log-sum-exp ``lse`` [B,H,S]
 (fp32, scaled scores) that the backward needs; serving asks for none.
 
-The backward (``csrc/flash_attention_bwd.cu``, bf16 and fp32 instances of
-one template on the FP32 pipes) is the recompute backward that the JAX
-package runs through XLA (``src/repro/models/attention.py:164-235``): it
-has no Pallas kernel, so it has no traced-op name either, and its time
-falls in the training step's span.  ``flash_attention`` is a
-``torch.autograd.Function`` when a gradient is wanted.
+The backward is the recompute backward that the JAX package runs through
+XLA (``src/repro/models/attention.py:164-235``): it has no Pallas kernel,
+so it has no traced-op name either, and its time falls in the training
+step's span.  Two hand-written backward kernels, one route per dtype
+(``BWD_ROUTES``, the same split as the forward's), head_dim 64 and 128,
+any S, each with its own launch count:
+  * bf16 -> ``csrc/flash_attention_bwd_wgmma.cu``: S, dP and the three
+    gradient products by wgmma on the tensor cores (a dK/dV kernel over key
+    tiles and a dQ kernel over q tiles, deterministic), Q/K/V/dO by TMA,
+    P and dS rounded to bf16 as register operands;
+  * fp32 -> ``csrc/flash_attention_bwd.cu``: the same two passes on the
+    FP32 pipes, held to a full-fp32 reference.
+``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
+wanted.
 """
 from __future__ import annotations
 
@@ -43,10 +51,14 @@ KERNELS = {
                        _ARGS),
 }
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
-BWD_KERNEL = CudaKernel(
-    "flash_attention_bwd.cu", "flash_attention_bwd_launch",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+BWD_KERNELS = {
+    "wgmma": CudaKernel("flash_attention_bwd_wgmma.cu",
+                        "flash_attention_bwd_wgmma_launch", _BWD_ARGS),
+    "fp32": CudaKernel("flash_attention_bwd.cu", "flash_attention_bwd_launch",
+                       _BWD_ARGS),
+}
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
 
 
 def _meta(q, k, v, causal=True):
@@ -168,9 +180,11 @@ def attention_cuda(q, k, v, causal=True, return_lse=False):
 
 
 def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
-    """Launch the backward kernel; raises on anything it does not take.
-    Returns (dq, dk, dv) in the inputs' dtype."""
+    """Launch the backward kernel of q's dtype (``BWD_ROUTES``); raises on
+    anything it does not take.  Returns (dq, dk, dv) in the inputs'
+    dtype."""
     check_operands(q, k, v)
+    r = BWD_ROUTES[q.dtype]
     _check_cuda(q)
     B, S, H, hd = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -188,10 +202,10 @@ def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    BWD_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                      ptr(delta), ptr(dq), ptr(dk), ptr(dv), B, S, H,
-                      k.shape[2], hd, int(bool(causal)),
-                      _DTYPE_CODE[q.dtype], stream_ptr(q.device))
+    BWD_KERNELS[r].launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
+                          ptr(delta), ptr(dq), ptr(dk), ptr(dv), B, S, H,
+                          k.shape[2], hd, int(bool(causal)),
+                          stream_ptr(q.device))
     return dq, dk, dv
 
 

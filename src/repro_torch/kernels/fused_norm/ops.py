@@ -10,7 +10,10 @@ bytes.
 
 The backward (``csrc/fused_norm_bwd.cu``) is what the JAX package gets by
 autodiff of ``kernels/fused_norm/ref.py::fused_ref``: no Pallas kernel, so
-no traced-op name of its own.  ``fused_residual_rmsnorm`` is a
+no traced-op name of its own.  It reads each input once (a thread keeps
+its columns' h and dy in registers across the row's reduction, the next
+row's inputs in flight, and its dscale partial in registers across rows)
+and takes D up to ``BWD_MAX_D``.  ``fused_residual_rmsnorm`` is a
 ``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
@@ -30,7 +33,8 @@ BWD_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                   ctypes.c_int,
                                                   ctypes.c_void_p])
-BWD_BLOCKS_PER_SM = 4          # rows_kernel's grid, and dscale's partials
+BWD_BLOCKS_PER_SM = 2          # rows_kernel's grid, and dscale's partials
+BWD_MAX_D = 4096               # the widest row the backward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -104,11 +108,14 @@ def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
         if not t.is_contiguous():
             raise ValueError(f"fused_residual_rmsnorm backward takes a "
                              f"contiguous {name}")
+    R, D = x.shape
+    if D > BWD_MAX_D:
+        raise ValueError(f"fused_residual_rmsnorm backward kernel takes D up "
+                         f"to {BWD_MAX_D}, not {D}")
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_rmsnorm kernels take CUDA tensors, "
                          f"not {x.device}")
     scale = scale.to(torch.float32).contiguous()
-    R, D = x.shape
     dx = torch.empty_like(x)
     if R == 0:
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)

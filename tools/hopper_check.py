@@ -8,8 +8,8 @@ padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
 combine; prints their ptxas lines and the HGMMA / HMMA counts of their
 SASS; holds each against its plain version at a few shapes (bf16 5e-2,
 fp32 3e-4; the matmul's atol at least 2e-3·√K; the combine bitwise),
-then times each beside its yardstick, in turns (the order kernel,
-yardstick, yardstick, kernel, best of two each):
+then times each beside its yardstick, in turns (``chip_smoke.in_turns``:
+kernel, yardstick, yardstick, kernel, best of two each):
   * flash attention against SDPA with the KV heads expanded beforehand,
     at long sequences and hd 128; the matmul against ``torch.matmul``;
   * the SSD scan's two routes against each other (bf16 on the tensor
@@ -17,10 +17,14 @@ yardstick, yardstick, kernel, best of two each):
   * the ring combine against ``torch.add`` at the ring's chunk, from
     device memory (inputs cycled past the 50 MB L2) and in L2;
   * (``bwd``) the flash forward's lse output on both routes, the flash
-    backward (bf16 and fp32, hd 64 and 128, causal and full, ragged S)
-    and the fused-norm backward (with and without dh) against their plain
-    versions; the flash backward timed beside autograd of SDPA and the
-    fused backward alone, at the training shapes.
+    backward on both routes (bf16 on the tensor cores, fp32 on the FP32
+    pipes; hd 64 and 128, causal and full, ragged S) and the fused-norm
+    backward (with and without dh) against their plain versions; each
+    flash backward route timed at the training shape in turns with
+    autograd of SDPA pinned to each backend that runs, with the device
+    time of its three kernels (delta, dK/dV, dQ) from the profiler; the
+    fused backward alone (device time), at the training rows and at
+    mamba2's width.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -53,14 +57,6 @@ BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
              (1, 1, 4, 1, 64), (2, 77, 4, 4, 128)]
 
 
-def in_turns(kernel, yardstick, iters=30, **kw):
-    """Best of two each, timed kernel, yardstick, yardstick, kernel."""
-    from chip_smoke import time_ms
-    k0, l0, l1, k1 = (time_ms(f, iters, **kw)
-                      for f in (kernel, yardstick, yardstick, kernel))
-    return min(k0, k1), min(l0, l1)
-
-
 def check_backward():
     """The backward kernels and the forward's lse: checks, then times."""
     import torch
@@ -71,7 +67,9 @@ def check_backward():
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import ptxas_usage, sass_mma, time_ms
+    from chip_smoke import (BWD_BF16_SCALED, flash_bwd_bound, ptxas_usage,
+                            sass_mma, sdpa_backward_fns, time_flash_bwd,
+                            time_ms)
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
@@ -79,7 +77,8 @@ def check_backward():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    kernels = [*fa.KERNELS.values(), fa.BWD_KERNEL, fn.KERNEL, fn.BWD_KERNEL]
+    kernels = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values(), fn.KERNEL,
+               fn.BWD_KERNEL]
     build_all(kernels)
     for k in kernels:
         for line in k.build_log.splitlines():
@@ -115,16 +114,30 @@ def check_backward():
                 o_r, lse_r = fa.attention_ref(q, k, v, causal,
                                               return_lse=True)
                 do = randn(B, S, H, hd, dtype=dtype)
+                route = fa.BWD_ROUTES[dtype]
+                n0 = {r: kk.launches for r, kk in fa.BWD_KERNELS.items()}
                 got = fa.attention_bwd_cuda(q, k, v, o, do, lse, causal)
+                ran = {r: kk.launches - n0[r]
+                       for r, kk in fa.BWD_KERNELS.items()}
                 want = fa.attention_bwd_ref(q, k, v, o, do, lse, causal)
                 torch.cuda.synchronize()
                 res = [close(lse, lse_r, 3e-4), close(o, o_r, tol)] + [
                     close(g, w, tol) for g, w in zip(got, want)]
-                ok = all(r[0] for r in res)
+                # bf16: also within BWD_BF16_SCALED of each output's
+                # largest magnitude (at least 1e-3: at S 1, dq and dk are
+                # zero up to rounding)
+                rel = [float((g.float() - w.float()).abs().max())
+                       / max(float(w.float().abs().max()), 1e-3)
+                       for g, w in zip(got, want)]
+                ok = (all(r[0] for r in res)
+                      and ran == {r: int(r == route) for r in ran}
+                      and (dtype != torch.bfloat16
+                           or max(rel) <= BWD_BF16_SCALED))
                 bad += not ok
-                print(f"[check] flash bwd B{B} S{S} H{H} KV{KV} hd{hd} "
-                      f"{dtype} causal={causal}: max_abs_err lse, o, dq, dk, "
-                      f"dv {[f'{r[1]:.2e}' for r in res]} "
+                print(f"[check] flash bwd [{route}] B{B} S{S} H{H} KV{KV} "
+                      f"hd{hd} {dtype} causal={causal}: max_abs_err lse, o, "
+                      f"dq, dk, dv {[f'{r[1]:.2e}' for r in res]}, of the "
+                      f"largest magnitude {[f'{x:.1e}' for x in rel]} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
     for (R, D) in ((4096, 2048), (300, 1536), (7, 100)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -146,6 +159,7 @@ def check_backward():
 
     B, S, H, KV, hd = 8, 512, 32, 8, 64
     for dtype in (torch.bfloat16, torch.float32):
+        route = fa.BWD_ROUTES[dtype]
         q, k, v = (randn(B, S, H, hd, dtype=dtype),
                    randn(B, S, KV, hd, dtype=dtype),
                    randn(B, S, KV, hd, dtype=dtype))
@@ -153,30 +167,66 @@ def check_backward():
         fwd_lse = time_ms(lambda: fa.attention_cuda(q, k, v, True, True), 20)
         o, lse = fa.attention_cuda(q, k, v, True, True)
         do = randn(B, S, H, hd, dtype=dtype)
-        bwd = time_ms(lambda: fa.attention_bwd_cuda(q, k, v, o, do, lse), 10)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k.repeat_interleave(H // KV, 2),
-                                v.repeat_interleave(H // KV, 2)))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        dot = do.transpose(1, 2).contiguous()
-        lib = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        bwd, sdpa = time_flash_bwd(fa, q, k, v, do, True, 50)
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
+        peak = 989e12 if route == "wgmma" else 67e12
+        bound, by = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
+                                    peak)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fa.attention_bwd_cuda(q, k, v, o, do, lse)
+            torch.cuda.synchronize()
+        parts = {e.key: e.self_device_time_total / 5 / 1e3
+                 for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+        # each SDPA backend's backward by the profiler too: device time of
+        # all its kernels, ms a call
+        for name, fn_ in sdpa_backward_fns(q, k, v, do, True).items():
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as p2:
+                for _ in range(5):
+                    fn_()
+                torch.cuda.synchronize()
+            parts[f"SDPA {name} (all kernels)"] = sum(
+                e.self_device_time_total for e in p2.key_averages()) / 5e3
         print(f"[time] flash B{B} S{S} H{H} KV{KV} hd{hd} {dtype} causal: "
               f"forward {fwd:.4f} ms, with lse {fwd_lse:.4f}; backward "
-              f"{bwd:.4f} ms ({flops / bwd / 1e9:.1f} TFLOP/s of 5 "
-              f"products), SDPA backward {lib:.4f} ms", flush=True)
-        del q, k, v, o, do, qt, kt, vt, out, dot
-    for dtype in (torch.bfloat16, torch.float32):
-        R, D = 4096, 2048
+              f"[{route}] {bwd:.4f} ms ({flops / bwd / 1e9:.1f} TFLOP/s of 5 "
+              f"products; bound {bound:.4f} by {by}, {bound / bwd:.3f} of "
+              f"it), in turns with SDPA backward by backend "
+              + ", ".join(f"{n} {t:.4f}" for n, t in sdpa.items())
+              + "; by kernel (profiler, ms a call) "
+              + ", ".join(f"{n[:40]} {t:.4f}" for n, t in parts.items()),
+              flush=True)
+        del q, k, v, o, do
+    # the training rows (llama), then mamba2's width at its prefill rows
+    for (R, D, dtype) in ((4096, 2048, torch.bfloat16),
+                          (4096, 2048, torch.float32),
+                          (8192, 1536, torch.bfloat16)):
         x, r, dy, dh = (randn(R, D, dtype=dtype) for _ in range(4))
         s = randn(D, dtype=torch.float32)
-        ms = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy, dh), 50)
-        ms_nodh = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy), 50)
-        nbytes = 5 * R * D * x.element_size()
+        # device time: behind a queued sleep, the wrapper's host cost per
+        # call does not count
+        ms = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy, dh), 50,
+                     behind_sleep=True)
+        ms_nodh = time_ms(lambda: fn.fused_bwd_cuda(x, r, s, dy), 50,
+                          behind_sleep=True)
+        nbytes = 5 * R * D * x.element_size() + 2 * D * 4
+        bound = nbytes / 3.35e12 * 1e3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn.fused_bwd_cuda(x, r, s, dy, dh)
+            torch.cuda.synchronize()
+        parts = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 5e3:.4f}"
+                          for e in prof.key_averages()
+                          if e.self_device_time_total > 0)
         print(f"[time] fused bwd R{R} D{D} {dtype}: {ms:.4f} ms with dh "
-              f"({nbytes / ms / 1e6:.0f} GB/s of x, res, dy, dh, dx), "
-              f"{ms_nodh:.4f} without", flush=True)
+              f"({nbytes / ms / 1e6:.0f} GB/s of x, res, dy, dh, dx; bound "
+              f"{bound:.4f} ms, {bound / ms:.3f} of it), {ms_nodh:.4f} "
+              f"without; by kernel (profiler, ms a call) {parts}",
+              flush=True)
     if bad:
         print(f"FAIL: {bad} checks outside tolerance")
         sys.exit(1)
@@ -200,8 +250,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (RING_CHUNK, RING_ODD_CHUNK, ptxas_usage, sass_mma,
-                            ssd_inputs, ssd_work_flops, time_ms)
+    from chip_smoke import (RING_CHUNK, RING_ODD_CHUNK, in_turns, ptxas_usage,
+                            sass_mma, ssd_inputs, ssd_work_flops)
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.padded_matmul import ops as mm
@@ -296,8 +346,9 @@ def main():
         for (B, L) in SSD_TIME:
             xb = ssd_inputs(gen, "cuda", B, L, H, N, "bfloat16")
             xf = [t.float() for t in xb]
-            ms, fp32_ms = in_turns(lambda: ssd.ssd_cuda(*xb, chunk),
-                                   lambda: ssd.ssd_cuda(*xf, chunk), iters=10)
+            ms, fp32_ms = in_turns(
+                {"wgmma": lambda: ssd.ssd_cuda(*xb, chunk),
+                 "fp32": lambda: ssd.ssd_cuda(*xf, chunk)}, 10).values()
             flops = ssd_work_flops(B, L, H, 64, N, chunk)
             print(f"[time] ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk}: "
                   f"wgmma (bf16) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
@@ -313,8 +364,9 @@ def main():
                 ("from device memory", lambda it=itertools.cycle(pairs): next(it)),
                 ("in L2", lambda: pairs[0])):
             ms, add_ms = in_turns(
-                lambda: ring.ring_combine_cuda(*pick(), 1024),
-                lambda: torch.add(*pick()), iters=200, behind_sleep=True)
+                {"combine": lambda: ring.ring_combine_cuda(*pick(), 1024),
+                 "add": lambda: torch.add(*pick())}, 200,
+                behind_sleep=True).values()
             print(f"[time] ring_combine C{C} fp32 {label}: {ms:.4f} ms, "
                   f"torch.add {add_ms:.4f} ms ({ms / add_ms:.2f}x); bound "
                   f"{3 * C * 4 / 3.35e12 * 1e3:.4f} ms", flush=True)
@@ -328,9 +380,9 @@ def main():
                 kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
                 vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
                 ms, lib = in_turns(
-                    lambda: fa.attention_cuda(q, k, v, causal),
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=causal))
+                    {"flash": lambda: fa.attention_cuda(q, k, v, causal),
+                     "sdpa": lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=causal)}, 30).values()
                 pairs = S * (S + 1) / 2 if causal else S * S
                 flops = 4.0 * B * H * hd * pairs
                 print(f"[time] flash B{B} S{S} H{H} KV{KV} hd{hd} "
@@ -341,7 +393,8 @@ def main():
     if "matmul" in parts:
         for (M, K, N) in MATMUL_TIME:
             a, b = randn(M, K), randn(K, N)
-            ms, lib = in_turns(lambda: mm.matmul_cuda(a, b), lambda: a @ b)
+            ms, lib = in_turns({"matmul": lambda: mm.matmul_cuda(a, b),
+                                "torch": lambda: a @ b}, 30).values()
             flops = 2.0 * M * K * N
             print(f"[time] matmul M{M} K{K} N{N}: {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib:.4f} "

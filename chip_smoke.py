@@ -9,12 +9,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 src/repro_torch/kernels/csrc/ (flash attention forward and
                 backward, the SSD scan and the padded matmul, each a bf16
                 tensor-core kernel and an fp32 one; fused residual+RMSNorm
-                and its backward, ring combine), one nvcc per source, all
-                started together; registers and spills from ptxas, and the
-                HGMMA / HMMA count of each library's SASS (the bf16 routes
-                must have HGMMA, and the fp32 routes and the fused-norm
-                backward, which run on the FP32 pipes, no tensor-core
-                instruction, or the phase fails);
+                and its backward, ring combine, the SSD backward), one nvcc
+                per source, all started together; registers and spills from
+                ptxas, and the HGMMA / HMMA count of each library's SASS
+                (the bf16 routes must have HGMMA, and the fp32 routes, the
+                fused-norm backward and the SSD backward, which run on the
+                FP32 pipes, no tensor-core instruction, or the phase
+                fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -34,7 +35,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 route in turns with autograd of SDPA pinned to each backend
                 that runs (flash, efficient, cuDNN; the fastest is the
                 yardstick); the flash forward's time with its lse output
-                beside its time without;
+                beside its time without; the SSD backward on both instances
+                (the training shape in bf16 and fp32, N 64, ragged L at
+                chunk 256 and 128, a final-state cotangent, an initial
+                state) against its plain version (``ssd_bwd_tol``), each
+                timed at the training shape beside it;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -53,22 +58,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 untraced and traced walls; a profiler breakdown; fp32
                 prefill logits on the card (the fp32 routes) against the
                 plain path on the CPU;
-  6. train    — Trainer.train of llama3.2-1b at full width and depth (B 8 x
-                S 512, bf16 compute, fp32 parameters and AdamW moments, 12
-                traced steps): each step's loss, step time, tokens/s, MFU
-                and the peak memory; the launch counts of every step (flash
-                forward and backward 16, on the wgmma routes and none on
-                fp32, fused forward and backward 32, no plain version); the
-                loss finite and falling; 8 traced and
-                8 untraced steps in turn (the tracing overhead, with the
-                steps' ranges); a profiler breakdown of one
-                step; one fp32 step of the 2-layer cut, card against CPU
-                (loss, grad_norm, three gradients; flash forward and
-                backward on the fp32 routes); a checkpoint saved and
-                restored bitwise;
-  7. trace    — each serving path's and the training run's JSONL spill
+  6. train    — for each training path, llama3.2-1b (dense) and
+                mamba2-780m (ssm): Trainer.train at full width and depth
+                (B 8 x S 512, bf16 compute, fp32 parameters and AdamW
+                moments, 12 traced steps): each step's loss, step time,
+                tokens/s, MFU and the peak memory; the launch counts of
+                every step (llama: flash forward and backward 16, on the
+                wgmma routes and none on fp32, fused forward and backward
+                32; mamba2: SSD forward 48 on the wgmma route, SSD backward
+                48 on the bf16 instance, none on fp32, fused forward and
+                backward 48; no plain version); the loss finite and
+                falling; a profiler breakdown of one step; one fp32 step of
+                the 2-layer cut, card against CPU (loss, grad_norm, three
+                gradients; the fp32 routes; mamba2 at S 512, two chunks);
+                on llama's path also 8 traced and 8 untraced steps in turn
+                (the tracing overhead, with the steps' ranges) and a
+                checkpoint saved and restored bitwise;
+  7. trace    — each serving path's and each training run's JSONL spill
                 read back: step spans and kernel spans with device
-                durations from CUDA events; the training run's dataloader
+                durations from CUDA events; the training runs' dataloader
                 and train_step_exec spans with their meta.
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
@@ -684,6 +692,22 @@ def ssd_work_flops(B, L, H, P, N, chunk) -> float:
     return B * flops
 
 
+def ssd_bwd_work_flops(B, L, H, P, N, chunk) -> float:
+    """Flops the SSD backward needs (2 per multiply-add) at these shapes,
+    chunk by chunk as the data runs, the ragged last chunk at its length:
+    C·Bᵀ over the causal pairs once per (b, chunk), since Bm and Cm are
+    shared by the heads; per head over the causal pairs dy·xᵀ, dx, dB and
+    dC (four products), and per row the chunk-start state (the forward's
+    recurrence, which the backward recomputes), S_prevᵀ·dy, dS·B, dSᵀ·x
+    and the state cotangent's dy·Cᵀ (five products of P·N)."""
+    flops = 0.0
+    for c0 in range(0, L, chunk):
+        q = min(chunk, L - c0)
+        pairs = q * (q + 1) / 2
+        flops += 2 * pairs * N + H * (4 * pairs * (P + N) + 10 * q * P * N)
+    return B * flops
+
+
 def check_ssd(gen, device):
     """The four cases (ragged L and an initial state among them) on both
     routes, bf16 on the tensor cores and fp32 on the FP32 pipes, each call
@@ -781,6 +805,163 @@ def check_ssd(gen, device):
         f"{u['spill_loads']} bytes spilled" for u in fp32["ptxas"])
         + f"; the wgmma route is {tc['fp32_route_factor']:.1f}x faster")
     return tc, fp32, cases
+
+
+# the SSD backward: (B, L, H, N, chunk), dtype, with a final-state
+# cotangent, with an initial state: the training shape on both instances,
+# N 64, ragged L at chunk 256 and 128
+SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
+                 ((8, 512, 48, 128, 256), "float32", False, False),
+                 ((2, 512, 16, 64, 256), "bfloat16", False, False),
+                 ((2, 512, 16, 64, 256), "float32", True, False),
+                 ((2, 200, 16, 128, 256), "bfloat16", True, False),
+                 ((2, 200, 16, 128, 128), "float32", False, True),
+                 ((2, 333, 16, 128, 128), "bfloat16", False, True),
+                 ((2, 333, 16, 64, 256), "float32", True, False)]
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
+                 init=False) -> dict:
+    """One SSD backward call on the route of its dtype (one launch of that
+    instance, none of the other) against ``ssd_bwd_ref`` on the same
+    inputs (dt as the model draws it, dy a normal draw, the final-state
+    cotangent and the initial state normal draws where given).  fp32
+    within 3e-4; bf16 within the elementwise bf16 tolerance and
+    ``BWD_BF16_SCALED`` of each output's largest magnitude; dA and ddt with
+    the atol of ``ssd_bwd_tol``.  A given final-state cotangent must move
+    dx, ddt and dBm (dCm does not depend on it) by far more than the
+    tolerance.  Raises AssertionError on a mismatch."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+    dy = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
+    dS = (torch.randn(B, H, 64, N, generator=gen, device=device)
+          if final else None)
+    s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
+          if init else None)
+    route = ops.BWD_ROUTES[x.dtype]
+    got = on_route(ops.BWD_KERNELS, route, lambda: ops.ssd_bwd_cuda(
+        x, dt, A, Bm, Cm, dy, dS, chunk, s0))
+    want = ops.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dS, chunk, s0)
+    torch.cuda.synchronize()
+    case = dict(shape=[B, L, H, 64, N], chunk=chunk, dtype=dtype,
+                route=route, d_final_state=final, initial_state=init,
+                max_abs_err={})
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        case["max_abs_err"][name] = max_err(
+            g, w, dtype, ssd_bwd_tol(name, dtype, B, L, chunk))
+    if dtype == "bfloat16":
+        case["scaled_err"] = {n: scaled_err(g, w, BWD_BF16_SCALED)
+                              for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+    if final:
+        # a kernel that dropped the cotangent would pass unless it moves
+        # the outputs by far more than the tolerance
+        plain = ops.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, None, chunk, s0)
+        case["d_final_state_reach"] = min(
+            float((w.float() - p.float()).abs().max())
+            for n, w, p in zip(SSD_BWD_NAMES, want, plain)
+            if n in ("dx", "ddt", "dBm"))
+        if case["d_final_state_reach"] < 1e-1:
+            raise AssertionError(f"the final-state cotangent barely reaches "
+                                 f"the outputs ({case})")
+    return case
+
+
+def ssd_bwd_tol(name: str, dtype: str, B: int, L: int, chunk: int) -> dict:
+    """The elementwise tolerance of one SSD-backward output: the dtype's
+    (``TOLS``), but for the two outputs that sum the reverse cumsum da of
+    the fp32 cotangents of the cumulative decay: dA sums B·L rows (atol
+    3e-4·√(B·L), the precedent of the fused backward's dscale) and ddt_s
+    takes A·da_s, a sum over up to a chunk's rows (atol 3e-4·√chunk).  At
+    the training shape |ddt| reaches ~5e3, where one fp32 ulp is 4.9e-4:
+    a plain 3e-4 would hold a sum in another order to less than the
+    rounding of its own terms."""
+    tol = dict(TOLS[dtype])
+    rows = {"dA": B * L, "ddt": min(chunk, L)}.get(name)
+    if rows:
+        tol["atol"] = max(tol["atol"], 3e-4 * rows ** 0.5)
+    return tol
+
+
+def ssd_bwd_bound(B, L, H, N, chunk, itemsize, peak) -> tuple:
+    """(bound ms, by what, flops, bytes) of the SSD backward: the work of
+    ``ssd_bwd_work_flops`` at ``peak``; bytes: x, dy, Bm, Cm, dt and A
+    read, dx, dBm, dCm, ddt and dA written, each once."""
+    flops = ssd_bwd_work_flops(B, L, H, 64, N, chunk)
+    nbytes = ((3 * B * L * H * 64 + 4 * B * L * N) * itemsize
+              + 4 * (2 * B * L * H + 2 * H))
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def check_ssd_bwd(gen, device):
+    """The SSD backward (``SSD_BWD_CASES``, ``ssd_bwd_case``) on both
+    instances, then each timed at the training shape behind a queued sleep
+    beside its plain version, with its bound (no single PyTorch call
+    computes it).  Returns
+    the bf16 and fp32 summaries and the cases."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+
+    cases = []
+    for (B, L, H, N, chunk), dtype, final, init in SSD_BWD_CASES:
+        case = ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
+                            init)
+        cases.append(case)
+        errs = ", ".join(f"{n} {e:.3e}" for n, e in
+                         case["max_abs_err"].items())
+        scaled = ("; of the largest magnitude " + ", ".join(
+            f"{n} {e:.2e}" for n, e in case["scaled_err"].items())
+            if "scaled_err" in case else "")
+        reach = (f"; the final-state cotangent moves them by at least "
+                 f"{case['d_final_state_reach']:.3e}" if final else "")
+        log("kernels", f"ssd_scan backward [{case['route']}] B{B} L{L} H{H} "
+            f"P64 N{N} chunk {chunk} {dtype} d_final_state={final} "
+            f"initial_state={init}: max_abs_err {errs}{scaled}{reach}")
+        torch.cuda.empty_cache()
+
+    B, L, H, N, chunk = TRAIN_B, TRAIN_S, 48, 128, 256
+    summaries = {}
+    for dtype in ("bfloat16", "float32"):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+        dy = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
+        r = ops.BWD_ROUTES[x.dtype]
+        args = (x, dt, A, Bm, Cm, dy, None, chunk)
+        err = max(max_err(g, w, dtype, ssd_bwd_tol(n, dtype, B, L, chunk))
+                  for n, g, w in zip(SSD_BWD_NAMES, ops.ssd_bwd_cuda(*args),
+                                     ops.ssd_bwd_ref(*args)))
+        ms = time_ms(lambda: ops.ssd_bwd_cuda(*args), 10, behind_sleep=True)
+        plain_ms = time_ms(lambda: ops.ssd_bwd_ref(*args), 3, 1)
+        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+        bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(
+            B, L, H, N, chunk, x.element_size(), peak)
+        summaries[r] = summary = dict(
+            name="ssd_scan_bwd" if r == "bf16" else "ssd_scan_bwd_fp32",
+            route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
+            replaces="src/repro/models/mamba2.py:22 (XLA autodiff of "
+            "ssd_chunked; port-only: the reference's backward has no Pallas "
+            "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_call=None, shape=[B, L, H, 64, N], chunk=chunk,
+            dtype=dtype, flops=flops, bytes=nbytes,
+            ptxas=ptxas_usage(ops.BWD_KERNELS["bf16"].build_log))
+        log("kernels", f"ssd_scan backward [{r}] timed at B{B} L{L} H{H} P64 "
+            f"N{N} chunk {chunk} {dtype}: {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s of the work; plain "
+            f"{plain_ms:.4f}; no library call; bound {bound_ms:.4f} by "
+            f"{bound_by} at the {'bf16' if r == 'bf16' else 'fp32'} peak: "
+            f"{flops:.3e} flops, {nbytes:.3e} bytes; {bound_ms / ms:.4f} "
+            f"of it)")
+        del x, dt, Bm, Cm, dy, args
+        torch.cuda.empty_cache()
+    log("kernels", "ssd_scan backward ptxas: " + ", ".join(
+        f"{u['function'][:60]}: {u['registers']} registers, "
+        f"{u['spill_stores']}/{u['spill_loads']} bytes spilled"
+        for u in summaries["bf16"]["ptxas"]))
+    return summaries["bf16"], summaries["fp32"], cases
 
 
 # the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
@@ -1377,6 +1558,7 @@ PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_fwd_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
                 "reduce_kernel", "ssd_wgmma_kernel", "ssd_scan_fwd_kernel",
+                "ssd_bwd_kernel", "ssd_bwd_reduce_kernel",
                 "matmul_wgmma_kernel", "matmul_tiled_kernel",
                 "ring_combine_kernel")
 
@@ -1466,41 +1648,76 @@ def agreement(arch: str, seed: int, S: int):
 # --------------------------------------------------------------------------- #
 # phase 6: train
 # --------------------------------------------------------------------------- #
-TRAIN_ARCH = "llama3.2-1b"
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
+# per training path: the forward's traced spans per layer, and the fp32
+# card-vs-CPU step of its 2-layer cut (sequence length, gradients held);
+# mamba2's S 512 is two chunks, so the state carries between them
+TRAIN_PATHS = {
+    "llama3.2-1b": dict(
+        spans={"flash_attention": 1, "fused_residual_rmsnorm": 2},
+        agree_seq=128, agree_grads=("embed.embedding", "layers.0.attn.wq",
+                                    "layers.1.ln2.scale")),
+    "mamba2-780m": dict(
+        spans={"ssd_scan": 1, "fused_residual_rmsnorm": 1},
+        agree_seq=512, agree_grads=("embed.embedding", "layers.0.mamba.in_x",
+                                    "layers.1.mamba.A_log")),
+}
 
 
-def train_kernels() -> dict:
-    """The kernels a training step can launch, by label, with their
-    launches per step of an L-layer dense model: flash forward and
-    backward once per layer, each on the route of the compute dtype, the
-    fused norm forward and backward twice per layer."""
+def train_kernels(arch: str) -> dict:
+    """The kernels a training step of ``arch`` can launch, by label, as
+    (kernel, launches per layer, the compute dtype whose steps launch it,
+    None for both): per layer the dense family's flash forward and
+    backward once and fused norm forward and backward twice, the ssm
+    family's SSD forward and backward and fused norm forward and backward
+    once each."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
-    return {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1),
-            "flash_attention[fp32]": (fa.KERNELS["fp32"], 1),
-            "flash_attention_bwd[wgmma]": (fa.BWD_KERNELS["wgmma"], 1),
-            "flash_attention_bwd[fp32]": (fa.BWD_KERNELS["fp32"], 1),
-            "fused_residual_rmsnorm": (fn.KERNEL, 2),
-            "fused_residual_rmsnorm_bwd": (fn.BWD_KERNEL, 2)}
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    bf, f32 = "bfloat16", "float32"
+    if arch == "llama3.2-1b":
+        kernels = {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1, bf),
+                   "flash_attention[fp32]": (fa.KERNELS["fp32"], 1, f32),
+                   "flash_attention_bwd[wgmma]": (fa.BWD_KERNELS["wgmma"], 1,
+                                                  bf),
+                   "flash_attention_bwd[fp32]": (fa.BWD_KERNELS["fp32"], 1,
+                                                 f32)}
+        norms = 2
+    elif arch == "mamba2-780m":
+        kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
+                   "ssd_scan[fp32]": (ssd.KERNELS["fp32"], 1, f32),
+                   "ssd_scan_bwd[bf16]": (ssd.BWD_KERNELS["bf16"], 1, bf),
+                   "ssd_scan_bwd[fp32]": (ssd.BWD_KERNELS["fp32"], 1, f32)}
+        norms = 1
+    else:
+        raise KeyError(arch)
+    return {**kernels,
+            "fused_residual_rmsnorm": (fn.KERNEL, norms, None),
+            "fused_residual_rmsnorm_bwd": (fn.BWD_KERNEL, norms, None)}
 
 
-def expected_step_launches(L: int, route: str) -> dict:
-    other = "fp32" if route == "wgmma" else "wgmma"
-    return {label: 0 if label.endswith(f"[{other}]") else n * L
-            for label, (_, n) in train_kernels().items()}
+def expected_step_launches(arch: str, L: int, dtype: str) -> dict:
+    return {label: n * L if d in (None, dtype) else 0
+            for label, (_, n, d) in train_kernels(arch).items()}
 
 
 class PlainCalls:
-    """Counts the calls of the kernels' plain versions while it is
-    entered (the ops modules look them up at each call)."""
-    NAMES = {"flash_attention": ("attention_ref", "attention_bwd_ref"),
-             "fused_norm": ("fused_ref", "fused_bwd_ref")}
+    """Counts the calls of the plain versions of ``arch``'s training
+    kernels while it is entered (the ops modules look them up at each
+    call)."""
+    NAMES = {"llama3.2-1b": {"flash_attention": ("attention_ref",
+                                                 "attention_bwd_ref"),
+                             "fused_norm": ("fused_ref", "fused_bwd_ref")},
+             "mamba2-780m": {"ssd_scan": ("ssd_ref", "ssd_bwd_ref"),
+                             "fused_norm": ("fused_ref", "fused_bwd_ref")}}
+
+    def __init__(self, arch: str):
+        self.arch = arch
 
     def __enter__(self):
         import importlib
         self.calls, self.saved = {}, []
-        for mod_name, fns in self.NAMES.items():
+        for mod_name, fns in self.NAMES[self.arch].items():
             mod = importlib.import_module(
                 f"repro_torch.kernels.{mod_name}.ops")
             for fn_name in fns:
@@ -1540,7 +1757,8 @@ def tracing_overhead(trainer, log_path: Path) -> dict:
         traced = (i % 4) in (1, 2)
         batch = trainer._to_device(loader.next_batch())
         daemon = TracingDaemon(DaemonConfig(
-            rank=0, backend="dense-train", log_path=str(log_path),
+            rank=0, backend=f"{trainer.cfg.model.family}-train",
+            log_path=str(log_path),
             hang_timeout=300.0)).attach() if traced else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1568,39 +1786,41 @@ def tracing_overhead(trainer, log_path: Path) -> dict:
     return dict(ms=ms, median_ms=med, overhead=diff, resolved=resolved)
 
 
-def train(seed: int, trace_path: Path) -> dict:
-    """Trainer.train of llama3.2-1b at full width and depth: B 8 x S 512
-    from the synthetic corpus, bf16 compute, fp32 parameters and AdamW
-    moments, 12 traced steps (4 warm-up steps in the schedule), the daemon
-    spilling to ``trace_path``; the launch counts of that run and of each
-    of its steps, no plain version called; then the tracing overhead
-    (``tracing_overhead``) and a profiler breakdown of one step."""
+def train(arch: str, seed: int, trace_path: Path,
+          with_overhead: bool) -> dict:
+    """Trainer.train of ``arch`` at full width and depth: B 8 x S 512 from
+    the synthetic corpus, bf16 compute, fp32 parameters and AdamW moments,
+    12 traced steps (4 warm-up steps in the schedule), the daemon spilling
+    to ``trace_path``; the launch counts of that run and of each of its
+    steps, no plain version called; then, ``with_overhead``, the tracing
+    overhead (``tracing_overhead``), and a profiler breakdown of one
+    step."""
     import math
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.runtime.train import RunConfig, Trainer
 
-    cfg = get_config(TRAIN_ARCH)
-    kernels = train_kernels()
+    cfg = get_config(arch)
+    kernels = train_kernels(arch)
     run = RunConfig(model=cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                     steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, seed=seed,
                     flare_log=str(trace_path))
     snaps = []
     trainer = Trainer(run, fault_hook=lambda step: snaps.append(
-        {label: k.launches for label, (k, _) in kernels.items()}))
-    for k, _ in kernels.values():
+        {label: k.launches for label, (k, _, _) in kernels.items()}))
+    for k, _, _ in kernels.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with PlainCalls() as plain:
+    with PlainCalls(arch) as plain:
         hist = trainer.train()
-    launches = {label: k.launches for label, (k, _) in kernels.items()}
+    launches = {label: k.launches for label, (k, _, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     snaps.append(launches)
     per_step = [{label: b[label] - a[label] for label in launches}
                  for a, b in zip(snaps, snaps[1:])]
-    want = expected_step_launches(cfg.num_layers, "wgmma")
-    log("train", f"{TRAIN_ARCH} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
+    want = expected_step_launches(arch, cfg.num_layers, "bfloat16")
+    log("train", f"{arch} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
         f"parameters and moments: launches of one step {per_step[0]} "
         f"(expected {want}); plain versions called {plain.calls}")
     if any(n != want for n in per_step) or len(per_step) != TRAIN_STEPS:
@@ -1622,7 +1842,7 @@ def train(seed: int, trace_path: Path) -> dict:
     traced_ms = sorted(r["step_time_s"] * 1e3 for r in hist[1:])
     med_t = traced_ms[len(traced_ms) // 2]
     overhead = tracing_overhead(trainer, trace_path.with_name(
-        "train_overhead.jsonl"))
+        f"train_overhead_{arch}.jsonl")) if with_overhead else None
     log("train", f"step time median {med_t:.1f} ms traced (steps 1-"
         f"{TRAIN_STEPS - 1}); {tokens / med_t * 1e3:.0f} tokens/s and MFU "
         f"{6.0 * n_params * tokens / (med_t / 1e3) / PEAK_BF16_FLOPS:.3f}"
@@ -1630,20 +1850,20 @@ def train(seed: int, trace_path: Path) -> dict:
         f"(torch.cuda.max_memory_allocated)")
     # one more step under the profiler
     _, opt_state = trainer.final_state
-    step = TRAIN_STEPS + 2 * TRAIN_OVERHEAD_PAIRS
+    step = TRAIN_STEPS + (2 * TRAIN_OVERHEAD_PAIRS if with_overhead else 0)
     batch = trainer._to_device(trainer._loader(step).next_batch())
     prof = profile(lambda: trainer.step_fn(opt_state, batch, step))
-    log("profile", f"{TRAIN_ARCH} train step: wall {prof['wall_s'] * 1e3:.3f}"
+    log("profile", f"{arch} train step: wall {prof['wall_s'] * 1e3:.3f}"
         f" ms, device busy {prof['device_s'] * 1e3:.3f} ms, idle share "
         f"{prof['idle_share']}")
     for k in prof["top"]:
         log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
-    log("profile", f"{TRAIN_ARCH} train step, the port's kernels:")
+    log("profile", f"{arch} train step, the port's kernels:")
     for k in prof["port"]:
         log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
     del trainer, batch, opt_state
     torch.cuda.empty_cache()
-    return dict(arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, history=hist,
+    return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, history=hist,
                 launches=launches, launches_per_step=per_step[0],
                 plain_calls=plain.calls, peak_memory_gb=peak_gb,
                 step_ms_traced=traced_ms, tracing_overhead=overhead,
@@ -1652,13 +1872,13 @@ def train(seed: int, trace_path: Path) -> dict:
                 / (med_t / 1e3) / PEAK_BF16_FLOPS)
 
 
-def train_agreement(seed: int, ckpt_dir: Path) -> dict:
-    """One fp32 training step of llama3.2-1b cut to 2 layers (widths kept),
-    B 2 S 128: loss and gradients on the card (the fp32 forward routes and
-    the backward kernels) against the plain path on the CPU, same weights
-    and batch.  Loss, grad_norm and the gradients of ``embed.embedding``,
-    ``layers.0.attn.wq`` and ``layers.1.ln2.scale`` each within 3e-4 of its
-    largest magnitude.  Then a checkpoint of the card's parameters and
+def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
+    """One fp32 training step of ``arch`` cut to 2 layers (widths kept), B 2
+    and the path's ``agree_seq``: loss and gradients on the card (the fp32
+    forward routes and the backward kernels) against the plain path on the
+    CPU, same weights and batch.  Loss, grad_norm and the gradients of the
+    path's ``agree_grads`` each within 3e-4 of its largest magnitude.
+    Then, given ``ckpt_dir``, a checkpoint of the card's parameters and
     bf16 AdamW moments saved and restored bitwise."""
     import dataclasses
     import shutil
@@ -1672,23 +1892,24 @@ def train_agreement(seed: int, ckpt_dir: Path) -> dict:
                                          adamw_update, global_norm)
     from repro_torch.runtime.train import loss_and_grads
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    S, names = TRAIN_PATHS[arch]["agree_seq"], TRAIN_PATHS[arch]["agree_grads"]
     pol = Policy(torch.float32, torch.float32)
     cpu = build_model(cfg, pol, "cpu").init(
         torch.Generator().manual_seed(seed))
     gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
     b = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=2,
-                                 seq_len=128, seed=seed)).next_batch()
+                                 seq_len=S, seed=seed)).next_batch()
     toks, labs = (torch.as_tensor(b[k], dtype=torch.long)
                   for k in ("tokens", "labels"))
-    kernels = train_kernels()
-    n0 = {label: k.launches for label, (k, _) in kernels.items()}
+    kernels = train_kernels(arch)
+    n0 = {label: k.launches for label, (k, _, _) in kernels.items()}
     loss_g, grads_g = loss_and_grads(gpu, toks.cuda(), labs.cuda(),
                                      dict(gpu.named_parameters()))
     torch.cuda.synchronize()
     launches = {label: k.launches - n0[label]
-                for label, (k, _) in kernels.items()}
-    want_launches = expected_step_launches(cfg.num_layers, "fp32")
+                for label, (k, _, _) in kernels.items()}
+    want_launches = expected_step_launches(arch, cfg.num_layers, "float32")
     if launches != want_launches:
         fail(f"the fp32 training step launched {launches}, not "
              f"{want_launches}")
@@ -1698,20 +1919,23 @@ def train_agreement(seed: int, ckpt_dir: Path) -> dict:
     pairs = [("loss", loss_g.cpu(), loss_c),
              ("grad_norm", global_norm(grads_g.values()).cpu(),
               global_norm(grads_c.values()))]
-    pairs += [(n, grads_g[n].cpu(), grads_c[n]) for n in (
-        "embed.embedding", "layers.0.attn.wq", "layers.1.ln2.scale")]
+    pairs += [(n, grads_g[n].cpu(), grads_c[n]) for n in names]
     for name, got, want in pairs:
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         res[name] = dict(max_abs_err=err, max_abs=scale)
         ok = err <= 3e-4 * max(scale, 1e-12)
-        log("train", f"fp32 agreement, {cfg.num_layers} layers B2 S128, card "
-            f"vs CPU: {name} max_abs_err {err:.3e} (|max| {scale:.3e}, "
-            f"3e-4 of it: {ok})")
+        log("train", f"{arch} fp32 agreement, {cfg.num_layers} layers B2 "
+            f"S{S}, card vs CPU: {name} max_abs_err {err:.3e} (|max| "
+            f"{scale:.3e}, 3e-4 of it: {ok})")
         if not ok:
             fail(f"fp32 training step disagrees between card and CPU: {name}")
-    log("train", f"fp32 agreement step launched {launches} (expected "
-        f"{want_launches})")
+    log("train", f"{arch} fp32 agreement step launched {launches} "
+        f"(expected {want_launches})")
+    if ckpt_dir is None:
+        del cpu, gpu, grads_g, grads_c
+        torch.cuda.empty_cache()
+        return dict(errors=res, launches=launches)
 
     # checkpoint: the card's parameters and bf16 moments after one update
     params = dict(gpu.named_parameters())
@@ -1744,53 +1968,56 @@ def train_agreement(seed: int, ckpt_dir: Path) -> dict:
                 checkpoint_restore_s=restore_s)
 
 
-def check_train_trace(trace_path: Path, steps: int, layers: int) -> dict:
+def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
     """The training trace read back: step spans 0..steps-1, a
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
-    span with ``flops`` = 6·N·tokens in each, and the flash and fused
-    spans (L and 2L a step) with CUDA-event durations, nested under their
-    step."""
+    span with ``flops`` = 6·N·tokens in each, and the forward's kernel
+    spans (the path's ``spans`` per layer a step: llama flash 1 and fused
+    2, mamba2 SSD scan 1 and fused 1) with CUDA-event durations, nested
+    under their step."""
     from collections import Counter
     from repro_torch.configs import get_config
     from repro_torch.core.events import EventKind, load_jsonl
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     tokens = TRAIN_B * TRAIN_S
     flops = 6.0 * cfg.active_param_count() * tokens
     events = load_jsonl(str(trace_path))
     kinds = Counter(e.kind.value for e in events)
-    log("trace", f"{TRAIN_ARCH} train: {len(events)} events by kind: "
+    log("trace", f"{arch} train: {len(events)} events by kind: "
         f"{dict(kinds)}")
     steps_seen = sorted(e.step for e in events if e.kind == EventKind.STEP)
     if steps_seen != list(range(steps)):
-        fail(f"train: step spans {steps_seen} != 0..{steps - 1}")
+        fail(f"{arch} train: step spans {steps_seen} != 0..{steps - 1}")
     data = [e for e in events if e.kind == EventKind.DATALOADER]
     execs = [e for e in events if e.name == "train_step_exec"]
     if (sorted(e.step for e in data) != steps_seen
             or any(e.name != "dataloader.next_batch"
                    or e.meta.get("tokens") != tokens for e in data)):
-        fail("train: a dataloader.next_batch span per step with tokens")
+        fail(f"{arch} train: a dataloader.next_batch span per step with "
+             f"tokens")
     if (sorted(e.step for e in execs) != steps_seen
             or any(e.kind != EventKind.KERNEL_COMPUTE
                    or e.meta.get("flops") != flops for e in execs)):
-        fail(f"train: a train_step_exec k_comp span per step with flops "
-             f"{flops}")
+        fail(f"{arch} train: a train_step_exec k_comp span per step with "
+             f"flops {flops}")
     per_name = {}
-    for name, n in (("flash_attention", layers),
-                    ("fused_residual_rmsnorm", 2 * layers)):
+    for name, per_layer in TRAIN_PATHS[arch]["spans"].items():
+        n = per_layer * cfg.num_layers
         evs = [e for e in events if e.name == name]
         if len(evs) != n * steps or Counter(e.step for e in evs) != {
                 s: n for s in range(steps)}:
-            fail(f"train: {name} spans {len(evs)}, not {n} a step")
+            fail(f"{arch} train: {name} spans {len(evs)}, not {n} a step")
         if any(e.duration <= 0 or e.issue_latency < 0
                or e.meta.get("parent") != f"step_{e.step}" for e in evs):
-            fail(f"train: a {name} span without a device duration or "
+            fail(f"{arch} train: a {name} span without a device duration or "
                  f"outside its step")
         per_name[name] = dict(n=len(evs),
                               device_s=sum(e.duration for e in evs))
     exec_s = sorted(e.duration for e in execs)
-    log("trace", f"train: kernel spans {per_name}; train_step_exec median "
-        f"{exec_s[len(exec_s) // 2] * 1e3:.1f} ms with flops {flops:.4e}")
+    log("trace", f"{arch} train: kernel spans {per_name}; train_step_exec "
+        f"median {exec_s[len(exec_s) // 2] * 1e3:.1f} ms with flops "
+        f"{flops:.4e}")
     return dict(kinds=dict(kinds), per_name=per_name,
                 train_step_exec_s=exec_s)
 
@@ -1869,7 +2096,6 @@ def main():
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's package is not at {src / 'repro_torch'}")
     sys.path.insert(0, str(src))
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
@@ -1892,10 +2118,11 @@ def main():
     t0 = time.perf_counter()
     all_kernels = (*fa.KERNELS.values(), fn.KERNEL, *ssd.KERNELS.values(),
                    *mm.KERNELS.values(), ring.KERNEL,
-                   *fa.BWD_KERNELS.values(), fn.BWD_KERNEL)
+                   *fa.BWD_KERNELS.values(), fn.BWD_KERNEL,
+                   *ssd.BWD_KERNELS.values())
     build_all(list(all_kernels))
-    log("build", f"built {', '.join(k.source for k in all_kernels)} for "
-        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    log("build", f"built {', '.join(sorted({k.source for k in all_kernels}))}"
+        f" for sm_90a in {time.perf_counter() - t0:.1f} s")
     for k in all_kernels:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1912,11 +2139,14 @@ def main():
                 fail(f"{k.source} [{route}]: no HGMMA in its SASS")
             if route == "fp32" and (n["HGMMA"] or n["HMMA"]):
                 fail(f"{k.source} [{route}]: {n} tensor-core instructions")
-    n = sass_mma(fn.BWD_KERNEL)
-    log("build", f"{fn.BWD_KERNEL.source}: {n['HGMMA']} HGMMA, {n['HMMA']} "
-        f"HMMA in the SASS (memory-bound, on the FP32 pipes: none)")
-    if n["HGMMA"] or n["HMMA"]:
-        fail(f"{fn.BWD_KERNEL.source}: {n} tensor-core instructions")
+    # the fused-norm backward (memory-bound) and the SSD backward (both
+    # instances) run on the FP32 pipes: no tensor-core instruction
+    for k in (fn.BWD_KERNEL, ssd.BWD_KERNELS["bf16"]):
+        n = sass_mma(k)
+        log("build", f"{k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA in "
+            f"the SASS (on the FP32 pipes: none)")
+        if n["HGMMA"] or n["HMMA"]:
+            fail(f"{k.source}: {n} tensor-core instructions")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1928,6 +2158,7 @@ def main():
     flash_bwd, flash_bwd_fp32, flash_bwd_cases = check_flash_bwd(gen,
                                                                   "cuda")
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
+    ssd_bwd, ssd_bwd_fp32, ssd_bwd_cases = check_ssd_bwd(gen, "cuda")
 
     # 4. the Case-2 op and the ring path, traced
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1951,16 +2182,22 @@ def main():
             f"(first run), {run['warm_wall_s']:.3f} s untraced (best later "
             f"run, {B * new / run['warm_wall_s']:.1f} new tokens/s)")
 
-    # 6. train, and 7. its trace
-    train_trace_path = OUT_DIR / "train_trace.jsonl"
-    train_trace_path.unlink(missing_ok=True)
-    train_run = train(args.seed, train_trace_path)
-    train_agree = train_agreement(args.seed, OUT_DIR / "ckpt")
-    train_trace = check_train_trace(train_trace_path, TRAIN_STEPS,
-                                    get_config(TRAIN_ARCH).num_layers)
+    # 6. train, and 7. its trace, for each training path; the tracing
+    # overhead and the checkpoint round trip on llama's
+    train_runs, train_agree, train_traces = {}, {}, {}
+    for arch in TRAIN_PATHS:
+        dense = arch == "llama3.2-1b"
+        trace_path = OUT_DIR / f"train_trace_{arch}.jsonl"
+        trace_path.unlink(missing_ok=True)
+        train_runs[arch] = train(arch, args.seed, trace_path,
+                                 with_overhead=dense)
+        train_agree[arch] = train_agreement(
+            arch, args.seed, OUT_DIR / "ckpt" if dense else None)
+        train_traces[arch] = check_train_trace(arch, trace_path, TRAIN_STEPS)
 
     by_path = {arch: run["launches"] for arch, run in runs.items()}
-    by_path[f"{TRAIN_ARCH} train"] = train_run["launches"]
+    by_path.update({f"{arch} train": run["launches"]
+                    for arch, run in train_runs.items()})
     for summary, label in ((flash, "flash_attention[wgmma]"),
                            (fused, "fused_residual_rmsnorm"),
                            (scan, "ssd_scan[wgmma]")):
@@ -1979,14 +2216,19 @@ def main():
         summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
     for summary, label in ((flash_bwd, "flash_attention_bwd[wgmma]"),
-                           (fused_bwd, "fused_residual_rmsnorm_bwd")):
-        summary["launches"] = train_run["launches"][label]
-        summary["launches_by_path"] = {f"{TRAIN_ARCH} train":
-                                       summary["launches"]}
-    n = train_agree["launches"]["flash_attention_bwd[fp32]"]
-    flash_bwd_fp32["launches"] = n
-    flash_bwd_fp32["launches_by_path"] = {
-        f"{TRAIN_ARCH} fp32 2-layer agreement step": n}
+                           (fused_bwd, "fused_residual_rmsnorm_bwd"),
+                           (ssd_bwd, "ssd_scan_bwd[bf16]")):
+        per = {f"{arch} train": run["launches"][label]
+               for arch, run in train_runs.items() if label in run["launches"]}
+        summary["launches"] = sum(per.values())
+        summary["launches_by_path"] = per
+    for summary, arch, label in (
+            (flash_bwd_fp32, "llama3.2-1b", "flash_attention_bwd[fp32]"),
+            (ssd_bwd_fp32, "mamba2-780m", "ssd_scan_bwd[fp32]")):
+        n = train_agree[arch]["launches"][label]
+        summary["launches"] = n
+        summary["launches_by_path"] = {
+            f"{arch} fp32 2-layer agreement step": n}
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -2000,12 +2242,14 @@ def main():
                    fp32_prefill_max_abs_err=errs,
                    fp32_prefill_launches=fp32_launches, serve=runs,
                    trace=traces, flash_bwd_cases=flash_bwd_cases,
-                   fused_bwd_cases=fused_bwd_cases, train=train_run,
-                   train_agreement=train_agree, train_trace=train_trace)
+                   fused_bwd_cases=fused_bwd_cases,
+                   ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
+                   train_agreement=train_agree, train_trace=train_traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
     print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, scan_fp32,
                                   matmul, matmul_fp32, combine, flash_bwd,
-                                  flash_bwd_fp32, fused_bwd]}), flush=True)
+                                  flash_bwd_fp32, fused_bwd, ssd_bwd,
+                                  ssd_bwd_fp32]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,9 +13,10 @@ version and the FLARE registration):
   fused_norm      — residual add + RMSNorm (``fused_norm.cu``) and its
                     backward (``fused_norm_bwd.cu``, rows by TMA bulk copy)
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
-                    (prefill): bf16 on the tensor cores
+                    (prefill and training): bf16 on the tensor cores
                     (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes
-                    (``ssd_scan.cu``)
+                    (``ssd_scan.cu``); its backward on the FP32 pipes, a
+                    bf16 and an fp32 instance (``ssd_scan_bwd.cu``)
   padded_matmul   — the Case-2 matmul: bf16 on the tensor cores
                     (``padded_matmul_wgmma.cu``), fp32 on the FP32 pipes
                     (``padded_matmul.cu``)
@@ -25,7 +26,8 @@ The tensor-core kernels share ``csrc/hopper.cuh`` (TMA tensor maps and
 loads, mbarriers, wgmma descriptors and instructions, programmatic
 dependent launch).  A kernel with two
 routes picks one by dtype alone in its wrapper's ``route``, and each
-route's ``CudaKernel`` counts its own launches.
+route's ``CudaKernel`` counts its own launches (two C entries of one
+source are two ``CudaKernel``s of one build).
 
 Build: each source is compiled on first use by ``nvcc`` into its own shared
 library under ``kernels/build/`` and loaded with ``ctypes``.  Every tensor
@@ -175,11 +177,16 @@ class CudaKernel:
 
 def build_all(kernels: list[CudaKernel]) -> None:
     """Build several kernels at once: one nvcc per source, all started
-    together."""
-    procs = [k.start_build() for k in kernels]
-    for k, p in zip(kernels, procs):
+    together (kernels that share a source share its build)."""
+    first = {}
+    for k in kernels:
+        if k.source not in first:
+            first[k.source] = (k, k.start_build())
+    for k, p in first.values():
         with k._lock:
             k.finish_build(p)
+    for k in kernels:
+        k.ensure_built()
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -20,6 +20,16 @@ ragged last chunk, so any L is taken:
     full-fp32 reference and not to TF32.
 Both sum the cumulative decay in fp64.  Each route counts its own
 launches.  A bf16 call never takes the FP32 pipes.
+
+The backward is port-only: the JAX package differentiates ``ssd_chunked``
+(``src/repro/models/mamba2.py:22``) by XLA autodiff, so it has no Pallas
+kernel and no traced-op name, and its time falls in the training step's
+span.  ``csrc/ssd_scan_bwd.cu`` computes it on the FP32 pipes, with one
+instance for bf16 x/Bm/Cm/dy and one for fp32, each with its own launch
+count (``BWD_KERNELS``); ``ssd_bwd_ref`` is its plain version, the same
+chunked passes in PyTorch.  ``ssd_scan`` is a ``torch.autograd.Function``
+(``SSDScan``) when a gradient is wanted; training starts from a zero
+state, so an initial state that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -39,6 +49,15 @@ KERNELS = {
     "fp32": CudaKernel("ssd_scan.cu", "ssd_scan_fwd_launch", _ARGS),
 }
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+# one source, one C entry per instance (bf16 or fp32 x/Bm/Cm/dy)
+_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+BWD_KERNELS = {
+    "bf16": CudaKernel("ssd_scan_bwd.cu", "ssd_scan_bwd_bf16_launch",
+                       _BWD_ARGS),
+    "fp32": CudaKernel("ssd_scan_bwd.cu", "ssd_scan_bwd_f32_launch",
+                       _BWD_ARGS),
+}
+BWD_ROUTES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
 def kernel_takes(P: int, N: int, chunk: int) -> bool:
@@ -115,6 +134,106 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     return y.to(x.dtype), S
 
 
+def ssd_bwd_ref(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
+                initial_state=None):
+    """Plain PyTorch version of the backward kernel: the gradients of
+    ``ssd_ref``'s (y, final_state) for the cotangents dy [B,L,H,P] and
+    ``d_final_state`` [B,H,P,N] (None: zero), step by step in fp32 with
+    the cumulative decays in fp64, in the kernel's chunked passes.  Per
+    (b, h) and chunk, with a_t = dt_t·A, cum_t its inclusive prefix sum,
+    L_ts = exp(cum_t − cum_s) for s ≤ t, G_ts = C_t·B_s, M_ts = dy_t·x_s,
+    w_s = exp(cum_last − cum_s)·dt_s, S_prev the chunk-start state and dS
+    the cotangent of the chunk-end state:
+      pass 1, chunks in order: S_prev (the forward's recurrence);
+      pass 2, chunks in reverse, carrying dS from ``d_final_state``:
+        dx_s  = Σ_{t≥s} G_ts L_ts dt_s dy_t + w_s·(dS B_s)
+        dC_t  = Σ_{s≤t} M_ts L_ts dt_s B_s + exp(cum_t)·S_prevᵀ dy_t
+        dB_s  = Σ_{t≥s} M_ts L_ts dt_s C_t + w_s·dSᵀ x_s
+        ddt_s = Σ_{t≥s} G_ts L_ts M_ts + exp(cum_last − cum_s)·x_s·(dS B_s)
+                + A·da_s, with da the reverse cumsum (fp64) of dcum, the
+                cotangent of cum from every exp term
+                (exp(cum_last)·⟨dS, S_prev⟩ at the chunk's last row);
+        dA   += Σ_s dt_s·da_s;
+        dS   <- exp(cum_last)·dS + Σ_t exp(cum_t)·dy_t C_tᵀ.
+    dBm and dCm sum over the heads, dA over the batch.  Returns (dx, ddt,
+    dA, dBm, dCm) in the dtypes of (x, dt, A, Bm, Cm)."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    pad = nc * Q - L
+    xc = _pad_rows(x, pad).view(Bsz, nc, Q, H, P)
+    dyc = _pad_rows(dy, pad).view(Bsz, nc, Q, H, P)
+    dtc = _pad_rows(dt, pad).view(Bsz, nc, Q, H)
+    Bc = _pad_rows(Bm, pad).view(Bsz, nc, Q, N)
+    Cc = _pad_rows(Cm, pad).view(Bsz, nc, Q, N)
+    Af = A.float()
+
+    cum = torch.cumsum((dtc * Af).double(), dim=2)        # [B,nc,Q,H]
+    last = cum[:, :, -1:, :]
+    w = torch.exp((last - cum).float()) * dtc              # [B,nc,Q,H]
+    ecum = torch.exp(cum.float())
+    decay = torch.exp(last[:, :, 0, :].float())            # [B,nc,H]
+
+    # pass 1: the chunk-start states
+    S_c = torch.einsum("bcsh,bcsn,bcshp->bchpn", w, Bc, xc)
+    S = (x.new_zeros((Bsz, H, P, N), dtype=torch.float32)
+         if initial_state is None else initial_state.float())
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = S * decay[:, c, :, None, None] + S_c[:, c]
+    S_prev = torch.stack(starts, dim=1)                   # [B,nc,H,P,N]
+
+    # pass 2: the chunk-end state cotangents, in reverse
+    U = torch.einsum("bcth,bcthp,bctn->bchpn", ecum, dyc, Cc)
+    dS = (x.new_zeros((Bsz, H, P, N), dtype=torch.float32)
+          if d_final_state is None else d_final_state.float())
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = dS
+        dS = dS * decay[:, c, :, None, None] + U[:, c]
+    dS_end = torch.stack(ends, dim=1)                     # [B,nc,H,P,N]
+
+    # intra-chunk terms over the causal (t, s) pairs
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)[..., None]
+    M = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    Lm = torch.where(tri[None, None, :, :, None],
+                     torch.exp((cum[:, :, :, None, :]
+                                - cum[:, :, None, :, :]).float()),
+                     torch.zeros((), device=x.device))
+    GL, ML = G * Lm, M * Lm                               # [B,nc,t,s,H]
+    dts = dtc[:, :, None, :, :]                           # dt_s
+    # state terms: V_s = dS B_s
+    V = torch.einsum("bchpn,bcsn->bcshp", dS_end, Bc)
+    dx = (torch.einsum("bctsh,bcthp->bcshp", GL * dts, dyc)
+          + w[..., None] * V)
+    dB = (torch.einsum("bctsh,bctn->bcsn", ML * dts, Cc)
+          + torch.einsum("bcsh,bchpn,bcshp->bcsn", w, dS_end, xc))
+    dC = (torch.einsum("bctsh,bcsn->bctn", ML * dts, Bc)
+          + torch.einsum("bcth,bchpn,bcthp->bctn", ecum, S_prev, dyc))
+
+    # the cotangent of cum, then of a = dt·A by a reverse cumsum
+    D = GL * M                                            # G L M [t,s]
+    ddt_intra = D.sum(dim=2)                              # Σ_t, at s
+    ddt_state = (torch.exp((last - cum).float())
+                 * torch.einsum("bcshp,bcshp->bcsh", xc, V))
+    row = (D * dts).sum(dim=3)                            # Σ_s, at t
+    E = ecum * torch.einsum("bcthp,bchpn,bctn->bcth", dyc, S_prev, Cc)
+    dcum = row - dtc * ddt_intra + E - dtc * ddt_state
+    dcum[:, :, -1] += (decay * (dS_end * S_prev).sum(dim=(-2, -1))
+                       + (dtc * ddt_state).sum(dim=2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum.double(), [2]), dim=2), [2])
+    ddt = ddt_intra + ddt_state + (Af.double() * da).float()
+    dA = (dtc.double() * da).sum(dim=(0, 1, 2))
+
+    def rows(t):
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :L]
+    return (rows(dx).to(x.dtype), rows(ddt).to(dt.dtype), dA.to(A.dtype),
+            rows(dB).to(Bm.dtype), rows(dC).to(Cm.dtype))
+
+
 def route(dtype) -> str:
     """The kernel that a CUDA call with x in ``dtype`` launches, by dtype
     alone: bf16 -> "wgmma" (tensor cores), fp32 -> "fp32" (FP32 pipes)."""
@@ -187,15 +306,102 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     return y, state
 
 
+def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
+                 initial_state=None):
+    """Launch the backward kernel of x's dtype (``BWD_ROUTES``); raises on
+    anything it does not take.  Returns (dx, ddt, dA, dBm, dCm) as
+    ``ssd_bwd_ref``."""
+    check_operands(x, dt, A, Bm, Cm, chunk, initial_state)
+    r = BWD_ROUTES[x.dtype]
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_scan backward: dy must match x "
+                         f"{tuple(x.shape)} {x.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    tensors = [dy]
+    if d_final_state is not None:
+        if (d_final_state.shape != (B, H, P, N)
+                or d_final_state.dtype != torch.float32
+                or d_final_state.device != x.device):
+            raise ValueError(f"ssd_scan backward: d_final_state must be "
+                             f"float32 [B,H,P,N] = {(B, H, P, N)} on "
+                             f"{x.device}; got {d_final_state.dtype} "
+                             f"{tuple(d_final_state.shape)} on "
+                             f"{d_final_state.device}")
+        tensors.append(d_final_state)
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("ssd_scan backward takes a contiguous, "
+                             "16-byte-aligned dy and d_final_state")
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan kernels take CUDA tensors, not "
+                         f"{x.device}")
+    nc = -(-L // chunk) if L else 0
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA, dBm, dCm = torch.empty_like(A), torch.empty_like(Bm), \
+        torch.empty_like(Cm)
+    states = torch.empty((B, H, nc, P, N), **f32)     # pass 1's S_prev
+    dB_part = torch.empty((B, H, L, N), **f32)        # per-head partials
+    dC_part = torch.empty((B, H, L, N), **f32)
+    dA_part = torch.empty((B, H), **f32)              # per-(b, h) partials
+
+    init = None if initial_state is None else ptr(initial_state)
+    dfinal = None if d_final_state is None else ptr(d_final_state)
+    BWD_KERNELS[r].launch(
+        ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init, ptr(dy), dfinal,
+        ptr(dx), ptr(ddt), ptr(dA), ptr(dBm), ptr(dCm), ptr(states),
+        ptr(dB_part), ptr(dC_part), ptr(dA_part), B, L, H, P, N, chunk,
+        stream_ptr(x.device))
+    return dx, ddt, dA, dBm, dCm
+
+
+def _forward(x, dt, A, Bm, Cm, chunk, initial_state):
+    if x.device.type == "cuda":
+        return ssd_cuda(x, dt, A, Bm, Cm, chunk, initial_state)
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    raise ValueError(f"ssd_scan: unsupported device {x.device}")
+
+
+class SSDScan(torch.autograd.Function):
+    """The forward kernel, and the backward kernel on the cotangents of y
+    and of the final state (None counts as zero; a given one seeds the
+    reverse state recurrence); plain versions for CPU tensors.  Saves the
+    inputs: the backward recomputes the chunk-start states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, Bm, Cm, chunk, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, d_final_state):
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if d_final_state is not None:
+            d_final_state = d_final_state.contiguous()
+        bwd = ssd_bwd_cuda if x.device.type == "cuda" else ssd_bwd_ref
+        return (*bwd(x, dt, A, Bm, Cm, dy, d_final_state, ctx.chunk,
+                     initial_state), None, None)
+
+
 @traced_op("ssd_scan", "compute", _meta)
 def ssd_scan(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     """x [B,L,H,P]; dt [B,L,H] fp32 (> 0); A [H] fp32 (< 0); Bm/Cm [B,L,N]
     -> (y [B,L,H,P] in x's dtype, final_state [B,H,P,N] fp32).  Pass
     ``chunk`` as a keyword: the trace's flops are computed from it.
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
-    if x.device.type == "cuda":
-        return ssd_cuda(x, dt, A, Bm, Cm, chunk, initial_state)
-    if x.device.type == "cpu":
-        return ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
-    raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    CUDA tensors go to the kernels; CPU tensors to the plain versions.
+    When a gradient is wanted the call goes through ``SSDScan``; an
+    ``initial_state`` that requires grad is refused."""
+    if torch.is_grad_enabled():
+        if initial_state is not None and initial_state.requires_grad:
+            raise ValueError("ssd_scan has no gradient for initial_state: "
+                             "training starts from a zero state")
+        if any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            return SSDScan.apply(x, dt, A, Bm, Cm, chunk, initial_state)
+    return _forward(x, dt, A, Bm, Cm, chunk, initial_state)

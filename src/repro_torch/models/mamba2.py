@@ -1,17 +1,21 @@
 """Mamba2 / SSD (state-space duality) blocks, the port of the JAX package's
 ``models/mamba2.py``.
 
-The full-sequence path (prefill) sends the SSD scan to the ``ssd_scan`` op
-(the CUDA kernel on CUDA tensors, its plain version on the CPU), which also
-returns the final state for the decode cache.  Decode is the one-token
-recurrence ``ssd_decode_step`` in plain PyTorch, as in the JAX package.
+The full-sequence path (prefill and training) sends the SSD scan to the
+``ssd_scan`` op (the CUDA kernels on CUDA tensors, the plain versions on
+the CPU; differentiable), which also returns the final state for the
+decode cache.  Decode is the one-token recurrence ``ssd_decode_step`` in
+plain PyTorch, as in the JAX package.  The conv, the gated norm and
+``softplus`` stay plain PyTorch under autograd: the JAX package has no
+kernel for them either.
 
-Dtypes follow the JAX serving policy, which keeps parameters in float32
-and casts them at use: ``A_log``, ``dt_bias`` and the norm scale stay
-float32 (``A = -exp(A_log)`` and ``softplus(dt + dt_bias)`` are float32,
-and a 256-step cumulative decay amplifies any rounding of them); the
-projections, ``conv_w``, ``conv_b`` and ``D`` are stored in the compute
-dtype, the values the JAX ``.astype(u.dtype)`` gives at use.
+Dtypes follow the JAX policy: ``A_log``, ``dt_bias`` and the norm scale
+stay float32 (``A = -exp(A_log)`` and ``softplus(dt + dt_bias)`` are
+float32, and a 256-step cumulative decay amplifies any rounding of them);
+the projections, ``conv_w``, ``conv_b`` and ``D`` are stored in the
+policy's ``param_dtype`` and cast to the activations' dtype at use, as the
+JAX ``.astype(u.dtype)`` does.  Training keeps them float32; serving stores
+them in the compute dtype, where the cast is the weight itself.
 """
 from __future__ import annotations
 
@@ -76,7 +80,8 @@ def causal_conv(x, w, b, history=None):
 # --------------------------------------------------------------------------- #
 class Mamba2Block(nn.Module):
     """The JAX ``mamba_init`` tree: ``in_z, in_x, in_B, in_C, in_dt,
-    conv_w, conv_b, dt_bias, A_log, D, norm.scale, out``."""
+    conv_w, conv_b, dt_bias, A_log, D, norm.scale, out``; ``dtype`` is the
+    stored dtype of the projections, ``conv_w``, ``conv_b`` and ``D``."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -97,7 +102,8 @@ class Mamba2Block(nn.Module):
 
 
 def _project(p: Mamba2Block, u):
-    return (u @ p.in_z, u @ p.in_x, u @ p.in_B, u @ p.in_C, u @ p.in_dt)
+    return tuple(u @ w.to(u.dtype)
+                 for w in (p.in_z, p.in_x, p.in_B, p.in_C, p.in_dt))
 
 
 def _dt_and_A(p: Mamba2Block, dt):
@@ -111,13 +117,13 @@ def _finish(p: Mamba2Block, y, xh, z, cfg: ModelConfig):
     y = y + xh * p.D.to(y.dtype)[:, None]
     y = y.reshape(*y.shape[:-2], cfg.d_inner)
     y = gated_rmsnorm(p.norm.scale, y, z, cfg.norm_eps)
-    return y @ p.out
+    return y @ p.out.to(y.dtype)
 
 
 def mamba_apply(p: Mamba2Block, u, cfg: ModelConfig, return_state=False):
-    """u [B,L,D] -> [B,L,D]: the full-sequence (prefill) path, from a zero
-    state.  With ``return_state`` also the cache ``{"state": [B,H,P,N]
-    fp32, "conv": [B,W-1,di+2N]}``."""
+    """u [B,L,D] -> [B,L,D]: the full-sequence (prefill and training)
+    path, from a zero state.  With ``return_state`` also the cache
+    ``{"state": [B,H,P,N] fp32, "conv": [B,W-1,di+2N]}``."""
     B, L, _ = u.shape
     di, n, h, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xp, Bp, Cp, dt = _project(p, u)

@@ -33,8 +33,11 @@ class MambaLayer(nn.Module):
 
 
 class MambaLM(LM):
-    """Projections, ``conv_w``, ``conv_b`` and ``D`` live in the compute
-    dtype; ``A_log``, ``dt_bias`` and the norm scales stay float32."""
+    """Projections, ``conv_w``, ``conv_b`` and ``D`` live in
+    ``policy.param_dtype`` and are cast to the compute dtype at use (serving
+    stores them in the compute dtype); ``A_log``, ``dt_bias`` and the norm
+    scales stay float32.  ``loss`` trains: its forward and backward go
+    through the SSD-scan and fused-norm kernels on CUDA tensors."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
                  device="cuda"):
@@ -43,11 +46,8 @@ class MambaLM(LM):
                 f"MambaLM serves the ssm family, not {cfg.family!r}")
         super().__init__(cfg, policy, device)
         self.layers = nn.ModuleList(
-            MambaLayer(cfg, policy.compute_dtype, self.device)
+            MambaLayer(cfg, policy.param_dtype, self.device)
             for _ in range(cfg.num_layers))
-        # serving only: the SSD scan has no backward yet, so a gradient
-        # through its kernel would be lost without a word
-        self.requires_grad_(False)
 
     def _init_std(self, name: str) -> Optional[float]:
         cfg = self.cfg
@@ -100,11 +100,21 @@ class MambaLM(LM):
             h, x = fused(out, x, nxt, eps)
         return h, caches
 
+    def logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B,S] -> logits [B,S,V], recording autograd's graph
+        where grad mode is on (training)."""
+        h, _ = self._layers(self._embed(tokens))
+        return self._head(h)
+
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B,S] -> logits [B,S,V]."""
-        h, _ = self._layers(self._embed(tokens))
-        return self._head(h)
+        return self.logits(tokens)
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` against ``labels``
+        (the JAX ``MambaLM.loss``)."""
+        return L.cross_entropy(self.logits(tokens), labels)
 
     # ------------------------------------------------------------------ #
     # Recurrent-state serving

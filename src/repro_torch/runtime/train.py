@@ -9,9 +9,8 @@ trace carries the JAX Trainer's span names and meta keys.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Trainer`` raises.  On the card the forward and
-backward of attention and of the fused residual + RMSNorm are the port's
-kernels.  The dense family trains; the ssm family does not yet (the SSD
-scan has no backward).
+backward of attention (dense family), of the SSD scan (ssm family) and of
+the fused residual + RMSNorm are the port's kernels.
 """
 from __future__ import annotations
 
@@ -116,10 +115,6 @@ class Trainer:
             raise RuntimeError(
                 "Trainer: no CUDA device; pass RunConfig(device='cpu') to "
                 "train on the CPU")
-        if cfg.model.family != "dense":
-            raise NotImplementedError(
-                f"the port trains the dense family, not "
-                f"{cfg.model.family!r}: the SSD scan has no backward yet")
         self.model = build_model(cfg.model, cfg.policy(), self.device)
         self.step_fn = make_train_step(self.model, cfg)
         self.fault_hook = fault_hook

@@ -181,7 +181,7 @@ def test_init_follows_jax_distributions():
     for leaf in ("dt_bias", "A_log", "D", "conv_b"):
         for i in range(cfg.num_layers):
             np.testing.assert_allclose(
-                p[f"layers.{i}.mamba.{leaf}"].numpy(), jp[leaf][i],
+                p[f"layers.{i}.mamba.{leaf}"].detach().numpy(), jp[leaf][i],
                 rtol=1e-6, atol=1e-6, err_msg=leaf)
     for name in ("final_norm.scale", "layers.0.ln.scale",
                  "layers.2.mamba.norm.scale"):
@@ -239,3 +239,44 @@ def test_short_prompts_decode_like_the_full_sequence(monkeypatch, S):
     sequential = tm.apply(toks)
     torch.testing.assert_close(got, sequential[:, S - 1:S + n - 1],
                                rtol=2e-3, atol=2e-3)
+
+
+def test_parameters_are_fp32_masters_cast_at_use():
+    """The training policy (float32 parameters, bf16 compute): every
+    parameter is a float32 leaf that requires grad, the forward runs in
+    bf16, and one backward reaches every parameter with a finite
+    gradient."""
+    cfg = get_reduced(ARCH)
+    m = MambaLM(cfg, TL.Policy(torch.bfloat16, torch.float32), "cpu")
+    m.init(torch.Generator().manual_seed(0))
+    params = dict(m.named_parameters())
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in params.values())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 33)))
+    logits = m.logits(toks[:, :-1])
+    assert logits.dtype == torch.bfloat16
+    grads = torch.autograd.grad(m.loss(toks[:, :-1], toks[:, 1:]),
+                                list(params.values()))
+    for n, g in zip(params, grads):
+        assert g.dtype == torch.float32 and bool(g.isfinite().all()), n
+        assert bool((g != 0).any()), n
+
+
+@pytest.mark.parametrize("S", [32, 20])
+def test_serving_logits_unchanged_by_fp32_masters(S):
+    """The same float32 weights stored in bf16 (serving) and kept in
+    float32 and cast at use (training) give the same bf16 logits bit for
+    bit, and both meet the JAX MambaLM of the training policy."""
+    jm = jax_build_model(jax_get_reduced(ARCH), policy=JL.Policy(
+        jnp.float32, jnp.bfloat16))
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    state = params_from_jax(params)
+    serve = _port_model("bfloat16", state)
+    train = build_model(get_reduced(ARCH),
+                        TL.Policy(torch.bfloat16, torch.float32),
+                        "cpu").load_params(state)
+    toks = np.random.default_rng(2).integers(0, 256, (2, S))
+    got = train.apply(torch.from_numpy(toks))
+    assert torch.equal(got, serve.apply(torch.from_numpy(toks)))
+    want, _ = jm.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(toks))
+    _close(got.float(), want, "bfloat16", scaled=True)

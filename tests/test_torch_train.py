@@ -17,6 +17,9 @@
   ``CheckpointManager`` reads), resumed training equal to uninterrupted
   training bitwise, and the port's forms of ``tests/test_supervisor.py``;
 * the launcher and ``Trainer`` refuse the card where they cannot run.
+
+The ssm family (``mamba2-780m``'s reduced cut) takes the train-step,
+Trainer and launcher checks too.
 """
 import os
 import sys
@@ -50,6 +53,7 @@ from repro_torch.runtime.supervisor import SimulatedFault, Supervisor
 from repro_torch.runtime.train import RunConfig, Trainer, make_train_step
 
 ARCH = "llama3.2-1b"
+SSM = "mamba2-780m"
 
 
 # ---------------------------------------------------------------------- data
@@ -93,17 +97,17 @@ def test_loader_resumes_at_a_later_batch(mask_mode):
 
 
 # ---------------------------------------------------------------- train step
-def _step_pair(compute_dtype, microbatches=1, lr=1e-2):
+def _step_pair(arch, compute_dtype, microbatches=1, lr=1e-2):
     """The JAX and the port's train step on the same reduced model."""
     kw = dict(global_batch=4, seq_len=32, steps=10, warmup_steps=2,
               peak_lr=lr, compute_dtype=compute_dtype,
               num_microbatches=microbatches)
-    jrun = JaxRunConfig(model=jax_get_reduced(ARCH), **kw)
+    jrun = JaxRunConfig(model=jax_get_reduced(arch), **kw)
     jm = jax_build_model(jrun.model, policy=jrun.policy())
     jp = jm.init(jax.random.PRNGKey(0))
     jo = jax_adamw_init(jp, jrun.opt)
     jstep = jax.jit(jax_make_train_step(jm, jrun))
-    run = RunConfig(model=get_reduced(ARCH), device="cpu", **kw)
+    run = RunConfig(model=get_reduced(arch), device="cpu", **kw)
     trainer_model = Trainer(run).model
     trainer_model.load_params(params_from_jax(jax.tree.map(np.asarray, jp)))
     to = adamw_init(dict(trainer_model.named_parameters()), run.opt)
@@ -111,10 +115,18 @@ def _step_pair(compute_dtype, microbatches=1, lr=1e-2):
                              trainer_model, to)
 
 
-@pytest.mark.parametrize("compute_dtype, microbatches",
-                         [("float32", 1), ("bfloat16", 1), ("float32", 2)])
-def test_train_steps_match_the_reference(compute_dtype, microbatches):
-    (jstep, jp, jo), (tstep, tm, to) = _step_pair(compute_dtype,
+STEP_CASES = [("float32", 1), ("bfloat16", 1), ("float32", 2)]
+
+
+@pytest.mark.parametrize(
+    "arch, compute_dtype, microbatches",
+    [(ARCH, *c) for c in STEP_CASES] + [(SSM, *c) for c in STEP_CASES],
+    ids=[f"{d}-{m}" for d, m in STEP_CASES]
+    + [f"{SSM}-{d}-{m}" for d, m in STEP_CASES])
+def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
+    """Three steps of each family's reduced model (the mamba2 cut: 3
+    layers, d_model 64, P 16, N 16, chunk 16, so S 32 is two chunks)."""
+    (jstep, jp, jo), (tstep, tm, to) = _step_pair(arch, compute_dtype,
                                                   microbatches)
     loader = ShardedLoader(DataConfig(vocab_size=256, batch=4, seq_len=32))
     for step in range(3):
@@ -218,6 +230,45 @@ def test_train_loss_decreases_with_flare(tmp_path):
     assert [h["step"] for h in hist] == list(range(30))
     assert set(hist[0]) == {"step", "loss", "lr", "grad_norm", "step_time_s",
                             "tokens_per_s"}
+
+
+def test_train_mamba2_with_flare(tmp_path):
+    """The ssm family through the same loop: the loss falls; the spill
+    reads back through the JAX package's ``load_jsonl`` with a step,
+    dataloader and ``train_step_exec`` span per step, and the forward's
+    ``ssd_scan`` and ``fused_residual_rmsnorm`` spans (L a step each) under
+    their step; the daemon's backend is ``ssm-train``."""
+    log = str(tmp_path / "trace.jsonl")
+    steps, tokens = 12, 4 * 32
+    run = RunConfig(model=get_reduced(SSM), global_batch=4, seq_len=32,
+                    steps=steps, peak_lr=3e-3, warmup_steps=3,
+                    opt=AdamWConfig(lr=3e-3), flare=True, flare_log=log,
+                    device="cpu")
+    t = Trainer(run)
+    hist = t.train()
+    assert t.daemon.cfg.backend == "ssm-train"
+    first = np.mean([h["loss"] for h in hist[:3]])
+    last = np.mean([h["loss"] for h in hist[-3:]])
+    assert last < first - 0.2, (first, last)
+    events = load_jsonl(log)
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e)
+    flops = 6.0 * get_reduced(SSM).active_param_count() * tokens
+    assert [e.meta["flops"] for e in by_name["train_step_exec"]] == \
+        [flops] * steps
+    assert sorted(e.step for e in events if e.kind.value == "step") == \
+        list(range(steps))
+    assert all(e.meta["tokens"] == tokens
+               for e in by_name["dataloader.next_batch"])
+    layers = get_reduced(SSM).num_layers
+    for name, keys in (("ssd_scan", {"flops", "shape"}),
+                       ("fused_residual_rmsnorm", {"flops", "bytes",
+                                                   "shape"})):
+        evs = by_name[name]
+        assert len(evs) == layers * steps, name
+        assert all(keys <= set(e.meta) and e.kind.value == "k_comp"
+                   and e.meta["parent"] == f"step_{e.step}" for e in evs)
 
 
 def test_case3_v_inter_from_real_events(tmp_path, one_thread):
@@ -399,11 +450,6 @@ def test_trainer_needs_a_card_unless_cpu_is_asked():
         Trainer(RunConfig(model=get_reduced(ARCH)))
 
 
-def test_trainer_refuses_the_ssm_family():
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        Trainer(RunConfig(model=get_reduced("mamba2-780m"), device="cpu"))
-
-
 @pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
 def test_launcher_trains_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
                                                         tmp_path, device, ok):
@@ -423,3 +469,41 @@ def test_launcher_trains_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
         assert e.value.code == 2
         err = capsys.readouterr().err
         assert "head_dim (64, 128), not 16" in err and "--device cpu" in err
+
+
+@pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
+def test_launcher_trains_reduced_mamba2_on_the_cpu_only(monkeypatch, capsys,
+                                                         tmp_path, device,
+                                                         ok):
+    """``--arch mamba2-780m --reduced`` trains with ``--device cpu``; on
+    the card the launcher refuses it with the message of
+    ``launch/serve.py``: the SSD-scan kernels have no instance for P 16,
+    N 16, chunk 16."""
+    from repro_torch.launch import train as launch
+
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--arch", SSM, "--reduced", "--device", device, "--steps",
+        "3", "--batch", "2", "--seq", "32", "--flare-log",
+        str(tmp_path / "t.jsonl")])
+    if ok:
+        launch.main()
+        assert "final loss:" in capsys.readouterr().out
+        assert any(e.name == "ssd_scan"
+                   for e in load_jsonl(str(tmp_path / "t.jsonl")))
+    else:
+        with pytest.raises(SystemExit) as e:
+            launch.main()
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert ("no instance for head_dim 16, state 16, chunk 16" in err
+                and "--device cpu" in err)
+
+
+def test_trainer_builds_mamba2_on_the_card_by_default():
+    """Without a card, a ``Trainer`` of the full mamba2-780m that does not
+    ask for the CPU raises, as the dense family's does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: Trainer runs on it")
+    from repro_torch.configs import get_config
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(RunConfig(model=get_config(SSM)))

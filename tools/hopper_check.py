@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd]
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd]
 
 On one CUDA card: builds the tensor-core kernels (flash attention, the
 padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
@@ -24,7 +24,13 @@ kernel, yardstick, yardstick, kernel, best of two each):
     autograd of SDPA pinned to each backend that runs, with the device
     time of its three kernels (delta, dK/dV, dQ) from the profiler; the
     fused backward alone (device time), at the training rows and at
-    mamba2's width.
+    mamba2's width;
+  * (``ssdbwd``) the SSD backward on both instances (bf16 and fp32 x/B/C)
+    against its plain version at the training shape and its edges (N 64,
+    ragged L, chunks 64 to 256, L 1, a final-state cotangent, an initial
+    state; ``chip_smoke.ssd_bwd_case``), then each instance timed at the
+    training shape beside the plain version, with its bound and the device
+    time of its two kernels from the profiler.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -52,6 +58,14 @@ SSD_CHECK = [(8, 1024, 48, 128, 256, False), (2, 1000, 48, 128, 256, True),
              (2, 100, 8, 128, 256, False), (2, 700, 8, 128, 192, True),
              (2, 300, 8, 64, 64, True), (1, 1000, 8, 64, 128, False)]
 SSD_TIME = [(8, 1024), (8, 4096)]
+# (B, L, H, N, chunk, final-state cotangent, initial state): the training
+# shape, ragged L, L 1, state 64, every chunk
+SSD_BWD_CHECK = [(8, 512, 48, 128, 256, False, False),
+                 (2, 200, 8, 128, 256, True, False),
+                 (2, 333, 8, 64, 128, True, True),
+                 (1, 100, 4, 128, 64, False, True),
+                 (2, 1, 4, 64, 64, True, True),
+                 (1, 700, 4, 128, 192, True, False)]
 # (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S
 BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
              (1, 1, 4, 1, 64), (2, 77, 4, 4, 128)]
@@ -232,16 +246,92 @@ def check_backward():
         sys.exit(1)
 
 
+def check_ssd_backward():
+    """The SSD backward on both instances: checks, then times."""
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, ptxas_usage,
+                            sass_mma, ssd_bwd_bound, ssd_bwd_case,
+                            ssd_inputs, time_ms)
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    build_all(list(ssd.BWD_KERNELS.values()))
+    k = ssd.BWD_KERNELS["bf16"]
+    for line in k.build_log.splitlines():
+        if "arning" in line or "rror" in line:
+            print(f"[build] {k.source}: {line.strip()}")
+    for u in ptxas_usage(k.build_log):
+        print(f"[build] {k.source}: {u['function'][:70]}: "
+              f"{u['registers']} registers, {u['spill_stores']}/"
+              f"{u['spill_loads']} bytes spilled")
+    n = sass_mma(k)
+    print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for (B, L, H, N, chunk, final, init) in SSD_BWD_CHECK:
+        for dtype in ("bfloat16", "float32"):
+            try:
+                case = ssd_bwd_case(gen, "cuda", B, L, H, N, chunk, dtype,
+                                    final, init)
+                res = "ok: max_abs_err " + ", ".join(
+                    f"{n_} {e:.2e}" for n_, e in case["max_abs_err"].items())
+            except AssertionError as e:
+                bad += 1
+                res = f"FAIL: {e}"
+            print(f"[check] ssd bwd B{B} L{L} H{H} N{N} chunk {chunk} "
+                  f"{dtype} final={final} init={init}: {res}", flush=True)
+            torch.cuda.empty_cache()
+    B, L, H, N, chunk = 8, 512, 48, 128, 256
+    for dtype in ("bfloat16", "float32"):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, "cuda", B, L, H, N, dtype)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        args = (x, dt, A, Bm, Cm, dy, None, chunk)
+        ms = time_ms(lambda: ssd.ssd_bwd_cuda(*args), 10, behind_sleep=True)
+        plain = time_ms(lambda: ssd.ssd_bwd_ref(*args), 3, 1)
+        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+        bound, by, flops, nbytes = ssd_bwd_bound(B, L, H, N, chunk,
+                                                 x.element_size(), peak)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ssd.ssd_bwd_cuda(*args)
+            torch.cuda.synchronize()
+        parts = ", ".join(f"{e.key[:50]} {e.self_device_time_total / 5e3:.4f}"
+                          for e in prof.key_averages()
+                          if e.self_device_time_total > 0)
+        print(f"[time] ssd bwd B{B} L{L} H{H} N{N} chunk {chunk} {dtype}: "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the work), "
+              f"plain {plain:.4f} ms; bound {bound:.4f} by {by} "
+              f"({bound / ms:.4f} of it); by kernel (profiler, ms a call) "
+              f"{parts}", flush=True)
+        del x, dt, Bm, Cm, dy, args
+    if bad:
+        print(f"FAIL: {bad} checks outside tolerance")
+        sys.exit(1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="ssd,combine,flash,matmul",
                     help="comma-separated parts to run")
     parts = set(ap.parse_args().only.split(","))
-    if "bwd" in parts:
-        check_backward()
-        parts.discard("bwd")
-        if not parts:
-            return
+    for part, check in (("bwd", check_backward),
+                        ("ssdbwd", check_ssd_backward)):
+        if part in parts:
+            check()
+            parts.discard(part)
+    if not parts:
+        return
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():

@@ -8,14 +8,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention forward and
                 backward, the SSD scan and the padded matmul, each a bf16
-                tensor-core kernel and an fp32 one; fused residual+RMSNorm
-                and its backward, ring combine, the SSD backward), one nvcc
+                tensor-core kernel and an fp32 one; the SSD backward, a
+                bf16 tensor-core kernel and an fp32 one; fused
+                residual+RMSNorm and its backward, ring combine), one nvcc
                 per source, all started together; registers and spills from
                 ptxas, and the HGMMA / HMMA count of each library's SASS
-                (the bf16 routes must have HGMMA, and the fp32 routes, the
-                fused-norm backward and the SSD backward, which run on the
-                FP32 pipes, no tensor-core instruction, or the phase
-                fails);
+                (the bf16 routes must have HGMMA, and the fp32 routes and
+                the fused-norm backward, which run on the FP32 pipes, no
+                tensor-core instruction, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -35,11 +35,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 route in turns with autograd of SDPA pinned to each backend
                 that runs (flash, efficient, cuDNN; the fastest is the
                 yardstick); the flash forward's time with its lse output
-                beside its time without; the SSD backward on both instances
+                beside its time without; the SSD backward on both routes
                 (the training shape in bf16 and fp32, N 64, ragged L at
                 chunk 256 and 128, a final-state cotangent, an initial
                 state) against its plain version (``ssd_bwd_tol``), each
-                timed at the training shape beside it;
+                timed at the training shape beside it, the bf16 route with
+                the profiler's split by kernel and two calls compared
+                bitwise;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -65,9 +67,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 tokens/s, MFU and the peak memory; the launch counts of
                 every step (llama: flash forward and backward 16, on the
                 wgmma routes and none on fp32, fused forward and backward
-                32; mamba2: SSD forward 48 on the wgmma route, SSD backward
-                48 on the bf16 instance, none on fp32, fused forward and
-                backward 48; no plain version); the loss finite and
+                32; mamba2: SSD forward and backward 48 each on the wgmma
+                routes, none on fp32, fused forward and backward 48; no
+                plain version); the loss finite and
                 falling; a profiler breakdown of one step; one fp32 step of
                 the 2-layer cut, card against CPU (loss, grad_norm, three
                 gradients; the fp32 routes; mamba2 at S 512, two chunks);
@@ -708,6 +710,21 @@ def ssd_bwd_work_flops(B, L, H, P, N, chunk) -> float:
     return B * flops
 
 
+def ssd_bwd_design_flops(B, L, H, P, N, chunk) -> float:
+    """Flops the bf16 tensor-core SSD backward (``ssd_scan_bwd_wgmma.cu``)
+    does at these shapes: per (b, h) and chunk of nt 64-row tiles, over the
+    nt (nt + 1) / 2 causal tile pairs G^T, M^T, G and M and the dx, dB and
+    dC products, those three doubled by their hi + lo operands; per tile
+    five doubled products of 2·64·P·N (the two chunk-state sums, B·dS^T,
+    x·dS, dy·S_prev).  C·Bᵀ is recomputed per head, in both kernels."""
+    flops = 0.0
+    for c0 in range(0, L, chunk):
+        nt = -(-min(chunk, L - c0) // 64)
+        flops += (nt * (nt + 1) / 2 * 2 * 64 * 64 * (6 * N + 4 * P)
+                  + nt * 10 * 2 * 64 * P * N)
+    return B * H * flops
+
+
 def check_ssd(gen, device):
     """The four cases (ragged L and an initial state among them) on both
     routes, bf16 on the tensor cores and fp32 on the FP32 pipes, each call
@@ -898,10 +915,12 @@ def ssd_bwd_bound(B, L, H, N, chunk, itemsize, peak) -> tuple:
 
 def check_ssd_bwd(gen, device):
     """The SSD backward (``SSD_BWD_CASES``, ``ssd_bwd_case``) on both
-    instances, then each timed at the training shape behind a queued sleep
+    routes, then each timed at the training shape behind a queued sleep
     beside its plain version, with its bound (no single PyTorch call
-    computes it).  Returns
-    the bf16 and fp32 summaries and the cases."""
+    computes it); the bf16 route's [kernels] line, the profiler's split of
+    its five kernels, and two calls compared bitwise (the design has no
+    atomics).  Returns the bf16 (tensor-core) and fp32 summaries and the
+    cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
@@ -938,7 +957,7 @@ def check_ssd_bwd(gen, device):
         bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(
             B, L, H, N, chunk, x.element_size(), peak)
         summaries[r] = summary = dict(
-            name="ssd_scan_bwd" if r == "bf16" else "ssd_scan_bwd_fp32",
+            name="ssd_scan_bwd" if r == "wgmma" else "ssd_scan_bwd_fp32",
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
             replaces="src/repro/models/mamba2.py:22 (XLA autodiff of "
@@ -946,22 +965,44 @@ def check_ssd_bwd(gen, device):
             "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             library_call=None, shape=[B, L, H, 64, N], chunk=chunk,
-            dtype=dtype, flops=flops, bytes=nbytes,
-            ptxas=ptxas_usage(ops.BWD_KERNELS["bf16"].build_log))
+            dtype=dtype, flops=flops, bytes=nbytes)
         log("kernels", f"ssd_scan backward [{r}] timed at B{B} L{L} H{H} P64 "
             f"N{N} chunk {chunk} {dtype}: {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s of the work; plain "
             f"{plain_ms:.4f}; no library call; bound {bound_ms:.4f} by "
-            f"{bound_by} at the {'bf16' if r == 'bf16' else 'fp32'} peak: "
+            f"{bound_by} at the {'bf16' if r == 'wgmma' else 'fp32'} peak: "
             f"{flops:.3e} flops, {nbytes:.3e} bytes; {bound_ms / ms:.4f} "
             f"of it)")
+        if r == "wgmma":
+            runs = [ops.ssd_bwd_cuda(*args) for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail("ssd_scan backward [wgmma]: two calls on the same "
+                     "inputs differ")
+            del runs
+            prof = profile(lambda: [ops.ssd_bwd_cuda(*args)
+                                    for _ in range(5)])
+            summary["by_kernel_ms"] = {k["name"]: k["ms"] / 5
+                                       for k in prof["port"]}
+            summary["design_flops"] = ssd_bwd_design_flops(B, L, H, 64, N,
+                                                           chunk)
+            log("kernels", f"ssd_scan backward [wgmma]: two calls bitwise "
+                f"equal; {summary['design_flops']:.3e} flops of its design "
+                f"= {summary['design_flops'] / ms / 1e9:.1f} TFLOP/s; by "
+                f"kernel (profiler, ms a call): " + ", ".join(
+                    f"{n.split('::')[-1][:40]} {t:.4f}"
+                    for n, t in summary["by_kernel_ms"].items()))
         del x, dt, Bm, Cm, dy, args
         torch.cuda.empty_cache()
-    log("kernels", "ssd_scan backward ptxas: " + ", ".join(
-        f"{u['function'][:60]}: {u['registers']} registers, "
-        f"{u['spill_stores']}/{u['spill_loads']} bytes spilled"
-        for u in summaries["bf16"]["ptxas"]))
-    return summaries["bf16"], summaries["fp32"], cases
+    tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
+                            summaries["wgmma"]["flops"])
+    fp32 = summaries["fp32"]
+    fp32["ptxas"] = ptxas_usage(ops.BWD_KERNELS["fp32"].build_log)
+    tc["fp32_route_factor"] = fp32["ms"] / tc["ms"]
+    log("kernels", "ssd_scan backward [fp32] ptxas: " + ", ".join(
+        f"{u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} bytes spilled" for u in fp32["ptxas"])
+        + f"; the wgmma route is {tc['fp32_route_factor']:.1f}x faster")
+    return tc, fp32, cases
 
 
 # the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
@@ -1559,6 +1600,9 @@ PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_fwd_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
                 "reduce_kernel", "ssd_wgmma_kernel", "ssd_scan_fwd_kernel",
                 "ssd_bwd_kernel", "ssd_bwd_reduce_kernel",
+                "ssd_bwd_state_kernel", "ssd_bwd_dxdb_kernel",
+                "ssd_bwd_dc_kernel", "ssd_bwd_finish_kernel",
+                "ssd_bwd_sum_kernel",
                 "matmul_wgmma_kernel", "matmul_tiled_kernel",
                 "ring_combine_kernel")
 
@@ -1686,7 +1730,7 @@ def train_kernels(arch: str) -> dict:
     elif arch == "mamba2-780m":
         kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
                    "ssd_scan[fp32]": (ssd.KERNELS["fp32"], 1, f32),
-                   "ssd_scan_bwd[bf16]": (ssd.BWD_KERNELS["bf16"], 1, bf),
+                   "ssd_scan_bwd[wgmma]": (ssd.BWD_KERNELS["wgmma"], 1, bf),
                    "ssd_scan_bwd[fp32]": (ssd.BWD_KERNELS["fp32"], 1, f32)}
         norms = 1
     else:
@@ -2127,10 +2171,11 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
-    # the tensor-core routes (the flash backward's too) hold wgmma (HGMMA)
-    # in their SASS; the fp32 routes and the fused-norm backward no
+    # the tensor-core routes (the flash and SSD backwards' too) hold wgmma
+    # (HGMMA) in their SASS; the fp32 routes and the fused-norm backward no
     # tensor-core instruction at all: they run on the FP32 pipes
-    for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS):
+    for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS,
+                   ssd.BWD_KERNELS):
         for route, k in routes.items():
             n = sass_mma(k)
             log("build", f"{k.source} [{route}]: {n['HGMMA']} HGMMA, "
@@ -2139,14 +2184,13 @@ def main():
                 fail(f"{k.source} [{route}]: no HGMMA in its SASS")
             if route == "fp32" and (n["HGMMA"] or n["HMMA"]):
                 fail(f"{k.source} [{route}]: {n} tensor-core instructions")
-    # the fused-norm backward (memory-bound) and the SSD backward (both
-    # instances) run on the FP32 pipes: no tensor-core instruction
-    for k in (fn.BWD_KERNEL, ssd.BWD_KERNELS["bf16"]):
-        n = sass_mma(k)
-        log("build", f"{k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA in "
-            f"the SASS (on the FP32 pipes: none)")
-        if n["HGMMA"] or n["HMMA"]:
-            fail(f"{k.source}: {n} tensor-core instructions")
+    # the fused-norm backward (memory-bound) runs on the FP32 pipes: no
+    # tensor-core instruction
+    n = sass_mma(fn.BWD_KERNEL)
+    log("build", f"{fn.BWD_KERNEL.source}: {n['HGMMA']} HGMMA, {n['HMMA']} "
+        f"HMMA in the SASS (on the FP32 pipes: none)")
+    if n["HGMMA"] or n["HMMA"]:
+        fail(f"{fn.BWD_KERNEL.source}: {n} tensor-core instructions")
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2217,7 +2261,7 @@ def main():
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
     for summary, label in ((flash_bwd, "flash_attention_bwd[wgmma]"),
                            (fused_bwd, "fused_residual_rmsnorm_bwd"),
-                           (ssd_bwd, "ssd_scan_bwd[bf16]")):
+                           (ssd_bwd, "ssd_scan_bwd[wgmma]")):
         per = {f"{arch} train": run["launches"][label]
                for arch, run in train_runs.items() if label in run["launches"]}
         summary["launches"] = sum(per.values())

@@ -15,8 +15,9 @@ version and the FLARE registration):
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
                     (prefill and training): bf16 on the tensor cores
                     (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes
-                    (``ssd_scan.cu``); its backward on the FP32 pipes, a
-                    bf16 and an fp32 instance (``ssd_scan_bwd.cu``)
+                    (``ssd_scan.cu``); its backward likewise, bf16 on the
+                    tensor cores (``ssd_scan_bwd_wgmma.cu``), fp32 on the
+                    FP32 pipes (``ssd_scan_bwd.cu``)
   padded_matmul   — the Case-2 matmul: bf16 on the tensor cores
                     (``padded_matmul_wgmma.cu``), fp32 on the FP32 pipes
                     (``padded_matmul.cu``)

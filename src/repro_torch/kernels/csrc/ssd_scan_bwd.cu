@@ -1,4 +1,6 @@
-// Backward of the Mamba2 chunked SSD scan on the FP32 pipes (sm_90a).
+// Backward of the Mamba2 chunked SSD scan in fp32 on the FP32 pipes
+// (sm_90a): the fp32 route of the port's SSD-scan backward (bf16 inputs
+// take ssd_scan_bwd_wgmma.cu, on the tensor cores).
 //
 // Port-only: the JAX package differentiates its chunked scan
 // (src/repro/models/mamba2.py::ssd_chunked) by XLA autodiff, so its
@@ -30,17 +32,16 @@
 // deterministic.
 //
 // Bound on an H100: operations.  At the training shape (B 8, L 512, H 48,
-// P 64, N 128, chunk 256, bf16) the function needs ~3.6e10 flops
+// P 64, N 128, chunk 256) the function needs ~3.6e10 flops
 // (chip_smoke.py::ssd_bwd_work_flops: C.B^T once per (b, chunk), the causal
-// halves), 0.036 ms at the bf16 tensor-core peak, against ~81 MB of inputs
-// and outputs (0.024 ms).  This kernel is the simple first design: every
-// product on the FP32 pipes (67 TFLOP/s), C.B^T per head, and the per-head
-// partials (2 x 100 MB written and read at that shape) on top.  Its own
-// work at that shape is ~4.8e10 flops: per (b, h) and 256-row chunk, 10 of
-// the 16 pairs of 64-row tiles at 2 (3N + 2P) flops a pair element (G, M,
-// dx, dB, dC), and five [P,N] products of 2 Q P N (pass 1's state, S_prev^T
-// dy, dS B, dS^T x, dS's update), a 0.72 ms floor at 67 TFLOP/s.  Both
-// instances read x, B, C and dy in their dtype and widen them to fp32.
+// halves), 0.53 ms at the FP32 pipes' 67 TFLOP/s.  Every product runs on
+// the FP32 pipes, so that the fp32 result is held to a full-fp32 reference
+// and not to TF32; C.B^T per head, and the per-head partials (2 x 100 MB
+// written and read at that shape) on top.  Its own work at that shape is
+// ~4.8e10 flops: per (b, h) and 256-row chunk, 10 of the 16 pairs of
+// 64-row tiles at 2 (3N + 2P) flops a pair element (G, M, dx, dB, dC), and
+// five [P,N] products of 2 Q P N (pass 1's state, S_prev^T dy, dS B, dS^T
+// x, dS's update), a 0.72 ms floor at 67 TFLOP/s.
 //
 // Design: one block of 256 threads per (b, h), walking the chunks; a chunk
 // is 1 to 4 tiles of 64 rows.  A thread owns rows ty + 16i (i < 4) and
@@ -125,15 +126,15 @@ __device__ __forceinline__ float sum16(float v) {
 }
 
 // Rows [0, valid) of a [*, W] matrix (row stride `stride` elements) into
-// dst[64][W + 4] as fp32; rows >= valid are zero.
-template <typename T, int W>
-__device__ __forceinline__ void load_rows(const T* src, size_t stride, int valid,
-                                          float* dst) {
+// dst[64][W + 4]; rows >= valid are zero.
+template <int W>
+__device__ __forceinline__ void load_rows(const float* src, size_t stride,
+                                          int valid, float* dst) {
   constexpr int C4 = W / 4;
   for (int i = threadIdx.x; i < kTile * C4; i += kThreads) {
     const int r = i / C4;
     const int c4 = i % C4;
-    const float4 v = r < valid ? flare::Pack4<T>::load(src + r * stride + 4 * c4)
+    const float4 v = r < valid ? flare::Pack4<float>::load(src + r * stride + 4 * c4)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * (W + 4) + 4 * c4) = v;
   }
@@ -187,13 +188,13 @@ __device__ __forceinline__ void chunk_scan(const float* dtb, int H, int t0, int 
   __syncthreads();
 }
 
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ init,
-               const T* __restrict__ dy, const float* __restrict__ dfinal,
-               T* __restrict__ dx, float* __restrict__ ddt,
+ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Bm,
+               const float* __restrict__ Cm, const float* __restrict__ init,
+               const float* __restrict__ dy, const float* __restrict__ dfinal,
+               float* __restrict__ dx, float* __restrict__ ddt,
                float* __restrict__ states, float* __restrict__ dB_part,
                float* __restrict__ dC_part, float* __restrict__ dA_part, int L,
                int H, int chunk) {
@@ -228,13 +229,13 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const size_t xrow = static_cast<size_t>(H) * kP;  // x/dy/dx row stride
   const size_t xoff = static_cast<size_t>(b) * L * xrow + static_cast<size_t>(h) * kP;
-  const T* xb = x + xoff;
-  const T* dyb = dy + xoff;
-  T* dxb = dx + xoff;
+  const float* xb = x + xoff;
+  const float* dyb = dy + xoff;
+  float* dxb = dx + xoff;
   const float* dtb = dt + static_cast<size_t>(b) * L * H + h;  // stride H
   float* ddtb = ddt + static_cast<size_t>(b) * L * H + h;
-  const T* Bb = Bm + static_cast<size_t>(b) * L * N;
-  const T* Cb = Cm + static_cast<size_t>(b) * L * N;
+  const float* Bb = Bm + static_cast<size_t>(b) * L * N;
+  const float* Cb = Cm + static_cast<size_t>(b) * L * N;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t st_off = bh * kP * N;
   float* dBh = dB_part + bh * L * N;   // this head's [L][N] partials
@@ -271,8 +272,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int sr0 = t0 + sj * kTile;
         const int svalid = min(kTile, L - sr0);
         __syncthreads();
-        load_rows<T, N>(Bb + static_cast<size_t>(sr0) * N, N, svalid, bs);
-        load_rows<T, kP>(xb + sr0 * xrow, xrow, svalid, xs);
+        load_rows<N>(Bb + static_cast<size_t>(sr0) * N, N, svalid, bs);
+        load_rows<kP>(xb + sr0 * xrow, xrow, svalid, xs);
         if (tid < kTile) {
           const int sl = sj * kTile + tid;
           et[tid] = expf(static_cast<float>(cl - cum[sl])) * dts[sl];
@@ -332,8 +333,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int tr0 = t0 + ti * kTile;
       const int tvalid = min(kTile, L - tr0);
       __syncthreads();
-      load_rows<T, N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
-      load_rows<T, kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
+      load_rows<N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
+      load_rows<kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
       __syncthreads();
       float acc[4][NJ];
 #pragma unroll
@@ -377,8 +378,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int sr0 = t0 + sj * kTile;
       const int svalid = min(kTile, L - sr0);
       __syncthreads();  // sp (in gls/mls), bs, xs, red are free
-      load_rows<T, N>(Bb + static_cast<size_t>(sr0) * N, N, svalid, bs);
-      load_rows<T, kP>(xb + sr0 * xrow, xrow, svalid, xs);
+      load_rows<N>(Bb + static_cast<size_t>(sr0) * N, N, svalid, bs);
+      load_rows<kP>(xb + sr0 * xrow, xrow, svalid, xs);
       __syncthreads();
       // a thread owns s rows ty + 16i and p or n columns tx + 16j
       float dxa[4][4], dba[4][NJ];
@@ -441,8 +442,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int tr0 = t0 + ti * kTile;
         const int tvalid = min(kTile, L - tr0);
         __syncthreads();  // cs, dys, gls, mls are free
-        load_rows<T, N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
-        load_rows<T, kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
+        load_rows<N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
+        load_rows<kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
         __syncthreads();
         // G = C_t B_s^T and M = dy_t x_s^T, t rows ty + 16i, s columns
         // tx + 16j
@@ -555,9 +556,9 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
         if (r < svalid) {
-          T* o = dxb + (sr0 + r) * xrow;
+          float* o = dxb + (sr0 + r) * xrow;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) o[tx + 16 * j] = flare::from_float<T>(dxa[i][j]);
+          for (int j = 0; j < 4; ++j) o[tx + 16 * j] = dxa[i][j];
           float* ob = dBh + static_cast<size_t>(sr0 + r) * N;
 #pragma unroll
           for (int j = 0; j < NJ; ++j) ob[tx + 16 * j] = dba[i][j];
@@ -585,8 +586,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int tr0 = t0 + ti * kTile;
         const int tvalid = min(kTile, L - tr0);
         __syncthreads();
-        load_rows<T, N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
-        load_rows<T, kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
+        load_rows<N>(Cb + static_cast<size_t>(tr0) * N, N, tvalid, cs);
+        load_rows<kP>(dyb + tr0 * xrow, xrow, tvalid, dys);
         __syncthreads();
 #pragma unroll 4
         for (int t = 0; t < kTile; ++t) {
@@ -669,12 +670,11 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 // dBm[b,l,n] = sum_h dB_part[b,h,l,n] (the same for dC), heads in order;
 // dA[h] = sum_b dA_part[b,h], batch rows in order.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
                       const float* __restrict__ dC_part,
-                      const float* __restrict__ dA_part, T* __restrict__ dBm,
-                      T* __restrict__ dCm, float* __restrict__ dA, int B, int L,
+                      const float* __restrict__ dA_part, float* __restrict__ dBm,
+                      float* __restrict__ dCm, float* __restrict__ dA, int B, int L,
                       int H, int N) {
   const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   const size_t per_b = static_cast<size_t>(L) * N;
@@ -688,8 +688,8 @@ ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
       sb += pb[h * per_b];
       sc += pc[h * per_b];
     }
-    dBm[i] = flare::from_float<T>(sb);
-    dCm[i] = flare::from_float<T>(sc);
+    dBm[i] = sb;
+    dCm[i] = sc;
   }
   if (i < static_cast<size_t>(H)) {
     float s = 0.f;
@@ -698,35 +698,34 @@ ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
   }
 }
 
-template <typename T, int N>
+template <int N>
 int launch_main(const void* x, const void* dt, const void* A, const void* Bm,
                 const void* Cm, const void* init, const void* dy,
                 const void* dfinal, void* dx, void* ddt, void* states,
                 void* dB_part, void* dC_part, void* dA_part, int B, int L, int H,
                 int chunk, cudaStream_t stream) {
   const int smem = Layout<N>::total * static_cast<int>(sizeof(float));
-  auto kernel = ssd_bwd_kernel<T, N>;
+  auto kernel = ssd_bwd_kernel<N>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(init),
-      static_cast<const T*>(dy), static_cast<const float*>(dfinal),
-      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(states),
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(init),
+      static_cast<const float*>(dy), static_cast<const float*>(dfinal),
+      static_cast<float*>(dx), static_cast<float*>(ddt), static_cast<float*>(states),
       static_cast<float*>(dB_part), static_cast<float*>(dC_part),
       static_cast<float*>(dA_part), L, H, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_typed(const void* x, const void* dt, const void* A, const void* Bm,
-                 const void* Cm, const void* init, const void* dy,
-                 const void* dfinal, void* dx, void* ddt, void* dA, void* dBm,
-                 void* dCm, void* states, void* dB_part, void* dC_part,
-                 void* dA_part, int B, int L, int H, int P, int N, int chunk,
-                 void* stream) {
+int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* init, const void* dy,
+               const void* dfinal, void* dx, void* ddt, void* dA, void* dBm,
+               void* dCm, void* states, void* dB_part, void* dC_part,
+               void* dA_part, int B, int L, int H, int P, int N, int chunk,
+               void* stream) {
   if (H == 0) return 0;
   if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk ||
       L < 0 || B < 0 || (N != 64 && N != 128))
@@ -734,43 +733,41 @@ int launch_typed(const void* x, const void* dt, const void* A, const void* Bm,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B > 0) {
     const int e =
-        N == 128 ? launch_main<T, 128>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt,
-                                       states, dB_part, dC_part, dA_part, B, L, H,
-                                       chunk, s)
-                 : launch_main<T, 64>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt,
-                                      states, dB_part, dC_part, dA_part, B, L, H,
-                                      chunk, s);
+        N == 128 ? launch_main<128>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt,
+                                    states, dB_part, dC_part, dA_part, B, L, H,
+                                    chunk, s)
+                 : launch_main<64>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt,
+                                   states, dB_part, dC_part, dA_part, B, L, H,
+                                   chunk, s);
     if (e != 0) return e;
   }
   const size_t n = std::max(static_cast<size_t>(B) * L * N, static_cast<size_t>(H));
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  ssd_bwd_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
+  ssd_bwd_reduce_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const float*>(dB_part), static_cast<const float*>(dC_part),
-      static_cast<const float*>(dA_part), static_cast<T*>(dBm), static_cast<T*>(dCm),
+      static_cast<const float*>(dA_part), static_cast<float*>(dBm), static_cast<float*>(dCm),
       static_cast<float*>(dA), B, L, H, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, dy, dx: [B,L,H,P]; Bm, Cm, dBm, dCm: [B,L,N] (all in the instance's
-// dtype); dt, ddt: [B,L,H], A, dA: [H], init and dfinal (either may be
-// null: zero) [B,H,P,N], float32.  Scratch, float32: states
-// [B,H,ceil(L/chunk),P,N], dB_part and dC_part [B,H,L,N], dA_part [B,H].
-// Every tensor contiguous and 16-byte aligned.  Launches ssd_bwd_kernel
-// (B*H blocks) and ssd_bwd_reduce_kernel on `stream`.  Returns 0 or the first
-// cudaError_t.
-#define FLARE_SSD_BWD_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const void* x, const void* dt, const void* A,              \
-                      const void* Bm, const void* Cm, const void* init,          \
-                      const void* dy, const void* dfinal, void* dx, void* ddt,   \
-                      void* dA, void* dBm, void* dCm, void* states,              \
-                      void* dB_part, void* dC_part, void* dA_part, int B, int L, \
-                      int H, int P, int N, int chunk, void* stream) {            \
-    return launch_typed<T>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt, dA, dBm, \
-                           dCm, states, dB_part, dC_part, dA_part, B, L, H, P,   \
-                           N, chunk, stream);                                    \
-  }
-FLARE_SSD_BWD_ENTRY(ssd_scan_bwd_f32_launch, float)
-FLARE_SSD_BWD_ENTRY(ssd_scan_bwd_bf16_launch, __nv_bfloat16)
-#undef FLARE_SSD_BWD_ENTRY
+// x, dy, dx: [B,L,H,P]; Bm, Cm, dBm, dCm: [B,L,N]; dt, ddt: [B,L,H], A,
+// dA: [H], init and dfinal (either may be null: zero) [B,H,P,N]; all
+// float32.  Scratch, float32: states [B,H,ceil(L/chunk),P,N], dB_part and
+// dC_part [B,H,L,N], dA_part [B,H].  Every tensor contiguous and 16-byte
+// aligned.  Launches ssd_bwd_kernel (B*H blocks) and ssd_bwd_reduce_kernel
+// on `stream`.  Returns 0 or the first cudaError_t.
+extern "C" int ssd_scan_bwd_f32_launch(const void* x, const void* dt,
+                                       const void* A, const void* Bm,
+                                       const void* Cm, const void* init,
+                                       const void* dy, const void* dfinal,
+                                       void* dx, void* ddt, void* dA, void* dBm,
+                                       void* dCm, void* states, void* dB_part,
+                                       void* dC_part, void* dA_part, int B,
+                                       int L, int H, int P, int N, int chunk,
+                                       void* stream) {
+  return launch_f32(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt, dA, dBm, dCm,
+                    states, dB_part, dC_part, dA_part, B, L, H, P, N, chunk,
+                    stream);
+}

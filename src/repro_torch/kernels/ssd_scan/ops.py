@@ -24,12 +24,18 @@ launches.  A bf16 call never takes the FP32 pipes.
 The backward is port-only: the JAX package differentiates ``ssd_chunked``
 (``src/repro/models/mamba2.py:22``) by XLA autodiff, so it has no Pallas
 kernel and no traced-op name, and its time falls in the training step's
-span.  ``csrc/ssd_scan_bwd.cu`` computes it on the FP32 pipes, with one
-instance for bf16 x/Bm/Cm/dy and one for fp32, each with its own launch
-count (``BWD_KERNELS``); ``ssd_bwd_ref`` is its plain version, the same
-chunked passes in PyTorch.  ``ssd_scan`` is a ``torch.autograd.Function``
-(``SSDScan``) when a gradient is wanted; training starts from a zero
-state, so an initial state that requires grad is refused.
+span.  Two hand-written kernels, one route per dtype (``BWD_ROUTES``),
+each with its own launch count (``BWD_KERNELS``):
+  * bf16 -> ``csrc/ssd_scan_bwd_wgmma.cu``: every product on the tensor
+    cores by wgmma, the operands that are fp32 results (scores, w∘x,
+    exp(cum)∘dy, the chunk states and their cotangents) as bf16 hi + lo
+    pairs; dB and dC summed over groups of ``BWD_HEAD_GROUP`` heads in
+    registers, then over the groups;
+  * fp32 -> ``csrc/ssd_scan_bwd.cu``: on the FP32 pipes.
+``ssd_bwd_ref`` is their plain version, the same chunked passes in
+PyTorch.  ``ssd_scan`` is a ``torch.autograd.Function`` (``SSDScan``) when
+a gradient is wanted; training starts from a zero state, so an initial
+state that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -49,15 +55,18 @@ KERNELS = {
     "fp32": CudaKernel("ssd_scan.cu", "ssd_scan_fwd_launch", _ARGS),
 }
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
-# one source, one C entry per instance (bf16 or fp32 x/Bm/Cm/dy)
-_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 BWD_KERNELS = {
-    "bf16": CudaKernel("ssd_scan_bwd.cu", "ssd_scan_bwd_bf16_launch",
-                       _BWD_ARGS),
+    "wgmma": CudaKernel("ssd_scan_bwd_wgmma.cu", "ssd_scan_bwd_wgmma_launch",
+                        [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p]),
     "fp32": CudaKernel("ssd_scan_bwd.cu", "ssd_scan_bwd_f32_launch",
-                       _BWD_ARGS),
+                       [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p]),
 }
-BWD_ROUTES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+# heads whose dB and dC one block of the wgmma backward sums in registers:
+# the partials are [B, ceil(H / 8), L, N] fp32
+BWD_HEAD_GROUP = 8
 
 
 def kernel_takes(P: int, N: int, chunk: int) -> bool:
@@ -308,8 +317,8 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
 
 def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
                  initial_state=None):
-    """Launch the backward kernel of x's dtype (``BWD_ROUTES``); raises on
-    anything it does not take.  Returns (dx, ddt, dA, dBm, dCm) as
+    """Launch the backward kernels of x's dtype (``BWD_ROUTES``); raises on
+    anything they do not take.  Returns (dx, ddt, dA, dBm, dCm) as
     ``ssd_bwd_ref``."""
     check_operands(x, dt, A, Bm, Cm, chunk, initial_state)
     r = BWD_ROUTES[x.dtype]
@@ -342,18 +351,35 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA, dBm, dCm = torch.empty_like(A), torch.empty_like(Bm), \
         torch.empty_like(Cm)
-    states = torch.empty((B, H, nc, P, N), **f32)     # pass 1's S_prev
-    dB_part = torch.empty((B, H, L, N), **f32)        # per-head partials
-    dC_part = torch.empty((B, H, L, N), **f32)
     dA_part = torch.empty((B, H), **f32)              # per-(b, h) partials
-
     init = None if initial_state is None else ptr(initial_state)
     dfinal = None if d_final_state is None else ptr(d_final_state)
-    BWD_KERNELS[r].launch(
-        ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init, ptr(dy), dfinal,
-        ptr(dx), ptr(ddt), ptr(dA), ptr(dBm), ptr(dCm), ptr(states),
-        ptr(dB_part), ptr(dC_part), ptr(dA_part), B, L, H, P, N, chunk,
-        stream_ptr(x.device))
+    args = (ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init, ptr(dy), dfinal,
+            ptr(dx), ptr(ddt), ptr(dA), ptr(dBm), ptr(dCm))
+    if r == "fp32":
+        states = torch.empty((B, H, nc, P, N), **f32)  # pass 1's S_prev
+        dB_part = torch.empty((B, H, L, N), **f32)     # per-head partials
+        dC_part = torch.empty((B, H, L, N), **f32)
+        BWD_KERNELS[r].launch(*args, ptr(states), ptr(dB_part), ptr(dC_part),
+                              ptr(dA_part), B, L, H, P, N, chunk,
+                              stream_ptr(x.device))
+        return dx, ddt, dA, dBm, dCm
+    Lp = nc * chunk
+    ng = -(-H // BWD_HEAD_GROUP)
+    cum = torch.empty((B, H, Lp), dtype=torch.float64, device=x.device)
+    # the chunk-start states and the chunk-end cotangents as bf16 hi and lo
+    # tiles in the kernels' swizzled layout
+    sp16 = torch.empty((B, H, nc, 2, P, N), dtype=torch.bfloat16,
+                       device=x.device)
+    ds16 = torch.empty_like(sp16)
+    dss = torch.empty((B, H, nc), **f32)              # <dS, S_prev>
+    rowe, ddi, dds = torch.empty((3, B, H, Lp), **f32)  # ddt's row terms
+    dB_part = torch.empty((B, ng, L, N), **f32)       # per-group partials
+    dC_part = torch.empty((B, ng, L, N), **f32)
+    BWD_KERNELS[r].launch(*args, ptr(cum), ptr(sp16), ptr(ds16), ptr(dss),
+                          ptr(rowe), ptr(ddi), ptr(dds), ptr(dB_part),
+                          ptr(dC_part), ptr(dA_part), B, L, H, P, N, chunk,
+                          BWD_HEAD_GROUP, stream_ptr(x.device))
     return dx, ddt, dA, dBm, dCm
 
 

@@ -25,12 +25,13 @@ kernel, yardstick, yardstick, kernel, best of two each):
     time of its three kernels (delta, dK/dV, dQ) from the profiler; the
     fused backward alone (device time), at the training rows and at
     mamba2's width;
-  * (``ssdbwd``) the SSD backward on both instances (bf16 and fp32 x/B/C)
-    against its plain version at the training shape and its edges (N 64,
-    ragged L, chunks 64 to 256, L 1, a final-state cotangent, an initial
-    state; ``chip_smoke.ssd_bwd_case``), then each instance timed at the
-    training shape beside the plain version, with its bound and the device
-    time of its two kernels from the profiler.
+  * (``ssdbwd``) the SSD backward on both routes (bf16 x/B/C on the tensor
+    cores, fp32 on the FP32 pipes; the HGMMA count of each) against its
+    plain version at the training shape and its edges (N 64, ragged L,
+    chunks 64 to 256, L 1, a final-state cotangent, an initial state;
+    ``chip_smoke.ssd_bwd_case``), then each route timed at the training
+    shape beside the plain version, with its bound, the device time of each
+    of its kernels from the profiler, and two calls compared bitwise.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -265,17 +266,17 @@ def check_ssd_backward():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     build_all(list(ssd.BWD_KERNELS.values()))
-    k = ssd.BWD_KERNELS["bf16"]
-    for line in k.build_log.splitlines():
-        if "arning" in line or "rror" in line:
-            print(f"[build] {k.source}: {line.strip()}")
-    for u in ptxas_usage(k.build_log):
-        print(f"[build] {k.source}: {u['function'][:70]}: "
-              f"{u['registers']} registers, {u['spill_stores']}/"
-              f"{u['spill_loads']} bytes spilled")
-    n = sass_mma(k)
-    print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
-          flush=True)
+    for route, k in ssd.BWD_KERNELS.items():
+        for line in k.build_log.splitlines():
+            if "arning" in line or "rror" in line:
+                print(f"[build] {k.source}: {line.strip()}")
+        for u in ptxas_usage(k.build_log):
+            print(f"[build] {k.source}: {u['function'][:70]}: "
+                  f"{u['registers']} registers, {u['spill_stores']}/"
+                  f"{u['spill_loads']} bytes spilled")
+        n = sass_mma(k)
+        print(f"[build] {k.source} [{route}]: {n['HGMMA']} HGMMA, "
+              f"{n['HMMA']} HMMA", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
     for (B, L, H, N, chunk, final, init) in SSD_BWD_CHECK:
@@ -306,14 +307,17 @@ def check_ssd_backward():
             for _ in range(5):
                 ssd.ssd_bwd_cuda(*args)
             torch.cuda.synchronize()
-        parts = ", ".join(f"{e.key[:50]} {e.self_device_time_total / 5e3:.4f}"
+        parts = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.4f}"
                           for e in prof.key_averages()
                           if e.self_device_time_total > 0)
+        runs = [ssd.ssd_bwd_cuda(*args) for _ in range(2)]
+        same = all(torch.equal(a, b_) for a, b_ in zip(*runs))
         print(f"[time] ssd bwd B{B} L{L} H{H} N{N} chunk {chunk} {dtype}: "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the work), "
               f"plain {plain:.4f} ms; bound {bound:.4f} by {by} "
-              f"({bound / ms:.4f} of it); by kernel (profiler, ms a call) "
-              f"{parts}", flush=True)
+              f"({bound / ms:.4f} of it); two calls bitwise equal: {same}; "
+              f"by kernel (profiler, ms a call) {parts}", flush=True)
+        bad += not same
         del x, dt, Bm, Cm, dy, args
     if bad:
         print(f"FAIL: {bad} checks outside tolerance")

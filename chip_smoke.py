@@ -7,15 +7,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention forward and
-                backward, the SSD scan and the padded matmul, each a bf16
-                tensor-core kernel and an fp32 one; the SSD backward, a
-                bf16 tensor-core kernel and an fp32 one; fused
+                backward, each a bf16 tensor-core kernel and an fp32 one in
+                split TF32 on the tensor cores, "tf32x3"; the SSD scan, its
+                backward and the padded matmul, each a bf16 tensor-core
+                kernel and an fp32 one on the FP32 pipes; fused
                 residual+RMSNorm and its backward, ring combine), one nvcc
                 per source, all started together; registers and spills from
                 ptxas, and the HGMMA / HMMA count of each library's SASS
-                (the bf16 routes must have HGMMA, and the fp32 routes and
-                the fused-norm backward, which run on the FP32 pipes, no
-                tensor-core instruction, or the phase fails);
+                (the bf16 and tf32x3 routes must have HGMMA, and the fp32
+                routes and the fused-norm backward, which run on the FP32
+                pipes, no tensor-core instruction, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -25,11 +26,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 combine has not run), each call on the route of its dtype
                 by the routes' launch counts, timed beside its plain version
                 and a PyTorch library call where one computes the same
-                function; a [kernels] line per tensor-core kernel (TFLOP/s,
-                share of the bound, factor against the library, registers,
-                spills, HGMMA / HMMA); the flash backward on each route
-                (the training shape in bf16 and fp32, full attention, hd
-                128, ragged S) and the fused-norm backward (R 4096 D 2048,
+                function (the flash forward and backward in turns with it);
+                a [kernels] line per tensor-core kernel (TFLOP/s, share of
+                the bound, factor against the library, registers, spills,
+                HGMMA / HMMA; the tf32x3 routes also their three passes'
+                floor, their FP32-pipe bound and their scratch bytes); the
+                flash forward in fp32 at the edges too; the flash backward
+                on each route (the training shape in bf16 and fp32, full
+                attention, hd 128, ragged S, two fp32 calls compared
+                bitwise) and the fused-norm backward (R 4096 D 2048,
                 bf16 and fp32, with and without dh) against their plain
                 versions, timed beside them; the flash backward of each
                 route in turns with autograd of SDPA pinned to each backend
@@ -58,21 +63,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 prompts, 32 new tokens, random weights from --seed) with the
                 FLARE daemon attached; the launch counts of that run;
                 untraced and traced walls; a profiler breakdown; fp32
-                prefill logits on the card (the fp32 routes) against the
-                plain path on the CPU;
+                prefill logits on the card (the fp32 routes: flash on
+                tf32x3) against the plain path on the CPU;
   6. train    — for each training path, llama3.2-1b (dense) and
                 mamba2-780m (ssm): Trainer.train at full width and depth
                 (B 8 x S 512, bf16 compute, fp32 parameters and AdamW
                 moments, 12 traced steps): each step's loss, step time,
                 tokens/s, MFU and the peak memory; the launch counts of
                 every step (llama: flash forward and backward 16, on the
-                wgmma routes and none on fp32, fused forward and backward
+                wgmma routes and none on tf32x3, fused forward and backward
                 32; mamba2: SSD forward and backward 48 each on the wgmma
                 routes, none on fp32, fused forward and backward 48; no
                 plain version); the loss finite and
                 falling; a profiler breakdown of one step; one fp32 step of
                 the 2-layer cut, card against CPU (loss, grad_norm, three
-                gradients; the fp32 routes; mamba2 at S 512, two chunks);
+                gradients; the fp32 routes, flash on tf32x3; mamba2 at S
+                512, two chunks);
                 on llama's path also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
@@ -97,9 +103,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "smoke_out"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 pipes,
-# HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# fp32 pipes, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
@@ -203,10 +210,12 @@ def on_route(kernels: dict, route: str, fn):
     return out
 
 
-def tensor_core_fields(summary: dict, kernel, flops: float) -> dict:
+def tensor_core_fields(summary: dict, kernel, flops: float,
+                       route: str = "wgmma") -> dict:
     """The fields of a tensor-core kernel's [kernels] line: TFLOP/s, share of
-    the bound, factor against the library call (where there is one), ptxas
-    registers and spills, HGMMA and HMMA in the SASS."""
+    the bound (and of the design's floor, where the summary has one),
+    factor against the library call (where there is one), ptxas registers
+    and spills, HGMMA and HMMA in the SASS."""
     ms = summary["ms"]
     sass = sass_mma(kernel)
     lib = summary["library_ms"]
@@ -216,18 +225,23 @@ def tensor_core_fields(summary: dict, kernel, flops: float) -> dict:
                   ptxas=ptxas_usage(kernel.build_log),
                   hgmma=sass["HGMMA"], hmma=sass["HMMA"])
     if not (fields["hgmma"] or fields["hmma"]):
-        fail(f"{kernel.source}: no HGMMA or HMMA in its SASS, so its bf16 "
-             f"route does not run on the tensor cores")
+        fail(f"{kernel.source}: no HGMMA or HMMA in its SASS, so its "
+             f"{route} route does not run on the tensor cores")
+    floor = ""
+    if "design_floor_ms" in summary:
+        fields["design_floor_fraction"] = summary["design_floor_ms"] / ms
+        floor = (f", {fields['design_floor_fraction']:.3f} of the design's "
+                 f"floor ({summary['design_floor_ms']:.4f} ms)")
     summary.update(fields)
     regs = ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
                      f"{u['spill_loads']} bytes spilled (stores/loads)"
                      for u in fields["ptxas"])
     versus = (f"{fields['library_factor']:.2f}x {summary['library_call']}"
               if lib else "no library call")
-    log("kernels", f"{summary['name']} [wgmma] "
+    log("kernels", f"{summary['name']} [{route}] "
         f"{ms:.4f} ms = {fields['tflops']:.1f} TFLOP/s, "
         f"{fields['bound_fraction']:.3f} of the bound "
-        f"({summary['bound_ms']:.4f} ms), {versus}; ptxas: {regs}; "
+        f"({summary['bound_ms']:.4f} ms){floor}, {versus}; ptxas: {regs}; "
         f"HGMMA / HMMA in the SASS: {fields['hgmma']} / {fields['hmma']}")
     return summary
 
@@ -235,8 +249,8 @@ def tensor_core_fields(summary: dict, kernel, flops: float) -> dict:
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-# flash attention at the paths' shapes (both routes), and the tensor-core
-# kernel's edges: S of 1, 63 and 129 around its 128-row tiles, hd 128
+# flash attention at the paths' shapes and at the kernels' edges (S of 1,
+# 63 and 129 around their tiles, hd 128), both routes
 FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
                 (2, 1000, 16, 4, 128)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129) for hd in (64, 128)]
@@ -244,8 +258,9 @@ FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129) for hd in (64, 128)]
 
 def check_flash(gen, device):
     """Every shape on the route of its dtype against ``attention_ref``; the
-    serving shape timed on both routes.  Returns the bf16 (tensor-core)
-    and the fp32 summaries and the cases."""
+    serving shape timed on both routes (the fp32 one, split TF32, in turns
+    with SDPA fp32).  Returns the bf16 and the fp32 (tf32x3) summaries and
+    the cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -257,8 +272,8 @@ def check_flash(gen, device):
 
     cases = []
     for (B, S, H, KV, hd), dtype in (
-            [(sh, d) for sh in FLASH_SHAPES for d in ("bfloat16", "float32")]
-            + [(sh, "bfloat16") for sh in FLASH_EDGES]):
+            (sh, d) for sh in FLASH_SHAPES + FLASH_EDGES
+            for d in ("bfloat16", "float32")):
         for causal in (True, False):
             dt = getattr(torch, dtype)
             q, k, v = qkv(B, S, H, KV, hd, dt)
@@ -284,22 +299,26 @@ def check_flash(gen, device):
         route = ops.route(dt, hd)
         err = max_err(ops.attention_cuda(q, k, v, True),
                       ops.attention_ref(q, k, v, True), dtype)
-        ms = time_ms(lambda: ops.attention_cuda(q, k, v, True), 20)
         plain_ms = time_ms(lambda: ops.attention_ref(q, k, v, True), 5)
         # library yardstick: SDPA on [B,H,S,hd] with the KV heads expanded
         # beforehand (outside the timed call)
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20)
+        fns = {"kernel": lambda: ops.attention_cuda(q, k, v, True),
+               "sdpa": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True)}
+        if route == "wgmma":
+            ms, library_ms = (time_ms(fn, 20) for fn in fns.values())
+        else:
+            ms, library_ms = in_turns(fns, 20).values()
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         summaries[route] = summary = dict(
-            name="flash_attention" if route == "wgmma"
-            else "flash_attention_fp32", route="cuda",
+            name=f"flash_attention{'' if route == 'wgmma' else '_' + route}",
+            route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
             replaces="src/repro/kernels/flash_attention/kernel.py:61",
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -308,14 +327,26 @@ def check_flash(gen, device):
             library_ms=library_ms,
             library_call="torch.nn.functional.scaled_dot_product_attention",
             shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+        if route == "tf32x3":
+            # three TF32 passes a product: the design's floor; and the bound
+            # of the FP32 pipes that the earlier fp32 kernel ran on
+            summary.update(
+                design_floor_ms=max(3 * t_ops, t_bytes),
+                fp32_pipe_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                scratch_bytes=ops.tf32_scratch_bytes(B, S, H, KV, hd, False))
         log("kernels", f"flash_attention [{route}] timed at B{B} S{S} H{H} "
             f"KV{KV} hd{hd} {dtype} causal: {ms:.4f} ms (plain "
-            f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound "
+            f"{plain_ms:.4f}, SDPA {library_ms:.4f}"
+            f"{'' if route == 'wgmma' else ' in turns'}, bound "
             f"{summary['bound_ms']:.4f} by {summary['bound_by']} at the "
-            f"{'bf16 tensor-core' if route == 'wgmma' else 'fp32'} peak)")
+            f"{'bf16' if route == 'wgmma' else 'TF32'} tensor-core peak"
+            + (f"; scratch {summary['scratch_bytes']} bytes"
+               if route == "tf32x3" else "") + ")")
         del q, k, v, qt, kt, vt
     tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
-    return tc, summaries["fp32"], cases
+    tf = tensor_core_fields(summaries["tf32x3"], ops.KERNELS["tf32x3"], flops,
+                            "tf32x3")
+    return tc, tf, cases
 
 
 def check_fused(gen, device):
@@ -470,7 +501,8 @@ def check_flash_bwd(gen, device):
     (at least 50 iterations each), beside autograd of SDPA pinned to each
     backend that runs (the fastest is ``library_ms``); the forward's time
     with lse beside its time without, at the training and serving shapes.
-    Returns the bf16 (tensor-core) and fp32 summaries and the cases."""
+    Two fp32 (tf32x3) backward calls of each case must be bitwise equal.
+    Returns the bf16 and the fp32 (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.flash_attention import ops
 
@@ -495,6 +527,14 @@ def check_flash_bwd(gen, device):
                     route=ops.BWD_ROUTES[dt],
                     max_abs_err=dict(zip(("lse", "dq", "dk", "dv"), errs)))
         scaled = ""
+        if dtype == "float32":
+            again = ops.attention_bwd_cuda(q, k, v, o, do, lse, causal)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"two fp32 flash backward calls differ at B{B} S{S} "
+                     f"H{H} KV{KV} hd{hd} causal={causal}")
+            case["bitwise_repeat"] = True
+            scaled = "; a second call bitwise equal"
+            del again
         if dtype == "bfloat16":
             rel = [scaled_err(g, w, BWD_BF16_SCALED)
                    for g, w in zip(got, want)]
@@ -531,15 +571,17 @@ def check_flash_bwd(gen, device):
         plain_ms = time_ms(lambda: ops.attention_bwd_ref(q, k, v, o, do, lse,
                                                          True), 3)
         fastest = min(sdpa, key=sdpa.get)
-        peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
         bound_ms, bound_by = flash_bwd_bound(B, S, H, KV, hd, True,
                                              q.element_size(), peak)
         # the function's five products; both designs do seven (S and dP in
-        # both of their kernels), whose floor is 1.4x the operations bound
+        # both of their kernels), whose floor is 1.4x the operations bound,
+        # and tf32x3 three TF32 passes of each
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
+        passes = 1 if r == "wgmma" else 3
         summaries[r] = summary = dict(
-            name="flash_attention_bwd" if r == "wgmma"
-            else "flash_attention_bwd_fp32", route="cuda",
+            name=f"flash_attention_bwd{'' if r == 'wgmma' else '_' + r}",
+            route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
             replaces="src/repro/models/attention.py:164 (XLA recompute "
             "backward; port-only: the reference's backward has no Pallas "
@@ -548,19 +590,28 @@ def check_flash_bwd(gen, device):
             library_call=f"autograd of torch.nn.functional."
             f"scaled_dot_product_attention pinned to the {fastest} backend "
             f"(KV heads expanded)", sdpa_backward_ms=sdpa,
-            design_floor_ms=max(bound_ms, 1.4 * flops / peak * 1e3),
+            design_floor_ms=max(bound_ms, passes * 1.4 * flops / peak * 1e3),
             shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+        if r == "tf32x3":
+            summary.update(
+                fp32_pipe_bound_ms=flash_bwd_bound(
+                    B, S, H, KV, hd, True, 4, PEAK_FP32_FLOPS)[0],
+                scratch_bytes=ops.tf32_scratch_bytes(B, S, H, KV, hd, True))
         log("kernels", f"flash_attention backward [{r}] timed at B{B} S{S} "
             f"H{H} KV{KV} hd{hd} {dtype} causal, in turns with SDPA: "
             f"{ms:.4f} ms (plain {plain_ms:.4f}; SDPA backward by backend "
             + ", ".join(f"{n} {t:.4f}" for n, t in sdpa.items())
             + f"; {ms / sdpa[fastest]:.2f}x the fastest, {fastest}; bound "
             f"{bound_ms:.4f} by {bound_by} at the "
-            f"{'bf16 tensor-core' if r == 'wgmma' else 'fp32'} peak, "
-            f"{bound_ms / ms:.3f} of it)")
+            f"{'bf16' if r == 'wgmma' else 'TF32'} tensor-core peak, "
+            f"{bound_ms / ms:.3f} of it"
+            + (f"; scratch {summary['scratch_bytes']} bytes"
+               if r == "tf32x3" else "") + ")")
         del q, k, v, do, o, lse
     tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
                             summaries["wgmma"]["flops"])
+    tf = tensor_core_fields(summaries["tf32x3"], ops.BWD_KERNELS["tf32x3"],
+                            summaries["tf32x3"]["flops"], "tf32x3")
     # the forward with and without the lse output, on its route
     lse_times = {}
     for (B, S) in ((TRAIN_B, TRAIN_S), (8, 1024)):
@@ -575,7 +626,7 @@ def check_flash_bwd(gen, device):
             f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
             f"{with_lse:.4f} ms with it")
     tc["forward_lse_ms"] = lse_times
-    return tc, summaries["fp32"], cases
+    return tc, tf, cases
 
 
 def check_fused_bwd(gen, device):
@@ -1474,7 +1525,7 @@ def path_kernels(arch: str) -> dict:
     """The kernels a serving path can launch, by label (the traced-op name,
     with the route for a kernel of two routes), as (traced-op name, route,
     kernel, launches of one bf16 generate of ``new`` tokens after a prefill
-    of L layers).  bf16 serving takes no fp32 route."""
+    of L layers).  bf16 serving takes no fp32 route (flash's is tf32x3)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.kernels.ssd_scan import ops as ssd
@@ -1482,8 +1533,9 @@ def path_kernels(arch: str) -> dict:
         return {
             "flash_attention[wgmma]": ("flash_attention", "wgmma",
                                        fa.KERNELS["wgmma"], lambda L, new: L),
-            "flash_attention[fp32]": ("flash_attention", "fp32",
-                                      fa.KERNELS["fp32"], lambda L, new: 0),
+            "flash_attention[tf32x3]": ("flash_attention", "tf32x3",
+                                        fa.KERNELS["tf32x3"],
+                                        lambda L, new: 0),
             "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
                                        fn.KERNEL,
                                        lambda L, new: 2 * L * (1 + new))}
@@ -1595,7 +1647,7 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
 
 
 # the port's own kernels, by a part of their device function names
-PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_fwd_kernel",
+PORT_KERNELS = ("flash_wgmma_kernel", "flash_tf32_kernel", "split_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
                 "reduce_kernel", "ssd_wgmma_kernel", "ssd_scan_fwd_kernel",
@@ -1644,8 +1696,9 @@ def profile(fn, top: int = 10) -> dict:
 def agreement(arch: str, seed: int, S: int):
     """fp32 prefill logits of the full-width model: the kernel path on the
     card against the plain path on the CPU, same weights, B 1.  The fp32
-    run takes every kernel of the path but the tensor-core ones.  Returns
-    the max abs error and the launches of the card's prefill."""
+    run takes every kernel of the path but the bf16 ones (flash its split
+    TF32 route).  Returns the max abs error and the launches of the card's
+    prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1668,7 +1721,7 @@ def agreement(arch: str, seed: int, S: int):
     if any((n > 0) == (kernels[label][0] == "wgmma")
            for label, n in launches.items()) or any(
                n != cfg.num_layers for label, n in launches.items()
-               if kernels[label][0] == "fp32"):
+               if kernels[label][0] in ("fp32", "tf32x3")):
         fail(f"{arch}: the fp32 agreement run launched {launches}: every "
              f"fp32 kernel of the path (an fp32 route once per layer), and "
              f"no tensor-core one, should run")
@@ -1721,11 +1774,11 @@ def train_kernels(arch: str) -> dict:
     bf, f32 = "bfloat16", "float32"
     if arch == "llama3.2-1b":
         kernels = {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1, bf),
-                   "flash_attention[fp32]": (fa.KERNELS["fp32"], 1, f32),
+                   "flash_attention[tf32x3]": (fa.KERNELS["tf32x3"], 1, f32),
                    "flash_attention_bwd[wgmma]": (fa.BWD_KERNELS["wgmma"], 1,
                                                   bf),
-                   "flash_attention_bwd[fp32]": (fa.BWD_KERNELS["fp32"], 1,
-                                                 f32)}
+                   "flash_attention_bwd[tf32x3]": (fa.BWD_KERNELS["tf32x3"],
+                                                   1, f32)}
         norms = 2
     elif arch == "mamba2-780m":
         kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
@@ -2171,16 +2224,17 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
-    # the tensor-core routes (the flash and SSD backwards' too) hold wgmma
-    # (HGMMA) in their SASS; the fp32 routes and the fused-norm backward no
-    # tensor-core instruction at all: they run on the FP32 pipes
+    # the tensor-core routes (the flash and SSD backwards' too, and flash's
+    # split-TF32 fp32 routes) hold wgmma (HGMMA) in their SASS; the fp32
+    # routes and the fused-norm backward no tensor-core instruction at all:
+    # they run on the FP32 pipes
     for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS,
                    ssd.BWD_KERNELS):
         for route, k in routes.items():
             n = sass_mma(k)
             log("build", f"{k.source} [{route}]: {n['HGMMA']} HGMMA, "
                 f"{n['HMMA']} HMMA in the SASS")
-            if route == "wgmma" and not n["HGMMA"]:
+            if route in ("wgmma", "tf32x3") and not n["HGMMA"]:
                 fail(f"{k.source} [{route}]: no HGMMA in its SASS")
             if route == "fp32" and (n["HGMMA"] or n["HMMA"]):
                 fail(f"{k.source} [{route}]: {n} tensor-core instructions")
@@ -2249,7 +2303,7 @@ def main():
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
     for summary, arch, label in (
-            (flash_fp32, "llama3.2-1b", "flash_attention[fp32]"),
+            (flash_fp32, "llama3.2-1b", "flash_attention[tf32x3]"),
             (scan_fp32, "mamba2-780m", "ssd_scan[fp32]")):
         n = fp32_launches[arch][label]
         summary["launches"] = n
@@ -2267,7 +2321,7 @@ def main():
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
     for summary, arch, label in (
-            (flash_bwd_fp32, "llama3.2-1b", "flash_attention_bwd[fp32]"),
+            (flash_bwd_fp32, "llama3.2-1b", "flash_attention_bwd[tf32x3]"),
             (ssd_bwd_fp32, "mamba2-780m", "ssd_scan_bwd[fp32]")):
         n = train_agree[arch]["launches"][label]
         summary["launches"] = n

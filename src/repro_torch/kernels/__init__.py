@@ -5,11 +5,12 @@ function, ``<name>/ops.py`` = the PyTorch wrapper, its plain PyTorch
 version and the FLARE registration):
 
   flash_attention — causal / full GQA attention forward (prefill and
-                    training) and backward: bf16 on the tensor cores
-                    (``flash_attention_wgmma.cu``,
-                    ``flash_attention_bwd_wgmma.cu``), fp32 on the FP32
-                    pipes (``flash_attention.cu``,
-                    ``flash_attention_bwd.cu``)
+                    training) and backward, both routes on the tensor
+                    cores: bf16 (``flash_attention_wgmma.cu``,
+                    ``flash_attention_bwd_wgmma.cu``) and fp32 as split
+                    TF32 (``flash_attention_tf32.cu``,
+                    ``flash_attention_bwd_tf32.cu``, their pre-pass in
+                    ``flash_tf32_split.cuh``)
   fused_norm      — residual add + RMSNorm (``fused_norm.cu``) and its
                     backward (``fused_norm_bwd.cu``, rows by TMA bulk copy)
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
@@ -24,8 +25,8 @@ version and the FLARE registration):
   ring_reduce     — the ring-combine step with host-visible progress
 
 The tensor-core kernels share ``csrc/hopper.cuh`` (TMA tensor maps and
-loads, mbarriers, wgmma descriptors and instructions, programmatic
-dependent launch).  A kernel with two
+loads, mbarriers, wgmma descriptors and instructions, the tf32 split,
+programmatic dependent launch).  A kernel with two
 routes picks one by dtype alone in its wrapper's ``route``, and each
 route's ``CudaKernel`` counts its own launches (two C entries of one
 source are two ``CudaKernel``s of one build).

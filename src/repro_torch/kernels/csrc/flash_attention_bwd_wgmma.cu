@@ -13,7 +13,7 @@
 // roundings the fp32 reference does not make: P^T and dS^T (dS for dQ) are
 // rounded to bf16 as the register A operands of their products, and the
 // exponential is exp2 of s * scale * log2(e) - lse * log2(e).
-// (fp32 inputs take flash_attention_bwd.cu, on the FP32 pipes.)
+// (fp32 inputs take flash_attention_bwd_tf32.cu, in split TF32.)
 //
 // Bound on an H100: operations.  The function is five products of the
 // forward's size, 2.5x its 4*B*H*hd flops per (query, key) pair (half the

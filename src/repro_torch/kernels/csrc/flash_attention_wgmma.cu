@@ -7,7 +7,7 @@
 // scores, online softmax (o, m, l) in fp32 with NEG_INF = -1e30, the KV
 // loop stopped at the causal frontier.  The one rounding the reference does
 // not make: P is rounded to bf16 before P.V (about 2^-9 |v| on o).
-// (fp32 inputs take flash_attention.cu, on the FP32 pipes.)
+// (fp32 inputs take flash_attention_tf32.cu, in split TF32.)
 //
 // Bound on an H100: operations, 4*B*H*hd flops per (query, key) pair
 // (half the pairs when causal); at the serving shape (B 8, S 1024, H 32,

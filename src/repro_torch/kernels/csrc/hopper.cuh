@@ -4,11 +4,11 @@
 // wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
 // fence / commit / wait, the async-proxy fence for operands that threads
 // write, transposed ldmatrix, warpgroup register hand-over (setmaxnreg),
-// the bf16 wgmma instructions the kernels issue, and programmatic dependent
-// launch.
+// the bf16 and tf32 wgmma instructions the kernels issue, the split of an
+// fp32 value into two tf32 terms, and programmatic dependent launch.
 //
 // Layout convention: every shared-memory tile an operand is read from is a
-// stack of 128-byte rows (64 bf16) written by TMA with
+// stack of 128-byte rows (64 bf16, or 32 fp32) written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B, its base 1024-byte aligned; 8 rows (1024
 // bytes) are one swizzle atom.  Such a tile is
 //   * a K-major operand (A [M,K] row-major, or B = K [keys,hd] of
@@ -19,6 +19,9 @@
 //     64 columns are N.  Descriptor: SBO = 1024 (the next 8 k-rows), LBO =
 //     the byte distance to the tile of the next 64 columns of N; the k16
 //     step advances the start address by 16 rows = 2048 bytes.
+// A tf32 operand is always K-major (wgmma transposes only 16-bit types);
+// its k8 step is 32 bytes, like bf16's k16 step, so the K-major stepping
+// above holds as it is, over 32-float column blocks.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the driver entry point is
@@ -55,23 +58,39 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first) with the
-// 128-byte swizzle; `strides` are the byte strides of dimensions 1..rank-1
+// A tensor map of `rank` dimensions (innermost first) with the 128-byte
+// swizzle; `strides` are the byte strides of dimensions 1..rank-1
 // (multiples of 16).  Elements outside the tensor load as zeros.  Returns
 // 0 or a cudaError_t.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+inline int make_map_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 elements: a box row of 64 (128 bytes)
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  return make_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                        dims, strides, box);
+}
+
+// fp32 elements (tf32 operands): a box row of 32 (128 bytes)
+inline int make_map_f32(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  return make_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank,
+                        dims, strides, box);
 }
 
 // ---------------------------------------------------------------- device --
@@ -414,6 +433,145 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// ---- split TF32.  x = hi + lo with hi = x rounded to the nearest tf32
+// (ties away from zero) and lo = (x - hi) rounded likewise; the tensor core
+// reads each as a tf32 operand (an fp32 bit pattern whose low 13 bits are
+// zero).  X.Y is then X_hi.Y_hi + X_hi.Y_lo + X_lo.Y_hi: each product of
+// two tf32 values is exact in the fp32 accumulator, and the dropped
+// X_lo.Y_lo and the rounding of lo are ~2^-22 of |X||Y|.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// keeps the compiler from reusing the registers of a register A operand
+// while an asynchronous wgmma may still read them: call after its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// ---- tf32 wgmma with an fp32 accumulator (D fragment as for bf16).  A
+// register A fragment of A[64,8]: thread t, warp w = t / 32, lane l holds
+// a[0] = A[16w + l/4][l%4], a[1] = A[16w + l/4 + 8][l%4], a[2] =
+// A[16w + l/4][l%4 + 4], a[3] = A[16w + l/4 + 8][l%4 + 4].  Both shared
+// operands are K-major.
+
+// D[64,16] (+)= A[64,8] (shared, K-major) * B[8,16] (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64,32] (+)= A[64,8] (shared, K-major) * B[8,32] (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64,64] (+)= A[64,8] (shared, K-major) * B[8,64] (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64,64] (+)= A[64,8] (registers, the tf32 A fragment) * B[8,64] (shared,
+// K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D[64,128] (+)= A[64,8] (registers, the tf32 A fragment) * B[8,128] (shared,
+// K-major)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
 }
 
 // ---- programmatic dependent launch (PDL).  A kernel launched with

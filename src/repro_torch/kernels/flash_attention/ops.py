@@ -5,36 +5,42 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_fwd``): causal or full GQA attention with ``S == T``,
 which is what prefill and training compute.  Bound on an H100: operations
 (4*B*S^2*H*hd flops, half of it causal).  Two hand-written forward
-kernels, one route per dtype (``route``), head_dim 64 and 128, any S (each
-masks its ragged edge):
-  * bf16 -> ``csrc/flash_attention_wgmma.cu``: Q.K^T and P.V by wgmma on
-    the tensor cores, Q/K/V brought by TMA, online softmax in fp32
-    registers, P rounded to bf16 for P.V;
-  * fp32 -> ``csrc/flash_attention.cu``: K/V tiles through shared memory
-    with an fp32 online softmax on the FP32 pipes, so that the fp32 result
-    is held to a full-fp32 reference and not to TF32.
-Each route counts its own launches.  A bf16 call never takes the FP32
-pipes.  Both write, on request, the rows' log-sum-exp ``lse`` [B,H,S]
-(fp32, scaled scores) that the backward needs; serving asks for none.
+kernels, one route per dtype (``route``), both on the tensor cores by
+wgmma with TMA, head_dim 64 and 128, any S (each masks its ragged edge):
+  * bf16 -> ``"wgmma"``, ``csrc/flash_attention_wgmma.cu``: Q.K^T and P.V
+    in bf16, online softmax in fp32 registers, P rounded to bf16 for P.V;
+  * fp32 -> ``"tf32x3"``, ``csrc/flash_attention_tf32.cu``: split TF32,
+    each product X.Y as X_hi.Y_hi + X_hi.Y_lo + X_lo.Y_hi of tf32 terms
+    (hi = x rounded to tf32, lo = the rest rounded to tf32) into fp32
+    accumulators, so that the fp32 result is held to a full-fp32
+    reference (3e-4), which one TF32 pass misses; a pre-pass splits K and
+    V^T (``csrc/flash_tf32_split.cuh``) into scratch the wrapper allocates
+    (``tf32_scratch``).
+Each route counts its own launches.  Both write, on request, the rows'
+log-sum-exp ``lse`` [B,H,S] (fp32, scaled scores) that the backward
+needs; serving asks for none.
 
 The backward is the recompute backward that the JAX package runs through
 XLA (``src/repro/models/attention.py:164-235``): it has no Pallas kernel,
 so it has no traced-op name either, and its time falls in the training
 step's span.  Two hand-written backward kernels, one route per dtype
 (``BWD_ROUTES``, the same split as the forward's), head_dim 64 and 128,
-any S, each with its own launch count:
-  * bf16 -> ``csrc/flash_attention_bwd_wgmma.cu``: S, dP and the three
-    gradient products by wgmma on the tensor cores (a dK/dV kernel over key
-    tiles and a dQ kernel over q tiles, deterministic), Q/K/V/dO by TMA,
-    P and dS rounded to bf16 as register operands;
-  * fp32 -> ``csrc/flash_attention_bwd.cu``: the same two passes on the
-    FP32 pipes, held to a full-fp32 reference.
+any S, each with its own launch count, both deterministic (a dK/dV kernel
+over key tiles and a dQ kernel over q tiles, no atomics):
+  * bf16 -> ``"wgmma"``, ``csrc/flash_attention_bwd_wgmma.cu``: S, dP and
+    the three gradient products by wgmma, P and dS rounded to bf16 as
+    register operands;
+  * fp32 -> ``"tf32x3"``, ``csrc/flash_attention_bwd_tf32.cu``: the same
+    passes in split TF32, after a pre-pass that computes delta and splits
+    k, v and the transposes of q, dO, k that the products over the
+    sequence read into the scratch ``tf32_scratch`` sizes.
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
 wanted.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -44,21 +50,55 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TF32_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNELS = {
     "wgmma": CudaKernel("flash_attention_wgmma.cu",
                         "flash_attention_wgmma_launch", _ARGS),
-    "fp32": CudaKernel("flash_attention.cu", "flash_attention_fwd_launch",
-                       _ARGS),
+    "tf32x3": CudaKernel("flash_attention_tf32.cu",
+                         "flash_attention_tf32_launch", _TF32_ARGS),
 }
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_TF32_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
 BWD_KERNELS = {
     "wgmma": CudaKernel("flash_attention_bwd_wgmma.cu",
                         "flash_attention_bwd_wgmma_launch", _BWD_ARGS),
-    "fp32": CudaKernel("flash_attention_bwd.cu", "flash_attention_bwd_launch",
-                       _BWD_ARGS),
+    "tf32x3": CudaKernel("flash_attention_bwd_tf32.cu",
+                         "flash_attention_bwd_tf32_launch", _BWD_TF32_ARGS),
 }
-BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+
+
+def tf32_scratch(B: int, S: int, H: int, KV: int, hd: int,
+                 backward: bool) -> dict:
+    """The shapes of the tf32x3 route's split scratch, by name, in the
+    order its C launch function takes them (``csrc/flash_tf32_split.cuh``):
+    a direct split [2,B,S,heads,hd] is the hi terms then the lo terms; a
+    transposed one [B,heads,hd,2*S16] holds, per 16-row block of the
+    sequence (S16 = S rounded up to 16), the rows' hi terms then their lo
+    terms, each 8 rows in the order 0,2,4,6,1,3,5,7.  The forward splits
+    K and V^T; the backward k, v and the transposes of q, dO, k (its
+    kernels split q and dO tiles in shared memory)."""
+    t = 2 * (-(-S // 16) * 16)
+    if not backward:
+        return {"k_pair": (2, B, S, KV, hd), "vt": (B, KV, hd, t)}
+    return {"k_pair": (2, B, S, KV, hd), "v_pair": (2, B, S, KV, hd),
+            "qt": (B, H, hd, t), "dot": (B, H, hd, t), "kt": (B, KV, hd, t)}
+
+
+def tf32_scratch_bytes(B: int, S: int, H: int, KV: int, hd: int,
+                       backward: bool) -> int:
+    """Bytes of ``tf32_scratch`` (fp32), delta's [B,H,S] not counted."""
+    return sum(4 * math.prod(s) for s in
+               tf32_scratch(B, S, H, KV, hd, backward).values())
+
+
+def _scratch(q, k, backward):
+    B, S, H, hd = q.shape
+    return [torch.empty(shape, dtype=torch.float32, device=q.device)
+            for shape in tf32_scratch(B, S, H, k.shape[2], hd,
+                                      backward).values()]
 
 
 def _meta(q, k, v, causal=True):
@@ -121,8 +161,9 @@ def attention_bwd_ref(q, k, v, o, do, lse, causal=True):
 
 def route(dtype, head_dim: int) -> str:
     """The kernel that a CUDA call in ``dtype`` with this head_dim
-    launches, by dtype alone: bf16 -> "wgmma" (tensor cores), fp32 ->
-    "fp32" (FP32 pipes).  Raises on what neither kernel takes."""
+    launches, by dtype alone: bf16 -> "wgmma", fp32 -> "tf32x3" (split
+    TF32), both on the tensor cores.  Raises on what neither kernel
+    takes."""
     if dtype not in ROUTES:
         raise TypeError(f"flash_attention kernels take float32 or bfloat16, "
                         f"not {dtype}")
@@ -173,9 +214,11 @@ def attention_cuda(q, k, v, causal=True, return_lse=False):
     o = torch.empty_like(q)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if return_lse else None)
-    KERNELS[r].launch(ptr(q), ptr(k), ptr(v), ptr(o),
-                      ptr(lse) if return_lse else None, B, S, H, k.shape[2],
-                      hd, int(bool(causal)), stream_ptr(q.device))
+    args = [ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse) if return_lse else None]
+    if r == "tf32x3":
+        args += [ptr(t) for t in _scratch(q, k, backward=False)]
+    KERNELS[r].launch(*args, B, S, H, k.shape[2], hd, int(bool(causal)),
+                      stream_ptr(q.device))
     return (o, lse) if return_lse else o
 
 
@@ -202,9 +245,10 @@ def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    BWD_KERNELS[r].launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                          ptr(delta), ptr(dq), ptr(dk), ptr(dv), B, S, H,
-                          k.shape[2], hd, int(bool(causal)),
+    args = [ptr(t) for t in (q, k, v, o, do, lse, delta, dq, dk, dv)]
+    if r == "tf32x3":
+        args += [ptr(t) for t in _scratch(q, k, backward=True)]
+    BWD_KERNELS[r].launch(*args, B, S, H, k.shape[2], hd, int(bool(causal)),
                           stream_ptr(q.device))
     return dq, dk, dv
 

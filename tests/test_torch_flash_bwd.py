@@ -19,7 +19,8 @@ the exact gradient of the bf16 problem: run in bf16 itself, the
 reference's chunked backward rounds on its own (at S 1 its dq and dk are
 rounding noise as large as themselves, where the exact ones are 0).
 
-Then the routes: bf16 takes ``"wgmma"``, fp32 ``"fp32"``, each with its own
+Then the routes: bf16 takes ``"wgmma"``, fp32 ``"tf32x3"`` (split TF32 on
+the tensor cores, ``tests/test_torch_flash_tf32.py``), each with its own
 kernel and launch count, and what neither takes raises before a launch.
 """
 import jax
@@ -165,15 +166,15 @@ def test_wgmma_backward_arithmetic_matches_the_plain_backward(rng, causal):
 
 
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_backward_takes_the_route_of_its_dtype(dtype, want):
-    """bf16 on the tensor cores, fp32 on the FP32 pipes: the forward's
+    """bf16 on the tensor cores, fp32 on them as split TF32: the forward's
     split, each route its own kernel source and launch count."""
     assert ops.BWD_ROUTES[dtype] == want == ops.ROUTES[dtype]
     kernel = ops.BWD_KERNELS[want]
     assert kernel.source == {"wgmma": "flash_attention_bwd_wgmma.cu",
-                             "fp32": "flash_attention_bwd.cu"}[want]
-    assert kernel is not ops.BWD_KERNELS["fp32" if want == "wgmma"
+                             "tf32x3": "flash_attention_bwd_tf32.cu"}[want]
+    assert kernel is not ops.BWD_KERNELS["tf32x3" if want == "wgmma"
                                          else "wgmma"]
     assert set(ops.BWD_ROUTES) == set(ops.ROUTES)
 

@@ -174,10 +174,10 @@ def test_tensor_core_softmax_matches_jax(rng, S, hd, causal):
 
 
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_llama_prefill_takes_the_route_of_its_dtype(dtype, want):
     """The serving prefill's shape (B 8, S 1024, 32 heads over 8, hd 64):
-    bf16 on the tensor cores, fp32 on the FP32 pipes."""
+    bf16 on the tensor cores, fp32 on them as split TF32."""
     cfg = get_config("llama3.2-1b")
     hd = cfg.head_dim
     assert route(dtype, hd) == want

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd]
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd,f32flash]
 
 On one CUDA card: builds the tensor-core kernels (flash attention, the
 padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
@@ -17,8 +17,8 @@ kernel, yardstick, yardstick, kernel, best of two each):
   * the ring combine against ``torch.add`` at the ring's chunk, from
     device memory (inputs cycled past the 50 MB L2) and in L2;
   * (``bwd``) the flash forward's lse output on both routes, the flash
-    backward on both routes (bf16 on the tensor cores, fp32 on the FP32
-    pipes; hd 64 and 128, causal and full, ragged S) and the fused-norm
+    backward on both routes (bf16 on the tensor cores, fp32 on them as
+    split TF32; hd 64 and 128, causal and full, ragged S) and the fused-norm
     backward (with and without dh) against their plain versions; each
     flash backward route timed at the training shape in turns with
     autograd of SDPA pinned to each backend that runs, with the device
@@ -31,7 +31,17 @@ kernel, yardstick, yardstick, kernel, best of two each):
     chunks 64 to 256, L 1, a final-state cotangent, an initial state;
     ``chip_smoke.ssd_bwd_case``), then each route timed at the training
     shape beside the plain version, with its bound, the device time of each
-    of its kernels from the profiler, and two calls compared bitwise.
+    of its kernels from the profiler, and two calls compared bitwise;
+  * (``f32flash``) the fp32 route of flash attention, split TF32 on the
+    tensor cores (``"tf32x3"``): the forward with its lse at
+    ``FLASH_CHECK`` and the backward at ``BWD_CHECK``, causal and full,
+    each call on its route by the launch counts, against the plain
+    versions (3e-4), two backward calls compared bitwise; then forward
+    and backward timed in turns with SDPA fp32 (the backward with each
+    SDPA backend that runs) at the serving shape, the training shape and
+    S 4096, with each kernel's device time from the profiler (pre-pass,
+    main, dQ), the bound at the TF32 peak, the three passes' floor and
+    the scratch bytes.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -184,7 +194,7 @@ def check_backward():
         do = randn(B, S, H, hd, dtype=dtype)
         bwd, sdpa = time_flash_bwd(fa, q, k, v, do, True, 50)
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
-        peak = 989e12 if route == "wgmma" else 67e12
+        peak = 989e12 if route == "wgmma" else 494.7e12
         bound, by = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
                                     peak)
         with torch.profiler.profile(
@@ -324,13 +334,163 @@ def check_ssd_backward():
         sys.exit(1)
 
 
+# (B, S, H, KV, hd): the serving shape, the training shape, S 4096
+F32_TIME = [(8, 1024, 32, 8, 64), (8, 512, 32, 8, 64), (8, 4096, 32, 8, 64)]
+
+
+def check_f32flash():
+    """The split-TF32 flash kernels: checks, then times."""
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
+                            flash_bwd_bound, in_turns, ptxas_usage, sass_mma,
+                            time_flash_bwd)
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    kernels = [fa.KERNELS["tf32x3"], fa.BWD_KERNELS["tf32x3"]]
+    build_all(kernels)
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if "arning" in line or "rror" in line:
+                print(f"[build] {k.source}: {line.strip()}")
+        for u in ptxas_usage(k.build_log):
+            print(f"[build] {k.source}: {u['function'][:70]}: "
+                  f"{u['registers']} registers, {u['spill_stores']}/"
+                  f"{u['spill_loads']} bytes spilled")
+        n = sass_mma(k)
+        print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32 = torch.float32
+    bad = 0
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def close(got, want, tol=3e-4):
+        g, w = got.float(), want.float()
+        ok = bool(((g - w).abs() <= tol + tol * w.abs()).all()
+                  and g.isfinite().all())
+        return ok, float((g - w).abs().max())
+
+    def launched(kernels, fn):
+        n0 = {r: kk.launches for r, kk in kernels.items()}
+        out = fn()
+        ran = {r: kk.launches - n0[r] for r, kk in kernels.items()}
+        return out, ran == {r: int(r == "tf32x3") for r in ran}
+
+    for (B, S, H, KV, hd) in FLASH_CHECK:
+        for causal in (True, False):
+            q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(
+                B, S, KV, hd)
+            (o, lse), on = launched(fa.KERNELS, lambda: fa.attention_cuda(
+                q, k, v, causal, return_lse=True))
+            o_r, lse_r = fa.attention_ref(q, k, v, causal, return_lse=True)
+            torch.cuda.synchronize()
+            (ok1, e1), (ok2, e2) = close(o, o_r), close(lse, lse_r)
+            ok = ok1 and ok2 and on
+            bad += not ok
+            print(f"[check] flash fwd [tf32x3] B{B} S{S} H{H} KV{KV} hd{hd} "
+                  f"causal={causal}: max_abs_err o {e1:.2e}, lse {e2:.2e}, "
+                  f"one launch on the route: {on} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            del q, k, v, o, lse, o_r, lse_r
+    for (B, S, H, KV, hd) in BWD_CHECK:
+        for causal in (True, False):
+            q, k, v, do = (randn(B, S, n, hd) for n in (H, KV, KV, H))
+            o, lse = fa.attention_cuda(q, k, v, causal, return_lse=True)
+            got, on = launched(fa.BWD_KERNELS, lambda: fa.attention_bwd_cuda(
+                q, k, v, o, do, lse, causal))
+            again = fa.attention_bwd_cuda(q, k, v, o, do, lse, causal)
+            want = fa.attention_bwd_ref(q, k, v, o, do, lse, causal)
+            torch.cuda.synchronize()
+            res = [close(g, w) for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = all(r[0] for r in res) and on and same
+            bad += not ok
+            print(f"[check] flash bwd [tf32x3] B{B} S{S} H{H} KV{KV} hd{hd} "
+                  f"causal={causal}: max_abs_err dq, dk, dv "
+                  f"{[f'{r[1]:.2e}' for r in res]}, one launch on the route: "
+                  f"{on}, two calls bitwise equal: {same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            del q, k, v, do, o, lse, got, again, want
+
+    def by_kernel(fn, calls=5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / calls / 1e3
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+
+    for (B, S, H, KV, hd) in F32_TIME:
+        q, k, v, do = (randn(B, S, n, hd) for n in (H, KV, KV, H))
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+        ms, lib = in_turns(
+            {"flash": lambda: fa.attention_cuda(q, k, v, True),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True)}, 20).values()
+        del qt, kt, vt
+        flops = 4.0 * B * H * hd * S * (S + 1) / 2
+        bound = max(flops / PEAK_TF32_FLOPS,
+                    (2 * q.numel() + 2 * k.numel()) * 4 / PEAK_BYTES) * 1e3
+        parts = by_kernel(lambda: fa.attention_cuda(q, k, v, True))
+        scratch = fa.tf32_scratch_bytes(B, S, H, KV, hd, backward=False)
+        print(f"[time] flash fwd [tf32x3] B{B} S{S} H{H} KV{KV} hd{hd} fp32 "
+              f"causal: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA "
+              f"fp32 {lib:.4f} ms in turns ({ms / lib:.2f}x); bound "
+              f"{bound:.4f} ms at the TF32 peak ({bound / ms:.3f} of it), "
+              f"design floor {3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms "
+              f"({3 * flops / PEAK_TF32_FLOPS * 1e3 / ms:.3f} of it), "
+              f"FP32-pipe bound {flops / PEAK_FP32_FLOPS * 1e3:.4f}; scratch "
+              f"{scratch} bytes; by kernel (profiler, ms a call) "
+              + ", ".join(f"{n[:50]} {t:.4f}" for n, t in parts.items()),
+              flush=True)
+        bwd, sdpa = time_flash_bwd(fa, q, k, v, do, True, 20)
+        o, lse = fa.attention_cuda(q, k, v, True, return_lse=True)
+        parts = by_kernel(lambda: fa.attention_bwd_cuda(q, k, v, o, do, lse))
+        bflops = 2.5 * flops
+        bound, by = flash_bwd_bound(B, S, H, KV, hd, True, 4, PEAK_TF32_FLOPS)
+        floor = 3 * 1.4 * bflops / PEAK_TF32_FLOPS * 1e3
+        scratch = fa.tf32_scratch_bytes(B, S, H, KV, hd, backward=True)
+        print(f"[time] flash bwd [tf32x3] B{B} S{S} H{H} KV{KV} hd{hd} fp32 "
+              f"causal: {bwd:.4f} ms ({bflops / bwd / 1e9:.1f} TFLOP/s of 5 "
+              f"products), in turns with SDPA backward by backend "
+              + ", ".join(f"{n} {t:.4f}" for n, t in sdpa.items())
+              + f"; bound {bound:.4f} by {by} ({bound / bwd:.3f} of it), "
+              f"design floor {floor:.4f} ({floor / bwd:.3f} of it); scratch "
+              f"{scratch} bytes; by kernel (profiler, ms a call) "
+              + ", ".join(f"{n[:50]} {t:.4f}" for n, t in parts.items()),
+              flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    if bad:
+        print(f"FAIL: {bad} checks outside tolerance")
+        sys.exit(1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="ssd,combine,flash,matmul",
                     help="comma-separated parts to run")
     parts = set(ap.parse_args().only.split(","))
     for part, check in (("bwd", check_backward),
-                        ("ssdbwd", check_ssd_backward)):
+                        ("ssdbwd", check_ssd_backward),
+                        ("f32flash", check_f32flash)):
         if part in parts:
             check()
             parts.discard(part)

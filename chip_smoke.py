@@ -7,21 +7,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention forward and
-                backward, each a bf16 tensor-core kernel and an fp32 one in
-                split TF32 on the tensor cores, "tf32x3"; the SSD scan, its
-                backward and the padded matmul, each a bf16 tensor-core
-                kernel and an fp32 one on the FP32 pipes; fused
+                backward, the SSD scan forward and the padded matmul, each
+                a bf16 tensor-core kernel and an fp32 one in split TF32 on
+                the tensor cores, "tf32x3"; the SSD backward, a bf16
+                tensor-core kernel and an fp32 one on the FP32 pipes; fused
                 residual+RMSNorm and its backward, ring combine), one nvcc
                 per source, all started together; registers and spills from
                 ptxas, and the HGMMA / HMMA count of each library's SASS
                 (the bf16 and tf32x3 routes must have HGMMA, and the fp32
-                routes and the fused-norm backward, which run on the FP32
-                pipes, no tensor-core instruction, or the phase fails);
+                SSD backward and the fused-norm backward, which run on the
+                FP32 pipes, no tensor-core instruction, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
                 tensor-core kernels (fp32 3e-4, bf16 5e-2; the padded
-                matmul's atol at least 2e-3·√K; the ring combine bitwise,
+                matmul's atol at least 2e-3·√K, and its fp32 route's error
+                against an fp64 product at most half that of one TF32 pass;
+                the ring combine bitwise,
                 with its pinned progress counters read while a queued
                 combine has not run), each call on the route of its dtype
                 by the routes' launch counts, timed beside its plain version
@@ -30,8 +32,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 a [kernels] line per tensor-core kernel (TFLOP/s, share of
                 the bound, factor against the library, registers, spills,
                 HGMMA / HMMA; the tf32x3 routes also their three passes'
-                floor, their FP32-pipe bound and their scratch bytes); the
-                flash forward in fp32 at the edges too; the flash backward
+                floor, their FP32-pipe bound and their scratch bytes, and two
+                calls compared bitwise); the flash forward in fp32 at the
+                edges and at group sizes 7 and 1 too; the fp32 matmul in turns
+                with torch.matmul fp32, at K or N off a multiple of 4 and on
+                operands off 16 bytes; the SSD scan at N 64 on both routes;
+                the flash backward
                 on each route (the training shape in bf16 and fp32, full
                 attention, hd 128, ragged S, two fp32 calls compared
                 bitwise) and the fused-norm backward (R 4096 D 2048,
@@ -63,8 +69,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 prompts, 32 new tokens, random weights from --seed) with the
                 FLARE daemon attached; the launch counts of that run;
                 untraced and traced walls; a profiler breakdown; fp32
-                prefill logits on the card (the fp32 routes: flash on
-                tf32x3) against the plain path on the CPU;
+                prefill logits on the card (the fp32 routes: flash and the
+                SSD scan on tf32x3) against the plain path on the CPU;
   6. train    — for each training path, llama3.2-1b (dense) and
                 mamba2-780m (ssm): Trainer.train at full width and depth
                 (B 8 x S 512, bf16 compute, fp32 parameters and AdamW
@@ -73,12 +79,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 every step (llama: flash forward and backward 16, on the
                 wgmma routes and none on tf32x3, fused forward and backward
                 32; mamba2: SSD forward and backward 48 each on the wgmma
-                routes, none on fp32, fused forward and backward 48; no
+                routes, none on tf32x3 / fp32, fused forward and backward
+                48; no
                 plain version); the loss finite and
                 falling; a profiler breakdown of one step; one fp32 step of
                 the 2-layer cut, card against CPU (loss, grad_norm, three
-                gradients; the fp32 routes, flash on tf32x3; mamba2 at S
-                512, two chunks);
+                gradients; the fp32 routes: flash and the SSD forward on
+                tf32x3, the SSD backward on fp32; mamba2 at S 512, two
+                chunks);
                 on llama's path also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
@@ -253,6 +261,9 @@ def tensor_core_fields(summary: dict, kernel, flops: float,
 # 63 and 129 around their tiles, hd 128), both routes
 FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
                 (2, 1000, 16, 4, 128)]
+# group sizes G = H/KV other than the paths' 4: 7 (qwen2's 14 over 2) and 1
+# (musicgen's 32 over 32), head_dim 64
+FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129) for hd in (64, 128)]
 
 
@@ -272,7 +283,7 @@ def check_flash(gen, device):
 
     cases = []
     for (B, S, H, KV, hd), dtype in (
-            (sh, d) for sh in FLASH_SHAPES + FLASH_EDGES
+            (sh, d) for sh in FLASH_SHAPES + FLASH_EDGES + FLASH_GROUPS
             for d in ("bfloat16", "float32")):
         for causal in (True, False):
             dt = getattr(torch, dtype)
@@ -410,8 +421,8 @@ def check_fused(gen, device):
 
 
 # the flash backward: the training shape (bf16, causal) and the same in
-# fp32, each route's masking (full attention, ragged S, hd 128); each with
-# its forward's lse
+# fp32, each route's masking (full attention, ragged S, hd 128), group sizes
+# 7 and 1 (``FLASH_GROUPS``); each with its forward's lse
 FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((8, 512, 32, 8, 64), "float32", True),
                    ((2, 256, 16, 4, 64), "bfloat16", False),
@@ -421,7 +432,11 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 200, 16, 4, 64), "bfloat16", True),
                    ((2, 200, 16, 4, 64), "float32", False),
                    ((2, 77, 8, 2, 128), "bfloat16", False),
-                   ((2, 333, 8, 2, 128), "bfloat16", True)]
+                   ((2, 333, 8, 2, 128), "bfloat16", True),
+                   ((2, 256, 14, 2, 64), "bfloat16", True),
+                   ((2, 256, 14, 2, 64), "float32", True),
+                   ((2, 256, 32, 32, 64), "bfloat16", False),
+                   ((2, 256, 32, 32, 64), "float32", False)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
@@ -776,20 +791,28 @@ def ssd_bwd_design_flops(B, L, H, P, N, chunk) -> float:
     return B * H * flops
 
 
+# the SSD forward's cases: (B, L, N, initial state) at H 48, chunk 256:
+# the serving shape, ragged L, the fp32 agreement prefill's L 320, N 64
+SSD_CASES = [(8, 1024, 128, False), (8, 1000, 128, False),
+             (2, 1000, 128, True), (1, 320, 128, True), (2, 1000, 64, True),
+             (1, 320, 64, False)]
+
+
 def check_ssd(gen, device):
-    """The four cases (ragged L and an initial state among them) on both
-    routes, bf16 on the tensor cores and fp32 on the FP32 pipes, each call
-    on the route of its dtype by the routes' launch counts, against
-    ``ssd_ref``; then the serving shape timed on each route beside the plain
-    version, with the same work (``ssd_work_flops``) for both.  Returns the
-    bf16 (tensor-core) and the fp32 summaries and the cases."""
+    """The cases (ragged L, initial states, N 64) on both routes, bf16 and
+    fp32 (split TF32), both on the tensor cores, each call on the route of
+    its dtype by the routes' launch counts, against ``ssd_ref``, two fp32
+    calls compared bitwise; then the serving shape timed on each route
+    beside the plain version, with the same work (``ssd_work_flops``) for
+    both, the fp32 route's bound at the TF32 peak beside its three passes'
+    floor, the FP32-pipe bound and its scratch.  Returns the bf16 and the
+    fp32 (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
     cases = []
-    H, N, chunk = 48, 128, 256
-    for (B, L, init) in [(8, 1024, False), (8, 1000, False), (2, 1000, True),
-                         (1, 320, True)]:
+    H, chunk = 48, 256
+    for (B, L, N, init) in SSD_CASES:
         for dtype in ("bfloat16", "float32"):
             x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
             s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
@@ -804,6 +827,13 @@ def check_ssd(gen, device):
             case = dict(shape=[B, L, H, 64, N], chunk=chunk, dtype=dtype,
                         route=route, initial_state=init, max_abs_err_y=err_y,
                         max_abs_err_state=err_s)
+            if route == "tf32x3":
+                y2, st2 = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+                if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                    fail(f"ssd_scan B{B} L{L} N{N} [{route}]: two calls on "
+                         f"the same inputs differ")
+                case["bitwise_repeatable"] = True
+                del y2, st2
             if init:
                 # the check sees a kernel that drops the carried state only
                 # if the initial state reaches the outputs by far more than
@@ -825,11 +855,12 @@ def check_ssd(gen, device):
                     f"; the initial state moves y by "
                     f"{case['initial_state_reach_y']:.3e} and the final "
                     f"state by {case['initial_state_reach_state']:.3e}"
-                    if init else ""))
+                    if init else "")
+                + ("; two calls bitwise equal" if route == "tf32x3" else ""))
             del x, dt, Bm, Cm, y, st, yr, sr
 
     # the serving path's shape, timed on each route
-    B, L = 8, 1024
+    B, L, N = 8, 1024, 128
     flops = ssd_work_flops(B, L, H, 64, N, chunk)
     summaries = {}
     for dtype in ("bfloat16", "float32"):
@@ -843,7 +874,7 @@ def check_ssd(gen, device):
         plain_ms = time_ms(lambda: ops.ssd_ref(x, dt, A, Bm, Cm, chunk), 3, 1)
         nbytes = ((2 * x.numel() + 2 * Bm.numel()) * x.element_size()
                   + 4 * (dt.numel() + A.numel() + st.numel()))
-        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         summaries[route] = summary = dict(
@@ -856,23 +887,29 @@ def check_ssd(gen, device):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None, library_call=None, shape=[B, L, H, 64, N],
             chunk=chunk, dtype=dtype, flops=flops, bytes=nbytes)
+        if route == "tf32x3":
+            summary.update(
+                design_floor_ms=max(3 * t_ops, t_bytes),
+                fp32_pipe_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                scratch_bytes=ops.tf32_scratch_bytes(B, L, N))
         log("kernels", f"ssd_scan [{route}] timed at B{B} L{L} H{H} P64 N{N} "
             f"chunk {chunk} {dtype}: {ms:.4f} ms (plain {plain_ms:.4f}, no "
             f"library call, bound {summary['bound_ms']:.4f} by "
             f"{summary['bound_by']}: {flops:.3e} flops = {t_ops:.4f} ms at "
-            f"the {'bf16 tensor-core' if route == 'wgmma' else 'fp32'} "
-            f"peak, {nbytes:.3e} bytes = {t_bytes:.4f} ms)")
+            f"the {'bf16' if route == 'wgmma' else 'TF32'} tensor-core "
+            f"peak, {nbytes:.3e} bytes = {t_bytes:.4f} ms"
+            + (f"; FP32-pipe bound {summary['fp32_pipe_bound_ms']:.4f} ms; "
+               f"scratch {summary['scratch_bytes']} bytes"
+               if route == "tf32x3" else "") + ")")
         del x, dt, Bm, Cm, y, st
         torch.cuda.empty_cache()
     tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
-    tc["fp32_route_factor"] = summaries["fp32"]["ms"] / tc["ms"]
-    fp32 = summaries["fp32"]
-    fp32["ptxas"] = ptxas_usage(ops.KERNELS["fp32"].build_log)
-    log("kernels", f"ssd_scan [fp32] ptxas: " + ", ".join(
-        f"{u['registers']} registers, {u['spill_stores']}/"
-        f"{u['spill_loads']} bytes spilled" for u in fp32["ptxas"])
-        + f"; the wgmma route is {tc['fp32_route_factor']:.1f}x faster")
-    return tc, fp32, cases
+    tf = tensor_core_fields(summaries["tf32x3"], ops.KERNELS["tf32x3"], flops,
+                            "tf32x3")
+    tc["fp32_route_factor"] = tf["ms"] / tc["ms"]
+    log("kernels", f"ssd_scan: the bf16 route is "
+        f"{tc['fp32_route_factor']:.1f}x faster than the tf32x3 route")
+    return tc, tf, cases
 
 
 # the SSD backward: (B, L, H, N, chunk), dtype, with a final-state
@@ -1064,6 +1101,10 @@ MATMUL_SWEEP = [(128, 128, 128), (64, 100, 212), (256, 384, 212),
 # shapes matmul_tiled takes unpadded: each dimension a multiple of the 128
 # tile or below it, so the kernel's masked edges run
 MATMUL_BELOW_TILE = [(64, 100, 96), (32, 768, 100), (256, 100, 384)]
+# the fp32 route's edges: K or N off a multiple of 4 (the pre-pass pads K
+# to 4 and splits a too), then operands 4 bytes past a 16-byte boundary
+MATMUL_F32_EDGES = [(32, 101, 99), (96, 127, 7), (256, 384, 126)]
+MATMUL_F32_UNALIGNED = [(64, 100, 96), (128, 256, 128)]
 
 
 def matmul_tol(dtype: str, K: int) -> dict:
@@ -1073,34 +1114,63 @@ def matmul_tol(dtype: str, K: int) -> dict:
     return tol
 
 
+def _offset_randn(gen, device, shape, offset):
+    """A contiguous fp32 tensor of ``shape`` whose data starts ``offset``
+    elements past an allocation (4 bytes each)."""
+    import torch
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.randn(n + offset, generator=gen, device=device)[
+        offset:].view(shape)
+
+
 def check_padded_matmul(gen, device):
     """The JAX sweep through the op (padded), and ``matmul_tiled`` on shapes
     with dimensions below the tile (masked edges; for bf16 K or N off the
-    multiple of 8 that TMA needs), fp32 and bf16, each on the route of its
-    dtype, against ``matmul_ref``; then the Case-2 shape, timed on each
-    route: the kernel on the padded shape, the op with its pads and slice,
-    the plain version, torch.matmul at N 8484 and at the aligned 8576.
-    Returns the bf16 (tensor-core) and the fp32 summaries and the cases."""
+    multiple of 8 that TMA needs; for fp32 K or N off a multiple of 4, and
+    operands off 16 bytes), fp32 and bf16, each on the route of its dtype,
+    against ``matmul_ref``, two fp32 calls compared bitwise; then the
+    Case-2 shape, timed on each route: the kernel on the padded shape, the
+    op with its pads and slice, the plain version, torch.matmul at N 8484
+    (fp32: in turns with the kernel) and at the aligned 8576; the fp32
+    route's error against an fp64 product, at most half that of one TF32
+    pass (cuBLAS TF32, a yardstick only: matmul_tol's √K atol would admit
+    one pass), beside torch.matmul fp32's.  Returns the bf16 (tensor-core)
+    and the fp32 (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.padded_matmul import ops
 
     cases = []
-    for fn, shapes in ((ops.padded_matmul, MATMUL_SWEEP),
-                       (ops.matmul_tiled, MATMUL_BELOW_TILE)):
-        for (M, K, N) in shapes:
-            for dtype in ("float32", "bfloat16"):
-                dt = getattr(torch, dtype)
-                a = torch.randn(M, K, generator=gen, device=device).to(dt)
-                b = torch.randn(K, N, generator=gen, device=device).to(dt)
-                route = ops.route(dt)
-                got = on_route(ops.KERNELS, route, lambda: fn(a, b))
-                torch.cuda.synchronize()
-                err = max_err(got, ops.matmul_ref(a, b), dtype,
-                              matmul_tol(dtype, K))
-                cases.append(dict(fn=fn.__name__, shape=[M, K, N],
-                                  dtype=dtype, route=route, max_abs_err=err))
-                log("kernels", f"{fn.__name__} M{M} K{K} N{N} {dtype} "
-                    f"[{route}]: max_abs_err {err:.3e}")
+    runs = [(fn, shape, dtype, 0)
+            for fn, shapes in ((ops.padded_matmul, MATMUL_SWEEP),
+                               (ops.matmul_tiled, MATMUL_BELOW_TILE))
+            for shape in shapes for dtype in ("float32", "bfloat16")]
+    runs += [(ops.matmul_tiled, shape, "float32", 0)
+             for shape in MATMUL_F32_EDGES]
+    runs += [(ops.matmul_tiled, shape, "float32", 1)
+             for shape in MATMUL_F32_UNALIGNED]
+    for fn, (M, K, N), dtype, offset in runs:
+        dt = getattr(torch, dtype)
+        a = _offset_randn(gen, device, (M, K), offset).to(dt)
+        b = _offset_randn(gen, device, (K, N), offset).to(dt)
+        route = ops.route(dt)
+        got = on_route(ops.KERNELS, route, lambda: fn(a, b))
+        torch.cuda.synchronize()
+        err = max_err(got, ops.matmul_ref(a, b), dtype, matmul_tol(dtype, K))
+        case = dict(fn=fn.__name__, shape=[M, K, N], dtype=dtype,
+                    route=route, offset_bytes=4 * offset, max_abs_err=err)
+        if route == "tf32x3":
+            if not torch.equal(got, fn(a, b)):
+                fail(f"{fn.__name__} M{M} K{K} N{N} [{route}]: two calls on "
+                     f"the same inputs differ")
+            case["bitwise_repeatable"] = True
+            case["split_a_in_kernel"] = ops.tf32_split_a_in_kernel(a)
+        cases.append(case)
+        log("kernels", f"{fn.__name__} M{M} K{K} N{N} {dtype}"
+            + (f" at +{4 * offset} bytes" if offset else "")
+            + f" [{route}]: max_abs_err {err:.3e}"
+            + ("; two calls bitwise equal" if route == "tf32x3" else ""))
 
     M, K, N = CASE2
     flops = 2.0 * M * K * N
@@ -1115,17 +1185,46 @@ def check_padded_matmul(gen, device):
         want = ops.matmul_ref(a, b)
         got = on_route(ops.KERNELS, route, lambda: ops.padded_matmul(a, b))
         err = max_err(got, want, dtype, matmul_tol(dtype, K))
-        cases.append(dict(fn="padded_matmul", shape=[M, K, N], dtype=dtype,
-                          route=route, max_abs_err=err))
+        case = dict(fn="padded_matmul", shape=[M, K, N], dtype=dtype,
+                    route=route, max_abs_err=err)
+        if route == "tf32x3":
+            if not torch.equal(got, ops.padded_matmul(a, b)):
+                fail("padded_matmul at the Case-2 shape [tf32x3]: two calls "
+                     "on the same inputs differ")
+            # against an fp64 product: the kernel, torch.matmul fp32 and one
+            # TF32 pass (cuBLAS TF32)
+            exact = a.double() @ b.double()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            one_pass = torch.matmul(a, b)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            fp64 = {name: float((t.double() - exact).abs().max())
+                    for name, t in (("kernel", got), ("torch_fp32", want),
+                                    ("one_tf32_pass", one_pass))}
+            del exact, one_pass
+            case.update(bitwise_repeatable=True, fp64_max_abs_err=fp64)
+            log("kernels", f"padded_matmul M{M} K{K} N{N} float32 [{route}]: "
+                f"max abs err against an fp64 product {fp64['kernel']:.3e} "
+                f"(torch.matmul fp32 {fp64['torch_fp32']:.3e}, one TF32 pass "
+                f"{fp64['one_tf32_pass']:.3e}); two calls bitwise equal")
+            if fp64["kernel"] > 0.5 * fp64["one_tf32_pass"]:
+                fail(f"padded_matmul [{route}]: its error against an fp64 "
+                     f"product is not below half that of one TF32 pass: "
+                     f"{fp64}")
+        cases.append(case)
         del got, want
         iters = 20 if route == "wgmma" else 5
-        ms = time_ms(lambda: ops.matmul_cuda(a, bp), iters, 1)
+        if route == "wgmma":
+            ms = time_ms(lambda: ops.matmul_cuda(a, bp), iters, 1)
+            lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
+        else:
+            ms, lib_ms = in_turns(
+                {"kernel": lambda: ops.matmul_cuda(a, bp),
+                 "torch": lambda: torch.matmul(a, b)}, iters).values()
         op_ms = time_ms(lambda: ops.padded_matmul(a, b), iters, 1)
         plain_ms = time_ms(lambda: ops.matmul_ref(a, b), 5, 1)
-        lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
         lib_aligned_ms = time_ms(lambda: torch.matmul(a, bp), 20)
         nbytes = (M * K + K * N + M * N) * a.element_size()
-        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         summaries[route] = summary = dict(
@@ -1141,16 +1240,27 @@ def check_padded_matmul(gen, device):
             library_aligned_ms=lib_aligned_ms, op_ms=op_ms,
             shape=[M, K, N], padded_shape=[M, K, Np], dtype=dtype,
             flops=flops, bytes=nbytes)
+        if route == "tf32x3":
+            summary.update(
+                design_floor_ms=max(3 * t_ops, t_bytes),
+                fp32_pipe_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                scratch_bytes=ops.tf32_scratch_bytes(
+                    M, Np, K, ops.tf32_split_a_in_kernel(a)),
+                fp64_max_abs_err=case["fp64_max_abs_err"])
         log("kernels", f"padded_matmul [{route}] timed at the Case-2 shape "
             f"M{M} K{K} N{N} {dtype}: kernel on the padded N {Np} "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the unpadded "
             f"work), the op with pads and slice {op_ms:.4f} ms, plain (fp32 "
             f"product) {plain_ms:.4f} ms, torch.matmul at N {N} "
-            f"{lib_ms:.4f} ms and at N {Np} {lib_aligned_ms:.4f} ms; bound "
+            f"{lib_ms:.4f} ms{'' if route == 'wgmma' else ' in turns'} and "
+            f"at N {Np} {lib_aligned_ms:.4f} ms; bound "
             f"{summary['bound_ms']:.4f} ms by {summary['bound_by']} "
             f"({flops:.3e} flops = {t_ops:.4f} ms at the "
-            f"{'bf16 tensor-core' if route == 'wgmma' else 'fp32'} peak, "
-            f"{nbytes:.3e} bytes = {t_bytes:.4f} ms)")
+            f"{'bf16' if route == 'wgmma' else 'TF32'} tensor-core peak, "
+            f"{nbytes:.3e} bytes = {t_bytes:.4f} ms)"
+            + (f"; FP32-pipe bound {summary['fp32_pipe_bound_ms']:.4f} ms; "
+               f"scratch {summary['scratch_bytes']} bytes"
+               if route == "tf32x3" else ""))
         del a, b, bp
         torch.cuda.empty_cache()
     tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
@@ -1158,7 +1268,9 @@ def check_padded_matmul(gen, device):
     log("kernels", f"padded_matmul [wgmma] against torch.matmul at the "
         f"aligned N {tc['padded_shape'][2]}: "
         f"{tc['library_aligned_factor']:.2f}x")
-    return tc, summaries["fp32"], cases
+    tf = tensor_core_fields(summaries["tf32x3"], ops.KERNELS["tf32x3"], flops,
+                            "tf32x3")
+    return tc, tf, cases
 
 
 # the ring path: one 25 MB fp32 bucket per rank (PyTorch DDP's default
@@ -1543,8 +1655,8 @@ def path_kernels(arch: str) -> dict:
         return {
             "ssd_scan[wgmma]": ("ssd_scan", "wgmma", ssd.KERNELS["wgmma"],
                                 lambda L, new: L),
-            "ssd_scan[fp32]": ("ssd_scan", "fp32", ssd.KERNELS["fp32"],
-                               lambda L, new: 0),
+            "ssd_scan[tf32x3]": ("ssd_scan", "tf32x3",
+                                 ssd.KERNELS["tf32x3"], lambda L, new: 0),
             "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
                                        fn.KERNEL,
                                        lambda L, new: L * (1 + new))}
@@ -1650,12 +1762,13 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
 PORT_KERNELS = ("flash_wgmma_kernel", "flash_tf32_kernel", "split_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
-                "reduce_kernel", "ssd_wgmma_kernel", "ssd_scan_fwd_kernel",
+                "reduce_kernel", "ssd_wgmma_kernel", "ssd_tf32_kernel",
                 "ssd_bwd_kernel", "ssd_bwd_reduce_kernel",
                 "ssd_bwd_state_kernel", "ssd_bwd_dxdb_kernel",
                 "ssd_bwd_dc_kernel", "ssd_bwd_finish_kernel",
                 "ssd_bwd_sum_kernel",
-                "matmul_wgmma_kernel", "matmul_tiled_kernel",
+                "matmul_wgmma_kernel", "matmul_tf32_kernel",
+                "split_transposed_kernel", "split_rows_kernel",
                 "ring_combine_kernel")
 
 
@@ -1696,8 +1809,8 @@ def profile(fn, top: int = 10) -> dict:
 def agreement(arch: str, seed: int, S: int):
     """fp32 prefill logits of the full-width model: the kernel path on the
     card against the plain path on the CPU, same weights, B 1.  The fp32
-    run takes every kernel of the path but the bf16 ones (flash its split
-    TF32 route).  Returns the max abs error and the launches of the card's
+    run takes every kernel of the path but the bf16 ones (flash and the
+    SSD scan their split-TF32 routes).  Returns the max abs error and the launches of the card's
     prefill."""
     import numpy as np
     import torch
@@ -1782,7 +1895,7 @@ def train_kernels(arch: str) -> dict:
         norms = 2
     elif arch == "mamba2-780m":
         kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
-                   "ssd_scan[fp32]": (ssd.KERNELS["fp32"], 1, f32),
+                   "ssd_scan[tf32x3]": (ssd.KERNELS["tf32x3"], 1, f32),
                    "ssd_scan_bwd[wgmma]": (ssd.BWD_KERNELS["wgmma"], 1, bf),
                    "ssd_scan_bwd[fp32]": (ssd.BWD_KERNELS["fp32"], 1, f32)}
         norms = 1
@@ -2304,12 +2417,12 @@ def main():
         summary["launches_by_path"] = per
     for summary, arch, label in (
             (flash_fp32, "llama3.2-1b", "flash_attention[tf32x3]"),
-            (scan_fp32, "mamba2-780m", "ssd_scan[fp32]")):
+            (scan_fp32, "mamba2-780m", "ssd_scan[tf32x3]")):
         n = fp32_launches[arch][label]
         summary["launches"] = n
         summary["launches_by_path"] = {f"{arch} fp32 prefill": n}
     for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
-                                  (matmul_fp32, "float32", "fp32")):
+                                  (matmul_fp32, "float32", "tf32x3")):
         n = case2[dtype]["launches"][route]
         summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}

@@ -14,14 +14,16 @@ version and the FLARE registration):
   fused_norm      — residual add + RMSNorm (``fused_norm.cu``) and its
                     backward (``fused_norm_bwd.cu``, rows by TMA bulk copy)
   ssd_scan        — Mamba2 chunked SSD scan with initial / final state
-                    (prefill and training): bf16 on the tensor cores
-                    (``ssd_scan_wgmma.cu``), fp32 on the FP32 pipes
-                    (``ssd_scan.cu``); its backward likewise, bf16 on the
-                    tensor cores (``ssd_scan_bwd_wgmma.cu``), fp32 on the
-                    FP32 pipes (``ssd_scan_bwd.cu``)
-  padded_matmul   — the Case-2 matmul: bf16 on the tensor cores
-                    (``padded_matmul_wgmma.cu``), fp32 on the FP32 pipes
-                    (``padded_matmul.cu``)
+                    (prefill and training), both routes on the tensor
+                    cores: bf16 (``ssd_scan_wgmma.cu``) and fp32 as split
+                    TF32 (``ssd_scan_tf32.cu``, Bm and Cm split by the
+                    flash pre-pass); its backward bf16 on the tensor cores
+                    (``ssd_scan_bwd_wgmma.cu``), fp32 on the FP32 pipes
+                    (``ssd_scan_bwd.cu``)
+  padded_matmul   — the Case-2 matmul, both routes on the tensor cores:
+                    bf16 (``padded_matmul_wgmma.cu``) and fp32 as split
+                    TF32 (``padded_matmul_tf32.cu``, with its own b^T
+                    pre-pass)
   ring_reduce     — the ring-combine step with host-visible progress
 
 The tensor-core kernels share ``csrc/hopper.cuh`` (TMA tensor maps and

@@ -6,8 +6,8 @@
 // sum per output rounded once to bf16.  A bf16 x bf16 product is exact in
 // fp32, so wgmma with an fp32 accumulator computes the reference's
 // widen-then-dot; only the order of the sum differs.  (fp32 inputs take
-// padded_matmul.cu, on the FP32 pipes, so that their result stays a full
-// fp32 product and not TF32.)
+// padded_matmul_tf32.cu, split TF32 on the tensor cores, so that their
+// result stays a full fp32 product and not one TF32 pass.)
 //
 // Bound on an H100: operations.  At the Case-2 shape (M 4096, K 8192,
 // N 8484 padded to 8576) ~5.8e11 flops against ~0.3 GB of operands, far

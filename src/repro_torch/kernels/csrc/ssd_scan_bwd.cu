@@ -45,8 +45,8 @@
 //
 // Design: one block of 256 threads per (b, h), walking the chunks; a chunk
 // is 1 to 4 tiles of 64 rows.  A thread owns rows ty + 16i (i < 4) and
-// columns tx + 16j of each 64-row result tile (ty = tid / 16, tx = tid % 16),
-// as in ssd_scan.cu.  Per chunk of pass 2:
+// columns tx + 16j of each 64-row result tile (ty = tid / 16, tx = tid % 16).
+// Per chunk of pass 2:
 //   1. over the t tiles: dC_t's inter-chunk term (it initialises the head's
 //      dC rows), dy_t.(S_prev C_t) into dcum, and <dS, S_prev>, with S_prev
 //      read from the workspace into shared memory;
@@ -155,8 +155,8 @@ __device__ __forceinline__ double block_sum(double v, double* slot) {
 }
 
 // dt of rows [t0, t0 + lc) into dts (zeros past lc) and the inclusive scan
-// of dt*A, summed in fp64, into cum (as ssd_scan.cu); the rows past lc hold
-// the last real row's value.  Ends synchronised.
+// of dt*A, summed in fp64, into cum (as the forward kernels); the rows past
+// lc hold the last real row's value.  Ends synchronised.
 __device__ __forceinline__ void chunk_scan(const float* dtb, int H, int t0, int lc,
                                            float a, double* cum, float* dts,
                                            double* wsum) {

@@ -12,8 +12,8 @@
 // x [B,L,H,P], Bm/Cm [B,L,N] bf16; dt [B,L,H], A [H] fp32; y [B,L,H,P]
 // bf16; the state S is [P,N] fp32 per (b, h), seeded from an optional
 // initial_state and returned as final_state [B,H,P,N] fp32.  Any L: rows
-// past L load as zeros and dt = 0 there.  (fp32 inputs take ssd_scan.cu,
-// on the FP32 pipes.)
+// past L load as zeros and dt = 0 there.  (fp32 inputs take
+// ssd_scan_tf32.cu, split TF32 on the tensor cores.)
 //
 // Bound on an H100: bytes.  At the serving shape (B 8, L 1024, H 48, P 64,
 // N 128, chunk 256) the traffic is ~119 MB (x, y, Bm, Cm, dt, state),

@@ -6,20 +6,29 @@ Case-2 fix pads a misaligned dimension (the FFN width 8484) up to the 128
 tile, runs the tiled kernel on aligned shapes and slices the result back.
 Bound on an H100: operations at the Case-2 shape.
 
-Two hand-written kernels, one route per dtype (``route``):
-  * bf16 -> ``csrc/padded_matmul_wgmma.cu``: wgmma on the tensor cores
-    with an fp32 accumulator, operands brought by TMA; TMA needs 16-byte
+Two hand-written kernels, one route per dtype (``route``), both wgmma on
+the tensor cores with fp32 accumulators, operands brought by TMA:
+  * bf16 -> ``"wgmma"``, ``csrc/padded_matmul_wgmma.cu``: TMA needs 16-byte
     rows, so a call whose K or N is not a multiple of 8 runs on operands
     padded with zeros to that and is sliced back (``tma_operands``);
-  * fp32 -> ``csrc/padded_matmul.cu``: IEEE fp32 fused multiply-adds on the
-    FP32 pipes, chosen on purpose: its result is held to a full-fp32
-    product, not to TF32.
-Each route counts its own launches.  A bf16 call never takes the FP32
-pipes.
+  * fp32 -> ``"tf32x3"``, ``csrc/padded_matmul_tf32.cu``: split TF32, the
+    product as a_hi.b_hi + a_hi.b_lo + a_lo.b_hi of tf32 terms (hi = x
+    rounded to tf32, lo = the rest rounded to tf32), on the tensor cores
+    and not the FP32 pipes, held to a full-fp32 product (3e-4, atol at
+    least 2e-3·√K, a width that would admit one TF32 pass too: the card
+    check also holds the route well below one pass's error against an
+    fp64 product).  tf32 wgmma reads only K-major operands: a pre-pass
+    writes b^T split into scratch the wrapper allocates
+    (``tf32_scratch``), and a is split in shared memory by the warpgroup
+    that reads it, or by the pre-pass too where TMA cannot read a (an
+    address off 16 bytes, K off a multiple of 4).  The pre-pass loads
+    with masks, so the route takes operands at any address and shape.
+Each route counts its own launches.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,11 +40,13 @@ TILE = 128
 TMA_ALIGN = 8      # bf16 elements in the 16 bytes a TMA row stride needs
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_TF32_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 KERNELS = {
     "wgmma": CudaKernel("padded_matmul_wgmma.cu", "matmul_wgmma_launch", _ARGS),
-    "fp32": CudaKernel("padded_matmul.cu", "matmul_tiled_launch", _ARGS),
+    "tf32x3": CudaKernel("padded_matmul_tf32.cu", "matmul_tf32_launch",
+                         _TF32_ARGS),
 }
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 
 def _pad_to(x, m0: int, m1: int):
@@ -76,11 +87,38 @@ def _check_aligned(a, b):
 
 def route(dtype) -> str:
     """The kernel that a CUDA call in ``dtype`` launches, by dtype alone:
-    bf16 -> "wgmma" (tensor cores), fp32 -> "fp32" (FP32 pipes)."""
+    bf16 -> "wgmma", fp32 -> "tf32x3" (split TF32), both on the tensor
+    cores."""
     if dtype not in ROUTES:
         raise TypeError(f"matmul_tiled kernels take float32 or bfloat16, "
                         f"not {dtype}")
     return ROUTES[dtype]
+
+
+def tf32_split_a_in_kernel(a) -> bool:
+    """Whether the tf32x3 kernel splits a in shared memory, which it does
+    for an a that TMA can read (16-byte aligned, K a multiple of 4; faster
+    than the pre-pass's split at the Case-2 shape); otherwise the pre-pass
+    splits a too."""
+    return a.data_ptr() % 16 == 0 and a.shape[1] % 4 == 0
+
+
+def tf32_scratch(M: int, N: int, K: int, split_a_in_kernel: bool) -> dict:
+    """The shapes of the tf32x3 route's split scratch, by name, in the
+    order its C launch function takes them (Kp = K rounded up to 4, the
+    columns past K zero): a's pair [2,M,Kp] (hi, then lo) unless the
+    kernel splits a, and b^T's pair [2,N,Kp]."""
+    Kp = -(-K // 4) * 4
+    shapes = {} if split_a_in_kernel else {"a_pair": (2, M, Kp)}
+    shapes["bt_pair"] = (2, N, Kp)
+    return shapes
+
+
+def tf32_scratch_bytes(M: int, N: int, K: int,
+                       split_a_in_kernel: bool) -> int:
+    """Bytes of ``tf32_scratch`` (fp32)."""
+    return sum(4 * math.prod(s) for s in
+               tf32_scratch(M, N, K, split_a_in_kernel).values())
 
 
 def tma_operands(a, b):
@@ -125,8 +163,21 @@ def matmul_cuda(a, b):
         raise ValueError(f"matmul_tiled kernels take CUDA tensors, not "
                          f"{a.device}")
     M, N = a.shape[0], b.shape[1]
-    if r == "wgmma":
-        a, b = tma_operands(a, b)
+    if r == "tf32x3":
+        K = a.shape[1]
+        in_kernel = tf32_split_a_in_kernel(a)
+        scratch = {name: torch.empty(shape, dtype=torch.float32,
+                                     device=a.device)
+                   for name, shape in tf32_scratch(M, N, K,
+                                                   in_kernel).items()}
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        a_pair = scratch.get("a_pair")
+        KERNELS[r].launch(ptr(a), ptr(b), ptr(out),
+                          None if a_pair is None else ptr(a_pair),
+                          ptr(scratch["bt_pair"]), M, N, K, int(in_kernel),
+                          stream_ptr(a.device))
+        return out
+    a, b = tma_operands(a, b)
     K, Nk = b.shape
     out = torch.empty((M, Nk), dtype=a.dtype, device=a.device)
     KERNELS[r].launch(ptr(a), ptr(b), ptr(out), M, Nk, K,

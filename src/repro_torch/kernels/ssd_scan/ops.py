@@ -9,17 +9,21 @@ computes.  Bound on an H100: bytes at the serving shape (the work it
 needs is less than the JAX ``_meta`` flops, which count C·Bᵀ per head and
 whole).  Two hand-written kernels, one route per dtype (``route``), each a
 block per (batch, head) that walks the chunks in order and masks the
-ragged last chunk, so any L is taken:
-  * bf16 -> ``csrc/ssd_scan_wgmma.cu``: all four products on the tensor
-    cores by wgmma (bf16 operands, fp32 accumulators), tiles by TMA, the
-    ``[P,N]`` fp32 state in the accumulator registers; the scores, the
-    scaled ``w∘x`` and the chunk-start state are rounded to bf16 as
-    operands;
-  * fp32 -> ``csrc/ssd_scan.cu``: the state in shared memory and every
-    product on the FP32 pipes, so that the fp32 result is held to a
-    full-fp32 reference and not to TF32.
+ragged last chunk, so any L is taken; both run all four products on the
+tensor cores by wgmma with fp32 accumulators, tiles by TMA, the ``[P,N]``
+fp32 state in the accumulator registers:
+  * bf16 -> ``"wgmma"``, ``csrc/ssd_scan_wgmma.cu``: bf16 operands; the
+    scores, the scaled ``w∘x`` and the chunk-start state are rounded to
+    bf16 as operands;
+  * fp32 -> ``"tf32x3"``, ``csrc/ssd_scan_tf32.cu``: split TF32, each
+    product X·Y as X_hi·Y_hi + X_hi·Y_lo + X_lo·Y_hi of tf32 terms, so
+    that the fp32 result is held to a full-fp32 reference (3e-4); a
+    pre-pass splits Bm and Cm, which every head
+    reads, into scratch the wrapper allocates (``tf32_scratch``), and the
+    block writes x_sᵀ split, each 8 rows in the order 0,2,4,6,1,3,5,7,
+    from the raw x tile that only it reads.
 Both sum the cumulative decay in fp64.  Each route counts its own
-launches.  A bf16 call never takes the FP32 pipes.
+launches.
 
 The backward is port-only: the JAX package differentiates ``ssd_chunked``
 (``src/repro/models/mamba2.py:22``) by XLA autodiff, so it has no Pallas
@@ -40,6 +44,7 @@ state that requires grad is refused.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -50,11 +55,13 @@ STATE_DIMS = (64, 128)
 TILE = 64          # the kernels' row tile; a chunk is 1 to 4 tiles
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TF32_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 KERNELS = {
     "wgmma": CudaKernel("ssd_scan_wgmma.cu", "ssd_scan_wgmma_launch", _ARGS),
-    "fp32": CudaKernel("ssd_scan.cu", "ssd_scan_fwd_launch", _ARGS),
+    "tf32x3": CudaKernel("ssd_scan_tf32.cu", "ssd_scan_tf32_launch",
+                         _TF32_ARGS),
 }
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 BWD_KERNELS = {
     "wgmma": CudaKernel("ssd_scan_bwd_wgmma.cu", "ssd_scan_bwd_wgmma_launch",
                         [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
@@ -74,6 +81,18 @@ def kernel_takes(P: int, N: int, chunk: int) -> bool:
     ``N`` and ``chunk``; the wrapper raises on anything else."""
     return (P in HEAD_DIMS and N in STATE_DIMS and chunk % TILE == 0
             and TILE <= chunk <= 4 * TILE)
+
+
+def tf32_scratch(B: int, L: int, N: int) -> dict:
+    """The shapes of the tf32x3 route's split scratch, by name, in the
+    order its C launch function takes them: Bm's and Cm's pairs
+    [2,B,L,N], the tf32 hi terms then the lo terms."""
+    return {"bm_pair": (2, B, L, N), "cm_pair": (2, B, L, N)}
+
+
+def tf32_scratch_bytes(B: int, L: int, N: int) -> int:
+    """Bytes of ``tf32_scratch`` (fp32)."""
+    return sum(4 * math.prod(s) for s in tf32_scratch(B, L, N).values())
 
 
 def _meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
@@ -245,7 +264,8 @@ def ssd_bwd_ref(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
 
 def route(dtype) -> str:
     """The kernel that a CUDA call with x in ``dtype`` launches, by dtype
-    alone: bf16 -> "wgmma" (tensor cores), fp32 -> "fp32" (FP32 pipes)."""
+    alone: bf16 -> "wgmma", fp32 -> "tf32x3" (split TF32), both on the
+    tensor cores."""
     if dtype not in ROUTES:
         raise TypeError(f"ssd_scan kernels take float32 or bfloat16 x/Bm/Cm, "
                         f"not {dtype}")
@@ -309,9 +329,13 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     init = None if initial_state is None else ptr(initial_state)
+    # the scratch stays referenced until the launch is queued
+    scratch = ([torch.empty(shape, dtype=torch.float32, device=x.device)
+                for shape in tf32_scratch(B, L, N).values()]
+               if r == "tf32x3" else [])
     KERNELS[r].launch(ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init,
-                      ptr(y), ptr(state), B, L, H, P, N, chunk,
-                      stream_ptr(x.device))
+                      ptr(y), ptr(state), *(ptr(t) for t in scratch), B, L,
+                      H, P, N, chunk, stream_ptr(x.device))
     return y, state
 
 

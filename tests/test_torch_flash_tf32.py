@@ -39,68 +39,17 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models.attention import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import ops
+from torch_tf32 import fragment_order, mm1, mm3
+from torch_tf32 import permuted_row as _permuted_row
+from torch_tf32 import split, tf32
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 TOL = dict(rtol=3e-4, atol=3e-4)
 
 
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> the nearest tf32 (10 mantissa bits), ties away from zero:
-    ``cvt.rna.tf32.f32``, as an fp32 tensor."""
-    assert x.dtype == torch.float32
-    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    r = (u + 0x1000) & 0xFFFFE000
-    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
-    return r.view(torch.float32).reshape(x.shape)
-
-
-def split(x: torch.Tensor):
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
-def mm3(a, b):
-    """a @ b as three tf32 products in fp32: hi.lo + lo.hi + hi.hi."""
-    ah, al = split(a)
-    bh, bl = split(b)
-    return ah @ bl + al @ bh + ah @ bh
-
-
-def mm1(a, b):
-    """a @ b as one tf32 product."""
-    return tf32(a) @ tf32(b)
-
-
 # --------------------------------------------------------------- layouts --
-def _fragment_order():
-    """The key of each A column of a k8 step, simulated lane by lane: lane l
-    of warp w holds accumulator d[4i+e] = D[16w + l/4 + 8(e>>1)][8i +
-    2(l%4) + (e&1)]; split_a hands d[4i], d[4i+2], d[4i+1], d[4i+3] over as
-    a[0..3], which the tf32 A fragment reads as A[r][l%4], A[r+8][l%4],
-    A[r][l%4+4], A[r+8][l%4+4].  Returns, for each A column c, the
-    accumulator column it came from (the same for every row)."""
-    order = {}
-    for w in range(4):
-        for lane in range(32):
-            r = 16 * w + lane // 4
-            t = lane % 4
-            d = {e: (r + 8 * (e >> 1), 2 * t + (e & 1)) for e in range(4)}
-            a = [d[0], d[2], d[1], d[3]]
-            for (row, col), (arow, acol) in zip(
-                    a, [(r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4)]):
-                assert row == arow
-                assert order.setdefault(acol, col) == col
-    return [order[c] for c in range(8)]
-
-
-PERM8 = _fragment_order()
-
-
-def _permuted_row(p: int) -> int:
-    """``flash_tf32_split.cuh::permuted_row``: the row of a 16-row block
-    that position p of the transposed layout holds."""
-    return (p & 8) | ((p & 3) << 1) | ((p >> 2) & 1)
+PERM8 = fragment_order()
 
 
 def transposed_split(x: torch.Tensor, length: int) -> torch.Tensor:

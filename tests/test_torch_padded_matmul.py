@@ -8,7 +8,8 @@ the same inputs, made from a seed with numpy, over the reference's sweep,
 at the reference's tolerances (``tests/test_kernels.py``: fp32 3e-4, bf16
 5e-2, atol at least 2e-3·√K).  The bf16 tensor-core kernel's order of
 summation (K steps of 64, fp32 sums of exact bf16 products) is emulated
-here and held to the Pallas kernel; the choice of kernel (route) by dtype,
+here and held to the Pallas kernel (the fp32 route's split TF32 in
+``test_torch_matmul_tf32.py``); the choice of kernel (route) by dtype,
 the zero padding that TMA's 16-byte rows need, and what the CUDA wrapper
 refuses before it launches are checked as plain Python.
 """
@@ -133,7 +134,7 @@ CASE2 = (4096, 8192, 8484)   # padded to N 8576 by the op
 
 
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_case2_shape_takes_the_route_of_its_dtype(dtype, want):
     M, K, N = CASE2
     Np = N + (-N) % 128
@@ -200,7 +201,7 @@ def test_matmul_cuda_refuses_what_the_kernels_do_not_take(case):
 
 
 def test_fp32_route_takes_unaligned_operands():
-    """The FP32-pipe kernel masks its vector loads; only TMA needs 16
-    bytes."""
+    """The tf32x3 kernel's pre-pass masks its vector loads (and splits an
+    a that TMA cannot read), so only the bf16 route needs 16 bytes."""
     a = _unaligned((64, 128), torch.float32)
-    assert check_operands(a, torch.zeros(128, 96)) == "fp32"
+    assert check_operands(a, torch.zeros(128, 96)) == "tf32x3"

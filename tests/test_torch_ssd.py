@@ -15,8 +15,9 @@ seed with numpy:
 The bf16 route's kernel (``csrc/ssd_scan_wgmma.cu``) rounds more than the
 plain version: the scores, ``w∘x`` and the chunk-start state become bf16
 operands of its tensor-core products.  ``_tensor_core_ssd`` repeats that
-arithmetic in plain PyTorch and is held to the same three oracles.  The
-routes (bf16 -> tensor cores, fp32 -> FP32 pipes), the route the mamba2
+arithmetic in plain PyTorch and is held to the same three oracles (the
+fp32 route's split TF32 in ``test_torch_ssd_tf32.py``).  The routes (bf16
+-> "wgmma", fp32 -> "tf32x3", both on the tensor cores), the route the mamba2
 prefill takes, and the wrappers' refusals are checked here too; the
 kernels themselves run only on the card (``chip_smoke.py``).
 
@@ -252,10 +253,10 @@ def test_tensor_core_arithmetic_rounds_where_the_kernel_does(rng):
 
 
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_route_by_dtype(dtype, want):
     assert route(dtype) == want
-    assert set(KERNELS) == {"wgmma", "fp32"}
+    assert set(KERNELS) == {"wgmma", "tf32x3"}
 
 
 def test_route_refuses_other_dtypes():
@@ -264,7 +265,7 @@ def test_route_refuses_other_dtypes():
 
 
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_mamba2_prefill_takes_the_route_of_its_dtype(monkeypatch, dtype,
                                                      want):
     """One full-width mamba2-780m block's prefill (B 8, L 1024) on the meta

@@ -1,19 +1,18 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd,f32flash]
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd,f32flash,f32mm,f32ssd]
 
 On one CUDA card: builds the tensor-core kernels (flash attention, the
-padded matmul, the SSD scan), the SSD scan's fp32 kernel and the ring
-combine; prints their ptxas lines and the HGMMA / HMMA counts of their
+padded matmul, the SSD scan on both routes) and the ring combine; prints their ptxas lines and the HGMMA / HMMA counts of their
 SASS; holds each against its plain version at a few shapes (bf16 5e-2,
 fp32 3e-4; the matmul's atol at least 2e-3·√K; the combine bitwise),
 then times each beside its yardstick, in turns (``chip_smoke.in_turns``:
 kernel, yardstick, yardstick, kernel, best of two each):
   * flash attention against SDPA with the KV heads expanded beforehand,
     at long sequences and hd 128; the matmul against ``torch.matmul``;
-  * the SSD scan's two routes against each other (bf16 on the tensor
-    cores, fp32 on the FP32 pipes) at L 1024 and 4096, B 8, H 48;
+  * the SSD scan's two routes against each other (bf16, and fp32 as split
+    TF32, both on the tensor cores) at L 1024 and 4096, B 8, H 48;
   * the ring combine against ``torch.add`` at the ring's chunk, from
     device memory (inputs cycled past the 50 MB L2) and in L2;
   * (``bwd``) the flash forward's lse output on both routes, the flash
@@ -41,7 +40,21 @@ kernel, yardstick, yardstick, kernel, best of two each):
     SDPA backend that runs) at the serving shape, the training shape and
     S 4096, with each kernel's device time from the profiler (pre-pass,
     main, dQ), the bound at the TF32 peak, the three passes' floor and
-    the scratch bytes.
+    the scratch bytes;
+  * (``f32mm``) the fp32 route of the padded matmul, split TF32 on the
+    tensor cores (``"tf32x3"``), at ``F32MM_CHECK`` (K or N off a multiple
+    of 4, operands at an address off 16 bytes, the Case-2 shape; a split
+    in the kernel or, 4 bytes off, by the pre-pass), each call on its
+    route, two calls compared bitwise, against ``matmul_ref``
+    (``matmul_tol``); then the Case-2 shape timed in turns with
+    ``torch.matmul`` fp32 at N 8484, a split both ways (a 4 bytes off goes
+    to the pre-pass), with the profiler's split (pre-pass, main),
+    the bound at the TF32 peak, the three passes' floor and the scratch;
+  * (``f32ssd``) the fp32 route of the SSD scan, split TF32 on the tensor
+    cores, at ``F32SSD_CHECK`` (N 64 and 128, ragged L, initial states, every
+    chunk), two calls compared bitwise, against ``ssd_ref``; then timed in
+    turns with the bf16 route at L 1024 and 4096, with the profiler's split
+    (pre-pass, main), the bound, the floor and the scratch.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -107,7 +120,8 @@ def check_backward():
     build_all(kernels)
     for k in kernels:
         for line in k.build_log.splitlines():
-            if "arning" in line or "rror" in line:
+            if any(w in line for w in ("arning", "rror", "wgmma",
+                                       "Performance")):
                 print(f"[build] {k.source}: {line.strip()}")
         for u in ptxas_usage(k.build_log):
             print(f"[build] {k.source}: {u['function'][:70]}: "
@@ -362,7 +376,8 @@ def check_f32flash():
     build_all(kernels)
     for k in kernels:
         for line in k.build_log.splitlines():
-            if "arning" in line or "rror" in line:
+            if any(w in line for w in ("arning", "rror", "wgmma",
+                                       "Performance")):
                 print(f"[build] {k.source}: {line.strip()}")
         for u in ptxas_usage(k.build_log):
             print(f"[build] {k.source}: {u['function'][:70]}: "
@@ -483,6 +498,209 @@ def check_f32flash():
         sys.exit(1)
 
 
+# fp32 matmul_tiled shapes (each dimension a multiple of the 128 tile or
+# below it): K or N off a multiple of 4, ragged M, the Case-2 shape padded
+F32MM_CHECK = [(128, 128, 128), (64, 100, 96), (32, 101, 99), (96, 127, 7),
+               (256, 384, 126), (256, 1024, 120),
+               (4096, 8192, 8576)]
+# (B, L, H, N, chunk, initial state) of the fp32 SSD checks: SSD_CHECK and
+# the mamba2 fp32 prefill's L 320 at N 64
+F32SSD_CHECK = SSD_CHECK + [(1, 320, 48, 64, 256, True)]
+
+
+def _f32_setup(kernels):
+    """Card, build, ptxas and HGMMA lines of ``kernels``; returns the
+    profiler's per-kernel split helper."""
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from chip_smoke import ptxas_usage, sass_mma
+    from repro_torch.kernels import build_all
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    build_all(kernels)
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if any(w in line for w in ("arning", "rror", "wgmma",
+                                       "Performance")):
+                print(f"[build] {k.source}: {line.strip()}")
+        for u in ptxas_usage(k.build_log):
+            print(f"[build] {k.source}: {u['function'][:70]}: "
+                  f"{u['registers']} registers, {u['spill_stores']}/"
+                  f"{u['spill_loads']} bytes spilled")
+        n = sass_mma(k)
+        print(f"[build] {k.source}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA",
+              flush=True)
+        if not n["HGMMA"]:
+            print(f"FAIL: {k.source}: no HGMMA in its SASS")
+            sys.exit(1)
+
+    def by_kernel(fn, calls=5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / calls / 1e3
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+    return by_kernel
+
+
+def check_f32mm():
+    """The split-TF32 fp32 matmul: checks (both ways of splitting a), then
+    the Case-2 shape timed in turns with torch.matmul fp32."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (CASE2, PEAK_BYTES, PEAK_FP32_FLOPS,
+                            PEAK_TF32_FLOPS, in_turns, matmul_tol, max_err)
+    from repro_torch.kernels.padded_matmul import ops as mm
+    by_kernel = _f32_setup([mm.KERNELS["tf32x3"]])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+
+    def randn(*shape, offset=0):
+        n = int(torch.tensor(shape).prod())
+        return torch.randn(n + offset, generator=gen, device="cuda")[
+            offset:].view(shape)
+
+    def call(a, b):
+        n0 = {r: k.launches for r, k in mm.KERNELS.items()}
+        out = mm.matmul_tiled(a, b)
+        ran = {r: k.launches - n0[r] for r, k in mm.KERNELS.items()}
+        return out, ran == {r: int(r == "tf32x3") for r in ran}
+
+    for (M, K, N) in F32MM_CHECK:
+        for offset in (0, 1):
+            a, b = randn(M, K, offset=offset), randn(K, N, offset=offset)
+            want = mm.matmul_ref(a, b)
+            got, on = call(a, b)
+            again, _ = call(a, b)
+            torch.cuda.synchronize()
+            try:
+                err, ok = max_err(got, want, "float32",
+                                  matmul_tol("float32", K)), True
+            except AssertionError as e:
+                err, ok = str(e), False
+            same = torch.equal(got, again)
+            ok = ok and on and same
+            bad += not ok
+            print(f"[check] matmul_tiled [tf32x3] M{M} K{K} N{N} offset "
+                  f"{offset} split_a_in_kernel="
+                  f"{mm.tf32_split_a_in_kernel(a)}: max_abs_err {err}, one "
+                  f"launch on the route: {on}, two calls bitwise equal: "
+                  f"{same} {'ok' if ok else 'FAIL'}", flush=True)
+            del a, b, want, got, again
+    M, K, N = CASE2
+    # a as it lies, split in the kernel, and a copy 4 bytes off, which the
+    # pre-pass splits
+    a, b = randn(M, K), randn(K, N)
+    a_off = randn(M, K, offset=1)
+    a_off.copy_(a)
+    bp = mm._pad_to(b, mm.TILE, mm.TILE)
+    Np = bp.shape[1]
+    flops = 2.0 * M * K * N
+    fns = {"in_kernel": lambda: mm.matmul_cuda(a, bp),
+           "prepass": lambda: mm.matmul_cuda(a_off, bp),
+           "torch": lambda: torch.matmul(a, b)}
+    times = in_turns(fns, 5)
+    t_ops = flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = (M * K + K * N + M * N) * 4 / PEAK_BYTES * 1e3
+    for variant, in_kernel in (("in_kernel", True), ("prepass", False)):
+        parts = by_kernel(fns[variant])
+        ms = times[variant]
+        print(f"[time] matmul [tf32x3, a split "
+              f"{'in the kernel' if in_kernel else 'by the pre-pass'}] "
+              f"M{M} K{K} N{N} (padded N {Np}) fp32: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of the unpadded work), "
+              f"torch.matmul fp32 at N {N} {times['torch']:.4f} ms in turns "
+              f"({ms / times['torch']:.3f}x); bound {max(t_ops, t_bytes):.4f} "
+              f"ms at the TF32 peak ({max(t_ops, t_bytes) / ms:.3f} of it), "
+              f"design floor {3 * t_ops:.4f} ({3 * t_ops / ms:.3f} of it), "
+              f"FP32-pipe bound {flops / PEAK_FP32_FLOPS * 1e3:.4f}; scratch "
+              f"{mm.tf32_scratch_bytes(M, Np, K, in_kernel)} bytes; by "
+              f"kernel (profiler, ms a call) "
+              + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()),
+              flush=True)
+    if bad:
+        print(f"FAIL: {bad} checks outside tolerance")
+        sys.exit(1)
+
+
+def check_f32ssd():
+    """The split-TF32 fp32 SSD scan: checks, then the serving shape timed
+    in turns with the bf16 route."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
+                            in_turns, max_err, ssd_inputs, ssd_work_flops)
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    by_kernel = _f32_setup([ssd.KERNELS["tf32x3"], ssd.KERNELS["wgmma"]])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for (B, L, H, N, chunk, init) in F32SSD_CHECK:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, "cuda", B, L, H, N, "float32")
+        s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device="cuda")
+              if init else None)
+        n0 = {r: k.launches for r, k in ssd.KERNELS.items()}
+        y, st = ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+        on = {r: k.launches - n0[r] for r, k in ssd.KERNELS.items()} == {
+            "wgmma": 0, "tf32x3": 1}
+        y2, st2 = ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk, s0)
+        yr, sr = ssd.ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
+        torch.cuda.synchronize()
+        try:
+            err, ok = (f"y {max_err(y, yr, 'float32'):.3e}, state "
+                       f"{max_err(st, sr, 'float32'):.3e}"), True
+        except AssertionError as e:
+            err, ok = (f"y {float((y - yr).abs().max()):.3e}, state "
+                       f"{float((st - sr).abs().max()):.3e}: {e}"), False
+        same = torch.equal(y, y2) and torch.equal(st, st2)
+        ok = ok and on and same
+        bad += not ok
+        print(f"[check] ssd_scan [tf32x3] B{B} L{L} H{H} N{N} chunk {chunk} "
+              f"init={init}: max_abs_err {err}, one launch on the route: "
+              f"{on}, two calls bitwise equal: {same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        del x, dt, Bm, Cm, y, st, y2, st2, yr, sr
+    H, chunk = 48, 256
+    for (B, L, N) in [(B, L, 128) for B, L in SSD_TIME] + [(8, 1024, 64)]:
+        xf = ssd_inputs(gen, "cuda", B, L, H, N, "float32")
+        xb = [xf[0].bfloat16(), xf[1], xf[2], xf[3].bfloat16(),
+              xf[4].bfloat16()]
+        ms, bf16_ms = in_turns(
+            {"tf32x3": lambda: ssd.ssd_cuda(*xf, chunk),
+             "wgmma": lambda: ssd.ssd_cuda(*xb, chunk)}, 10).values()
+        parts = by_kernel(lambda: ssd.ssd_cuda(*xf, chunk))
+        flops = ssd_work_flops(B, L, H, 64, N, chunk)
+        nbytes = (4 * (2 * xf[0].numel() + 2 * xf[3].numel() + xf[1].numel()
+                       + H) + 4 * B * H * 64 * N)
+        t_ops = flops / PEAK_TF32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        print(f"[time] ssd_scan [tf32x3] B{B} L{L} H{H} P64 N{N} chunk "
+              f"{chunk} fp32: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+              f"of the work), the bf16 route {bf16_ms:.4f} ms in turns; "
+              f"bound {max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+              f"{max(t_ops, t_bytes) / ms:.3f} of it), design floor "
+              f"{max(3 * t_ops, t_bytes):.4f}, FP32-pipe bound "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.4f}; scratch "
+              f"{ssd.tf32_scratch_bytes(B, L, N)} bytes; by kernel (profiler, "
+              f"ms a call) "
+              + ", ".join(f"{n[:60]} {t:.4f}" for n, t in parts.items()),
+              flush=True)
+        del xf, xb
+    if bad:
+        print(f"FAIL: {bad} checks outside tolerance")
+        sys.exit(1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="ssd,combine,flash,matmul",
@@ -490,7 +708,8 @@ def main():
     parts = set(ap.parse_args().only.split(","))
     for part, check in (("bwd", check_backward),
                         ("ssdbwd", check_ssd_backward),
-                        ("f32flash", check_f32flash)):
+                        ("f32flash", check_f32flash),
+                        ("f32mm", check_f32mm), ("f32ssd", check_f32ssd)):
         if part in parts:
             check()
             parts.discard(part)
@@ -602,11 +821,11 @@ def main():
             xf = [t.float() for t in xb]
             ms, fp32_ms = in_turns(
                 {"wgmma": lambda: ssd.ssd_cuda(*xb, chunk),
-                 "fp32": lambda: ssd.ssd_cuda(*xf, chunk)}, 10).values()
+                 "tf32x3": lambda: ssd.ssd_cuda(*xf, chunk)}, 10).values()
             flops = ssd_work_flops(B, L, H, 64, N, chunk)
             print(f"[time] ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk}: "
                   f"wgmma (bf16) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-                  f"of the work), fp32 route {fp32_ms:.4f} ms "
+                  f"of the work), fp32 route (tf32x3) {fp32_ms:.4f} ms "
                   f"({flops / fp32_ms / 1e9:.1f}): {fp32_ms / ms:.1f}x",
                   flush=True)
             del xb, xf

@@ -9,14 +9,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 src/repro_torch/kernels/csrc/ (flash attention forward and
                 backward, the SSD scan forward and the padded matmul, each
                 a bf16 tensor-core kernel and an fp32 one in split TF32 on
-                the tensor cores, "tf32x3"; the SSD backward, a bf16
-                tensor-core kernel and an fp32 one on the FP32 pipes; fused
+                the tensor cores, "tf32x3"; the SSD backward the same; fused
                 residual+RMSNorm and its backward, ring combine), one nvcc
                 per source, all started together; registers and spills from
                 ptxas, and the HGMMA / HMMA count of each library's SASS
-                (the bf16 and tf32x3 routes must have HGMMA, and the fp32
-                SSD backward and the fused-norm backward, which run on the
-                FP32 pipes, no tensor-core instruction, or the phase fails);
+                (the bf16 and tf32x3 routes must have HGMMA, and the
+                fused-norm backward, which runs on the FP32 pipes, no
+                tensor-core instruction, or the phase fails);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at its paths' shapes and, for the kernels with a bf16 and an
                 fp32 route, on both routes and at the edges of the
@@ -49,10 +48,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 beside its time without; the SSD backward on both routes
                 (the training shape in bf16 and fp32, N 64, ragged L at
                 chunk 256 and 128, a final-state cotangent, an initial
-                state) against its plain version (``ssd_bwd_tol``), each
-                timed at the training shape beside it, the bf16 route with
-                the profiler's split by kernel and two calls compared
-                bitwise;
+                state, H 12 and 20, which are not whole 8-head groups)
+                against its plain version (``ssd_bwd_tol``), each timed at
+                the training shape beside it, with the profiler's split by
+                kernel and two calls compared bitwise, the tf32x3 route's
+                [kernels] line with its three-pass design floor;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -79,14 +79,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 every step (llama: flash forward and backward 16, on the
                 wgmma routes and none on tf32x3, fused forward and backward
                 32; mamba2: SSD forward and backward 48 each on the wgmma
-                routes, none on tf32x3 / fp32, fused forward and backward
+                routes, none on tf32x3, fused forward and backward
                 48; no
                 plain version); the loss finite and
                 falling; a profiler breakdown of one step; one fp32 step of
                 the 2-layer cut, card against CPU (loss, grad_norm, three
-                gradients; the fp32 routes: flash and the SSD forward on
-                tf32x3, the SSD backward on fp32; mamba2 at S 512, two
-                chunks);
+                gradients; the fp32 routes: flash and the SSD forward and
+                backward on tf32x3; mamba2 at S 512, two chunks);
                 on llama's path also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
@@ -776,19 +775,32 @@ def ssd_bwd_work_flops(B, L, H, P, N, chunk) -> float:
     return B * flops
 
 
-def ssd_bwd_design_flops(B, L, H, P, N, chunk) -> float:
-    """Flops the bf16 tensor-core SSD backward (``ssd_scan_bwd_wgmma.cu``)
-    does at these shapes: per (b, h) and chunk of nt 64-row tiles, over the
-    nt (nt + 1) / 2 causal tile pairs G^T, M^T, G and M and the dx, dB and
-    dC products, those three doubled by their hi + lo operands; per tile
-    five doubled products of 2·64·P·N (the two chunk-state sums, B·dS^T,
-    x·dS, dy·S_prev).  C·Bᵀ is recomputed per head, in both kernels."""
+def ssd_bwd_design_flops(B, L, H, P, N, chunk, route="wgmma",
+                         share_g=True) -> float:
+    """Flops the tensor-core SSD backward does at these shapes.  bf16
+    (``ssd_scan_bwd_wgmma.cu``): per (b, h) and chunk of nt 64-row tiles,
+    over the nt (nt + 1) / 2 causal tile pairs G^T, M^T, G and M and the
+    dx, dB and dC products, those three doubled by their hi + lo operands;
+    per tile five doubled products of 2·64·P·N (the two chunk-state sums,
+    B·dS^T, x·dS, dy·S_prev); C·Bᵀ recomputed per head, in both kernels.
+    tf32x3 (``ssd_scan_bwd_tf32.cu``): every product three times (hi·lo,
+    lo·hi, hi·hi): per (b, h) and pair M^T, M, dx, dB and dC, per tile the
+    five state products, and G^T and G per pair once for each group of
+    ``BWD_HEAD_GROUP`` heads (``share_g``; per head otherwise)."""
+    from repro_torch.kernels.ssd_scan.ops import BWD_HEAD_GROUP
     flops = 0.0
     for c0 in range(0, L, chunk):
         nt = -(-min(chunk, L - c0) // 64)
-        flops += (nt * (nt + 1) / 2 * 2 * 64 * 64 * (6 * N + 4 * P)
-                  + nt * 10 * 2 * 64 * P * N)
-    return B * H * flops
+        pairs = nt * (nt + 1) / 2
+        if route == "wgmma":
+            flops += H * (pairs * 2 * 64 * 64 * (6 * N + 4 * P)
+                          + nt * 10 * 2 * 64 * P * N)
+            continue
+        g = -(-H // BWD_HEAD_GROUP) if share_g else H
+        flops += 3 * (H * (pairs * 2 * 64 * 64 * (3 * P + 2 * N)
+                           + nt * 5 * 2 * 64 * P * N)
+                      + g * pairs * 2 * 2 * 64 * 64 * N)
+    return B * flops
 
 
 # the SSD forward's cases: (B, L, N, initial state) at H 48, chunk 256:
@@ -914,7 +926,8 @@ def check_ssd(gen, device):
 
 # the SSD backward: (B, L, H, N, chunk), dtype, with a final-state
 # cotangent, with an initial state: the training shape on both instances,
-# N 64, ragged L at chunk 256 and 128
+# N 64, ragged L at chunk 256 and 128, H 12 and 20 (the last head group of
+# 8 cut short) on both routes
 SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((8, 512, 48, 128, 256), "float32", False, False),
                  ((2, 512, 16, 64, 256), "bfloat16", False, False),
@@ -922,7 +935,9 @@ SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((2, 200, 16, 128, 256), "bfloat16", True, False),
                  ((2, 200, 16, 128, 128), "float32", False, True),
                  ((2, 333, 16, 128, 128), "bfloat16", False, True),
-                 ((2, 333, 16, 64, 256), "float32", True, False)]
+                 ((2, 333, 16, 64, 256), "float32", True, False),
+                 ((2, 512, 12, 128, 256), "float32", True, False),
+                 ((2, 333, 20, 64, 128), "bfloat16", False, True)]
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
 
 
@@ -1005,10 +1020,11 @@ def check_ssd_bwd(gen, device):
     """The SSD backward (``SSD_BWD_CASES``, ``ssd_bwd_case``) on both
     routes, then each timed at the training shape behind a queued sleep
     beside its plain version, with its bound (no single PyTorch call
-    computes it); the bf16 route's [kernels] line, the profiler's split of
-    its five kernels, and two calls compared bitwise (the design has no
-    atomics).  Returns the bf16 (tensor-core) and fp32 summaries and the
-    cases."""
+    computes it), its [kernels] line, the profiler's split of its kernels,
+    and two calls compared bitwise (the design has no atomics); the tf32x3
+    route's bound at the TF32 peak beside its three passes' design floor,
+    the FP32-pipe bound and its scratch.  Returns the bf16 and the fp32
+    (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
@@ -1041,11 +1057,11 @@ def check_ssd_bwd(gen, device):
                                      ops.ssd_bwd_ref(*args)))
         ms = time_ms(lambda: ops.ssd_bwd_cuda(*args), 10, behind_sleep=True)
         plain_ms = time_ms(lambda: ops.ssd_bwd_ref(*args), 3, 1)
-        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+        peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
         bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(
             B, L, H, N, chunk, x.element_size(), peak)
         summaries[r] = summary = dict(
-            name="ssd_scan_bwd" if r == "wgmma" else "ssd_scan_bwd_fp32",
+            name="ssd_scan_bwd" if r == "wgmma" else "ssd_scan_bwd_tf32x3",
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
             replaces="src/repro/models/mamba2.py:22 (XLA autodiff of "
@@ -1053,44 +1069,55 @@ def check_ssd_bwd(gen, device):
             "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             library_call=None, shape=[B, L, H, 64, N], chunk=chunk,
-            dtype=dtype, flops=flops, bytes=nbytes)
+            dtype=dtype, flops=flops, bytes=nbytes,
+            design_flops=ssd_bwd_design_flops(B, L, H, 64, N, chunk, r))
+        if r == "tf32x3":
+            summary.update(
+                design_floor_ms=summary["design_flops"] / PEAK_TF32_FLOPS
+                * 1e3,
+                design_flops_g_per_head=ssd_bwd_design_flops(
+                    B, L, H, 64, N, chunk, r, share_g=False),
+                fp32_pipe_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                scratch_bytes=ops.tf32_bwd_scratch_bytes(B, L, H, N, chunk))
         log("kernels", f"ssd_scan backward [{r}] timed at B{B} L{L} H{H} P64 "
             f"N{N} chunk {chunk} {dtype}: {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s of the work; plain "
             f"{plain_ms:.4f}; no library call; bound {bound_ms:.4f} by "
-            f"{bound_by} at the {'bf16' if r == 'wgmma' else 'fp32'} peak: "
+            f"{bound_by} at the {'bf16' if r == 'wgmma' else 'TF32'} peak: "
             f"{flops:.3e} flops, {nbytes:.3e} bytes; {bound_ms / ms:.4f} "
-            f"of it)")
-        if r == "wgmma":
-            runs = [ops.ssd_bwd_cuda(*args) for _ in range(2)]
-            if not all(torch.equal(a, b) for a, b in zip(*runs)):
-                fail("ssd_scan backward [wgmma]: two calls on the same "
-                     "inputs differ")
-            del runs
-            prof = profile(lambda: [ops.ssd_bwd_cuda(*args)
-                                    for _ in range(5)])
-            summary["by_kernel_ms"] = {k["name"]: k["ms"] / 5
-                                       for k in prof["port"]}
-            summary["design_flops"] = ssd_bwd_design_flops(B, L, H, 64, N,
-                                                           chunk)
-            log("kernels", f"ssd_scan backward [wgmma]: two calls bitwise "
-                f"equal; {summary['design_flops']:.3e} flops of its design "
-                f"= {summary['design_flops'] / ms / 1e9:.1f} TFLOP/s; by "
-                f"kernel (profiler, ms a call): " + ", ".join(
-                    f"{n.split('::')[-1][:40]} {t:.4f}"
-                    for n, t in summary["by_kernel_ms"].items()))
+            f"of it" + (
+                f"; three-pass design floor {summary['design_floor_ms']:.4f}"
+                f" ms ({summary['design_flops']:.3e} flops, C·Bᵀ once a "
+                f"head group; "
+                f"{summary['design_flops_g_per_head']:.3e} were it per "
+                f"head); FP32-pipe bound "
+                f"{summary['fp32_pipe_bound_ms']:.4f} ms; scratch "
+                f"{summary['scratch_bytes']} bytes" if r == "tf32x3"
+                else "") + ")")
+        runs = [ops.ssd_bwd_cuda(*args) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"ssd_scan backward [{r}]: two calls on the same inputs "
+                 f"differ")
+        del runs
+        prof = profile(lambda: [ops.ssd_bwd_cuda(*args) for _ in range(5)])
+        summary["by_kernel_ms"] = {k["name"]: k["ms"] / 5
+                                   for k in prof["port"]}
+        log("kernels", f"ssd_scan backward [{r}]: two calls bitwise equal; "
+            f"{summary['design_flops']:.3e} flops of its design = "
+            f"{summary['design_flops'] / ms / 1e9:.1f} TFLOP/s; by kernel "
+            f"(profiler, ms a call): " + ", ".join(
+                f"{n.split('::')[-1][:40]} {t:.4f}"
+                for n, t in summary["by_kernel_ms"].items()))
         del x, dt, Bm, Cm, dy, args
         torch.cuda.empty_cache()
     tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
                             summaries["wgmma"]["flops"])
-    fp32 = summaries["fp32"]
-    fp32["ptxas"] = ptxas_usage(ops.BWD_KERNELS["fp32"].build_log)
-    tc["fp32_route_factor"] = fp32["ms"] / tc["ms"]
-    log("kernels", "ssd_scan backward [fp32] ptxas: " + ", ".join(
-        f"{u['registers']} registers, {u['spill_stores']}/"
-        f"{u['spill_loads']} bytes spilled" for u in fp32["ptxas"])
-        + f"; the wgmma route is {tc['fp32_route_factor']:.1f}x faster")
-    return tc, fp32, cases
+    tf = tensor_core_fields(summaries["tf32x3"], ops.BWD_KERNELS["tf32x3"],
+                            summaries["tf32x3"]["flops"], "tf32x3")
+    tc["fp32_route_factor"] = tf["ms"] / tc["ms"]
+    log("kernels", f"ssd_scan backward: the wgmma route is "
+        f"{tc['fp32_route_factor']:.1f}x faster than the tf32x3 route")
+    return tc, tf, cases
 
 
 # the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
@@ -1763,10 +1790,10 @@ PORT_KERNELS = ("flash_wgmma_kernel", "flash_tf32_kernel", "split_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
                 "reduce_kernel", "ssd_wgmma_kernel", "ssd_tf32_kernel",
-                "ssd_bwd_kernel", "ssd_bwd_reduce_kernel",
                 "ssd_bwd_state_kernel", "ssd_bwd_dxdb_kernel",
-                "ssd_bwd_dc_kernel", "ssd_bwd_finish_kernel",
-                "ssd_bwd_sum_kernel",
+                "ssd_bwd_dc_kernel", "ssd_bwd_tf32_state_kernel",
+                "ssd_bwd_tf32_dxdb_kernel", "ssd_bwd_tf32_dc_kernel",
+                "ssd_bwd_finish_kernel", "ssd_bwd_sum_kernel",
                 "matmul_wgmma_kernel", "matmul_tf32_kernel",
                 "split_transposed_kernel", "split_rows_kernel",
                 "ring_combine_kernel")
@@ -1802,8 +1829,9 @@ def profile(fn, top: int = 10) -> dict:
                 idle_share=(1 - busy / wall) if busy > 0 else "not measured",
                 top=kernels[:top],
                 port=[k for k in kernels if "at::native" not in k["name"]
-                      and any(f"(anonymous namespace)::{n}" in k["name"]
-                              for n in PORT_KERNELS)])
+                      and any(f"{ns}::{n}" in k["name"] for n in PORT_KERNELS
+                              for ns in ("(anonymous namespace)",
+                                         "flare::tf32x3"))])
 
 
 def agreement(arch: str, seed: int, S: int):
@@ -1897,7 +1925,8 @@ def train_kernels(arch: str) -> dict:
         kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
                    "ssd_scan[tf32x3]": (ssd.KERNELS["tf32x3"], 1, f32),
                    "ssd_scan_bwd[wgmma]": (ssd.BWD_KERNELS["wgmma"], 1, bf),
-                   "ssd_scan_bwd[fp32]": (ssd.BWD_KERNELS["fp32"], 1, f32)}
+                   "ssd_scan_bwd[tf32x3]": (ssd.BWD_KERNELS["tf32x3"], 1,
+                                            f32)}
         norms = 1
     else:
         raise KeyError(arch)
@@ -2337,10 +2366,10 @@ def main():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
-    # the tensor-core routes (the flash and SSD backwards' too, and flash's
-    # split-TF32 fp32 routes) hold wgmma (HGMMA) in their SASS; the fp32
-    # routes and the fused-norm backward no tensor-core instruction at all:
-    # they run on the FP32 pipes
+    # the tensor-core routes (the flash and SSD backwards' too, and the
+    # split-TF32 fp32 routes) hold wgmma (HGMMA) in their SASS; a route
+    # named fp32 (none now) and the fused-norm backward no tensor-core
+    # instruction at all: they run on the FP32 pipes
     for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS,
                    ssd.BWD_KERNELS):
         for route, k in routes.items():
@@ -2435,7 +2464,7 @@ def main():
         summary["launches_by_path"] = per
     for summary, arch, label in (
             (flash_bwd_fp32, "llama3.2-1b", "flash_attention_bwd[tf32x3]"),
-            (ssd_bwd_fp32, "mamba2-780m", "ssd_scan_bwd[fp32]")):
+            (ssd_bwd_fp32, "mamba2-780m", "ssd_scan_bwd[tf32x3]")):
         n = train_agree[arch]["launches"][label]
         summary["launches"] = n
         summary["launches_by_path"] = {

@@ -17,9 +17,10 @@ version and the FLARE registration):
                     (prefill and training), both routes on the tensor
                     cores: bf16 (``ssd_scan_wgmma.cu``) and fp32 as split
                     TF32 (``ssd_scan_tf32.cu``, Bm and Cm split by the
-                    flash pre-pass); its backward bf16 on the tensor cores
-                    (``ssd_scan_bwd_wgmma.cu``), fp32 on the FP32 pipes
-                    (``ssd_scan_bwd.cu``)
+                    flash pre-pass); its backward, both routes on the
+                    tensor cores: bf16 (``ssd_scan_bwd_wgmma.cu``) and fp32
+                    as split TF32 (``ssd_scan_bwd_tf32.cu``), sharing
+                    ``ssd_bwd_common.cuh``
   padded_matmul   — the Case-2 matmul, both routes on the tensor cores:
                     bf16 (``padded_matmul_wgmma.cu``) and fp32 as split
                     TF32 (``padded_matmul_tf32.cu``, with its own b^T

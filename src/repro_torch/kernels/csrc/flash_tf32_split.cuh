@@ -1,6 +1,6 @@
-// The pre-pass of the split-TF32 flash-attention kernels
-// (flash_attention_tf32.cu, flash_attention_bwd_tf32.cu): fp32 operands
-// split once into tf32 hi and lo terms, in the layouts their wgmma
+// The pre-pass of the split-TF32 kernels (flash_attention_tf32.cu,
+// flash_attention_bwd_tf32.cu, ssd_scan_tf32.cu, ssd_scan_bwd_tf32.cu): fp32
+// operands split once into tf32 hi and lo terms, in the layouts their wgmma
 // products read by TMA.
 //
 // A tf32 wgmma operand must be K-major in shared memory, so a product that
@@ -171,17 +171,18 @@ inline int map_rows(CUtensorMap* map, const void* p, int B, int S, int heads,
 }
 
 // the transposed split [B,heads,hd,2*S16] as a 4-D tensor map (2*S16, hd,
-// heads, B) with a box of (32, hd, 1, 1): one 16-row block, hi and lo, of
-// every dim
+// heads, B) with a box of (32, rows, 1, 1): one 16-row block, hi and lo, of
+// `rows` dims (rows 0: every dim)
 inline int map_transposed(CUtensorMap* map, const void* p, int B, int S,
-                          int heads, int hd) {
+                          int heads, int hd, int rows = 0) {
   const cuuint64_t len = 2 * static_cast<cuuint64_t>(s16(S));
   const cuuint64_t dims[4] = {len, static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t row = len * 4;
   const cuuint64_t strides[3] = {row, row * hd, row * hd * heads};
-  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(hd), 1, 1};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows ? rows : hd),
+                             1, 1};
   return hopper::make_map_f32(map, p, 4, dims, strides, box);
 }
 

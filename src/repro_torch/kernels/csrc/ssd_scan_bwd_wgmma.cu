@@ -5,12 +5,12 @@
 // (src/repro/models/mamba2.py::ssd_chunked) by XLA autodiff, so its
 // backward has no Pallas kernel; the forward's TPU kernel is
 // src/repro/kernels/ssd_scan/kernel.py (ssd_scan_fwd).  The plain version is
-// kernels/ssd_scan/ops.py::ssd_bwd_ref.  (fp32 inputs take ssd_scan_bwd.cu,
-// on the FP32 pipes.)  For one (batch b, head h), chunks of Q rows,
-// cum_t = sum_{r <= t} dt_r A (fp64), L_ts = exp(cum_t - cum_s) for s <= t,
-// G_ts = C_t . B_s, M_ts = dy_t . x_s, w_s = exp(cum_last - cum_s) dt_s,
-// S_prev the chunk-start state [P,N], dS the cotangent of the chunk-end
-// state:
+// kernels/ssd_scan/ops.py::ssd_bwd_ref.  (fp32 inputs take
+// ssd_scan_bwd_tf32.cu, split TF32.)  For one (batch b, head h), chunks of
+// Q rows, cum_t = sum_{r <= t} dt_r A (fp64), L_ts = exp(cum_t - cum_s)
+// for s <= t, G_ts = C_t . B_s, M_ts = dy_t . x_s, w_s = exp(cum_last -
+// cum_s) dt_s, S_prev the chunk-start state [P,N], dS the cotangent of the
+// chunk-end state:
 //   dx_s  = sum_{t>=s} G_ts L_ts dt_s dy_t + w_s (B_s . dS^T)
 //   dB_s  = sum_h [sum_{t>=s} M_ts L_ts dt_s C_t + w_s (x_s . dS)]
 //   dC_t  = sum_h [sum_{s<=t} M_ts L_ts dt_s B_s + exp(cum_t) (dy_t . S_prev)]
@@ -71,11 +71,11 @@
 //      and dC_t += (M L dt) . B_s with the split fragments.  dC_t stays in
 //      registers across the group's heads.
 //   4. ssd_bwd_finish_kernel, a block per (b, h), one row a thread: dcum,
-//      its reverse scan in fp64, ddt and the (b, h) share of dA, as
-//      ssd_scan_bwd.cu does.
+//      its reverse scan in fp64, ddt and the (b, h) share of dA;
 //   5. ssd_bwd_sum_kernel: dBm and dCm as the sums of the groups'
 //      partials in group order, dA over the batch in order.  (4 and 5 stay
-//      apart: dA's sum over the batch needs every (b, h) finished.)
+//      apart: dA's sum over the batch needs every (b, h) finished.)  Both
+//      are in ssd_bwd_common.cuh, shared with the fp32 route.
 // Scratch at the training shape: the dB and dC partials [B, ceil(H/8), L,
 // N] fp32 are 12.6 MB each, 25.2 MB together (per-head partials would be
 // 201.3 MB); S_prev and dS in bf16 pairs 25.2 MB each; cum and the row
@@ -87,21 +87,17 @@
 // P = 64 and N in {64, 128} are instances; chunk is a multiple of 64 up to
 // 256.  The wrapper refuses others.
 
-#include <algorithm>
-
 #include "common.cuh"
 #include "hopper.cuh"
+#include "ssd_bwd_common.cuh"
 
 namespace {
 
 using namespace flare::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;   // one warpgroup
-constexpr int kTile = 64;       // rows of an s or t tile (wgmma's M)
-constexpr int kP = 64;          // head_dim
-constexpr int kMaxChunk = 256;
-constexpr int kFinishThreads = kMaxChunk;  // one row a thread
+constexpr int kThreads = kScanThreads;  // one warpgroup
+constexpr int kP = 64;                  // head_dim
 constexpr uint32_t kBlockBytes = 64 * 64 * 2;  // one swizzled [64][64] block
 
 // ------------------------------------------------------------- helpers --
@@ -147,12 +143,6 @@ __device__ __forceinline__ void split_a(uint32_t (&hi)[4][4],
     for (int q = 0; q < 4; ++q)
       split2(d[8 * kk + 2 * q], d[8 * kk + 2 * q + 1], hi[kk][q], lo[kk][q]);
   }
-}
-
-// sum over the four lanes that hold one accumulator row
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // D[64,N] (+)= A[64,16] (shared, K-major) . B[16,N] (shared, MN-major)
@@ -209,38 +199,6 @@ __device__ __forceinline__ void issue_rs(float (&d)[N2],
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     rs_mn(d, a[kk], desc_sw128(b + kk * 16 * 64, kBlockBytes, 1024));
-}
-
-// dt of the chunk's rows [0, lc) (zeros past lc, up to kMaxChunk) into dts
-// and the inclusive scan of dt*A, summed in fp64, into cum; two rows a
-// thread of 128.  Starts and ends synchronised.
-__device__ __forceinline__ void chunk_scan(const float* dtb, int H, int lc,
-                                           float a, double* cum, float* dts,
-                                           double* wsum) {
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int i0 = 2 * tid;
-  const float d0 = i0 < lc ? dtb[static_cast<size_t>(i0) * H] : 0.f;
-  const float d1 = i0 + 1 < lc ? dtb[static_cast<size_t>(i0 + 1) * H] : 0.f;
-  const double v0 = static_cast<double>(d0 * a);
-  const double v1 = static_cast<double>(d1 * a);
-  double incl = v0 + v1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double u = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += u;
-  }
-  __syncthreads();
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  double base = incl - (v0 + v1);
-  for (int j = 0; j < warp; ++j) base += wsum[j];
-  cum[i0] = base + v0;
-  cum[i0 + 1] = base + v0 + v1;
-  dts[i0] = d0;
-  dts[i0 + 1] = d1;
-  __syncthreads();
 }
 
 // --------------------------------------------------------------- state --
@@ -492,24 +450,6 @@ struct DxdbSmem {
   uint64_t bs_full, ds_full, xs_full;
   uint64_t full[2];
 };
-
-// a block's (b, s or t tile j of chunk c, head group g), from the grid
-// index, the tile the slowest axis so that tile 0 (dxdb) or the last tile
-// (dc), which walk the most tile pairs, go first
-struct Item {
-  int g, b, c, j;
-};
-__device__ __forceinline__ Item block_item(int B, int nc, int ng) {
-  Item it;
-  int idx = blockIdx.x;
-  it.g = idx % ng;
-  idx /= ng;
-  it.b = idx % B;
-  idx /= B;
-  it.c = idx % nc;
-  it.j = idx / nc;
-  return it;
-}
 
 template <int N>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -965,135 +905,6 @@ ssd_bwd_dc_kernel(__grid_constant__ const CUtensorMap map_x,
   }
 }
 
-// -------------------------------------------------------------- finish --
-
-// A whole-block sum (fixed order: lanes by shuffle, then the warps in
-// order); every thread gets it.  The caller syncs before reusing `slot`.
-__device__ __forceinline__ double block_sum(double v, double* slot) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double t = 0.0;
-#pragma unroll
-  for (int w = 0; w < kFinishThreads / 32; ++w) t += slot[w];
-  return t;
-}
-
-// dcum = row + E - dt (ddt_intra + ddt_state), with exp(cum_last) <dS,
-// S_prev> + sum_s dt_s ddt_state_s at the chunk's last row; da its reverse
-// cumsum (fp64); ddt = ddt_intra + ddt_state + A da; the (b, h) share of
-// dA = sum dt da.  A block per (b, h), one row a thread.
-__global__ void __launch_bounds__(kFinishThreads)
-ssd_bwd_finish_kernel(const float* __restrict__ dt, const float* __restrict__ A,
-                      const double* __restrict__ cum,
-                      const float* __restrict__ dss,
-                      const float* __restrict__ rowe,
-                      const float* __restrict__ ddi,
-                      const float* __restrict__ dds, float* __restrict__ ddt,
-                      float* __restrict__ da_part, int L, int H, int chunk) {
-  __shared__ float rowd[kMaxChunk];
-  __shared__ double wsum[kFinishThreads / 32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const float a = A[h];
-  const int nc = (L + chunk - 1) / chunk;
-  const int Lp = nc * chunk;
-  const size_t bh = static_cast<size_t>(b) * H + h;
-  double dA_acc = 0.0;
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * chunk;
-    const int lc = min(chunk, L - t0);
-    const int nt = (lc + kTile - 1) / kTile;
-    const size_t base = bh * Lp + t0;
-    float d = 0.f, ri = 0.f, rs = 0.f, re = 0.f;
-    if (tid < lc) {
-      d = dt[(static_cast<size_t>(b) * L + t0 + tid) * H + h];
-      ri = ddi[base + tid];
-      rs = dds[base + tid];
-      re = rowe[base + tid];
-    }
-    const double sumF = block_sum(static_cast<double>(d * rs), wsum);
-    const double cl = cum[base + nt * kTile - 1];
-    float v = 0.f;
-    if (tid < lc) {
-      v = re - d * (ri + rs);
-      if (tid == lc - 1)
-        v += expf(static_cast<float>(cl)) * dss[bh * nc + c] +
-             static_cast<float>(sumF);
-    }
-    rowd[tid] = v;
-    __syncthreads();
-    // reverse inclusive scan: thread tid holds row r = 255 - tid
-    const int r = kMaxChunk - 1 - tid;
-    double s = static_cast<double>(rowd[r]);
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double u = __shfl_up_sync(0xffffffffu, s, off);
-      if (lane >= off) s += u;
-    }
-    __syncthreads();  // block_sum's reads of wsum are done
-    if (lane == 31) wsum[warp] = s;
-    __syncthreads();
-    if (warp == 0) {
-      double t = lane < kFinishThreads / 32 ? wsum[lane] : 0.0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double u = __shfl_up_sync(0xffffffffu, t, off);
-        if (lane >= off) t += u;
-      }
-      if (lane < kFinishThreads / 32) wsum[lane] = t;
-    }
-    __syncthreads();
-    if (warp > 0) s += wsum[warp - 1];   // da of row r
-    double adt = 0.0;
-    if (r < lc) {
-      const float dr = dt[(static_cast<size_t>(b) * L + t0 + r) * H + h];
-      ddt[(static_cast<size_t>(b) * L + t0 + r) * H + h] =
-          ddi[base + r] + dds[base + r] +
-          static_cast<float>(static_cast<double>(a) * s);
-      adt = static_cast<double>(dr) * s;
-    }
-    __syncthreads();  // the scan's reads of wsum and rowd are done
-    dA_acc += block_sum(adt, wsum);
-    __syncthreads();
-  }
-  if (tid == 0) da_part[bh] = static_cast<float>(dA_acc);
-}
-
-// dBm[b,l,n] = sum_g db_part[b,g,l,n] (the same for dC), groups in order;
-// dA[h] = sum_b da_part[b,h], batch rows in order
-__global__ void __launch_bounds__(256)
-ssd_bwd_sum_kernel(const float* __restrict__ db_part,
-                      const float* __restrict__ dc_part,
-                      const float* __restrict__ da_part, bf16* __restrict__ dBm,
-                      bf16* __restrict__ dCm, float* __restrict__ dA, int B,
-                      int L, int H, int N, int ng) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
-  const size_t per_b = static_cast<size_t>(L) * N;
-  if (i < static_cast<size_t>(B) * per_b) {
-    const size_t b = i / per_b;
-    const size_t rem = i % per_b;
-    const float* pb = db_part + b * ng * per_b + rem;
-    const float* pc = dc_part + b * ng * per_b + rem;
-    float sb = 0.f, sc = 0.f;
-    for (int g = 0; g < ng; ++g) {
-      sb += pb[g * per_b];
-      sc += pc[g * per_b];
-    }
-    dBm[i] = __float2bfloat16_rn(sb);
-    dCm[i] = __float2bfloat16_rn(sc);
-  }
-  if (i < static_cast<size_t>(H)) {
-    float s = 0.f;
-    for (int b = 0; b < B; ++b) s += da_part[static_cast<size_t>(b) * H + i];
-    dA[i] = s;
-  }
-}
-
 // ---------------------------------------------------------------- host --
 
 // Bm / Cm [B,L,N] bf16 as a 3-D tensor map (N, L, B), box (64, 64, 1)
@@ -1172,21 +983,14 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
       group);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
-  ssd_bwd_finish_kernel<<<B * H, kFinishThreads, 0, stream>>>(
+  return launch_finish_and_sum(
       dtf, static_cast<const float*>(A), cumd, static_cast<const float*>(dss),
       static_cast<const float*>(rowe), static_cast<const float*>(ddi),
       static_cast<const float*>(dds), static_cast<float*>(ddt),
-      static_cast<float*>(da_part), L, H, chunk);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-
-  const size_t n = std::max(static_cast<size_t>(B) * L * N,
-                            static_cast<size_t>(H));
-  ssd_bwd_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                          stream>>>(
-      static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
-      static_cast<const float*>(da_part), static_cast<bf16*>(dBm),
-      static_cast<bf16*>(dCm), static_cast<float*>(dA), B, L, H, N, ng);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(da_part), static_cast<const float*>(db_part),
+      static_cast<const float*>(dc_part), static_cast<bf16*>(dBm),
+      static_cast<bf16*>(dCm), static_cast<float*>(dA), B, L, H, N, chunk, ng,
+      stream);
 }
 
 }  // namespace
@@ -1197,7 +1001,7 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
 // ceil(H / group)): cum [B,H,Lp] float64; sp16, ds16 [B,H,nc,2,P,N] bf16;
 // dss [B,H,nc], rowe, ddi, dds [B,H,Lp], db_part, dc_part [B,ng,L,N],
 // da_part [B,H], float32.  Every tensor contiguous and 16-byte aligned.
-// Launches the state, dx/dB, dC, finish and reduce kernels in that order on
+// Launches the state, dx/dB, dC, finish and sum kernels in that order on
 // `stream`.  Returns 0 or the first cudaError_t (a launch's, or the tensor
 // maps').
 extern "C" int ssd_scan_bwd_wgmma_launch(

@@ -29,13 +29,21 @@ The backward is port-only: the JAX package differentiates ``ssd_chunked``
 (``src/repro/models/mamba2.py:22``) by XLA autodiff, so it has no Pallas
 kernel and no traced-op name, and its time falls in the training step's
 span.  Two hand-written kernels, one route per dtype (``BWD_ROUTES``),
-each with its own launch count (``BWD_KERNELS``):
-  * bf16 -> ``csrc/ssd_scan_bwd_wgmma.cu``: every product on the tensor
-    cores by wgmma, the operands that are fp32 results (scores, w∘x,
-    exp(cum)∘dy, the chunk states and their cotangents) as bf16 hi + lo
-    pairs; dB and dC summed over groups of ``BWD_HEAD_GROUP`` heads in
-    registers, then over the groups;
-  * fp32 -> ``csrc/ssd_scan_bwd.cu``: on the FP32 pipes.
+each with its own launch count (``BWD_KERNELS``), both with every product
+on the tensor cores by wgmma and dB and dC summed over groups of
+``BWD_HEAD_GROUP`` heads in registers, then over the groups (no atomics);
+they share the finish and sum kernels (``csrc/ssd_bwd_common.cuh``):
+  * bf16 -> ``"wgmma"``, ``csrc/ssd_scan_bwd_wgmma.cu``: the operands that
+    are fp32 results (scores, w∘x, exp(cum)∘dy, the chunk states and their
+    cotangents) as bf16 hi + lo pairs;
+  * fp32 -> ``"tf32x3"``, ``csrc/ssd_scan_bwd_tf32.cu``: split TF32, each
+    product as X_hi·Y_hi + X_hi·Y_lo + X_lo·Y_hi of tf32 terms; a pre-pass
+    splits Bm and Cm into direct pairs and dy, Bm and Cm into transposes
+    (each 8 rows 0,2,4,6,1,3,5,7, so that an accumulator is the A fragment
+    as it lies); the blocks split xᵀ and the direct x and dy tiles; the
+    state kernel writes S_prevᵀ, dS and dSᵀ split; the blocks of a head
+    group compute C·Bᵀ once for the group; scratch from the wrapper
+    (``tf32_bwd_scratch``).
 ``ssd_bwd_ref`` is their plain version, the same chunked passes in
 PyTorch.  ``ssd_scan`` is a ``torch.autograd.Function`` (``SSDScan``) when
 a gradient is wanted; training starts from a zero state, so an initial
@@ -66,13 +74,13 @@ BWD_KERNELS = {
     "wgmma": CudaKernel("ssd_scan_bwd_wgmma.cu", "ssd_scan_bwd_wgmma_launch",
                         [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p]),
-    "fp32": CudaKernel("ssd_scan_bwd.cu", "ssd_scan_bwd_f32_launch",
-                       [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p]),
+    "tf32x3": CudaKernel("ssd_scan_bwd_tf32.cu", "ssd_scan_bwd_tf32_launch",
+                         [ctypes.c_void_p] * 29 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p]),
 }
-BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fp32"}
-# heads whose dB and dC one block of the wgmma backward sums in registers:
-# the partials are [B, ceil(H / 8), L, N] fp32
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+# heads whose dB and dC one block of either backward route sums in
+# registers: the partials are [B, ceil(H / 8), L, N] fp32
 BWD_HEAD_GROUP = 8
 
 
@@ -93,6 +101,35 @@ def tf32_scratch(B: int, L: int, N: int) -> dict:
 def tf32_scratch_bytes(B: int, L: int, N: int) -> int:
     """Bytes of ``tf32_scratch`` (fp32)."""
     return sum(4 * math.prod(s) for s in tf32_scratch(B, L, N).values())
+
+
+def tf32_bwd_scratch(B: int, L: int, H: int, N: int, chunk: int) -> dict:
+    """The shapes of the tf32x3 backward's scratch, by name, in the order
+    its C launch function takes them (``cum`` float64, the rest fp32):
+    the pre-pass's splits of dy, transposed [B,H,P,2·L16] (L16 = L rounded
+    up to 16), and of Bm and Cm, direct pairs [2,B,L,N] and transposed
+    [B,N,2·L16]; the state kernel's cum, its S_prevᵀ, dS and dSᵀ as split
+    64 x 64 items [B,H,nc,N/64,2,64,64] and ⟨dS, S_prev⟩; ddt's row terms;
+    the head groups' dB and dC partials; the (b, h) shares of dA."""
+    P = HEAD_DIMS[0]
+    nc = -(-L // chunk)
+    Lp, L16 = nc * chunk, -(-L // 16) * 16
+    ng = -(-H // BWD_HEAD_GROUP)
+    items = (B, H, nc, N // TILE, 2, TILE, TILE)
+    return {"dyt": (B, H, P, 2 * L16),
+            "bm_pair": (2, B, L, N), "cm_pair": (2, B, L, N),
+            "bmt": (B, N, 2 * L16), "cmt": (B, N, 2 * L16),
+            "cum": (B, H, Lp), "spt": items, "ds": items, "dst": items,
+            "dss": (B, H, nc), "rowe": (B, H, Lp), "ddi": (B, H, Lp),
+            "dds": (B, H, Lp), "db_part": (B, ng, L, N),
+            "dc_part": (B, ng, L, N), "da_part": (B, H)}
+
+
+def tf32_bwd_scratch_bytes(B: int, L: int, H: int, N: int,
+                           chunk: int) -> int:
+    """Bytes of ``tf32_bwd_scratch`` (``cum`` 8 a value, the rest 4)."""
+    return sum((8 if name == "cum" else 4) * math.prod(s) for name, s in
+               tf32_bwd_scratch(B, L, H, N, chunk).items())
 
 
 def _meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
@@ -375,18 +412,18 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA, dBm, dCm = torch.empty_like(A), torch.empty_like(Bm), \
         torch.empty_like(Cm)
-    dA_part = torch.empty((B, H), **f32)              # per-(b, h) partials
     init = None if initial_state is None else ptr(initial_state)
     dfinal = None if d_final_state is None else ptr(d_final_state)
     args = (ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), init, ptr(dy), dfinal,
             ptr(dx), ptr(ddt), ptr(dA), ptr(dBm), ptr(dCm))
-    if r == "fp32":
-        states = torch.empty((B, H, nc, P, N), **f32)  # pass 1's S_prev
-        dB_part = torch.empty((B, H, L, N), **f32)     # per-head partials
-        dC_part = torch.empty((B, H, L, N), **f32)
-        BWD_KERNELS[r].launch(*args, ptr(states), ptr(dB_part), ptr(dC_part),
-                              ptr(dA_part), B, L, H, P, N, chunk,
-                              stream_ptr(x.device))
+    if r == "tf32x3":
+        # the scratch stays referenced until the launch is queued
+        scratch = [torch.empty(shape, dtype=torch.float64 if name == "cum"
+                               else torch.float32, device=x.device)
+                   for name, shape in tf32_bwd_scratch(B, L, H, N,
+                                                       chunk).items()]
+        BWD_KERNELS[r].launch(*args, *(ptr(t) for t in scratch), B, L, H, P,
+                              N, chunk, BWD_HEAD_GROUP, stream_ptr(x.device))
         return dx, ddt, dA, dBm, dCm
     Lp = nc * chunk
     ng = -(-H // BWD_HEAD_GROUP)
@@ -400,6 +437,7 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
     rowe, ddi, dds = torch.empty((3, B, H, Lp), **f32)  # ddt's row terms
     dB_part = torch.empty((B, ng, L, N), **f32)       # per-group partials
     dC_part = torch.empty((B, ng, L, N), **f32)
+    dA_part = torch.empty((B, H), **f32)              # per-(b, h) partials
     BWD_KERNELS[r].launch(*args, ptr(cum), ptr(sp16), ptr(ds16), ptr(dss),
                           ptr(rowe), ptr(ddi), ptr(dds), ptr(dB_part),
                           ptr(dC_part), ptr(dA_part), B, L, H, P, N, chunk,

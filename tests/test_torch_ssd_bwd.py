@@ -1,9 +1,10 @@
 """The port's SSD-scan backward against the JAX package, on the CPU.
 
 The JAX package differentiates its chunked scan by autodiff; the port's
-backward is a kernel (``csrc/ssd_scan_bwd.cu``, run only on the card by
-``chip_smoke.py``) whose plain version ``ssd_bwd_ref`` spells out the same
-chunked passes in PyTorch.  Here, on the same inputs made from a seed with
+backward is a kernel per dtype (``csrc/ssd_scan_bwd_wgmma.cu`` and
+``csrc/ssd_scan_bwd_tf32.cu``, run only on the card by ``chip_smoke.py``;
+the fp32 route's arithmetic is ``test_torch_ssd_bwd_tf32``'s) whose plain
+version ``ssd_bwd_ref`` spells out the same chunked passes in PyTorch.  Here, on the same inputs made from a seed with
 numpy (dt drawn as the model draws it: softplus of a normal draw plus the
 init's dt_bias, A = -linspace(1, 16, H), as ``chip_smoke.py::ssd_inputs``),
 with and without a cotangent on the final state:
@@ -411,14 +412,14 @@ def test_wgmma_emulation_passes_the_card_check_where_plain_bf16_fails(seed):
 
 # ----------------------------------------------------------- routes, refusals
 @pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "fp32")])
+                                         (torch.float32, "tf32x3")])
 def test_backward_route_by_dtype(dtype, want):
     assert BWD_ROUTES[dtype] == want
-    assert set(BWD_KERNELS) == {"wgmma", "fp32"}
+    assert set(BWD_KERNELS) == {"wgmma", "tf32x3"}
     assert {r: k.source for r, k in BWD_KERNELS.items()} == {
-        "wgmma": "ssd_scan_bwd_wgmma.cu", "fp32": "ssd_scan_bwd.cu"}
+        "wgmma": "ssd_scan_bwd_wgmma.cu", "tf32x3": "ssd_scan_bwd_tf32.cu"}
     assert BWD_KERNELS[want] is not BWD_KERNELS[
-        "fp32" if want == "wgmma" else "wgmma"]
+        "tf32x3" if want == "wgmma" else "wgmma"]
 
 
 def _operands(dtype=torch.bfloat16, B=1, L=8, H=2, P=64, N=128):

@@ -937,6 +937,8 @@ SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((2, 333, 16, 128, 128), "bfloat16", False, True),
                  ((2, 333, 16, 64, 256), "float32", True, False),
                  ((2, 512, 12, 128, 256), "float32", True, False),
+                 ((2, 512, 12, 128, 256), "bfloat16", True, False),
+                 ((2, 333, 20, 64, 128), "float32", True, True),
                  ((2, 333, 20, 64, 128), "bfloat16", False, True)]
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
 
@@ -2367,9 +2369,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.source}: {line.strip()}")
     # the tensor-core routes (the flash and SSD backwards' too, and the
-    # split-TF32 fp32 routes) hold wgmma (HGMMA) in their SASS; a route
-    # named fp32 (none now) and the fused-norm backward no tensor-core
-    # instruction at all: they run on the FP32 pipes
+    # split-TF32 fp32 routes) hold wgmma (HGMMA) in their SASS
     for routes in (fa.KERNELS, ssd.KERNELS, mm.KERNELS, fa.BWD_KERNELS,
                    ssd.BWD_KERNELS):
         for route, k in routes.items():
@@ -2378,8 +2378,6 @@ def main():
                 f"{n['HMMA']} HMMA in the SASS")
             if route in ("wgmma", "tf32x3") and not n["HGMMA"]:
                 fail(f"{k.source} [{route}]: no HGMMA in its SASS")
-            if route == "fp32" and (n["HGMMA"] or n["HMMA"]):
-                fail(f"{k.source} [{route}]: {n} tensor-core instructions")
     # the fused-norm backward (memory-bound) runs on the FP32 pipes: no
     # tensor-core instruction
     n = sass_mma(fn.BWD_KERNEL)

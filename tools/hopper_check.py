@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's redesigned kernels at more shapes than the smoke run.
 
-    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd,f32flash,f32mm,f32ssd,f32ssdbwd] [--parent DIR]
+    python3 tools/hopper_check.py [--only ssd,combine,flash,matmul,bwd,ssdbwd,f32flash,f32mm,f32ssd,f32ssdbwd]
 
 On one CUDA card: builds the tensor-core kernels (flash attention, the
 padded matmul, the SSD scan on both routes) and the ring combine; prints their ptxas lines and the HGMMA / HMMA counts of their
@@ -60,10 +60,7 @@ kernel, yardstick, yardstick, kernel, best of two each):
     N 64 at the training shape), against ``ssd_bwd_ref``; then the
     training shape and N 64 timed, two calls compared bitwise, with the
     profiler's split (pre-pass, state, dx/dB, dC, finish, sums), the bound
-    at the TF32 peak, the design floor and the scratch; with ``--parent``
-    (a checkout of the commit before the split-TF32 backward) also in
-    turns with that checkout's FP32-pipe kernel, and the bf16 route's
-    outputs against that checkout's, bitwise.
+    at the TF32 peak, the design floor and the scratch.
 Exits non-zero on a mismatch or without a card.  A short first call for a
 changed kernel: it builds in seconds and runs in about a minute.
 """
@@ -718,59 +715,15 @@ F32SSDBWD_CHECK = SSD_BWD_CHECK + [(2, 512, 12, 128, 256, False, False),
                                    (8, 512, 48, 64, 256, False, False)]
 
 
-class ParentKernel:
-    """A kernel source of another checkout (``--parent``), built by nvcc
-    with this tree's flags and loaded as a ``CudaKernel`` of it."""
-
-    def __init__(self, csrc: Path, source: str, symbol: str, argtypes):
-        from repro_torch.kernels import NVCC_FLAGS, CudaKernel, find_nvcc
-        out = csrc.parent / "build" / f"parent_{Path(source).stem}.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(csrc),
-                               "-o", str(out), str(csrc / source)],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode:
-            print(f"FAIL: nvcc on the parent's {source}:\n{proc.stdout}"
-                  f"{proc.stderr}")
-            sys.exit(1)
-        self.kernel = CudaKernel(source, symbol, argtypes)
-        self.kernel.build_log = proc.stdout + proc.stderr
-        self.kernel._load(out)
-
-
-def fp32_pipe_backward(kernel, x, dt, A, Bm, Cm, dy, chunk):
-    """The parent's FP32-pipe SSD backward (``ssd_scan_bwd.cu``), with the
-    scratch its wrapper allocated: (dx, ddt, dA, dBm, dCm)."""
-    import torch
-    from repro_torch.kernels import ptr, stream_ptr
-    B, L, H, P = x.shape
-    N = Bm.shape[-1]
-    nc = -(-L // chunk)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    out = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
-           torch.empty_like(Bm), torch.empty_like(Cm))
-    scratch = (torch.empty((B, H, nc, P, N), **f32),
-               torch.empty((B, H, L, N), **f32),
-               torch.empty((B, H, L, N), **f32), torch.empty((B, H), **f32))
-    kernel.launch(*(ptr(t) for t in (x, dt, A, Bm, Cm)), None, ptr(dy), None,
-                  *(ptr(t) for t in out), *(ptr(t) for t in scratch), B, L,
-                  H, P, N, chunk, stream_ptr(x.device))
-    return out
-
-
-def check_f32ssdbwd(parent: Path | None):
+def check_f32ssdbwd():
     """The split-TF32 fp32 SSD backward: checks, two calls bitwise, then
-    the training shape and N 64 timed with the profiler's split; with
-    ``--parent``, in turns with the parent's FP32-pipe kernel, and the bf16
-    route's outputs against the parent's bitwise."""
-    import ctypes
-
+    the training shape and N 64 timed with the profiler's split."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, in_turns,
-                            ssd_bwd_bound, ssd_bwd_case, ssd_bwd_design_flops,
-                            ssd_inputs)
+    from chip_smoke import (PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, ssd_bwd_bound,
+                            ssd_bwd_case, ssd_bwd_design_flops, ssd_inputs,
+                            time_ms)
     from repro_torch.kernels.ssd_scan import ops as ssd
     by_kernel = _f32_setup([ssd.BWD_KERNELS["tf32x3"],
                             ssd.BWD_KERNELS["wgmma"]])
@@ -788,65 +741,25 @@ def check_f32ssdbwd(parent: Path | None):
         print(f"[check] ssd bwd [tf32x3] B{B} L{L} H{H} N{N} chunk {chunk} "
               f"final={final} init={init}: {res}", flush=True)
         torch.cuda.empty_cache()
-    legacy = None
-    if parent is not None:
-        csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
-        legacy = ParentKernel(
-            csrc, "ssd_scan_bwd.cu", "ssd_scan_bwd_f32_launch",
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-            + [ctypes.c_void_p]).kernel
-        old_bf16 = ParentKernel(csrc, "ssd_scan_bwd_wgmma.cu",
-                                ssd.BWD_KERNELS["wgmma"].symbol,
-                                ssd.BWD_KERNELS["wgmma"].argtypes).kernel
-        # the bf16 route, its finish and sum kernels moved to a shared
-        # header: this tree's outputs against the parent's, bitwise
-        for (B, L, H, N, chunk) in [(8, 512, 48, 128, 256),
-                                    (2, 333, 20, 64, 128)]:
-            x, dt, A, Bm, Cm = ssd_inputs(gen, "cuda", B, L, H, N,
-                                          "bfloat16")
-            dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
-            dS = torch.randn(B, H, 64, N, generator=gen, device="cuda")
-            args = (x, dt, A, Bm, Cm, dy, dS, chunk)
-            new = ssd.ssd_bwd_cuda(*args)
-            this = ssd.BWD_KERNELS["wgmma"]
-            ssd.BWD_KERNELS["wgmma"] = old_bf16
-            try:
-                old = ssd.ssd_bwd_cuda(*args)
-            finally:
-                ssd.BWD_KERNELS["wgmma"] = this
-            same = all(torch.equal(a, b_) for a, b_ in zip(new, old))
-            bad += not same
-            print(f"[check] ssd bwd [wgmma] B{B} L{L} H{H} N{N} chunk {chunk}"
-                  f": this tree's outputs bitwise equal to the parent's: "
-                  f"{same}", flush=True)
-            del x, dt, Bm, Cm, dy, dS, args, new, old
     for (B, L, H, N, chunk) in [(8, 512, 48, 128, 256),
                                 (8, 512, 48, 64, 256)]:
         x, dt, A, Bm, Cm = ssd_inputs(gen, "cuda", B, L, H, N, "float32")
         dy = torch.randn(x.shape, generator=gen, device="cuda")
         args = (x, dt, A, Bm, Cm, dy, None, chunk)
-        fns = {"tf32x3": lambda: ssd.ssd_bwd_cuda(*args)}
-        if legacy is not None:
-            fns["fp32 pipes (parent)"] = lambda: fp32_pipe_backward(
-                legacy, x, dt, A, Bm, Cm, dy, chunk)
-        times = in_turns(fns, 10, behind_sleep=True)
+        ms = time_ms(lambda: ssd.ssd_bwd_cuda(*args), 10, behind_sleep=True)
         runs = [ssd.ssd_bwd_cuda(*args) for _ in range(2)]
         same = all(torch.equal(a, b_) for a, b_ in zip(*runs))
         bad += not same
         del runs
         parts = by_kernel(lambda: ssd.ssd_bwd_cuda(*args))
-        ms = times["tf32x3"]
         bound, by, flops, nbytes = ssd_bwd_bound(B, L, H, N, chunk, 4,
                                                  PEAK_TF32_FLOPS)
         design = ssd_bwd_design_flops(B, L, H, 64, N, chunk, "tf32x3")
         print(f"[time] ssd bwd [tf32x3] B{B} L{L} H{H} N{N} chunk {chunk} "
               f"fp32: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
               f"work, {design / ms / 1e9:.1f} of the design's {design:.3e} "
-              f"three-pass flops)"
-              + "".join(f", {k} {t:.4f} ms in turns" for k, t in
-                        times.items() if k != "tf32x3")
-              + f"; bound {bound:.4f} by {by} ({bound / ms:.3f} of it), "
-              f"design floor {design / PEAK_TF32_FLOPS * 1e3:.4f}, FP32-pipe "
+              f"three-pass flops); bound {bound:.4f} by {by} "
+              f"({bound / ms:.3f} of it), design floor {design / PEAK_TF32_FLOPS * 1e3:.4f}, FP32-pipe "
               f"bound {flops / PEAK_FP32_FLOPS * 1e3:.4f}; scratch "
               f"{ssd.tf32_bwd_scratch_bytes(B, L, H, N, chunk)} bytes; two "
               f"calls bitwise equal: {same}; by kernel (profiler, ms a call) "
@@ -863,14 +776,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="ssd,combine,flash,matmul",
                     help="comma-separated parts to run")
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: f32ssdbwd times "
-                    "its FP32-pipe SSD backward in turns and holds the bf16 "
-                    "route to its outputs")
     cli = ap.parse_args()
     parts = set(cli.only.split(","))
     if "f32ssdbwd" in parts:
-        check_f32ssdbwd(cli.parent)
+        check_f32ssdbwd()
         parts.discard("f32ssdbwd")
     for part, check in (("bwd", check_backward),
                         ("ssdbwd", check_ssd_backward),

@@ -22,6 +22,12 @@ phases:
   * ``dxdb_loads_only`` / ``dc_loads_only``: all of that kernel's phases.
 The backward as it is (``base``) is checked against ``ssd_bwd_ref``
 first.
+
+The switches find each phase by its statements' text, copied below
+(``G_DXDB``, ``V``, ``XDS`` and the rest): an edit to one of those
+statements in ``ssd_scan_bwd_tf32.cu``, whitespace or a local's name
+included, must be made here too, or the tool stops and names the phase
+whose statement it no longer finds.
 """
 from __future__ import annotations
 

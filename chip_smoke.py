@@ -32,8 +32,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the bound, factor against the library, registers, spills,
                 HGMMA / HMMA; the tf32x3 routes also their three passes'
                 floor, their FP32-pipe bound and their scratch bytes, and two
-                calls compared bitwise); the flash forward in fp32 at the
-                edges and at group sizes 7 and 1 too; the fp32 matmul in turns
+                calls compared bitwise); flash forward and backward on both
+                routes at head_dim 64, 80 (zamba2's, timed at its serving
+                and training shapes as lines of their own) and 128; the
+                flash forward in fp32 at the edges and at group sizes 7 and
+                1 too; the fused norm at D 2048, 1536 and 2560, its
+                backward at D 2048 and 2560; the SSD scan and its backward
+                at zamba2's shapes (H 80, N 64) too, timed
+                (``at_zamba2``); the fp32 matmul in turns
                 with torch.matmul fp32, at K or N off a multiple of 4 and on
                 operands off 16 bytes; the SSD scan at N 64 on both routes;
                 the flash backward
@@ -64,28 +70,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 drill (link f -> f+1 broken, f in 0, 2), whose live
                 progress, read from the frozen combine counters, must name
                 the link; the all-reduce of a bucket of an odd size;
-  5. serve    — for each serving path, llama3.2-1b (dense) and mamba2-780m
-                (ssm): Server.generate at full width (batch 8, 1024-token
-                prompts, 32 new tokens, random weights from --seed) with the
-                FLARE daemon attached; the launch counts of that run;
-                untraced and traced walls; a profiler breakdown; fp32
-                prefill logits on the card (the fp32 routes: flash and the
-                SSD scan on tf32x3) against the plain path on the CPU;
-  6. train    — for each training path, llama3.2-1b (dense) and
-                mamba2-780m (ssm): Trainer.train at full width and depth
+  5. serve    — for each serving path, llama3.2-1b (dense), mamba2-780m
+                (ssm) and zamba2-2.7b (hybrid): Server.generate at full
+                width and depth (batch 8, 1024-token prompts, 32 new tokens,
+                random weights from --seed) with the FLARE daemon attached;
+                the launch counts of that run (``forward_launches`` a
+                prefill, the fused norms again a decode step: zamba2 flash
+                9, SSD scan 54, fused norm 72 x 33); untraced and traced
+                walls; a profiler breakdown; fp32 prefill logits on the
+                card (the fp32 routes: flash and the SSD scan on tf32x3)
+                against the plain path on the CPU;
+  6. train    — for each training path, llama3.2-1b, mamba2-780m and
+                zamba2-2.7b: Trainer.train at full width and depth
                 (B 8 x S 512, bf16 compute, fp32 parameters and AdamW
                 moments, 12 traced steps): each step's loss, step time,
                 tokens/s, MFU and the peak memory; the launch counts of
                 every step (llama: flash forward and backward 16, on the
                 wgmma routes and none on tf32x3, fused forward and backward
                 32; mamba2: SSD forward and backward 48 each on the wgmma
-                routes, none on tf32x3, fused forward and backward
-                48; no
-                plain version); the loss finite and
-                falling; a profiler breakdown of one step; one fp32 step of
-                the 2-layer cut, card against CPU (loss, grad_norm, three
+                routes, none on tf32x3, fused forward and backward 48;
+                zamba2: flash forward and backward 9, SSD forward and
+                backward 54, fused forward and backward 72; no plain
+                version); the loss finite and falling; a profiler breakdown
+                of one step; one fp32 step of the path's cut (llama and
+                mamba2 2 layers, zamba2 one group of 6 and its shared
+                block), card against CPU (loss, grad_norm, the path's
                 gradients; the fp32 routes: flash and the SSD forward and
-                backward on tf32x3; mamba2 at S 512, two chunks);
+                backward on tf32x3; mamba2 and zamba2 at S 512, two
+                chunks);
                 on llama's path also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
@@ -256,21 +268,33 @@ def tensor_core_fields(summary: dict, kernel, flops: float,
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-# flash attention at the paths' shapes and at the kernels' edges (S of 1,
-# 63 and 129 around their tiles, hd 128), both routes
+# flash attention at the paths' shapes (llama's hd 64, zamba2's hd 80 over
+# 32 KV heads) and at the kernels' edges (S of 1, 63 and 129 around their
+# tiles, hd 64, 80 and 128), both routes
 FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
-                (2, 1000, 16, 4, 128)]
+                (2, 1000, 16, 4, 128), (8, 1024, 32, 32, 80),
+                (2, 1000, 32, 32, 80)]
 # group sizes G = H/KV other than the paths' 4: 7 (qwen2's 14 over 2) and 1
 # (musicgen's 32 over 32), head_dim 64
 FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64)]
-FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129) for hd in (64, 128)]
+FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129)
+               for hd in (64, 80, 128)]
+# the serving paths' flash shapes, each timed on both routes: llama3.2-1b
+# (hd 64) and zamba2-2.7b (hd 80)
+FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80)]
+
+
+def by_hd(name: str, hd: int) -> str:
+    """A kernel's name in the summary line: hd 64's as it is, others with
+    the head dim appended."""
+    return name if hd == 64 else f"{name}_hd{hd}"
 
 
 def check_flash(gen, device):
     """Every shape on the route of its dtype against ``attention_ref``; the
-    serving shape timed on both routes (the fp32 one, split TF32, in turns
-    with SDPA fp32).  Returns the bf16 and the fp32 (tf32x3) summaries and
-    the cases."""
+    serving shapes (``FLASH_TIMED``) timed on both routes (the fp32 one,
+    split TF32, in turns with SDPA fp32).  Returns the summaries by (route,
+    head_dim) and the cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -298,12 +322,12 @@ def check_flash(gen, device):
             log("kernels", f"flash_attention B{B} S{S} H{H} KV{KV} hd{hd} "
                 f"{dtype} causal={causal} [{route}]: max_abs_err {err:.3e}")
 
-    # the serving path's shape, timed on each route
-    B, S, H, KV, hd = 8, 1024, 32, 8, 64
-    pairs = S * (S + 1) / 2                      # causal (query, key) pairs
-    flops = 4.0 * B * H * hd * pairs
+    # the serving paths' shapes, timed on each route
     summaries = {}
-    for dtype in ("bfloat16", "float32"):
+    for (B, S, H, KV, hd), dtype in itertools.product(
+            FLASH_TIMED, ("bfloat16", "float32")):
+        pairs = S * (S + 1) / 2                  # causal (query, key) pairs
+        flops = 4.0 * B * H * hd * pairs
         dt = getattr(torch, dtype)
         q, k, v = qkv(B, S, H, KV, hd, dt)
         route = ops.route(dt, hd)
@@ -326,8 +350,9 @@ def check_flash(gen, device):
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        summaries[route] = summary = dict(
-            name=f"flash_attention{'' if route == 'wgmma' else '_' + route}",
+        summaries[route, hd] = summary = dict(
+            name=by_hd("flash_attention"
+                       + ("" if route == "wgmma" else "_" + route), hd),
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
             replaces="src/repro/kernels/flash_attention/kernel.py:61",
@@ -353,22 +378,20 @@ def check_flash(gen, device):
             + (f"; scratch {summary['scratch_bytes']} bytes"
                if route == "tf32x3" else "") + ")")
         del q, k, v, qt, kt, vt
-    tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
-    tf = tensor_core_fields(summaries["tf32x3"], ops.KERNELS["tf32x3"], flops,
-                            "tf32x3")
-    return tc, tf, cases
+        tensor_core_fields(summary, ops.KERNELS[route], flops, route)
+    return summaries, cases
 
 
 def check_fused(gen, device):
-    """Checked and timed at both serving paths' widths (D 2048 llama,
-    D 1536 mamba2), prefill (R 8192) and decode (R 8) rows.  Returns the
-    llama prefill summary and the other three by (R, D)."""
+    """Checked and timed at the serving paths' widths (D 2048 llama, D 1536
+    mamba2, D 2560 zamba2), prefill (R 8192) and decode (R 8) rows.
+    Returns the llama prefill summary and the others by (R, D)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fused_norm import ops
 
     cases, timed = [], {}
-    for D in (2048, 1536):
+    for D in (2048, 1536, 2560):
         for R in (8192, 8):
             for dtype in ("bfloat16", "float32"):
                 dt = getattr(torch, dtype)
@@ -421,7 +444,8 @@ def check_fused(gen, device):
 
 # the flash backward: the training shape (bf16, causal) and the same in
 # fp32, each route's masking (full attention, ragged S, hd 128), group sizes
-# 7 and 1 (``FLASH_GROUPS``); each with its forward's lse
+# 7 and 1 (``FLASH_GROUPS``), zamba2's training shape (hd 80 over 32 KV
+# heads) and hd 80 at ragged S; each with its forward's lse
 FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((8, 512, 32, 8, 64), "float32", True),
                    ((2, 256, 16, 4, 64), "bfloat16", False),
@@ -435,7 +459,16 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 256, 14, 2, 64), "bfloat16", True),
                    ((2, 256, 14, 2, 64), "float32", True),
                    ((2, 256, 32, 32, 64), "bfloat16", False),
-                   ((2, 256, 32, 32, 64), "float32", False)]
+                   ((2, 256, 32, 32, 64), "float32", False),
+                   ((8, 512, 32, 32, 80), "bfloat16", True),
+                   ((8, 512, 32, 32, 80), "float32", True),
+                   ((2, 77, 8, 2, 80), "bfloat16", False),
+                   ((2, 333, 8, 2, 80), "bfloat16", True),
+                   ((2, 77, 8, 2, 80), "float32", True),
+                   ((2, 333, 16, 4, 80), "float32", False)]
+# the training paths' flash shapes, each timed on both routes: llama3.2-1b
+# (hd 64) and zamba2-2.7b (hd 80)
+FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
@@ -511,12 +544,13 @@ def check_flash_bwd(gen, device):
     """The flash backward against ``attention_bwd_ref`` and the forward's
     lse against ``attention_ref``'s, each call on the route of its dtype
     (one launch of that route's kernel, none of the other); each route
-    timed at the training shape beside its plain version and, in turns
-    (at least 50 iterations each), beside autograd of SDPA pinned to each
-    backend that runs (the fastest is ``library_ms``); the forward's time
-    with lse beside its time without, at the training and serving shapes.
-    Two fp32 (tf32x3) backward calls of each case must be bitwise equal.
-    Returns the bf16 and the fp32 (tf32x3) summaries and the cases."""
+    timed at the training shapes (``FLASH_BWD_TIMED``) beside its plain
+    version and, in turns (at least 50 iterations each), beside autograd of
+    SDPA pinned to each backend that runs (the fastest is ``library_ms``);
+    the forward's time with lse beside its time without, at llama's
+    training and serving shapes.  Two fp32 (tf32x3) backward calls of each
+    case must be bitwise equal.  Returns the summaries by (route,
+    head_dim) and the cases."""
     import torch
     from repro_torch.kernels.flash_attention import ops
 
@@ -563,9 +597,9 @@ def check_flash_bwd(gen, device):
             f"{errs[2]:.3e}, dv {errs[3]:.3e}{scaled}")
         del q, k, v, do, o, lse, got, want
 
-    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
     summaries = {}
-    for dtype in ("bfloat16", "float32"):
+    for (B, S, H, KV, hd), dtype in itertools.product(
+            FLASH_BWD_TIMED, ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         r = ops.BWD_ROUTES[dt]
         q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
@@ -593,8 +627,9 @@ def check_flash_bwd(gen, device):
         # and tf32x3 three TF32 passes of each
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
         passes = 1 if r == "wgmma" else 3
-        summaries[r] = summary = dict(
-            name=f"flash_attention_bwd{'' if r == 'wgmma' else '_' + r}",
+        summaries[r, hd] = summary = dict(
+            name=by_hd("flash_attention_bwd"
+                       + ("" if r == "wgmma" else "_" + r), hd),
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
             replaces="src/repro/models/attention.py:164 (XLA recompute "
@@ -622,11 +657,9 @@ def check_flash_bwd(gen, device):
             + (f"; scratch {summary['scratch_bytes']} bytes"
                if r == "tf32x3" else "") + ")")
         del q, k, v, do, o, lse
-    tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
-                            summaries["wgmma"]["flops"])
-    tf = tensor_core_fields(summaries["tf32x3"], ops.BWD_KERNELS["tf32x3"],
-                            summaries["tf32x3"]["flops"], "tf32x3")
+        tensor_core_fields(summary, ops.BWD_KERNELS[r], flops, r)
     # the forward with and without the lse output, on its route
+    B, S, H, KV, hd = FLASH_BWD_TIMED[0]
     lse_times = {}
     for (B, S) in ((TRAIN_B, TRAIN_S), (8, 1024)):
         q, k, v = (torch.randn(B, S, n, hd, generator=gen,
@@ -639,23 +672,24 @@ def check_flash_bwd(gen, device):
         log("kernels", f"flash_attention forward [wgmma] B{B} S{S} H{H} "
             f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
             f"{with_lse:.4f} ms with it")
-    tc["forward_lse_ms"] = lse_times
-    return tc, tf, cases
+    summaries["wgmma", 64]["forward_lse_ms"] = lse_times
+    return summaries, cases
 
 
 def check_fused_bwd(gen, device):
     """The fused-norm backward against ``fused_bwd_ref`` at the training
-    rows (R 4096 D 2048), bf16 and fp32, with and without dh, one launch
-    per call; timed in bf16 with dh beside the plain version (no single
-    PyTorch call computes it).  dscale sums R rows in fp32 in another
+    rows (R 4096) of llama (D 2048) and zamba2 (D 2560), bf16 and fp32,
+    with and without dh, one launch per call; timed in bf16 with dh beside
+    the plain version (no single PyTorch call computes it), at D 2048 and,
+    in ``at_zamba2``, at D 2560.  dscale sums R rows in fp32 in another
     order than the plain version: its atol is 3e-4·√R."""
     import torch
     from repro_torch.kernels.fused_norm import ops
 
     bwd = {"bwd": ops.BWD_KERNEL}
-    R, D = TRAIN_B * TRAIN_S, 2048
+    R = TRAIN_B * TRAIN_S
     cases = []
-    for dtype in ("bfloat16", "float32"):
+    for D, dtype in itertools.product((2048, 2560), ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         for with_dh in (True, False):
             x, r, dy, dh = (torch.randn(R, D, generator=gen,
@@ -675,7 +709,7 @@ def check_fused_bwd(gen, device):
             log("kernels", f"fused_residual_rmsnorm backward R{R} D{D} "
                 f"{dtype} dh={with_dh}: max_abs_err dx {e_dx:.3e}, dscale "
                 f"{e_ds:.3e}")
-    dt = torch.bfloat16
+    D, dt = 2048, torch.bfloat16
     x, r, dy, dh = (torch.randn(R, D, generator=gen, device=device).to(dt)
                     for _ in range(4))
     s = torch.randn(D, generator=gen, device=device)
@@ -721,6 +755,26 @@ def check_fused_bwd(gen, device):
         + ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
                     f"{u['spill_loads']} bytes spilled"
                     for u in summary["ptxas"]))
+    # zamba2's width
+    D = 2560
+    x, r, dy, dh = (torch.randn(R, D, generator=gen, device=device).to(dt)
+                    for _ in range(4))
+    s = torch.randn(D, generator=gen, device=device)
+    err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
+                  ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
+    ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
+                 behind_sleep=True)
+    plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
+    t_bytes = (5 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3
+    t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
+    summary["at_zamba2"] = z = dict(
+        shape=[R, D], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} bf16 "
+        f"with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+        f"{z['bound_ms']:.4f} by {z['bound_by']}, {z['bound_ms'] / ms:.3f} "
+        f"of it)")
     return summary, cases
 
 
@@ -803,11 +857,17 @@ def ssd_bwd_design_flops(B, L, H, P, N, chunk, route="wgmma",
     return B * flops
 
 
-# the SSD forward's cases: (B, L, N, initial state) at H 48, chunk 256:
-# the serving shape, ragged L, the fp32 agreement prefill's L 320, N 64
-SSD_CASES = [(8, 1024, 128, False), (8, 1000, 128, False),
-             (2, 1000, 128, True), (1, 320, 128, True), (2, 1000, 64, True),
-             (1, 320, 64, False)]
+# the SSD forward's cases: (B, L, H, N, initial state) at chunk 256:
+# mamba2's serving shape (H 48, N 128), ragged L, the fp32 agreement
+# prefill's L 320, N 64; zamba2's serving shape and agreement prefill (H 80,
+# N 64)
+SSD_CASES = [(8, 1024, 48, 128, False), (8, 1000, 48, 128, False),
+             (2, 1000, 48, 128, True), (1, 320, 48, 128, True),
+             (2, 1000, 48, 64, True), (1, 320, 48, 64, False),
+             (8, 1024, 80, 64, False), (1, 320, 80, 64, True)]
+# the serving paths' SSD shapes, each timed on both routes: (B, L, H, N) of
+# mamba2-780m (the summary line's) and of zamba2-2.7b (its ``at_zamba2``)
+SSD_TIMED = [(8, 1024, 48, 128), (8, 1024, 80, 64)]
 
 
 def check_ssd(gen, device):
@@ -817,14 +877,15 @@ def check_ssd(gen, device):
     calls compared bitwise; then the serving shape timed on each route
     beside the plain version, with the same work (``ssd_work_flops``) for
     both, the fp32 route's bound at the TF32 peak beside its three passes'
-    floor, the FP32-pipe bound and its scratch.  Returns the bf16 and the
-    fp32 (tf32x3) summaries and the cases."""
+    floor, the FP32-pipe bound and its scratch; zamba2's serving shape the
+    same, into each summary's ``at_zamba2``.  Returns the bf16 and the fp32
+    (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
     cases = []
-    H, chunk = 48, 256
-    for (B, L, N, init) in SSD_CASES:
+    chunk = 256
+    for (B, L, H, N, init) in SSD_CASES:
         for dtype in ("bfloat16", "float32"):
             x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
             s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
@@ -871,11 +932,11 @@ def check_ssd(gen, device):
                 + ("; two calls bitwise equal" if route == "tf32x3" else ""))
             del x, dt, Bm, Cm, y, st, yr, sr
 
-    # the serving path's shape, timed on each route
-    B, L, N = 8, 1024, 128
-    flops = ssd_work_flops(B, L, H, 64, N, chunk)
+    # the serving paths' shapes, timed on each route
     summaries = {}
-    for dtype in ("bfloat16", "float32"):
+    for (B, L, H, N), dtype in itertools.product(
+            SSD_TIMED, ("bfloat16", "float32")):
+        flops = ssd_work_flops(B, L, H, 64, N, chunk)
         x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
         route = ops.route(x.dtype)
         y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk)
@@ -889,7 +950,7 @@ def check_ssd(gen, device):
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        summaries[route] = summary = dict(
+        summary = dict(
             name="ssd_scan" if route == "wgmma" else "ssd_scan_fp32",
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
@@ -915,9 +976,12 @@ def check_ssd(gen, device):
                if route == "tf32x3" else "") + ")")
         del x, dt, Bm, Cm, y, st
         torch.cuda.empty_cache()
-    tc = tensor_core_fields(summaries["wgmma"], ops.KERNELS["wgmma"], flops)
-    tf = tensor_core_fields(summaries["tf32x3"], ops.KERNELS["tf32x3"], flops,
-                            "tf32x3")
+        if (B, L, H, N) == SSD_TIMED[0]:
+            summaries[route] = tensor_core_fields(
+                summary, ops.KERNELS[route], flops, route)
+        else:
+            summaries[route]["at_zamba2"] = summary
+    tc, tf = summaries["wgmma"], summaries["tf32x3"]
     tc["fp32_route_factor"] = tf["ms"] / tc["ms"]
     log("kernels", f"ssd_scan: the bf16 route is "
         f"{tc['fp32_route_factor']:.1f}x faster than the tf32x3 route")
@@ -927,7 +991,7 @@ def check_ssd(gen, device):
 # the SSD backward: (B, L, H, N, chunk), dtype, with a final-state
 # cotangent, with an initial state: the training shape on both instances,
 # N 64, ragged L at chunk 256 and 128, H 12 and 20 (the last head group of
-# 8 cut short) on both routes
+# 8 cut short) on both routes, zamba2's training shape (H 80, N 64) on both
 SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((8, 512, 48, 128, 256), "float32", False, False),
                  ((2, 512, 16, 64, 256), "bfloat16", False, False),
@@ -939,7 +1003,12 @@ SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((2, 512, 12, 128, 256), "float32", True, False),
                  ((2, 512, 12, 128, 256), "bfloat16", True, False),
                  ((2, 333, 20, 64, 128), "float32", True, True),
-                 ((2, 333, 20, 64, 128), "bfloat16", False, True)]
+                 ((2, 333, 20, 64, 128), "bfloat16", False, True),
+                 ((8, 512, 80, 64, 256), "bfloat16", False, False),
+                 ((8, 512, 80, 64, 256), "float32", False, False)]
+# the training paths' SSD shapes, each timed on both routes: (H, N) of
+# mamba2-780m (the summary line's) and of zamba2-2.7b (its ``at_zamba2``)
+SSD_BWD_TIMED = [(48, 128), (80, 64)]
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
 
 
@@ -1025,7 +1094,8 @@ def check_ssd_bwd(gen, device):
     computes it), its [kernels] line, the profiler's split of its kernels,
     and two calls compared bitwise (the design has no atomics); the tf32x3
     route's bound at the TF32 peak beside its three passes' design floor,
-    the FP32-pipe bound and its scratch.  Returns the bf16 and the fp32
+    the FP32-pipe bound and its scratch; zamba2's training shape the same,
+    into each summary's ``at_zamba2``.  Returns the bf16 and the fp32
     (tf32x3) summaries and the cases."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
@@ -1047,9 +1117,10 @@ def check_ssd_bwd(gen, device):
             f"initial_state={init}: max_abs_err {errs}{scaled}{reach}")
         torch.cuda.empty_cache()
 
-    B, L, H, N, chunk = TRAIN_B, TRAIN_S, 48, 128, 256
+    B, L, chunk = TRAIN_B, TRAIN_S, 256
     summaries = {}
-    for dtype in ("bfloat16", "float32"):
+    for (H, N), dtype in itertools.product(SSD_BWD_TIMED,
+                                           ("bfloat16", "float32")):
         x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
         dy = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
         r = ops.BWD_ROUTES[x.dtype]
@@ -1062,7 +1133,7 @@ def check_ssd_bwd(gen, device):
         peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
         bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(
             B, L, H, N, chunk, x.element_size(), peak)
-        summaries[r] = summary = dict(
+        summary = dict(
             name="ssd_scan_bwd" if r == "wgmma" else "ssd_scan_bwd_tf32x3",
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
@@ -1112,10 +1183,12 @@ def check_ssd_bwd(gen, device):
                 for n, t in summary["by_kernel_ms"].items()))
         del x, dt, Bm, Cm, dy, args
         torch.cuda.empty_cache()
-    tc = tensor_core_fields(summaries["wgmma"], ops.BWD_KERNELS["wgmma"],
-                            summaries["wgmma"]["flops"])
-    tf = tensor_core_fields(summaries["tf32x3"], ops.BWD_KERNELS["tf32x3"],
-                            summaries["tf32x3"]["flops"], "tf32x3")
+        if (H, N) == SSD_BWD_TIMED[0]:
+            summaries[r] = tensor_core_fields(summary, ops.BWD_KERNELS[r],
+                                              flops, r)
+        else:
+            summaries[r]["at_zamba2"] = summary
+    tc, tf = summaries["wgmma"], summaries["tf32x3"]
     tc["fp32_route_factor"] = tf["ms"] / tc["ms"]
     log("kernels", f"ssd_scan backward: the wgmma route is "
         f"{tc['fp32_route_factor']:.1f}x faster than the tf32x3 route")
@@ -1662,34 +1735,46 @@ def ring_path(seed: int, trace_dir: Path):
 # --------------------------------------------------------------------------- #
 # phase 5: serve
 # --------------------------------------------------------------------------- #
+def forward_launches(cfg) -> dict:
+    """The port's kernel launches of one full-sequence forward of ``cfg``'s
+    model, by traced-op name: the dense family's flash and 2 fused norms a
+    layer, the ssm family's SSD scan and 1 fused norm a layer, the hybrid's
+    SSD scan and 1 fused norm a Mamba layer, and flash and 2 fused norms
+    an application of its shared block (zamba2-2.7b: 54, 9 and 72).  A
+    decode step launches the fused norms alone."""
+    L = cfg.num_layers
+    if cfg.family == "dense":
+        return {"flash_attention": L, "fused_residual_rmsnorm": 2 * L}
+    if cfg.family == "ssm":
+        return {"ssd_scan": L, "fused_residual_rmsnorm": L}
+    if cfg.family == "hybrid":
+        g = L // cfg.attn_every
+        return {"ssd_scan": L, "flash_attention": g,
+                "fused_residual_rmsnorm": L + 2 * g}
+    raise KeyError(cfg.family)
+
+
 def path_kernels(arch: str) -> dict:
     """The kernels a serving path can launch, by label (the traced-op name,
     with the route for a kernel of two routes), as (traced-op name, route,
-    kernel, launches of one bf16 generate of ``new`` tokens after a prefill
-    of L layers).  bf16 serving takes no fp32 route (flash's is tf32x3)."""
+    kernel, launches of one bf16 generate of ``new`` tokens by ``cfg``'s
+    model).  bf16 serving takes no fp32 route (tf32x3)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.kernels.ssd_scan import ops as ssd
-    if arch == "llama3.2-1b":   # flash per layer at prefill; 2 norms/layer
-        return {
-            "flash_attention[wgmma]": ("flash_attention", "wgmma",
-                                       fa.KERNELS["wgmma"], lambda L, new: L),
-            "flash_attention[tf32x3]": ("flash_attention", "tf32x3",
-                                        fa.KERNELS["tf32x3"],
-                                        lambda L, new: 0),
-            "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
-                                       fn.KERNEL,
-                                       lambda L, new: 2 * L * (1 + new))}
-    if arch == "mamba2-780m":   # scan per layer at prefill; 1 norm/layer
-        return {
-            "ssd_scan[wgmma]": ("ssd_scan", "wgmma", ssd.KERNELS["wgmma"],
-                                lambda L, new: L),
-            "ssd_scan[tf32x3]": ("ssd_scan", "tf32x3",
-                                 ssd.KERNELS["tf32x3"], lambda L, new: 0),
-            "fused_residual_rmsnorm": ("fused_residual_rmsnorm", None,
-                                       fn.KERNEL,
-                                       lambda L, new: L * (1 + new))}
-    raise KeyError(arch)
+    routed = {"flash_attention": fa.KERNELS, "ssd_scan": ssd.KERNELS}
+    kernels = {}
+    for op in forward_launches(get_config(arch)):
+        if op not in routed:
+            kernels[op] = (op, None, fn.KERNEL, lambda cfg, new, op=op:
+                           forward_launches(cfg)[op] * (1 + new))
+            continue
+        for route, k in routed[op].items():
+            kernels[f"{op}[{route}]"] = (
+                op, route, k, lambda cfg, new, op=op, route=route:
+                forward_launches(cfg)[op] if route == "wgmma" else 0)
+    return kernels
 
 
 def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
@@ -1719,8 +1804,7 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
     wall = time.perf_counter() - t0
     launches = {label: k.launches for label, (_, _, k, _) in kernels.items()}
     server.close()                      # detaches the daemon: final spill
-    want = {label: n(cfg.num_layers, new)
-            for label, (_, _, _, n) in kernels.items()}
+    want = {label: n(cfg, new) for label, (_, _, _, n) in kernels.items()}
     log("serve", f"{arch} B{B} prompt {S0} new {new}: launches {launches} "
         f"(expected {want}); wall {wall:.3f} s")
     if launches != want:
@@ -1849,25 +1933,27 @@ def agreement(arch: str, seed: int, S: int):
     from repro_torch.models.registry import build_model
 
     cfg = get_config(arch)
-    kernels = {label: (route, k)
-               for label, (_, route, k, _) in path_kernels(arch).items()}
+    kernels = {label: (op, route, k)
+               for label, (op, route, k, _) in path_kernels(arch).items()}
+    # an fp32 prefill: each routed op on tf32x3 as often as a forward runs
+    # it, none on wgmma; the fused norm as a forward runs it
+    per_fwd = forward_launches(cfg)
+    want_launches = {label: 0 if route == "wgmma" else per_fwd[op]
+                     for label, (op, route, _) in kernels.items()}
     pol = Policy(torch.float32)
     cpu = build_model(cfg, pol, "cpu").init(
         torch.Generator().manual_seed(seed))
     gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
     toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, S))
     t = torch.as_tensor(toks, dtype=torch.long)
-    n0 = {label: k.launches for label, (_, k) in kernels.items()}
+    n0 = {label: k.launches for label, (_, _, k) in kernels.items()}
     got = gpu.prefill(t.cuda(), gpu.init_cache(1, S)).cpu()
     launches = {label: k.launches - n0[label]
-                for label, (_, k) in kernels.items()}
-    if any((n > 0) == (kernels[label][0] == "wgmma")
-           for label, n in launches.items()) or any(
-               n != cfg.num_layers for label, n in launches.items()
-               if kernels[label][0] in ("fp32", "tf32x3")):
-        fail(f"{arch}: the fp32 agreement run launched {launches}: every "
-             f"fp32 kernel of the path (an fp32 route once per layer), and "
-             f"no tensor-core one, should run")
+                for label, (_, _, k) in kernels.items()}
+    if launches != want_launches:
+        fail(f"{arch}: the fp32 agreement run launched {launches}, not "
+             f"{want_launches}: each op of the path on its fp32 route "
+             f"(tf32x3) as often as a forward runs it, none on wgmma")
     want = cpu.prefill(t, cpu.init_cache(1, S))
     diff = (got - want).abs()
     err = float(diff.max())
@@ -1889,68 +1975,73 @@ def agreement(arch: str, seed: int, S: int):
 # phase 6: train
 # --------------------------------------------------------------------------- #
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
-# per training path: the forward's traced spans per layer, and the fp32
-# card-vs-CPU step of its 2-layer cut (sequence length, gradients held);
-# mamba2's S 512 is two chunks, so the state carries between them
+# per training path: the fp32 card-vs-CPU step of its cut (layers kept,
+# sequence length, gradients held).  mamba2's S 512 is two chunks, so the
+# state carries between them.  Every path's bf16 step is one microbatch:
+# zamba2's peaks at 71.95 GB so (tools/train_memory.py; 73.15 GB at two,
+# which add an fp32 gradient accumulator).
+# zamba2's cut is one group, 6 Mamba layers and one application of the
+# shared block: a 2-layer cut of it would hold no attention, and so run
+# neither flash kernel
 TRAIN_PATHS = {
     "llama3.2-1b": dict(
-        spans={"flash_attention": 1, "fused_residual_rmsnorm": 2},
-        agree_seq=128, agree_grads=("embed.embedding", "layers.0.attn.wq",
-                                    "layers.1.ln2.scale")),
+        agree_layers=2, agree_seq=128,
+        agree_grads=("embed.embedding", "layers.0.attn.wq",
+                     "layers.1.ln2.scale")),
     "mamba2-780m": dict(
-        spans={"ssd_scan": 1, "fused_residual_rmsnorm": 1},
-        agree_seq=512, agree_grads=("embed.embedding", "layers.0.mamba.in_x",
-                                    "layers.1.mamba.A_log")),
+        agree_layers=2, agree_seq=512,
+        agree_grads=("embed.embedding", "layers.0.mamba.in_x",
+                     "layers.1.mamba.A_log")),
+    "zamba2-2.7b": dict(
+        agree_layers=6, agree_seq=512,
+        agree_grads=("embed.embedding", "layers.0.mamba.in_x",
+                     "layers.5.mamba.A_log", "shared_attn.attn.wq",
+                     "shared_attn.mlp.wo", "shared_attn.ln1.scale")),
 }
 
 
 def train_kernels(arch: str) -> dict:
     """The kernels a training step of ``arch`` can launch, by label, as
-    (kernel, launches per layer, the compute dtype whose steps launch it,
-    None for both): per layer the dense family's flash forward and
-    backward once and fused norm forward and backward twice, the ssm
-    family's SSD forward and backward and fused norm forward and backward
-    once each."""
+    (kernel, the op whose forward launches it once, the compute dtype whose
+    steps launch it, None for both): each op of the forward
+    (``forward_launches``) on the route of the step's dtype, and its
+    backward as often."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.kernels.ssd_scan import ops as ssd
-    bf, f32 = "bfloat16", "float32"
-    if arch == "llama3.2-1b":
-        kernels = {"flash_attention[wgmma]": (fa.KERNELS["wgmma"], 1, bf),
-                   "flash_attention[tf32x3]": (fa.KERNELS["tf32x3"], 1, f32),
-                   "flash_attention_bwd[wgmma]": (fa.BWD_KERNELS["wgmma"], 1,
-                                                  bf),
-                   "flash_attention_bwd[tf32x3]": (fa.BWD_KERNELS["tf32x3"],
-                                                   1, f32)}
-        norms = 2
-    elif arch == "mamba2-780m":
-        kernels = {"ssd_scan[wgmma]": (ssd.KERNELS["wgmma"], 1, bf),
-                   "ssd_scan[tf32x3]": (ssd.KERNELS["tf32x3"], 1, f32),
-                   "ssd_scan_bwd[wgmma]": (ssd.BWD_KERNELS["wgmma"], 1, bf),
-                   "ssd_scan_bwd[tf32x3]": (ssd.BWD_KERNELS["tf32x3"], 1,
-                                            f32)}
-        norms = 1
-    else:
-        raise KeyError(arch)
-    return {**kernels,
-            "fused_residual_rmsnorm": (fn.KERNEL, norms, None),
-            "fused_residual_rmsnorm_bwd": (fn.BWD_KERNEL, norms, None)}
+    routed = {"flash_attention": (fa.KERNELS, fa.BWD_KERNELS),
+              "ssd_scan": (ssd.KERNELS, ssd.BWD_KERNELS)}
+    dtypes = {"wgmma": "bfloat16", "tf32x3": "float32"}
+    kernels = {}
+    for op in forward_launches(get_config(arch)):
+        if op not in routed:
+            kernels[op] = (fn.KERNEL, op, None)
+            kernels[f"{op}_bwd"] = (fn.BWD_KERNEL, op, None)
+            continue
+        for route, d in dtypes.items():
+            fwd, bwd = routed[op]
+            kernels[f"{op}[{route}]"] = (fwd[route], op, d)
+            kernels[f"{op}_bwd[{route}]"] = (bwd[route], op, d)
+    return kernels
 
 
-def expected_step_launches(arch: str, L: int, dtype: str) -> dict:
-    return {label: n * L if d in (None, dtype) else 0
-            for label, (_, n, d) in train_kernels(arch).items()}
+def expected_step_launches(arch: str, cfg, dtype: str) -> dict:
+    per_fwd = forward_launches(cfg)
+    return {label: per_fwd[op] if d in (None, dtype) else 0
+            for label, (_, op, d) in train_kernels(arch).items()}
 
 
 class PlainCalls:
     """Counts the calls of the plain versions of ``arch``'s training
     kernels while it is entered (the ops modules look them up at each
     call)."""
-    NAMES = {"llama3.2-1b": {"flash_attention": ("attention_ref",
-                                                 "attention_bwd_ref"),
-                             "fused_norm": ("fused_ref", "fused_bwd_ref")},
-             "mamba2-780m": {"ssd_scan": ("ssd_ref", "ssd_bwd_ref"),
-                             "fused_norm": ("fused_ref", "fused_bwd_ref")}}
+    FLASH = {"flash_attention": ("attention_ref", "attention_bwd_ref")}
+    SSD = {"ssd_scan": ("ssd_ref", "ssd_bwd_ref")}
+    NORM = {"fused_norm": ("fused_ref", "fused_bwd_ref")}
+    NAMES = {"llama3.2-1b": {**FLASH, **NORM},
+             "mamba2-780m": {**SSD, **NORM},
+             "zamba2-2.7b": {**FLASH, **SSD, **NORM}}
 
     def __init__(self, arch: str):
         self.arch = arch
@@ -2060,7 +2151,7 @@ def train(arch: str, seed: int, trace_path: Path,
     snaps.append(launches)
     per_step = [{label: b[label] - a[label] for label in launches}
                  for a, b in zip(snaps, snaps[1:])]
-    want = expected_step_launches(arch, cfg.num_layers, "bfloat16")
+    want = expected_step_launches(arch, cfg, "bfloat16")
     log("train", f"{arch} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
         f"parameters and moments: launches of one step {per_step[0]} "
         f"(expected {want}); plain versions called {plain.calls}")
@@ -2114,10 +2205,10 @@ def train(arch: str, seed: int, trace_path: Path,
 
 
 def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
-    """One fp32 training step of ``arch`` cut to 2 layers (widths kept), B 2
-    and the path's ``agree_seq``: loss and gradients on the card (the fp32
-    forward routes and the backward kernels) against the plain path on the
-    CPU, same weights and batch.  Loss, grad_norm and the gradients of the
+    """One fp32 training step of ``arch`` cut to the path's ``agree_layers``
+    (widths kept), B 2 and its ``agree_seq``: loss and gradients on the
+    card (the fp32 forward routes and the backward kernels) against the
+    plain path on the CPU, same weights and batch.  Loss, grad_norm and the gradients of the
     path's ``agree_grads`` each within 3e-4 of its largest magnitude.
     Then, given ``ckpt_dir``, a checkpoint of the card's parameters and
     bf16 AdamW moments saved and restored bitwise."""
@@ -2133,8 +2224,10 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
                                          adamw_update, global_norm)
     from repro_torch.runtime.train import loss_and_grads
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
-    S, names = TRAIN_PATHS[arch]["agree_seq"], TRAIN_PATHS[arch]["agree_grads"]
+    path = TRAIN_PATHS[arch]
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=path["agree_layers"])
+    S, names = path["agree_seq"], path["agree_grads"]
     pol = Policy(torch.float32, torch.float32)
     cpu = build_model(cfg, pol, "cpu").init(
         torch.Generator().manual_seed(seed))
@@ -2150,7 +2243,7 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     torch.cuda.synchronize()
     launches = {label: k.launches - n0[label]
                 for label, (k, _, _) in kernels.items()}
-    want_launches = expected_step_launches(arch, cfg.num_layers, "float32")
+    want_launches = expected_step_launches(arch, cfg, "float32")
     if launches != want_launches:
         fail(f"the fp32 training step launched {launches}, not "
              f"{want_launches}")
@@ -2198,7 +2291,8 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
         torch.equal(fresh_opt["mu_nu"][n][m], opt["mu_nu"][n][m])
         for n in params for m in ("m", "v")) and torch.equal(
         fresh_opt["count"], opt["count"])
-    log("train", f"checkpoint of the 2-layer cut (parameters fp32, moments "
+    log("train", f"checkpoint of the {cfg.num_layers}-layer cut (parameters "
+        f"fp32, moments "
         f"bf16) to {ckpt_dir.relative_to(ROOT)}: saved in {save_s:.2f} s, "
         f"restored in {restore_s:.2f} s, bitwise equal: {same}")
     if not same:
@@ -2213,9 +2307,9 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
     """The training trace read back: step spans 0..steps-1, a
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
     span with ``flops`` = 6·N·tokens in each, and the forward's kernel
-    spans (the path's ``spans`` per layer a step: llama flash 1 and fused
-    2, mamba2 SSD scan 1 and fused 1) with CUDA-event durations, nested
-    under their step."""
+    spans (``forward_launches`` a step: llama flash 16 and fused 32,
+    mamba2 SSD scan 48 and fused 48, zamba2 SSD scan 54, flash 9 and fused
+    72) with CUDA-event durations, nested under their step."""
     from collections import Counter
     from repro_torch.configs import get_config
     from repro_torch.core.events import EventKind, load_jsonl
@@ -2243,16 +2337,19 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
         fail(f"{arch} train: a train_step_exec k_comp span per step with "
              f"flops {flops}")
     per_name = {}
-    for name, per_layer in TRAIN_PATHS[arch]["spans"].items():
-        n = per_layer * cfg.num_layers
+    for name, n in forward_launches(cfg).items():
         evs = [e for e in events if e.name == name]
         if len(evs) != n * steps or Counter(e.step for e in evs) != {
                 s: n for s in range(steps)}:
             fail(f"{arch} train: {name} spans {len(evs)}, not {n} a step")
-        if any(e.duration <= 0 or e.issue_latency < 0
-               or e.meta.get("parent") != f"step_{e.step}" for e in evs):
-            fail(f"{arch} train: a {name} span without a device duration or "
-                 f"outside its step")
+        bad = [e for e in evs if e.duration <= 0 or e.issue_latency < 0
+               or e.meta.get("parent") != f"step_{e.step}"]
+        if bad:
+            e = bad[0]
+            fail(f"{arch} train: {len(bad)} {name} spans without a device "
+                 f"duration or outside their step; the first: step {e.step},"
+                 f" duration {e.duration:.3e} s, issue latency "
+                 f"{e.issue_latency:.3e} s, parent {e.meta.get('parent')}")
         per_name[name] = dict(n=len(evs),
                               device_s=sum(e.duration for e in evs))
     exec_s = sorted(e.duration for e in execs)
@@ -2317,9 +2414,9 @@ def check_trace(arch: str, trace_path: Path, new: int):
     return dict(prefill_s=prefill, decode_s=decode, per_name=per_name)
 
 
-# (arch, agreement prompt length): mamba2's S 320 is one full chunk of 256
-# and a ragged one
-PATHS = (("llama3.2-1b", 64), ("mamba2-780m", 320))
+# (arch, agreement prompt length): mamba2's and zamba2's S 320 is one full
+# chunk of 256 and a ragged one
+PATHS = (("llama3.2-1b", 64), ("mamba2-780m", 320), ("zamba2-2.7b", 320))
 
 
 def main():
@@ -2388,13 +2485,12 @@ def main():
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flash, flash_fp32, flash_cases = check_flash(gen, "cuda")
+    flash_sums, flash_cases = check_flash(gen, "cuda")
     fused, fused_rows, fused_cases = check_fused(gen, "cuda")
     scan, scan_fp32, ssd_cases = check_ssd(gen, "cuda")
     matmul, matmul_fp32, matmul_cases = check_padded_matmul(gen, "cuda")
     combine, combine_cases = check_ring_combine(gen, "cuda")
-    flash_bwd, flash_bwd_fp32, flash_bwd_cases = check_flash_bwd(gen,
-                                                                  "cuda")
+    flash_bwd_sums, flash_bwd_cases = check_flash_bwd(gen, "cuda")
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
     ssd_bwd, ssd_bwd_fp32, ssd_bwd_cases = check_ssd_bwd(gen, "cuda")
 
@@ -2433,40 +2529,47 @@ def main():
             arch, args.seed, OUT_DIR / "ckpt" if dense else None)
         train_traces[arch] = check_train_trace(arch, trace_path, TRAIN_STEPS)
 
+    # each summary's launches: the main path's runs of its kernel (for
+    # flash, the paths of its head dim: llama's 64, zamba2's 80)
+    from repro_torch.configs import get_config
+    hd = {arch: get_config(arch).head_dim for arch, _ in PATHS}
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     by_path.update({f"{arch} train": run["launches"]
                     for arch, run in train_runs.items()})
-    for summary, label in ((flash, "flash_attention[wgmma]"),
-                           (fused, "fused_residual_rmsnorm"),
-                           (scan, "ssd_scan[wgmma]")):
-        per = {arch: n[label] for arch, n in by_path.items() if label in n}
+
+    def count(summary, label, paths, hd_of=None):
+        per = {p: n[label] for p, n in paths.items() if label in n
+               and (hd_of is None or hd[p.split()[0]] == hd_of)}
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
-    for summary, arch, label in (
-            (flash_fp32, "llama3.2-1b", "flash_attention[tf32x3]"),
-            (scan_fp32, "mamba2-780m", "ssd_scan[tf32x3]")):
-        n = fp32_launches[arch][label]
-        summary["launches"] = n
-        summary["launches_by_path"] = {f"{arch} fp32 prefill": n}
+
+    for (route, d), summary in flash_sums.items():
+        if route == "wgmma":
+            count(summary, "flash_attention[wgmma]", by_path, d)
+        else:
+            count(summary, "flash_attention[tf32x3]",
+                  {f"{a} fp32 prefill": n for a, n in fp32_launches.items()},
+                  d)
+    for summary, label in ((fused, "fused_residual_rmsnorm"),
+                           (scan, "ssd_scan[wgmma]")):
+        count(summary, label, by_path)
+    count(scan_fp32, "ssd_scan[tf32x3]",
+          {f"{a} fp32 prefill": n for a, n in fp32_launches.items()})
     for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
                                   (matmul_fp32, "float32", "tf32x3")):
         n = case2[dtype]["launches"][route]
         summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
-    for summary, label in ((flash_bwd, "flash_attention_bwd[wgmma]"),
-                           (fused_bwd, "fused_residual_rmsnorm_bwd"),
+    agree = {f"{a} fp32 {TRAIN_PATHS[a]['agree_layers']}-layer agreement "
+             f"step": r["launches"] for a, r in train_agree.items()}
+    trains = {f"{a} train": r["launches"] for a, r in train_runs.items()}
+    for (route, d), summary in flash_bwd_sums.items():
+        count(summary, f"flash_attention_bwd[{route}]",
+              trains if route == "wgmma" else agree, d)
+    for summary, label in ((fused_bwd, "fused_residual_rmsnorm_bwd"),
                            (ssd_bwd, "ssd_scan_bwd[wgmma]")):
-        per = {f"{arch} train": run["launches"][label]
-               for arch, run in train_runs.items() if label in run["launches"]}
-        summary["launches"] = sum(per.values())
-        summary["launches_by_path"] = per
-    for summary, arch, label in (
-            (flash_bwd_fp32, "llama3.2-1b", "flash_attention_bwd[tf32x3]"),
-            (ssd_bwd_fp32, "mamba2-780m", "ssd_scan_bwd[tf32x3]")):
-        n = train_agree[arch]["launches"][label]
-        summary["launches"] = n
-        summary["launches_by_path"] = {
-            f"{arch} fp32 2-layer agreement step": n}
+        count(summary, label, trains)
+    count(ssd_bwd_fp32, "ssd_scan_bwd[tf32x3]", agree)
     combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -2484,10 +2587,10 @@ def main():
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
                    train_agreement=train_agree, train_trace=train_traces)
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [flash, flash_fp32, fused, scan, scan_fp32,
-                                  matmul, matmul_fp32, combine, flash_bwd,
-                                  flash_bwd_fp32, fused_bwd, ssd_bwd,
-                                  ssd_bwd_fp32]}), flush=True)
+    print(json.dumps({"kernels": [
+        *flash_sums.values(), fused, scan, scan_fp32, matmul, matmul_fp32,
+        combine, *flash_bwd_sums.values(), fused_bwd, ssd_bwd,
+        ssd_bwd_fp32]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,8 @@ class ModelConfig:
     """Static architecture description (model shape only, no run knobs)."""
 
     name: str
-    family: str  # the port serves "dense" (TransformerLM), "ssm" (MambaLM)
+    family: str  # the port builds "dense" (TransformerLM), "ssm" (MambaLM),
+    #              "hybrid" (Zamba2LM)
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +32,8 @@ class ModelConfig:
     ssm_head_dim: int = 64
     conv_width: int = 4
     ssm_chunk: int = 256
+    # --- hybrid (zamba2): one weight-shared attention block every k SSM layers
+    attn_every: int = 0
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -70,6 +73,10 @@ class ModelConfig:
             n += L * (attn + ff_dense + per_layer_norms)
         elif self.family == "ssm":
             n += L * (self._mamba_block_params() + d)
+        elif self.family == "hybrid":
+            # L mamba layers + ONE shared attention block (+ its ff)
+            n += L * (self._mamba_block_params() + d)
+            n += attn + ff_dense + per_layer_norms
         else:
             raise NotImplementedError(
                 f"the port counts no {self.family!r} parameters")
@@ -86,7 +93,8 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Params touched per token: every one, as the port has no MoE."""
+        """Params touched per token: every one, as the port has no MoE (the
+        hybrid's shared block counts once, however often it runs)."""
         return self.param_count()
 
 
@@ -94,6 +102,7 @@ ARCH_MODULES: dict[str, str] = {
     "llama3.2-1b": "llama3p2_1b",
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-780m": "mamba2_780m",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 

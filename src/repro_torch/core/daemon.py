@@ -279,10 +279,14 @@ class TracingDaemon:
         return steps
 
     def _flush(self, final: bool = False):
+        # the open steps are read before the buffer is drained: a step that
+        # ends between the two would otherwise count as closed while its
+        # step span is not among the drained events, and its kernels would
+        # be spilled without the span they nest under
+        open_steps = set() if final else self._open_steps()
         events = self._held + self.buffer.drain()
         self._held = []
         if not final:
-            open_steps = self._open_steps()
             keep = [e.step in open_steps
                     and e.kind is not EventKind.HANG_SUSPECT for e in events]
             self._held = [e for e, k in zip(events, keep) if k]

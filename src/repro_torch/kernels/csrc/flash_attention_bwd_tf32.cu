@@ -35,12 +35,12 @@
 //     (256 at hd 128).
 //     Warpgroup 2 is the producer: K and V hi/lo of the block's keys by TMA
 //     once; then, for each of the G heads and each q step (32 rows at hd
-//     64, 16 at hd 128) that sees the keys (from the key tile on when
-//     causal), one warp brings the step's raw Q, dO and Q^T, dO^T by
+//     64, 16 at hd 80 and 128) that sees the keys (from the key tile on
+//     when causal), one warp brings the step's raw Q, dO and Q^T, dO^T by
 //     TMA and its lse * log2(e) and delta into shared memory, through 2
-//     stages (hd 64) or 1 (hd 128).  At hd 64 warpgroups 0 and 1 take the
-//     steps in turn, each on its own stage; at hd 128 warpgroup 0 takes
-//     them all.  The keys are the M dimension:
+//     stages (hd 64, 80) or 1 (hd 128).  At hd 64 and 80 warpgroups 0 and
+//     1 take the steps in turn, each on its own stage; at hd 128 warpgroup
+//     0 takes them all.  The keys are the M dimension:
 //       S^T = K.Q^T and dP^T = V.dO^T (both operands in shared memory);
 //       P^T and dS^T in the fp32 accumulator registers, lse and delta by
 //       column from shared memory, the mask only on steps that cross the
@@ -48,22 +48,27 @@
 //       dV += P^T.dO and dK += dS^T.Q with P^T and dS^T split in registers
 //       as the A operand and dO^T, Q^T as B;
 //     each warpgroup keeps its dK and dV in fp32 registers to the end;
-//     then (hd 64) warpgroup 1's go through shared memory to warpgroup 0,
+//     then (hd 64, 80) warpgroup 1's go through shared memory to warpgroup 0,
 //     which adds them in a fixed order and writes dK and dV;
 //   * dq_kernel: persistent, one block per SM walking the items (b, head,
 //     q tile of 128 rows at hd 64, two consumer warpgroups of 64; 64 rows
-//     at hd 128, one): the producer loads an item's raw Q and dO once
-//     and streams K, V (hi, lo) and K^T tiles (32 keys at hd 64, 16 at hd
-//     128) up to the causal frontier through 2 stages.  Each consumer
+//     at hd 80 and 128, one): the producer loads an item's raw Q and dO
+//     once and streams K, V (hi, lo) and K^T tiles (32 keys at hd 64, 16 at
+//     hd 80 and 128) up to the causal frontier through 2 stages.  Each consumer
 //     warpgroup owns 64 rows: S = Q.K^T and dP = dO.V^T, dS in registers
 //     with lse and delta per row, dQ += dS.K (K^T as B).
 // Both take their items heaviest-first.  dq_kernel is launched while
 // dkdv_kernel runs (programmatic dependent launch): it needs only the
 // pre-pass, so its blocks fill the SMs that dkdv_kernel's last wave leaves
 // idle, and it waits for dkdv_kernel before it exits.  The 4-D tensor maps
-// load rows >= S as zeros, so any S needs no other load path.  head_dim 64
-// and 128 are template instances (dK/dV 192 KB and dQ 224 KB of shared
-// memory at either); the wrapper refuses others.
+// load rows >= S as zeros, so any S needs no other load path.  At hd 80 the
+// direct tiles (q, dO, k, v and their splits) are three 32-column boxes
+// whose columns 80-95 lie past the maps' inner dim and load as zeros (never
+// read: the products over hd take the 10 k8 steps of the real dims), and
+// the products over the sequence run at N 80 on the transposed tiles' 80
+// rows.  head_dim 64, 80 and 128 are template instances (dK/dV 192 KB and
+// dQ 224 KB of shared memory at 64 and 128, 186 KB and 166 KB at 80); the
+// wrapper refuses others.
 
 #include "common.cuh"
 #include "flash_tf32_split.cuh"
@@ -96,14 +101,18 @@ __device__ __forceinline__ void rs_wgmma(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n64k8_tf32_rs(d, a, db, 1);
 }
+__device__ __forceinline__ void rs_wgmma(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n80k8_tf32_rs(d, a, db, 1);
+}
 __device__ __forceinline__ void rs_wgmma(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n128k8_tf32_rs(d, a, db, 1);
 }
 
 // D[64,N] = A.B^T over hd in three passes: a / a_lo the 64 rows of an
-// A tile's hi and lo (hd / 32 column blocks of a_rows rows), b / b_lo the
-// N rows of a B tile's (column blocks of N rows)
+// A tile's hi and lo (32-column blocks of a_rows rows), b / b_lo the N rows
+// of a B tile's (column blocks of N rows); the k8 steps of the real dims
 template <int HD, int N2>
 __device__ __forceinline__ void issue_nt(float (&d)[N2], const float* a,
                                          const float* a_lo, int a_rows,
@@ -168,13 +177,19 @@ __device__ __forceinline__ void split_tile(float* x, float* lo, int n) {
 
 constexpr int kKeys = 64;             // keys of a dK/dV block
 
+// the columns of a direct tile: hd rounded up to whole 32-column boxes
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 31) / 32 * 32;
+}
+
 // consumer warpgroups (taking the steps in turn, each on its own stage),
 // q rows of a step and the ring's depth, per instance: with one stage a
 // second consumer would wait on the stage's barrier two rounds ahead,
 // which its parity cannot tell from the round before
 template <int HD>
 __host__ __device__ constexpr int kv_consumers() {
-  return HD == 64 ? 2 : 1;
+  return HD == 128 ? 1 : 2;
 }
 template <int HD>
 __host__ __device__ constexpr int step_q() {
@@ -182,29 +197,30 @@ __host__ __device__ constexpr int step_q() {
 }
 template <int HD>
 __host__ __device__ constexpr int kv_stages() {
-  return HD == 64 ? 2 : 1;
+  return HD == 128 ? 1 : 2;
 }
 
-template <int HD, int NQ = step_q<HD>()>
+template <int HD, int HDP = padded<HD>(), int NQ = step_q<HD>()>
 struct KvStage {
-  // hd / 32 column blocks of [NQ][32]; q and dout hold the raw tiles,
+  // HDP / 32 column blocks of [NQ][32]; q and dout hold the raw tiles,
   // split in place into their hi terms
-  float q[NQ * HD];
-  float q_lo[NQ * HD];
-  float dout[NQ * HD];
-  float dout_lo[NQ * HD];
+  float q[NQ * HDP];
+  float q_lo[NQ * HDP];
+  float dout[NQ * HDP];
+  float dout_lo[NQ * HDP];
   // transposed: NQ / 16 column blocks of [hd][32]
   float qt[HD * 2 * NQ];
   float dot[HD * 2 * NQ];
 };
 
-template <int HD, int NQ = step_q<HD>(), int kStages = kv_stages<HD>()>
+template <int HD, int HDP = padded<HD>(), int NQ = step_q<HD>(),
+          int kStages = kv_stages<HD>()>
 struct DkdvSmem {
-  // hd / 32 column blocks of [64 keys][32]
-  float k[kKeys * HD];
-  float k_lo[kKeys * HD];
-  float v[kKeys * HD];
-  float v_lo[kKeys * HD];
+  // HDP / 32 column blocks of [64 keys][32]
+  float k[kKeys * HDP];
+  float k_lo[kKeys * HDP];
+  float v[kKeys * HDP];
+  float v_lo[kKeys * HDP];
   KvStage<HD> st[kStages];
   float lse2[kStages][NQ];      // lse * log2(e); 0 for rows >= S
   float delta[kStages][NQ];     // 0 for rows >= S
@@ -225,7 +241,8 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk_out, float* __restrict__ dv_out, int B,
             int S, int H, int KV, float scale, int causal) {
-  constexpr int kCols = HD / 32;
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 32;
   constexpr int NQ = step_q<HD>();
   constexpr int kStages = kv_stages<HD>();
   constexpr int kConsumers = kv_consumers<HD>();
@@ -270,7 +287,7 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
     if constexpr (kConsumers == 2) regs_dealloc<40>();
     if (tid < 32) {
       if (tid == 0) {
-        mbar_expect_tx(&s.kv_full, 4 * kKeys * HD * 4);
+        mbar_expect_tx(&s.kv_full, 4 * kKeys * HDP * 4);
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int off = c * kKeys * 32;
@@ -296,7 +313,8 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
         // each lane's arrival releases its own lse / delta stores
         if (tid == 0) {
           KvStage<HD>& t = s.st[st];
-          mbar_expect_tx(&s.full[st], 6 * NQ * HD * 4);
+          // raw Q and dO (NQ x HDP each), Q^T and dO^T (hd x 2 NQ each)
+          mbar_expect_tx(&s.full[st], (2 * HDP + 4 * HD) * NQ * 4);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             const int off = c * NQ * 32;
@@ -338,8 +356,8 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
       KvStage<HD>& t = s.st[st];
       mbar_wait(&s.full[st], (n / kStages) & 1);
       // the step's raw Q and dO into hi and lo, visible to the wgmma's proxy
-      split_tile(t.q, t.q_lo, NQ * HD);
-      split_tile(t.dout, t.dout_lo, NQ * HD);
+      split_tile(t.q, t.q_lo, NQ * HDP);
+      split_tile(t.dout, t.dout_lo, NQ * HDP);
       fence_proxy_async();
       bar_sync(2 + wg, 128);
       // S^T = K.Q^T and dP^T = V.dO^T, one commit group
@@ -445,25 +463,25 @@ __host__ __device__ constexpr int dq_keys() {
 }
 constexpr int kDqStages = 2;
 
-template <int HD, int NK = dq_keys<HD>()>
+template <int HD, int HDP = padded<HD>(), int NK = dq_keys<HD>()>
 struct DqStage {
-  // hd / 32 column blocks of [NK][32]
-  float k[NK * HD];
-  float k_lo[NK * HD];
-  float v[NK * HD];
-  float v_lo[NK * HD];
+  // HDP / 32 column blocks of [NK][32]
+  float k[NK * HDP];
+  float k_lo[NK * HDP];
+  float v[NK * HDP];
+  float v_lo[NK * HDP];
   // K^T: NK / 16 column blocks of [hd][32]
   float kt[HD * 2 * NK];
 };
 
-template <int HD, int ROWS = 64 * dq_consumers<HD>()>
+template <int HD, int HDP = padded<HD>(), int ROWS = 64 * dq_consumers<HD>()>
 struct DqSmem {
-  // hd / 32 column blocks of [ROWS][32]; q and dout hold the raw tiles,
+  // HDP / 32 column blocks of [ROWS][32]; q and dout hold the raw tiles,
   // split in place into their hi terms
-  float q[ROWS * HD];
-  float q_lo[ROWS * HD];
-  float dout[ROWS * HD];
-  float dout_lo[ROWS * HD];
+  float q[ROWS * HDP];
+  float q_lo[ROWS * HDP];
+  float dout[ROWS * HDP];
+  float dout_lo[ROWS * HDP];
   DqStage<HD> st[kDqStages];
   uint64_t q_full;
   uint64_t q_empty;
@@ -497,7 +515,8 @@ __global__ void __launch_bounds__(128 * (dq_consumers<HD>() + 1), 1)
 dq_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ lse,
           const float* __restrict__ delta, float* __restrict__ dq_out, int B,
           int S, int H, int KV, float scale, int causal) {
-  constexpr int kCols = HD / 32;
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 32;
   constexpr int kConsumers = dq_consumers<HD>();
   constexpr int ROWS = 64 * kConsumers;
   constexpr int NK = dq_keys<HD>();
@@ -535,7 +554,7 @@ dq_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ lse,
         const DqItem it = dq_item<ROWS, NK>(i, B, H, S, q_tiles, causal);
         const int kvh = it.h / group;
         mbar_wait(&s.q_empty, (round & 1) ^ 1);
-        mbar_expect_tx(&s.q_full, 2 * ROWS * HD * 4);
+        mbar_expect_tx(&s.q_full, 2 * ROWS * HDP * 4);
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int off = c * ROWS * 32;
@@ -548,7 +567,8 @@ dq_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ lse,
           const int st = g % kDqStages;
           DqStage<HD>& t = s.st[st];
           mbar_wait(&s.empty[st], ((g / kDqStages) & 1) ^ 1);
-          mbar_expect_tx(&s.full[st], 6 * NK * HD * 4);
+          // K, V raw hi and lo (NK x HDP each), K^T (hd x 2 NK)
+          mbar_expect_tx(&s.full[st], (4 * HDP + 2 * HD) * NK * 4);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             const int off = c * NK * 32;
@@ -788,6 +808,9 @@ extern "C" int flash_attention_bwd_tf32_launch(
   float* gv = static_cast<float*>(dv);
   if (hd == 64)
     return launch_hd<64>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
+                         causal, s);
+  if (hd == 80)
+    return launch_hd<80>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
                          causal, s);
   if (hd == 128)
     return launch_hd<128>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H,

@@ -23,8 +23,8 @@
 // deterministic backward with no atomics, ~30 us at peak.
 //
 // Design (three launches on one stream):
-//   * delta_kernel: hd / 8 lanes per row read o and dO with 16-byte loads,
-//     so every lane works at hd 64 and 128; delta [B,H,S] fp32;
+//   * delta_kernel: hd / 8 lanes per row (a power of two of them: 16 at
+//     hd 80, 6 idle) read o and dO with 16-byte loads; delta [B,H,S] fp32;
 //   * dkdv_kernel: a block owns (b, KV head, 128-key tile), 384 threads.
 //     Warpgroup 2 is the producer: K and V of the block's keys by TMA once;
 //     then, for each of the G heads and each 64-row q tile that sees the
@@ -55,8 +55,12 @@
 // needs only delta, so its blocks fill the SMs that dkdv_kernel's last
 // wave leaves idle, and it waits for dkdv_kernel before it exits.  The
 // 4-D tensor maps (hd, heads, S, B) load rows >= S as zeros, so any S needs
-// no other load path; hd 128 is two 64-column boxes per tile.  head_dim 64
-// and 128 are template instances; the wrapper refuses others.
+// no other load path; hd 128 is two 64-column boxes per tile, and so is hd
+// 80: the second box's columns 80-127 lie past the map's inner dim and load
+// as zeros, so the tiles and accumulators are hd 128's, the products over hd
+// take the 5 k16 steps of the real dims, and the zero columns of dQ, dK and
+// dV are not stored.  head_dim 64, 80 and 128 are template instances; the
+// wrapper refuses others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -73,10 +77,16 @@ constexpr int kTileQ = 64;          // q rows of a dK/dV step
 constexpr int kBlockQ = 128;        // q rows of a dQ block
 constexpr float kLog2e = 1.4426950408889634f;
 
-// keys of a dQ step: 128 at hd 64, 64 at hd 128 (registers)
+// the columns of a tile: hd rounded up to whole 64-column boxes
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 63) / 64 * 64;
+}
+
+// keys of a dQ step: 128 at hd 64, 64 at hd 80 and 128 (registers)
 template <int HD>
 __host__ __device__ constexpr int dq_keys() {
-  return HD == 64 ? 128 : 64;
+  return padded<HD>() == 64 ? 128 : 64;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -105,7 +115,7 @@ __device__ __forceinline__ void rs_wgmma(float (&d)[64],
 }
 
 // D[64,N] = A[64 rows of a, hd] . B[N rows of b, hd]^T over hd: both tiles
-// K-major stacks of hd / 64 column blocks; a_rows / b_rows are the rows of
+// K-major stacks of 64-column blocks (the k16 steps of the real dims); a_rows / b_rows are the rows of
 // each whole tile (the distance between its column blocks)
 template <int HD, int N2>
 __device__ __forceinline__ void issue_nt(float (&d)[N2],
@@ -152,17 +162,26 @@ __device__ __forceinline__ void release(uint64_t* bar) {
   if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 
-// delta[b,h,s] = sum_d dO[b,s,h,d] * O[b,s,h,d]: hd / 8 lanes per row, one
-// 16-byte load of each a lane; rows in [b][s][h] order
+// lanes of a delta row: hd / 8 rounded up to a power of two
+template <int HD>
+__host__ __device__ constexpr int delta_lanes() {
+  int n = 1;
+  while (n < HD / 8) n *= 2;
+  return n;
+}
+
+// delta[b,h,s] = sum_d dO[b,s,h,d] * O[b,s,h,d]: delta_lanes lanes per row,
+// one 16-byte load of each a lane (lanes past hd / 8 load nothing); rows in
+// [b][s][h] order
 template <int HD>
 __global__ void __launch_bounds__(256)
 delta_kernel(const __nv_bfloat16* __restrict__ o,
              const __nv_bfloat16* __restrict__ dout,
              float* __restrict__ delta, int B, int S, int H) {
-  constexpr int kLanes = HD / 8;
+  constexpr int kLanes = delta_lanes<HD>();
   const int row = (blockIdx.x * 256 + threadIdx.x) / kLanes;
   const int part = threadIdx.x % kLanes;
-  const bool live = row < B * S * H;
+  const bool live = row < B * S * H && part * 8 < HD;
   float acc = 0.f;
   if (live) {
     const size_t off = static_cast<size_t>(row) * HD + part * 8;
@@ -183,7 +202,7 @@ delta_kernel(const __nv_bfloat16* __restrict__ o,
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (live && part == 0) {
+  if (row < B * S * H && part == 0) {
     const int h = row % H;
     const int s = (row / H) % S;
     const int b = row / (H * S);
@@ -193,13 +212,13 @@ delta_kernel(const __nv_bfloat16* __restrict__ o,
 
 // ---------------------------------------------------------------- dK / dV --
 
-template <int HD>
+template <int HD, int HDP = padded<HD>()>
 struct DkdvSmem {
-  // hd / 64 column blocks of [rows][64] each
-  __nv_bfloat16 k[kBlockKeys * HD];
-  __nv_bfloat16 v[kBlockKeys * HD];
-  __nv_bfloat16 q[kStages][kTileQ * HD];
-  __nv_bfloat16 dout[kStages][kTileQ * HD];
+  // HDP / 64 column blocks of [rows][64] each
+  __nv_bfloat16 k[kBlockKeys * HDP];
+  __nv_bfloat16 v[kBlockKeys * HDP];
+  __nv_bfloat16 q[kStages][kTileQ * HDP];
+  __nv_bfloat16 dout[kStages][kTileQ * HDP];
   float lse2[kStages][kTileQ];      // lse * log2(e); 0 for rows >= S
   float delta[kStages][kTileQ];     // 0 for rows >= S
   uint64_t kv_full;
@@ -217,7 +236,8 @@ dkdv_kernel(__grid_constant__ const CUtensorMap map_q,
             __nv_bfloat16* __restrict__ dk_out,
             __nv_bfloat16* __restrict__ dv_out, int B, int S, int H, int KV,
             float scale, int causal) {
-  constexpr int kCols = HD / 64;
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 64;
   extern __shared__ uint8_t smem_raw[];
   DkdvSmem<HD>& s = *reinterpret_cast<DkdvSmem<HD>*>(align_1024(smem_raw));
 
@@ -254,7 +274,7 @@ dkdv_kernel(__grid_constant__ const CUtensorMap map_q,
     regs_dealloc<40>();
     if (tid < 32) {
       if (tid == 0) {
-        mbar_expect_tx(&s.kv_full, 2 * kBlockKeys * HD * 2);
+        mbar_expect_tx(&s.kv_full, 2 * kBlockKeys * HDP * 2);
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           tma_load_4d(s.k + c * kBlockKeys * 64, &map_k, &s.kv_full, c * 64,
@@ -276,7 +296,7 @@ dkdv_kernel(__grid_constant__ const CUtensorMap map_q,
         }
         // each lane's arrival releases its own lse / delta stores
         if (tid == 0) {
-          mbar_expect_tx(&s.full[st], 2 * kTileQ * HD * 2);
+          mbar_expect_tx(&s.full[st], 2 * kTileQ * HDP * 2);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             tma_load_4d(s.q[st] + c * kTileQ * 64, &map_q, &s.full[st],
@@ -299,11 +319,11 @@ dkdv_kernel(__grid_constant__ const CUtensorMap map_q,
     const float scale_log2 = scale * kLog2e;
     const __nv_bfloat16* ka = s.k + wg * 64 * 64;
     const __nv_bfloat16* va = s.v + wg * 64 * 64;
-    float dk[HD / 2], dv[HD / 2];
+    float dk[HDP / 2], dv[HDP / 2];
     float sacc[kTileQ / 2], dpacc[kTileQ / 2];
     uint32_t pa[kTileQ / 16][4], da[kTileQ / 16][4];
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+    for (int j = 0; j < HDP / 2; ++j) dk[j] = dv[j] = 0.f;
     mbar_wait(&s.kv_full, 0);
 
     for (int n = 0; n < steps; ++n) {
@@ -378,12 +398,12 @@ dkdv_kernel(__grid_constant__ const CUtensorMap map_q,
 
 // -------------------------------------------------------------------- dQ --
 
-template <int HD, int BK = dq_keys<HD>()>
+template <int HD, int HDP = padded<HD>(), int BK = dq_keys<HD>()>
 struct DqSmem {
-  __nv_bfloat16 q[kBlockQ * HD];
-  __nv_bfloat16 dout[kBlockQ * HD];
-  __nv_bfloat16 k[kStages][BK * HD];
-  __nv_bfloat16 v[kStages][BK * HD];
+  __nv_bfloat16 q[kBlockQ * HDP];
+  __nv_bfloat16 dout[kBlockQ * HDP];
+  __nv_bfloat16 k[kStages][BK * HDP];
+  __nv_bfloat16 v[kStages][BK * HDP];
   uint64_t q_full;
   uint64_t q_empty;
   uint64_t full[kStages];
@@ -418,7 +438,8 @@ dq_kernel(__grid_constant__ const CUtensorMap map_q,
           const float* __restrict__ lse, const float* __restrict__ delta,
           __nv_bfloat16* __restrict__ dq_out, int B, int S, int H, int KV,
           float scale, int causal) {
-  constexpr int kCols = HD / 64;
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 64;
   constexpr int BK = dq_keys<HD>();
   extern __shared__ uint8_t smem_raw[];
   DqSmem<HD>& s = *reinterpret_cast<DqSmem<HD>*>(align_1024(smem_raw));
@@ -454,7 +475,7 @@ dq_kernel(__grid_constant__ const CUtensorMap map_q,
         const DqItem it = dq_item<BK>(i, B, H, S, q_tiles, causal);
         const int kvh = it.h / group;
         mbar_wait(&s.q_empty, (round & 1) ^ 1);
-        mbar_expect_tx(&s.q_full, 2 * kBlockQ * HD * 2);
+        mbar_expect_tx(&s.q_full, 2 * kBlockQ * HDP * 2);
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           tma_load_4d(s.q + c * kBlockQ * 64, &map_q, &s.q_full, c * 64,
@@ -465,7 +486,7 @@ dq_kernel(__grid_constant__ const CUtensorMap map_q,
         for (int n = 0; n < it.tiles; ++n, ++g) {
           const int st = g % kStages;
           mbar_wait(&s.empty[st], ((g / kStages) & 1) ^ 1);
-          mbar_expect_tx(&s.full[st], 2 * BK * HD * 2);
+          mbar_expect_tx(&s.full[st], 2 * BK * HDP * 2);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             tma_load_4d(s.k[st] + c * BK * 64, &map_k, &s.full[st], c * 64,
@@ -484,7 +505,7 @@ dq_kernel(__grid_constant__ const CUtensorMap map_q,
     const float scale_log2 = scale * kLog2e;
     const __nv_bfloat16* qa = s.q + wg * 64 * 64;
     const __nv_bfloat16* doa = s.dout + wg * 64 * 64;
-    float dq[HD / 2];
+    float dq[HDP / 2];
     float sacc[BK / 2], dpacc[BK / 2];
     uint32_t da[BK / 16][4];
 
@@ -503,7 +524,7 @@ dq_kernel(__grid_constant__ const CUtensorMap map_q,
         dl[r] = q < S ? delta[off] : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) dq[j] = 0.f;
+      for (int j = 0; j < HDP / 2; ++j) dq[j] = 0.f;
       mbar_wait(&s.q_full, round & 1);
 
       for (int n = 0; n < it.tiles; ++n, ++g) {
@@ -612,7 +633,8 @@ int launch_hd(const void* q, const void* k, const void* v, const void* o,
   using bf16 = __nv_bfloat16;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
 
-  const long long lanes = static_cast<long long>(B) * S * H * (HD / 8);
+  const long long lanes =
+      static_cast<long long>(B) * S * H * delta_lanes<HD>();
   delta_kernel<HD><<<static_cast<int>((lanes + 255) / 256), 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, B,
       S, H);
@@ -677,6 +699,9 @@ extern "C" int flash_attention_bwd_wgmma_launch(
   float* d = static_cast<float*>(delta);
   if (hd == 64)
     return launch_hd<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
+                         causal, s);
+  if (hd == 80)
+    return launch_hd<80>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
                          causal, s);
   if (hd == 128)
     return launch_hd<128>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,

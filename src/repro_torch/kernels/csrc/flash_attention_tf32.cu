@@ -30,8 +30,8 @@
 //   * warpgroup 2 is the producer: one thread loads an item's raw q tile
 //     once (when the previous item's last Q.K^T has freed the buffer) and
 //     streams key tiles (K hi, K lo, V^T) by TMA through a ring of 2
-//     stages of 64 keys (hd 64) or 1 of 32 keys (hd 128; 192 KB either),
-//     with separate K and V barriers;
+//     stages of 64 keys (hd 64), 2 of 32 keys (hd 80; 184 KB) or 1 of 32
+//     keys (hd 128; 192 KB at 64 and 128), with separate K and V barriers;
 //   * warpgroups 0 and 1 own 64 q rows each: each splits its rows of the
 //     raw q tile in place into hi and a lo buffer (the same offsets, so the
 //     same swizzle); S = Q.K^T by m64nBKk8 with both operands in shared
@@ -44,8 +44,11 @@
 //     P.V; the two consumer warpgroups take turns to issue (named
 //     barriers), so that one's softmax overlaps the other's products.
 // The 4-D tensor maps load rows >= S as zeros, so any S needs no other load
-// path.  head_dim 64 and 128 are template instances; the wrapper refuses
-// others.
+// path.  At hd 80 the q and K tiles are three 32-column boxes whose columns
+// 80-95 lie past the maps' inner dim and load as zeros (never read: Q.K^T
+// takes the 10 k8 steps of the real dims), and P.V runs at N 80 on V^T's 80
+// rows.  head_dim 64, 80 and 128 are template instances; the wrapper
+// refuses others.
 
 #include "common.cuh"
 #include "flash_tf32_split.cuh"
@@ -62,14 +65,19 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// keys of a tile and the ring's depth, per instance (192 KB each)
+// the columns of a q or K tile: hd rounded up to whole 32-column boxes
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 31) / 32 * 32;
+}
+// keys of a tile and the ring's depth, per instance (184-192 KB each)
 template <int HD>
 __host__ __device__ constexpr int block_k() {
   return HD == 64 ? 64 : 32;
 }
 template <int HD>
 __host__ __device__ constexpr int stages() {
-  return HD == 64 ? 2 : 1;
+  return HD == 128 ? 1 : 2;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -78,14 +86,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int HD, int BK = block_k<HD>(), int kStages = stages<HD>()>
+template <int HD, int HDP = padded<HD>(), int BK = block_k<HD>(),
+          int kStages = stages<HD>()>
 struct Smem {
-  // hd / 32 column blocks of [rows][32]; q holds the raw tile, split in
+  // HDP / 32 column blocks of [rows][32]; q holds the raw tile, split in
   // place into its hi terms
-  float q[kBlockQ * HD];
-  float q_lo[kBlockQ * HD];
-  float k[kStages][BK * HD];
-  float k_lo[kStages][BK * HD];
+  float q[kBlockQ * HDP];
+  float q_lo[kBlockQ * HDP];
+  float k[kStages][BK * HDP];
+  float k_lo[kStages][BK * HDP];
   // V^T: BK / 16 column blocks of [hd][32] (16 keys' hi, then their lo)
   float v[kStages][HD * 2 * BK];
   uint64_t q_full;
@@ -109,6 +118,10 @@ __device__ __forceinline__ void qk_wgmma(float (&d)[16], uint64_t da,
 __device__ __forceinline__ void pv_wgmma(float (&o)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n64k8_tf32_rs(o, a, db, 1);
+}
+__device__ __forceinline__ void pv_wgmma(float (&o)[40],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n80k8_tf32_rs(o, a, db, 1);
 }
 __device__ __forceinline__ void pv_wgmma(float (&o)[64],
                                          const uint32_t (&a)[4], uint64_t db) {
@@ -140,7 +153,8 @@ flash_tf32_kernel(__grid_constant__ const CUtensorMap map_q,
                   __grid_constant__ const CUtensorMap map_vt,
                   float* __restrict__ o, float* __restrict__ lse, int B,
                   int S, int H, int KV, float scale_log2, int causal) {
-  constexpr int kCols = HD / 32;                       // column blocks
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 32;                      // column blocks
   constexpr int BK = block_k<HD>();
   constexpr int kStages = stages<HD>();
   extern __shared__ uint8_t smem_raw[];
@@ -177,7 +191,7 @@ flash_tf32_kernel(__grid_constant__ const CUtensorMap map_q,
         const Item it = item_at<BK>(i, B, H, S, q_tiles, causal);
         const int kvh = it.h / group;
         mbar_wait(&s.q_empty, (round & 1) ^ 1);
-        mbar_expect_tx(&s.q_full, kBlockQ * HD * 4);
+        mbar_expect_tx(&s.q_full, kBlockQ * HDP * 4);
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
           tma_load_4d(s.q + c * kBlockQ * 32, &map_q, &s.q_full, c * 32,
@@ -186,7 +200,7 @@ flash_tf32_kernel(__grid_constant__ const CUtensorMap map_q,
           const int st = g % kStages;
           const uint32_t ph = ((g / kStages) & 1) ^ 1;
           mbar_wait(&s.k_empty[st], ph);
-          mbar_expect_tx(&s.k_full[st], 2 * BK * HD * 4);
+          mbar_expect_tx(&s.k_full[st], 2 * BK * HDP * 4);
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             tma_load_4d(s.k[st] + c * BK * 32, &map_k, &s.k_full[st],
@@ -484,6 +498,8 @@ extern "C" int flash_attention_tf32_launch(const void* q, const void* k,
   float* t = static_cast<float*>(vt);
   if (hd == 64)
     return launch_hd<64>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
+  if (hd == 80)
+    return launch_hd<80>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
   if (hd == 128)
     return launch_hd<128>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -21,13 +21,16 @@
 //   * warpgroup 2 is the producer: one thread loads an item's q tile once
 //     (when the previous item's last Q.K^T has freed the buffer) and
 //     streams 128-key K and V tiles by TMA through a ring of 3 stages
-//     (hd 64) or 2 (hd 128), with separate K and V barriers: Q.K^T starts
+//     (hd 64) or 2 (hd 80, 128), with separate K and V barriers: Q.K^T starts
 //     before V lands, and a K buffer is refilled as soon as its Q.K^T is
 //     done, a tile before its V buffer;
 //   * the tensor maps are 4-D over [B,S,H(KV),hd] with a box of
 //     (64 dims, 1 head, 128 rows, 1 batch): rows >= S of a batch load as
 //     zeros, so any S needs no other load path; hd 128 is two such boxes
-//     (two 128-byte swizzle rows) per tile;
+//     (two 128-byte swizzle rows) per tile, and so is hd 80: the second
+//     box's columns 80-127 lie past the map's inner dim and load as zeros,
+//     so the tiles are hd 128's; Q.K^T reads only the 5 k16 steps of the
+//     real dims, P.V runs at N 128 and its zero columns are not stored;
 //   * warpgroups 0 and 1 own 64 q rows each: S = Q.K^T by m64n128k16 wgmma
 //     with both operands in shared memory (K [keys,hd] is K-major); the
 //     mask (keys >= S, and keys after the query when causal) only on the
@@ -41,7 +44,8 @@
 //     cores; O is rescaled once it has landed;
 //   * the two consumer warpgroups take turns to issue (named barriers),
 //     so that one's softmax overlaps the other's products.
-// head_dim 64 and 128 are template instances; the wrapper refuses others.
+// head_dim 64, 80 and 128 are template instances; the wrapper refuses
+// others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -57,10 +61,16 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// K/V ring depth: 3 stages at hd 64 (112 KB), 2 at hd 128 (160 KB)
+// the columns of a tile: hd rounded up to whole 64-column boxes
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 63) / 64 * 64;
+}
+
+// K/V ring depth: 3 stages at hd 64 (112 KB), 2 at hd 80 and 128 (160 KB)
 template <int HD>
 __host__ __device__ constexpr int stages() {
-  return HD == 64 ? 3 : 2;
+  return padded<HD>() == 64 ? 3 : 2;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -69,12 +79,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int HD, int kStages = stages<HD>()>
+template <int HD, int HDP = padded<HD>(), int kStages = stages<HD>()>
 struct Smem {
-  // hd / 64 column blocks of [rows][64] each
-  __nv_bfloat16 q[kBlockQ * HD];
-  __nv_bfloat16 k[kStages][kBlockK * HD];
-  __nv_bfloat16 v[kStages][kBlockK * HD];
+  // HDP / 64 column blocks of [rows][64] each
+  __nv_bfloat16 q[kBlockQ * HDP];
+  __nv_bfloat16 k[kStages][kBlockK * HDP];
+  __nv_bfloat16 v[kStages][kBlockK * HDP];
   uint64_t q_full;
   uint64_t q_empty;
   uint64_t k_full[kStages];
@@ -117,9 +127,10 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
                    __grid_constant__ const CUtensorMap map_v,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int B, int S, int H, int KV, float scale_log2, int causal) {
-  constexpr int kCols = HD / 64;                       // column blocks
+  constexpr int HDP = padded<HD>();
+  constexpr int kCols = HDP / 64;                      // column blocks
   constexpr int kStages = stages<HD>();
-  constexpr uint32_t kTileBytes = kBlockK * HD * 2;
+  constexpr uint32_t kTileBytes = kBlockK * HDP * 2;
   extern __shared__ uint8_t smem_raw[];
   Smem<HD>& s = *reinterpret_cast<Smem<HD>*>(align_1024(smem_raw));
 
@@ -155,7 +166,7 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
         const int kvh = it.h / group;
         // the previous item's last Q.K^T is done with the q buffer
         mbar_wait(&s.q_empty, (round & 1) ^ 1);
-        mbar_expect_tx(&s.q_full, kBlockQ * HD * 2);
+        mbar_expect_tx(&s.q_full, kBlockQ * HDP * 2);
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
           tma_load_4d(s.q + c * kBlockQ * 64, &map_q, &s.q_full, c * 64, it.h,
@@ -184,7 +195,7 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int r0 = wg * 64 + warp * 16 + lane / 4;   // and r0 + 8
-    float oacc[HD / 2];
+    float oacc[HDP / 2];
     float m[2], l[2];
     float sacc[kBlockK / 2];
     uint32_t p[kBlockK / 16][4];
@@ -192,7 +203,8 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     int qpos0 = 0;
     int tiles = 0;
 
-    // S = Q.K^T over hd (64 rows x 128 keys), issued and committed
+    // S = Q.K^T over hd (64 rows x 128 keys), issued and committed: the
+    // k16 steps of the real dims only
     auto issue_qk = [&](int st) {
       fence_regs(sacc);
       wgmma_fence();
@@ -291,7 +303,7 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
       tiles = it.tiles;
       qpos0 = it.q0 + r0;
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) oacc[j] = 0.f;
+      for (int j = 0; j < HDP / 2; ++j) oacc[j] = 0.f;
       m[0] = m[1] = kNegInf;
       l[0] = l[1] = 0.f;
 
@@ -432,6 +444,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (hd == 64) return launch_hd<64>(q, k, v, o, l, B, S, H, KV, causal, s);
+  if (hd == 80) return launch_hd<80>(q, k, v, o, l, B, S, H, KV, causal, s);
   if (hd == 128) return launch_hd<128>(q, k, v, o, l, B, S, H, KV, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

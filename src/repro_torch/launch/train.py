@@ -6,6 +6,8 @@
         --reduced --device cpu --steps 30 --mask-mode naive   # Case-3
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
         --steps 20 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+        --steps 20 --batch 8 --seq 512
 """
 from __future__ import annotations
 
@@ -13,8 +15,7 @@ import argparse
 import json
 
 from repro_torch.configs import get_config, get_reduced, list_archs
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
-from repro_torch.kernels.ssd_scan.ops import kernel_takes
+from repro_torch.models.registry import kernel_refusal
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train import RunConfig, Trainer
 
@@ -25,7 +26,7 @@ def main():
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced config; it trains only with "
                     "--device cpu, since the flash-attention kernels take "
-                    "head_dim 64 or 128 and the SSD-scan kernels head_dim "
+                    "head_dim 64, 80 or 128 and the SSD-scan kernels head_dim "
                     "64, state 64 or 128 and chunk 64-256")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -46,15 +47,9 @@ def main():
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if (cfg.family == "ssm" and args.device != "cpu" and not kernel_takes(
-            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)):
-        ap.error(f"the SSD-scan kernel has no instance for head_dim "
-                 f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
-                 f"{cfg.ssm_chunk}; train this config with --device cpu")
-    if (cfg.family == "dense" and args.device != "cpu"
-            and cfg.head_dim not in HEAD_DIMS):
-        ap.error(f"the flash-attention kernels take head_dim {HEAD_DIMS}, "
-                 f"not {cfg.head_dim}; train this config with --device cpu")
+    refusal = kernel_refusal(cfg) if args.device != "cpu" else None
+    if refusal:
+        ap.error(f"{refusal}; train this config with --device cpu")
     run = RunConfig(
         model=cfg, global_batch=args.batch, seq_len=args.seq,
         steps=args.steps, peak_lr=args.lr,

@@ -3,7 +3,10 @@
 The JAX models keep their parameters as a nested dict with the layers
 stacked on a leading L axis: ``layers/attn/wq`` is ``[L, D, H, hd]`` in the
 dense ``TransformerLM``, ``layers/mamba/in_x`` is ``[L, D, di]`` and
-``layers/ln/scale`` ``[L, D]`` in ``MambaLM``.  ``params_from_jax`` takes
+``layers/ln/scale`` ``[L, D]`` in ``MambaLM``.  The hybrid ``Zamba2LM``
+stacks its Mamba layers on two axes, ``[groups, attn_every, ...]``, and
+keeps its one ``shared_attn`` block unstacked; layer j of group g becomes
+the port's layer ``g * attn_every + j``.  ``params_from_jax`` takes
 that tree with numpy arrays at the leaves (``jax.tree.map(np.asarray,
 params)``) and returns the port's ``{name: array}``, one entry per layer
 (``layers.<i>.attn.wq``, ``layers.<i>.mamba.in_x``, ...).  Leaves keep
@@ -30,10 +33,12 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 def params_from_jax(tree: dict) -> dict:
     """JAX param tree (numpy leaves) -> port state dict (numpy arrays)."""
+    axes = 2 if "shared_attn" in tree else 1     # the hybrid's [g, per]
     state = {}
     for name, arr in _flatten(tree).items():
         if name.startswith("layers."):
             rest = name[len("layers."):]
+            arr = arr.reshape(-1, *arr.shape[axes:])
             for i in range(arr.shape[0]):
                 state[f"layers.{i}.{rest}"] = arr[i]
         else:

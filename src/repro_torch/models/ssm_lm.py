@@ -32,6 +32,66 @@ class MambaLayer(nn.Module):
         self.mamba = M.Mamba2Block(cfg, dtype, device)
 
 
+def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
+    """The JAX init's normal stddev of the embedding, the head or a Mamba
+    layer's parameter; None for the ones it sets to a constant."""
+    leaf = name.rsplit(".", 1)[-1]
+    if name == "embed.embedding":
+        return 1.0
+    if name == "head.w" or leaf.startswith("in_"):
+        return cfg.d_model ** -0.5
+    if leaf == "conv_w":
+        return cfg.conv_width ** -0.5
+    if leaf == "out":
+        return cfg.d_inner ** -0.5
+    return None   # scales, conv_b, dt_bias, A_log, D
+
+
+def init_const(cfg: ModelConfig, name: str, device):
+    """The JAX init's constant of a Mamba layer's undrawn parameter."""
+    leaf = name.rsplit(".", 1)[-1]
+    h = cfg.ssm_heads
+    lin = dict(dtype=torch.float32, device=device)
+    if leaf == "dt_bias":   # softplus^-1 of dt in [1e-3, 1e-1]
+        return torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, h, **lin)))
+    if leaf == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, h, **lin))
+    return 0.0 if leaf == "conv_b" else 1.0   # D, norm scales
+
+
+def init_cache(cfg: ModelConfig, layers: int, batch: int, dtype,
+               device) -> dict:
+    """``state`` [layers,B,H,P,N] fp32 and ``conv`` [layers,B,W-1,di+2N]
+    in ``dtype``; neither has a length."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "state": torch.zeros(
+            (layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=device),
+        "conv": torch.zeros((layers, batch, cfg.conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def layer_apply(lyr: MambaLayer, h, cfg: ModelConfig, i: int, cache=None,
+                caches=None):
+    """Layer ``i``'s Mamba block on its normed input ``h``.  ``cache``
+    given: one decode token, layer ``i``'s cache updated in place (where
+    the JAX model returns a new cache); ``caches`` given: the full sequence,
+    its prefill cache appended; neither: the full sequence."""
+    if cache is not None:
+        out, st, cv = M.mamba_decode_step(
+            lyr.mamba, h, cache["state"][i], cache["conv"][i], cfg)
+        cache["state"][i].copy_(st)
+        cache["conv"][i].copy_(cv)
+        return out
+    if caches is not None:
+        out, c = M.mamba_apply(lyr.mamba, h, cfg, return_state=True)
+        caches.append(c)
+        return out
+    return M.mamba_apply(lyr.mamba, h, cfg)
+
+
 class MambaLM(LM):
     """Projections, ``conv_w``, ``conv_b`` and ``D`` live in
     ``policy.param_dtype`` and are cast to the compute dtype at use (serving
@@ -50,27 +110,10 @@ class MambaLM(LM):
             for _ in range(cfg.num_layers))
 
     def _init_std(self, name: str) -> Optional[float]:
-        cfg = self.cfg
-        leaf = name.rsplit(".", 1)[-1]
-        if name == "embed.embedding":
-            return 1.0
-        if name == "head.w" or leaf.startswith("in_"):
-            return cfg.d_model ** -0.5
-        if leaf == "conv_w":
-            return cfg.conv_width ** -0.5
-        if leaf == "out":
-            return cfg.d_inner ** -0.5
-        return None   # scales, conv_b, dt_bias, A_log, D
+        return init_std(self.cfg, name)
 
     def _init_const(self, name: str, p: torch.Tensor):
-        leaf = name.rsplit(".", 1)[-1]
-        h = self.cfg.ssm_heads
-        lin = dict(dtype=torch.float32, device=self.device)
-        if leaf == "dt_bias":   # softplus^-1 of dt in [1e-3, 1e-1]
-            return torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, h, **lin)))
-        if leaf == "A_log":
-            return torch.log(torch.linspace(1.0, 16.0, h, **lin))
-        return 0.0 if leaf == "conv_b" else 1.0   # D, norm scales
+        return init_const(self.cfg, name, self.device)
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -81,20 +124,10 @@ class MambaLM(LM):
         decode token, the cache updated in place."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         h = L.rmsnorm(self.layers[0].ln.scale, x, eps)
-        caches = []
+        caches = [] if collect else None
         n = len(self.layers)
         for i, lyr in enumerate(self.layers):
-            if cache is not None:
-                out, st, cv = M.mamba_decode_step(
-                    lyr.mamba, h, cache["state"][i], cache["conv"][i], cfg)
-                # in place, where the JAX model returns a new cache
-                cache["state"][i].copy_(st)
-                cache["conv"][i].copy_(cv)
-            elif collect:
-                out, c = M.mamba_apply(lyr.mamba, h, cfg, return_state=True)
-                caches.append(c)
-            else:
-                out = M.mamba_apply(lyr.mamba, h, cfg)
+            out = layer_apply(lyr, h, cfg, i, cache, caches)
             nxt = (self.layers[i + 1].ln if i + 1 < n
                    else self.final_norm).scale
             h, x = fused(out, x, nxt, eps)
@@ -125,16 +158,8 @@ class MambaLM(LM):
     def init_cache(self, batch: int, max_seq: int) -> dict:
         """``state`` [L,B,H,P,N] fp32 and ``conv`` [L,B,W-1,di+2N]; neither
         depends on ``max_seq``."""
-        cfg = self.cfg
-        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
-        return {
-            "state": torch.zeros(
-                (cfg.num_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                 cfg.ssm_state), dtype=torch.float32, device=self.device),
-            "conv": torch.zeros(
-                (cfg.num_layers, batch, cfg.conv_width - 1, conv_dim),
-                dtype=self.policy.compute_dtype, device=self.device),
-        }
+        return init_cache(self.cfg, self.cfg.num_layers, batch,
+                          self.policy.compute_dtype, self.device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:

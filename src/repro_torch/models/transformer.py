@@ -58,6 +58,49 @@ class Block(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
+def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
+                i: int, cache=None, pos=None, kvs=None):
+    """One block on its normed input ``h`` and residual stream ``x``;
+    returns the next (normed input, residual) pair, normed by ``nxt`` (the
+    scale of the norm that follows).  ``w`` casts a stored weight to the
+    compute dtype.  ``cache`` given: one decode token at ``pos``, its K/V
+    written into slot ``i`` of the cache in place (where the JAX model uses
+    dynamic_update_slice on a donated cache); else full causal
+    self-attention, its (k, v) appended to ``kvs`` when given."""
+    eps = cfg.norm_eps
+    a = blk.attn
+    bias = (None,) * 3 if a.bq is None else (w(a.bq), w(a.bk), w(a.bv))
+    q, k, v = attn_lib.project_qkv(w(a.wq), w(a.wk), w(a.wv), h, positions,
+                                   cfg.rope_theta, *bias)
+    if cache is None:
+        o = attn_lib.attention(q, k, v, causal=True)
+        if kvs is not None:
+            kvs.append((k, v))
+    else:
+        cache["k"][i, :, pos] = k[:, 0]
+        cache["v"][i, :, pos] = v[:, 0]
+        o = attn_lib.decode_attention(q, cache["k"][i], cache["v"][i], pos)
+    h, x = fused(attn_lib.project_out(w(a.wo), o), x, blk.ln2.scale, eps)
+    m = blk.mlp
+    y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
+    return fused(y, x, nxt, eps)
+
+
+def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
+    """The JAX init's normal stddev of the embedding, the head or a
+    block's parameter; None for norm scales and biases."""
+    leaf = name.rsplit(".", 2)[-2:]
+    if leaf[-1] == "scale" or leaf[-1] in ("bq", "bk", "bv"):
+        return None
+    if name == "embed.embedding":
+        return 1.0
+    if leaf == ["attn", "wo"]:
+        return (cfg.num_heads * cfg.head_dim) ** -0.5
+    if leaf == ["mlp", "wo"]:
+        return cfg.d_ff ** -0.5
+    return cfg.d_model ** -0.5   # wq, wk, wv, wi_gate, wi_up, head.w
+
+
 class TransformerLM(LM):
     """Weights live in ``policy.param_dtype`` and are cast to the compute
     dtype at each use, as in the JAX model (serving stores them in the
@@ -76,17 +119,7 @@ class TransformerLM(LM):
             for _ in range(cfg.num_layers))
 
     def _init_std(self, name: str) -> Optional[float]:
-        cfg = self.cfg
-        leaf = name.rsplit(".", 2)[-2:]
-        if leaf[-1] == "scale" or leaf[-1] in ("bq", "bk", "bv"):
-            return None
-        if name == "embed.embedding":
-            return 1.0
-        if leaf == ["attn", "wo"]:
-            return (cfg.num_heads * cfg.head_dim) ** -0.5
-        if leaf == ["mlp", "wo"]:
-            return cfg.d_ff ** -0.5
-        return cfg.d_model ** -0.5   # wq, wk, wv, wi_gate, wi_up, head.w
+        return init_std(self.cfg, name)
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -95,34 +128,15 @@ class TransformerLM(LM):
         """Runs every block; returns the final-normed hidden state.
         ``cache`` None: full causal self-attention, returns (h, [(k, v)]).
         ``cache`` given: one decode token at ``pos``."""
-        cfg, eps, w = self.cfg, self.cfg.norm_eps, self.cast
-        h = L.rmsnorm(self.layers[0].ln1.scale, x, eps)
+        cfg = self.cfg
+        h = L.rmsnorm(self.layers[0].ln1.scale, x, cfg.norm_eps)
         kvs = []
         n = len(self.layers)
         for i, blk in enumerate(self.layers):
-            a = blk.attn
-            bias = ((None,) * 3 if a.bq is None
-                    else (w(a.bq), w(a.bk), w(a.bv)))
-            q, k, v = attn_lib.project_qkv(
-                w(a.wq), w(a.wk), w(a.wv), h, positions, cfg.rope_theta,
-                *bias)
-            if cache is None:
-                o = attn_lib.attention(q, k, v, causal=True)
-                kvs.append((k, v))
-            else:
-                # in place, where the JAX model uses dynamic_update_slice
-                # on a donated cache
-                cache["k"][i, :, pos] = k[:, 0]
-                cache["v"][i, :, pos] = v[:, 0]
-                o = attn_lib.decode_attention(q, cache["k"][i],
-                                              cache["v"][i], pos)
-            h, x = fused(attn_lib.project_out(w(a.wo), o), x, blk.ln2.scale,
-                         eps)
-            m = blk.mlp
-            y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
             nxt = (self.layers[i + 1].ln1 if i + 1 < n
                    else self.final_norm).scale
-            h, x = fused(y, x, nxt, eps)
+            h, x = block_apply(blk, h, x, positions, cfg, self.cast, nxt, i,
+                               cache, pos, kvs)
         return h, kvs
 
     def logits(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Serving runtime: batched prefill + greedy decode with KV caches (dense)
-or recurrent SSM state (ssm), FLARE daemon attached.
+"""Serving runtime: batched prefill + greedy decode with KV caches (dense),
+recurrent SSM state (ssm) or both (hybrid), FLARE daemon attached.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Server`` raises.
@@ -35,7 +35,7 @@ class ServeConfig:
 class Server:
     """``params``: a state dict (see ``LM.load_params``); without one the
     weights are drawn from ``cfg.seed``.  The model is the config family's
-    (``build_model``): ``TransformerLM`` or ``MambaLM``."""
+    (``build_model``): ``TransformerLM``, ``MambaLM`` or ``Zamba2LM``."""
 
     def __init__(self, cfg: ServeConfig, params: Optional[dict] = None):
         self.cfg = cfg

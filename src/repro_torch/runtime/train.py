@@ -9,8 +9,8 @@ trace carries the JAX Trainer's span names and meta keys.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Trainer`` raises.  On the card the forward and
-backward of attention (dense family), of the SSD scan (ssm family) and of
-the fused residual + RMSNorm are the port's kernels.
+backward of attention (dense and hybrid families), of the SSD scan (ssm and
+hybrid) and of the fused residual + RMSNorm are the port's kernels.
 """
 from __future__ import annotations
 

@@ -96,8 +96,8 @@ def _wgmma_backward(q, k, v, o, do, lse, causal):
             n = ks.stop - ks.start
             dv[:, ks] += dvh.reshape(B, n, KV, G, hd).sum(3)
             dk[:, ks] += dkh.reshape(B, n, KV, G, hd).sum(3)
-    # dQ: 128-row q tiles, key tiles of 128 (hd 64) or 64 (hd 128) up to
-    # the causal frontier
+    # dQ: 128-row q tiles, key tiles of 128 (hd 64) or 64 (hd 80, 128) up
+    # to the causal frontier
     bk = 128 if hd == 64 else 64
     for q0 in range(0, S, 128):
         qs = slice(q0, min(q0 + 128, S))
@@ -120,7 +120,7 @@ def _assert_bf16_close(got, want, label):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("S", [1, 100, 200])
 def test_wgmma_backward_arithmetic_matches_jax(rng, S, hd, causal):
     """The kernel's extra roundings stay inside the card check's tolerance

@@ -14,11 +14,15 @@ PyTorch:
   hand-over that order serves: a lane of an fp32 accumulator holds columns
   2(l%4), 2(l%4)+1 of each 8, a lane of a tf32 A fragment l%4, l%4+4,
   simulated lane by lane;
-* the tiles: the forward's key tiles (64 keys at hd 64, 32 at hd 128) with
-  the online softmax in exp2, the backward's dK/dV blocks of 64 keys whose
-  q steps (32 rows at hd 64, 16 at hd 128) two warpgroups take in turn
-  and sum at the end, and its dQ items (128 rows at hd 64, 64 at hd 128)
-  over key tiles (32, 16).
+* the tiles: the forward's key tiles (64 keys at hd 64, 32 at hd 80 and
+  128) with the online softmax in exp2, the backward's dK/dV blocks of 64
+  keys whose q steps (32 rows at hd 64, 16 at hd 80 and 128) two
+  warpgroups take in turn and sum at the end, and its dQ items (128 rows
+  at hd 64, 64 at hd 80 and 128) over key tiles (32, 16);
+* hd 80, which is not a whole number of the kernels' 32-column boxes: the
+  direct tiles carry zero columns 80-95 that no k8 step reads, and the
+  products over the sequence run at N 80 on the transposed splits' 80
+  rows.
 
 The emulation is held against the JAX package on the same fp32 inputs,
 made from a seed with numpy, at 3e-4 (the fp32 tolerance of
@@ -267,7 +271,7 @@ def test_the_fragment_order_matches_the_pre_pass_layout():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("S", [64, 129, 200])
 def test_forward_arithmetic_matches_jax(rng, S, hd, causal):
     """o and lse of the emulated kernel against the JAX oracle at 3e-4:
@@ -283,7 +287,7 @@ def test_forward_arithmetic_matches_jax(rng, S, hd, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("S", [64, 129, 200])
 def test_backward_arithmetic_matches_jax_vjp(rng, S, hd, causal):
     """dq, dk, dv of the emulated kernel (fed the emulated forward's o and
@@ -330,6 +334,37 @@ def test_one_tf32_pass_misses_the_fp32_tolerance(rng):
     assert float(np.abs(one.numpy() - want).max()) > 3e-4
 
 
+def test_hd80_layouts_serve_the_n80_products():
+    """At hd 80 the pre-pass's transposed split has 80 rows a (hd, 16-row
+    block): each TMA box of one 16-row block is 80 x 32 floats, 10240
+    bytes, a whole number of 1024-byte swizzle atoms, so the blocks of a
+    tile stay aligned; a product over the sequence read from it at N 80
+    (every row a column of D) sums each key once with its own row.  The
+    direct tiles at hd 80 are three 32-column boxes; the k8 steps over hd
+    (10) read only the real columns, so the zero fill of 80-95 adds
+    nothing."""
+    hd = 80
+    assert 80 * 32 * 4 % 1024 == 0
+    g = torch.Generator().manual_seed(1)
+    p = torch.randn(2, 64, 48, generator=g)          # [.., rows, keys]
+    v = torch.randn(1, 48 + 5, 2, hd, generator=g)   # [B,S,heads,hd]
+    t = transposed_split(v, 2 * 128)[0]              # [heads,hd,2*S16]
+    assert tuple(t.shape) == (2, hd, 2 * 128)
+    got = rs_product(p[..., 16:48], t, 16, 32)       # keys 16..47, N 80
+    want = p[..., 16:48].double() @ v[0, 16:48].permute(1, 0, 2).double()
+    assert tuple(got.shape) == (2, 64, hd)
+    assert float((got.double() - want).abs().max()) < 1e-5
+    # Q.K^T over three 32-column boxes, columns 80-95 zero (TMA's fill):
+    # the 10 k8 steps of the real dims give the product over hd
+    a = torch.randn(64, hd, generator=g)
+    b = torch.randn(32, hd, generator=g)
+    ap = torch.nn.functional.pad(a, (0, 16))
+    bp = torch.nn.functional.pad(b, (0, 16))
+    steps = sum(mm3(ap[:, 8 * kk:8 * kk + 8], bp[:, 8 * kk:8 * kk + 8].T)
+                for kk in range(hd // 8))
+    assert float((steps - mm3(a, b.T)).abs().max()) < 1e-4
+
+
 @pytest.mark.parametrize("backward", [False, True])
 def test_scratch_is_what_the_launch_functions_take(backward):
     """The wrapper's scratch, by name in the C functions' order, at the
@@ -346,6 +381,11 @@ def test_scratch_is_what_the_launch_functions_take(backward):
     # a ragged S rounds the transposed splits up to whole 16-row blocks
     t = ops.tf32_scratch(2, 77, 4, 2, 128, backward)
     assert t["kt" if backward else "vt"] == (2, 2, 128, 2 * 80)
+    # zamba2's shapes (hd 80 over 32 KV heads): 80 rows a transposed split
+    t = ops.tf32_scratch(8, 512 if backward else 1024, 32, 32, 80, backward)
+    assert t["kt" if backward else "vt"] == (
+        8, 32, 80, 2 * (512 if backward else 1024))
+    assert t["k_pair"] == (2, 8, 512 if backward else 1024, 32, 80)
 
 
 @pytest.mark.parametrize("fn", ["forward", "backward"])

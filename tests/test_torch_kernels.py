@@ -72,9 +72,10 @@ def test_fused_ref_matches_jax(rng, shape, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(1, 100, 4, 4, 16), (2, 130, 4, 2, 64),
-                                   (1, 77, 8, 2, 16), (1, 256, 8, 2, 64)])
+                                   (1, 77, 8, 2, 16), (1, 256, 8, 2, 64),
+                                   (1, 130, 4, 4, 80)])
 def test_attention_ref_matches_jax(rng, shape, causal, dtype):
-    """shape (B, S, H, KV, hd): S off the 128 grid, hd 16/64, G 1/2/4."""
+    """shape (B, S, H, KV, hd): S off the 128 grid, hd 16/64/80, G 1/2/4."""
     B, S, H, KV, hd = shape
     qj, qt = _pair(rng.standard_normal((B, S, H, hd)).astype(np.float32), dtype)
     kj, kt = _pair(rng.standard_normal((B, S, KV, hd)).astype(np.float32), dtype)
@@ -154,7 +155,7 @@ def _tensor_core_attention(q, k, v, causal, block_k=128):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("S", [1, 100, 1000])
 def test_tensor_core_softmax_matches_jax(rng, S, hd, causal):
     """The bf16 kernel's one extra rounding (P to bf16 before P.V) stays

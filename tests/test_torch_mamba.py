@@ -29,6 +29,7 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.registry import build_model
 from repro_torch.models.ssm_lm import MambaLM
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zamba2 import Zamba2LM
 
 ARCH = "mamba2-780m"
 TOL = {"float32": 2e-3, "bfloat16": 5e-2}
@@ -200,15 +201,17 @@ def test_registry_builds_each_family():
     assert type(build_model(get_reduced(ARCH), device="cpu")) is MambaLM
     assert type(build_model(get_reduced("llama3.2-1b"),
                             device="cpu")) is TransformerLM
+    assert type(build_model(get_reduced("zamba2-2.7b"),
+                            device="cpu")) is Zamba2LM
     cfg = get_config(ARCH)
     assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
             cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_width, cfg.ssm_chunk,
             cfg.vocab_size, cfg.tie_embeddings) == (
         48, 1536, 3072, 48, 64, 128, 4, 256, 50280, False)
     other = get_reduced(ARCH).__class__(
-        name="x", family="hybrid", num_layers=1, d_model=8, num_heads=1,
+        name="x", family="moe", num_layers=1, d_model=8, num_heads=1,
         num_kv_heads=1, d_ff=8, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(NotImplementedError, match="moe"):
         build_model(other, device="cpu")
 
 

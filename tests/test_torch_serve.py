@@ -33,10 +33,11 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.runtime.serve import ServeConfig, Server
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m"]
-# prompt lengths: the mamba2 prompt spans two chunks of the reduced config
-# (chunk 16), the second one ragged
-PROMPT = {"llama3.2-1b": 10, "qwen2-0.5b": 10, "mamba2-780m": 20}
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m", "zamba2-2.7b"]
+# prompt lengths: the mamba2 and zamba2 prompts span two chunks of the
+# reduced configs (chunk 16), the second one ragged
+PROMPT = {"llama3.2-1b": 10, "qwen2-0.5b": 10, "mamba2-780m": 20,
+          "zamba2-2.7b": 20}
 
 
 def _serve_pair(arch, tmp_path, B=2, new=6):
@@ -192,9 +193,11 @@ def test_server_needs_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("arch, limited", [("llama3.2-1b", True),
-                                           ("mamba2-780m", False)])
+                                           ("mamba2-780m", False),
+                                           ("zamba2-2.7b", True)])
 def test_generate_checks_the_models_cache_length(arch, limited):
-    """The KV cache holds max_seq positions; the SSM state has no length."""
+    """The KV cache holds max_seq positions (the hybrid's too); the SSM
+    state has no length."""
     server = Server(ServeConfig(model=get_reduced(arch), batch=1, max_seq=8,
                                 compute_dtype="float32", device="cpu"))
     prompts = np.zeros((1, 6), np.int32)
@@ -245,7 +248,7 @@ def test_launcher_serves_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
             launch.main()
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert "head_dim (64, 128), not 16" in err and "--device cpu" in err
+        assert "head_dim (64, 80, 128), not 16" in err and "--device cpu" in err
 
 
 def test_builder_names_nvcc_when_missing(monkeypatch, tmp_path):
@@ -281,3 +284,30 @@ def test_daemon_times_cpu_ops_on_the_host(tmp_path):
     assert k.name == "fused_residual_rmsnorm"
     assert k.meta["parent"] == "step_0" and k.meta["bytes"] == 4 * 32 * 4
     assert ev[EventKind.STEP].start_ts <= k.issue_ts <= k.start_ts <= k.end_ts
+
+
+def test_daemon_keeps_a_step_whole_when_it_ends_during_a_flush(tmp_path):
+    """A step that ends while the daemon thread flushes, after it drained
+    the buffer: its kernel spans are held for the next flush, which holds
+    the step span too, so each still nests under its step."""
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+
+    path = tmp_path / "t.jsonl"
+    d = TracingDaemon(DaemonConfig(log_path=str(path)))
+    d.step_begin(0)
+    d.trace_call("fused_residual_rmsnorm", EventKind.KERNEL_COMPUTE,
+                 torch.add, (torch.ones(4), torch.ones(4)), {})
+    d._probe_pending()                  # the op's span is in the buffer
+    drain = d.buffer.drain
+
+    def drain_then_end_step():
+        out = drain()
+        d.buffer.drain = drain          # once
+        d.step_end(tokens=4)
+        return out
+
+    d.buffer.drain = drain_then_end_step
+    d._flush()
+    d._flush(final=True)
+    ev = {e.kind: e for e in load_jsonl(str(path))}
+    assert ev[EventKind.KERNEL_COMPUTE].meta["parent"] == "step_0"

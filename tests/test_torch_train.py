@@ -54,6 +54,7 @@ from repro_torch.runtime.train import RunConfig, Trainer, make_train_step
 
 ARCH = "llama3.2-1b"
 SSM = "mamba2-780m"
+HYBRID = "zamba2-2.7b"
 
 
 # ---------------------------------------------------------------------- data
@@ -120,12 +121,16 @@ STEP_CASES = [("float32", 1), ("bfloat16", 1), ("float32", 2)]
 
 @pytest.mark.parametrize(
     "arch, compute_dtype, microbatches",
-    [(ARCH, *c) for c in STEP_CASES] + [(SSM, *c) for c in STEP_CASES],
+    [(ARCH, *c) for c in STEP_CASES] + [(SSM, *c) for c in STEP_CASES]
+    + [(HYBRID, *c) for c in STEP_CASES],
     ids=[f"{d}-{m}" for d, m in STEP_CASES]
-    + [f"{SSM}-{d}-{m}" for d, m in STEP_CASES])
+    + [f"{SSM}-{d}-{m}" for d, m in STEP_CASES]
+    + [f"{HYBRID}-{d}-{m}" for d, m in STEP_CASES])
 def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
     """Three steps of each family's reduced model (the mamba2 cut: 3
-    layers, d_model 64, P 16, N 16, chunk 16, so S 32 is two chunks)."""
+    layers, d_model 64, P 16, N 16, chunk 16, so S 32 is two chunks; the
+    zamba2 cut: 2 groups of 2 such layers, each followed by the shared
+    attention + MLP block)."""
     (jstep, jp, jo), (tstep, tm, to) = _step_pair(arch, compute_dtype,
                                                   microbatches)
     loader = ShardedLoader(DataConfig(vocab_size=256, batch=4, seq_len=32))
@@ -155,7 +160,7 @@ def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-0.5b",
-                                  "mamba2-780m"])
+                                  "mamba2-780m", "zamba2-2.7b"])
 def test_param_counts_equal_the_reference(arch):
     """The counts behind ``train_step_exec``'s 6·N·tokens flops."""
     from repro.configs import get_config as jax_get_config
@@ -468,7 +473,7 @@ def test_launcher_trains_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
             launch.main()
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert "head_dim (64, 128), not 16" in err and "--device cpu" in err
+        assert "head_dim (64, 80, 128), not 16" in err and "--device cpu" in err
 
 
 @pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])

@@ -17,8 +17,8 @@ kernel, yardstick, yardstick, kernel, best of two each):
     device memory (inputs cycled past the 50 MB L2) and in L2;
   * (``bwd``) the flash forward's lse output on both routes, the flash
     backward on both routes (bf16 on the tensor cores, fp32 on them as
-    split TF32; hd 64 and 128, causal and full, ragged S) and the fused-norm
-    backward (with and without dh) against their plain versions; each
+    split TF32; hd 64, 80 and 128, causal and full, ragged S) and the
+    fused-norm backward (with and without dh) against their plain versions; each
     flash backward route timed at the training shape in turns with
     autograd of SDPA pinned to each backend that runs, with the device
     time of its three kernels (delta, dK/dV, dQ) from the profiler; the
@@ -75,9 +75,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 FLASH_CHECK = [(8, 1024, 32, 8, 64), (2, 1000, 16, 4, 128), (2, 1, 16, 4, 64),
-               (2, 129, 16, 4, 128), (1, 2048, 8, 2, 128)]
+               (2, 129, 16, 4, 128), (1, 2048, 8, 2, 128),
+               (8, 1024, 32, 32, 80), (2, 129, 16, 4, 80), (2, 1, 4, 4, 80)]
 FLASH_TIME = [(8, 1024, 32, 8, 64), (8, 4096, 32, 8, 64),
-              (2, 4096, 32, 8, 128)]
+              (2, 4096, 32, 8, 128), (8, 1024, 32, 32, 80)]
 MATMUL_CHECK = [(128, 128, 128), (64, 104, 96), (300, 1000, 520),
                 (4096, 8192, 8576)]
 MATMUL_TIME = [(4096, 8192, 8576), (4096, 4096, 4096), (8192, 8192, 8192)]
@@ -98,7 +99,8 @@ SSD_BWD_CHECK = [(8, 512, 48, 128, 256, False, False),
                  (1, 700, 4, 128, 192, True, False)]
 # (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S
 BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
-             (1, 1, 4, 1, 64), (2, 77, 4, 4, 128)]
+             (1, 1, 4, 1, 64), (2, 77, 4, 4, 128), (8, 512, 32, 32, 80),
+             (2, 77, 8, 2, 80), (1, 1, 4, 4, 80)]
 
 
 def check_backward():

@@ -33,11 +33,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 HGMMA / HMMA; the tf32x3 routes also their three passes'
                 floor, their FP32-pipe bound and their scratch bytes, and two
                 calls compared bitwise); flash forward and backward on both
-                routes at head_dim 64, 80 (zamba2's, timed at its serving
-                and training shapes as lines of their own) and 128; the
+                routes at head_dim 64, 80 (zamba2's) and 128 (the vlm's at
+                G 4), each timed at its serving and training shapes as
+                lines of their own; the
                 flash forward in fp32 at the edges and at group sizes 7 and
-                1 too; the fused norm at D 2048, 1536 and 2560, its
-                backward at D 2048 and 2560; the SSD scan and its backward
+                1 too; the fused norm at D 2048, 1536, 2560, 896 and 4096,
+                its backward at D 2048, 2560, 896 and 4096 (``BWD_MAX_D``),
+                bf16 and fp32; the SSD scan and its backward
                 at zamba2's shapes (H 80, N 64) too, timed
                 (``at_zamba2``); the fp32 matmul in turns
                 with torch.matmul fp32, at K or N off a multiple of 4 and on
@@ -71,33 +73,45 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 progress, read from the frozen combine counters, must name
                 the link; the all-reduce of a bucket of an odd size;
   5. serve    — for each serving path, llama3.2-1b (dense), mamba2-780m
-                (ssm) and zamba2-2.7b (hybrid): Server.generate at full
-                width and depth (batch 8, 1024-token prompts, 32 new tokens,
-                random weights from --seed) with the FLARE daemon attached;
-                the launch counts of that run (``forward_launches`` a
-                prefill, the fused norms again a decode step: zamba2 flash
-                9, SSD scan 54, fused norm 72 x 33); untraced and traced
-                walls; a profiler breakdown; fp32 prefill logits on the
-                card (the fp32 routes: flash and the SSD scan on tf32x3)
-                against the plain path on the CPU;
-  6. train    — for each training path, llama3.2-1b, mamba2-780m and
-                zamba2-2.7b: Trainer.train at full width and depth
-                (B 8 x S 512, bf16 compute, fp32 parameters and AdamW
-                moments, 12 traced steps): each step's loss, step time,
-                tokens/s, MFU and the peak memory; the launch counts of
-                every step (llama: flash forward and backward 16, on the
-                wgmma routes and none on tf32x3, fused forward and backward
-                32; mamba2: SSD forward and backward 48 each on the wgmma
-                routes, none on tf32x3, fused forward and backward 48;
-                zamba2: flash forward and backward 9, SSD forward and
-                backward 54, fused forward and backward 72; no plain
-                version); the loss finite and falling; a profiler breakdown
-                of one step; one fp32 step of the path's cut (llama and
-                mamba2 2 layers, zamba2 one group of 6 and its shared
-                block), card against CPU (loss, grad_norm, the path's
-                gradients; the fp32 routes: flash and the SSD forward and
-                backward on tf32x3; mamba2 and zamba2 at S 512, two
-                chunks);
+                (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense: qkv bias,
+                tied head, G 7), musicgen-large (audio) and
+                llama-3.2-vision-11b (vlm): Server.generate at full width
+                and depth (batch 8, 1024-token prompts, 32 new tokens,
+                random weights from --seed; the vlm's gates opened to
+                ``VLM_GATE`` and its vision embeddings a seeded draw) with
+                the FLARE daemon attached (backend <family>-serve); the
+                launch counts of that run (``forward_launches`` a prefill,
+                the fused norms again a decode step: zamba2 flash 9, SSD
+                scan 54, fused norm 72 x 33; qwen2 flash 24, fused 48 x 33;
+                musicgen 48, 96 x 33; the vlm 32, 80 x 33); untraced and
+                traced walls; a profiler breakdown; the vlm's prefill
+                logits moving with its vision embeddings; fp32 prefill
+                logits on the card (the fp32 routes: flash and the SSD scan
+                on tf32x3) against the plain path on the CPU (the vlm on
+                its one-group cut, gates open);
+  6. train    — for each training path (``TRAIN_PATHS``), llama3.2-1b,
+                mamba2-780m, zamba2-2.7b, qwen2-0.5b, musicgen-large and
+                llama-3.2-vision-11b cut to one group (4 self-attention
+                layers and 1 cross layer): Trainer.train at full width
+                (B 8 x S 512, bf16 compute, fp32 parameters, AdamW moments
+                in the path's dtype, 12 traced steps, backend
+                <family>-train): each step's loss, step time, tokens/s, MFU
+                and the peak memory; the launch counts of every step
+                (llama: flash forward and backward 16, on the wgmma routes
+                and none on tf32x3, fused forward and backward 32; mamba2:
+                SSD forward and backward 48 each on the wgmma routes, none
+                on tf32x3, fused forward and backward 48; zamba2: flash
+                forward and backward 9, SSD forward and backward 54, fused
+                forward and backward 72; qwen2 24 and 48, musicgen 48 and
+                96, the vlm cut 4 and 10; no plain version); the loss
+                finite and falling; a profiler breakdown of one step; one
+                fp32 step of the path's cut (llama, mamba2, qwen2 and
+                musicgen 2 layers, zamba2 one group of 6 and its shared
+                block, the vlm its one group with the gates open and seeded
+                vision embeddings), card against CPU (loss, grad_norm, the
+                path's gradients; the fp32 routes: flash and the SSD
+                forward and backward on tf32x3; mamba2 and zamba2 at S 512,
+                two chunks);
                 on llama's path also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
@@ -105,6 +119,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 read back: step spans and kernel spans with device
                 durations from CUDA events; the training runs' dataloader
                 and train_step_exec spans with their meta.
+The wall time of each phase and of the whole run is printed ([wall]).
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -280,8 +295,10 @@ FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129)
                for hd in (64, 80, 128)]
 # the serving paths' flash shapes, each timed on both routes: llama3.2-1b
-# (hd 64) and zamba2-2.7b (hd 80)
-FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80)]
+# (hd 64; qwen2-0.5b and musicgen-large take hd 64 too, at G 7 and 1),
+# zamba2-2.7b (hd 80) and llama-3.2-vision-11b (hd 128, G 4)
+FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80),
+               (8, 1024, 32, 8, 128)]
 
 
 def by_hd(name: str, hd: int) -> str:
@@ -382,16 +399,21 @@ def check_flash(gen, device):
     return summaries, cases
 
 
+# the paths' widths: llama3.2-1b and musicgen-large, mamba2-780m,
+# zamba2-2.7b, qwen2-0.5b, llama-3.2-vision-11b
+FUSED_WIDTHS = (2048, 1536, 2560, 896, 4096)
+
+
 def check_fused(gen, device):
-    """Checked and timed at the serving paths' widths (D 2048 llama, D 1536
-    mamba2, D 2560 zamba2), prefill (R 8192) and decode (R 8) rows.
-    Returns the llama prefill summary and the others by (R, D)."""
+    """Checked and timed at the serving paths' widths (``FUSED_WIDTHS``),
+    prefill (R 8192) and decode (R 8) rows.  Returns the llama prefill
+    summary and the others by (R, D)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fused_norm import ops
 
     cases, timed = [], {}
-    for D in (2048, 1536, 2560):
+    for D in FUSED_WIDTHS:
         for R in (8192, 8):
             for dtype in ("bfloat16", "float32"):
                 dt = getattr(torch, dtype)
@@ -467,8 +489,9 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 77, 8, 2, 80), "float32", True),
                    ((2, 333, 16, 4, 80), "float32", False)]
 # the training paths' flash shapes, each timed on both routes: llama3.2-1b
-# (hd 64) and zamba2-2.7b (hd 80)
-FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80)]
+# (hd 64), zamba2-2.7b (hd 80) and llama-3.2-vision-11b (hd 128, G 4)
+FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
+                   (8, 512, 32, 8, 128)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
@@ -678,18 +701,21 @@ def check_flash_bwd(gen, device):
 
 def check_fused_bwd(gen, device):
     """The fused-norm backward against ``fused_bwd_ref`` at the training
-    rows (R 4096) of llama (D 2048) and zamba2 (D 2560), bf16 and fp32,
-    with and without dh, one launch per call; timed in bf16 with dh beside
-    the plain version (no single PyTorch call computes it), at D 2048 and,
-    in ``at_zamba2``, at D 2560.  dscale sums R rows in fp32 in another
-    order than the plain version: its atol is 3e-4·√R."""
+    rows (R 4096) of the training paths' widths (``FUSED_WIDTHS`` but
+    mamba2's), bf16 and fp32, with and without dh, one launch per call;
+    timed in bf16 with dh beside the plain version (no single PyTorch call
+    computes it), at D 2048 and at the others into ``at_zamba2`` (D 2560),
+    ``at_qwen2`` (D 896) and ``at_llama_vision`` (D 4096).
+    dscale sums R rows in fp32 in another order than the plain version: its
+    atol is 3e-4·√R."""
     import torch
     from repro_torch.kernels.fused_norm import ops
 
     bwd = {"bwd": ops.BWD_KERNEL}
     R = TRAIN_B * TRAIN_S
     cases = []
-    for D, dtype in itertools.product((2048, 2560), ("bfloat16", "float32")):
+    widths = [D for D in FUSED_WIDTHS if D != 1536]
+    for D, dtype in itertools.product(widths, ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         for with_dh in (True, False):
             x, r, dy, dh = (torch.randn(R, D, generator=gen,
@@ -755,26 +781,27 @@ def check_fused_bwd(gen, device):
         + ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
                     f"{u['spill_loads']} bytes spilled"
                     for u in summary["ptxas"]))
-    # zamba2's width
-    D = 2560
-    x, r, dy, dh = (torch.randn(R, D, generator=gen, device=device).to(dt)
-                    for _ in range(4))
-    s = torch.randn(D, generator=gen, device=device)
-    err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
-                  ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
-    ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
-                 behind_sleep=True)
-    plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
-    t_bytes = (5 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3
-    t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
-    summary["at_zamba2"] = z = dict(
-        shape=[R, D], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} bf16 "
-        f"with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
-        f"{z['bound_ms']:.4f} by {z['bound_by']}, {z['bound_ms'] / ms:.3f} "
-        f"of it)")
+    # the other training paths' widths
+    keys = {2560: "at_zamba2", 896: "at_qwen2", 4096: "at_llama_vision"}
+    for D in widths[1:]:
+        x, r, dy, dh = (torch.randn(R, D, generator=gen,
+                                    device=device).to(dt) for _ in range(4))
+        s = torch.randn(D, generator=gen, device=device)
+        err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
+                      ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
+        ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
+                     behind_sleep=True)
+        plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
+        t_bytes = (5 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3
+        t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
+        summary[keys[D]] = w = dict(
+            shape=[R, D], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} "
+            f"bf16 with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+            f"{w['bound_ms']:.4f} by {w['bound_by']}, "
+            f"{w['bound_ms'] / ms:.3f} of it)")
     return summary, cases
 
 
@@ -1737,14 +1764,20 @@ def ring_path(seed: int, trace_dir: Path):
 # --------------------------------------------------------------------------- #
 def forward_launches(cfg) -> dict:
     """The port's kernel launches of one full-sequence forward of ``cfg``'s
-    model, by traced-op name: the dense family's flash and 2 fused norms a
-    layer, the ssm family's SSD scan and 1 fused norm a layer, the hybrid's
-    SSD scan and 1 fused norm a Mamba layer, and flash and 2 fused norms
-    an application of its shared block (zamba2-2.7b: 54, 9 and 72).  A
-    decode step launches the fused norms alone."""
+    model, by traced-op name: the dense and audio families' flash and 2
+    fused norms a layer; the vlm family's flash a self-attention layer and
+    2 fused norms a layer, its cross layers (``direct_attention``) included
+    (llama-3.2-vision-11b: 32 and 80); the ssm family's SSD scan and 1
+    fused norm a layer, the hybrid's SSD scan and 1 fused norm a Mamba
+    layer, and flash and 2 fused norms an application of its shared block
+    (zamba2-2.7b: 54, 9 and 72).  A decode step launches the fused norms
+    alone."""
     L = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         return {"flash_attention": L, "fused_residual_rmsnorm": 2 * L}
+    if cfg.family == "vlm":
+        return {"flash_attention": cfg.n_self,
+                "fused_residual_rmsnorm": 2 * L}
     if cfg.family == "ssm":
         return {"ssd_scan": L, "fused_residual_rmsnorm": L}
     if cfg.family == "hybrid":
@@ -1777,11 +1810,44 @@ def path_kernels(arch: str) -> dict:
     return kernels
 
 
+# the vlm paths' cross-layer gates: the JAX init sets them to 0, which
+# closes every cross layer (tanh(0) = 0), so a wrong cross path would pass
+# every check; the serve and agreement runs open them after init
+VLM_GATE = 0.5
+
+
+def open_gates(model) -> int:
+    """Sets every cross layer's ``attn.gate`` and ``gate_mlp`` to
+    ``VLM_GATE``; returns the number of cross layers (0 but for the vlm
+    family)."""
+    import torch
+    cross = getattr(model, "cross", ())
+    with torch.no_grad():
+        for c in cross:
+            c.attn.gate.fill_(VLM_GATE)
+            c.gate_mlp.fill_(VLM_GATE)
+    return len(cross)
+
+
+def vision_embeds(cfg, batch: int, seed: int, device, dtype):
+    """A vlm path's vision embeddings [batch, vision_tokens, vision_d], a
+    normal draw from ``seed`` (the frontend is a stub); None for the other
+    families."""
+    import torch
+    if cfg.family != "vlm":
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(batch, cfg.vision_tokens, cfg.vision_d, generator=gen,
+                       device=device).to(dtype)
+
+
 def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
     """Server.generate at full width, batch 8, 1024-token prompts, 32 new
-    tokens, daemon attached with a JSONL spill; launch counts of that run
-    (counts set to 0 just before it); then untraced and traced walls in
-    turns, and a profiler breakdown."""
+    tokens, daemon attached with a JSONL spill (backend ``<family>-serve``);
+    launch counts of that run (counts set to 0 just before it); then
+    untraced and traced walls in turns, and a profiler breakdown.  A vlm
+    path opens its gates (``open_gates``), takes seeded vision embeddings
+    and shows that its prefill logits move when they change."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1793,20 +1859,41 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
     backend = f"{cfg.family}-serve"
     kernels = path_kernels(arch)
     B, S0, new = 8, 1024, 32
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
     server = Server(ServeConfig(model=cfg, batch=B, max_seq=2048, seed=seed,
                                 log_path=str(trace_path)))
+    init_s = time.perf_counter() - t_init
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in server.model.parameters())
+    vis = vision_embeds(cfg, B, seed + 2, "cuda", torch.bfloat16)
+    if open_gates(server.model):
+        log("serve", f"{arch}: the {len(server.model.cross)} cross layers' "
+            f"gate and gate_mlp set to {VLM_GATE} after init (the JAX "
+            f"init's 0 closes them); vision embeddings "
+            f"{list(vis.shape)} a normal draw from seed {seed + 2}")
+    log("serve", f"{arch}: {n_params} parameters (bf16) drawn in "
+        f"{init_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, peak {init_peak_gb:.2f} GB during the init")
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    seen_backend = server.daemon.cfg.backend
+    if seen_backend != backend:
+        fail(f"{arch}: the server's daemon has backend {seen_backend}, not "
+             f"{backend}")
+    torch.cuda.reset_peak_memory_stats()
     for _, _, k, _ in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    out = server.generate(prompts, new_tokens=new)
+    out = server.generate(prompts, new_tokens=new, vision_embeds=vis)
     wall = time.perf_counter() - t0
     launches = {label: k.launches for label, (_, _, k, _) in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     server.close()                      # detaches the daemon: final spill
     want = {label: n(cfg, new) for label, (_, _, _, n) in kernels.items()}
     log("serve", f"{arch} B{B} prompt {S0} new {new}: launches {launches} "
-        f"(expected {want}); wall {wall:.3f} s")
+        f"(expected {want}); wall {wall:.3f} s; peak memory {peak_gb:.2f} "
+        f"GB (torch.cuda.max_memory_allocated)")
     if launches != want:
         fail(f"{arch}: launch counts {launches} != {want}")
     if out.shape != (B, S0 + new) or not np.array_equal(out[:, :S0], prompts):
@@ -1820,7 +1907,7 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
     def timed_generate():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        server.generate(prompts, new_tokens=new)
+        server.generate(prompts, new_tokens=new, vision_embeds=vis)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1855,8 +1942,8 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
                 d.detach()
         log("serve", f"fused_residual_rmsnorm call at R{B}, host us per "
             f"call (2000 calls): {calls}")
-    prof = {"prefill": profile(lambda: server.generate(prompts, 0)),
-            "generate": profile(lambda: server.generate(prompts, new))}
+    prof = {"prefill": profile(lambda: server.generate(prompts, 0, vis)),
+            "generate": profile(lambda: server.generate(prompts, new, vis))}
     for part, p in prof.items():
         log("profile", f"{arch} {part}: wall {p['wall_s'] * 1e3:.3f} ms, "
             f"device busy {p['device_s'] * 1e3:.3f} ms, idle share "
@@ -1864,11 +1951,31 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
         for k in p["top"]:
             log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x "
                 f"{k['name']}")
+    moved = None
+    if vis is not None:
+        # the prefill logits with other vision embeddings
+        other = vision_embeds(cfg, B, seed + 3, "cuda", torch.bfloat16)
+        toks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+        la, lb = (server.model.prefill(toks, server.model.init_cache(B, S0),
+                                       v).float() for v in (vis, other))
+        moved = dict(max_abs_diff=float((la - lb).abs().max()),
+                     max_abs=float(la.abs().max()),
+                     argmax_changed=float(
+                         (la.argmax(-1) != lb.argmax(-1)).float().mean()))
+        log("serve", f"{arch}: prefill logits with another draw of vision "
+            f"embeddings: max abs difference {moved['max_abs_diff']:.3e} "
+            f"(|logits| max {moved['max_abs']:.2f}); argmax changed in "
+            f"{moved['argmax_changed']:.3f} of the rows")
+        if not moved["max_abs_diff"] > 1e-2 * moved["max_abs"]:
+            fail(f"{arch}: the logits do not follow the vision embeddings")
+        del la, lb, other
     del server
     torch.cuda.empty_cache()
     return dict(arch=arch, B=B, S0=S0, new=new, launches=launches,
                 wall_s=wall, warm_wall_s=warm, walls=walls,
-                per_call_us=calls, profile=prof)
+                per_call_us=calls, profile=prof, backend=seen_backend,
+                n_params=n_params, init_s=init_s, init_peak_gb=init_peak_gb,
+                peak_memory_gb=peak_gb, vision_moved=moved)
 
 
 # the port's own kernels, by a part of their device function names
@@ -1920,19 +2027,23 @@ def profile(fn, top: int = 10) -> dict:
                                          "flare::tf32x3"))])
 
 
-def agreement(arch: str, seed: int, S: int):
-    """fp32 prefill logits of the full-width model: the kernel path on the
-    card against the plain path on the CPU, same weights, B 1.  The fp32
-    run takes every kernel of the path but the bf16 ones (flash and the
-    SSD scan their split-TF32 routes).  Returns the max abs error and the launches of the card's
-    prefill."""
+def agreement(arch: str, seed: int, S: int, layers: int | None):
+    """fp32 prefill logits of the full-width model (cut to ``layers`` when
+    given): the kernel path on the card against the plain path on the CPU,
+    same weights (drawn on the card, copied to the CPU), B 1; a vlm path
+    with its gates open and seeded vision embeddings.  The fp32 run takes
+    every kernel of the path but the bf16 ones (flash and the SSD scan
+    their split-TF32 routes).  Returns the max abs error and the launches
+    of the card's prefill."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, scale
     from repro_torch.models.layers import Policy
     from repro_torch.models.registry import build_model
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = scale(cfg, num_layers=layers)
     kernels = {label: (op, route, k)
                for label, (op, route, k, _) in path_kernels(arch).items()}
     # an fp32 prefill: each routed op on tf32x3 as often as a forward runs
@@ -1941,27 +2052,34 @@ def agreement(arch: str, seed: int, S: int):
     want_launches = {label: 0 if route == "wgmma" else per_fwd[op]
                      for label, (op, route, _) in kernels.items()}
     pol = Policy(torch.float32)
-    cpu = build_model(cfg, pol, "cpu").init(
-        torch.Generator().manual_seed(seed))
-    gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
+    gpu = build_model(cfg, pol, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(seed))
+    open_gates(gpu)
+    cpu = build_model(cfg, pol, "cpu").load_params(gpu.state_dict())
     toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (1, S))
     t = torch.as_tensor(toks, dtype=torch.long)
+    vis = vision_embeds(cfg, 1, seed + 4, "cpu", torch.float32)
+    kw_cpu = {} if vis is None else {"vision_embeds": vis}
+    kw_gpu = {} if vis is None else {"vision_embeds": vis.cuda()}
     n0 = {label: k.launches for label, (_, _, k) in kernels.items()}
-    got = gpu.prefill(t.cuda(), gpu.init_cache(1, S)).cpu()
+    got = gpu.prefill(t.cuda(), gpu.init_cache(1, S), **kw_gpu).cpu()
     launches = {label: k.launches - n0[label]
                 for label, (_, _, k) in kernels.items()}
     if launches != want_launches:
         fail(f"{arch}: the fp32 agreement run launched {launches}, not "
              f"{want_launches}: each op of the path on its fp32 route "
              f"(tf32x3) as often as a forward runs it, none on wgmma")
-    want = cpu.prefill(t, cpu.init_cache(1, S))
+    want = cpu.prefill(t, cpu.init_cache(1, S), **kw_cpu)
     diff = (got - want).abs()
     err = float(diff.max())
     # the JAX package's model tests hold fp32 logits to rtol = atol = 2e-3
     ok = bool((diff <= 2e-3 + 2e-3 * want.abs()).all())
     same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
-    log("serve", f"{arch} fp32 prefill logits B1 S{S}, card kernels vs CPU "
-        f"plain: max_abs_err {err:.3e} (|logits| max "
+    cut = "" if layers is None else f" ({layers}-layer cut)"
+    gates = (f", gates {VLM_GATE}, seeded vision embeddings"
+             if vis is not None else "")
+    log("serve", f"{arch}{cut} fp32 prefill logits B1 S{S}{gates}, card "
+        f"kernels vs CPU plain: max_abs_err {err:.3e} (|logits| max "
         f"{float(want.abs().max()):.2f}, rtol = atol = 2e-3: {ok}); argmax "
         f"equal: {same_argmax}")
     if not (ok and same_argmax):
@@ -1975,29 +2093,63 @@ def agreement(arch: str, seed: int, S: int):
 # phase 6: train
 # --------------------------------------------------------------------------- #
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
-# per training path: the fp32 card-vs-CPU step of its cut (layers kept,
+# per training path: the layers it trains (None: the full depth) and the
+# fp32 card-vs-CPU step of its cut (layers kept,
 # sequence length, gradients held).  mamba2's S 512 is two chunks, so the
-# state carries between them.  Every path's bf16 step is one microbatch:
-# zamba2's peaks at 71.95 GB so (tools/train_memory.py; 73.15 GB at two,
-# which add an fp32 gradient accumulator).
+# state carries between them.  Every path's bf16 step is one microbatch
+# with fp32 moments (tools/train_memory.py on the H100): zamba2's peaks at
+# 71.95 GB so (73.15 GB at two, which add an fp32 gradient accumulator);
+# musicgen-large's at 66.50 GB (81.73 GB at two; bf16 moments 53.58 GB at
+# one, 68.82 at two), so it keeps fp32 moments; the vlm cut's at 51.51 GB.
 # zamba2's cut is one group, 6 Mamba layers and one application of the
 # shared block: a 2-layer cut of it would hold no attention, and so run
-# neither flash kernel
+# neither flash kernel.  llama-3.2-vision-11b trains cut to one group (4
+# self-attention layers and 1 cross layer, full width): its 9.9 B
+# parameters with fp32 gradients and moments would need ~159 GB; its fp32
+# agreement step is the same cut, with the gates open.
 TRAIN_PATHS = {
     "llama3.2-1b": dict(
+        layers=None,
         agree_layers=2, agree_seq=128,
         agree_grads=("embed.embedding", "layers.0.attn.wq",
                      "layers.1.ln2.scale")),
     "mamba2-780m": dict(
+        layers=None,
         agree_layers=2, agree_seq=512,
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.1.mamba.A_log")),
     "zamba2-2.7b": dict(
+        layers=None,
         agree_layers=6, agree_seq=512,
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.5.mamba.A_log", "shared_attn.attn.wq",
                      "shared_attn.mlp.wo", "shared_attn.ln1.scale")),
+    "qwen2-0.5b": dict(
+        layers=None,
+        agree_layers=2, agree_seq=128,
+        agree_grads=("embed.embedding", "layers.0.attn.bq",
+                     "layers.1.attn.wk", "layers.1.ln2.scale")),
+    "musicgen-large": dict(
+        layers=None,
+        agree_layers=2, agree_seq=128,
+        agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
+                     "layers.1.mlp.wo")),
+    "llama-3.2-vision-11b": dict(
+        layers=5,
+        agree_layers=5, agree_seq=64,
+        agree_grads=("embed.embedding", "layers.0.attn.wq",
+                     "cross.0.attn.gate", "cross.0.kv_proj",
+                     "cross.0.gate_mlp", "cross.0.attn.wk")),
 }
+
+
+def train_config(arch: str):
+    """The config a training path trains: the arch's, cut to the path's
+    ``layers``."""
+    from repro_torch.configs import get_config, scale
+    layers = TRAIN_PATHS[arch]["layers"]
+    cfg = get_config(arch)
+    return cfg if layers is None else scale(cfg, num_layers=layers)
 
 
 def train_kernels(arch: str) -> dict:
@@ -2033,23 +2185,23 @@ def expected_step_launches(arch: str, cfg, dtype: str) -> dict:
 
 
 class PlainCalls:
-    """Counts the calls of the plain versions of ``arch``'s training
+    """Counts the calls of the plain versions of a model family's training
     kernels while it is entered (the ops modules look them up at each
     call)."""
     FLASH = {"flash_attention": ("attention_ref", "attention_bwd_ref")}
     SSD = {"ssd_scan": ("ssd_ref", "ssd_bwd_ref")}
     NORM = {"fused_norm": ("fused_ref", "fused_bwd_ref")}
-    NAMES = {"llama3.2-1b": {**FLASH, **NORM},
-             "mamba2-780m": {**SSD, **NORM},
-             "zamba2-2.7b": {**FLASH, **SSD, **NORM}}
+    NAMES = {"dense": {**FLASH, **NORM}, "audio": {**FLASH, **NORM},
+             "vlm": {**FLASH, **NORM}, "ssm": {**SSD, **NORM},
+             "hybrid": {**FLASH, **SSD, **NORM}}
 
-    def __init__(self, arch: str):
-        self.arch = arch
+    def __init__(self, family: str):
+        self.family = family
 
     def __enter__(self):
         import importlib
         self.calls, self.saved = {}, []
-        for mod_name, fns in self.NAMES[self.arch].items():
+        for mod_name, fns in self.NAMES[self.family].items():
             mod = importlib.import_module(
                 f"repro_torch.kernels.{mod_name}.ops")
             for fn_name in fns:
@@ -2120,20 +2272,20 @@ def tracing_overhead(trainer, log_path: Path) -> dict:
 
 def train(arch: str, seed: int, trace_path: Path,
           with_overhead: bool) -> dict:
-    """Trainer.train of ``arch`` at full width and depth: B 8 x S 512 from
-    the synthetic corpus, bf16 compute, fp32 parameters and AdamW moments,
-    12 traced steps (4 warm-up steps in the schedule), the daemon spilling
-    to ``trace_path``; the launch counts of that run and of each of its
-    steps, no plain version called; then, ``with_overhead``, the tracing
-    overhead (``tracing_overhead``), and a profiler breakdown of one
-    step."""
+    """Trainer.train of ``arch`` at full width and the path's depth
+    (``train_config``): B 8 x S 512 from the synthetic corpus, bf16
+    compute, fp32 parameters and AdamW moments, 12 traced
+    steps (4 warm-up steps in the schedule), the daemon spilling to
+    ``trace_path`` (backend ``<family>-train``); the launch counts of that
+    run and of each of its steps, no plain version called; then,
+    ``with_overhead``, the tracing overhead (``tracing_overhead``), and a
+    profiler breakdown of one step."""
     import math
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.runtime.train import RunConfig, Trainer
 
-    cfg = get_config(arch)
+    cfg = train_config(arch)
     kernels = train_kernels(arch)
     run = RunConfig(model=cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                     steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, seed=seed,
@@ -2144,17 +2296,23 @@ def train(arch: str, seed: int, trace_path: Path,
     for k, _, _ in kernels.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with PlainCalls(arch) as plain:
+    with PlainCalls(cfg.family) as plain:
         hist = trainer.train()
     launches = {label: k.launches for label, (k, _, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    backend = trainer.daemon.cfg.backend
+    if backend != f"{cfg.family}-train":
+        fail(f"{arch}: the trainer's daemon has backend {backend}")
     snaps.append(launches)
     per_step = [{label: b[label] - a[label] for label in launches}
                  for a, b in zip(snaps, snaps[1:])]
     want = expected_step_launches(arch, cfg, "bfloat16")
-    log("train", f"{arch} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
-        f"parameters and moments: launches of one step {per_step[0]} "
-        f"(expected {want}); plain versions called {plain.calls}")
+    depth = ("" if TRAIN_PATHS[arch]["layers"] is None
+             else f", cut to {cfg.num_layers} layers")
+    log("train", f"{arch}{depth} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
+        f"parameters and moments, backend {backend}: launches "
+        f"of one step {per_step[0]} (expected {want}); plain versions "
+        f"called {plain.calls}")
     if any(n != want for n in per_step) or len(per_step) != TRAIN_STEPS:
         fail(f"training launch counts per step {per_step} != {want}")
     if any(plain.calls.values()):
@@ -2195,7 +2353,8 @@ def train(arch: str, seed: int, trace_path: Path,
         log("profile", f"  {k['ms']:10.3f} ms {k['count']:6d}x {k['name']}")
     del trainer, batch, opt_state
     torch.cuda.empty_cache()
-    return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, history=hist,
+    return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, layers=cfg.num_layers,
+                backend=backend, history=hist,
                 launches=launches, launches_per_step=per_step[0],
                 plain_calls=plain.calls, peak_memory_gb=peak_gb,
                 step_ms_traced=traced_ms, tracing_overhead=overhead,
@@ -2208,7 +2367,9 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     """One fp32 training step of ``arch`` cut to the path's ``agree_layers``
     (widths kept), B 2 and its ``agree_seq``: loss and gradients on the
     card (the fp32 forward routes and the backward kernels) against the
-    plain path on the CPU, same weights and batch.  Loss, grad_norm and the gradients of the
+    plain path on the CPU, same weights (drawn on the card, copied to the
+    CPU; a vlm cut's gates open, ``open_gates``) and batch (a vlm's with
+    seeded vision embeddings).  Loss, grad_norm and the gradients of the
     path's ``agree_grads`` each within 3e-4 of its largest magnitude.
     Then, given ``ckpt_dir``, a checkpoint of the card's parameters and
     bf16 AdamW moments saved and restored bitwise."""
@@ -2229,17 +2390,22 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
                               num_layers=path["agree_layers"])
     S, names = path["agree_seq"], path["agree_grads"]
     pol = Policy(torch.float32, torch.float32)
-    cpu = build_model(cfg, pol, "cpu").init(
-        torch.Generator().manual_seed(seed))
-    gpu = build_model(cfg, pol, "cuda").load_params(cpu.state_dict())
+    gpu = build_model(cfg, pol, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(seed))
+    open_gates(gpu)
+    cpu = build_model(cfg, pol, "cpu").load_params(gpu.state_dict())
     b = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=2,
                                  seq_len=S, seed=seed)).next_batch()
-    toks, labs = (torch.as_tensor(b[k], dtype=torch.long)
-                  for k in ("tokens", "labels"))
+    batch = {k: torch.as_tensor(b[k], dtype=torch.long)
+             for k in ("tokens", "labels")}
+    vis = vision_embeds(cfg, 2, seed + 5, "cpu", torch.float32)
+    if vis is not None:
+        batch["vision_embeds"] = vis
     kernels = train_kernels(arch)
     n0 = {label: k.launches for label, (k, _, _) in kernels.items()}
-    loss_g, grads_g = loss_and_grads(gpu, toks.cuda(), labs.cuda(),
-                                     dict(gpu.named_parameters()))
+    loss_g, grads_g = loss_and_grads(
+        gpu, {k: v.cuda() for k, v in batch.items()},
+        dict(gpu.named_parameters()))
     torch.cuda.synchronize()
     launches = {label: k.launches - n0[label]
                 for label, (k, _, _) in kernels.items()}
@@ -2247,7 +2413,7 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     if launches != want_launches:
         fail(f"the fp32 training step launched {launches}, not "
              f"{want_launches}")
-    loss_c, grads_c = loss_and_grads(cpu, toks, labs,
+    loss_c, grads_c = loss_and_grads(cpu, batch,
                                      dict(cpu.named_parameters()))
     res = {}
     pairs = [("loss", loss_g.cpu(), loss_c),
@@ -2307,14 +2473,14 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
     """The training trace read back: step spans 0..steps-1, a
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
     span with ``flops`` = 6·N·tokens in each, and the forward's kernel
-    spans (``forward_launches`` a step: llama flash 16 and fused 32,
-    mamba2 SSD scan 48 and fused 48, zamba2 SSD scan 54, flash 9 and fused
-    72) with CUDA-event durations, nested under their step."""
+    spans (``forward_launches`` a step of the path's config: llama flash 16
+    and fused 32, mamba2 SSD scan 48 and fused 48, zamba2 SSD scan 54,
+    flash 9 and fused 72, the vlm cut flash 4 and fused 10) with CUDA-event
+    durations, nested under their step."""
     from collections import Counter
-    from repro_torch.configs import get_config
     from repro_torch.core.events import EventKind, load_jsonl
 
-    cfg = get_config(arch)
+    cfg = train_config(arch)
     tokens = TRAIN_B * TRAIN_S
     flops = 6.0 * cfg.active_param_count() * tokens
     events = load_jsonl(str(trace_path))
@@ -2414,15 +2580,21 @@ def check_trace(arch: str, trace_path: Path, new: int):
     return dict(prefill_s=prefill, decode_s=decode, per_name=per_name)
 
 
-# (arch, agreement prompt length): mamba2's and zamba2's S 320 is one full
-# chunk of 256 and a ragged one
-PATHS = (("llama3.2-1b", 64), ("mamba2-780m", 320), ("zamba2-2.7b", 320))
+# (arch, agreement prompt length, layers of the agreement's cut or None for
+# the full depth): mamba2's and zamba2's S 320 is one full chunk of 256 and a
+# ragged one; the vlm's fp32 agreement runs its one-group cut (4
+# self-attention layers and 1 cross layer, 2.16 B parameters built)
+PATHS = (("llama3.2-1b", 64, None), ("mamba2-780m", 320, None),
+         ("zamba2-2.7b", 320, None), ("qwen2-0.5b", 64, None),
+         ("musicgen-large", 64, None), ("llama-3.2-vision-11b", 64, 5))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    walls = {}
 
     import torch
     if not torch.cuda.is_available():
@@ -2459,6 +2631,7 @@ def main():
                    *fa.BWD_KERNELS.values(), fn.BWD_KERNEL,
                    *ssd.BWD_KERNELS.values())
     build_all(list(all_kernels))
+    walls["build"] = time.perf_counter() - t0
     log("build", f"built {', '.join(sorted({k.source for k in all_kernels}))}"
         f" for sm_90a in {time.perf_counter() - t0:.1f} s")
     for k in all_kernels:
@@ -2484,6 +2657,7 @@ def main():
         fail(f"{fn.BWD_KERNEL.source}: {n} tensor-core instructions")
 
     # 3. kernels
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash_sums, flash_cases = check_flash(gen, "cuda")
     fused, fused_rows, fused_cases = check_fused(gen, "cuda")
@@ -2493,21 +2667,29 @@ def main():
     flash_bwd_sums, flash_bwd_cases = check_flash_bwd(gen, "cuda")
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
     ssd_bwd, ssd_bwd_fp32, ssd_bwd_cases = check_ssd_bwd(gen, "cuda")
+    walls["kernels"] = time.perf_counter() - t0
 
     # 4. the Case-2 op and the ring path, traced
+    t0 = time.perf_counter()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     case2 = case2_path(args.seed, OUT_DIR / "case2_trace.jsonl")
     ring_run = ring_path(args.seed, OUT_DIR / "ring_traces")
+    walls["case2 and ring"] = time.perf_counter() - t0
 
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches = {}, {}, {}, {}
-    for arch, agree_s in PATHS:
+    for arch, agree_s, agree_layers in PATHS:
+        t_path = time.perf_counter()
         trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
         trace_path.unlink(missing_ok=True)
         run = runs[arch] = serve(arch, args.seed, trace_path,
                                  per_call=arch == "llama3.2-1b")
-        errs[arch], fp32_launches[arch] = agreement(arch, args.seed, agree_s)
+        t_agree = time.perf_counter()
+        errs[arch], fp32_launches[arch] = agreement(arch, args.seed, agree_s,
+                                                    agree_layers)
+        walls[f"agreement {arch}"] = time.perf_counter() - t_agree
         traces[arch] = check_trace(arch, trace_path, run["new"])
+        walls[f"serve {arch}"] = time.perf_counter() - t_path
         B, new = run["B"], run["new"]
         dec = sorted(traces[arch]["decode_s"])
         dec_med = dec[len(dec) // 2]
@@ -2520,6 +2702,7 @@ def main():
     # overhead and the checkpoint round trip on llama's
     train_runs, train_agree, train_traces = {}, {}, {}
     for arch in TRAIN_PATHS:
+        t_path = time.perf_counter()
         dense = arch == "llama3.2-1b"
         trace_path = OUT_DIR / f"train_trace_{arch}.jsonl"
         trace_path.unlink(missing_ok=True)
@@ -2528,11 +2711,13 @@ def main():
         train_agree[arch] = train_agreement(
             arch, args.seed, OUT_DIR / "ckpt" if dense else None)
         train_traces[arch] = check_train_trace(arch, trace_path, TRAIN_STEPS)
+        walls[f"train {arch}"] = time.perf_counter() - t_path
 
     # each summary's launches: the main path's runs of its kernel (for
-    # flash, the paths of its head dim: llama's 64, zamba2's 80)
+    # flash, the paths of its head dim: llama's, qwen2's and musicgen's 64,
+    # zamba2's 80, the vlm's 128)
     from repro_torch.configs import get_config
-    hd = {arch: get_config(arch).head_dim for arch, _ in PATHS}
+    hd = {arch: get_config(arch).head_dim for arch, _, _ in PATHS}
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     by_path.update({f"{arch} train": run["launches"]
                     for arch, run in train_runs.items()})
@@ -2586,6 +2771,10 @@ def main():
                    fused_bwd_cases=fused_bwd_cases,
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
                    train_agreement=train_agree, train_trace=train_traces)
+    walls["total"] = details["wall_s"] = time.perf_counter() - t_start
+    details["phase_wall_s"] = walls
+    log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in walls.items()))
     (OUT_DIR / "details.json").write_text(json.dumps(details, indent=1))
     print(json.dumps({"kernels": [
         *flash_sums.values(), fused, scan, scan_fp32, matmul, matmul_fp32,

@@ -4,11 +4,15 @@ The port's own copy of ``ModelConfig`` (the field names and defaults of the
 JAX package's, so a config reads the same in both) and the registry of the
 architectures the port serves.  Each arch module exports ``CONFIG`` (the
 published shape) and ``REDUCED`` (same family, tiny, for CPU tests).
+``scale(cfg, **overrides)`` cuts a config (the VLM's one-group training
+cut: ``num_layers=5``).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from dataclasses import dataclass
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -16,8 +20,8 @@ class ModelConfig:
     """Static architecture description (model shape only, no run knobs)."""
 
     name: str
-    family: str  # the port builds "dense" (TransformerLM), "ssm" (MambaLM),
-    #              "hybrid" (Zamba2LM)
+    family: str  # the port builds "dense", "audio" and "vlm"
+    #              (TransformerLM), "ssm" (MambaLM), "hybrid" (Zamba2LM)
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +38,10 @@ class ModelConfig:
     ssm_chunk: int = 256
     # --- hybrid (zamba2): one weight-shared attention block every k SSM layers
     attn_every: int = 0
+    # --- VLM: a cross-attention layer after every k self-attention layers ---
+    cross_attn_every: int = 0
+    vision_tokens: int = 0
+    vision_d: int = 0
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -52,6 +60,18 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
+    @property
+    def n_cross(self) -> int:
+        """The vlm family's cross-attention layers, one a group."""
+        c = self.cross_attn_every
+        return self.num_layers // (c + 1) if c else 0
+
+    @property
+    def n_self(self) -> int:
+        """Self-attention layers: ``cross_attn_every`` a group in the vlm
+        family, which builds only whole groups."""
+        return self.num_layers - self.n_cross
+
     # ------------------------------------------------------------------ #
     # The JAX package's analytic counts, for the families the port builds
     # (used for the 6*N*D flops of a training step).
@@ -69,7 +89,7 @@ class ModelConfig:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
         ff_dense = 3 * d * self.d_ff  # SwiGLU: gate, up, down
         per_layer_norms = 2 * d
-        if self.family == "dense":
+        if self.family in ("dense", "audio"):
             n += L * (attn + ff_dense + per_layer_norms)
         elif self.family == "ssm":
             n += L * (self._mamba_block_params() + d)
@@ -77,6 +97,13 @@ class ModelConfig:
             # L mamba layers + ONE shared attention block (+ its ff)
             n += L * (self._mamba_block_params() + d)
             n += attn + ff_dense + per_layer_norms
+        elif self.family == "vlm":
+            # the reference's formula: a cross layer counts its scalar gate
+            # as d and leaves out kv_proj and gate_mlp (the built model
+            # holds vision_d * d + 2 - d more a cross layer)
+            cross = attn + d
+            n += self.n_self * (attn + ff_dense + per_layer_norms)
+            n += self.n_cross * (cross + ff_dense + per_layer_norms)
         else:
             raise NotImplementedError(
                 f"the port counts no {self.family!r} parameters")
@@ -103,6 +130,8 @@ ARCH_MODULES: dict[str, str] = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mamba2-780m": "mamba2_780m",
     "zamba2-2.7b": "zamba2_2p7b",
+    "musicgen-large": "musicgen_large",
+    "llama-3.2-vision-11b": "llama3p2_vision_11b",
 }
 
 
@@ -122,3 +151,7 @@ def get_reduced(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return list(ARCH_MODULES)
+
+
+def scale(cfg: ModelConfig, **overrides: Any) -> ModelConfig:
+    return dataclasses.replace(cfg, **overrides)

@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b      # vision embeddings: ones (a stub)
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128,
-                    help="KV-cache length (dense and hybrid families; the "
-                    "SSM cache has no length)")
+                    help="KV-cache length (every family with attention; "
+                    "the SSM cache has no length)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-path", default=None,

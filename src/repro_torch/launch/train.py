@@ -8,6 +8,12 @@
         --steps 20 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
         --steps 20 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --steps 20 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \
+        --steps 20 --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama-3.2-vision-11b --reduced --device cpu --steps 20
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@
 Layouts: q [B,S,H,hd], k/v [B,T,KV,hd], ``wq [D,H,hd]``, ``wo [H,hd,D]``;
 GQA groups G = H // KV.  Causal self-attention (prefill) goes to the
 ``flash_attention`` op, whose kernel runs on CUDA tensors; decode stays
-plain PyTorch, as the JAX package has no kernel for it.
+plain PyTorch, as the JAX package has no kernel for it.  So does the VLM's
+cross-attention (queries of the text, keys and values of the image, S != T,
+not causal): the JAX model computes it with ``direct_attention`` in XLA,
+and its TPU flash kernel takes k/v of q's length only.
 """
 from __future__ import annotations
 
@@ -15,13 +18,21 @@ from repro_torch.models.layers import apply_rope
 NEG_INF = -1e30
 
 
-def project_qkv(wq, wk, wv, x, positions=None, rope_theta=None,
-                bq=None, bk=None, bv=None):
-    """Returns q [B,S,H,hd], k/v [B,S,KV,hd]; RoPE if positions given."""
+def project(w, x):
+    """x [B,S,D] @ w [D,N,hd] -> [B,S,N,hd]."""
     B, S, D = x.shape
-    q = (x @ wq.reshape(D, -1)).view(B, S, *wq.shape[1:])
-    k = (x @ wk.reshape(D, -1)).view(B, S, *wk.shape[1:])
-    v = (x @ wv.reshape(D, -1)).view(B, S, *wv.shape[1:])
+    return (x @ w.reshape(D, -1)).view(B, S, *w.shape[1:])
+
+
+def project_qkv(wq, wk, wv, x, positions=None, rope_theta=None,
+                bq=None, bk=None, bv=None, kv_x=None):
+    """Returns q [B,S,H,hd], k/v [B,T,KV,hd]; RoPE if positions given.
+    K and V come from ``kv_x`` [B,T,D] when given (cross-attention), else
+    from x."""
+    kv_x = x if kv_x is None else kv_x
+    q = project(wq, x)
+    k = project(wk, kv_x)
+    v = project(wv, kv_x)
     if bq is not None:
         q, k, v = q + bq, k + bk, v + bv
     if positions is not None:

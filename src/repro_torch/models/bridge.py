@@ -6,7 +6,9 @@ dense ``TransformerLM``, ``layers/mamba/in_x`` is ``[L, D, di]`` and
 ``layers/ln/scale`` ``[L, D]`` in ``MambaLM``.  The hybrid ``Zamba2LM``
 stacks its Mamba layers on two axes, ``[groups, attn_every, ...]``, and
 keeps its one ``shared_attn`` block unstacked; layer j of group g becomes
-the port's layer ``g * attn_every + j``.  ``params_from_jax`` takes
+the port's layer ``g * attn_every + j``.  The vlm ``TransformerLM`` stacks
+``layers`` the same way, [groups, cross_attn_every, ...], and its gated
+cross-attention layers ``cross`` on [groups]: ``cross.<g>.*``.  ``params_from_jax`` takes
 that tree with numpy arrays at the leaves (``jax.tree.map(np.asarray,
 params)``) and returns the port's ``{name: array}``, one entry per layer
 (``layers.<i>.attn.wq``, ``layers.<i>.mamba.in_x``, ...).  Leaves keep
@@ -33,14 +35,15 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 def params_from_jax(tree: dict) -> dict:
     """JAX param tree (numpy leaves) -> port state dict (numpy arrays)."""
-    axes = 2 if "shared_attn" in tree else 1     # the hybrid's [g, per]
+    grouped = "shared_attn" in tree or "cross" in tree     # [g, per]
+    axes = {"layers": 2 if grouped else 1, "cross": 1}
     state = {}
     for name, arr in _flatten(tree).items():
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            arr = arr.reshape(-1, *arr.shape[axes:])
+        top, _, rest = name.partition(".")
+        if top in axes:
+            arr = arr.reshape(-1, *arr.shape[axes[top]:])
             for i in range(arr.shape[0]):
-                state[f"layers.{i}.{rest}"] = arr[i]
+                state[f"{top}.{i}.{rest}"] = arr[i]
         else:
             state[name] = arr
     return state

@@ -86,8 +86,8 @@ class LM(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator):
         """Random weights with the JAX init's distributions (normal draws
-        in float32), from ``generator``, which must live on this model's
-        device."""
+        in float32, one tensor at a time, cast into the parameter), from
+        ``generator``, which must live on this model's device."""
         for name, p in self.named_parameters():
             std = self._init_std(name)
             if std is None:
@@ -98,8 +98,8 @@ class LM(nn.Module):
                     p.fill_(v)
                 continue
             w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=self.device) * std
-            p.copy_(w)
+                            dtype=torch.float32, device=self.device)
+            p.copy_(w.mul_(std))
         return self
 
     @torch.no_grad()

@@ -1,4 +1,5 @@
-"""Model registry: ModelConfig -> the port's model for its family."""
+"""Model registry: ModelConfig -> the port's model for its family, and the
+shapes of the stubbed modality inputs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,14 +9,14 @@ from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels.ssd_scan.ops import kernel_takes
 from repro_torch.models.layers import Policy
 from repro_torch.models.ssm_lm import MambaLM
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import FAMILIES, TransformerLM
 from repro_torch.models.zamba2 import Zamba2LM
 
 
 def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda"):
-    """``TransformerLM`` for the dense family, ``MambaLM`` for ssm,
-    ``Zamba2LM`` for hybrid; the port has no other family yet."""
-    if cfg.family == "dense":
+    """``TransformerLM`` for the dense, audio and vlm families, ``MambaLM``
+    for ssm, ``Zamba2LM`` for hybrid; the port has no other family yet."""
+    if cfg.family in FAMILIES:
         return TransformerLM(cfg, policy, device)
     if cfg.family == "ssm":
         return MambaLM(cfg, policy, device)
@@ -28,13 +29,22 @@ def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda"):
 def kernel_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the card's kernels cannot run ``cfg``'s model (the reduced
     configs' widths), or None: the SSD-scan kernels for the ssm and hybrid
-    families, flash attention for the dense and hybrid ones."""
+    families, flash attention for the transformer and hybrid ones."""
     if cfg.family in ("ssm", "hybrid") and not kernel_takes(
             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk):
         return (f"the SSD-scan kernel has no instance for head_dim "
                 f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
                 f"{cfg.ssm_chunk}")
-    if cfg.family in ("dense", "hybrid") and cfg.head_dim not in HEAD_DIMS:
+    if cfg.family in (*FAMILIES, "hybrid") and cfg.head_dim not in HEAD_DIMS:
         return (f"the flash-attention kernels take head_dim {HEAD_DIMS}, "
                 f"not {cfg.head_dim}")
     return None
+
+
+def modality_inputs(cfg: ModelConfig, batch: int) -> dict:
+    """Shapes of the stubbed modality-frontend inputs: the vlm family's
+    precomputed patch embeddings; none for the others (the audio family
+    takes EnCodec token ids)."""
+    if cfg.family == "vlm":
+        return {"vision_embeds": (batch, cfg.vision_tokens, cfg.vision_d)}
+    return {}

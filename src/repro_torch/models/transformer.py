@@ -1,18 +1,29 @@
-"""Decoder-only transformer LM, dense family, with KV-cache prefill/decode.
+"""Decoder-only transformer LM with KV-cache prefill/decode: the dense,
+audio and vlm families, which the JAX package builds with one
+``TransformerLM`` (the audio family is the dense model over EnCodec tokens,
+its frontend a stub).
 
 Parameters follow the JAX package's tree, one module per layer instead of a
 leading stacked axis: ``embed.embedding``, ``final_norm.scale``,
 ``layers.<i>.{ln1,ln2}.scale``, ``layers.<i>.attn.{wq,wk,wv,wo[,bq,bk,bv]}``,
-``layers.<i>.mlp.{wi_gate,wi_up,wo}`` (``head.w`` when untied).
+``layers.<i>.mlp.{wi_gate,wi_up,wo}`` (``head.w`` when untied).  The vlm
+family's JAX tree stacks ``layers`` on [groups, cross_attn_every] and
+``cross`` on [groups]: self-attention layer j of group g is the port's
+``layers.<g * cross_attn_every + j>``, and the gated cross-attention layer
+that follows the group is ``cross.<g>.{ln1,ln2}.scale``,
+``cross.<g>.attn.{wq,wk,wv,wo,gate}``, ``cross.<g>.mlp.*``,
+``cross.<g>.gate_mlp`` and ``cross.<g>.kv_proj`` [vision_d, d_model].
 
 Every residual add is fused with the norm that follows it
 (``fused_residual_rmsnorm``): ``x + attn_out`` -> ``ln2`` and ``x + mlp_out``
--> the next block's ``ln1``, or ``final_norm`` after the last block.  That
-is 2·L launches per forward; only the first block's ``ln1`` is a plain
-``rmsnorm``.
+-> the next block's ``ln1``, or ``final_norm`` after the last block; a cross
+layer's adds are gated, ``x + tanh(gate)·out``.  That is 2·L launches per
+forward (llama-3.2-vision-11b: 32 flash, 80 fused); only the first block's
+``ln1`` is a plain ``rmsnorm``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -41,6 +52,16 @@ class Attention(nn.Module):
             self.bq = self.bk = self.bv = None
 
 
+class CrossAttention(Attention):
+    """Cross-attention projections (no biases, as the JAX model's) and the
+    scalar tanh gate of its residual add."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(dataclasses.replace(cfg, qkv_bias=False), dtype,
+                         device)
+        self.gate = param((), dtype, device)
+
+
 class MLP(nn.Module):
     def __init__(self, d_model, d_ff, dtype, device):
         super().__init__()
@@ -56,6 +77,20 @@ class Block(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class CrossBlock(nn.Module):
+    """The vlm family's gated cross-attention layer: queries from the text,
+    keys and values from the vision embeddings through ``kv_proj``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.attn = CrossAttention(cfg, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.gate_mlp = param((), dtype, device)
+        self.kv_proj = param((cfg.vision_d, cfg.d_model), dtype, device)
 
 
 def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
@@ -86,12 +121,45 @@ def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
     return fused(y, x, nxt, eps)
 
 
+def cross_apply(blk: CrossBlock, h, x, vision, cfg: ModelConfig, w, nxt,
+                g: int, cache=None, kvs=None):
+    """The gated cross-attention block ``g`` on its normed input ``h`` and
+    residual stream ``x``; returns the next (normed input, residual) pair,
+    normed by ``nxt``.  K and V are the vision embeddings [B,T,vision_d]
+    through ``kv_proj`` and wk/wv, no RoPE (appended to ``kvs`` when
+    given); ``cache`` given, they are its ``cross_k``/``cross_v`` slot g,
+    which the prefill filled (the JAX decode recomputes K/V of x and
+    discards them).  Attention is ``direct_attention``, not causal, as the
+    JAX model's while S·T <= 2^22 (its chunked path beyond that computes
+    the same function)."""
+    eps = cfg.norm_eps
+    a = blk.attn
+    if cache is None:
+        vkv = vision @ w(blk.kv_proj)
+        q, k, v = attn_lib.project_qkv(w(a.wq), w(a.wk), w(a.wv), h,
+                                       kv_x=vkv)
+        if kvs is not None:
+            kvs.append((k, v))
+    else:
+        q = attn_lib.project(w(a.wq), h)
+        k, v = cache["cross_k"][g], cache["cross_v"][g]
+    o = attn_lib.direct_attention(q, k, v, causal=False)
+    out = attn_lib.project_out(w(a.wo), o)
+    h, x = fused(torch.tanh(w(a.gate)) * out, x, blk.ln2.scale, eps)
+    m = blk.mlp
+    y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
+    return fused(torch.tanh(w(blk.gate_mlp)) * y, x, nxt, eps)
+
+
 def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
     """The JAX init's normal stddev of the embedding, the head or a
-    block's parameter; None for norm scales and biases."""
+    block's parameter; None for norm scales, biases and the cross layers'
+    gates (constants)."""
     leaf = name.rsplit(".", 2)[-2:]
-    if leaf[-1] == "scale" or leaf[-1] in ("bq", "bk", "bv"):
+    if leaf[-1] in ("scale", "bq", "bk", "bv", "gate", "gate_mlp"):
         return None
+    if leaf[-1] == "kv_proj":
+        return cfg.vision_d ** -0.5
     if name == "embed.embedding":
         return 1.0
     if leaf == ["attn", "wo"]:
@@ -101,22 +169,35 @@ def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
     return cfg.d_model ** -0.5   # wq, wk, wv, wi_gate, wi_up, head.w
 
 
+FAMILIES = ("dense", "audio", "vlm")
+
+
 class TransformerLM(LM):
     """Weights live in ``policy.param_dtype`` and are cast to the compute
     dtype at each use, as in the JAX model (serving stores them in the
     compute dtype, so the cast is the weight itself); norm scales stay
     float32.  ``loss`` trains: its forward and backward go through the
-    flash-attention and fused-norm kernels on CUDA tensors."""
+    flash-attention and fused-norm kernels on CUDA tensors.  The vlm
+    family's calls take ``vision_embeds`` [B, vision_tokens, vision_d]."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
                  device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"TransformerLM serves the dense family, not {cfg.family!r}")
+                f"TransformerLM serves the {'/'.join(FAMILIES)} families, "
+                f"not {cfg.family!r}")
+        if cfg.family == "vlm" and cfg.num_layers % (cfg.cross_attn_every + 1):
+            raise ValueError(
+                f"{cfg.name}: the vlm family builds whole groups of "
+                f"{cfg.cross_attn_every} self-attention layers and 1 cross "
+                f"layer, so num_layers is a multiple of "
+                f"{cfg.cross_attn_every + 1}, not {cfg.num_layers}")
         super().__init__(cfg, policy, device)
+        pd = policy.param_dtype
         self.layers = nn.ModuleList(
-            Block(cfg, policy.param_dtype, self.device)
-            for _ in range(cfg.num_layers))
+            Block(cfg, pd, self.device) for _ in range(cfg.n_self))
+        self.cross = nn.ModuleList(
+            CrossBlock(cfg, pd, self.device) for _ in range(cfg.n_cross))
 
     def _init_std(self, name: str) -> Optional[float]:
         return init_std(self.cfg, name)
@@ -124,38 +205,70 @@ class TransformerLM(LM):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
-    def _blocks(self, x, positions, cache=None, pos=None):
-        """Runs every block; returns the final-normed hidden state.
-        ``cache`` None: full causal self-attention, returns (h, [(k, v)]).
-        ``cache`` given: one decode token at ``pos``."""
-        cfg = self.cfg
-        h = L.rmsnorm(self.layers[0].ln1.scale, x, cfg.norm_eps)
-        kvs = []
-        n = len(self.layers)
-        for i, blk in enumerate(self.layers):
-            nxt = (self.layers[i + 1].ln1 if i + 1 < n
-                   else self.final_norm).scale
-            h, x = block_apply(blk, h, x, positions, cfg, self.cast, nxt, i,
-                               cache, pos, kvs)
-        return h, kvs
+    def _stack(self) -> list:
+        """The blocks in the order they run: ("self", i, layer), and for the
+        vlm family ("cross", g, cross layer) after each group of
+        ``cross_attn_every`` self-attention layers."""
+        if not len(self.cross):
+            return [("self", i, b) for i, b in enumerate(self.layers)]
+        per = self.cfg.cross_attn_every
+        out = []
+        for g, c in enumerate(self.cross):
+            out += [("self", g * per + j, self.layers[g * per + j])
+                    for j in range(per)]
+            out.append(("cross", g, c))
+        return out
 
-    def logits(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _vision(self, vision_embeds):
+        if not len(self.cross):
+            return None
+        if vision_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the vlm family needs "
+                             f"vision_embeds [B, {self.cfg.vision_tokens}, "
+                             f"{self.cfg.vision_d}]")
+        return vision_embeds.to(self.policy.compute_dtype)
+
+    def _blocks(self, x, positions, cache=None, pos=None, vision=None):
+        """Runs every block; returns the final-normed hidden state, each
+        self-attention layer's (k, v) and each cross layer's.  ``cache``
+        None: full causal self-attention.  ``cache`` given: one decode
+        token at ``pos``."""
+        cfg = self.cfg
+        stack = self._stack()
+        h = L.rmsnorm(stack[0][2].ln1.scale, x, cfg.norm_eps)
+        kvs, cross_kvs = [], []
+        for n, (kind, i, blk) in enumerate(stack):
+            nxt = (stack[n + 1][2].ln1 if n + 1 < len(stack)
+                   else self.final_norm).scale
+            if kind == "self":
+                h, x = block_apply(blk, h, x, positions, cfg, self.cast,
+                                   nxt, i, cache, pos, kvs)
+            else:
+                h, x = cross_apply(blk, h, x, vision, cfg, self.cast, nxt,
+                                   i, cache, cross_kvs)
+        return h, kvs, cross_kvs
+
+    def logits(self, tokens: torch.Tensor,
+               vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B,S] -> logits [B,S,V], recording autograd's graph
         where grad mode is on (training)."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
-        h, _ = self._blocks(self._embed(tokens), positions)
+        h, _, _ = self._blocks(self._embed(tokens), positions,
+                               vision=self._vision(vision_embeds))
         return self._head(h)
 
     @torch.no_grad()
-    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
+    def apply(self, tokens: torch.Tensor,
+              vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B,S] -> logits [B,S,V]."""
-        return self.logits(tokens)
+        return self.logits(tokens, vision_embeds)
 
-    def loss(self, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` against ``labels``
-        (the JAX ``loss`` of a dense model without MoE)."""
-        return L.cross_entropy(self.logits(tokens), labels)
+        (the JAX ``loss`` of a model without MoE)."""
+        return L.cross_entropy(self.logits(tokens, vision_embeds), labels)
 
     # ------------------------------------------------------------------ #
     # KV cache serving
@@ -164,23 +277,37 @@ class TransformerLM(LM):
         return max_seq                  # the KV cache's positions
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
+        """``k`` and ``v`` [self-attention layers, B, max_seq, KV, hd]; the
+        vlm family's ``cross_k`` and ``cross_v`` [cross layers, B,
+        vision_tokens, KV, hd] too."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-                 cfg.head_dim)
         kw = dict(dtype=self.policy.compute_dtype, device=self.device)
-        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        shape = (len(self.layers), batch, max_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        if len(self.cross):
+            shape = (len(self.cross), batch, cfg.vision_tokens,
+                     cfg.num_kv_heads, cfg.head_dim)
+            cache["cross_k"] = torch.zeros(shape, **kw)
+            cache["cross_v"] = torch.zeros(shape, **kw)
+        return cache
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor, cache: dict,
+                vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence forward that fills ``cache`` in place; returns the
         last position's logits [B,V].  Only that position goes through the
         head, which is all the JAX prefill returns."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
-        h, kvs = self._blocks(self._embed(tokens), positions)
+        h, kvs, cross_kvs = self._blocks(self._embed(tokens), positions,
+                                         vision=self._vision(vision_embeds))
         for i, (k, v) in enumerate(kvs):
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
+        for g, (k, v) in enumerate(cross_kvs):
+            cache["cross_k"][g] = k
+            cache["cross_v"][g] = v
         return self._head(h[:, -1])
 
     @torch.no_grad()
@@ -190,5 +317,5 @@ class TransformerLM(LM):
         into ``cache`` in place; returns logits [B,V]."""
         positions = torch.full((token.shape[0], 1), pos, dtype=torch.long,
                                device=token.device)
-        h, _ = self._blocks(self._embed(token), positions, cache, pos)
+        h, _, _ = self._blocks(self._embed(token), positions, cache, pos)
         return self._head(h[:, 0])

@@ -1,5 +1,6 @@
-"""Serving runtime: batched prefill + greedy decode with KV caches (dense),
-recurrent SSM state (ssm) or both (hybrid), FLARE daemon attached.
+"""Serving runtime: batched prefill + greedy decode with KV caches (dense,
+audio; vlm, with the cross layers' K/V of the vision embeddings), recurrent
+SSM state (ssm) or both (hybrid), FLARE daemon attached.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Server`` raises.
@@ -15,7 +16,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.daemon import DaemonConfig, TracingDaemon
 from repro_torch.models.layers import Policy
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, modality_inputs
 
 
 @dataclass
@@ -62,8 +63,11 @@ class Server:
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def generate(self, prompts: np.ndarray, new_tokens: int = 16) -> np.ndarray:
-        """prompts [B, S0] int -> [B, S0+new_tokens] greedy tokens."""
+    def generate(self, prompts: np.ndarray, new_tokens: int = 16,
+                 vision_embeds=None) -> np.ndarray:
+        """prompts [B, S0] int -> [B, S0+new_tokens] greedy tokens.  The vlm
+        family takes ``vision_embeds`` [B, vision_tokens, vision_d] (a
+        tensor or an array), ones by default, as the JAX server."""
         B, S0 = prompts.shape
         limit = self.model.max_tokens(self.cfg.max_seq)
         if limit is not None and S0 + new_tokens > limit:
@@ -74,9 +78,16 @@ class Server:
         cache = self.model.init_cache(B, self.cfg.max_seq)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                device=self.device)
+        shape = modality_inputs(self.cfg.model, B).get("vision_embeds")
+        kw = {}
+        if shape is not None:
+            kw["vision_embeds"] = (
+                torch.ones(shape, dtype=self.model.policy.compute_dtype,
+                           device=self.device) if vision_embeds is None
+                else torch.as_tensor(vision_embeds, device=self.device))
         if d:
             d.step_begin(0)
-        logits = self.model.prefill(toks, cache)
+        logits = self.model.prefill(toks, cache, **kw)
         tok = torch.argmax(logits, dim=-1)[:, None]
         out = [np.asarray(prompts)]
         # each step ends after its token reaches the host, so the step span

@@ -9,8 +9,10 @@ trace carries the JAX Trainer's span names and meta keys.
 
 Runs on the CUDA card unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU, ``Trainer`` raises.  On the card the forward and
-backward of attention (dense and hybrid families), of the SSD scan (ssm and
-hybrid) and of the fused residual + RMSNorm are the port's kernels.
+backward of causal self-attention (every family but ssm), of the SSD scan
+(ssm and hybrid) and of the fused residual + RMSNorm are the port's
+kernels.  The vlm family trains on a stub of its vision frontend, ones
+[B, vision_tokens, vision_d], as the JAX Trainer does.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.core.daemon import DaemonConfig, TracingDaemon
 from repro_torch.core.events import EventKind
 from repro_torch.data import DataConfig, ShardedLoader
 from repro_torch.models.layers import Policy
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, modality_inputs
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -58,11 +60,13 @@ class RunConfig:
                       getattr(torch, self.param_dtype))
 
 
-def loss_and_grads(model, tokens: torch.Tensor, labels: torch.Tensor,
+def loss_and_grads(model, batch: dict,
                    params: dict) -> tuple[torch.Tensor, dict]:
-    """The mean cross-entropy of one batch and its gradient for each of
-    ``params`` (name -> parameter)."""
-    loss = model.loss(tokens, labels)
+    """The mean cross-entropy of one batch (``tokens``, ``labels`` and the
+    model's modality inputs, ``vision_embeds`` for the vlm family) and its
+    gradient for each of ``params`` (name -> parameter)."""
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    loss = model.loss(batch["tokens"], batch["labels"], **extra)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
@@ -71,8 +75,10 @@ def make_train_step(model, cfg: RunConfig):
     """Returns step_fn(opt_state, batch, step) -> (opt_state, metrics).
 
     The parameters are the model's own and are updated in place; ``batch``
-    holds ``tokens`` and ``labels`` [B, S] on the model's device; the
-    metrics (``loss``, ``lr``, ``grad_norm``) are device scalars."""
+    holds ``tokens`` and ``labels`` [B, S] on the model's device (and the
+    vlm family's ``vision_embeds`` [B, T, vision_d]), each split on B into
+    the microbatches; the metrics (``loss``, ``lr``, ``grad_norm``) are
+    device scalars."""
     params = dict(model.named_parameters())
     M = cfg.num_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
@@ -81,19 +87,20 @@ def make_train_step(model, cfg: RunConfig):
         lr = warmup_cosine(step, peak_lr=cfg.peak_lr,
                            warmup_steps=cfg.warmup_steps,
                            total_steps=cfg.steps).to(model.device)
-        tokens, labels = batch["tokens"], batch["labels"]
         if M <= 1:
-            loss, grads = loss_and_grads(model, tokens, labels, params)
+            loss, grads = loss_and_grads(model, batch, params)
         else:
-            B = tokens.shape[0]
+            B = batch["tokens"].shape[0]
             if B % M:
                 raise ValueError(f"batch {B} does not split into {M} "
                                  f"microbatches")
             gacc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                      for k, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            for tok, lab in zip(tokens.chunk(M), labels.chunk(M)):
-                lm, g = loss_and_grads(model, tok, lab, params)
+            parts = {k: v.chunk(M) for k, v in batch.items()}
+            for i in range(M):
+                lm, g = loss_and_grads(
+                    model, {k: v[i] for k, v in parts.items()}, params)
                 for k in gacc:
                     gacc[k] += g[k].to(acc_dt)
                 loss = loss + lm
@@ -117,6 +124,7 @@ class Trainer:
                 "train on the CPU")
         self.model = build_model(cfg.model, cfg.policy(), self.device)
         self.step_fn = make_train_step(self.model, cfg)
+        self.vision = self._vision_stub()
         self.fault_hook = fault_hook
         self.daemon = None
         self.ckpt = None
@@ -149,10 +157,25 @@ class Trainer:
             seq_len=c.seq_len, seed=c.seed, mask_mode=c.mask_mode),
             start_step=start)
 
+    def _vision_stub(self) -> Optional[torch.Tensor]:
+        """The vlm family's stubbed frontend: ones [B, vision_tokens,
+        vision_d] in the compute dtype; None for the other families."""
+        shape = modality_inputs(self.cfg.model,
+                                self.cfg.global_batch).get("vision_embeds")
+        if shape is None:
+            return None
+        return torch.ones(shape, dtype=self.cfg.policy().compute_dtype,
+                          device=self.device)
+
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.long,
-                                   device=self.device)
-                for k in ("tokens", "labels")}
+        """A loader batch on the device, with the vision stub where the
+        model takes one."""
+        out = {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.long,
+                                  device=self.device)
+               for k in ("tokens", "labels")}
+        if self.vision is not None:
+            out["vision_embeds"] = self.vision
+        return out
 
     # ------------------------------------------------------------------ #
     def train(self, steps: Optional[int] = None) -> list[dict]:

@@ -1,7 +1,8 @@
 """The port's serving slice against the JAX package, on the CPU.
 
 * the port's ``Server`` and the JAX ``Server`` generate the same tokens from
-  the same weights, for each family the port serves (dense, ssm);
+  the same weights, for each family the port serves (dense, ssm, hybrid,
+  audio, vlm: its gates opened and its vision embeddings a seeded draw);
 * the port's JSONL trace reads back in the JAX package's event codec and
   metrics, with the JAX kernels' ``_meta`` flops;
 * the port imports neither ``jax`` nor ``repro``;
@@ -33,11 +34,13 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.runtime.serve import ServeConfig, Server
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m", "zamba2-2.7b"]
+ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m", "zamba2-2.7b",
+         "musicgen-large", "llama-3.2-vision-11b"]
 # prompt lengths: the mamba2 and zamba2 prompts span two chunks of the
 # reduced configs (chunk 16), the second one ragged
 PROMPT = {"llama3.2-1b": 10, "qwen2-0.5b": 10, "mamba2-780m": 20,
-          "zamba2-2.7b": 20}
+          "zamba2-2.7b": 20, "musicgen-large": 10,
+          "llama-3.2-vision-11b": 10}
 
 
 def _serve_pair(arch, tmp_path, B=2, new=6):
@@ -46,16 +49,27 @@ def _serve_pair(arch, tmp_path, B=2, new=6):
     jcfg = JaxServeConfig(model=jax_get_reduced(arch), batch=B, max_seq=32,
                           compute_dtype="float32")
     jserver = JaxServer(jcfg)
+    rng = np.random.default_rng(7)
+    vis = None
+    if jcfg.model.family == "vlm":
+        # the JAX init closes the gates (0), so the cross layers would add
+        # nothing; open them, and draw the vision embeddings
+        cross = jserver.params["cross"]
+        g = cross["gate_mlp"].shape[0]
+        cross["attn"]["gate"] = jnp.full((g,), 0.5)
+        cross["gate_mlp"] = jnp.full((g,), -0.7)
+        vis = rng.standard_normal((B, jcfg.model.vision_tokens,
+                                   jcfg.model.vision_d)).astype(np.float32)
     state = params_from_jax(jax.tree.map(np.asarray, jserver.params))
     trace = tmp_path / f"{arch}.jsonl"
     tserver = Server(ServeConfig(model=get_reduced(arch), batch=B, max_seq=32,
                                  compute_dtype="float32", device="cpu",
                                  log_path=str(trace)), params=state)
-    prompts = np.random.default_rng(7).integers(
-        0, jcfg.model.vocab_size, (B, S0)).astype(np.int32)
+    prompts = rng.integers(0, jcfg.model.vocab_size,
+                           (B, S0)).astype(np.int32)
     try:
-        want = jserver.generate(prompts, new_tokens=new)
-        got = tserver.generate(prompts, new_tokens=new)
+        want = jserver.generate(prompts, new_tokens=new, vision_embeds=vis)
+        got = tserver.generate(prompts, new_tokens=new, vision_embeds=vis)
     finally:
         jserver.close()
         tserver.close()
@@ -194,7 +208,8 @@ def test_server_needs_a_card_unless_cpu_is_asked():
 
 @pytest.mark.parametrize("arch, limited", [("llama3.2-1b", True),
                                            ("mamba2-780m", False),
-                                           ("zamba2-2.7b", True)])
+                                           ("zamba2-2.7b", True),
+                                           ("llama-3.2-vision-11b", True)])
 def test_generate_checks_the_models_cache_length(arch, limited):
     """The KV cache holds max_seq positions (the hybrid's too); the SSM
     state has no length."""

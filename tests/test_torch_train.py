@@ -19,7 +19,9 @@
 * the launcher and ``Trainer`` refuse the card where they cannot run.
 
 The ssm family (``mamba2-780m``'s reduced cut) takes the train-step,
-Trainer and launcher checks too.
+Trainer and launcher checks too; the train step also runs the hybrid,
+audio and vlm families (the vlm with its gates opened and seeded vision
+embeddings, which two microbatches split as they split the tokens).
 """
 import os
 import sys
@@ -55,6 +57,8 @@ from repro_torch.runtime.train import RunConfig, Trainer, make_train_step
 ARCH = "llama3.2-1b"
 SSM = "mamba2-780m"
 HYBRID = "zamba2-2.7b"
+AUDIO = "musicgen-large"
+VLM = "llama-3.2-vision-11b"
 
 
 # ---------------------------------------------------------------------- data
@@ -106,6 +110,10 @@ def _step_pair(arch, compute_dtype, microbatches=1, lr=1e-2):
     jrun = JaxRunConfig(model=jax_get_reduced(arch), **kw)
     jm = jax_build_model(jrun.model, policy=jrun.policy())
     jp = jm.init(jax.random.PRNGKey(0))
+    if jrun.model.family == "vlm":      # the JAX init closes the gates
+        g = jp["cross"]["gate_mlp"].shape[0]
+        jp["cross"]["attn"]["gate"] = jnp.full((g,), 0.5)
+        jp["cross"]["gate_mlp"] = jnp.full((g,), -0.7)
     jo = jax_adamw_init(jp, jrun.opt)
     jstep = jax.jit(jax_make_train_step(jm, jrun))
     run = RunConfig(model=get_reduced(arch), device="cpu", **kw)
@@ -117,29 +125,37 @@ def _step_pair(arch, compute_dtype, microbatches=1, lr=1e-2):
 
 
 STEP_CASES = [("float32", 1), ("bfloat16", 1), ("float32", 2)]
+STEP_ARCHS = [ARCH, SSM, HYBRID, AUDIO, VLM]
 
 
 @pytest.mark.parametrize(
     "arch, compute_dtype, microbatches",
-    [(ARCH, *c) for c in STEP_CASES] + [(SSM, *c) for c in STEP_CASES]
-    + [(HYBRID, *c) for c in STEP_CASES],
-    ids=[f"{d}-{m}" for d, m in STEP_CASES]
-    + [f"{SSM}-{d}-{m}" for d, m in STEP_CASES]
-    + [f"{HYBRID}-{d}-{m}" for d, m in STEP_CASES])
+    [(a, *c) for a in STEP_ARCHS for c in STEP_CASES],
+    ids=[f"{d}-{m}" if a == ARCH else f"{a}-{d}-{m}"
+         for a in STEP_ARCHS for d, m in STEP_CASES])
 def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
     """Three steps of each family's reduced model (the mamba2 cut: 3
     layers, d_model 64, P 16, N 16, chunk 16, so S 32 is two chunks; the
     zamba2 cut: 2 groups of 2 such layers, each followed by the shared
-    attention + MLP block)."""
+    attention + MLP block; the vlm cut: one group of 4 self-attention
+    layers and a cross layer over 16 vision tokens)."""
     (jstep, jp, jo), (tstep, tm, to) = _step_pair(arch, compute_dtype,
                                                   microbatches)
-    loader = ShardedLoader(DataConfig(vocab_size=256, batch=4, seq_len=32))
+    cfg = get_reduced(arch)
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                                      seq_len=32))
+    rng = np.random.default_rng(11)
     for step in range(3):
-        b = loader.next_batch()
-        jp, jo, jmet = jstep(jp, jo, {k: jnp.asarray(b[k]) for k in
-                                      ("tokens", "labels")}, jnp.int32(step))
-        to, tmet = tstep(to, {k: torch.as_tensor(b[k], dtype=torch.long)
-                              for k in ("tokens", "labels")}, step)
+        b = {k: v for k, v in loader.next_batch().items()
+             if k in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            b["vision_embeds"] = rng.standard_normal(
+                (4, cfg.vision_tokens, cfg.vision_d)).astype(np.float32)
+        jp, jo, jmet = jstep(jp, jo, {k: jnp.asarray(v) for k, v in
+                                      b.items()}, jnp.int32(step))
+        to, tmet = tstep(to, {k: torch.as_tensor(
+            v, dtype=torch.long if k != "vision_embeds" else None)
+            for k, v in b.items()}, step)
         if compute_dtype == "bfloat16":
             np.testing.assert_allclose(float(tmet["loss"]),
                                        float(jmet["loss"]), rtol=5e-2,
@@ -160,7 +176,7 @@ def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-0.5b",
-                                  "mamba2-780m", "zamba2-2.7b"])
+                                  "mamba2-780m", "zamba2-2.7b", AUDIO, VLM])
 def test_param_counts_equal_the_reference(arch):
     """The counts behind ``train_step_exec``'s 6·N·tokens flops."""
     from repro.configs import get_config as jax_get_config

@@ -34,12 +34,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 floor, their FP32-pipe bound and their scratch bytes, and two
                 calls compared bitwise); flash forward and backward on both
                 routes at head_dim 64, 80 (zamba2's) and 128 (the vlm's at
-                G 4), each timed at its serving and training shapes as
-                lines of their own; the
+                G 4, dbrx's at G 6, arctic's at G 7), each timed at its
+                serving and training shapes as lines of their own; the
                 flash forward in fp32 at the edges and at group sizes 7 and
-                1 too; the fused norm at D 2048, 1536, 2560, 896 and 4096,
-                its backward at D 2048, 2560, 896 and 4096 (``BWD_MAX_D``),
-                bf16 and fp32; the SSD scan and its backward
+                1 too; the fused norm at D 2048, 1536, 2560, 896, 4096, 6144
+                and 7168, its backward at D 2048, 2560, 896, 4096, 6144 and
+                7168 (the instances without the staging ring), bf16 and
+                fp32, the MoE widths timed in both; the SSD scan and its
+                backward
                 at zamba2's shapes (H 80, N 64) too, timed
                 (``at_zamba2``); the fp32 matmul in turns
                 with torch.matmul fp32, at K or N off a multiple of 4 and on
@@ -72,27 +74,38 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 drill (link f -> f+1 broken, f in 0, 2), whose live
                 progress, read from the frozen combine counters, must name
                 the link; the all-reduce of a bucket of an odd size;
-  5. serve    — for each serving path, llama3.2-1b (dense), mamba2-780m
-                (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense: qkv bias,
-                tied head, G 7), musicgen-large (audio) and
-                llama-3.2-vision-11b (vlm): Server.generate at full width
-                and depth (batch 8, 1024-token prompts, 32 new tokens,
-                random weights from --seed; the vlm's gates opened to
+  5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
+                mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
+                qkv bias, tied head, G 7), musicgen-large (audio),
+                llama-3.2-vision-11b (vlm), dbrx-132b and arctic-480b (moe:
+                router top-k, sort-based dropping dispatch, the experts'
+                SwiGLU in PyTorch): Server.generate at full width, the
+                depth cut where ``PATHS`` says (mamba2, musicgen and zamba2
+                12 layers, the vlm 2 groups, dbrx 8 layers and arctic 2,
+                which is what one card holds of their weights) (batch 8,
+                1024-token prompts, 32 new tokens, random weights from
+                --seed; the vlm's gates opened to
                 ``VLM_GATE`` and its vision embeddings a seeded draw) with
                 the FLARE daemon attached (backend <family>-serve); the
                 launch counts of that run (``forward_launches`` a prefill,
-                the fused norms again a decode step: zamba2 flash 9, SSD
-                scan 54, fused norm 72 x 33; qwen2 flash 24, fused 48 x 33;
-                musicgen 48, 96 x 33; the vlm 32, 80 x 33); untraced and
+                the fused norms again a decode step: zamba2's cut flash 2,
+                SSD scan 12, fused norm 16 x 33; qwen2 flash 24, fused 48 x
+                33; musicgen's cut 12, 24 x 33; the vlm's cut 8, 20 x 33;
+                dbrx's 8, 16 x 33; arctic's 2, 4 x 33); untraced and
                 traced walls; a profiler breakdown; the vlm's prefill
                 logits moving with its vision embeddings; fp32 prefill
                 logits on the card (the fp32 routes: flash and the SSD scan
                 on tf32x3) against the plain path on the CPU (the vlm on
-                its one-group cut, gates open);
+                its one-group cut, gates open; the moe paths on their
+                training cuts, first the tokens whose expert ids or kept
+                entries differ between card and CPU, with their top-k
+                margins);
   6. train    — for each training path (``TRAIN_PATHS``), llama3.2-1b,
-                mamba2-780m, zamba2-2.7b, qwen2-0.5b, musicgen-large and
+                mamba2-780m, zamba2-2.7b, qwen2-0.5b, musicgen-large,
                 llama-3.2-vision-11b cut to one group (4 self-attention
-                layers and 1 cross layer): Trainer.train at full width
+                layers and 1 cross layer), dbrx-132b cut to one layer and
+                arctic-480b cut to one layer of 32 experts: Trainer.train
+                at full width
                 (B 8 x S 512, bf16 compute, fp32 parameters, AdamW moments
                 in the path's dtype, 12 traced steps, backend
                 <family>-train): each step's loss, step time, tokens/s, MFU
@@ -108,7 +121,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 fp32 step of the path's cut (llama, mamba2, qwen2 and
                 musicgen 2 layers, zamba2 one group of 6 and its shared
                 block, the vlm its one group with the gates open and seeded
-                vision embeddings), card against CPU (loss, grad_norm, the
+                vision embeddings, the moe paths their training cuts with
+                their routing compared first), card against CPU (loss,
+                grad_norm, the
                 path's gradients; the fp32 routes: flash and the SSD
                 forward and backward on tf32x3; mamba2 and zamba2 at S 512,
                 two chunks);
@@ -290,28 +305,46 @@ FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
                 (2, 1000, 16, 4, 128), (8, 1024, 32, 32, 80),
                 (2, 1000, 32, 32, 80)]
 # group sizes G = H/KV other than the paths' 4: 7 (qwen2's 14 over 2) and 1
-# (musicgen's 32 over 32), head_dim 64
-FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64)]
+# (musicgen's 32 over 32), head_dim 64; at head_dim 128, 6 (dbrx's 48 over
+# 8) and 7 (arctic's 56 over 8)
+FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64),
+                (2, 512, 48, 8, 128), (2, 333, 56, 8, 128)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129)
                for hd in (64, 80, 128)]
 # the serving paths' flash shapes, each timed on both routes: llama3.2-1b
 # (hd 64; qwen2-0.5b and musicgen-large take hd 64 too, at G 7 and 1),
-# zamba2-2.7b (hd 80) and llama-3.2-vision-11b (hd 128, G 4)
+# zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4), dbrx-132b (hd
+# 128, G 6) and arctic-480b (hd 128, G 7)
 FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80),
-               (8, 1024, 32, 8, 128)]
+               (8, 1024, 32, 8, 128), (8, 1024, 48, 8, 128),
+               (8, 1024, 56, 8, 128)]
 
 
-def by_hd(name: str, hd: int) -> str:
+def by_hd(name: str, hd: int, G: int | None = None) -> str:
     """A kernel's name in the summary line: hd 64's as it is, others with
-    the head dim appended."""
-    return name if hd == 64 else f"{name}_hd{hd}"
+    the head dim appended, and a group size G = H/KV when given."""
+    name = name if hd == 64 else f"{name}_hd{hd}"
+    return name if G is None else f"{name}_g{G}"
+
+
+def flash_key(shapes: list, B, S, H, KV, hd) -> tuple:
+    """The summary key (head_dim, G) of a timed flash shape, G None for
+    the first shape of its head_dim; a path's launches go to the key of
+    its (head_dim, G) if timed, else to its head_dim's first."""
+    G = H // KV
+    first = next(sh for sh in shapes if sh[4] == hd)
+    return (hd, None if first[2] // first[3] == G else G)
+
+
+def path_flash_key(keys, hd: int, G: int) -> tuple:
+    return (hd, G) if (hd, G) in keys else (hd, None)
 
 
 def check_flash(gen, device):
     """Every shape on the route of its dtype against ``attention_ref``; the
     serving shapes (``FLASH_TIMED``) timed on both routes (the fp32 one,
     split TF32, in turns with SDPA fp32).  Returns the summaries by (route,
-    head_dim) and the cases."""
+    head_dim, G: None but where ``flash_key`` names one) and the cases."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -343,6 +376,7 @@ def check_flash(gen, device):
     summaries = {}
     for (B, S, H, KV, hd), dtype in itertools.product(
             FLASH_TIMED, ("bfloat16", "float32")):
+        key = flash_key(FLASH_TIMED, B, S, H, KV, hd)
         pairs = S * (S + 1) / 2                  # causal (query, key) pairs
         flops = 4.0 * B * H * hd * pairs
         dt = getattr(torch, dtype)
@@ -367,9 +401,9 @@ def check_flash(gen, device):
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        summaries[route, hd] = summary = dict(
+        summaries[(route, *key)] = summary = dict(
             name=by_hd("flash_attention"
-                       + ("" if route == "wgmma" else "_" + route), hd),
+                       + ("" if route == "wgmma" else "_" + route), *key),
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.KERNELS[route].source}",
             replaces="src/repro/kernels/flash_attention/kernel.py:61",
@@ -400,14 +434,18 @@ def check_flash(gen, device):
 
 
 # the paths' widths: llama3.2-1b and musicgen-large, mamba2-780m,
-# zamba2-2.7b, qwen2-0.5b, llama-3.2-vision-11b
-FUSED_WIDTHS = (2048, 1536, 2560, 896, 4096)
+# zamba2-2.7b, qwen2-0.5b, llama-3.2-vision-11b, dbrx-132b, arctic-480b
+FUSED_WIDTHS = (2048, 1536, 2560, 896, 4096, 6144, 7168)
+# the widths timed in fp32 too (the MoE paths', whose fp32 agreement runs
+# take the fp32 instances)
+FUSED_FP32_TIMED = (6144, 7168)
 
 
 def check_fused(gen, device):
     """Checked and timed at the serving paths' widths (``FUSED_WIDTHS``),
-    prefill (R 8192) and decode (R 8) rows.  Returns the llama prefill
-    summary and the others by (R, D)."""
+    prefill (R 8192) and decode (R 8) rows, bf16 (and fp32 at
+    ``FUSED_FP32_TIMED``).  Returns the llama prefill summary and the
+    others by "R<R> D<D>" (" fp32" appended for the fp32 ones)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fused_norm import ops
@@ -427,7 +465,7 @@ def check_fused(gen, device):
                 cases.append(dict(shape=[R, D], dtype=dtype, max_abs_err=err))
                 log("kernels", f"fused_residual_rmsnorm R{R} D{D} {dtype}: "
                     f"max_abs_err {err:.3e}")
-                if dtype != "bfloat16":
+                if dtype != "bfloat16" and D not in FUSED_FP32_TIMED:
                     continue
                 # at R 8 a launch costs more host time than the device
                 # needs, so these times are the host's per-call cost
@@ -445,7 +483,7 @@ def check_fused(gen, device):
                 nbytes = 4 * R * D * x.element_size() + D * 4
                 t_bytes = nbytes / PEAK_BYTES * 1e3
                 t_ops = 6.0 * R * D / PEAK_FP32_FLOPS * 1e3
-                timed[(R, D)] = t = dict(
+                timed[(R, D, dtype)] = t = dict(
                     name="fused_residual_rmsnorm", route="cuda",
                     source="src/repro_torch/kernels/csrc/fused_norm.cu",
                     replaces="src/repro/kernels/fused_norm/kernel.py:29",
@@ -454,14 +492,15 @@ def check_fused(gen, device):
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=None, library_call=None,
                     norm_only_ms=norm_only_ms, two_call_ms=two_call_ms,
-                    shape=[R, D], dtype="bfloat16")
+                    shape=[R, D], dtype=dtype)
                 log("kernels", f"fused_residual_rmsnorm timed at R{R} D{D} "
-                    f"bf16: {ms:.4f} ms (plain {plain_ms:.4f}; no single "
+                    f"{dtype}: {ms:.4f} ms (plain {plain_ms:.4f}; no single "
                     f"library call: F.rms_norm alone {norm_only_ms:.4f}, "
                     f"torch.add + F.rms_norm {two_call_ms:.4f}; bound "
                     f"{t['bound_ms']:.5f} by {t['bound_by']})")
-    main = timed.pop((8192, 2048))
-    return main, {f"R{R} D{D}": t for (R, D), t in timed.items()}, cases
+    main = timed.pop((8192, 2048, "bfloat16"))
+    return main, {f"R{R} D{D}" + ("" if d == "bfloat16" else " fp32"): t
+                  for (R, D, d), t in timed.items()}, cases
 
 
 # the flash backward: the training shape (bf16, causal) and the same in
@@ -487,11 +526,17 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 77, 8, 2, 80), "bfloat16", False),
                    ((2, 333, 8, 2, 80), "bfloat16", True),
                    ((2, 77, 8, 2, 80), "float32", True),
-                   ((2, 333, 16, 4, 80), "float32", False)]
+                   ((2, 333, 16, 4, 80), "float32", False),
+                   ((2, 256, 48, 8, 128), "bfloat16", True),
+                   ((2, 256, 48, 8, 128), "float32", True),
+                   ((2, 333, 56, 8, 128), "bfloat16", True),
+                   ((2, 200, 56, 8, 128), "float32", False)]
 # the training paths' flash shapes, each timed on both routes: llama3.2-1b
-# (hd 64), zamba2-2.7b (hd 80) and llama-3.2-vision-11b (hd 128, G 4)
+# (hd 64), zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4),
+# dbrx-132b (hd 128, G 6) and arctic-480b (hd 128, G 7)
 FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
-                   (8, 512, 32, 8, 128)]
+                   (8, 512, 32, 8, 128), (8, 512, 48, 8, 128),
+                   (8, 512, 56, 8, 128)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
@@ -573,7 +618,7 @@ def check_flash_bwd(gen, device):
     the forward's time with lse beside its time without, at llama's
     training and serving shapes.  Two fp32 (tf32x3) backward calls of each
     case must be bitwise equal.  Returns the summaries by (route,
-    head_dim) and the cases."""
+    head_dim, G: as ``check_flash``'s) and the cases."""
     import torch
     from repro_torch.kernels.flash_attention import ops
 
@@ -623,6 +668,7 @@ def check_flash_bwd(gen, device):
     summaries = {}
     for (B, S, H, KV, hd), dtype in itertools.product(
             FLASH_BWD_TIMED, ("bfloat16", "float32")):
+        key = flash_key(FLASH_BWD_TIMED, B, S, H, KV, hd)
         dt = getattr(torch, dtype)
         r = ops.BWD_ROUTES[dt]
         q, k, v, do = (torch.randn(B, S, n, hd, generator=gen,
@@ -650,9 +696,9 @@ def check_flash_bwd(gen, device):
         # and tf32x3 three TF32 passes of each
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
         passes = 1 if r == "wgmma" else 3
-        summaries[r, hd] = summary = dict(
+        summaries[(r, *key)] = summary = dict(
             name=by_hd("flash_attention_bwd"
-                       + ("" if r == "wgmma" else "_" + r), hd),
+                       + ("" if r == "wgmma" else "_" + r), *key),
             route="cuda",
             source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNELS[r].source}",
             replaces="src/repro/models/attention.py:164 (XLA recompute "
@@ -695,7 +741,7 @@ def check_flash_bwd(gen, device):
         log("kernels", f"flash_attention forward [wgmma] B{B} S{S} H{H} "
             f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
             f"{with_lse:.4f} ms with it")
-    summaries["wgmma", 64]["forward_lse_ms"] = lse_times
+    summaries["wgmma", 64, None]["forward_lse_ms"] = lse_times
     return summaries, cases
 
 
@@ -705,7 +751,10 @@ def check_fused_bwd(gen, device):
     mamba2's), bf16 and fp32, with and without dh, one launch per call;
     timed in bf16 with dh beside the plain version (no single PyTorch call
     computes it), at D 2048 and at the others into ``at_zamba2`` (D 2560),
-    ``at_qwen2`` (D 896) and ``at_llama_vision`` (D 4096).
+    ``at_qwen2`` (D 896), ``at_llama_vision`` (D 4096), ``at_dbrx`` (D
+    6144) and ``at_arctic`` (D 7168), the last two also in fp32
+    (``at_dbrx_fp32``, ``at_arctic_fp32``): the kernel's instances without
+    the staging ring.
     dscale sums R rows in fp32 in another order than the plain version: its
     atol is 3e-4·√R."""
     import torch
@@ -782,26 +831,31 @@ def check_fused_bwd(gen, device):
                     f"{u['spill_loads']} bytes spilled"
                     for u in summary["ptxas"]))
     # the other training paths' widths
-    keys = {2560: "at_zamba2", 896: "at_qwen2", 4096: "at_llama_vision"}
-    for D in widths[1:]:
+    keys = {2560: "at_zamba2", 896: "at_qwen2", 4096: "at_llama_vision",
+            6144: "at_dbrx", 7168: "at_arctic"}
+    for D, dtype in [(D, "bfloat16") for D in widths[1:]] + [
+            (D, "float32") for D in FUSED_FP32_TIMED]:
+        dt = getattr(torch, dtype)
         x, r, dy, dh = (torch.randn(R, D, generator=gen,
                                     device=device).to(dt) for _ in range(4))
         s = torch.randn(D, generator=gen, device=device)
         err = max_err(ops.fused_bwd_cuda(x, r, s, dy, dh)[0],
-                      ops.fused_bwd_ref(x, r, s, dy, dh)[0], "bfloat16")
+                      ops.fused_bwd_ref(x, r, s, dy, dh)[0], dtype)
         ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
                      behind_sleep=True)
         plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
-        t_bytes = (5 * R * D * 2 + 2 * D * 4) / PEAK_BYTES * 1e3
+        t_bytes = (5 * R * D * x.element_size() + 2 * D * 4) / PEAK_BYTES * 1e3
         t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
-        summary[keys[D]] = w = dict(
-            shape=[R, D], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
+        key = keys[D] + ("" if dtype == "bfloat16" else "_fp32")
+        summary[key] = w = dict(
+            shape=[R, D], dtype=dtype, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
         log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} "
-            f"bf16 with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+            f"{dtype} with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
             f"{w['bound_ms']:.4f} by {w['bound_by']}, "
             f"{w['bound_ms'] / ms:.3f} of it)")
+        del x, r, dy, dh
     return summary, cases
 
 
@@ -1764,8 +1818,9 @@ def ring_path(seed: int, trace_dir: Path):
 # --------------------------------------------------------------------------- #
 def forward_launches(cfg) -> dict:
     """The port's kernel launches of one full-sequence forward of ``cfg``'s
-    model, by traced-op name: the dense and audio families' flash and 2
-    fused norms a layer; the vlm family's flash a self-attention layer and
+    model, by traced-op name: the dense, moe and audio families' flash and
+    2 fused norms a layer (the moe family's dispatch and expert products
+    launch none of the port's kernels); the vlm family's flash a self-attention layer and
     2 fused norms a layer, its cross layers (``direct_attention``) included
     (llama-3.2-vision-11b: 32 and 80); the ssm family's SSD scan and 1
     fused norm a layer, the hybrid's SSD scan and 1 fused norm a Mamba
@@ -1773,7 +1828,7 @@ def forward_launches(cfg) -> dict:
     (zamba2-2.7b: 54, 9 and 72).  A decode step launches the fused norms
     alone."""
     L = cfg.num_layers
-    if cfg.family in ("dense", "audio"):
+    if cfg.family in ("dense", "moe", "audio"):
         return {"flash_attention": L, "fused_residual_rmsnorm": 2 * L}
     if cfg.family == "vlm":
         return {"flash_attention": cfg.n_self,
@@ -1841,8 +1896,10 @@ def vision_embeds(cfg, batch: int, seed: int, device, dtype):
                        device=device).to(dtype)
 
 
-def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
-    """Server.generate at full width, batch 8, 1024-token prompts, 32 new
+def serve(arch: str, cut: dict, seed: int, trace_path: Path,
+          per_call: bool = False):
+    """Server.generate at full width and the path's depth (``cut``:
+    ``configs.scale`` overrides), batch 8, 1024-token prompts, 32 new
     tokens, daemon attached with a JSONL spill (backend ``<family>-serve``);
     launch counts of that run (counts set to 0 just before it); then
     untraced and traced walls in turns, and a profiler breakdown.  A vlm
@@ -1850,12 +1907,12 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
     and shows that its prefill logits move when they change."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, scale
     from repro_torch.core.daemon import DaemonConfig, TracingDaemon
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.runtime.serve import ServeConfig, Server
 
-    cfg = get_config(arch)
+    cfg = scale(get_config(arch), **cut)
     backend = f"{cfg.family}-serve"
     kernels = path_kernels(arch)
     B, S0, new = 8, 1024, 32
@@ -1872,7 +1929,8 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
             f"gate and gate_mlp set to {VLM_GATE} after init (the JAX "
             f"init's 0 closes them); vision embeddings "
             f"{list(vis.shape)} a normal draw from seed {seed + 2}")
-    log("serve", f"{arch}: {n_params} parameters (bf16) drawn in "
+    log("serve", f"{arch}{describe_cut(cut)}: {n_params} parameters (bf16) "
+        f"drawn in "
         f"{init_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated, peak {init_peak_gb:.2f} GB during the init")
     prompts = np.random.default_rng(seed).integers(
@@ -1971,7 +2029,8 @@ def serve(arch: str, seed: int, trace_path: Path, per_call: bool = False):
         del la, lb, other
     del server
     torch.cuda.empty_cache()
-    return dict(arch=arch, B=B, S0=S0, new=new, launches=launches,
+    return dict(arch=arch, cut=cut, layers=cfg.num_layers, B=B, S0=S0,
+                new=new, launches=launches,
                 wall_s=wall, warm_wall_s=warm, walls=walls,
                 per_call_us=calls, profile=prof, backend=seen_backend,
                 n_params=n_params, init_s=init_s, init_peak_gb=init_peak_gb,
@@ -2027,23 +2086,25 @@ def profile(fn, top: int = 10) -> dict:
                                          "flare::tf32x3"))])
 
 
-def agreement(arch: str, seed: int, S: int, layers: int | None):
-    """fp32 prefill logits of the full-width model (cut to ``layers`` when
-    given): the kernel path on the card against the plain path on the CPU,
-    same weights (drawn on the card, copied to the CPU), B 1; a vlm path
-    with its gates open and seeded vision embeddings.  The fp32 run takes
-    every kernel of the path but the bf16 ones (flash and the SSD scan
-    their split-TF32 routes).  Returns the max abs error and the launches
-    of the card's prefill."""
+def agreement(arch: str, seed: int, S: int, cut: dict):
+    """fp32 prefill logits of the full-width model cut by ``cut``
+    (``configs.scale`` overrides): the kernel path on the card against the
+    plain path on the CPU, same weights (drawn on the card, copied to the
+    CPU), B 1; a vlm path with its gates open and seeded vision
+    embeddings.  The fp32 run takes every kernel of the path but the bf16
+    ones (flash and the SSD scan their split-TF32 routes).  A moe path
+    first reports the tokens whose routing (expert ids or kept entries)
+    differs between the two runs, with the top-k margins
+    (``RoutingLog``).  Returns the max abs error, the launches of the
+    card's prefill and the routing report (None but for the moe
+    family)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, scale
     from repro_torch.models.layers import Policy
     from repro_torch.models.registry import build_model
 
-    cfg = get_config(arch)
-    if layers is not None:
-        cfg = scale(cfg, num_layers=layers)
+    cfg = scale(get_config(arch), **cut)
     kernels = {label: (op, route, k)
                for label, (op, route, k, _) in path_kernels(arch).items()}
     # an fp32 prefill: each routed op on tf32x3 as often as a forward runs
@@ -2062,23 +2123,26 @@ def agreement(arch: str, seed: int, S: int, layers: int | None):
     kw_cpu = {} if vis is None else {"vision_embeds": vis}
     kw_gpu = {} if vis is None else {"vision_embeds": vis.cuda()}
     n0 = {label: k.launches for label, (_, _, k) in kernels.items()}
-    got = gpu.prefill(t.cuda(), gpu.init_cache(1, S), **kw_gpu).cpu()
+    with RoutingLog() as card_routes:
+        got = gpu.prefill(t.cuda(), gpu.init_cache(1, S), **kw_gpu).cpu()
     launches = {label: k.launches - n0[label]
                 for label, (_, _, k) in kernels.items()}
     if launches != want_launches:
         fail(f"{arch}: the fp32 agreement run launched {launches}, not "
              f"{want_launches}: each op of the path on its fp32 route "
              f"(tf32x3) as often as a forward runs it, none on wgmma")
-    want = cpu.prefill(t, cpu.init_cache(1, S), **kw_cpu)
+    with RoutingLog() as cpu_routes:
+        want = cpu.prefill(t, cpu.init_cache(1, S), **kw_cpu)
+    routing = routing_report(arch, "fp32 prefill", card_routes, cpu_routes)
     diff = (got - want).abs()
     err = float(diff.max())
     # the JAX package's model tests hold fp32 logits to rtol = atol = 2e-3
     ok = bool((diff <= 2e-3 + 2e-3 * want.abs()).all())
     same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all())
-    cut = "" if layers is None else f" ({layers}-layer cut)"
     gates = (f", gates {VLM_GATE}, seeded vision embeddings"
              if vis is not None else "")
-    log("serve", f"{arch}{cut} fp32 prefill logits B1 S{S}{gates}, card "
+    log("serve", f"{arch}{describe_cut(cut)} fp32 prefill logits B1 S{S}"
+        f"{gates}, card "
         f"kernels vs CPU plain: max_abs_err {err:.3e} (|logits| max "
         f"{float(want.abs().max()):.2f}, rtol = atol = 2e-3: {ok}); argmax "
         f"equal: {same_argmax}")
@@ -2086,7 +2150,87 @@ def agreement(arch: str, seed: int, S: int, layers: int | None):
         fail(f"{arch}: fp32 prefill logits disagree between card and CPU")
     del gpu, cpu
     torch.cuda.empty_cache()
-    return err, launches
+    return err, launches, routing
+
+
+def describe_cut(cut: dict) -> str:
+    """A path's cut for a log line: "" for the published config."""
+    if not cut:
+        return ""
+    names = {"num_layers": "layers", "num_experts": "experts"}
+    return " (cut to " + ", ".join(f"{v} {names.get(k, k)}"
+                                   for k, v in cut.items()) + ")"
+
+
+class RoutingLog:
+    """Records, while entered, each MoE layer's routing as the port computes
+    it (``moe.route`` and ``moe.dispatch``, which ``moe_apply`` and
+    ``expert_ff_local`` look up at each call): the expert ids [T, k], each
+    token's top-k margin (its k-th largest router probability less its
+    (k+1)-th, fp32) and which (token, choice) entries were kept.  Nothing
+    is recorded for the other families."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.layers = []
+        self.mod = moe
+        self.saved = route, dispatch = moe.route, moe.dispatch
+
+        def logged_route(router, x_flat, cfg):
+            eids, w, aux = route(router, x_flat, cfg)
+            k = cfg.experts_per_token
+            with torch.no_grad():
+                top = torch.topk(torch.softmax((x_flat @ router).float(), -1),
+                                 k + 1, dim=-1).values
+            self.layers.append(dict(eids=eids.detach().cpu(),
+                                    margin=(top[:, k - 1] - top[:, k]).cpu()))
+            return eids, w, aux
+
+        def logged_dispatch(key, experts, capacity):
+            dest, keep = dispatch(key, experts, capacity)
+            rec = self.layers[-1]
+            rec["keep"] = keep.view(rec["eids"].shape).cpu()
+            return dest, keep
+
+        moe.route, moe.dispatch = logged_route, logged_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route, self.mod.dispatch = self.saved
+
+
+def routing_report(arch: str, what: str, card: RoutingLog,
+                   cpu: RoutingLog) -> dict | None:
+    """Per MoE layer, the tokens whose expert ids or kept entries differ
+    between the card's run and the CPU's (a flip moves a token's output
+    grossly, so it is reported before the outputs are compared), the
+    entries dropped, and the top-k margins: the smallest, and each flipped
+    token's.  None when the runs routed nothing."""
+    if not card.layers and not cpu.layers:
+        return None
+    if len(card.layers) != len(cpu.layers):
+        fail(f"{arch} {what}: {len(card.layers)} MoE layers routed on the "
+             f"card, {len(cpu.layers)} on the CPU")
+    layers = []
+    for i, (a, b) in enumerate(zip(card.layers, cpu.layers)):
+        flip = ((a["eids"] != b["eids"]).any(1)
+                | (a["keep"] != b["keep"]).any(1))
+        rec = dict(tokens=int(flip.numel()), flipped=int(flip.sum()),
+                   dropped_card=int((~a["keep"]).sum()),
+                   dropped_cpu=int((~b["keep"]).sum()),
+                   min_margin=float(b["margin"].min()),
+                   flipped_margins=[float(m) for m in b["margin"][flip]])
+        layers.append(rec)
+        margins = (f" (their top-k margins {rec['flipped_margins']})"
+                   if rec["flipped"] else "")
+        log("serve" if "prefill" in what else "train",
+            f"{arch} {what}, MoE layer {i}: {rec['flipped']} of "
+            f"{rec['tokens']} tokens routed otherwise on the card than on "
+            f"the CPU (expert ids or kept entries){margins}; entries "
+            f"dropped: card {rec['dropped_card']}, CPU {rec['dropped_cpu']}; "
+            f"smallest top-k margin {rec['min_margin']:.3e}")
+    return dict(layers=layers, flipped=sum(r["flipped"] for r in layers))
 
 
 # --------------------------------------------------------------------------- #
@@ -2106,7 +2250,12 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
 # neither flash kernel.  llama-3.2-vision-11b trains cut to one group (4
 # self-attention layers and 1 cross layer, full width): its 9.9 B
 # parameters with fp32 gradients and moments would need ~159 GB; its fp32
-# agreement step is the same cut, with the gates open.
+# agreement step is the same cut, with the gates open.  The moe paths
+# train one layer at full width (dbrx-132b all 16 experts, 4.49 B
+# parameters; arctic-480b 32 of its 128 experts, top-2, d_ff and the dense
+# residual kept, 4.03 B; ``experts`` cuts ``num_experts``), fp32 moments
+# too: their steps peak at 76.17 and 68.99 GB so (58.20 and 52.88 GB with
+# bf16 moments); their fp32 agreement steps are the same cuts.
 TRAIN_PATHS = {
     "llama3.2-1b": dict(
         layers=None,
@@ -2140,16 +2289,38 @@ TRAIN_PATHS = {
         agree_grads=("embed.embedding", "layers.0.attn.wq",
                      "cross.0.attn.gate", "cross.0.kv_proj",
                      "cross.0.gate_mlp", "cross.0.attn.wk")),
+    "dbrx-132b": dict(
+        layers=1,
+        agree_layers=1, agree_seq=128,
+        agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
+                     "layers.0.ln2.scale", "layers.0.moe.router",
+                     "layers.0.moe.wi_gate", "layers.0.moe.wo")),
+    "arctic-480b": dict(
+        layers=1, experts=32,
+        agree_layers=1, agree_seq=128,
+        agree_grads=("embed.embedding", "layers.0.attn.wk",
+                     "layers.0.moe.router", "layers.0.moe.wi_up",
+                     "layers.0.moe.wo", "layers.0.mlp.wi_gate",
+                     "layers.0.mlp.wo")),
 }
+
+
+def train_cut(arch: str, layers_key: str = "layers") -> dict:
+    """A training path's ``configs.scale`` overrides: its layers (by
+    ``layers_key``: the trained run's, or ``agree_layers``, its fp32
+    agreement step's) and its experts."""
+    path = TRAIN_PATHS[arch]
+    cut = {} if path[layers_key] is None else {"num_layers": path[layers_key]}
+    if path.get("experts") is not None:
+        cut["num_experts"] = path["experts"]
+    return cut
 
 
 def train_config(arch: str):
     """The config a training path trains: the arch's, cut to the path's
-    ``layers``."""
+    ``layers`` and ``experts``."""
     from repro_torch.configs import get_config, scale
-    layers = TRAIN_PATHS[arch]["layers"]
-    cfg = get_config(arch)
-    return cfg if layers is None else scale(cfg, num_layers=layers)
+    return scale(get_config(arch), **train_cut(arch))
 
 
 def train_kernels(arch: str) -> dict:
@@ -2191,7 +2362,8 @@ class PlainCalls:
     FLASH = {"flash_attention": ("attention_ref", "attention_bwd_ref")}
     SSD = {"ssd_scan": ("ssd_ref", "ssd_bwd_ref")}
     NORM = {"fused_norm": ("fused_ref", "fused_bwd_ref")}
-    NAMES = {"dense": {**FLASH, **NORM}, "audio": {**FLASH, **NORM},
+    NAMES = {"dense": {**FLASH, **NORM}, "moe": {**FLASH, **NORM},
+             "audio": {**FLASH, **NORM},
              "vlm": {**FLASH, **NORM}, "ssm": {**SSD, **NORM},
              "hybrid": {**FLASH, **SSD, **NORM}}
 
@@ -2307,10 +2479,9 @@ def train(arch: str, seed: int, trace_path: Path,
     per_step = [{label: b[label] - a[label] for label in launches}
                  for a, b in zip(snaps, snaps[1:])]
     want = expected_step_launches(arch, cfg, "bfloat16")
-    depth = ("" if TRAIN_PATHS[arch]["layers"] is None
-             else f", cut to {cfg.num_layers} layers")
-    log("train", f"{arch}{depth} B{TRAIN_B} S{TRAIN_S} bf16 compute, fp32 "
-        f"parameters and moments, backend {backend}: launches "
+    log("train", f"{arch}{describe_cut(train_cut(arch))} B{TRAIN_B} "
+        f"S{TRAIN_S} bf16 compute, fp32 parameters and moments, backend "
+        f"{backend}: launches "
         f"of one step {per_step[0]} (expected {want}); plain versions "
         f"called {plain.calls}")
     if any(n != want for n in per_step) or len(per_step) != TRAIN_STEPS:
@@ -2354,7 +2525,7 @@ def train(arch: str, seed: int, trace_path: Path,
     del trainer, batch, opt_state
     torch.cuda.empty_cache()
     return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, layers=cfg.num_layers,
-                backend=backend, history=hist,
+                cut=train_cut(arch), backend=backend, history=hist,
                 launches=launches, launches_per_step=per_step[0],
                 plain_calls=plain.calls, peak_memory_gb=peak_gb,
                 step_ms_traced=traced_ms, tracing_overhead=overhead,
@@ -2371,13 +2542,14 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     CPU; a vlm cut's gates open, ``open_gates``) and batch (a vlm's with
     seeded vision embeddings).  Loss, grad_norm and the gradients of the
     path's ``agree_grads`` each within 3e-4 of its largest magnitude.
-    Then, given ``ckpt_dir``, a checkpoint of the card's parameters and
-    bf16 AdamW moments saved and restored bitwise."""
-    import dataclasses
+    A moe path first reports the tokens routed otherwise on the card
+    than on the CPU (``routing_report``).  Then, given ``ckpt_dir``, a
+    checkpoint of the card's parameters and bf16 AdamW moments saved and
+    restored bitwise."""
     import shutil
     import torch
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, scale
     from repro_torch.data import DataConfig, ShardedLoader
     from repro_torch.models.layers import Policy
     from repro_torch.models.registry import build_model
@@ -2386,8 +2558,7 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     from repro_torch.runtime.train import loss_and_grads
 
     path = TRAIN_PATHS[arch]
-    cfg = dataclasses.replace(get_config(arch),
-                              num_layers=path["agree_layers"])
+    cfg = scale(get_config(arch), **train_cut(arch, "agree_layers"))
     S, names = path["agree_seq"], path["agree_grads"]
     pol = Policy(torch.float32, torch.float32)
     gpu = build_model(cfg, pol, "cuda").init(
@@ -2403,9 +2574,10 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
         batch["vision_embeds"] = vis
     kernels = train_kernels(arch)
     n0 = {label: k.launches for label, (k, _, _) in kernels.items()}
-    loss_g, grads_g = loss_and_grads(
-        gpu, {k: v.cuda() for k, v in batch.items()},
-        dict(gpu.named_parameters()))
+    with RoutingLog() as card_routes:
+        loss_g, grads_g = loss_and_grads(
+            gpu, {k: v.cuda() for k, v in batch.items()},
+            dict(gpu.named_parameters()))
     torch.cuda.synchronize()
     launches = {label: k.launches - n0[label]
                 for label, (k, _, _) in kernels.items()}
@@ -2413,8 +2585,11 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     if launches != want_launches:
         fail(f"the fp32 training step launched {launches}, not "
              f"{want_launches}")
-    loss_c, grads_c = loss_and_grads(cpu, batch,
-                                     dict(cpu.named_parameters()))
+    with RoutingLog() as cpu_routes:
+        loss_c, grads_c = loss_and_grads(cpu, batch,
+                                         dict(cpu.named_parameters()))
+    routing = routing_report(arch, "fp32 training step", card_routes,
+                             cpu_routes)
     res = {}
     pairs = [("loss", loss_g.cpu(), loss_c),
              ("grad_norm", global_norm(grads_g.values()).cpu(),
@@ -2435,7 +2610,7 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     if ckpt_dir is None:
         del cpu, gpu, grads_g, grads_c
         torch.cuda.empty_cache()
-        return dict(errors=res, launches=launches)
+        return dict(errors=res, launches=launches, routing=routing)
 
     # checkpoint: the card's parameters and bf16 moments after one update
     params = dict(gpu.named_parameters())
@@ -2465,8 +2640,8 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
         fail("checkpoint restore differs from what was saved")
     del cpu, gpu, fresh, grads_g, grads_c, opt, fresh_opt
     torch.cuda.empty_cache()
-    return dict(errors=res, launches=launches, checkpoint_save_s=save_s,
-                checkpoint_restore_s=restore_s)
+    return dict(errors=res, launches=launches, routing=routing,
+                checkpoint_save_s=save_s, checkpoint_restore_s=restore_s)
 
 
 def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
@@ -2580,13 +2755,28 @@ def check_trace(arch: str, trace_path: Path, new: int):
     return dict(prefill_s=prefill, decode_s=decode, per_name=per_name)
 
 
-# (arch, agreement prompt length, layers of the agreement's cut or None for
-# the full depth): mamba2's and zamba2's S 320 is one full chunk of 256 and a
-# ragged one; the vlm's fp32 agreement runs its one-group cut (4
-# self-attention layers and 1 cross layer, 2.16 B parameters built)
-PATHS = (("llama3.2-1b", 64, None), ("mamba2-780m", 320, None),
-         ("zamba2-2.7b", 320, None), ("qwen2-0.5b", 64, None),
-         ("musicgen-large", 64, None), ("llama-3.2-vision-11b", 64, 5))
+# (arch, the serving run's cut, agreement prompt length, the agreement's
+# cut), each cut a dict of ``configs.scale`` overrides, {} for the
+# published config; widths are never cut.  Depths cut to keep the run in
+# its time: mamba2-780m and musicgen-large 12 of 48 layers, zamba2-2.7b 12
+# of 54 (two applications of the shared block), llama-3.2-vision-11b 2 of
+# its 8 groups; one card holds dbrx-132b's weights (bf16) for 8 of its 40
+# layers (54.6 GB) and arctic-480b's for 2 of 35 (55.4 GB, all 128
+# experts).  The agreements run the serving cut, but for the vlm's one
+# group (5 layers) and the moe paths' training cuts (``train_cut``: one
+# layer; arctic 32 experts).  mamba2's and zamba2's S 320 is one full
+# chunk of 256 and a ragged one.
+PATHS = (("llama3.2-1b", {}, 64, {}),
+         ("mamba2-780m", dict(num_layers=12), 320, dict(num_layers=12)),
+         ("zamba2-2.7b", dict(num_layers=12), 320, dict(num_layers=12)),
+         ("qwen2-0.5b", {}, 64, {}),
+         ("musicgen-large", dict(num_layers=12), 64, dict(num_layers=12)),
+         ("llama-3.2-vision-11b", dict(num_layers=10), 64,
+          dict(num_layers=5)),
+         ("dbrx-132b", dict(num_layers=8), 64,
+          dict(num_layers=1)),
+         ("arctic-480b", dict(num_layers=2), 64,
+          dict(num_layers=1, num_experts=32)))
 
 
 def main():
@@ -2677,16 +2867,16 @@ def main():
     walls["case2 and ring"] = time.perf_counter() - t0
 
     # 5. serve, and 6. trace, for each serving path
-    runs, traces, errs, fp32_launches = {}, {}, {}, {}
-    for arch, agree_s, agree_layers in PATHS:
+    runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
+    for arch, cut, agree_s, agree_cut in PATHS:
         t_path = time.perf_counter()
         trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
         trace_path.unlink(missing_ok=True)
-        run = runs[arch] = serve(arch, args.seed, trace_path,
+        run = runs[arch] = serve(arch, cut, args.seed, trace_path,
                                  per_call=arch == "llama3.2-1b")
         t_agree = time.perf_counter()
-        errs[arch], fp32_launches[arch] = agreement(arch, args.seed, agree_s,
-                                                    agree_layers)
+        errs[arch], fp32_launches[arch], routing[arch] = agreement(
+            arch, args.seed, agree_s, agree_cut)
         walls[f"agreement {arch}"] = time.perf_counter() - t_agree
         traces[arch] = check_trace(arch, trace_path, run["new"])
         walls[f"serve {arch}"] = time.perf_counter() - t_path
@@ -2714,27 +2904,34 @@ def main():
         walls[f"train {arch}"] = time.perf_counter() - t_path
 
     # each summary's launches: the main path's runs of its kernel (for
-    # flash, the paths of its head dim: llama's, qwen2's and musicgen's 64,
-    # zamba2's 80, the vlm's 128)
+    # flash, the paths of its head dim and group size: llama's, qwen2's and
+    # musicgen's hd 64, zamba2's 80, the vlm's 128 at G 4, dbrx's at G 6,
+    # arctic's at G 7; ``path_flash_key``)
     from repro_torch.configs import get_config
-    hd = {arch: get_config(arch).head_dim for arch, _, _ in PATHS}
+    cfgs = {arch: get_config(arch) for arch, *_ in PATHS}
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     by_path.update({f"{arch} train": run["launches"]
                     for arch, run in train_runs.items()})
 
-    def count(summary, label, paths, hd_of=None):
+    def count(summary, label, paths, key=None, keys=()):
+        def of(p):
+            c = cfgs[p.split()[0]]
+            return path_flash_key(keys, c.head_dim,
+                                  c.num_heads // max(c.num_kv_heads, 1))
         per = {p: n[label] for p, n in paths.items() if label in n
-               and (hd_of is None or hd[p.split()[0]] == hd_of)}
+               and (key is None or of(p) == key)}
         summary["launches"] = sum(per.values())
         summary["launches_by_path"] = per
 
-    for (route, d), summary in flash_sums.items():
+    for (route, *key), summary in flash_sums.items():
+        keys = [tuple(k) for r, *k in flash_sums if r == route]
         if route == "wgmma":
-            count(summary, "flash_attention[wgmma]", by_path, d)
+            count(summary, "flash_attention[wgmma]", by_path, tuple(key),
+                  keys)
         else:
             count(summary, "flash_attention[tf32x3]",
                   {f"{a} fp32 prefill": n for a, n in fp32_launches.items()},
-                  d)
+                  tuple(key), keys)
     for summary, label in ((fused, "fused_residual_rmsnorm"),
                            (scan, "ssd_scan[wgmma]")):
         count(summary, label, by_path)
@@ -2748,9 +2945,10 @@ def main():
     agree = {f"{a} fp32 {TRAIN_PATHS[a]['agree_layers']}-layer agreement "
              f"step": r["launches"] for a, r in train_agree.items()}
     trains = {f"{a} train": r["launches"] for a, r in train_runs.items()}
-    for (route, d), summary in flash_bwd_sums.items():
+    for (route, *key), summary in flash_bwd_sums.items():
+        keys = [tuple(k) for r, *k in flash_bwd_sums if r == route]
         count(summary, f"flash_attention_bwd[{route}]",
-              trains if route == "wgmma" else agree, d)
+              trains if route == "wgmma" else agree, tuple(key), keys)
     for summary, label in ((fused_bwd, "fused_residual_rmsnorm_bwd"),
                            (ssd_bwd, "ssd_scan_bwd[wgmma]")):
         count(summary, label, trains)
@@ -2766,7 +2964,8 @@ def main():
                    ssd_cases=ssd_cases, matmul_cases=matmul_cases,
                    combine_cases=combine_cases, case2=case2, ring=ring_run,
                    fp32_prefill_max_abs_err=errs,
-                   fp32_prefill_launches=fp32_launches, serve=runs,
+                   fp32_prefill_launches=fp32_launches,
+                   fp32_prefill_routing=routing, serve=runs,
                    trace=traces, flash_bwd_cases=flash_bwd_cases,
                    fused_bwd_cases=fused_bwd_cases,
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,

@@ -5,7 +5,8 @@ JAX package's, so a config reads the same in both) and the registry of the
 architectures the port serves.  Each arch module exports ``CONFIG`` (the
 published shape) and ``REDUCED`` (same family, tiny, for CPU tests).
 ``scale(cfg, **overrides)`` cuts a config (the VLM's one-group training
-cut: ``num_layers=5``).
+cut: ``num_layers=5``; the MoE training cuts: ``num_layers=1`` and, for
+arctic, ``num_experts=32``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ class ModelConfig:
     """Static architecture description (model shape only, no run knobs)."""
 
     name: str
-    family: str  # the port builds "dense", "audio" and "vlm"
+    family: str  # the port builds "dense", "moe", "audio" and "vlm"
     #              (TransformerLM), "ssm" (MambaLM), "hybrid" (Zamba2LM)
     num_layers: int
     d_model: int
@@ -30,6 +31,11 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
     qkv_bias: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dense_residual: bool = False  # arctic: dense FF in parallel with MoE
+    capacity_factor: float = 1.25
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -91,6 +97,10 @@ class ModelConfig:
         per_layer_norms = 2 * d
         if self.family in ("dense", "audio"):
             n += L * (attn + ff_dense + per_layer_norms)
+        elif self.family == "moe":
+            moe = self.num_experts * 3 * d * self.d_ff + d * self.num_experts
+            dense_res = ff_dense if self.moe_dense_residual else 0
+            n += L * (attn + moe + dense_res + per_layer_norms)
         elif self.family == "ssm":
             n += L * (self._mamba_block_params() + d)
         elif self.family == "hybrid":
@@ -120,9 +130,16 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Params touched per token: every one, as the port has no MoE (the
-        hybrid's shared block counts once, however often it runs)."""
-        return self.param_count()
+        """Params touched per token, for 6*N_active*D: the moe family's
+        routed experts only (``experts_per_token`` of ``num_experts``),
+        every parameter of the others (the hybrid's shared block counts
+        once, however often it runs)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        all_experts = L * self.num_experts * 3 * d * self.d_ff
+        active = L * self.experts_per_token * 3 * d * self.d_ff
+        return self.param_count() - all_experts + active
 
 
 ARCH_MODULES: dict[str, str] = {
@@ -132,6 +149,8 @@ ARCH_MODULES: dict[str, str] = {
     "zamba2-2.7b": "zamba2_2p7b",
     "musicgen-large": "musicgen_large",
     "llama-3.2-vision-11b": "llama3p2_vision_11b",
+    "dbrx-132b": "dbrx_132b",
+    "arctic-480b": "arctic_480b",
 }
 
 

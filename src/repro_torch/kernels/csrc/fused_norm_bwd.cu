@@ -38,10 +38,20 @@
 // Deterministic: no atomics anywhere.  The columns a thread owns (NV * VEC)
 // are the template parameter: NV 1 covers D up to 2048 in bf16 (llama
 // 2048, mamba2 1536, qwen2 896) and 1024 in fp32, NV 2 and 4 up to 4096.
+// Wider rows (the MoE models' 6144 and 7168, up to kMaxD = 8192) take NV
+// 3 and 4 in bf16 and 6 and 8 in fp32, the last pass partial where D is no
+// multiple of 2048 (bf16) or 1024 (fp32) elements.  Two rows of four
+// tensors at D 7168 are 115 KB in bf16 and 229 KB in fp32, more than two
+// blocks' rings can hold on an SM, and h, dy, scale and the dscale partial
+// of NV 8 fp32 vectors are 128 registers a thread.  So these instances
+// skip the ring: every thread loads its own 16-byte vectors of a row from
+// device memory (NV * 3-4 loads in flight a thread, 48-128 KB a block),
+// and they are compiled for one block an SM (up to 255 registers, so
+// nothing spills); the rows are still read once.
 // Rows without 16-byte alignment (D not a multiple of 16 bytes, or an
 // unaligned pointer) take the generic instance: one element a vector, NV
 // 8 (D up to 2048), each thread loading its own columns from device
-// memory, no ring.  The wrapper refuses D above 4096.
+// memory, no ring.  The wrapper refuses D above 8192.
 
 #include <algorithm>
 
@@ -56,14 +66,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;
 constexpr size_t kRingBytes = 96 * 1024;   // the ring's budget per block
+constexpr int kStagedMaxD = 4096;          // the widest row the ring takes
+constexpr int kMaxD = 8192;                // the widest row of all
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-template <typename T, int VEC, int NV, bool kStaged>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int VEC, int NV, bool kStaged, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
             const float* __restrict__ scale, const T* __restrict__ dy,
             const T* __restrict__ dh, T* __restrict__ dx,
@@ -236,7 +248,7 @@ reduce_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
   }
 }
 
-template <typename T, int VEC, int NV, bool kStaged>
+template <typename T, int VEC, int NV, bool kStaged, int kMinBlocks>
 int launch_rows(const T* x, const T* res, const float* scale, const T* dy,
                 const T* dh, T* dx, float* partial, int R, int D, int blocks,
                 float eps, cudaStream_t stream) {
@@ -250,11 +262,12 @@ int launch_rows(const T* x, const T* res, const float* scale, const T* dy,
                                              kRingBytes / stage_bytes)));
     smem = stages * (stage_bytes + sizeof(uint64_t));
     const cudaError_t e = cudaFuncSetAttribute(
-        rows_kernel<T, VEC, NV, kStaged>,
+        rows_kernel<T, VEC, NV, kStaged, kMinBlocks>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  rows_kernel<T, VEC, NV, kStaged><<<blocks, kThreads, smem, stream>>>(
+  rows_kernel<T, VEC, NV, kStaged, kMinBlocks>
+      <<<blocks, kThreads, smem, stream>>>(
       x, res, scale, dy, dh, dx, partial, R, D, eps, stages);
   return static_cast<int>(cudaGetLastError());
 }
@@ -278,21 +291,24 @@ int launch_typed(const void* x, const void* res, const void* scale,
   const T* dhp = static_cast<const T*>(dh);
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(partial);
-#define FLARE_ROWS(V, NV, STAGED)                                             \
-  launch_rows<T, V, NV, STAGED>(xp, rp, sp, dyp, dhp, dxp, pp, R, D, blocks, \
-                                eps, stream)
-  const int per_pass = kThreads * VEC;          // elements with NV 1
-  int e;
+#define FLARE_ROWS(V, NV, STAGED, MIN_BLOCKS)                                \
+  launch_rows<T, V, NV, STAGED, MIN_BLOCKS>(xp, rp, sp, dyp, dhp, dxp, pp, R, \
+                                            D, blocks, eps, stream)
+  constexpr int per_pass = kThreads * VEC;      // elements with NV 1
+  int e = static_cast<int>(cudaErrorInvalidValue);
   if (!aligned) {
     if (D > kThreads * 8) return static_cast<int>(cudaErrorInvalidValue);
-    e = FLARE_ROWS(1, 8, false);
+    e = FLARE_ROWS(1, 8, false, 2);
   } else if (D <= per_pass) {
-    e = FLARE_ROWS(VEC, 1, true);
+    e = FLARE_ROWS(VEC, 1, true, 2);
   } else if (D <= 2 * per_pass) {
-    e = FLARE_ROWS(VEC, 2, true);
-  } else if constexpr (VEC == 4) {              // fp32 up to 4096
-    if (D > 4 * per_pass) return static_cast<int>(cudaErrorInvalidValue);
-    e = FLARE_ROWS(VEC, 4, true);
+    e = FLARE_ROWS(VEC, 2, true, 2);
+  } else if (D <= kStagedMaxD) {                // fp32: bf16's NV 2 is 4096
+    if constexpr (VEC == 4) e = FLARE_ROWS(VEC, 4, true, 2);
+  } else if (D <= 3 * kMaxD / 4) {              // 6144: bf16 NV 3, fp32 6
+    e = FLARE_ROWS(VEC, 3 * kMaxD / 4 / per_pass, false, 1);
+  } else if (D <= kMaxD) {                      // 8192: bf16 NV 4, fp32 8
+    e = FLARE_ROWS(VEC, kMaxD / per_pass, false, 1);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,7 +13,9 @@ autodiff of ``kernels/fused_norm/ref.py::fused_ref``: no Pallas kernel, so
 no traced-op name of its own.  It reads each input once (a thread keeps
 its columns' h and dy in registers across the row's reduction, the next
 row's inputs in flight, and its dscale partial in registers across rows)
-and takes D up to ``BWD_MAX_D``.  ``fused_residual_rmsnorm`` is a
+and takes D up to ``BWD_MAX_D`` (rows wider than 4096, the MoE models'
+6144 and 7168, without the staging ring: each thread loads its own
+columns).  ``fused_residual_rmsnorm`` is a
 ``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ BWD_KERNEL = CudaKernel(
                                                   ctypes.c_int,
                                                   ctypes.c_void_p])
 BWD_BLOCKS_PER_SM = 2          # rows_kernel's grid, and dscale's partials
-BWD_MAX_D = 4096               # the widest row the backward takes
+BWD_MAX_D = 8192               # the widest row the backward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

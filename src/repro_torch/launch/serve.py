@@ -7,6 +7,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama-3.2-vision-11b      # vision embeddings: ones (a stub)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
+        --reduced --device cpu
+
+The moe family's published configs take the card's kernels but not its
+memory: dbrx-132b's bf16 weights alone are 263 GB.
 """
 from __future__ import annotations
 

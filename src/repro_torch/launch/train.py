@@ -14,6 +14,13 @@
         --steps 20 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch llama-3.2-vision-11b --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
+        --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \
+        --reduced --device cpu --steps 20
+
+The moe family's published configs take the card's kernels but not its
+memory: dbrx-132b's bf16 weights alone are 263 GB.
 """
 from __future__ import annotations
 

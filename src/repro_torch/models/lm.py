@@ -14,6 +14,9 @@ from repro_torch.kernels.fused_norm.ops import fused_residual_rmsnorm
 from repro_torch.models import layers as L
 
 
+INIT_DRAW = 1 << 28     # most elements ``LM.init`` draws in one float32 call
+
+
 def param(shape, dtype, device) -> nn.Parameter:
     """A trainable parameter; serving runs under ``torch.no_grad``."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
@@ -86,8 +89,11 @@ class LM(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator):
         """Random weights with the JAX init's distributions (normal draws
-        in float32, one tensor at a time, cast into the parameter), from
-        ``generator``, which must live on this model's device."""
+        in float32, cast into the parameter), from ``generator``, which
+        must live on this model's device.  A tensor of more than
+        ``INIT_DRAW`` elements is drawn in slices along its leading axis
+        (the MoE experts' [E, D, F] weights), so the float32 draw never
+        holds more than that at once."""
         for name, p in self.named_parameters():
             std = self._init_std(name)
             if std is None:
@@ -97,9 +103,12 @@ class LM(nn.Module):
                 else:
                     p.fill_(v)
                 continue
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=self.device)
-            p.copy_(w.mul_(std))
+            parts = (p.split(max(1, INIT_DRAW // (p.numel() // len(p))))
+                     if p.numel() > INIT_DRAW else (p,))
+            for part in parts:
+                w = torch.randn(part.shape, generator=generator,
+                                dtype=torch.float32, device=self.device)
+                part.copy_(w.mul_(std))
         return self
 
     @torch.no_grad()

@@ -14,8 +14,9 @@ from repro_torch.models.zamba2 import Zamba2LM
 
 
 def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda"):
-    """``TransformerLM`` for the dense, audio and vlm families, ``MambaLM``
-    for ssm, ``Zamba2LM`` for hybrid; the port has no other family yet."""
+    """``TransformerLM`` for the dense, moe, audio and vlm families,
+    ``MambaLM`` for ssm, ``Zamba2LM`` for hybrid: every family of the JAX
+    package's zoo."""
     if cfg.family in FAMILIES:
         return TransformerLM(cfg, policy, device)
     if cfg.family == "ssm":

@@ -1,12 +1,15 @@
 """Decoder-only transformer LM with KV-cache prefill/decode: the dense,
-audio and vlm families, which the JAX package builds with one
+moe, audio and vlm families, which the JAX package builds with one
 ``TransformerLM`` (the audio family is the dense model over EnCodec tokens,
 its frontend a stub).
 
 Parameters follow the JAX package's tree, one module per layer instead of a
 leading stacked axis: ``embed.embedding``, ``final_norm.scale``,
 ``layers.<i>.{ln1,ln2}.scale``, ``layers.<i>.attn.{wq,wk,wv,wo[,bq,bk,bv]}``,
-``layers.<i>.mlp.{wi_gate,wi_up,wo}`` (``head.w`` when untied).  The vlm
+``layers.<i>.mlp.{wi_gate,wi_up,wo}`` (``head.w`` when untied).  The moe
+family's layers hold ``layers.<i>.moe.{router,wi_gate,wi_up,wo}`` in place
+of the MLP, and beside it when ``moe_dense_residual`` is set (arctic); its
+loss adds 0.01 times the routers' aux losses summed over the layers.  The vlm
 family's JAX tree stacks ``layers`` on [groups, cross_attn_every] and
 ``cross`` on [groups]: self-attention layer j of group g is the port's
 ``layers.<g * cross_attn_every + j>``, and the gated cross-attention layer
@@ -32,6 +35,7 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.lm import LM, RMSNorm, fused, param
 
 
@@ -71,12 +75,20 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention and an MLP; with ``num_experts`` set, the MoE FF in place
+    of the MLP, or beside it with ``moe_dense_residual`` (the JAX
+    ``_layer_init``)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device)
         self.ln2 = RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.moe = (moe_lib.MoE(cfg, dtype, device) if cfg.num_experts
+                    else None)
+        self.mlp = (MLP(cfg.d_model, cfg.d_ff, dtype, device)
+                    if not cfg.num_experts or cfg.moe_dense_residual
+                    else None)
 
 
 class CrossBlock(nn.Module):
@@ -94,14 +106,16 @@ class CrossBlock(nn.Module):
 
 
 def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
-                i: int, cache=None, pos=None, kvs=None):
+                i: int, cache=None, pos=None, kvs=None, auxs=None):
     """One block on its normed input ``h`` and residual stream ``x``;
     returns the next (normed input, residual) pair, normed by ``nxt`` (the
     scale of the norm that follows).  ``w`` casts a stored weight to the
     compute dtype.  ``cache`` given: one decode token at ``pos``, its K/V
     written into slot ``i`` of the cache in place (where the JAX model uses
     dynamic_update_slice on a donated cache); else full causal
-    self-attention, its (k, v) appended to ``kvs`` when given."""
+    self-attention, its (k, v) appended to ``kvs`` when given.  A moe
+    block's FF is the MoE (plus the MLP on the same ``h`` with a dense
+    residual), its router's aux loss appended to ``auxs`` when given."""
     eps = cfg.norm_eps
     a = blk.attn
     bias = (None,) * 3 if a.bq is None else (w(a.bq), w(a.bk), w(a.bv))
@@ -117,7 +131,14 @@ def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
         o = attn_lib.decode_attention(q, cache["k"][i], cache["v"][i], pos)
     h, x = fused(attn_lib.project_out(w(a.wo), o), x, blk.ln2.scale, eps)
     m = blk.mlp
-    y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
+    if blk.moe is None:
+        y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
+    else:
+        y, aux = moe_lib.moe_apply(blk.moe, h, cfg, w)
+        if auxs is not None:
+            auxs.append(aux)
+        if m is not None:
+            y = y + L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
     return fused(y, x, nxt, eps)
 
 
@@ -164,12 +185,14 @@ def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
         return 1.0
     if leaf == ["attn", "wo"]:
         return (cfg.num_heads * cfg.head_dim) ** -0.5
-    if leaf == ["mlp", "wo"]:
+    if leaf in (["mlp", "wo"], ["moe", "wo"]):
         return cfg.d_ff ** -0.5
-    return cfg.d_model ** -0.5   # wq, wk, wv, wi_gate, wi_up, head.w
+    # wq, wk, wv, wi_gate, wi_up (the MLP's and the experts'), the MoE
+    # router, head.w
+    return cfg.d_model ** -0.5
 
 
-FAMILIES = ("dense", "audio", "vlm")
+FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 class TransformerLM(LM):
@@ -177,8 +200,10 @@ class TransformerLM(LM):
     dtype at each use, as in the JAX model (serving stores them in the
     compute dtype, so the cast is the weight itself); norm scales stay
     float32.  ``loss`` trains: its forward and backward go through the
-    flash-attention and fused-norm kernels on CUDA tensors.  The vlm
-    family's calls take ``vision_embeds`` [B, vision_tokens, vision_d]."""
+    flash-attention and fused-norm kernels on CUDA tensors (the moe
+    family's dispatch and expert products are PyTorch, as the reference's
+    are XLA).  The vlm family's calls take ``vision_embeds`` [B,
+    vision_tokens, vision_d]."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
                  device="cuda"):
@@ -230,33 +255,42 @@ class TransformerLM(LM):
 
     def _blocks(self, x, positions, cache=None, pos=None, vision=None):
         """Runs every block; returns the final-normed hidden state, each
-        self-attention layer's (k, v) and each cross layer's.  ``cache``
-        None: full causal self-attention.  ``cache`` given: one decode
-        token at ``pos``."""
+        self-attention layer's (k, v), each cross layer's, and each moe
+        layer's aux loss.  ``cache`` None: full causal self-attention.
+        ``cache`` given: one decode token at ``pos``."""
         cfg = self.cfg
         stack = self._stack()
         h = L.rmsnorm(stack[0][2].ln1.scale, x, cfg.norm_eps)
-        kvs, cross_kvs = [], []
+        kvs, cross_kvs, auxs = [], [], []
         for n, (kind, i, blk) in enumerate(stack):
             nxt = (stack[n + 1][2].ln1 if n + 1 < len(stack)
                    else self.final_norm).scale
             if kind == "self":
                 h, x = block_apply(blk, h, x, positions, cfg, self.cast,
-                                   nxt, i, cache, pos, kvs)
+                                   nxt, i, cache, pos, kvs, auxs)
             else:
                 h, x = cross_apply(blk, h, x, vision, cfg, self.cast, nxt,
                                    i, cache, cross_kvs)
-        return h, kvs, cross_kvs
+        return h, kvs, cross_kvs, auxs
+
+    def logits_and_aux(self, tokens: torch.Tensor,
+                       vision_embeds: Optional[torch.Tensor] = None):
+        """tokens [B,S] -> (logits [B,S,V], the moe layers' aux losses
+        summed, a float32 scalar: 0 for the other families), recording
+        autograd's graph where grad mode is on (training)."""
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)[None, :]
+        h, _, _, auxs = self._blocks(self._embed(tokens), positions,
+                                     vision=self._vision(vision_embeds))
+        aux = (torch.stack(auxs).sum() if auxs else
+               torch.zeros((), dtype=torch.float32, device=h.device))
+        return self._head(h), aux
 
     def logits(self, tokens: torch.Tensor,
                vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B,S] -> logits [B,S,V], recording autograd's graph
         where grad mode is on (training)."""
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)[None, :]
-        h, _, _ = self._blocks(self._embed(tokens), positions,
-                               vision=self._vision(vision_embeds))
-        return self._head(h)
+        return self.logits_and_aux(tokens, vision_embeds)[0]
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor,
@@ -266,9 +300,12 @@ class TransformerLM(LM):
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Mean next-token cross-entropy of ``tokens`` against ``labels``
-        (the JAX ``loss`` of a model without MoE)."""
-        return L.cross_entropy(self.logits(tokens, vision_embeds), labels)
+        """Mean next-token cross-entropy of ``tokens`` against ``labels``,
+        plus 0.01 times the aux loss for the moe family (the JAX
+        ``loss``)."""
+        logits, aux = self.logits_and_aux(tokens, vision_embeds)
+        ce = L.cross_entropy(logits, labels)
+        return ce + 0.01 * aux if self.cfg.num_experts else ce
 
     # ------------------------------------------------------------------ #
     # KV cache serving
@@ -300,8 +337,9 @@ class TransformerLM(LM):
         head, which is all the JAX prefill returns."""
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
-        h, kvs, cross_kvs = self._blocks(self._embed(tokens), positions,
-                                         vision=self._vision(vision_embeds))
+        h, kvs, cross_kvs, _ = self._blocks(
+            self._embed(tokens), positions,
+            vision=self._vision(vision_embeds))
         for i, (k, v) in enumerate(kvs):
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -317,5 +355,5 @@ class TransformerLM(LM):
         into ``cache`` in place; returns logits [B,V]."""
         positions = torch.full((token.shape[0], 1), pos, dtype=torch.long,
                                device=token.device)
-        h, _, _ = self._blocks(self._embed(token), positions, cache, pos)
+        h, _, _, _ = self._blocks(self._embed(token), positions, cache, pos)
         return self._head(h[:, 0])

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 QBLOCK = 256
+UPDATE_SLICE = 1 << 26     # most elements of one slice of the update
 
 
 @dataclass(frozen=True)
@@ -96,11 +97,29 @@ def global_norm(tensors) -> torch.Tensor:
                           for x in tensors))
 
 
+def _step(p, g, m, v, cfg: AdamWConfig, clip, b1c, b2c, lr):
+    """The update of ``p`` (a parameter or a slice of one) in place from
+    its gradient and float32 moments; returns the new moments."""
+    g = g.float() * clip
+    m = cfg.b1 * m + (1.0 - cfg.b1) * g
+    v = cfg.b2 * v + (1.0 - cfg.b2) * g * g
+    mhat = m / b1c
+    vhat = v / b2c
+    upd = mhat / (torch.sqrt(vhat) + cfg.eps)
+    pf = p.float()
+    p.copy_(pf - lr * (upd + cfg.weight_decay * pf))
+    return m, v
+
+
 @torch.no_grad()
 def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
                  lr) -> tuple[dict, dict, dict]:
     """One AdamW step, in place on ``params`` and ``state``.  Returns
-    (params, state, {"grad_norm": fp32 scalar})."""
+    (params, state, {"grad_norm": fp32 scalar}).  With float32 or bfloat16
+    moments a parameter of more than ``UPDATE_SLICE`` elements (the MoE
+    experts' [E, D, F]) is updated a slice of its leading axis at a time,
+    so its float32 temporaries stay that small; each element's arithmetic
+    is the same."""
     count = state["count"] + 1
     gnorm = global_norm(grads[k] for k in params)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -108,29 +127,26 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
+    consts = (cfg, clip, b1c, b2c, lr)
     for name, p in params.items():
         s = state["mu_nu"][name]
-        g = grads[name].float() * clip
         if cfg.state_dtype == "int8":
-            m = _q_dec(s["m"], p.shape)
-            v = _q_dec(s["v"], p.shape)
-        else:
-            m = s["m"].float()
-            v = s["v"].float()
-        m = cfg.b1 * m + (1.0 - cfg.b1) * g
-        v = cfg.b2 * v + (1.0 - cfg.b2) * g * g
-        mhat = m / b1c
-        vhat = v / b2c
-        upd = mhat / (torch.sqrt(vhat) + cfg.eps)
-        pf = p.float()
-        p.copy_(pf - lr * (upd + cfg.weight_decay * pf))
-        if cfg.state_dtype == "int8":
+            m, v = _step(p, grads[name], _q_dec(s["m"], p.shape),
+                         _q_dec(s["v"], p.shape), *consts)
             for key, val in (("m", m), ("v", v)):
                 enc = _q_enc(val)
                 s[key]["q"].copy_(enc["q"])
                 s[key]["scale"].copy_(enc["scale"])
+            continue
+        parts = (p, grads[name], s["m"], s["v"])
+        if p.numel() > UPDATE_SLICE:
+            n = max(1, UPDATE_SLICE // (p.numel() // len(p)))
+            parts = (t.split(n) for t in parts)
         else:
-            s["m"].copy_(m)
-            s["v"].copy_(v)
+            parts = ((t,) for t in parts)
+        for pp, gg, sm, sv in zip(*parts):
+            m, v = _step(pp, gg, sm.float(), sv.float(), *consts)
+            sm.copy_(m)
+            sv.copy_(v)
     state["count"].copy_(count)
     return params, state, {"grad_norm": gnorm}

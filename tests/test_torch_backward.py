@@ -197,6 +197,33 @@ def test_backward_wrappers_refuse_what_their_kernels_do_not_take():
         fused_bwd_cuda(x.half(), x.half(), torch.ones(8), x.half(), None)
 
 
+@pytest.mark.parametrize("D", [6144, 7168, 8192, 8200])
+def test_fused_bwd_takes_d_up_to_8192(rng, D):
+    """The backward kernel takes rows up to ``BWD_MAX_D`` = 8192 (the MoE
+    models' 6144 and 7168): such a width passes the wrapper's checks up to
+    the device (a CPU tensor is refused there), a wider one is refused
+    before; the autograd path on CPU tensors (the plain backward) holds to
+    ``jax.grad`` of ``fused_ref`` at these widths."""
+    from repro_torch.kernels.fused_norm.ops import BWD_MAX_D
+    assert BWD_MAX_D == 8192
+    R = 4
+    (jx, jr, js), (tx, tr, ts) = _inputs(rng, [(R, D), (R, D), (D,)],
+                                         "float32")
+    dy = torch.ones(R, D)
+    with pytest.raises(ValueError, match="CUDA" if D <= 8192 else
+                       "takes D up to 8192, not 8200"):
+        fused_bwd_cuda(tx.detach(), tr.detach(), ts.detach(), dy, None)
+    if D > 8192:
+        return
+    wy = rng.standard_normal((R, D)).astype(np.float32)
+    want = jax.grad(lambda x, r, s: jnp.sum(
+        jax_fused_ref(x, r, s)[0] * wy), argnums=(0, 1, 2))(jx, jr, js)
+    y, _ = fused_residual_rmsnorm(tx, tr, ts)
+    (y * torch.from_numpy(wy)).sum().backward()
+    for g, t in zip((tx.grad, tr.grad, ts.grad), want):
+        np.testing.assert_allclose(_np(g), _np(t), **TOLS["float32"])
+
+
 def test_ops_without_grad_take_the_serving_path():
     """No autograd graph when no gradient is wanted (serving, no_grad)."""
     q = torch.randn(1, 8, 2, 16, requires_grad=True)

@@ -209,9 +209,9 @@ def test_registry_builds_each_family():
             cfg.vocab_size, cfg.tie_embeddings) == (
         48, 1536, 3072, 48, 64, 128, 4, 256, 50280, False)
     other = get_reduced(ARCH).__class__(
-        name="x", family="moe", num_layers=1, d_model=8, num_heads=1,
+        name="x", family="rwkv", num_layers=1, d_model=8, num_heads=1,
         num_kv_heads=1, d_ff=8, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(NotImplementedError, match="rwkv"):
         build_model(other, device="cpu")
 
 

@@ -180,3 +180,31 @@ def test_int8_quantizer_equals_the_reference(rng):
         np.testing.assert_array_equal(
             _q_dec(got, shape).numpy(),
             np.asarray(jax_q_dec(jax.tree.map(jnp.asarray, want), shape)))
+
+
+@pytest.mark.parametrize("sd", ["float32", "bfloat16"])
+def test_sliced_update_is_the_whole_update_bitwise(rng, monkeypatch, sd):
+    """A parameter over ``UPDATE_SLICE`` elements is updated a slice of its
+    leading axis at a time (the MoE experts' weights): parameters and
+    moments are bitwise those of the update in one piece."""
+    from repro_torch.optim import adamw
+    shapes = {"experts": (6, 5, 7), "vec": (9,), "gate": ()}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = [{k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()} for _ in range(3)]
+    cfg = AdamWConfig(state_dtype=sd)
+    out = []
+    for limit in (adamw.UPDATE_SLICE, 40):          # whole, slices of 1
+        monkeypatch.setattr(adamw, "UPDATE_SLICE", limit)
+        p = {k: v.clone() for k, v in params.items()}
+        st = adamw_init(p, cfg)
+        for g in grads:
+            adamw_update(g, st, p, cfg, 1e-2)
+        out.append((p, st))
+    (p0, s0), (p1, s1) = out
+    for k in shapes:
+        assert torch.equal(p0[k], p1[k]), k
+        for m in ("m", "v"):
+            assert torch.equal(s0["mu_nu"][k][m], s1["mu_nu"][k][m]), (k, m)
+    assert not torch.equal(p0["experts"], params["experts"])

@@ -35,12 +35,12 @@ from repro_torch.runtime.serve import ServeConfig, Server
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3.2-1b", "qwen2-0.5b", "mamba2-780m", "zamba2-2.7b",
-         "musicgen-large", "llama-3.2-vision-11b"]
+         "musicgen-large", "llama-3.2-vision-11b", "dbrx-132b", "arctic-480b"]
 # prompt lengths: the mamba2 and zamba2 prompts span two chunks of the
 # reduced configs (chunk 16), the second one ragged
 PROMPT = {"llama3.2-1b": 10, "qwen2-0.5b": 10, "mamba2-780m": 20,
           "zamba2-2.7b": 20, "musicgen-large": 10,
-          "llama-3.2-vision-11b": 10}
+          "llama-3.2-vision-11b": 10, "dbrx-132b": 10, "arctic-480b": 10}
 
 
 def _serve_pair(arch, tmp_path, B=2, new=6):

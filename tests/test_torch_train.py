@@ -20,8 +20,10 @@
 
 The ssm family (``mamba2-780m``'s reduced cut) takes the train-step,
 Trainer and launcher checks too; the train step also runs the hybrid,
-audio and vlm families (the vlm with its gates opened and seeded vision
-embeddings, which two microbatches split as they split the tokens).
+audio, vlm and moe families (the vlm with its gates opened and seeded
+vision embeddings, which two microbatches split as they split the tokens;
+the moe family's loss with its 0.01·aux, the capacity that of each
+microbatch's tokens).
 """
 import os
 import sys
@@ -59,6 +61,7 @@ SSM = "mamba2-780m"
 HYBRID = "zamba2-2.7b"
 AUDIO = "musicgen-large"
 VLM = "llama-3.2-vision-11b"
+MOE = ("dbrx-132b", "arctic-480b")
 
 
 # ---------------------------------------------------------------------- data
@@ -125,7 +128,7 @@ def _step_pair(arch, compute_dtype, microbatches=1, lr=1e-2):
 
 
 STEP_CASES = [("float32", 1), ("bfloat16", 1), ("float32", 2)]
-STEP_ARCHS = [ARCH, SSM, HYBRID, AUDIO, VLM]
+STEP_ARCHS = [ARCH, SSM, HYBRID, AUDIO, VLM, *MOE]
 
 
 @pytest.mark.parametrize(
@@ -176,7 +179,8 @@ def test_train_steps_match_the_reference(arch, compute_dtype, microbatches):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-0.5b",
-                                  "mamba2-780m", "zamba2-2.7b", AUDIO, VLM])
+                                  "mamba2-780m", "zamba2-2.7b", AUDIO, VLM,
+                                  *MOE])
 def test_param_counts_equal_the_reference(arch):
     """The counts behind ``train_step_exec``'s 6·N·tokens flops."""
     from repro.configs import get_config as jax_get_config

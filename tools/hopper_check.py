@@ -97,10 +97,17 @@ SSD_BWD_CHECK = [(8, 512, 48, 128, 256, False, False),
                  (1, 100, 4, 128, 64, False, True),
                  (2, 1, 4, 64, 64, True, True),
                  (1, 700, 4, 128, 192, True, False)]
-# (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S
+# (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S; hd 128
+# at G 6 and 7 (dbrx's 48 over 8 and arctic's 56 over 8 heads)
 BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
              (1, 1, 4, 1, 64), (2, 77, 4, 4, 128), (8, 512, 32, 32, 80),
-             (2, 77, 8, 2, 80), (1, 1, 4, 4, 80)]
+             (2, 77, 8, 2, 80), (1, 1, 4, 4, 80), (2, 256, 48, 8, 128),
+             (2, 129, 56, 8, 128)]
+# (R, D) of the fused-norm backward's checks: the training rows, mamba2's
+# width, a row off 16 bytes; the MoE widths 6144 and 7168, the widest, 8192,
+# and 5000, a partial last pass of the wide instances
+FUSED_BWD_CHECK = [(4096, 2048), (300, 1536), (7, 100), (4096, 6144),
+                   (4096, 7168), (300, 8192), (33, 5000)]
 
 
 def check_backward():
@@ -186,7 +193,7 @@ def check_backward():
                       f"dq, dk, dv {[f'{r[1]:.2e}' for r in res]}, of the "
                       f"largest magnitude {[f'{x:.1e}' for x in rel]} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
-    for (R, D) in ((4096, 2048), (300, 1536), (7, 100)):
+    for (R, D) in FUSED_BWD_CHECK:
         for dtype in (torch.bfloat16, torch.float32):
             tol = 5e-2 if dtype == torch.bfloat16 else 3e-4
             for with_dh in (True, False):
@@ -247,10 +254,13 @@ def check_backward():
               + ", ".join(f"{n[:40]} {t:.4f}" for n, t in parts.items()),
               flush=True)
         del q, k, v, o, do
-    # the training rows (llama), then mamba2's width at its prefill rows
+    # the training rows (llama), then mamba2's width at its prefill rows,
+    # then the MoE training paths' widths (dbrx 6144, arctic 7168)
     for (R, D, dtype) in ((4096, 2048, torch.bfloat16),
                           (4096, 2048, torch.float32),
-                          (8192, 1536, torch.bfloat16)):
+                          (8192, 1536, torch.bfloat16),
+                          *((4096, D, dt) for D in (6144, 7168)
+                            for dt in (torch.bfloat16, torch.float32))):
         x, r, dy, dh = (randn(R, D, dtype=dtype) for _ in range(4))
         s = randn(D, dtype=torch.float32)
         # device time: behind a queued sleep, the wrapper's host cost per

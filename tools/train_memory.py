@@ -3,12 +3,13 @@
 and AdamW moment dtype.
 
     python3 tools/train_memory.py --arch zamba2-2.7b [--microbatches 1,2]
-        [--state-dtype float32,bfloat16] [--layers N] [--batch 8]
-        [--seq 512] [--steps 2]
+        [--state-dtype float32,bfloat16] [--layers N] [--num-experts E]
+        [--batch 8] [--seq 512] [--steps 2]
 
 On one CUDA card: for each moment dtype and microbatch count, a fresh
-``Trainer`` of the arch's full config (cut to ``--layers`` layers through
-``configs.scale`` when given, widths kept; bf16 compute, fp32 parameters,
+``Trainer`` of the arch's full config (cut to ``--layers`` layers and, for
+the moe family, ``--num-experts`` experts through ``configs.scale`` when
+given, widths and top-k kept; bf16 compute, fp32 parameters,
 no tracing) takes ``--steps`` steps of ``--batch`` x ``--seq`` tokens, and
 the line names the peak of ``torch.cuda.max_memory_allocated`` and the
 median step time, or the out-of-memory error the step raised.  This is how
@@ -36,6 +37,8 @@ def main():
                     "bfloat16, int8)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to this many layers")
+    ap.add_argument("--num-experts", type=int, default=None,
+                    help="cut a moe config to this many experts")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--steps", type=int, default=2)
@@ -56,13 +59,18 @@ def main():
     cfg = get_config(args.arch)
     if args.layers is not None:
         cfg = scale(cfg, num_layers=args.layers)
+    if args.num_experts is not None:
+        cfg = scale(cfg, num_experts=args.num_experts)
     for sd, m in ((sd, int(m)) for sd in args.state_dtype.split(",")
                   for m in args.microbatches.split(",")):
         run = RunConfig(model=cfg, global_batch=args.batch,
                         seq_len=args.seq, num_microbatches=m,
                         steps=args.steps, warmup_steps=1, flare=False,
                         opt=AdamWConfig(state_dtype=sd))
-        what = (f"{args.arch} ({cfg.num_layers} layers) B{args.batch} "
+        experts = (f", {cfg.num_experts} experts" if cfg.num_experts
+                   else "")
+        what = (f"{args.arch} ({cfg.num_layers} layers{experts}) "
+                f"B{args.batch} "
                 f"S{args.seq} moments {sd} microbatches {m}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()

@@ -34,13 +34,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 floor, their FP32-pipe bound and their scratch bytes, and two
                 calls compared bitwise); flash forward and backward on both
                 routes at head_dim 64, 80 (zamba2's) and 128 (the vlm's at
-                G 4, dbrx's at G 6, arctic's at G 7), each timed at its
-                serving and training shapes as lines of their own; the
+                G 4, dbrx's at G 6, arctic's at G 7, llama-20b-paper's at G
+                5, qwen2-72b's at G 8, llama3-405b's at G 16), each timed at
+                its serving and training shapes as lines of their own; the
                 flash forward in fp32 at the edges and at group sizes 7 and
-                1 too; the fused norm at D 2048, 1536, 2560, 896, 4096, 6144
-                and 7168, its backward at D 2048, 2560, 896, 4096, 6144 and
-                7168 (the instances without the staging ring), bf16 and
-                fp32, the MoE widths timed in both; the SSD scan and its
+                1 too; the fused norm at D 2048, 1536, 2560, 896, 4096,
+                6144, 7168, 5120, 8192 and 16384, its backward at the same
+                widths but 1536 (the instances without the staging ring at
+                D over 4096, the 1024-thread one at 16384), bf16 and fp32,
+                the MoE and the last dense widths timed in both, the
+                backward beside autograd of torch.add + F.rms_norm; the
+                SSD scan and its
                 backward
                 at zamba2's shapes (H 80, N 64) too, timed
                 (``at_zamba2``); the fp32 matmul in turns
@@ -79,10 +83,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 qkv bias, tied head, G 7), musicgen-large (audio),
                 llama-3.2-vision-11b (vlm), dbrx-132b and arctic-480b (moe:
                 router top-k, sort-based dropping dispatch, the experts'
-                SwiGLU in PyTorch): Server.generate at full width, the
+                SwiGLU in PyTorch), llama-20b-paper, qwen2-72b and
+                llama3-405b (dense): Server.generate at full width, the
                 depth cut where ``PATHS`` says (mamba2, musicgen and zamba2
-                12 layers, the vlm 2 groups, dbrx 8 layers and arctic 2,
-                which is what one card holds of their weights) (batch 8,
+                12 layers, the vlm 2 groups, dbrx 8 layers, arctic 2,
+                qwen2-72b 30 and llama3-405b 8, which is what one card holds
+                of their weights; llama-20b-paper whole) (batch 8,
                 1024-token prompts, 32 new tokens, random weights from
                 --seed; the vlm's gates opened to
                 ``VLM_GATE`` and its vision embeddings a seeded draw) with
@@ -91,7 +97,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the fused norms again a decode step: zamba2's cut flash 2,
                 SSD scan 12, fused norm 16 x 33; qwen2 flash 24, fused 48 x
                 33; musicgen's cut 12, 24 x 33; the vlm's cut 8, 20 x 33;
-                dbrx's 8, 16 x 33; arctic's 2, 4 x 33); untraced and
+                dbrx's 8, 16 x 33; arctic's 2, 4 x 33; llama-20b-paper 62,
+                124 x 33; qwen2-72b's cut 30, 60 x 33; llama3-405b's cut 8,
+                16 x 33); untraced and
                 traced walls; a profiler breakdown; the vlm's prefill
                 logits moving with its vision embeddings; fp32 prefill
                 logits on the card (the fp32 routes: flash and the SSD scan
@@ -100,16 +108,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 training cuts, first the tokens whose expert ids or kept
                 entries differ between card and CPU, with their top-k
                 margins);
-  6. train    — for each training path (``TRAIN_PATHS``), llama3.2-1b,
+  6. train    — first one bf16 step of llama3.2-1b's training path under
+                remat "none", "full" and "dots" (``remat_check``): the
+                launches of each (remat runs each layer's forward kernels
+                again) and whether loss and gradients are bitwise those of
+                "none"; then for each training path (``TRAIN_PATHS``),
+                llama3.2-1b,
                 mamba2-780m, zamba2-2.7b, qwen2-0.5b, musicgen-large,
                 llama-3.2-vision-11b cut to one group (4 self-attention
-                layers and 1 cross layer), dbrx-132b cut to one layer and
-                arctic-480b cut to one layer of 32 experts: Trainer.train
-                at full width
-                (B 8 x S 512, bf16 compute, fp32 parameters, AdamW moments
-                in the path's dtype, 12 traced steps, backend
+                layers and 1 cross layer), dbrx-132b cut to one layer,
+                arctic-480b cut to one layer of 32 experts, and
+                llama-20b-paper, qwen2-72b and llama3-405b cut to what one
+                card trains on the JAX package's policy for them (fp32
+                parameters and bf16 moments for the first, bf16 parameters
+                for the others, remat "full" for all three; bf16 moments
+                and a peak lr of 8e-5 for the two widest, where the
+                policy's int8 moments diverge): Trainer.train at full
+                width
+                (B 8 x S 512, bf16 compute, the path's parameter and moment
+                dtypes, remat and peak lr, fp32, "none" and 3e-4 where it
+                names none, 12 traced steps, backend
                 <family>-train): each step's loss, step time, tokens/s, MFU
-                and the peak memory; the launch counts of every step
+                and the peak memory; the launch counts of every step (under
+                remat the forward kernels twice)
                 (llama: flash forward and backward 16, on the wgmma routes
                 and none on tf32x3, fused forward and backward 32; mamba2:
                 SSD forward and backward 48 each on the wgmma routes, none
@@ -122,7 +143,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 musicgen 2 layers, zamba2 one group of 6 and its shared
                 block, the vlm its one group with the gates open and seeded
                 vision embeddings, the moe paths their training cuts with
-                their routing compared first), card against CPU (loss,
+                their routing compared first, llama-20b-paper 2 layers,
+                qwen2-72b and llama3-405b 1, these three under remat
+                "full"), card against CPU (loss,
                 grad_norm, the
                 path's gradients; the fp32 routes: flash and the SSD
                 forward and backward on tf32x3; mamba2 and zamba2 at S 512,
@@ -132,8 +155,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 checkpoint saved and restored bitwise;
   7. trace    — each serving path's and each training run's JSONL spill
                 read back: step spans and kernel spans with device
-                durations from CUDA events; the training runs' dataloader
-                and train_step_exec spans with their meta.
+                durations from CUDA events (under remat the recompute's
+                spans too); the training runs' dataloader and
+                train_step_exec spans with their meta.
 The wall time of each phase and of the whole run is printed ([wall]).
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
@@ -306,18 +330,23 @@ FLASH_SHAPES = [(8, 1024, 32, 8, 64), (8, 1000, 32, 8, 64),
                 (2, 1000, 32, 32, 80)]
 # group sizes G = H/KV other than the paths' 4: 7 (qwen2's 14 over 2) and 1
 # (musicgen's 32 over 32), head_dim 64; at head_dim 128, 6 (dbrx's 48 over
-# 8) and 7 (arctic's 56 over 8)
+# 8), 7 (arctic's 56 over 8), 5 (llama-20b-paper's 40 over 8), 8
+# (qwen2-72b's 64 over 8) and 16 (llama3-405b's 128 over 8)
 FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64),
-                (2, 512, 48, 8, 128), (2, 333, 56, 8, 128)]
+                (2, 512, 48, 8, 128), (2, 333, 56, 8, 128),
+                (2, 512, 40, 8, 128), (2, 333, 64, 8, 128),
+                (2, 200, 128, 8, 128)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129)
                for hd in (64, 80, 128)]
 # the serving paths' flash shapes, each timed on both routes: llama3.2-1b
 # (hd 64; qwen2-0.5b and musicgen-large take hd 64 too, at G 7 and 1),
 # zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4), dbrx-132b (hd
-# 128, G 6) and arctic-480b (hd 128, G 7)
+# 128, G 6), arctic-480b (hd 128, G 7), llama-20b-paper (G 5), qwen2-72b
+# (G 8) and llama3-405b (G 16)
 FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80),
                (8, 1024, 32, 8, 128), (8, 1024, 48, 8, 128),
-               (8, 1024, 56, 8, 128)]
+               (8, 1024, 56, 8, 128), (8, 1024, 40, 8, 128),
+               (8, 1024, 64, 8, 128), (8, 1024, 128, 8, 128)]
 
 
 def by_hd(name: str, hd: int, G: int | None = None) -> str:
@@ -434,11 +463,12 @@ def check_flash(gen, device):
 
 
 # the paths' widths: llama3.2-1b and musicgen-large, mamba2-780m,
-# zamba2-2.7b, qwen2-0.5b, llama-3.2-vision-11b, dbrx-132b, arctic-480b
-FUSED_WIDTHS = (2048, 1536, 2560, 896, 4096, 6144, 7168)
-# the widths timed in fp32 too (the MoE paths', whose fp32 agreement runs
-# take the fp32 instances)
-FUSED_FP32_TIMED = (6144, 7168)
+# zamba2-2.7b, qwen2-0.5b, llama-3.2-vision-11b, dbrx-132b, arctic-480b,
+# llama-20b-paper, qwen2-72b, llama3-405b
+FUSED_WIDTHS = (2048, 1536, 2560, 896, 4096, 6144, 7168, 5120, 8192, 16384)
+# the widths timed in fp32 too (the MoE paths' and the last dense ones',
+# whose fp32 agreement runs take the fp32 instances)
+FUSED_FP32_TIMED = (6144, 7168, 5120, 8192, 16384)
 
 
 def check_fused(gen, device):
@@ -530,13 +560,21 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 256, 48, 8, 128), "bfloat16", True),
                    ((2, 256, 48, 8, 128), "float32", True),
                    ((2, 333, 56, 8, 128), "bfloat16", True),
-                   ((2, 200, 56, 8, 128), "float32", False)]
+                   ((2, 200, 56, 8, 128), "float32", False),
+                   ((2, 256, 40, 8, 128), "bfloat16", True),
+                   ((2, 200, 40, 8, 128), "float32", True),
+                   ((2, 333, 64, 8, 128), "bfloat16", True),
+                   ((2, 256, 64, 8, 128), "float32", False),
+                   ((2, 129, 128, 8, 128), "bfloat16", False),
+                   ((2, 256, 128, 8, 128), "float32", True)]
 # the training paths' flash shapes, each timed on both routes: llama3.2-1b
 # (hd 64), zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4),
-# dbrx-132b (hd 128, G 6) and arctic-480b (hd 128, G 7)
+# dbrx-132b (hd 128, G 6), arctic-480b (hd 128, G 7), llama-20b-paper (G
+# 5), qwen2-72b (G 8) and llama3-405b (G 16)
 FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
                    (8, 512, 32, 8, 128), (8, 512, 48, 8, 128),
-                   (8, 512, 56, 8, 128)]
+                   (8, 512, 56, 8, 128), (8, 512, 40, 8, 128),
+                   (8, 512, 64, 8, 128), (8, 512, 128, 8, 128)]
 TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
@@ -745,6 +783,21 @@ def check_flash_bwd(gen, device):
     return summaries, cases
 
 
+def two_call_backward(x, r, s, dy, dh):
+    """A callable that runs the backward of the fused norm's function as
+    two library calls compute it, autograd of ``F.rms_norm(torch.add(x,
+    r))`` (scale in x's dtype) from the cotangents of y and h, the forward
+    run beforehand: a yardstick only, the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    xs, rs, ss = (t.detach().clone().requires_grad_()
+                  for t in (x, r, s.to(x.dtype)))
+    h = torch.add(xs, rs)
+    y = F.rms_norm(h, (x.shape[-1],), ss, 1e-5)
+    return lambda: torch.autograd.grad((y, h), (xs, rs, ss), (dy, dh),
+                                       retain_graph=True)
+
+
 def check_fused_bwd(gen, device):
     """The fused-norm backward against ``fused_bwd_ref`` at the training
     rows (R 4096) of the training paths' widths (``FUSED_WIDTHS`` but
@@ -752,9 +805,12 @@ def check_fused_bwd(gen, device):
     timed in bf16 with dh beside the plain version (no single PyTorch call
     computes it), at D 2048 and at the others into ``at_zamba2`` (D 2560),
     ``at_qwen2`` (D 896), ``at_llama_vision`` (D 4096), ``at_dbrx`` (D
-    6144) and ``at_arctic`` (D 7168), the last two also in fp32
-    (``at_dbrx_fp32``, ``at_arctic_fp32``): the kernel's instances without
-    the staging ring.
+    6144), ``at_arctic`` (D 7168), ``at_llama_20b`` (D 5120),
+    ``at_qwen2_72b`` (D 8192) and ``at_llama3_405b`` (D 16384, the
+    1024-thread instance), the last five also in fp32 (``_fp32``
+    appended): the kernel's instances without the staging ring; each of
+    these beside the backward of ``torch.add`` + ``F.rms_norm`` by
+    autograd (``two_call_backward``).
     dscale sums R rows in fp32 in another order than the plain version: its
     atol is 3e-4·√R."""
     import torch
@@ -798,7 +854,7 @@ def check_fused_bwd(gen, device):
                        behind_sleep=True)
     plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = min(R, ops.BWD_BLOCKS_PER_SM * sms)
+    blocks = ops.bwd_blocks(R, D, sms)
     # the function's bytes: x, res, dy, dh read, dx written; scale read,
     # dscale written.  The kernel's dscale partials (its two-pass design,
     # not the function) are printed apart.
@@ -830,9 +886,11 @@ def check_fused_bwd(gen, device):
         + ", ".join(f"{u['registers']} registers, {u['spill_stores']}/"
                     f"{u['spill_loads']} bytes spilled"
                     for u in summary["ptxas"]))
-    # the other training paths' widths
+    # the other training paths' widths, each beside the backward of the
+    # function in two library calls (autograd of torch.add then F.rms_norm)
     keys = {2560: "at_zamba2", 896: "at_qwen2", 4096: "at_llama_vision",
-            6144: "at_dbrx", 7168: "at_arctic"}
+            6144: "at_dbrx", 7168: "at_arctic", 5120: "at_llama_20b",
+            8192: "at_qwen2_72b", 16384: "at_llama3_405b"}
     for D, dtype in [(D, "bfloat16") for D in widths[1:]] + [
             (D, "float32") for D in FUSED_FP32_TIMED]:
         dt = getattr(torch, dtype)
@@ -844,15 +902,19 @@ def check_fused_bwd(gen, device):
         ms = time_ms(lambda: ops.fused_bwd_cuda(x, r, s, dy, dh), 50,
                      behind_sleep=True)
         plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
+        two_call_ms = time_ms(two_call_backward(x, r, s, dy, dh), 50,
+                              behind_sleep=True)
         t_bytes = (5 * R * D * x.element_size() + 2 * D * 4) / PEAK_BYTES * 1e3
         t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
         key = keys[D] + ("" if dtype == "bfloat16" else "_fp32")
         summary[key] = w = dict(
             shape=[R, D], dtype=dtype, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            two_call_ms=two_call_ms)
         log("kernels", f"fused_residual_rmsnorm backward timed at R{R} D{D} "
-            f"{dtype} with dh: {ms:.4f} ms (plain {plain_ms:.4f}; bound "
+            f"{dtype} with dh: {ms:.4f} ms (plain {plain_ms:.4f}; the "
+            f"backward of torch.add + F.rms_norm {two_call_ms:.4f}; bound "
             f"{w['bound_ms']:.4f} by {w['bound_by']}, "
             f"{w['bound_ms'] / ms:.3f} of it)")
         del x, r, dy, dh
@@ -1902,7 +1964,10 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     ``configs.scale`` overrides), batch 8, 1024-token prompts, 32 new
     tokens, daemon attached with a JSONL spill (backend ``<family>-serve``);
     launch counts of that run (counts set to 0 just before it); then
-    untraced and traced walls in turns, and a profiler breakdown.  A vlm
+    untraced and traced walls in turns (``per_call``: two of each, ABBA,
+    and the daemon's host cost per launch; else one of each, for the run's
+    time), and a profiler breakdown of a prefill and of a generate of
+    ``PROFILE_NEW`` tokens.  A vlm
     path opens its gates (``open_gates``), takes seeded vision embeddings
     and shows that its prefill logits move when they change."""
     import numpy as np
@@ -1970,7 +2035,8 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
         return time.perf_counter() - t0
 
     walls = {"untraced": [], "traced": []}
-    for mode in ("untraced", "traced", "traced", "untraced"):
+    for mode in ("untraced", "traced", "traced", "untraced")[
+            :4 if per_call else 2]:
         if mode == "traced":
             server.daemon = TracingDaemon(DaemonConfig(
                 backend=backend, hang_timeout=300.0)).attach()
@@ -1978,8 +2044,8 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
         server.close()
     warm = min(walls["untraced"])
     log("serve", f"{arch} second and later runs, generate wall s: {walls}; "
-        f"tracing costs {min(walls['traced']) / warm - 1:+.2%} (best of 2 "
-        f"each)")
+        f"tracing costs {min(walls['traced']) / warm - 1:+.2%} (best of "
+        f"{len(walls['traced'])} each)")
     calls = None
     if per_call:
         # the same per launch: host time of one fused-norm call at the
@@ -2000,8 +2066,12 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
                 d.detach()
         log("serve", f"fused_residual_rmsnorm call at R{B}, host us per "
             f"call (2000 calls): {calls}")
+    t_prof = time.perf_counter()
     prof = {"prefill": profile(lambda: server.generate(prompts, 0, vis)),
-            "generate": profile(lambda: server.generate(prompts, new, vis))}
+            "generate": profile(lambda: server.generate(prompts, PROFILE_NEW,
+                                                        vis))}
+    log("profile", f"{arch}: the two profiles took "
+        f"{time.perf_counter() - t_prof:.1f} s")
     for part, p in prof.items():
         log("profile", f"{arch} {part}: wall {p['wall_s'] * 1e3:.3f} ms, "
             f"device busy {p['device_s'] * 1e3:.3f} ms, idle share "
@@ -2035,6 +2105,12 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
                 per_call_us=calls, profile=prof, backend=seen_backend,
                 n_params=n_params, init_s=init_s, init_peak_gb=init_peak_gb,
                 peak_memory_gb=peak_gb, vision_moved=moved)
+
+
+# new tokens of the profiled generate: the profiler's processing grows with
+# the events it records, and at 32 tokens llama-20b-paper's 62 layers of
+# eager decode took ~90 s of the run's time
+PROFILE_NEW = 8
 
 
 # the port's own kernels, by a part of their device function names
@@ -2255,7 +2331,28 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
 # parameters; arctic-480b 32 of its 128 experts, top-2, d_ff and the dense
 # residual kept, 4.03 B; ``experts`` cuts ``num_experts``), fp32 moments
 # too: their steps peak at 76.17 and 68.99 GB so (58.20 and 52.88 GB with
-# bf16 moments); their fp32 agreement steps are the same cuts.
+# bf16 moments); their fp32 agreement steps are the same cuts.  The last
+# three dense archs train on the JAX package's own policy for them
+# (``src/repro/launch/dryrun.py``, its ``MID`` and ``BIG`` sets) as far as
+# it trains, which a path names by ``param_dtype``, ``state_dtype``,
+# ``remat`` and ``peak_lr`` (float32, float32, "none" and 3e-4 where it
+# names none): llama-20b-paper fp32 parameters, bf16 moments, remat
+# "full"; qwen2-72b and llama3-405b bf16 parameters and remat "full", but
+# bf16 moments, not the policy's int8, and a peak lr of 8e-5 (llama3-405b's
+# published peak, arXiv:2407.21783): 12 steps of these cuts on the card
+# with this schedule (tools/train_memory.py --steps 12 --warmup 4; its
+# logs in PERF.md) lose with the reference's int8 moments (ROADMAP.md §3:
+# qwen2-72b 12.47 -> 38.94 at 8e-5, 127.60 at 3e-4 after 2285.68;
+# llama3-405b 12.18 -> 67.77 and 303.55) and with bf16 moments at 3e-4
+# (12.47 -> 12.84, 12.18 -> 25.57), and fall with bf16 moments at 8e-5
+# (qwen2-72b 12.47 -> 9.38).  Each cut by tools/train_memory.py on the
+# card (B 8 x S 512, one microbatch, the path's dtypes and remat):
+# llama-20b-paper peaks at 72.88 GB with 20 layers (79.50 with 22, which
+# would leave less room than any other path has, 66.26 with 18), qwen2-72b
+# at 72.09 GB with 6 (7 run out of memory; int8 moments would take 10 in
+# 78.08 GB), llama3-405b at 76.00 GB with 1 (int8 61.46; 2 layers run out
+# of memory with either).  Their fp32 agreement steps run remat "full" too,
+# on cuts of 2, 1 and 1 layers.
 TRAIN_PATHS = {
     "llama3.2-1b": dict(
         layers=None,
@@ -2302,7 +2399,38 @@ TRAIN_PATHS = {
                      "layers.0.moe.router", "layers.0.moe.wi_up",
                      "layers.0.moe.wo", "layers.0.mlp.wi_gate",
                      "layers.0.mlp.wo")),
+    "llama-20b-paper": dict(
+        layers=20,
+        param_dtype="float32", state_dtype="bfloat16", remat="full",
+        agree_layers=2, agree_seq=128,
+        agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
+                     "layers.1.mlp.wo", "layers.1.ln2.scale")),
+    "qwen2-72b": dict(
+        layers=6,
+        param_dtype="bfloat16", state_dtype="bfloat16", remat="full",
+        peak_lr=8e-5,
+        agree_layers=1, agree_seq=128,
+        agree_grads=("embed.embedding", "head.w", "layers.0.attn.bq",
+                     "layers.0.attn.wk", "layers.0.mlp.wi_up",
+                     "layers.0.ln1.scale")),
+    "llama3-405b": dict(
+        layers=1,
+        param_dtype="bfloat16", state_dtype="bfloat16", remat="full",
+        peak_lr=8e-5,
+        agree_layers=1, agree_seq=64,
+        agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
+                     "layers.0.attn.wo", "layers.0.mlp.wo",
+                     "layers.0.ln2.scale")),
 }
+
+
+def train_policy(arch: str) -> dict:
+    """A training path's parameter and moment dtypes, remat and peak
+    learning rate (``RunConfig``'s 3e-4 where it names none)."""
+    path = TRAIN_PATHS[arch]
+    return {k: path.get(k, d) for k, d in (
+        ("param_dtype", "float32"), ("state_dtype", "float32"),
+        ("remat", "none"), ("peak_lr", 3e-4))}
 
 
 def train_cut(arch: str, layers_key: str = "layers") -> dict:
@@ -2349,9 +2477,16 @@ def train_kernels(arch: str) -> dict:
     return kernels
 
 
-def expected_step_launches(arch: str, cfg, dtype: str) -> dict:
+def expected_step_launches(arch: str, cfg, dtype: str,
+                           remat: str = "none") -> dict:
+    """A step's launches by label: each op's forward kernel as often as a
+    forward runs it, twice under remat (the backward runs each layer's
+    forward again), and its backward kernel once, on the route of
+    ``dtype``."""
     per_fwd = forward_launches(cfg)
-    return {label: per_fwd[op] if d in (None, dtype) else 0
+    runs = 1 if remat == "none" else 2
+    return {label: per_fwd[op] * (1 if label.split("[")[0].endswith("_bwd")
+                                  else runs) if d in (None, dtype) else 0
             for label, (_, op, d) in train_kernels(arch).items()}
 
 
@@ -2455,13 +2590,17 @@ def train(arch: str, seed: int, trace_path: Path,
     import math
     import numpy as np
     import torch
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train import RunConfig, Trainer
 
     cfg = train_config(arch)
     kernels = train_kernels(arch)
+    pol = train_policy(arch)
     run = RunConfig(model=cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                     steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, seed=seed,
-                    flare_log=str(trace_path))
+                    flare_log=str(trace_path), param_dtype=pol["param_dtype"],
+                    remat=pol["remat"], peak_lr=pol["peak_lr"],
+                    opt=AdamWConfig(state_dtype=pol["state_dtype"]))
     snaps = []
     trainer = Trainer(run, fault_hook=lambda step: snaps.append(
         {label: k.launches for label, (k, _, _) in kernels.items()}))
@@ -2478,9 +2617,11 @@ def train(arch: str, seed: int, trace_path: Path,
     snaps.append(launches)
     per_step = [{label: b[label] - a[label] for label in launches}
                  for a, b in zip(snaps, snaps[1:])]
-    want = expected_step_launches(arch, cfg, "bfloat16")
+    want = expected_step_launches(arch, cfg, "bfloat16", pol["remat"])
     log("train", f"{arch}{describe_cut(train_cut(arch))} B{TRAIN_B} "
-        f"S{TRAIN_S} bf16 compute, fp32 parameters and moments, backend "
+        f"S{TRAIN_S} bf16 compute, {pol['param_dtype']} parameters, "
+        f"{pol['state_dtype']} moments, remat {pol['remat']}, peak lr "
+        f"{pol['peak_lr']:g}, backend "
         f"{backend}: launches "
         f"of one step {per_step[0]} (expected {want}); plain versions "
         f"called {plain.calls}")
@@ -2525,7 +2666,8 @@ def train(arch: str, seed: int, trace_path: Path,
     del trainer, batch, opt_state
     torch.cuda.empty_cache()
     return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, layers=cfg.num_layers,
-                cut=train_cut(arch), backend=backend, history=hist,
+                cut=train_cut(arch), policy=pol, backend=backend,
+                history=hist,
                 launches=launches, launches_per_step=per_step[0],
                 plain_calls=plain.calls, peak_memory_gb=peak_gb,
                 step_ms_traced=traced_ms, tracing_overhead=overhead,
@@ -2561,10 +2703,11 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     cfg = scale(get_config(arch), **train_cut(arch, "agree_layers"))
     S, names = path["agree_seq"], path["agree_grads"]
     pol = Policy(torch.float32, torch.float32)
-    gpu = build_model(cfg, pol, "cuda").init(
+    remat = train_policy(arch)["remat"]
+    gpu = build_model(cfg, pol, "cuda", remat).init(
         torch.Generator(device="cuda").manual_seed(seed))
     open_gates(gpu)
-    cpu = build_model(cfg, pol, "cpu").load_params(gpu.state_dict())
+    cpu = build_model(cfg, pol, "cpu", remat).load_params(gpu.state_dict())
     b = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=2,
                                  seq_len=S, seed=seed)).next_batch()
     batch = {k: torch.as_tensor(b[k], dtype=torch.long)
@@ -2581,7 +2724,7 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     torch.cuda.synchronize()
     launches = {label: k.launches - n0[label]
                 for label, (k, _, _) in kernels.items()}
-    want_launches = expected_step_launches(arch, cfg, "float32")
+    want_launches = expected_step_launches(arch, cfg, "float32", remat)
     if launches != want_launches:
         fail(f"the fp32 training step launched {launches}, not "
              f"{want_launches}")
@@ -2591,17 +2734,27 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     routing = routing_report(arch, "fp32 training step", card_routes,
                              cpu_routes)
     res = {}
-    pairs = [("loss", loss_g.cpu(), loss_c),
-             ("grad_norm", global_norm(grads_g.values()).cpu(),
-              global_norm(grads_c.values()))]
-    pairs += [(n, grads_g[n].cpu(), grads_c[n]) for n in names]
-    for name, got, want in pairs:
+
+    def pairs():
+        """(name, card value, CPU value) one at a time, each gradient
+        compared on the card: llama3-405b's embedding and head gradients
+        are 8.4 GB each, beside 59 GB of the CPU model's weights and
+        gradients in the host's 96 GiB"""
+        yield "loss", loss_g.cpu(), loss_c
+        yield ("grad_norm", global_norm(grads_g.values()).cpu(),
+               global_norm(grads_c.values()))
+        for n in names:
+            yield n, grads_g[n], grads_c[n].to(grads_g[n].device)
+
+    for name, got, want in pairs():
         scale = float(want.abs().max())
-        err = float((got - want).abs().max())
+        err = float((got - want).abs_().max())
+        del got, want
         res[name] = dict(max_abs_err=err, max_abs=scale)
         ok = err <= 3e-4 * max(scale, 1e-12)
         log("train", f"{arch} fp32 agreement, {cfg.num_layers} layers B2 "
-            f"S{S}, card vs CPU: {name} max_abs_err {err:.3e} (|max| "
+            f"S{S} remat {remat}, card vs CPU: {name} max_abs_err {err:.3e} "
+            f"(|max| "
             f"{scale:.3e}, 3e-4 of it: {ok})")
         if not ok:
             fail(f"fp32 training step disagrees between card and CPU: {name}")
@@ -2610,7 +2763,8 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
     if ckpt_dir is None:
         del cpu, gpu, grads_g, grads_c
         torch.cuda.empty_cache()
-        return dict(errors=res, launches=launches, routing=routing)
+        return dict(errors=res, launches=launches, routing=routing,
+                    remat=remat)
 
     # checkpoint: the card's parameters and bf16 moments after one update
     params = dict(gpu.named_parameters())
@@ -2678,7 +2832,9 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
         fail(f"{arch} train: a train_step_exec k_comp span per step with "
              f"flops {flops}")
     per_name = {}
+    runs = 1 if train_policy(arch)["remat"] == "none" else 2
     for name, n in forward_launches(cfg).items():
+        n *= runs                       # remat runs each forward again
         evs = [e for e in events if e.name == name]
         if len(evs) != n * steps or Counter(e.step for e in evs) != {
                 s: n for s in range(steps)}:
@@ -2699,6 +2855,76 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
         f"{flops:.4e}")
     return dict(kinds=dict(kinds), per_name=per_name,
                 train_step_exec_s=exec_s)
+
+
+REMAT_ARCH = "llama3.2-1b"
+
+
+def remat_check(seed: int) -> dict:
+    """One bf16 training step's loss and gradients of ``REMAT_ARCH``'s
+    training path (full width, B 8 x S 512, fp32 parameters) under remat
+    "none", "full" and "dots", same weights and batch: the launches of
+    each (under remat the backward runs each layer's forward kernels
+    again: the "dots" recompute must rerun them, not reuse the buffer the
+    first forward wrote), and whether the loss and every gradient are
+    bitwise those of "none" or else their largest difference, which must
+    stay within ``BWD_BF16_SCALED`` of each gradient's largest magnitude
+    (and the loss within 5e-2)."""
+    import torch
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.train import loss_and_grads
+
+    cfg = train_config(REMAT_ARCH)
+    kernels = train_kernels(REMAT_ARCH)
+    b = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B,
+                                 seq_len=TRAIN_S, seed=seed)).next_batch()
+    batch = {k: torch.as_tensor(b[k], dtype=torch.long, device="cuda")
+             for k in ("tokens", "labels")}
+    out, base = {}, None
+    for mode in ("none", "full", "dots"):
+        model = build_model(cfg, Policy(torch.bfloat16, torch.float32),
+                            "cuda", mode).init(
+            torch.Generator(device="cuda").manual_seed(seed))
+        n0 = {label: k.launches for label, (k, _, _) in kernels.items()}
+        loss, grads = loss_and_grads(model, batch,
+                                     dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        launches = {label: k.launches - n0[label]
+                    for label, (k, _, _) in kernels.items()}
+        want = expected_step_launches(REMAT_ARCH, cfg, "bfloat16", mode)
+        if launches != want:
+            fail(f"remat {mode}: a step launched {launches}, not {want}")
+        res = dict(loss=float(loss), launches=launches)
+        if base is None:
+            base = (loss, grads)
+        else:
+            same = torch.equal(loss, base[0]) and all(
+                torch.equal(g, base[1][k]) for k, g in grads.items())
+            diffs = {k: float((g.float() - base[1][k].float()).abs().max())
+                     for k, g in grads.items()}
+            worst = max(diffs, key=diffs.get)
+            rel = max(diffs[k] / max(float(base[1][k].float().abs().max()),
+                                     1e-12) for k in grads)
+            res.update(bitwise=same, max_abs_diff=diffs[worst],
+                       max_abs_diff_at=worst, max_scaled_diff=rel,
+                       loss_diff=float((loss - base[0]).abs()))
+            log("remat", f"{REMAT_ARCH} bf16 step, remat {mode} against "
+                f"none: loss {float(loss):.6f} ({float(base[0]):.6f}), "
+                f"launches {launches}; loss and gradients bitwise equal: "
+                f"{same}" + ("" if same else
+                             f"; largest gradient difference "
+                             f"{diffs[worst]:.3e} at {worst}, "
+                             f"{rel:.3e} of a gradient's largest magnitude"))
+            if not same and (rel > BWD_BF16_SCALED
+                             or res["loss_diff"] > 5e-2):
+                fail(f"remat {mode}: the step's gradients differ from remat "
+                     f"none by {rel:.3e} of their magnitude")
+        out[mode] = res
+        del model, loss, grads
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2765,7 +2991,12 @@ def check_trace(arch: str, trace_path: Path, new: int):
 # experts).  The agreements run the serving cut, but for the vlm's one
 # group (5 layers) and the moe paths' training cuts (``train_cut``: one
 # layer; arctic 32 experts).  mamba2's and zamba2's S 320 is one full
-# chunk of 256 and a ragged one.
+# chunk of 256 and a ragged one.  llama-20b-paper serves at its full depth
+# (34.8 GB of bf16 weights); one card holds qwen2-72b's for 30 of its 80
+# layers (57.6 GB) and llama3-405b's for 8 of 126 (59.4 GB); their fp32
+# agreements run cuts of 2, 2 and 1 layers (llama3-405b's one layer and
+# its embedding and head are 29.6 GB of fp32 on the card and again on the
+# CPU).
 PATHS = (("llama3.2-1b", {}, 64, {}),
          ("mamba2-780m", dict(num_layers=12), 320, dict(num_layers=12)),
          ("zamba2-2.7b", dict(num_layers=12), 320, dict(num_layers=12)),
@@ -2776,7 +3007,10 @@ PATHS = (("llama3.2-1b", {}, 64, {}),
          ("dbrx-132b", dict(num_layers=8), 64,
           dict(num_layers=1)),
          ("arctic-480b", dict(num_layers=2), 64,
-          dict(num_layers=1, num_experts=32)))
+          dict(num_layers=1, num_experts=32)),
+         ("llama-20b-paper", {}, 64, dict(num_layers=2)),
+         ("qwen2-72b", dict(num_layers=30), 64, dict(num_layers=2)),
+         ("llama3-405b", dict(num_layers=8), 64, dict(num_layers=1)))
 
 
 def main():
@@ -2858,6 +3092,8 @@ def main():
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
     ssd_bwd, ssd_bwd_fp32, ssd_bwd_cases = check_ssd_bwd(gen, "cuda")
     walls["kernels"] = time.perf_counter() - t0
+    log("wall", f"kernels {walls['kernels']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
 
     # 4. the Case-2 op and the ring path, traced
     t0 = time.perf_counter()
@@ -2880,6 +3116,9 @@ def main():
         walls[f"agreement {arch}"] = time.perf_counter() - t_agree
         traces[arch] = check_trace(arch, trace_path, run["new"])
         walls[f"serve {arch}"] = time.perf_counter() - t_path
+        log("wall", f"serve {arch} {walls[f'serve {arch}']:.1f} s (its "
+            f"agreement {walls[f'agreement {arch}']:.1f} s), "
+            f"{time.perf_counter() - t_start:.1f} s in all")
         B, new = run["B"], run["new"]
         dec = sorted(traces[arch]["decode_s"])
         dec_med = dec[len(dec) // 2]
@@ -2889,7 +3128,11 @@ def main():
             f"run, {B * new / run['warm_wall_s']:.1f} new tokens/s)")
 
     # 6. train, and 7. its trace, for each training path; the tracing
-    # overhead and the checkpoint round trip on llama's
+    # overhead and the checkpoint round trip on llama's; first one step of
+    # llama's path under each remat
+    t0 = time.perf_counter()
+    remat = remat_check(args.seed)
+    walls["remat"] = time.perf_counter() - t0
     train_runs, train_agree, train_traces = {}, {}, {}
     for arch in TRAIN_PATHS:
         t_path = time.perf_counter()
@@ -2902,6 +3145,8 @@ def main():
             arch, args.seed, OUT_DIR / "ckpt" if dense else None)
         train_traces[arch] = check_train_trace(arch, trace_path, TRAIN_STEPS)
         walls[f"train {arch}"] = time.perf_counter() - t_path
+        log("wall", f"train {arch} {walls[f'train {arch}']:.1f} s, "
+            f"{time.perf_counter() - t_start:.1f} s in all")
 
     # each summary's launches: the main path's runs of its kernel (for
     # flash, the paths of its head dim and group size: llama's, qwen2's and
@@ -2969,7 +3214,8 @@ def main():
                    trace=traces, flash_bwd_cases=flash_bwd_cases,
                    fused_bwd_cases=fused_bwd_cases,
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
-                   train_agreement=train_agree, train_trace=train_traces)
+                   train_agreement=train_agree, train_trace=train_traces,
+                   remat=remat)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

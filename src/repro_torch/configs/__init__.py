@@ -151,6 +151,9 @@ ARCH_MODULES: dict[str, str] = {
     "llama-3.2-vision-11b": "llama3p2_vision_11b",
     "dbrx-132b": "dbrx_132b",
     "arctic-480b": "arctic_480b",
+    "llama-20b-paper": "llama_20b_paper",
+    "qwen2-72b": "qwen2_72b",
+    "llama3-405b": "llama3_405b",
 }
 
 

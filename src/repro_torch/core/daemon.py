@@ -73,8 +73,11 @@ class TracingDaemon:
         self._step_t0 = 0.0
         self._in_step = False
         self._last_completion = time.perf_counter()
-        # (name, kind, issue, step, out, meta, timing): timing is a pair of
-        # CUDA events, or a pair of host perf_counter floats for CPU ops
+        # (name, kind, issue, step, meta, timing): timing is a pair of CUDA
+        # events, or a pair of host perf_counter floats for CPU ops.  The
+        # op's outputs are not queued: held until the device caught up,
+        # they would keep every traced op's outputs of a step alive (under
+        # remat, every layer's recomputed activations)
         self._pending: "queue.Queue" = queue.Queue()
         self._inflight: deque = deque()
         self._held: list[TraceEvent] = []
@@ -216,7 +219,7 @@ class TracingDaemon:
             out = fn(*args, **kwargs)
             timing = (issue, time.perf_counter())
         meta = meta_fn(*args, **kwargs) if meta_fn else {}
-        self._pending.put((name, kind, issue, self._step, out, meta, timing))
+        self._pending.put((name, kind, issue, self._step, meta, timing))
         return out
 
     def register_kernel(self, name: str, kind: EventKind,
@@ -256,7 +259,7 @@ class TracingDaemon:
                 except queue.Empty:
                     break
             while self._inflight:
-                name, kind, issue, step, _out, meta, timing = self._inflight[0]
+                name, kind, issue, step, meta, timing = self._inflight[0]
                 t0, t1 = timing
                 if isinstance(t1, torch.cuda.Event):
                     if not t1.query():

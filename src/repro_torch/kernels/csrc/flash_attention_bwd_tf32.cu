@@ -49,7 +49,16 @@
 //       as the A operand and dO^T, Q^T as B;
 //     each warpgroup keeps its dK and dV in fp32 registers to the end;
 //     then (hd 64, 80) warpgroup 1's go through shared memory to warpgroup 0,
-//     which adds them in a fixed order and writes dK and dV;
+//     which adds them in a fixed order and writes dK and dV.  At hd 128
+//     (one consumer) the accumulators hold at most a few heads' sums:
+//     after the last step of a head that brings them to kFlushRows query
+//     rows or more, they are added into dK and dV in device memory (stored
+//     the first time) and start again from 0.  The tensor cores' fp32
+//     accumulation drifts with the number of products it sums: summed
+//     over all G heads at once, dV at llama3-405b's G 16 (B 8, S 512, 8192
+//     rows) drifted 1.4e-3 from an fp64 sum, where the plain fp32 version
+//     drifts 5.7e-5, past the route's 3e-4; qwen2-72b's G 8 (4096 rows)
+//     4.6e-4, within it;
 //   * dq_kernel: persistent, one block per SM walking the items (b, head,
 //     q tile of 128 rows at hd 64, two consumer warpgroups of 64; 64 rows
 //     at hd 80 and 128, one): the producer loads an item's raw Q and dO
@@ -229,6 +238,10 @@ struct DkdvSmem {
   uint64_t empty[kStages];
 };
 
+// query rows the one-consumer dK/dV accumulators sum before they are
+// added into device memory (see the top of the file)
+constexpr int kFlushRows = 2048;
+
 // the maps of dkdv_kernel: the block's K and V (hi and lo each), the
 // steps' raw Q and dO and Q^T, dO^T
 struct DkdvMaps {
@@ -343,6 +356,36 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
     const int key0 = k0 + warp * 16 + lane / 4;     // and key0 + 8
     const float scale_log2 = scale * kLog2e;
     float dk[HD / 2], dv[HD / 2];
+    // dK and dV in fp32 at this thread's keys (< S): stored, or added to
+    // what an earlier call stored
+    auto write = [&](bool add) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + r * 8;
+        if (key >= S) continue;
+        const size_t row =
+            ((static_cast<size_t>(b) * S + key) * KV + kvh) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = j * 8 + 2 * (lane % 4);
+          float2 k2 = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+          float2 v2 = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          float2* ko = reinterpret_cast<float2*>(dk_out + row + col);
+          float2* vo = reinterpret_cast<float2*>(dv_out + row + col);
+          if (add) {
+            const float2 k1 = *ko, v1 = *vo;
+            k2 = make_float2(k1.x + k2.x, k1.y + k2.y);
+            v2 = make_float2(v1.x + v2.x, v1.y + v2.y);
+          }
+          *ko = k2;
+          *vo = v2;
+        }
+      }
+    };
+    // one consumer: query rows in the accumulators, and whether dK and dV
+    // in device memory hold a sum yet
+    [[maybe_unused]] int rows = 0;
+    [[maybe_unused]] bool stored = false;
     float sacc[NQ / 2], dpacc[NQ / 2];
     uint32_t p_hi[NQ / 8][4], p_lo[NQ / 8][4];
     uint32_t ds_hi[NQ / 8][4], ds_lo[NQ / 8][4];
@@ -406,6 +449,20 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
       fence_regs(ds_hi);
       fence_regs(ds_lo);
       release(&s.empty[st]);
+      if constexpr (kConsumers == 1) {
+        // at a head's last step, once kFlushRows query rows are summed (or
+        // at the last step): the sums leave the wgmma accumulators for dK
+        // and dV in device memory, added there by ordinary fp32 adds
+        rows += NQ;
+        if (n % q_tiles == q_tiles - 1 &&
+            (rows >= kFlushRows || n + 1 == steps)) {
+          write(stored);
+          stored = true;
+          rows = 0;
+#pragma unroll
+          for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+        }
+      }
     }
 
     // warpgroup 1's sums to warpgroup 0 through the stages' memory (named
@@ -429,24 +486,7 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
         }
       }
     }
-    if (wg == 0) {
-      // dK and dV in fp32, keys < S
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int key = key0 + r * 8;
-        if (key >= S) continue;
-        const size_t row =
-            ((static_cast<size_t>(b) * S + key) * KV + kvh) * HD;
-#pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-          const int col = j * 8 + 2 * (lane % 4);
-          *reinterpret_cast<float2*>(dk_out + row + col) =
-              make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-          *reinterpret_cast<float2*>(dv_out + row + col) =
-              make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-        }
-      }
-    }
+    if (kConsumers == 2 && wg == 0) write(false);
   }
 }
 

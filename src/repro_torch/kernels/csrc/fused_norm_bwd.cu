@@ -48,10 +48,23 @@
 // device memory (NV * 3-4 loads in flight a thread, 48-128 KB a block),
 // and they are compiled for one block an SM (up to 255 registers, so
 // nothing spills); the rows are still read once.
+// Rows over 8192, up to kWideMaxD = 16384 (llama3-405b's), take
+// wide_rows_kernel: 1024 threads a block, one block an SM, each thread NV
+// 2 bf16 or 4 fp32 vectors of a row, loaded from device memory.  At 1024
+// threads a thread has 64 registers, too few to keep its h and dy across
+// the row's reduction (the first version of this kernel did, and spilled
+// 196 bytes in bf16), so a row takes two passes over its vectors: the
+// first reduces sum(h^2) and sum(h * dy * scale), the second reads x, res
+// and dy again, which the first pass has just brought into L2 (the SMs'
+// rows in flight are 132 * 3 * 32 KB in bf16, 13 MB of its 50 MB), and
+// writes dx.  scale and the dscale partial live in shared
+// memory (2 * D * 4 bytes, 128 KB at D 16384): each thread reads and
+// accumulates only its own columns there, so no two threads touch one
+// word and the partial stays deterministic.
 // Rows without 16-byte alignment (D not a multiple of 16 bytes, or an
 // unaligned pointer) take the generic instance: one element a vector, NV
 // 8 (D up to 2048), each thread loading its own columns from device
-// memory, no ring.  The wrapper refuses D above 8192.
+// memory, no ring.  The wrapper refuses D above 16384.
 
 #include <algorithm>
 
@@ -67,7 +80,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;
 constexpr size_t kRingBytes = 96 * 1024;   // the ring's budget per block
 constexpr int kStagedMaxD = 4096;          // the widest row the ring takes
-constexpr int kMaxD = 8192;                // the widest row of all
+constexpr int kMaxD = 8192;                // the widest row of rows_kernel
+constexpr int kWideThreads = 1024;         // wide_rows_kernel's block
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxD = 16384;           // the widest row of all
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
@@ -221,6 +237,140 @@ rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+// VEC floats of shared memory at p (16-byte aligned) as float4 accesses:
+// a warp's thread t reads bytes t * 4 * VEC on, 2 passes of 512 bytes at
+// VEC 8, one at VEC 4
+template <int VEC>
+__device__ __forceinline__ Vec<float, VEC> load_cols(const float* p) {
+  Vec<float, VEC> o;
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q) {
+    const float4 t = reinterpret_cast<const float4*>(p)[q];
+    o.v[4 * q] = t.x;
+    o.v[4 * q + 1] = t.y;
+    o.v[4 * q + 2] = t.z;
+    o.v[4 * q + 3] = t.w;
+  }
+  return o;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_cols(float* p,
+                                           const Vec<float, VEC>& o) {
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(o.v[4 * q], o.v[4 * q + 1], o.v[4 * q + 2],
+                    o.v[4 * q + 3]);
+}
+
+// Rows of kMaxD < D <= kWideMaxD: as rows_kernel's unstaged instances, a
+// block walks rows blockIdx.x + i * gridDim.x, each thread its NV vectors
+// of every row, but 1024 threads a block, two passes over a row and scale
+// and the dscale partial in shared memory (see the top of the file).
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                 const float* __restrict__ scale, const T* __restrict__ dy,
+                 const T* __restrict__ dh, T* __restrict__ dx,
+                 float* __restrict__ partial, int R, int D, float eps) {
+  // [scale | dscale partial], D floats each
+  extern __shared__ __align__(16) float cols[];
+  __shared__ float2 sums[2][kWideWarps];
+  float* sc = cols;
+  float* ds = cols + D;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int vecs = D / VEC;
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (int c = threadIdx.x; c < D; c += kWideThreads) {
+    sc[c] = scale[c];
+    ds[c] = 0.f;
+  }
+  __syncthreads();                     // a thread's vectors, others' writes
+  const int rows =
+      blockIdx.x < R ? (R - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+                     : 0;
+  for (int i = 0; i < rows; ++i) {
+    const size_t base = (blockIdx.x + static_cast<size_t>(i) * gridDim.x) * D;
+    // h = x + res and g = dy of vector v, and scale's columns
+    auto load = [&](int v, float (&h)[VEC], float (&g)[VEC],
+                    Vec<float, VEC>& sv) {
+      const Vec<T, VEC> xa =
+          *reinterpret_cast<const Vec<T, VEC>*>(x + base + v * VEC);
+      const Vec<T, VEC> ra =
+          *reinterpret_cast<const Vec<T, VEC>*>(res + base + v * VEC);
+      const Vec<T, VEC> ya =
+          *reinterpret_cast<const Vec<T, VEC>*>(dy + base + v * VEC);
+      sv = load_cols<VEC>(sc + v * VEC);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        h[k] = flare::to_float(xa.v[k]) + flare::to_float(ra.v[k]);
+        g[k] = flare::to_float(ya.v[k]);
+      }
+    };
+    float ss = 0.f, hg = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = threadIdx.x + j * kWideThreads;
+      if (v >= vecs) continue;
+      float h[VEC], g[VEC];
+      Vec<float, VEC> sv;
+      load(v, h, g, sv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        ss += h[k] * h[k];
+        hg += h[k] * g[k] * sv.v[k];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      hg += __shfl_xor_sync(0xffffffffu, hg, off);
+    }
+    // one barrier per row: the slot alternates, so a row's writes never
+    // race the previous row's reads
+    if (lane == 0) sums[i & 1][warp] = make_float2(ss, hg);
+    __syncthreads();
+    float2 tot = sums[i & 1][0];
+#pragma unroll
+    for (int w = 1; w < kWideWarps; ++w) {
+      tot.x += sums[i & 1][w].x;
+      tot.y += sums[i & 1][w].y;
+    }
+    const float r = rsqrtf(tot.x * inv_d + eps);
+    const float c = r * r * r * (tot.y * inv_d);
+    // the second pass: x, res and dy again (from L2), dh, and dx out
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = threadIdx.x + j * kWideThreads;
+      if (v >= vecs) continue;
+      float h[VEC], g[VEC];
+      Vec<float, VEC> sv;
+      load(v, h, g, sv);
+      Vec<T, VEC> ha, o;
+      if (dh != nullptr)
+        ha = *reinterpret_cast<const Vec<T, VEC>*>(dh + base + v * VEC);
+      Vec<float, VEC> dv = load_cols<VEC>(ds + v * VEC);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float dhk = dh != nullptr ? flare::to_float(ha.v[k]) : 0.f;
+        o.v[k] = flare::from_float<T>(dhk + r * g[k] * sv.v[k] - h[k] * c);
+        dv.v[k] += g[k] * h[k] * r;
+      }
+      store_cols<VEC>(ds + v * VEC, dv);
+      *reinterpret_cast<Vec<T, VEC>*>(dx + base +
+                                      static_cast<size_t>(v) * VEC) = o;
+    }
+  }
+
+  // this block's rows are done: the reduce kernel may take its place
+  pdl_launch_dependents();
+  __syncthreads();                     // every thread's columns are summed
+  float* out = partial + static_cast<size_t>(blockIdx.x) * D;
+  for (int c = threadIdx.x; c < D; c += kWideThreads) out[c] = ds[c];
+}
+
 // dscale[c] = sum over blocks b of partial[b][c]: a block owns 32 columns;
 // warp w sums rows w, w + 8, ... in order, then the 8 warps' sums are
 // added in warp order
@@ -272,6 +422,20 @@ int launch_rows(const T* x, const T* res, const float* scale, const T* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC, int NV>
+int launch_wide(const T* x, const T* res, const float* scale, const T* dy,
+                const T* dh, T* dx, float* partial, int R, int D, int blocks,
+                float eps, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      wide_rows_kernel<T, VEC, NV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wide_rows_kernel<T, VEC, NV><<<blocks, kWideThreads, smem, stream>>>(
+      x, res, scale, dy, dh, dx, partial, R, D, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the instance whose NV vectors a thread cover D
 template <typename T>
 int launch_typed(const void* x, const void* res, const void* scale,
@@ -309,6 +473,9 @@ int launch_typed(const void* x, const void* res, const void* scale,
     e = FLARE_ROWS(VEC, 3 * kMaxD / 4 / per_pass, false, 1);
   } else if (D <= kMaxD) {                      // 8192: bf16 NV 4, fp32 8
     e = FLARE_ROWS(VEC, kMaxD / per_pass, false, 1);
+  } else if (D <= kWideMaxD) {                  // 16384: bf16 NV 2, fp32 4
+    e = launch_wide<T, VEC, kWideMaxD / (kWideThreads * VEC)>(
+        xp, rp, sp, dyp, dhp, dxp, pp, R, D, blocks, eps, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,9 @@ its columns' h and dy in registers across the row's reduction, the next
 row's inputs in flight, and its dscale partial in registers across rows)
 and takes D up to ``BWD_MAX_D`` (rows wider than 4096, the MoE models'
 6144 and 7168, without the staging ring: each thread loads its own
-columns).  ``fused_residual_rmsnorm`` is a
+columns; rows wider than 8192, llama3-405b's 16384, on blocks of 1024
+threads, one an SM, two passes over a row, and scale and the dscale
+partial in shared memory).  ``fused_residual_rmsnorm`` is a
 ``torch.autograd.Function`` when a gradient is wanted.
 """
 from __future__ import annotations
@@ -36,8 +38,16 @@ BWD_KERNEL = CudaKernel(
                                                   ctypes.c_int,
                                                   ctypes.c_void_p])
 BWD_BLOCKS_PER_SM = 2          # rows_kernel's grid, and dscale's partials
-BWD_MAX_D = 8192               # the widest row the backward takes
+BWD_WIDE_D = 8192              # wider rows: wide_rows_kernel, 1 block an SM
+BWD_MAX_D = 16384              # the widest row the backward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def bwd_blocks(R: int, D: int, sms: int) -> int:
+    """The backward's grid, which is also its dscale partial rows: two
+    blocks an SM, one for rows over ``BWD_WIDE_D`` (a block of 1024
+    threads fills an SM), never more than R."""
+    return min(R, (1 if D > BWD_WIDE_D else BWD_BLOCKS_PER_SM) * sms)
 
 
 def _meta(x, res, scale, eps=1e-5):
@@ -122,7 +132,7 @@ def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
     if R == 0:
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(R, BWD_BLOCKS_PER_SM * sms)
+    blocks = bwd_blocks(R, D, sms)
     partial = torch.empty(blocks, D, dtype=torch.float32, device=x.device)
     dscale = torch.empty(D, dtype=torch.float32, device=x.device)
     BWD_KERNEL.launch(ptr(x), ptr(res), ptr(scale), ptr(dy),
@@ -132,7 +142,13 @@ def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
     return dx, dscale
 
 
-def _forward(x, res, scale, eps):
+@traced_op("fused_residual_rmsnorm", "compute", _meta)
+def _forward(x, res, scale, eps=1e-5):
+    """The traced call, one span a launch: the kernel on CUDA tensors, the
+    plain version on CPU ones.  It runs inside ``FusedResidualRMSNorm``'s
+    forward, so its span closes before autograd saves the inputs: under
+    remat, PyTorch stops a layer's recompute right there when this is the
+    layer's last op, which would otherwise end the span unrecorded."""
     if x.device.type == "cuda":
         return fused_cuda(x, res, scale, eps)
     if x.device.type == "cpu":
@@ -164,7 +180,6 @@ class FusedResidualRMSNorm(torch.autograd.Function):
         return dx, dx, dscale.to(scale.dtype), None
 
 
-@traced_op("fused_residual_rmsnorm", "compute", _meta)
 def fused_residual_rmsnorm(x, res, scale, eps=1e-5):
     """x, res [R, D]; scale [D] -> (normed [R, D], new residual [R, D]).
 

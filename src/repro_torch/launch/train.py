@@ -18,9 +18,13 @@
         --reduced --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \
         --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-20b-paper \
+        --reduced --device cpu --steps 20 --remat full
 
-The moe family's published configs take the card's kernels but not its
-memory: dbrx-132b's bf16 weights alone are 263 GB.
+The moe family's published configs, qwen2-72b and llama3-405b take the
+card's kernels but not its memory: dbrx-132b's bf16 weights alone are
+263 GB.  ``--remat full`` recomputes each layer's activations in the
+backward, ``dots`` all but the matrix products' outputs.
 """
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ def main():
                     choices=["float32", "bfloat16", "int8"])
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "dots", "full"])
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--mask-mode", default="none",
                     choices=["none", "naive", "fast"])
@@ -68,7 +74,7 @@ def main():
         steps=args.steps, peak_lr=args.lr,
         num_microbatches=args.microbatches,
         opt=AdamWConfig(lr=args.lr, state_dtype=args.opt_dtype),
-        compute_dtype=args.compute_dtype, seed=args.seed,
+        remat=args.remat, compute_dtype=args.compute_dtype, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, flare=not args.no_flare,
         flare_log=args.flare_log, mask_mode=args.mask_mode,
         device=args.device)

@@ -6,11 +6,11 @@ layouts (``wi_gate [D,F]``, ``wo [F,D]``, ``embedding [V,D]``,
 Callers pass weights already in the compute dtype: the models cast each
 stored weight at its use, as the JAX functions do (``Tensor.to`` returns the
 weight itself when it is stored in the compute dtype, as for serving).
-Norm scales stay float32 because the JAX ``rmsnorm`` upcasts them.
+Norm scales are upcast to float32 at use, as the JAX ``rmsnorm`` does.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -22,13 +22,22 @@ class Policy:
     """Mixed-precision policy: the dtype weights are stored in
     (``param_dtype``, the JAX ``RunConfig.policy``'s) and the dtype weights
     and activations compute in.  Training keeps float32 parameters cast at
-    each use; serving stores them in the compute dtype (``param_dtype``
-    None), drawn and loaded in float32 and cast once."""
+    each use (or bfloat16 ones, the JAX package's policy for its largest
+    models); serving stores them in the compute dtype (``param_dtype``
+    None), drawn and loaded in float32 and cast once.
+
+    ``norm_dtype`` is the dtype norm scales are stored in: a training
+    policy's ``param_dtype``, as the JAX ``rmsnorm_init(d, dtype)`` stores
+    them, and float32 for serving, where the JAX server keeps float32
+    parameters."""
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: Optional[torch.dtype] = None
+    norm_dtype: torch.dtype = field(init=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "norm_dtype",
+                           self.param_dtype or torch.float32)
         if self.param_dtype is None:
             object.__setattr__(self, "param_dtype", self.compute_dtype)
 

@@ -15,6 +15,38 @@ from repro_torch.models import layers as L
 
 
 INIT_DRAW = 1 << 28     # most elements ``LM.init`` draws in one float32 call
+REMAT = ("none", "dots", "full")
+# what remat "dots" keeps: the outputs of matrix products without batch
+# dims, as JAX's ``checkpoint_dots_with_no_batch_dims``; every other op
+# (the batched expert products, flash attention, the fused norm, whose
+# kernels write into buffers from ``torch.empty``) runs again
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat(mode: str, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward (the JAX
+    ``_maybe_remat``'s ``jax.checkpoint``) while autograd records:
+    ``"full"`` keeps only ``args``, ``"dots"`` also the outputs of
+    ``aten.mm`` / ``aten.addmm`` (selective checkpointing), ``"none"``
+    keeps everything (``LM`` checks the mode).  ``fn`` must mutate nothing
+    outside it: the backward runs it again (up to its last saved
+    tensor)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -23,9 +55,11 @@ def param(shape, dtype, device) -> nn.Parameter:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d, device):
+    """A norm's scale, stored in ``dtype`` (``Policy.norm_dtype``)."""
+
+    def __init__(self, d, device, dtype=torch.float32):
         super().__init__()
-        self.scale = param((d,), torch.float32, device)
+        self.scale = param((d,), dtype, device)
 
 
 class Embed(nn.Module):
@@ -53,16 +87,22 @@ class LM(nn.Module):
     (None when tied), init and load.  A subclass gives each parameter's
     init by ``_init_std`` (normal stddev) or ``_init_const``.  Weights are
     stored in ``policy.param_dtype`` and cast to the compute dtype at use
-    (``cast``)."""
+    (``cast``).  ``remat`` (``REMAT``) is what a training forward keeps for
+    the backward of each layer (``remat``; the JAX model's ``remat``)."""
 
-    def __init__(self, cfg: ModelConfig, policy: L.Policy, device):
+    def __init__(self, cfg: ModelConfig, policy: L.Policy, device,
+                 remat: str = "none"):
+        if remat not in REMAT:
+            raise ValueError(f"remat is one of {REMAT}, not {remat!r}")
         super().__init__()
         self.cfg = cfg
         self.policy = policy
+        self.remat = remat
         self.device = torch.device(device)
         pd = policy.param_dtype
         self.embed = Embed(cfg.vocab_size, cfg.d_model, pd, self.device)
-        self.final_norm = RMSNorm(cfg.d_model, self.device)
+        self.final_norm = RMSNorm(cfg.d_model, self.device,
+                                  policy.norm_dtype)
         self.head = (None if cfg.tie_embeddings else
                      Head(cfg.d_model, cfg.vocab_size, pd, self.device))
 

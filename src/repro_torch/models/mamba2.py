@@ -83,7 +83,8 @@ class Mamba2Block(nn.Module):
     conv_w, conv_b, dt_bias, A_log, D, norm.scale, out``; ``dtype`` is the
     stored dtype of the projections, ``conv_w``, ``conv_b`` and ``D``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 norm_dtype=torch.float32):
         super().__init__()
         d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         f32 = torch.float32
@@ -97,7 +98,7 @@ class Mamba2Block(nn.Module):
         self.dt_bias = param((h,), f32, device)
         self.A_log = param((h,), f32, device)
         self.D = param((h,), dtype, device)
-        self.norm = RMSNorm(di, device)
+        self.norm = RMSNorm(di, device, norm_dtype)
         self.out = param((di, d), dtype, device)
 
 

@@ -13,16 +13,18 @@ from repro_torch.models.transformer import FAMILIES, TransformerLM
 from repro_torch.models.zamba2 import Zamba2LM
 
 
-def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda"):
+def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda",
+                remat: str = "none"):
     """``TransformerLM`` for the dense, moe, audio and vlm families,
     ``MambaLM`` for ssm, ``Zamba2LM`` for hybrid: every family of the JAX
-    package's zoo."""
+    package's zoo.  ``remat`` ("none", "dots", "full") is what a training
+    forward keeps for the backward, as the JAX ``build_model``'s."""
     if cfg.family in FAMILIES:
-        return TransformerLM(cfg, policy, device)
+        return TransformerLM(cfg, policy, device, remat)
     if cfg.family == "ssm":
-        return MambaLM(cfg, policy, device)
+        return MambaLM(cfg, policy, device, remat)
     if cfg.family == "hybrid":
-        return Zamba2LM(cfg, policy, device)
+        return Zamba2LM(cfg, policy, device, remat)
     raise NotImplementedError(
         f"the port has no model for the {cfg.family!r} family ({cfg.name})")
 

@@ -22,14 +22,15 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.lm import LM, RMSNorm, fused
+from repro_torch.models.lm import LM, RMSNorm, fused, remat
 
 
 class MambaLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 norm_dtype=torch.float32):
         super().__init__()
-        self.ln = RMSNorm(cfg.d_model, device)
-        self.mamba = M.Mamba2Block(cfg, dtype, device)
+        self.ln = RMSNorm(cfg.d_model, device, norm_dtype)
+        self.mamba = M.Mamba2Block(cfg, dtype, device, norm_dtype)
 
 
 def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
@@ -95,18 +96,20 @@ def layer_apply(lyr: MambaLayer, h, cfg: ModelConfig, i: int, cache=None,
 class MambaLM(LM):
     """Projections, ``conv_w``, ``conv_b`` and ``D`` live in
     ``policy.param_dtype`` and are cast to the compute dtype at use (serving
-    stores them in the compute dtype); ``A_log``, ``dt_bias`` and the norm
-    scales stay float32.  ``loss`` trains: its forward and backward go
-    through the SSD-scan and fused-norm kernels on CUDA tensors."""
+    stores them in the compute dtype); ``A_log`` and ``dt_bias`` stay
+    float32, the norm scales are stored in ``policy.norm_dtype``.
+    ``loss`` trains: its forward and backward go through the SSD-scan and
+    fused-norm kernels on CUDA tensors."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda"):
+                 device="cuda", remat: str = "none"):
         if cfg.family != "ssm":
             raise NotImplementedError(
                 f"MambaLM serves the ssm family, not {cfg.family!r}")
-        super().__init__(cfg, policy, device)
+        super().__init__(cfg, policy, device, remat)
         self.layers = nn.ModuleList(
-            MambaLayer(cfg, policy.param_dtype, self.device)
+            MambaLayer(cfg, policy.param_dtype, self.device,
+                       policy.norm_dtype)
             for _ in range(cfg.num_layers))
 
     def _init_std(self, name: str) -> Optional[float]:
@@ -121,16 +124,22 @@ class MambaLM(LM):
     def _layers(self, x, cache=None, collect=False):
         """Runs every layer; returns the final-normed hidden state and, with
         ``collect``, each layer's prefill cache.  ``cache`` given: one
-        decode token, the cache updated in place."""
+        decode token, the cache updated in place.  Under remat each layer
+        is one recomputed unit from (h, x) to the next (h, x), as the JAX
+        model remats each layer (serving, which collects or updates a
+        cache, runs no remat)."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         h = L.rmsnorm(self.layers[0].ln.scale, x, eps)
         caches = [] if collect else None
         n = len(self.layers)
         for i, lyr in enumerate(self.layers):
-            out = layer_apply(lyr, h, cfg, i, cache, caches)
             nxt = (self.layers[i + 1].ln if i + 1 < n
                    else self.final_norm).scale
-            h, x = fused(out, x, nxt, eps)
+
+            def unit(h, x, lyr=lyr, i=i, nxt=nxt):
+                return fused(layer_apply(lyr, h, cfg, i, cache, caches), x,
+                             nxt, eps)
+            h, x = remat(self.remat, unit, h, x)
         return h, caches
 
     def logits(self, tokens: torch.Tensor) -> torch.Tensor:

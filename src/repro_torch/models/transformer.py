@@ -36,7 +36,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.lm import LM, RMSNorm, fused, param
+from repro_torch.models.lm import LM, RMSNorm, fused, param, remat
 
 
 class Attention(nn.Module):
@@ -79,10 +79,11 @@ class Block(nn.Module):
     of the MLP, or beside it with ``moe_dense_residual`` (the JAX
     ``_layer_init``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 norm_dtype=torch.float32):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device)
-        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ln1 = RMSNorm(cfg.d_model, device, norm_dtype)
+        self.ln2 = RMSNorm(cfg.d_model, device, norm_dtype)
         self.attn = Attention(cfg, dtype, device)
         self.moe = (moe_lib.MoE(cfg, dtype, device) if cfg.num_experts
                     else None)
@@ -95,10 +96,11 @@ class CrossBlock(nn.Module):
     """The vlm family's gated cross-attention layer: queries from the text,
     keys and values from the vision embeddings through ``kv_proj``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 norm_dtype=torch.float32):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device)
-        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ln1 = RMSNorm(cfg.d_model, device, norm_dtype)
+        self.ln2 = RMSNorm(cfg.d_model, device, norm_dtype)
         self.attn = CrossAttention(cfg, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
         self.gate_mlp = param((), dtype, device)
@@ -198,15 +200,15 @@ FAMILIES = ("dense", "moe", "audio", "vlm")
 class TransformerLM(LM):
     """Weights live in ``policy.param_dtype`` and are cast to the compute
     dtype at each use, as in the JAX model (serving stores them in the
-    compute dtype, so the cast is the weight itself); norm scales stay
-    float32.  ``loss`` trains: its forward and backward go through the
-    flash-attention and fused-norm kernels on CUDA tensors (the moe
-    family's dispatch and expert products are PyTorch, as the reference's
-    are XLA).  The vlm family's calls take ``vision_embeds`` [B,
-    vision_tokens, vision_d]."""
+    compute dtype, so the cast is the weight itself); norm scales are
+    stored in ``policy.norm_dtype``.  ``loss`` trains: its forward and
+    backward go through the flash-attention and fused-norm kernels on CUDA
+    tensors (the moe family's dispatch and expert products are PyTorch, as
+    the reference's are XLA).  The vlm family's calls take
+    ``vision_embeds`` [B, vision_tokens, vision_d]."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda"):
+                 device="cuda", remat: str = "none"):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"TransformerLM serves the {'/'.join(FAMILIES)} families, "
@@ -217,12 +219,14 @@ class TransformerLM(LM):
                 f"{cfg.cross_attn_every} self-attention layers and 1 cross "
                 f"layer, so num_layers is a multiple of "
                 f"{cfg.cross_attn_every + 1}, not {cfg.num_layers}")
-        super().__init__(cfg, policy, device)
+        super().__init__(cfg, policy, device, remat)
         pd = policy.param_dtype
         self.layers = nn.ModuleList(
-            Block(cfg, pd, self.device) for _ in range(cfg.n_self))
+            Block(cfg, pd, self.device, policy.norm_dtype)
+            for _ in range(cfg.n_self))
         self.cross = nn.ModuleList(
-            CrossBlock(cfg, pd, self.device) for _ in range(cfg.n_cross))
+            CrossBlock(cfg, pd, self.device, policy.norm_dtype)
+            for _ in range(cfg.n_cross))
 
     def _init_std(self, name: str) -> Optional[float]:
         return init_std(self.cfg, name)
@@ -257,20 +261,34 @@ class TransformerLM(LM):
         """Runs every block; returns the final-normed hidden state, each
         self-attention layer's (k, v), each cross layer's, and each moe
         layer's aux loss.  ``cache`` None: full causal self-attention.
-        ``cache`` given: one decode token at ``pos``."""
+        ``cache`` given: one decode token at ``pos``.  Under remat each
+        block, self or cross, is one recomputed unit from (h, x) to the
+        next (h, x) and its aux loss (the JAX model remats the self layers
+        and then each vlm group around them: the same values); K/V are
+        collected only where no remat runs (serving)."""
         cfg = self.cfg
         stack = self._stack()
         h = L.rmsnorm(stack[0][2].ln1.scale, x, cfg.norm_eps)
         kvs, cross_kvs, auxs = [], [], []
+        keep = self.remat == "none" or not torch.is_grad_enabled()
         for n, (kind, i, blk) in enumerate(stack):
             nxt = (stack[n + 1][2].ln1 if n + 1 < len(stack)
                    else self.final_norm).scale
             if kind == "self":
-                h, x = block_apply(blk, h, x, positions, cfg, self.cast,
-                                   nxt, i, cache, pos, kvs, auxs)
+                def unit(h, x, blk=blk, i=i, nxt=nxt):
+                    a = []
+                    h, x = block_apply(blk, h, x, positions, cfg, self.cast,
+                                       nxt, i, cache, pos,
+                                       kvs if keep else None, a)
+                    return h, x, *a
+                h, x, *a = remat(self.remat, unit, h, x)
+                auxs += a
             else:
-                h, x = cross_apply(blk, h, x, vision, cfg, self.cast, nxt,
-                                   i, cache, cross_kvs)
+                def unit(h, x, blk=blk, i=i, nxt=nxt):
+                    return cross_apply(blk, h, x, vision, cfg, self.cast,
+                                       nxt, i, cache,
+                                       cross_kvs if keep else None)
+                h, x = remat(self.remat, unit, h, x)
         return h, kvs, cross_kvs, auxs
 
     def logits_and_aux(self, tokens: torch.Tensor,

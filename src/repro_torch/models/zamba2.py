@@ -30,28 +30,30 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm_lm, transformer
-from repro_torch.models.lm import LM, fused
+from repro_torch.models.lm import LM, fused, remat
 
 
 class Zamba2LM(LM):
     """Weights live in ``policy.param_dtype`` and are cast to the compute
-    dtype at use (serving stores them in the compute dtype); ``A_log``,
-    ``dt_bias`` and the norm scales stay float32.  ``loss`` trains: its
+    dtype at use (serving stores them in the compute dtype); ``A_log`` and
+    ``dt_bias`` stay float32, the norm scales are stored in
+    ``policy.norm_dtype``.  ``loss`` trains: its
     forward and backward go through the SSD-scan, flash-attention and
     fused-norm kernels on CUDA tensors; the shared block's gradient is the
     sum over its applications, as autograd accumulates it."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda"):
+                 device="cuda", remat: str = "none"):
         if cfg.family != "hybrid":
             raise NotImplementedError(
                 f"Zamba2LM serves the hybrid family, not {cfg.family!r}")
-        super().__init__(cfg, policy, device)
+        super().__init__(cfg, policy, device, remat)
         pd = policy.param_dtype
         self.layers = torch.nn.ModuleList(
-            ssm_lm.MambaLayer(cfg, pd, self.device)
+            ssm_lm.MambaLayer(cfg, pd, self.device, policy.norm_dtype)
             for _ in range(self.n_groups * cfg.attn_every))
-        self.shared_attn = transformer.Block(cfg, pd, self.device)
+        self.shared_attn = transformer.Block(cfg, pd, self.device,
+                                             policy.norm_dtype)
 
     @property
     def n_groups(self) -> int:
@@ -72,13 +74,17 @@ class Zamba2LM(LM):
         """Runs every group; returns the final-normed hidden state, and with
         ``collect`` each Mamba layer's prefill cache and each application's
         (k, v).  ``cache`` given: one decode token at ``pos``, the cache
-        updated in place."""
+        updated in place.  Under remat each group, its Mamba layers and the
+        shared block, is one recomputed unit from (h, x) to the next (h,
+        x), as the JAX model remats the group (serving, which collects or
+        updates a cache, runs no remat)."""
         cfg, per = self.cfg, self.cfg.attn_every
         sp = self.shared_attn
         h = L.rmsnorm(self.layers[0].ln.scale, x, cfg.norm_eps)
         caches = [] if collect else None
         kvs = [] if collect else None
-        for g in range(self.n_groups):
+
+        def group(h, x, g):
             for j in range(per):
                 i = g * per + j
                 out = ssm_lm.layer_apply(self.layers[i], h, cfg, i, cache,
@@ -87,9 +93,12 @@ class Zamba2LM(LM):
                 h, x = fused(out, x, nxt.scale, cfg.norm_eps)
             nxt = (self.layers[(g + 1) * per].ln if g + 1 < self.n_groups
                    else self.final_norm)
-            h, x = transformer.block_apply(sp, h, x, positions, cfg,
+            return transformer.block_apply(sp, h, x, positions, cfg,
                                            self.cast, nxt.scale, g, cache,
                                            pos, kvs)
+
+        for g in range(self.n_groups):
+            h, x = remat(self.remat, group, h, x, g)
         return h, caches, kvs
 
     def logits(self, tokens: torch.Tensor) -> torch.Tensor:

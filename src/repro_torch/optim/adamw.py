@@ -115,11 +115,12 @@ def _step(p, g, m, v, cfg: AdamWConfig, clip, b1c, b2c, lr):
 def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
                  lr) -> tuple[dict, dict, dict]:
     """One AdamW step, in place on ``params`` and ``state``.  Returns
-    (params, state, {"grad_norm": fp32 scalar}).  With float32 or bfloat16
-    moments a parameter of more than ``UPDATE_SLICE`` elements (the MoE
-    experts' [E, D, F]) is updated a slice of its leading axis at a time,
+    (params, state, {"grad_norm": fp32 scalar}).  A parameter of more than
+    ``UPDATE_SLICE`` elements (the MoE experts' [E, D, F], the largest
+    models' embeddings) is updated a slice of its leading axis at a time,
     so its float32 temporaries stay that small; each element's arithmetic
-    is the same."""
+    is the same, and so are the int8 moments' blocks, which run along the
+    last axis."""
     count = state["count"] + 1
     gnorm = global_norm(grads[k] for k in params)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -128,23 +129,30 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
     consts = (cfg, clip, b1c, b2c, lr)
+    int8 = cfg.state_dtype == "int8"
     for name, p in params.items():
         s = state["mu_nu"][name]
-        if cfg.state_dtype == "int8":
-            m, v = _step(p, grads[name], _q_dec(s["m"], p.shape),
-                         _q_dec(s["v"], p.shape), *consts)
-            for key, val in (("m", m), ("v", v)):
-                enc = _q_enc(val)
-                s[key]["q"].copy_(enc["q"])
-                s[key]["scale"].copy_(enc["scale"])
-            continue
-        parts = (p, grads[name], s["m"], s["v"])
+        moments = ([s[k][f] for k in ("m", "v") for f in ("q", "scale")]
+                   if int8 else [s["m"], s["v"]])
+        parts = (p, grads[name], *moments)
         if p.numel() > UPDATE_SLICE:
             n = max(1, UPDATE_SLICE // (p.numel() // len(p)))
             parts = (t.split(n) for t in parts)
         else:
             parts = ((t,) for t in parts)
-        for pp, gg, sm, sv in zip(*parts):
+        for pp, gg, *ms in zip(*parts):
+            if int8:
+                mq, mscale, vq, vscale = ms
+                m, v = _step(pp, gg, _q_dec({"q": mq, "scale": mscale},
+                                            pp.shape),
+                             _q_dec({"q": vq, "scale": vscale}, pp.shape),
+                             *consts)
+                for (q, sc), val in (((mq, mscale), m), ((vq, vscale), v)):
+                    enc = _q_enc(val)
+                    q.copy_(enc["q"])
+                    sc.copy_(enc["scale"])
+                continue
+            sm, sv = ms
             m, v = _step(pp, gg, sm.float(), sv.float(), *consts)
             sm.copy_(m)
             sv.copy_(v)

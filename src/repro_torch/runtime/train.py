@@ -42,6 +42,7 @@ class RunConfig:
     steps: int = 50
     warmup_steps: int = 20
     peak_lr: float = 3e-4
+    remat: str = "none"       # none | dots | full (models/lm.py ``remat``)
     grad_accum_dtype: str = "float32"  # float32 | bfloat16 (microbatching)
     opt: AdamWConfig = field(default_factory=AdamWConfig)
     param_dtype: str = "float32"
@@ -122,7 +123,8 @@ class Trainer:
             raise RuntimeError(
                 "Trainer: no CUDA device; pass RunConfig(device='cpu') to "
                 "train on the CPU")
-        self.model = build_model(cfg.model, cfg.policy(), self.device)
+        self.model = build_model(cfg.model, cfg.policy(), self.device,
+                                 cfg.remat)
         self.step_fn = make_train_step(self.model, cfg)
         self.vision = self._vision_stub()
         self.fault_hook = fault_hook

@@ -197,23 +197,24 @@ def test_backward_wrappers_refuse_what_their_kernels_do_not_take():
         fused_bwd_cuda(x.half(), x.half(), torch.ones(8), x.half(), None)
 
 
-@pytest.mark.parametrize("D", [6144, 7168, 8192, 8200])
+@pytest.mark.parametrize("D", [6144, 7168, 8192, 8200, 16384, 16392])
 def test_fused_bwd_takes_d_up_to_8192(rng, D):
-    """The backward kernel takes rows up to ``BWD_MAX_D`` = 8192 (the MoE
-    models' 6144 and 7168): such a width passes the wrapper's checks up to
-    the device (a CPU tensor is refused there), a wider one is refused
-    before; the autograd path on CPU tensors (the plain backward) holds to
-    ``jax.grad`` of ``fused_ref`` at these widths."""
+    """The backward kernel takes rows up to ``BWD_MAX_D`` = 16384 (the MoE
+    models' 6144 and 7168, llama3-405b's 16384; 8192 until the wide-row
+    instance): such a width passes the wrapper's checks up to the device
+    (a CPU tensor is refused there), a wider one is refused before; the
+    autograd path on CPU tensors (the plain backward) holds to ``jax.grad``
+    of ``fused_ref`` at these widths."""
     from repro_torch.kernels.fused_norm.ops import BWD_MAX_D
-    assert BWD_MAX_D == 8192
+    assert BWD_MAX_D == 16384
     R = 4
     (jx, jr, js), (tx, tr, ts) = _inputs(rng, [(R, D), (R, D), (D,)],
                                          "float32")
     dy = torch.ones(R, D)
-    with pytest.raises(ValueError, match="CUDA" if D <= 8192 else
-                       "takes D up to 8192, not 8200"):
+    with pytest.raises(ValueError, match="CUDA" if D <= BWD_MAX_D else
+                       f"takes D up to 16384, not {D}"):
         fused_bwd_cuda(tx.detach(), tr.detach(), ts.detach(), dy, None)
-    if D > 8192:
+    if D > BWD_MAX_D:
         return
     wy = rng.standard_normal((R, D)).astype(np.float32)
     want = jax.grad(lambda x, r, s: jnp.sum(

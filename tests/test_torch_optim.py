@@ -182,11 +182,12 @@ def test_int8_quantizer_equals_the_reference(rng):
             np.asarray(jax_q_dec(jax.tree.map(jnp.asarray, want), shape)))
 
 
-@pytest.mark.parametrize("sd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sd", ["float32", "bfloat16", "int8"])
 def test_sliced_update_is_the_whole_update_bitwise(rng, monkeypatch, sd):
     """A parameter over ``UPDATE_SLICE`` elements is updated a slice of its
-    leading axis at a time (the MoE experts' weights): parameters and
-    moments are bitwise those of the update in one piece."""
+    leading axis at a time (the MoE experts' weights, the largest models'
+    embeddings): parameters and moments (int8: payload and scales) are
+    bitwise those of the update in one piece."""
     from repro_torch.optim import adamw
     shapes = {"experts": (6, 5, 7), "vec": (9,), "gate": ()}
     params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
@@ -206,5 +207,10 @@ def test_sliced_update_is_the_whole_update_bitwise(rng, monkeypatch, sd):
     for k in shapes:
         assert torch.equal(p0[k], p1[k]), k
         for m in ("m", "v"):
-            assert torch.equal(s0["mu_nu"][k][m], s1["mu_nu"][k][m]), (k, m)
+            a, b = s0["mu_nu"][k][m], s1["mu_nu"][k][m]
+            if sd == "int8":
+                assert torch.equal(a["q"], b["q"]), (k, m)
+                assert torch.equal(a["scale"], b["scale"]), (k, m)
+            else:
+                assert torch.equal(a, b), (k, m)
     assert not torch.equal(p0["experts"], params["experts"])

@@ -326,3 +326,26 @@ def test_daemon_keeps_a_step_whole_when_it_ends_during_a_flush(tmp_path):
     d._flush(final=True)
     ev = {e.kind: e for e in load_jsonl(str(path))}
     assert ev[EventKind.KERNEL_COMPUTE].meta["parent"] == "step_0"
+
+
+def test_daemon_keeps_no_traced_op_output_alive(tmp_path):
+    """A traced op's span waits in the daemon's queue until the device
+    completes it, but its outputs do not: freed by the caller, they are
+    gone while the span is still queued (held, they would pin a step's
+    activations, every layer's recompute under remat)."""
+    import weakref
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+
+    d = TracingDaemon(DaemonConfig(log_path=str(tmp_path / "t.jsonl")))
+    d.step_begin(0)
+    out = d.trace_call("fused_residual_rmsnorm", EventKind.KERNEL_COMPUTE,
+                       torch.add, (torch.ones(4), torch.ones(4)), {})
+    ref = weakref.ref(out)
+    del out
+    assert d._pending.qsize() == 1       # the span is queued
+    assert ref() is None                 # the output is not
+    d._probe_pending()
+    d.step_end(tokens=4)
+    d._flush(final=True)
+    assert [e.name for e in load_jsonl(str(tmp_path / "t.jsonl"))
+            if e.kind == EventKind.KERNEL_COMPUTE] == ["fused_residual_rmsnorm"]

@@ -98,16 +98,22 @@ SSD_BWD_CHECK = [(8, 512, 48, 128, 256, False, False),
                  (2, 1, 4, 64, 64, True, True),
                  (1, 700, 4, 128, 192, True, False)]
 # (B, S, H, KV, hd): the training shape, ragged S, hd 128, short S; hd 128
-# at G 6 and 7 (dbrx's 48 over 8 and arctic's 56 over 8 heads)
+# at G 6 and 7 (dbrx's 48 over 8 and arctic's 56 over 8 heads), and at G 5,
+# 8 and 16 (llama-20b-paper's 40, qwen2-72b's 64 and llama3-405b's 128 over
+# 8)
 BWD_CHECK = [(8, 512, 32, 8, 64), (2, 200, 16, 4, 64), (2, 129, 8, 2, 128),
              (1, 1, 4, 1, 64), (2, 77, 4, 4, 128), (8, 512, 32, 32, 80),
              (2, 77, 8, 2, 80), (1, 1, 4, 4, 80), (2, 256, 48, 8, 128),
-             (2, 129, 56, 8, 128)]
+             (2, 129, 56, 8, 128), (2, 256, 40, 8, 128),
+             (2, 129, 64, 8, 128), (2, 200, 128, 8, 128)]
 # (R, D) of the fused-norm backward's checks: the training rows, mamba2's
-# width, a row off 16 bytes; the MoE widths 6144 and 7168, the widest, 8192,
-# and 5000, a partial last pass of the wide instances
+# width, a row off 16 bytes; the MoE widths 6144 and 7168, 8192, and 5000,
+# a partial last pass of the 8192 instances; llama-20b-paper's 5120; the
+# 1024-thread instance at llama3-405b's 16384, the widest, and at 12288
+# and 9000, partial last passes
 FUSED_BWD_CHECK = [(4096, 2048), (300, 1536), (7, 100), (4096, 6144),
-                   (4096, 7168), (300, 8192), (33, 5000)]
+                   (4096, 7168), (300, 8192), (33, 5000), (4096, 5120),
+                   (4096, 16384), (300, 12288), (33, 9000)]
 
 
 def check_backward():
@@ -255,11 +261,14 @@ def check_backward():
               flush=True)
         del q, k, v, o, do
     # the training rows (llama), then mamba2's width at its prefill rows,
-    # then the MoE training paths' widths (dbrx 6144, arctic 7168)
+    # then the MoE training paths' widths (dbrx 6144, arctic 7168) and the
+    # last dense ones' (llama-20b-paper 5120, qwen2-72b 8192, llama3-405b
+    # 16384, the 1024-thread instance)
     for (R, D, dtype) in ((4096, 2048, torch.bfloat16),
                           (4096, 2048, torch.float32),
                           (8192, 1536, torch.bfloat16),
-                          *((4096, D, dt) for D in (6144, 7168)
+                          *((4096, D, dt)
+                            for D in (6144, 7168, 5120, 8192, 16384)
                             for dt in (torch.bfloat16, torch.float32))):
         x, r, dy, dh = (randn(R, D, dtype=dtype) for _ in range(4))
         s = randn(D, dtype=torch.float32)

@@ -4,7 +4,12 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each printed on its own lines; any failure exits non-zero:
-  1. device   — the card's name and power limit (nvidia-smi);
+  1. device   — the card's name and power limit (nvidia-smi); whether
+                zstandard imports (have_zstd); a FLARE daemon attached for
+                the whole run (unpublished: the run's kernels do not report
+                to it; no interceptor or gc callback), whose thread
+                re-anchors its clock each loop on its own side stream, so
+                every untraced wall of the run is taken beside its thread;
   2. build    — nvcc builds every kernel of the port from
                 src/repro_torch/kernels/csrc/ (flash attention forward and
                 backward, the SSD scan forward and the padded matmul, each
@@ -92,8 +97,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 1024-token prompts, 32 new tokens, random weights from
                 --seed; the vlm's gates opened to
                 ``VLM_GATE`` and its vision embeddings a seeded draw) with
-                the FLARE daemon attached (backend <family>-serve); the
-                launch counts of that run (``forward_launches`` a prefill,
+                the FLARE daemon attached (backend <family>-serve;
+                llama3.2-1b's spilling FCS v2 with zlib named, rotated past
+                4 KiB, an in-process sink and batch sink added before it
+                attaches, and its traced generate's wall with each spill
+                codec, in turns); the launch counts of that run (``forward_launches`` a prefill,
                 the fused norms again a decode step: zamba2's cut flash 2,
                 SSD scan 12, fused norm 16 x 33; qwen2 flash 24, fused 48 x
                 33; musicgen's cut 12, 24 x 33; the vlm's cut 8, 20 x 33;
@@ -150,14 +158,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 path's gradients; the fp32 routes: flash and the SSD
                 forward and backward on tf32x3; mamba2 and zamba2 at S 512,
                 two chunks);
-                on llama's path also 8 traced and 8 untraced steps in turn
+                on llama's path the spill in FCS v1, with an in-process sink
+                and batch sink, and also 8 traced and 8 untraced steps in turn
                 (the tracing overhead, with the steps' ranges) and a
                 checkpoint saved and restored bitwise;
-  7. trace    — each serving path's and each training run's JSONL spill
-                read back: step spans and kernel spans with device
+  7. trace    — each serving path's and each training run's spill read
+                back (llama3.2-1b's FCS pieces through the port's store:
+                ``log_paths`` all the pieces on disk, at least 3 in serving,
+                their events the sink's, field for field and times bitwise,
+                one segment a drain, each the batch sink's batch; the bytes
+                per event of FCS v1, FCS v2 and JSONL for the same events;
+                the others' JSONL): step spans and kernel spans with device
                 durations from CUDA events (under remat the recompute's
                 spans too); the training runs' dataloader and
-                train_step_exec spans with their meta.
+                train_step_exec spans with their meta;
+     daemon   — after the last training path, the daemon attached in phase
+                1 traces 4 fused-norm calls: each span's issue latency >= 0
+                and its duration its event pair's elapsed time; printed: the
+                anchors its thread took during each training path, the
+                widest anchor bracket, and the host time of an untraced
+                fused-norm call with the daemon attached and after it
+                detached.
 The wall time of each phase and of the whole run is printed ([wall]).
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
@@ -1959,13 +1980,16 @@ def vision_embeds(cfg, batch: int, seed: int, device, dtype):
 
 
 def serve(arch: str, cut: dict, seed: int, trace_path: Path,
-          per_call: bool = False):
+          per_call: bool = False, tap: "SpillTap | None" = None):
     """Server.generate at full width and the path's depth (``cut``:
     ``configs.scale`` overrides), batch 8, 1024-token prompts, 32 new
-    tokens, daemon attached with a JSONL spill (backend ``<family>-serve``);
-    launch counts of that run (counts set to 0 just before it); then
-    untraced and traced walls in turns (``per_call``: two of each, ABBA,
-    and the daemon's host cost per launch; else one of each, for the run's
+    tokens, daemon attached with a JSONL spill (backend ``<family>-serve``;
+    given ``tap``, a daemon of the same backend in the server's place,
+    spilling ``SERVE_SPILL`` to ``trace_path`` with ``tap``'s sinks added
+    before it attaches); launch counts of that run (counts set to 0 just
+    before it); then untraced and traced walls in turns (``per_call``: two
+    of each, ABBA, the daemon's host cost per launch, and traced walls
+    with each spill codec in turns; else one of each, for the run's
     time), and a profiler breakdown of a prefill and of a generate of
     ``PROFILE_NEW`` tokens.  A vlm
     path opens its gates (``open_gates``), takes seeded vision embeddings
@@ -1984,7 +2008,7 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     torch.cuda.reset_peak_memory_stats()
     t_init = time.perf_counter()
     server = Server(ServeConfig(model=cfg, batch=B, max_seq=2048, seed=seed,
-                                log_path=str(trace_path)))
+                                log_path=None if tap else str(trace_path)))
     init_s = time.perf_counter() - t_init
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in server.model.parameters())
@@ -2004,6 +2028,12 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     if seen_backend != backend:
         fail(f"{arch}: the server's daemon has backend {seen_backend}, not "
              f"{backend}")
+    if tap is not None:
+        server.close()
+        server.daemon = tap.add_to(TracingDaemon(DaemonConfig(
+            backend=backend, hang_timeout=300.0, log_path=str(trace_path),
+            **SERVE_SPILL))).attach()
+    spill = server.daemon
     torch.cuda.reset_peak_memory_stats()
     for _, _, k, _ in kernels.values():
         k.launches = 0
@@ -2013,6 +2043,7 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     launches = {label: k.launches for label, (_, _, k, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     server.close()                      # detaches the daemon: final spill
+    spill = dict(log_paths=spill.log_paths, bytes_logged=spill.bytes_logged)
     want = {label: n(cfg, new) for label, (_, _, _, n) in kernels.items()}
     log("serve", f"{arch} B{B} prompt {S0} new {new}: launches {launches} "
         f"(expected {want}); wall {wall:.3f} s; peak memory {peak_gb:.2f} "
@@ -2046,6 +2077,22 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     log("serve", f"{arch} second and later runs, generate wall s: {walls}; "
         f"tracing costs {min(walls['traced']) / warm - 1:+.2%} (best of "
         f"{len(walls['traced'])} each)")
+    spill_walls = None
+    if per_call:
+        # the traced generate with each spill codec (one file, no
+        # rotation; FCS v2 with zlib), in turns
+        spill_walls = {"jsonl": [], "fcs": [], "fcs2": []}
+        for ext in ("jsonl", "fcs", "fcs2", "fcs2", "fcs", "jsonl"):
+            path = OUT_DIR / f"serve_walls_{arch}.{ext}"
+            path.unlink(missing_ok=True)
+            server.daemon = TracingDaemon(DaemonConfig(
+                backend=backend, hang_timeout=300.0, log_path=str(path),
+                log_compression="zlib" if ext == "fcs2" else None)).attach()
+            spill_walls[ext].append(timed_generate())
+            server.close()
+            path.unlink(missing_ok=True)
+        log("serve", f"{arch} traced generate wall s by spill, in turns: "
+            f"{spill_walls}")
     calls = None
     if per_call:
         # the same per launch: host time of one fused-norm call at the
@@ -2102,7 +2149,8 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     return dict(arch=arch, cut=cut, layers=cfg.num_layers, B=B, S0=S0,
                 new=new, launches=launches,
                 wall_s=wall, warm_wall_s=warm, walls=walls,
-                per_call_us=calls, profile=prof, backend=seen_backend,
+                spill_walls=spill_walls, spill=spill, per_call_us=calls,
+                profile=prof, backend=seen_backend,
                 n_params=n_params, init_s=init_s, init_peak_gb=init_peak_gb,
                 peak_memory_gb=peak_gb, vision_moved=moved)
 
@@ -2117,7 +2165,8 @@ PROFILE_NEW = 8
 PORT_KERNELS = ("flash_wgmma_kernel", "flash_tf32_kernel", "split_kernel",
                 "dkdv_kernel", "dq_kernel", "delta_kernel",
                 "fused_residual_rmsnorm_kernel", "rows_kernel",
-                "reduce_kernel", "ssd_wgmma_kernel", "ssd_tf32_kernel",
+                "wide_rows_kernel", "reduce_kernel", "ssd_wgmma_kernel",
+                "ssd_tf32_kernel",
                 "ssd_bwd_state_kernel", "ssd_bwd_dxdb_kernel",
                 "ssd_bwd_dc_kernel", "ssd_bwd_tf32_state_kernel",
                 "ssd_bwd_tf32_dxdb_kernel", "ssd_bwd_tf32_dc_kernel",
@@ -2578,13 +2627,14 @@ def tracing_overhead(trainer, log_path: Path) -> dict:
 
 
 def train(arch: str, seed: int, trace_path: Path,
-          with_overhead: bool) -> dict:
+          with_overhead: bool, tap: "SpillTap | None" = None) -> dict:
     """Trainer.train of ``arch`` at full width and the path's depth
     (``train_config``): B 8 x S 512 from the synthetic corpus, bf16
     compute, fp32 parameters and AdamW moments, 12 traced
     steps (4 warm-up steps in the schedule), the daemon spilling to
-    ``trace_path`` (backend ``<family>-train``); the launch counts of that
-    run and of each of its steps, no plain version called; then,
+    ``trace_path`` (backend ``<family>-train``; its extension picks the
+    codec), ``tap``'s sinks added before it attaches; the launch counts of
+    that run and of each of its steps, no plain version called; then,
     ``with_overhead``, the tracing overhead (``tracing_overhead``), and a
     profiler breakdown of one step."""
     import math
@@ -2604,6 +2654,8 @@ def train(arch: str, seed: int, trace_path: Path,
     snaps = []
     trainer = Trainer(run, fault_hook=lambda step: snaps.append(
         {label: k.launches for label, (k, _, _) in kernels.items()}))
+    if tap is not None:
+        tap.add_to(trainer.daemon)
     for k, _, _ in kernels.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2612,6 +2664,8 @@ def train(arch: str, seed: int, trace_path: Path,
     launches = {label: k.launches for label, (k, _, _) in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     backend = trainer.daemon.cfg.backend
+    spill = dict(log_paths=trainer.daemon.log_paths,
+                 bytes_logged=trainer.daemon.bytes_logged)
     if backend != f"{cfg.family}-train":
         fail(f"{arch}: the trainer's daemon has backend {backend}")
     snaps.append(launches)
@@ -2667,7 +2721,7 @@ def train(arch: str, seed: int, trace_path: Path,
     torch.cuda.empty_cache()
     return dict(arch=arch, B=TRAIN_B, S=TRAIN_S, layers=cfg.num_layers,
                 cut=train_cut(arch), policy=pol, backend=backend,
-                history=hist,
+                spill=spill, history=hist,
                 launches=launches, launches_per_step=per_step[0],
                 plain_calls=plain.calls, peak_memory_gb=peak_gb,
                 step_ms_traced=traced_ms, tracing_overhead=overhead,
@@ -2798,8 +2852,8 @@ def train_agreement(arch: str, seed: int, ckpt_dir: Path | None) -> dict:
                 checkpoint_save_s=save_s, checkpoint_restore_s=restore_s)
 
 
-def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
-    """The training trace read back: step spans 0..steps-1, a
+def check_train_trace(arch: str, events: list, steps: int) -> dict:
+    """The training trace read back (``events``): step spans 0..steps-1, a
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
     span with ``flops`` = 6·N·tokens in each, and the forward's kernel
     spans (``forward_launches`` a step of the path's config: llama flash 16
@@ -2807,12 +2861,11 @@ def check_train_trace(arch: str, trace_path: Path, steps: int) -> dict:
     flash 9 and fused 72, the vlm cut flash 4 and fused 10) with CUDA-event
     durations, nested under their step."""
     from collections import Counter
-    from repro_torch.core.events import EventKind, load_jsonl
+    from repro_torch.core.events import EventKind
 
     cfg = train_config(arch)
     tokens = TRAIN_B * TRAIN_S
     flops = 6.0 * cfg.active_param_count() * tokens
-    events = load_jsonl(str(trace_path))
     kinds = Counter(e.kind.value for e in events)
     log("trace", f"{arch} train: {len(events)} events by kind: "
         f"{dict(kinds)}")
@@ -2928,6 +2981,210 @@ def remat_check(seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# the daemon: its spill held to its sinks, and its clock over a long attach
+# --------------------------------------------------------------------------- #
+# the path whose serving and training runs spill FCS: serving FCS v2 with
+# zlib named (so that the run needs no zstandard package), rotated past
+# 4 KiB (a generate's ~1100 events come in drains of ~2 KB), training FCS v1
+SPILL_ARCH = "llama3.2-1b"
+SERVE_SPILL = dict(log_compression="zlib", log_rotate_bytes=4096)
+SERVE_SPILL_PIECES = 3
+# fused-norm calls traced by the daemon attached for the whole run
+LONG_ATTACH_CALLS = 4
+BATCH_COLUMNS = ("kind", "name_id", "rank", "issue_ts", "start_ts", "end_ts",
+                 "step", "flops", "nbytes", "tokens", "group_id")
+
+
+class SpillTap:
+    """An in-process sink and batch sink, added to a daemon before it
+    attaches: the events and the batch of every drain, which its spill must
+    hold."""
+
+    def __init__(self):
+        self.events, self.batches = [], []
+
+    def add_to(self, daemon):
+        daemon.add_sink(self.events.extend)
+        daemon.add_batch_sink(self.batches.append)
+        return daemon
+
+
+def read_spill(paths) -> list:
+    """A spill read back piece by piece, in order: FCS through the port's
+    store, JSONL through ``load_jsonl``."""
+    from repro_torch import store
+    from repro_torch.core.events import load_jsonl
+    return [e for p in paths for e in (
+        load_jsonl(p) if p.endswith(".jsonl")
+        else store.read_trace(p).to_events())]
+
+
+def event_key(e) -> tuple:
+    """An event's fields, its times as their float64 bits."""
+    return (e.kind, e.name, e.rank, e.issue_ts.hex(), e.start_ts.hex(),
+            e.end_ts.hex(), e.step, e.meta)
+
+
+def same_batch(a, b) -> bool:
+    """Two ``EventBatch``es column for column, bitwise, with the same
+    interned names and groups and leftover meta."""
+    return (all(getattr(a, c).dtype == getattr(b, c).dtype
+                and getattr(a, c).tobytes() == getattr(b, c).tobytes()
+                for c in BATCH_COLUMNS)
+            and a.names == b.names and a.groups == b.groups
+            and a.extra == b.extra)
+
+
+def spill_sizes(events) -> dict:
+    """Bytes per event of ``events`` as one FCS v1 segment, one FCS v2
+    segment (zlib) and JSONL lines."""
+    from repro_torch.core.columnar import EventBatch
+    from repro_torch.store.fcs import encode_segment
+    b = EventBatch.from_events(events)
+    n = len(b)
+    return {"fcs_v1": len(encode_segment(b, version=1)) / n,
+            "fcs_v2_zlib": len(encode_segment(b, version=2,
+                                              compression="zlib")) / n,
+            "jsonl": sum(len(line) + 1 for line in b.to_jsonl_lines()) / n}
+
+
+def check_spill(what: str, spill: dict, tap: SpillTap,
+                pieces: int = 1) -> tuple[list, dict]:
+    """A daemon's spill against its ``tap``: ``log_paths`` names every piece
+    on disk, at least ``pieces``, and their bytes are ``bytes_logged``; read
+    back in order, they hold the sink's events field for field, times
+    bitwise; one FCS segment a drain, each the batch sink's batch, column
+    for column.  Returns the events read back and the record."""
+    from repro_torch.store.fcs import iter_segments
+    paths = spill["log_paths"]
+    base = Path(paths[0])
+    on_disk = sorted(str(q) for q in base.parent.glob(
+        f"{base.stem}*{base.suffix}"))
+    size = sum(Path(q).stat().st_size for q in paths)
+    if on_disk != sorted(paths) or len(paths) < pieces:
+        fail(f"{what}: log_paths {paths} != the pieces on disk {on_disk}, "
+             f"or fewer than {pieces}")
+    if size != spill["bytes_logged"]:
+        fail(f"{what}: {size} bytes on disk, bytes_logged "
+             f"{spill['bytes_logged']}")
+    events = read_spill(paths)
+    want = [event_key(e) for e in tap.events]
+    got = [event_key(e) for e in events]
+    if got != want:
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    min(len(got), len(want)))
+        fail(f"{what}: the spill read back ({len(got)} events) differs from "
+             f"the sink's ({len(want)}) from event {diff}: "
+             f"{got[diff:diff + 1]} != {want[diff:diff + 1]}")
+    segs = [b for p in paths for b in iter_segments(p)]
+    if (len(segs) != len(tap.batches)
+            or not all(same_batch(a, b) for a, b in zip(segs, tap.batches))):
+        fail(f"{what}: {len(segs)} segments, {len(tap.batches)} drained "
+             f"batches, not one segment each, column for column")
+    sizes = spill_sizes(tap.events)
+    log("daemon", f"{what}: {len(events)} events in {len(tap.batches)} "
+        f"drains; the spill {size} bytes in {len(paths)} pieces, "
+        f"{len(segs)} segments, {size / len(events):.2f} bytes/event; read "
+        f"back equal to the sink's events (times bitwise) and a segment "
+        f"equal to each drained batch; the same events in one piece: FCS v1 "
+        f"{sizes['fcs_v1']:.2f}, FCS v2 (zlib) {sizes['fcs_v2_zlib']:.2f}, "
+        f"JSONL {sizes['jsonl']:.2f} bytes/event")
+    return events, dict(events=len(events), drains=len(tap.batches),
+                        pieces=len(paths), segments=len(segs), bytes=size,
+                        bytes_per_event=sizes)
+
+
+def long_attach_daemon():
+    """A daemon attached before the build phase and kept to the end of the
+    run, unpublished (the run's kernels do not report to it), its events
+    in a list; it keeps each span's event pair beside the times it mapped
+    them to.  It needs only its thread's anchors: its interceptor and gc
+    callback come off."""
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+
+    class PairDaemon(TracingDaemon):
+        def _device_span(self, ev0, ev1):
+            span = super()._device_span(ev0, ev1)
+            self.pairs.append((ev0, ev1, span))
+            return span
+
+    d = PairDaemon(DaemonConfig(backend="long-attach", hang_timeout=3600.0))
+    d.pairs, events = [], []
+    d.add_sink(events.extend)
+    d.attach(publish=False)
+    d.interceptor.uninstall()
+    return d, events, time.perf_counter()
+
+
+def long_attach_check(d, events: list, t_attach: float,
+                      anchors: dict) -> dict:
+    """The long-attached daemon traces ``LONG_ATTACH_CALLS`` fused-norm
+    calls (R8 D2048, bf16) in its step 0, then detaches: one launch each,
+    and each span nested under step_0 with an issue latency >= 0 and its
+    end its start plus its event pair's elapsed time, the pair it was
+    mapped from.  ``anchors``: the anchors its thread took during each
+    training path, printed.  Also the host time of an untraced fused-norm
+    call (R8 D2048, 2000 calls) twice with the daemon attached and twice
+    after it detached, for the record: the run's untraced walls are taken
+    beside its thread."""
+    import torch
+    from repro_torch.core.events import EventKind
+    from repro_torch.kernels.fused_norm import ops as fn
+
+    traced = d.register_kernel("fused_residual_rmsnorm",
+                               EventKind.KERNEL_COMPUTE)(
+        fn.fused_residual_rmsnorm)
+    x = torch.randn(8, 2048, device="cuda", dtype=torch.bfloat16)
+    sc = torch.ones(2048, device="cuda")
+
+    def host_us_per_call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn.fused_residual_rmsnorm(x, x, sc)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 2000 * 1e6
+
+    untraced = {"attached": [host_us_per_call() for _ in range(2)]}
+    n0 = fn.KERNEL.launches
+    d.step_begin(0)
+    for _ in range(LONG_ATTACH_CALLS):
+        traced(x, x, sc)
+    torch.cuda.synchronize()
+    d.step_end()
+    launches = fn.KERNEL.launches - n0
+    age = time.perf_counter() - t_attach
+    d.detach()
+    untraced["detached"] = [host_us_per_call() for _ in range(2)]
+    n_anchors = d.telemetry.value("daemon.anchors")
+    bracket = d.telemetry.value("daemon.anchor_bracket_max_s")
+    spans = [e for e in events if e.name == "fused_residual_rmsnorm"]
+    if not (launches == len(spans) == len(d.pairs) == LONG_ATTACH_CALLS):
+        fail(f"long attach: {launches} launches, {len(spans)} spans, "
+             f"{len(d.pairs)} mapped pairs, not {LONG_ATTACH_CALLS} each")
+    for e, (ev0, ev1, (t0, t1)) in zip(spans, d.pairs):
+        if (e.start_ts != t0 or e.end_ts != t1
+                or e.end_ts != e.start_ts + ev0.elapsed_time(ev1) / 1e3
+                or e.issue_latency < 0 or e.duration <= 0
+                or e.meta.get("parent") != "step_0"):
+            fail(f"long attach: span {e} (mapped {t0}, {t1}; its pair's "
+                 f"elapsed time {ev0.elapsed_time(ev1)} ms)")
+    lat = [e.issue_latency * 1e6 for e in spans]
+    log("daemon", f"long attach: the daemon attached {age:.1f} s before "
+        f"traces {LONG_ATTACH_CALLS} fused-norm calls: issue latency "
+        f"{min(lat):.2f}-{max(lat):.2f} us (>= 0), each duration its event "
+        f"pair's elapsed time; its thread took {n_anchors} anchors "
+        f"({n_anchors / age:.1f} a second; during the training paths "
+        f"{anchors}), the widest bracket {bracket * 1e6:.1f} us")
+    log("daemon", f"untraced fused_residual_rmsnorm call at R8, host us per "
+        f"call (2000 calls), with the long-attached daemon and after it "
+        f"detached: {untraced}")
+    return dict(age_s=age, issue_latency_us=lat, anchors=n_anchors,
+                anchors_by_train_path=anchors, widest_bracket_s=bracket,
+                events=len(events), untraced_call_us=untraced)
+
+
+# --------------------------------------------------------------------------- #
 # phase 7: trace
 # --------------------------------------------------------------------------- #
 META_KEYS = {"flash_attention": {"flops", "shape"},
@@ -2936,11 +3193,14 @@ META_KEYS = {"flash_attention": {"flops", "shape"},
 PREFILL_ONLY = ("flash_attention", "ssd_scan")
 
 
-def check_trace(arch: str, trace_path: Path, new: int):
+def check_trace(arch: str, events: list, new: int):
+    """A serving trace read back (``events``): step spans 0..new, each
+    kernel of the path with its meta keys, a device duration, an issue
+    latency >= 0, nested under its step (flash and the SSD scan in the
+    prefill only)."""
     from collections import Counter
-    from repro_torch.core.events import EventKind, load_jsonl
+    from repro_torch.core.events import EventKind
 
-    events = load_jsonl(str(trace_path))
     kinds = Counter(e.kind.value for e in events)
     log("trace", f"{arch}: {len(events)} events by kind: {dict(kinds)}")
     steps = {e.step: e for e in events if e.kind == EventKind.STEP}
@@ -3048,6 +3308,13 @@ def main():
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    # the daemon's clock over a long attach: one daemon attached now, kept
+    # until after the last training path (``long_attach_check``)
+    from repro_torch.store import have_zstd
+    long_daemon, long_events, t_long = long_attach_daemon()
+    log("daemon", f"have_zstd() {have_zstd()}: FCS v2 spills name zlib; a "
+        f"daemon attached for the whole run, unpublished")
+
     # 2. build
     t0 = time.perf_counter()
     all_kernels = (*fa.KERNELS.values(), fn.KERNEL, *ssd.KERNELS.values(),
@@ -3104,17 +3371,27 @@ def main():
 
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
+    spills = {}
     for arch, cut, agree_s, agree_cut in PATHS:
         t_path = time.perf_counter()
-        trace_path = OUT_DIR / f"serve_trace_{arch}.jsonl"
-        trace_path.unlink(missing_ok=True)
+        tap = SpillTap() if arch == SPILL_ARCH else None
+        ext = "fcs2" if tap else "jsonl"
+        trace_path = OUT_DIR / f"serve_trace_{arch}.{ext}"
+        for old in OUT_DIR.glob(f"serve_trace_{arch}*"):
+            old.unlink()
         run = runs[arch] = serve(arch, cut, args.seed, trace_path,
-                                 per_call=arch == "llama3.2-1b")
+                                 per_call=arch == "llama3.2-1b", tap=tap)
         t_agree = time.perf_counter()
         errs[arch], fp32_launches[arch], routing[arch] = agreement(
             arch, args.seed, agree_s, agree_cut)
         walls[f"agreement {arch}"] = time.perf_counter() - t_agree
-        traces[arch] = check_trace(arch, trace_path, run["new"])
+        if tap:
+            events, spills[f"{arch} serve"] = check_spill(
+                f"{arch} serve, FCS v2 (zlib) rotated", run["spill"], tap,
+                SERVE_SPILL_PIECES)
+        else:
+            events = read_spill(run["spill"]["log_paths"])
+        traces[arch] = check_trace(arch, events, run["new"])
         walls[f"serve {arch}"] = time.perf_counter() - t_path
         log("wall", f"serve {arch} {walls[f'serve {arch}']:.1f} s (its "
             f"agreement {walls[f'agreement {arch}']:.1f} s), "
@@ -3133,20 +3410,33 @@ def main():
     t0 = time.perf_counter()
     remat = remat_check(args.seed)
     walls["remat"] = time.perf_counter() - t0
-    train_runs, train_agree, train_traces = {}, {}, {}
+    train_runs, train_agree, train_traces, anchors = {}, {}, {}, {}
     for arch in TRAIN_PATHS:
         t_path = time.perf_counter()
         dense = arch == "llama3.2-1b"
-        trace_path = OUT_DIR / f"train_trace_{arch}.jsonl"
+        tap = SpillTap() if arch == SPILL_ARCH else None
+        ext = "fcs" if tap else "jsonl"
+        trace_path = OUT_DIR / f"train_trace_{arch}.{ext}"
         trace_path.unlink(missing_ok=True)
+        n_anchors = long_daemon.telemetry.value("daemon.anchors")
         train_runs[arch] = train(arch, args.seed, trace_path,
-                                 with_overhead=dense)
+                                 with_overhead=dense, tap=tap)
+        anchors[arch] = (long_daemon.telemetry.value("daemon.anchors")
+                         - n_anchors)
         train_agree[arch] = train_agreement(
             arch, args.seed, OUT_DIR / "ckpt" if dense else None)
-        train_traces[arch] = check_train_trace(arch, trace_path, TRAIN_STEPS)
+        spill = train_runs[arch]["spill"]
+        if tap:
+            events, spills[f"{arch} train"] = check_spill(
+                f"{arch} train, FCS v1", spill, tap)
+        else:
+            events = read_spill(spill["log_paths"])
+        train_traces[arch] = check_train_trace(arch, events, TRAIN_STEPS)
         walls[f"train {arch}"] = time.perf_counter() - t_path
         log("wall", f"train {arch} {walls[f'train {arch}']:.1f} s, "
             f"{time.perf_counter() - t_start:.1f} s in all")
+
+    long_attach = long_attach_check(long_daemon, long_events, t_long, anchors)
 
     # each summary's launches: the main path's runs of its kernel (for
     # flash, the paths of its head dim and group size: llama's, qwen2's and
@@ -3215,7 +3505,8 @@ def main():
                    fused_bwd_cases=fused_bwd_cases,
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
                    train_agreement=train_agree, train_trace=train_traces,
-                   remat=remat)
+                   remat=remat, spills=spills, long_attach=long_attach,
+                   have_zstd=have_zstd())
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

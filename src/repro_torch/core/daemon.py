@@ -1,9 +1,11 @@
 """Per-process tracing daemon (paper §4) for PyTorch on a CUDA card.
 
-The same entry points as the JAX package's daemon (``step_begin``,
-``step_end``, ``record_span``, ``register_kernel``, the hang heartbeat and
-a JSONL spill to ``log_path``), with device timing from CUDA events, as
-the paper's daemon did:
+The same entry points and spill plane as the JAX package's daemon
+(``step_begin``, ``step_end``, ``record_span``, ``register_kernel``, the
+hang heartbeat, ``add_sink``, the columnar ``add_batch_sink`` and the spill
+through ``store.SegmentedTraceWriter``: JSONL, FCS v1 or FCS v2 by the
+path's extension or ``log_codec``, compressed and rotated as configured),
+with device timing from CUDA events, as the paper's daemon did:
 
   * a traced op records a pair of ``torch.cuda.Event(enable_timing=True)``
     on the current stream around its launch and queues them on
@@ -11,13 +13,21 @@ the paper's daemon did:
   * the daemon thread polls the queued end events with ``query()`` in
     launch order and only waits on them (``synchronize()``) at detach, so
     a hung kernel never stalls the heartbeat;
-  * device times are put on the host ``perf_counter`` clock through an
-    anchor event recorded and synchronised at ``attach()``:
-    ``t = anchor_host + anchor.elapsed_time(ev) / 1e3``.  ``duration`` is
-    then device time and ``issue_latency`` (device start minus host
-    issue) is real.  The anchor's host time is read after its
-    synchronise, so mapped times lag the device by at most that
-    synchronise's latency and never precede their issue;
+  * device times are put on the host ``perf_counter`` clock through
+    anchors: an event recorded on the daemon's own side stream and waited
+    on, its host time read after the wait, so an anchor is never early but
+    is late by its wait's return and the GIL (~0.1-0.2 ms at the median
+    under a dispatch loop, some ms at worst).  ``attach()`` takes the first
+    and the daemon thread one each loop.  Each anchor's device time is
+    summed from its predecessor's (``elapsed_time`` over a loop, so the
+    float32 milliseconds stay within ~10 ns), and its offset is its host time
+    less its device time.  A span's start maps through the least offset
+    among the anchors within ``ANCHOR_WINDOW_S`` of it on the card, the
+    least late of them: ``t0 = dev(ev0) + min(offset)`` and
+    ``t1 = t0 + ev0.elapsed_time(ev1) / 1e3``.  ``duration`` is then the
+    pair's device time and ``issue_latency`` (device start minus host
+    issue) is real.  The card's clock runs some ppm off the host's, ~1.5 µs
+    over the window, below any anchor's wait, so a mapped time stays late;
   * an op on CPU tensors (the explicit-CPU case) keeps host timing.
 
 Kernel events of a step are held back until the step has ended and all of
@@ -36,22 +46,47 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.events import (EventKind, EventRingBuffer, TraceEvent,
-                                     dump_jsonl)
+from repro_torch.core.columnar import EventBatch
+from repro_torch.core.events import EventKind, EventRingBuffer, TraceEvent
 from repro_torch.core.interceptor import PyApiInterceptor
 from repro_torch.core.stack import reconstruct_stacks
 from repro_torch.core.telemetry import TelemetryRegistry
+from repro_torch.store import FcsV2Codec, SegmentedTraceWriter
 
 _GLOBAL_DAEMON: Optional["TracingDaemon"] = None
+
+# anchors kept: ~4 s of daemon loops.  A span maps through the least late
+# anchor within ANCHOR_WINDOW_S of its start on the card; a span with none
+# that near (a backlog longer than that) maps through the nearest
+ANCHORS_KEPT = 64
+ANCHOR_WINDOW_S = 0.5
 
 
 @dataclass
 class DaemonConfig:
     rank: int = 0
-    backend: str = "dense-serve"   # historical-profile key (paper §8.2)
+    backend: str = "dense-train"   # historical-profile key (paper §8.2)
     hang_timeout: float = 30.0
     drain_interval: float = 0.05
-    log_path: Optional[str] = None  # JSONL spill, appended per drain
+    log_path: Optional[str] = None
+    # spill codec: None = infer from log_path extension ("jsonl" default;
+    # ".fcs" spills binary columnar segments, ".fcs2" compressed archival
+    # segments — see repro_torch.store).  "fcs2" may also be named
+    # explicitly to write v2 segments into a ".fcs" path
+    log_codec: Optional[str] = None
+    # archival-spill compression: backend name ("zstd"/"zlib"; None =
+    # best available) and level for FCS v2 segments.  Setting either
+    # implies log_codec="fcs2".
+    log_compression: Optional[str] = None
+    log_compression_level: Optional[int] = None
+    # rotate the spill to <stem>.segNNN<ext> once the current file passes
+    # this size; None = single file forever
+    log_rotate_bytes: Optional[int] = None
+    buffer_capacity: int = 200_000
+    reconstruct: bool = True
+    enabled: bool = True
+    # self-telemetry registry; None = a private one per daemon
+    telemetry: Optional[TelemetryRegistry] = None
 
 
 def _first_tensor_device(args, kwargs) -> Optional[torch.device]:
@@ -61,11 +96,17 @@ def _first_tensor_device(args, kwargs) -> Optional[torch.device]:
     return None
 
 
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
 class TracingDaemon:
     def __init__(self, config: DaemonConfig | None = None):
         self.cfg = config or DaemonConfig()
-        self.buffer = EventRingBuffer(200_000)
+        self.buffer = EventRingBuffer(self.cfg.buffer_capacity)
         self.interceptor = PyApiInterceptor(self._on_api_span, self._on_gc)
+        self._sinks: list[Callable[[list[TraceEvent]], None]] = []
+        self._batch_sinks: list = []
         self._hang_cb: Optional[Callable[[dict], None]] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -83,27 +124,50 @@ class TracingDaemon:
         self._held: list[TraceEvent] = []
         self._probe_lock = threading.Lock()
         self._last_stack: list[str] = []
-        self._anchor: Optional[torch.cuda.Event] = None
-        self._anchor_host = 0.0
-        self.telemetry = TelemetryRegistry()
+        self._stream = None              # the anchors' side stream
+        # (event, host time, device time): device times from the first
+        # anchor's, summed over consecutive anchors
+        self._anchors: deque = deque(maxlen=ANCHORS_KEPT)
+        self.telemetry = self.cfg.telemetry or TelemetryRegistry()
         self._c_bytes = self.telemetry.counter("daemon.bytes_logged")
         self._c_events = self.telemetry.counter("daemon.events_emitted")
         self._c_spill_errors = self.telemetry.counter("daemon.spill_errors")
+        self._c_anchors = self.telemetry.counter("daemon.anchors")
         self._g_heartbeat = self.telemetry.gauge("daemon.heartbeat_age_s")
         self._g_queue = self.telemetry.gauge("daemon.queue_depth")
         self._g_rate = self.telemetry.gauge("daemon.events_per_s")
+        # the widest anchor bracket so far: host time from before an
+        # anchor's record to after its wait, which bounds how late it is
+        self._g_bracket = self.telemetry.gauge("daemon.anchor_bracket_max_s")
         self._rate_t0 = time.perf_counter()
         self._rate_n0 = 0
         self._attached = False
+        self._spill = None
+        if self.cfg.log_path:
+            codec = self.cfg.log_codec
+            if (self.cfg.log_compression is not None
+                    or self.cfg.log_compression_level is not None):
+                # an explicit compression knob means the archival (v2)
+                # spill, with a per-daemon backend/level instance
+                codec = FcsV2Codec(compression=self.cfg.log_compression,
+                                   level=self.cfg.log_compression_level)
+            self._spill = SegmentedTraceWriter(
+                self.cfg.log_path, codec=codec,
+                rotate_bytes=self.cfg.log_rotate_bytes)
 
     # ------------------------------------------------------------------ #
     # lifecycle
     # ------------------------------------------------------------------ #
-    def attach(self):
-        """Attach to the current process (plug-and-play)."""
-        if self._attached:
+    def attach(self, publish: bool = True):
+        """Attach to the current process (plug-and-play).  ``publish``: as
+        the process's daemon (``get_daemon()``), which the port's traced
+        ops report to; unpublished, it times only the calls it is handed
+        (``trace_call``, ``register_kernel``)."""
+        if self._attached or not self.cfg.enabled:
             return self
         if torch.cuda.is_available():
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
             self._take_anchor()
         self.interceptor.register_from_env()
         self.interceptor.install()
@@ -112,17 +176,29 @@ class TracingDaemon:
             target=self._run, daemon=True, name="flare-daemon")
         self._thread.start()
         self._attached = True
-        global _GLOBAL_DAEMON
-        _GLOBAL_DAEMON = self
+        if publish:
+            global _GLOBAL_DAEMON
+            _GLOBAL_DAEMON = self
         return self
 
     def _take_anchor(self):
-        torch.cuda.synchronize()
-        anchor = torch.cuda.Event(enable_timing=True)
-        anchor.record()
+        """Record an event on the side stream (no other work there, so it
+        waits on none) and wait on it; the host time read after the wait is
+        at or after the event's device time."""
+        before = time.perf_counter()
+        anchor = _timing_event()
+        anchor.record(self._stream)
         anchor.synchronize()
-        self._anchor_host = time.perf_counter()
-        self._anchor = anchor
+        host = time.perf_counter()
+        with self._probe_lock:
+            dev = 0.0
+            if self._anchors:
+                prev, _, prev_dev = self._anchors[-1]
+                dev = prev_dev + prev.elapsed_time(anchor) / 1e3
+            self._anchors.append((anchor, host, dev))
+        self._c_anchors.inc()
+        if host - before > self._g_bracket.value:
+            self._g_bracket.set(host - before)
 
     def detach(self):
         if not self._attached:
@@ -140,8 +216,25 @@ class TracingDaemon:
         if _GLOBAL_DAEMON is self:
             _GLOBAL_DAEMON = None
 
+    def stop(self):
+        """Idempotent shutdown: safe on a never-attached or already-stopped
+        daemon and safe to call repeatedly."""
+        self.detach()
+
+    def add_sink(self, sink: Callable[[list[TraceEvent]], None]):
+        self._sinks.append(sink)
+
+    def add_batch_sink(self, sink):
+        """Columnar sink: receives each drain as one ``EventBatch``."""
+        self._batch_sinks.append(sink)
+
     def on_hang(self, cb: Callable[[dict], None]):
         self._hang_cb = cb
+
+    @property
+    def log_paths(self) -> list[str]:
+        """Every spill file written so far (>1 once rotation kicks in)."""
+        return list(self._spill.paths) if self._spill is not None else []
 
     # ------------------------------------------------------------------ #
     # event entry points
@@ -204,13 +297,12 @@ class TracingDaemon:
         dev = _first_tensor_device(args, kwargs)
         issue = time.perf_counter()
         if dev is not None and dev.type == "cuda":
-            if self._anchor is None:
+            if not self._anchors:
                 raise RuntimeError(
                     "flare daemon has no CUDA clock anchor: it was attached "
                     "in a process without a CUDA device")
             stream = torch.cuda.current_stream(dev)
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0, ev1 = _timing_event(), _timing_event()
             ev0.record(stream)
             out = fn(*args, **kwargs)
             ev1.record(stream)
@@ -241,13 +333,31 @@ class TracingDaemon:
     # ------------------------------------------------------------------ #
     def _run(self):
         while not self._stop.is_set():
-            self._probe_pending()
-            self._flush()
-            self._heartbeat()
+            self._tick()
             time.sleep(self.cfg.drain_interval)
 
-    def _device_ts(self, ev: torch.cuda.Event) -> float:
-        return self._anchor_host + self._anchor.elapsed_time(ev) / 1e3
+    def _tick(self):
+        """One loop of the daemon thread."""
+        if self._stream is not None:
+            self._take_anchor()
+        self._probe_pending()
+        self._flush()
+        self._heartbeat()
+
+    def _device_span(self, ev0, ev1) -> tuple[float, float]:
+        """Host times of a completed event pair, through the least offset
+        among the anchors within ``ANCHOR_WINDOW_S`` of ``ev0`` (caller
+        holds ``_probe_lock``).  ``ev0``'s device time is read from the
+        newest anchor at or before it (the oldest if none is)."""
+        for anchor, host, dev in reversed(self._anchors):
+            ms = anchor.elapsed_time(ev0)
+            if ms >= 0:
+                break
+        dev0 = dev + ms / 1e3
+        offset = min((h - d for _, h, d in self._anchors
+                      if abs(d - dev0) <= ANCHOR_WINDOW_S), default=host - dev)
+        t0 = dev0 + offset
+        return t0, t0 + ev0.elapsed_time(ev1) / 1e3
 
     def _probe_pending(self, wait: bool = False):
         """Emit the spans of completed ops, oldest first.  Stops at the
@@ -261,12 +371,12 @@ class TracingDaemon:
             while self._inflight:
                 name, kind, issue, step, meta, timing = self._inflight[0]
                 t0, t1 = timing
-                if isinstance(t1, torch.cuda.Event):
+                if not isinstance(t1, float):
                     if not t1.query():
                         if not wait:
                             return
                         t1.synchronize()
-                    t0, t1 = self._device_ts(t0), self._device_ts(t1)
+                    t0, t1 = self._device_span(t0, t1)
                 self._inflight.popleft()
                 self._emit(TraceEvent(kind, name, self.cfg.rank, issue,
                                       t0, t1, step=step, meta=meta))
@@ -296,18 +406,34 @@ class TracingDaemon:
             events = [e for e, k in zip(events, keep) if not k]
         if not events:
             return
-        reconstruct_stacks(events)
-        if self.cfg.log_path:
-            # the daemon thread must survive a failing spill (disk full):
-            # the failure is counted and warned once, never silent
+        if self.cfg.reconstruct:
+            reconstruct_stacks(events)
+        for sink in self._sinks:
             try:
-                self._c_bytes.inc(dump_jsonl(events, self.cfg.log_path))
-            except OSError as e:
+                sink(events)
+            except Exception:
+                pass
+        if not (self._batch_sinks or self._spill is not None):
+            return
+        batch = EventBatch.from_events(events)
+        for sink in self._batch_sinks:
+            try:
+                sink(batch)
+            except Exception:
+                pass
+        if self._spill is not None:
+            # one codec segment (or JSONL line run) per drain; the daemon
+            # thread must survive a failing spill (disk full, meta the codec
+            # cannot hold): counted and warned once, never silent
+            try:
+                self._c_bytes.inc(self._spill.write(batch))
+            except Exception as e:
                 if self._c_spill_errors.inc() == 1:
                     warnings.warn(
                         f"trace spill to {self.cfg.log_path} failing "
-                        f"({type(e).__name__}: {e}); events are NOT being "
-                        "persisted", stacklevel=2)
+                        f"({type(e).__name__}: {e}); events continue to "
+                        "stream to sinks but are NOT being persisted",
+                        stacklevel=2)
 
     def _heartbeat(self):
         now = time.perf_counter()

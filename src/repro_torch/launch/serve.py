@@ -44,7 +44,8 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-path", default=None,
-                    help="JSONL spill of the FLARE trace")
+                    help="the FLARE trace's spill; its extension picks the "
+                    "codec: .jsonl, .fcs (FCS v1) or .fcs2 (FCS v2)")
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

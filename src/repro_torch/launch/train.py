@@ -60,7 +60,9 @@ def main():
     ap.add_argument("--mask-mode", default="none",
                     choices=["none", "naive", "fast"])
     ap.add_argument("--no-flare", action="store_true")
-    ap.add_argument("--flare-log", default=None)
+    ap.add_argument("--flare-log", default=None,
+                    help="the FLARE trace's spill; its extension picks the "
+                    "codec: .jsonl, .fcs (FCS v1) or .fcs2 (FCS v2)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()

@@ -27,7 +27,9 @@ class ServeConfig:
     compute_dtype: str = "bfloat16"
     seed: int = 0
     device: str = "cuda"
-    log_path: Optional[str] = None   # the daemon's JSONL spill
+    # the daemon's spill; its extension picks the codec: .jsonl, .fcs (FCS
+    # v1) or .fcs2 (FCS v2)
+    log_path: Optional[str] = None
 
     def policy(self) -> Policy:
         return Policy(getattr(torch, self.compute_dtype))

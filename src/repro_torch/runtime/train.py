@@ -51,7 +51,7 @@ class RunConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25
     flare: bool = True
-    flare_log: Optional[str] = None
+    flare_log: Optional[str] = None  # spill: .jsonl, .fcs or .fcs2
     mask_mode: str = "none"   # none | naive | fast (Case-3)
     data_prefetch: bool = True  # False = synchronous dataloader (Case-3)
     device: str = "cuda"
@@ -128,7 +128,13 @@ class Trainer:
         self.step_fn = make_train_step(self.model, cfg)
         self.vision = self._vision_stub()
         self.fault_hook = fault_hook
+        # built here and attached by ``train``, so that a caller can add
+        # its sinks before the first event
         self.daemon = None
+        if cfg.flare:
+            self.daemon = TracingDaemon(DaemonConfig(
+                rank=0, backend=f"{cfg.model.family}-train",
+                log_path=cfg.flare_log, hang_timeout=300.0))
         self.ckpt = None
         if cfg.checkpoint_dir:
             from repro_torch.checkpoint import CheckpointManager
@@ -183,11 +189,7 @@ class Trainer:
     def train(self, steps: Optional[int] = None) -> list[dict]:
         cfg = self.cfg
         steps = steps if steps is not None else cfg.steps
-        self.daemon = None
-        if cfg.flare:
-            self.daemon = TracingDaemon(DaemonConfig(
-                rank=0, backend=f"{cfg.model.family}-train",
-                log_path=cfg.flare_log, hang_timeout=300.0))
+        if self.daemon:
             self.daemon.attach()
         params, opt_state, start = self.restore_or_init()
         loader = self._loader(start)

@@ -56,10 +56,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 with torch.matmul fp32, at K or N off a multiple of 4 and on
                 operands off 16 bytes; the SSD scan at N 64 on both routes;
                 the flash backward
-                on each route (the training shape in bf16 and fp32, full
-                attention, hd 128, ragged S, two fp32 calls compared
-                bitwise) and the fused-norm backward (R 4096 D 2048,
-                bf16 and fp32, with and without dh) against their plain
+                on each route (the training shape in bf16 and fp32, the
+                Case-3 drill's S 1024 in bf16, full attention, hd 128,
+                ragged S, two fp32 calls compared bitwise) and the
+                fused-norm backward (R 4096 D 2048, bf16 and fp32, and the
+                Case-3 drill's R 8192 in bf16, with and without dh)
+                against their plain
                 versions, timed beside them; the flash backward of each
                 route in turns with autograd of SDPA pinned to each backend
                 that runs (flash, efficient, cuDNN; the fastest is the
@@ -81,8 +83,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 bucket per rank, bitwise against the plain ring order, with
                 its ring_combine launches and spans per rank; the hang
                 drill (link f -> f+1 broken, f in 0, 2), whose live
-                progress, read from the frozen combine counters, must name
-                the link; the all-reduce of a bucket of an odd size;
+                progress is read from the frozen combine counters; the
+                all-reduce of a bucket of an odd size;
+     diagnose — the port's diagnostic engine (``core/engine.py``, numpy)
+                on traces the daemon took on the card, three drills of the
+                paper, each printed with its anomaly report and the
+                engine's host seconds (details.json ``diagnose``): the hang
+                drills through ``on_hang`` (the published stacks and ring
+                steps) and ``check_hangs`` (the ranks' spilled hang_suspect
+                events), each a hang routed to operations naming link f ->
+                f+1 with a unique minimum, then the supervisor's isolate and
+                restart; Case 2, a traced ``ffn_matmul`` of 4096 x 8192 @
+                8192 x N in bf16, 6 steps a job, the profile learned from a
+                healthy job at N 8576 (steps 1-5), the drilled job at N
+                8484 named a FLOPS regression routed to infrastructure with
+                the layout advice 8484 -> 8512, the same product through
+                padded_matmul printed; Case 3, llama3.2-1b through
+                Trainer.train at B 8 x S 1024, 6 steps a job, healthy with
+                the O(S) mask and prefetch, drilled with the O(S^2) mask and
+                a synchronous loader, named a v_inter regression routed to
+                algorithm; the phase fails only when a drill's anomaly is
+                missing (or names another team or link);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -554,12 +575,15 @@ def check_fused(gen, device):
                   for (R, D, d), t in timed.items()}, cases
 
 
+TRAIN_B, TRAIN_S = 8, 512
+CASE3_S = 1024           # the naive O(S^2) mask a third of a step or more
 # the flash backward: the training shape (bf16, causal) and the same in
-# fp32, each route's masking (full attention, ragged S, hd 128), group sizes
+# fp32, the Case-3 drill's (S ``CASE3_S``, bf16), each route's masking (full attention, ragged S, hd 128), group sizes
 # 7 and 1 (``FLASH_GROUPS``), zamba2's training shape (hd 80 over 32 KV
 # heads) and hd 80 at ragged S; each with its forward's lse
 FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((8, 512, 32, 8, 64), "float32", True),
+                   ((TRAIN_B, CASE3_S, 32, 8, 64), "bfloat16", True),
                    ((2, 256, 16, 4, 64), "bfloat16", False),
                    ((2, 256, 16, 4, 64), "float32", True),
                    ((2, 256, 16, 4, 128), "bfloat16", True),
@@ -596,7 +620,6 @@ FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
                    (8, 512, 32, 8, 128), (8, 512, 48, 8, 128),
                    (8, 512, 56, 8, 128), (8, 512, 40, 8, 128),
                    (8, 512, 64, 8, 128), (8, 512, 128, 8, 128)]
-TRAIN_B, TRAIN_S = 8, 512
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
 BWD_BF16_SCALED = 1e-2
@@ -822,7 +845,9 @@ def two_call_backward(x, r, s, dy, dh):
 def check_fused_bwd(gen, device):
     """The fused-norm backward against ``fused_bwd_ref`` at the training
     rows (R 4096) of the training paths' widths (``FUSED_WIDTHS`` but
-    mamba2's), bf16 and fp32, with and without dh, one launch per call;
+    mamba2's), bf16 and fp32, and at the Case-3 drill's rows (R 8192, S
+    ``CASE3_S``) of D 2048 in bf16, with and without dh, one launch per
+    call;
     timed in bf16 with dh beside the plain version (no single PyTorch call
     computes it), at D 2048 and at the others into ``at_zamba2`` (D 2560),
     ``at_qwen2`` (D 896), ``at_llama_vision`` (D 4096), ``at_dbrx`` (D
@@ -838,10 +863,12 @@ def check_fused_bwd(gen, device):
     from repro_torch.kernels.fused_norm import ops
 
     bwd = {"bwd": ops.BWD_KERNEL}
-    R = TRAIN_B * TRAIN_S
     cases = []
     widths = [D for D in FUSED_WIDTHS if D != 1536]
-    for D, dtype in itertools.product(widths, ("bfloat16", "float32")):
+    shapes = [(TRAIN_B * TRAIN_S, D, dtype) for D, dtype in itertools.product(
+        widths, ("bfloat16", "float32"))] + [
+        (TRAIN_B * CASE3_S, 2048, "bfloat16")]
+    for R, D, dtype in shapes:
         dt = getattr(torch, dtype)
         for with_dh in (True, False):
             x, r, dy, dh = (torch.randn(R, D, generator=gen,
@@ -861,7 +888,7 @@ def check_fused_bwd(gen, device):
             log("kernels", f"fused_residual_rmsnorm backward R{R} D{D} "
                 f"{dtype} dh={with_dh}: max_abs_err dx {e_dx:.3e}, dscale "
                 f"{e_ds:.3e}")
-    D, dt = 2048, torch.bfloat16
+    R, D, dt = TRAIN_B * TRAIN_S, 2048, torch.bfloat16
     x, r, dy, dh = (torch.randn(R, D, generator=gen, device=device).to(dt)
                     for _ in range(4))
     s = torch.randn(D, generator=gen, device=device)
@@ -1795,8 +1822,9 @@ def ring_path(seed: int, trace_dir: Path):
     all-reduce checked bit for bit against the plain ring order, with n - 1
     ring_combine launches per rank (kernel counts and the ranks' traces);
     the hang drill, whose live progress, read from the frozen combine
-    counters, must name the broken link; and a bucket of an odd size,
-    whose chunks travel padded to whole combine blocks."""
+    counters, the diagnose phase's engine turns into the broken link
+    (``hang_drills``); and a bucket of an odd size, whose chunks travel
+    padded to whole combine blocks."""
     from repro_torch.core.events import EventKind, load_jsonl
     from repro_torch.launch.mesh import (HANG_FAULTS, HANG_GROUP_TIMEOUT,
                                          run_ranks)
@@ -1870,23 +1898,16 @@ def ring_path(seed: int, trace_dir: Path):
                 fail(f"ring: hang drill {fault}: rank {r} published "
                      f"{d['steps']} steps from the counters {rows}, the host "
                      f"counted {d['host_steps']}")
-        # core/inspecting.diagnose_ring: the receiver with the unique
-        # minimum of completed steps names the stalled link
-        lo = min(steps)
-        rx = steps.index(lo)
-        link = ((rx - 1) % n, rx)
-        if steps.count(lo) != 1 or link != (fault, (fault + 1) % n):
-            fail(f"ring: hang drill {fault}: progress {steps} gives link "
-                 f"{link}, not {(fault, (fault + 1) % n)}")
+        # the link these steps name is the port's engine's to find, in the
+        # diagnose phase (``hang_drills``)
         secs = max(d["seconds"] for d in ds)
         if secs > HANG_GROUP_TIMEOUT + 5.0:
             fail(f"ring: hang drill {fault} took {secs:.1f} s to tear down")
-        drills.append(dict(fault=fault, steps=steps, link=list(link),
+        drills.append(dict(fault=fault, steps=steps, stacks=stacks,
                            seconds=secs))
         log("ring", f"hang drill: link {fault}->{(fault + 1) % n} broken from "
             f"ring step 1: live progress {steps} (the frozen combine "
-            f"counters, published from each rank's daemon hang callback) "
-            f"names link {link[0]}->{link[1]}; "
+            f"counters, published from each rank's daemon hang callback); "
             f"torn down in {secs:.2f} s (group timeout "
             f"{HANG_GROUP_TIMEOUT} s)")
     log("ring", f"phase wall {wall:.1f} s (4 spawned ranks, CUDA start-up "
@@ -1894,6 +1915,305 @@ def ring_path(seed: int, trace_dir: Path):
     return dict(buckets=buckets, odd_buckets=odd, drills=drills,
                 wall_s=wall, launches=sum(b["launches"] for b in buckets),
                 odd_launches=sum(b["launches"] for b in odd))
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b: diagnose — the port's engine on traces the daemon took here
+# --------------------------------------------------------------------------- #
+DRILL_STEPS = 6          # daemon steps a job; step 0 is the warm-up
+CASE2_ALIGNED_N = 8576   # the healthy job's N: the port's 128-column tile
+
+
+def engine_job(name: str, events: list, history, healthy: bool = False,
+               **config) -> dict:
+    """One job through the port's engine: its events ingested, a healthy
+    job's profile learned from its steps after the warm-up, then
+    ``evaluate_all``; the report and the engine's host seconds printed.
+    Returns its anomalies, host seconds and per-step metrics."""
+    from repro_torch.core.engine import DiagnosticEngine, EngineConfig
+    from repro_torch.core.report import anomaly_report
+
+    t0 = time.perf_counter()
+    eng = DiagnosticEngine(EngineConfig(num_ranks=1, **config), history)
+    eng.ingest(events)
+    if healthy:
+        eng.learn_healthy(steps=list(range(1, DRILL_STEPS)))
+    found = eng.evaluate_all()
+    secs = time.perf_counter() - t0
+    log("diagnose", f"{name}: {len(events)} events, {len(found)} "
+        f"anomalies, engine {secs * 1e3:.1f} ms of host time")
+    for line in anomaly_report(found).splitlines():
+        log("diagnose", f"  {line}")
+    return dict(anomalies=found, engine_s=secs, metrics=eng.metrics)
+
+
+def anomaly_rows(found: list) -> list:
+    from repro_torch.core.report import anomalies_json
+    return json.loads(anomalies_json(found))
+
+
+def expect(what: str, found: list, kind: str, metric: str | None,
+           team: str):
+    """The drill's anomaly: the first of ``found`` with this kind, metric
+    (any where None) and team; fails when there is none."""
+    hit = [a for a in found if a.kind == kind and a.team.value == team
+           and (metric is None or a.metric == metric)]
+    if not hit:
+        fail(f"diagnose: {what}: no ({kind!r}, {metric!r}, {team}) anomaly "
+             f"among {[(a.kind, a.metric, a.team.value) for a in found]}")
+    return hit[0]
+
+
+def case2_drill(seed: int) -> dict:
+    """Case 2 (paper §7.3.2): a traced FFN product ``ffn_matmul``, 4096 x
+    8192 @ 8192 x N in bf16, one a daemon step.  The healthy job runs
+    ``torch.matmul`` at N 8576; the drilled one at the paper's N 8484, with
+    the layout advisor told the weight's shape; the fixed one runs the same
+    8484 product through ``padded_matmul``, whose verdict is printed."""
+    import torch
+    from repro_torch.core.daemon import DaemonConfig, TracingDaemon
+    from repro_torch.core.events import EventKind
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.kernels.padded_matmul import ops
+
+    M, K, N = CASE2
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(K, CASE2_ALIGNED_N, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w_mis = w[:, :N].contiguous()
+
+    def meta(x, y):
+        m, k, n = x.shape[0], x.shape[1], y.shape[1]
+        return {"flops": 2.0 * m * k * n, "shape": [m, k, n]}
+
+    history = HistoryStore()
+    jobs = {f"healthy (torch.matmul, N {CASE2_ALIGNED_N})": (torch.matmul, w,
+                                                            True),
+            f"drilled (torch.matmul, N {N})": (torch.matmul, w_mis, False),
+            f"fixed (padded_matmul, N {N})": (ops.padded_matmul, w_mis,
+                                             False)}
+    out = {}
+    for job, (fn, weight, healthy) in jobs.items():
+        events: list = []
+        daemon = TracingDaemon(DaemonConfig(backend="case2-ffn"))
+        daemon.add_sink(events.extend)
+        daemon.attach()
+        ffn = daemon.register_kernel("ffn_matmul", EventKind.KERNEL_COMPUTE,
+                                     meta_fn=meta)(fn)
+        for k in ops.KERNELS.values():
+            k.launches = 0
+        try:
+            for step in range(DRILL_STEPS):
+                daemon.step_begin(step)
+                y = ffn(a, weight)
+                torch.cuda.synchronize()
+                daemon.step_end()
+                del y
+        finally:
+            daemon.detach()
+        launches = {r: k.launches for r, k in ops.KERNELS.items()}
+        shapes = {} if healthy else {"kernel_shapes": {"ffn_matmul": (K, N)}}
+        res = engine_job(f"case2 {job}", events, history, healthy,
+                         backend="case2-ffn", **shapes)
+        prof = history.get("case2-ffn", 1)
+        exp = prof.expected_flops["ffn_matmul"]
+        got = [res["metrics"][s].flops["ffn_matmul"][0]
+               for s in range(DRILL_STEPS)]
+        ratio = sorted(g / exp for g in got[1:])[len(got[1:]) // 2]
+        log("diagnose", f"case2 {job}: ffn_matmul {got[-1] / 1e12:.1f} "
+            f"TFLOP/s at the last step, {ratio:.4f} of the healthy median "
+            f"{exp / 1e12:.1f} (median of steps 1-{DRILL_STEPS - 1}; "
+            f"FLOPS_REGRESSION_FRAC 0.75), step 0 {got[0] / exp:.4f}; "
+            f"padded_matmul launches {launches}")
+        out[job] = dict(anomalies=anomaly_rows(res["anomalies"]),
+                        engine_s=res["engine_s"], flops=got,
+                        expected_flops=exp, ratio=ratio, launches=launches,
+                        found=res["anomalies"])
+    drilled, fixed = (out[j] for j in list(jobs)[1:])
+    hit = expect("case2 drilled job", drilled["found"], "regression",
+                 "flops", "infrastructure")
+    adv = hit.evidence.get("layout_advice") or {}
+    if adv.get("misaligned_dims") != [N] or adv.get("padded_dims") != [8512]:
+        fail(f"diagnose: case2 layout advice {adv}, not {N} -> 8512")
+    log("diagnose", f"case2: the engine names ({hit.kind}, {hit.metric}, "
+        f"{hit.team.value}) from step {hit.step}: {hit.root_cause}; "
+        f"suggestion {adv['suggestion']!r}")
+    flagged = [a for a in fixed["found"] if a.metric == "flops"]
+    log("diagnose", f"case2 fixed job (padded_matmul): ratio "
+        f"{fixed['ratio']:.4f}, {'still' if flagged else 'not'} flagged as a "
+        f"FLOPS regression ({len(flagged)} anomalies)")
+    for job in out.values():
+        job.pop("found")
+    del a, w, w_mis
+    torch.cuda.empty_cache()
+    return dict(jobs=out, advice=adv, fixed_flagged=bool(flagged),
+                launches=fixed["launches"])
+
+
+def spans_outside_steps(events: list) -> tuple:
+    """(device spans, those not inside their step's span, the widest
+    excursion in s): the host and device clocks' agreement that v_inter
+    reads."""
+    from repro_torch.core.events import DEVICE_KINDS, EventKind
+    steps = {e.step: e for e in events if e.kind == EventKind.STEP}
+    dev = [e for e in events if e.kind in DEVICE_KINDS and e.step in steps]
+    out = [max(steps[e.step].start_ts - e.start_ts,
+               e.end_ts - steps[e.step].end_ts) for e in dev]
+    bad = [x for x in out if x > 0]
+    return len(dev), len(bad), max(bad, default=0.0)
+
+
+def case3_drill(seed: int) -> dict:
+    """Case 3 (paper §7.3.3): llama3.2-1b at full width through
+    ``Trainer.train``, B 8 x S ``CASE3_S``, ``DRILL_STEPS`` steps a job,
+    the daemon's events to a sink.  Healthy: the O(S) mask, prefetch on;
+    drilled: the O(S^2) mask, a synchronous dataloader."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import EventKind
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.core.report import ascii_timeline
+    from repro_torch.runtime.train import RunConfig, Trainer
+
+    arch = "llama3.2-1b"
+    kernels = train_kernels(arch)
+    history = HistoryStore()
+    out = {}
+    for job, mask, prefetch in (("healthy", "fast", True),
+                                ("drilled", "naive", False)):
+        run = RunConfig(model=get_config(arch), global_batch=TRAIN_B,
+                        seq_len=CASE3_S, steps=DRILL_STEPS, warmup_steps=2,
+                        seed=seed, mask_mode=mask, data_prefetch=prefetch)
+        trainer = Trainer(run)
+        events: list = []
+        trainer.daemon.add_sink(events.extend)
+        for k, _, _ in kernels.values():
+            k.launches = 0
+        hist = trainer.train()
+        launches = {label: k.launches for label, (k, _, _) in kernels.items()}
+        backend = trainer.daemon.cfg.backend
+        del trainer
+        torch.cuda.empty_cache()
+        n_dev, n_out, widest = spans_outside_steps(events)
+        res = engine_job(f"case3 {job} (mask {mask}, prefetch "
+                         f"{'on' if prefetch else 'off'})", events, history,
+                         job == "healthy", backend=backend)
+        ms = res["metrics"]
+        prof = history.get(backend, 1)
+        dl = [e.duration for e in events
+              if e.kind == EventKind.DATALOADER and e.step >= 1]
+        step_s = sorted(r["step_time_s"] for r in hist[1:])
+        log("diagnose", f"case3 {job}: v_inter by step "
+            f"{[round(ms[s].v_inter, 4) for s in sorted(ms)]} (threshold "
+            f"{prof.v_inter_threshold:.4f} = max(1.6 x the healthy maximum, "
+            f"0.02)); v_minority "
+            f"{[round(ms[s].v_minority, 4) for s in sorted(ms)]}"
+            f" (threshold {prof.v_minority_threshold:.4f}); step "
+            f"{step_s[len(step_s) // 2] * 1e3:.1f} ms median of steps 1-"
+            f"{DRILL_STEPS - 1}, dataloader.next_batch {max(dl) * 1e3:.1f} ms "
+            f"at most; device spans outside their step {n_out} of {n_dev} "
+            f"(widest {widest * 1e6:.1f} us); launches {launches}")
+        out[job] = dict(
+            anomalies=anomaly_rows(res["anomalies"]), engine_s=res["engine_s"],
+            v_inter=[ms[s].v_inter for s in sorted(ms)],
+            v_minority=[ms[s].v_minority for s in sorted(ms)],
+            v_inter_threshold=prof.v_inter_threshold,
+            v_minority_threshold=prof.v_minority_threshold,
+            step_s=[r["step_time_s"] for r in hist],
+            dataloader_s=dl, spans=n_dev, spans_outside_step=n_out,
+            widest_outside_s=widest, launches=launches, found=res["anomalies"],
+            timeline=ascii_timeline(events, 0, 2) if job == "drilled" else "")
+    healthy, drilled = out["healthy"], out["drilled"]
+    naive = sorted(drilled["dataloader_s"])[len(drilled["dataloader_s"]) // 2]
+    step = sorted(healthy["step_s"][1:])[len(healthy["step_s"][1:]) // 2]
+    log("diagnose", f"case3: the naive mask's dataloader span "
+        f"{naive * 1e3:.1f} ms (median) against the healthy step "
+        f"{step * 1e3:.1f} ms: {naive / step:.3f} of it")
+    hit = expect("case3 drilled job", drilled["found"], "regression",
+                 "v_inter", "algorithm")
+    log("diagnose", f"case3: the engine names ({hit.kind}, {hit.metric}, "
+        f"{hit.team.value}) from step {hit.step}: v_inter "
+        f"{hit.evidence['v_inter']:.4f} against "
+        f"{hit.evidence['threshold']:.4f}")
+    log("diagnose", "case3 drilled job, step 2:")
+    for line in drilled["timeline"].splitlines():
+        log("diagnose", f"  {line}")
+    for job in out.values():
+        job.pop("found")
+    return dict(jobs=out, naive_over_step=naive / step, arch=arch,
+                S=CASE3_S, B=TRAIN_B)
+
+
+def hang_drills(ring_run: dict, trace_dir: Path) -> list:
+    """The ring's hang drills (paper §5.3) through the port's engine:
+    ``on_hang`` on each drill's published stacks and ring steps, and
+    ``check_hangs`` on the hang_suspect events the four ranks spilled in the
+    drill's step; each must give one hang anomaly routed to operations
+    naming link f -> f+1 with a unique minimum; the supervisor's actions
+    printed."""
+    import numpy as np
+    from repro_torch.core.engine import DiagnosticEngine, EngineConfig
+    from repro_torch.core.events import EventKind, load_jsonl
+    from repro_torch.core.report import anomaly_report
+    from repro_torch.launch.mesh import HANG_FAULTS
+    from repro_torch.runtime.supervisor import Supervisor
+
+    n = RING_WORLD
+    spilled = [load_jsonl(str(trace_dir / f"rank{r}.jsonl"))
+               for r in range(n)]
+    out = []
+    for i, (fault, drill) in enumerate(zip(HANG_FAULTS, ring_run["drills"])):
+        want = (fault, (fault + 1) % n)
+        stacks = dict(enumerate(drill["stacks"]))
+        progress = np.array(drill["steps"])
+        t0 = time.perf_counter()
+        live = DiagnosticEngine(EngineConfig(backend="ring", num_ranks=n))
+        found_live = live.on_hang(stacks, progress)
+        events = [e for evs in spilled for e in evs if e.step == 1 + i]
+        suspects = {e.rank for e in events
+                    if e.kind == EventKind.HANG_SUSPECT}
+        eng = DiagnosticEngine(EngineConfig(backend="ring", num_ranks=n))
+        eng.ingest(events)
+        found = eng.check_hangs(progress)
+        secs = time.perf_counter() - t0
+        for what, got in (("on_hang", found_live), ("check_hangs", found)):
+            hit = expect(f"hang drill {fault} ({what})", got, "hang", None,
+                         "operations")
+            link = tuple(hit.evidence.get("link") or ())
+            if link != want or "confidence=high" not in hit.root_cause:
+                fail(f"diagnose: hang drill {fault} ({what}): progress "
+                     f"{drill['steps']} gives {hit.root_cause!r}, link "
+                     f"{link}, not {want} with a unique minimum")
+        actions = Supervisor().apply_diagnosis(found)
+        log("diagnose", f"hang drill, link {want[0]}->{want[1]} broken: "
+            f"on_hang, and check_hangs on the hang_suspect events of ranks "
+            f"{sorted(suspects)}, name ({hit.kind}, {hit.metric}, "
+            f"{hit.team.value}) "
+            f"ranks {hit.ranks}: {hit.root_cause}; engine "
+            f"{secs * 1e3:.1f} ms of host time; supervisor "
+            f"{[(a.kind, a.ranks) for a in actions]}")
+        for line in anomaly_report(found).splitlines():
+            log("diagnose", f"  {line}")
+        out.append(dict(fault=fault, link=list(link), steps=drill["steps"],
+                        anomalies=anomaly_rows(found),
+                        live_anomalies=anomaly_rows(found_live),
+                        engine_s=secs,
+                        actions=[dict(kind=a.kind, ranks=a.ranks,
+                                      note=a.note) for a in actions]))
+    return out
+
+
+def diagnose_phase(seed: int, ring_run: dict, trace_dir: Path) -> dict:
+    """The three drills through the port's engine (``hang_drills``,
+    ``case2_drill``, ``case3_drill``), with the phase's wall."""
+    t0 = time.perf_counter()
+    hang = hang_drills(ring_run, trace_dir)
+    case2 = case2_drill(seed)
+    case3 = case3_drill(seed)
+    wall = time.perf_counter() - t0
+    log("diagnose", f"phase wall {wall:.1f} s")
+    return dict(case2=case2, case3=case3, hang=hang, wall_s=wall)
 
 
 # --------------------------------------------------------------------------- #
@@ -3369,6 +3689,13 @@ def main():
     ring_run = ring_path(args.seed, OUT_DIR / "ring_traces")
     walls["case2 and ring"] = time.perf_counter() - t0
 
+    # 4b. the port's diagnostic engine on the drills' traces
+    t0 = time.perf_counter()
+    diagnosis = diagnose_phase(args.seed, ring_run, OUT_DIR / "ring_traces")
+    walls["diagnose"] = time.perf_counter() - t0
+    log("wall", f"diagnose {walls['diagnose']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
     spills = {}
@@ -3447,6 +3774,10 @@ def main():
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     by_path.update({f"{arch} train": run["launches"]
                     for arch, run in train_runs.items()})
+    case3 = diagnosis["case3"]
+    case3_jobs = {f"{case3['arch']} case3 {job} train": run["launches"]
+                  for job, run in case3["jobs"].items()}
+    by_path.update(case3_jobs)
 
     def count(summary, label, paths, key=None, keys=()):
         def of(p):
@@ -3475,11 +3806,15 @@ def main():
     for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
                                   (matmul_fp32, "float32", "tf32x3")):
         n = case2[dtype]["launches"][route]
-        summary["launches"] = n
         summary["launches_by_path"] = {f"case2 padded_matmul {dtype}": n}
+        if dtype == "bfloat16":
+            summary["launches_by_path"]["diagnose case2 fixed job"] = \
+                diagnosis["case2"]["launches"][route]
+        summary["launches"] = sum(summary["launches_by_path"].values())
     agree = {f"{a} fp32 {TRAIN_PATHS[a]['agree_layers']}-layer agreement "
              f"step": r["launches"] for a, r in train_agree.items()}
     trains = {f"{a} train": r["launches"] for a, r in train_runs.items()}
+    trains.update(case3_jobs)
     for (route, *key), summary in flash_bwd_sums.items():
         keys = [tuple(k) for r, *k in flash_bwd_sums if r == route]
         count(summary, f"flash_attention_bwd[{route}]",
@@ -3506,7 +3841,7 @@ def main():
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
-                   have_zstd=have_zstd())
+                   have_zstd=have_zstd(), diagnose=diagnosis)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

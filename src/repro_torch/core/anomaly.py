@@ -1,7 +1,8 @@
 """Anomaly record + team routing targets (paper Table 1): the port's copy
 of the JAX package's ``core/anomaly.py``, which the supervisor takes its
-diagnoses in.  The diagnosis engine itself is not ported: it reads traces,
-and the port's traces read back in the JAX package's engine.
+diagnoses in.  The port's diagnostic engine (``core/engine.py``, its
+detectors in ``core/detectors/``) emits these; ``core/engine.py``
+re-exports both names, as the reference's does.
 """
 from __future__ import annotations
 

@@ -38,14 +38,17 @@ from repro.kernels.ring_reduce.ops import ring_combine as jax_ring_combine
 from repro.kernels.ring_reduce.ref import progress_ref as jax_progress_ref
 from repro.parallel.collectives import dequantize_int8 as jax_dequantize_int8
 from repro.parallel.collectives import quantize_int8 as jax_quantize_int8
+from repro_torch.core.engine import DiagnosticEngine, EngineConfig
+from repro_torch.core.events import load_jsonl as port_load_jsonl
 from repro_torch.kernels.ring_reduce.ops import (CTAS_PER_SM, WARPS_PER_CTA,
                                                  _meta, combine_grid,
                                                  combine_vec, lane_elements,
                                                  ring_combine,
                                                  worker_ring_blocks)
-from repro_torch.launch.mesh import run_ranks
+from repro_torch.launch.mesh import HANG_FAULTS, run_ranks
 from repro_torch.parallel.collectives import (COMBINE_BLOCK, combine_counters,
                                               dequantize_int8, quantize_int8)
+from repro_torch.runtime.supervisor import Supervisor
 from torch_ring_ranks import failing_rank, semantics_rank
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -353,6 +356,46 @@ def test_hang_drill_names_the_broken_link(ring_run, fault):
     assert diag.link == (fault, (fault + 1) % W), (progress, diag)
     assert int(progress.argmin()) == (fault + 1) % W
     assert (progress == progress.min()).sum() == 1
+
+
+@pytest.mark.parametrize("fault", HANG_FAULTS)
+def test_port_engine_names_the_broken_link(ring_run, fault):
+    """The port's diagnostic engine on the drill: ``on_hang`` on the ranks'
+    published stacks and steps, and ``check_hangs`` on the
+    ``hang_suspect`` events the ranks spilled in the drill's step, each
+    giving the JAX ``diagnose_hang``'s verdict as one hang anomaly routed
+    to operations, naming link f -> f+1; the port's supervisor isolates
+    both ends and restarts."""
+    ranks, _, traces, _ = ring_run
+    drills = [next(d for d in r["hang"] if d["fault"] == fault)
+              for r in ranks]
+    stacks = {r: d["report"]["stack"] for r, d in enumerate(drills)}
+    progress = np.array([d["steps"] for d in drills])
+    want = diagnose_hang(stacks, progress)
+    eng = DiagnosticEngine(EngineConfig(backend="ring", num_ranks=W))
+    got = eng.on_hang(stacks, progress)
+    assert len(got) == 1
+    a = got[0]
+    assert (a.kind, a.metric, a.team.value) == (
+        "hang", "intra_kernel_inspecting", "operations")
+    assert a.ranks == want.faulty_ranks == [fault, (fault + 1) % W]
+    assert a.root_cause == want.detail
+    assert a.evidence == {"hang_kind": "comm", "link": want.link}
+    assert want.link == (fault, (fault + 1) % W)
+    step = 1 + HANG_FAULTS.index(fault)
+    events = [e for r in range(W)
+              for e in port_load_jsonl(str(traces / f"rank{r}.jsonl"))
+              if e.step == step]
+    assert {e.rank for e in events if e.kind.value == "hang"} == set(range(W))
+    spilled = DiagnosticEngine(EngineConfig(backend="ring", num_ranks=W))
+    spilled.ingest(events)
+    found = spilled.check_hangs(progress)
+    assert [(x.kind, x.metric, x.team, x.ranks, x.root_cause, x.evidence)
+            for x in found] == [(a.kind, a.metric, a.team, a.ranks,
+                                 a.root_cause, a.evidence)]
+    actions = Supervisor().apply_diagnosis(found)
+    assert [(c.kind, c.ranks) for c in actions] == [
+        ("isolate", [fault, (fault + 1) % W]), ("restart", [])]
 
 
 def test_ring_trace_reads_back_in_the_jax_package(ring_run):

@@ -171,19 +171,30 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+print(" ".join(mods))
 print(len(mods))
 """
 
+# the diagnosis plane, the JAX package's numpy modules copied into the port
+ENGINE_MODULES = tuple(f"repro_torch.core.{m}" for m in (
+    "wasserstein", "metrics", "history", "regression", "failslow",
+    "inspecting", "hang", "engine", "report", "detectors",
+    "detectors.base", "detectors.registry", "detectors.builtins",
+    "detectors.fleet"))
+
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module imports with jax and repro blocked, and no source of the
-    port or of chip_smoke.py names them in an import, even in a function."""
+    """Every module imports with jax and repro blocked, the diagnosis
+    plane's 14 among them, and no source of the port or of chip_smoke.py
+    names them in an import, even in a function; nor does the diagnosis
+    plane name torch: it is numpy, as the reference's."""
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 44
+    assert set(ENGINE_MODULES) <= set(out.stdout.split())
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
@@ -196,6 +207,17 @@ def test_port_imports_neither_jax_nor_repro():
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{f}: imports {n}"
+    for m in ENGINE_MODULES:
+        rel = m.split(".")[1:]
+        f = ROOT / "src" / "repro_torch" / Path(*rel[:-1]) / f"{rel[-1]}.py"
+        if not f.exists():
+            f = f.with_suffix("") / "__init__.py"
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = [a.name for a in node.names] \
+                    if isinstance(node, ast.Import) else [node.module or ""]
+                assert not any(n.split(".")[0] == "torch" for n in mods), \
+                    f"{f}: imports torch"
 
 
 def test_server_needs_a_card_unless_cpu_is_asked():

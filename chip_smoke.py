@@ -103,7 +103,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the O(S) mask and prefetch, drilled with the O(S^2) mask and
                 a synchronous loader, named a v_inter regression routed to
                 algorithm; the phase fails only when a drill's anomaly is
-                missing (or names another team or link);
+                missing (or names another team or link); the drilled jobs
+                of Case 2 and Case 3 also stream live into the fleet;
+     fleet    — the port's fleet layer (``fleet/``, ``archive/``, numpy):
+                Case 2's drilled and fixed jobs and Case 3's drilled job
+                stream their daemons' drains live into one
+                FleetMultiplexer (``attach_fleet``; watermark delay 1, the
+                ``cross_job_failslow`` tier; the profiles the healthy jobs
+                learned), spilling FCS into smoke_out/fleet/; each live
+                job's anomalies equal to its batch engine's, field for
+                field, with no late row; two more llama3.2-1b jobs at Case
+                3's healthy setting, 12 steps each on one rack and switch,
+                with a spawned co-runner process looping bf16 8192^3
+                matmuls on the card before steps 7-10 (started and paused
+                through a pipe): each job a fail_slow (throughput) at a
+                step in 7-10 and none before, and the fleet tier's
+                (fail_slow, cross_job_correlation, infrastructure) for both;
+                the spill directory replayed serially, on 4 threads and on
+                2 worker processes (``tools/fleet_replay.py`` in an
+                interpreter of its own, no torch), each stream byte-equal
+                to the live one; the trace archive's anomalies, per-step
+                throughput (equal to the engines') and rollup sidecars
+                (read back by a second archive), its fleet weather; each
+                ring hang drill's four rank spills replayed as one 4-rank
+                job, the hang declared once a majority reported and equal
+                to ``on_hang`` on the same stacks; a [fleet] line per job
+                (events, steps closed, anomalies, late rows, the fleet's
+                host ms) and the daemons' widest anchor brackets;
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -208,6 +234,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import subprocess
@@ -1964,16 +1991,16 @@ def expect(what: str, found: list, kind: str, metric: str | None,
     return hit[0]
 
 
-def case2_drill(seed: int) -> dict:
+def case2_drill(seed: int, fleet: "FleetLive") -> dict:
     """Case 2 (paper §7.3.2): a traced FFN product ``ffn_matmul``, 4096 x
     8192 @ 8192 x N in bf16, one a daemon step.  The healthy job runs
     ``torch.matmul`` at N 8576; the drilled one at the paper's N 8484, with
     the layout advisor told the weight's shape; the fixed one runs the same
-    8484 product through ``padded_matmul``, whose verdict is printed."""
+    8484 product through ``padded_matmul``, whose verdict is printed.  The
+    drilled and fixed jobs also stream live into ``fleet``."""
     import torch
     from repro_torch.core.daemon import DaemonConfig, TracingDaemon
     from repro_torch.core.events import EventKind
-    from repro_torch.core.history import HistoryStore
     from repro_torch.kernels.padded_matmul import ops
 
     M, K, N = CASE2
@@ -1987,17 +2014,24 @@ def case2_drill(seed: int) -> dict:
         m, k, n = x.shape[0], x.shape[1], y.shape[1]
         return {"flops": 2.0 * m * k * n, "shape": [m, k, n]}
 
-    history = HistoryStore()
+    history = fleet.history
     jobs = {f"healthy (torch.matmul, N {CASE2_ALIGNED_N})": (torch.matmul, w,
-                                                            True),
-            f"drilled (torch.matmul, N {N})": (torch.matmul, w_mis, False),
+                                                            None),
+            f"drilled (torch.matmul, N {N})": (torch.matmul, w_mis,
+                                               "case2-drilled"),
             f"fixed (padded_matmul, N {N})": (ops.padded_matmul, w_mis,
-                                             False)}
+                                             "case2-fixed")}
     out = {}
-    for job, (fn, weight, healthy) in jobs.items():
+    for job, (fn, weight, fleet_job) in jobs.items():
+        healthy = fleet_job is None
+        shapes = {} if healthy else {"kernel_shapes": {"ffn_matmul": (K, N)}}
         events: list = []
-        daemon = TracingDaemon(DaemonConfig(backend="case2-ffn"))
+        daemon = TracingDaemon(DaemonConfig(
+            backend="case2-ffn",
+            log_path=None if healthy else fleet.spill(fleet_job)))
         daemon.add_sink(events.extend)
+        if not healthy:
+            fleet.attach(fleet_job, daemon, backend="case2-ffn", **shapes)
         daemon.attach()
         ffn = daemon.register_kernel("ffn_matmul", EventKind.KERNEL_COMPUTE,
                                      meta_fn=meta)(fn)
@@ -2013,9 +2047,10 @@ def case2_drill(seed: int) -> dict:
         finally:
             daemon.detach()
         launches = {r: k.launches for r, k in ops.KERNELS.items()}
-        shapes = {} if healthy else {"kernel_shapes": {"ffn_matmul": (K, N)}}
         res = engine_job(f"case2 {job}", events, history, healthy,
                          backend="case2-ffn", **shapes)
+        if not healthy:
+            fleet.done(fleet_job, res["anomalies"], events)
         prof = history.get("case2-ffn", 1)
         exp = prof.expected_flops["ffn_matmul"]
         got = [res["metrics"][s].flops["ffn_matmul"][0]
@@ -2029,7 +2064,9 @@ def case2_drill(seed: int) -> dict:
         out[job] = dict(anomalies=anomaly_rows(res["anomalies"]),
                         engine_s=res["engine_s"], flops=got,
                         expected_flops=exp, ratio=ratio, launches=launches,
-                        found=res["anomalies"])
+                        found=res["anomalies"], fleet_job=fleet_job,
+                        bracket_s=daemon.telemetry.value(
+                            "daemon.anchor_bracket_max_s"))
     drilled, fixed = (out[j] for j in list(jobs)[1:])
     hit = expect("case2 drilled job", drilled["found"], "regression",
                  "flops", "infrastructure")
@@ -2064,41 +2101,49 @@ def spans_outside_steps(events: list) -> tuple:
     return len(dev), len(bad), max(bad, default=0.0)
 
 
-def case3_drill(seed: int) -> dict:
+def case3_drill(seed: int, fleet: "FleetLive") -> dict:
     """Case 3 (paper §7.3.3): llama3.2-1b at full width through
     ``Trainer.train``, B 8 x S ``CASE3_S``, ``DRILL_STEPS`` steps a job,
     the daemon's events to a sink.  Healthy: the O(S) mask, prefetch on;
-    drilled: the O(S^2) mask, a synchronous dataloader."""
+    drilled: the O(S^2) mask, a synchronous dataloader, streaming live into
+    ``fleet`` too."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.events import EventKind
-    from repro_torch.core.history import HistoryStore
     from repro_torch.core.report import ascii_timeline
     from repro_torch.runtime.train import RunConfig, Trainer
 
     arch = "llama3.2-1b"
     kernels = train_kernels(arch)
-    history = HistoryStore()
+    history = fleet.history
     out = {}
     for job, mask, prefetch in (("healthy", "fast", True),
                                 ("drilled", "naive", False)):
+        fleet_job = "case3-drilled" if job == "drilled" else None
         run = RunConfig(model=get_config(arch), global_batch=TRAIN_B,
                         seq_len=CASE3_S, steps=DRILL_STEPS, warmup_steps=2,
-                        seed=seed, mask_mode=mask, data_prefetch=prefetch)
+                        seed=seed, mask_mode=mask, data_prefetch=prefetch,
+                        flare_log=fleet_job and fleet.spill(fleet_job))
         trainer = Trainer(run)
         events: list = []
         trainer.daemon.add_sink(events.extend)
+        if fleet_job:
+            fleet.attach(fleet_job, trainer.daemon,
+                         backend=trainer.daemon.cfg.backend)
         for k, _, _ in kernels.values():
             k.launches = 0
         hist = trainer.train()
         launches = {label: k.launches for label, (k, _, _) in kernels.items()}
         backend = trainer.daemon.cfg.backend
+        bracket = trainer.daemon.telemetry.value("daemon.anchor_bracket_max_s")
         del trainer
         torch.cuda.empty_cache()
         n_dev, n_out, widest = spans_outside_steps(events)
         res = engine_job(f"case3 {job} (mask {mask}, prefetch "
                          f"{'on' if prefetch else 'off'})", events, history,
                          job == "healthy", backend=backend)
+        if fleet_job:
+            fleet.done(fleet_job, res["anomalies"], events)
         ms = res["metrics"]
         prof = history.get(backend, 1)
         dl = [e.duration for e in events
@@ -2123,7 +2168,8 @@ def case3_drill(seed: int) -> dict:
             step_s=[r["step_time_s"] for r in hist],
             dataloader_s=dl, spans=n_dev, spans_outside_step=n_out,
             widest_outside_s=widest, launches=launches, found=res["anomalies"],
-            timeline=ascii_timeline(events, 0, 2) if job == "drilled" else "")
+            timeline=ascii_timeline(events, 0, 2) if job == "drilled" else "",
+            fleet_job=fleet_job, bracket_s=bracket)
     healthy, drilled = out["healthy"], out["drilled"]
     naive = sorted(drilled["dataloader_s"])[len(drilled["dataloader_s"]) // 2]
     step = sorted(healthy["step_s"][1:])[len(healthy["step_s"][1:]) // 2]
@@ -2204,16 +2250,542 @@ def hang_drills(ring_run: dict, trace_dir: Path) -> list:
     return out
 
 
-def diagnose_phase(seed: int, ring_run: dict, trace_dir: Path) -> dict:
+def diagnose_phase(seed: int, ring_run: dict, trace_dir: Path,
+                   fleet: "FleetLive") -> dict:
     """The three drills through the port's engine (``hang_drills``,
-    ``case2_drill``, ``case3_drill``), with the phase's wall."""
+    ``case2_drill``, ``case3_drill``), with the phase's wall; the drilled
+    jobs stream into ``fleet`` as they run."""
     t0 = time.perf_counter()
     hang = hang_drills(ring_run, trace_dir)
-    case2 = case2_drill(seed)
-    case3 = case3_drill(seed)
+    case2 = case2_drill(seed, fleet)
+    case3 = case3_drill(seed, fleet)
     wall = time.perf_counter() - t0
     log("diagnose", f"phase wall {wall:.1f} s")
     return dict(case2=case2, case3=case3, hang=hang, wall_s=wall)
+
+
+# --------------------------------------------------------------------------- #
+# phase 4c: fleet — the port's fleet layer, fed live by the drills' daemons
+# --------------------------------------------------------------------------- #
+FLEET_DIR = OUT_DIR / "fleet"              # one FCS spill a live fleet job
+FLEET_HISTORY = OUT_DIR / "fleet_history"  # the phase's profiles, as JSON
+FLEET_SPEC = OUT_DIR / "fleet_spec.json"   # the fleet's and jobs' configs
+FLEET_HANG_DIR = OUT_DIR / "fleet_hang"    # a hang drill's step, a rank
+FLEET_DETECTORS = ["cross_job_failslow"]
+FAILSLOW_JOBS = ("failslow-a", "failslow-b")
+FAILSLOW_STEPS = 12
+FAILSLOW_ON, FAILSLOW_OFF = 7, 11   # the co-runner runs before steps 7-10
+FAILSLOW_RACK = {"rack": "rack-0", "switch": "switch-0"}
+CORUNNER_N = 8192                   # the co-runner's bf16 N^3 product
+CORUNNER_START_S = 180.0            # its start-up: interpreter, torch, CUDA
+HANDSHAKE_S = 60.0                  # the longest wait for a reply
+# the live jobs by engine config, one trace archive each: an archive
+# replays its files with one EngineConfig
+ARCHIVE_GROUPS = ("case2-", "case3-", "failslow-")
+
+
+@functools.cache
+def fleet_replay_tool():
+    """``tools/fleet_replay.py`` as a module: its stream rows, spec file
+    and in-process replay."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "fleet_replay", ROOT / "tools" / "fleet_replay.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class FleetLive:
+    """The fleet phase's live side: one ``FleetMultiplexer`` (watermark
+    delay 1, the ``cross_job_failslow`` tier) over the ``HistoryStore``
+    that the drills' healthy jobs learn into; each live job's engine
+    config, daemon and batch result; every poll of the stream."""
+
+    def __init__(self):
+        import shutil
+        from repro_torch.core.history import HistoryStore
+        from repro_torch.fleet import FleetConfig, FleetMultiplexer
+
+        class TimedMultiplexer(FleetMultiplexer):
+            """Sums each job's host seconds in ``ingest``: the batch
+            sink's work on the daemon thread, with the diagnosis of the
+            steps a drain closes."""
+
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.host_s: dict = {}
+
+            def ingest(self, job_id, events):
+                t0 = time.perf_counter()
+                try:
+                    super().ingest(job_id, events)
+                finally:
+                    self.host_s[job_id] = (self.host_s.get(job_id, 0.0)
+                                           + time.perf_counter() - t0)
+
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+        FLEET_DIR.mkdir(parents=True)
+        self.history = HistoryStore()
+        self.cfg = FleetConfig(watermark_delay=1,
+                               fleet_detectors=FLEET_DETECTORS)
+        self.mux = TimedMultiplexer(self.cfg, history=self.history)
+        self.jobs: dict = {}
+        self.stream: list = []
+
+    @staticmethod
+    def spill(job: str) -> str:
+        return str(FLEET_DIR / f"{job}.fcs")
+
+    def attach(self, job: str, daemon, **config):
+        """``daemon`` streams into the fleet as ``job``, diagnosed with
+        ``EngineConfig(num_ranks=1, **config)``, as ``engine_job`` builds
+        it.  Before the daemon's first event."""
+        from repro_torch.core.engine import EngineConfig
+        cfg = EngineConfig(num_ranks=1, **config)
+        daemon.attach_fleet(self.mux, job, cfg)
+        self.jobs[job] = dict(cfg=cfg, daemon=daemon)
+
+    def done(self, job: str, batch_found: list, events: list):
+        """``job``'s run ended and its daemon detached: the job leaves the
+        fleet (its last step closed, its detectors finalized), and the
+        stream is polled.  ``batch_found``: its batch engine's result."""
+        from repro_torch.core.report import anomalies_json
+        t0 = time.perf_counter()
+        self.mux.retire_job(job)
+        self.mux.host_s[job] = (self.mux.host_s.get(job, 0.0)
+                                + time.perf_counter() - t0)
+        self.stream.extend(self.mux.poll())
+        self.jobs[job].update(batch=anomalies_json(batch_found),
+                              events=len(events))
+
+    def rows(self) -> list:
+        """The live stream in one drain's order, ``(ts, job, seq)``."""
+        fas = sorted(self.stream, key=lambda a: (a.ts, a.job_id, a.seq))
+        return fleet_replay_tool().stream_rows(fas)
+
+
+def corunner(conn, n: int):
+    """The fail-slow drill's co-runner, a process of its own on the card:
+    bf16 ``n``^3 products back to back, each waited on (so that a pause
+    takes effect within one product), between a "start" and a "pause"
+    from ``conn``.  Each command is answered with its name and the
+    products run so far; "stop" ends the process."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    c = torch.matmul(a, b)
+    torch.cuda.synchronize()
+    conn.send(("ready", 0))
+    running, products = False, 0
+    while True:
+        if running and not conn.poll():
+            torch.matmul(a, b, out=c)
+            torch.cuda.synchronize()
+            products += 1
+            continue
+        msg = conn.recv()
+        running = msg == "start"
+        conn.send((msg, products))
+        if msg == "stop":
+            return
+
+
+def handshake(conn, msg: str, timeout: float = HANDSHAKE_S) -> int:
+    """Send ``msg`` to the co-runner and wait for its answer; returns its
+    products so far."""
+    conn.send(msg)
+    if not conn.poll(timeout):
+        fail(f"fleet: the co-runner did not answer {msg!r} in {timeout} s")
+    reply, products = conn.recv()
+    if reply != msg:
+        fail(f"fleet: the co-runner answered {reply!r} to {msg!r}")
+    return products
+
+
+def failslow_drill(seed: int, fleet: FleetLive) -> dict:
+    """Two llama3.2-1b jobs at Case 3's healthy setting (B 8 x S
+    ``CASE3_S``, the O(S) mask, prefetch on), ``FAILSLOW_STEPS`` steps
+    each through ``Trainer.train``, on one rack and switch, streaming into
+    ``fleet``.  Each job's ``fault_hook`` starts a co-runner process on the
+    card before step ``FAILSLOW_ON`` and pauses it before step
+    ``FAILSLOW_OFF``.  Each job must have a fail_slow (throughput) at a
+    step in between and none before, and the fleet tier must name both
+    jobs' shared hardware."""
+    import multiprocessing as mp
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.anomaly import Team
+    from repro_torch.core.report import anomaly_report
+    from repro_torch.runtime.train import RunConfig, Trainer
+
+    arch = "llama3.2-1b"
+    kernels = train_kernels(arch)
+    ctx = mp.get_context("spawn")
+    conn, child_end = ctx.Pipe()
+    proc = ctx.Process(target=corunner, args=(child_end, CORUNNER_N),
+                       name="flare-corunner", daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    child_end.close()
+    out, products_run = {}, None
+    try:
+        if not conn.poll(CORUNNER_START_S):
+            fail(f"fleet: the co-runner was not ready in {CORUNNER_START_S}"
+                 " s")
+        try:
+            conn.recv()
+        except EOFError:
+            proc.join(HANDSHAKE_S)
+            fail(f"fleet: the co-runner exited ({proc.exitcode}) before it "
+                 "was ready")
+        log("fleet", f"co-runner (spawned, pid {proc.pid}, bf16 "
+            f"{CORUNNER_N}^3 torch.matmul) ready in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for job in FAILSLOW_JOBS:
+            fleet.mux.set_topology(job, **FAILSLOW_RACK)
+            products: dict = {}
+
+            def hook(step, products=products):
+                if step == FAILSLOW_ON:
+                    products["at start"] = handshake(conn, "start")
+                elif step == FAILSLOW_OFF:
+                    products["at pause"] = handshake(conn, "pause")
+
+            run = RunConfig(model=get_config(arch), global_batch=TRAIN_B,
+                            seq_len=CASE3_S, steps=FAILSLOW_STEPS,
+                            warmup_steps=2, seed=seed, mask_mode="fast",
+                            data_prefetch=True, flare_log=fleet.spill(job))
+            trainer = Trainer(run, fault_hook=hook)
+            events: list = []
+            trainer.daemon.add_sink(events.extend)
+            backend = trainer.daemon.cfg.backend
+            fleet.attach(job, trainer.daemon, backend=backend)
+            for k, _, _ in kernels.values():
+                k.launches = 0
+            hist = trainer.train()
+            launches = {label: k.launches
+                        for label, (k, _, _) in kernels.items()}
+            del trainer
+            torch.cuda.empty_cache()
+            res = engine_job(f"fleet {job}", events, fleet.history,
+                             backend=backend)
+            fleet.done(job, res["anomalies"], events)
+            ms = res["metrics"]
+            thr = [ms[s].throughput for s in sorted(ms)]
+            found = res["anomalies"]
+            slow = [a for a in found if a.kind == "fail_slow"]
+            hit = [a for a in slow if a.metric == "throughput"
+                   and FAILSLOW_ON <= a.step < FAILSLOW_OFF]
+            early = [a for a in slow if a.step < FAILSLOW_ON]
+            log("fleet", f"{job}: tokens/s by step "
+                f"{[round(x, 1) for x in thr]}; co-runner before steps "
+                f"{FAILSLOW_ON}-{FAILSLOW_OFF - 1} ({products}); fail_slow "
+                f"at steps {[a.step for a in slow]}")
+            for line in anomaly_report(found).splitlines():
+                log("fleet", f"  {line}")
+            if not hit:
+                fail(f"fleet: {job}: no fail_slow (throughput) at a step in "
+                     f"{FAILSLOW_ON}-{FAILSLOW_OFF - 1}: "
+                     f"{[(a.kind, a.metric, a.step) for a in found]}")
+            if early:
+                fail(f"fleet: {job}: fail_slow before step {FAILSLOW_ON}: "
+                     f"{[(a.metric, a.step) for a in early]}")
+            out[job] = dict(
+                throughput=thr, step_s=[r["step_time_s"] for r in hist],
+                loss=[r["loss"] for r in hist], launches=launches,
+                anomalies=anomaly_rows(found), engine_s=res["engine_s"],
+                fail_slow_steps=[a.step for a in slow],
+                drop=[a.evidence.get("drop_frac") for a in hit],
+                corunner_products=products)
+    finally:
+        try:
+            conn.send("stop")
+            if conn.poll(HANDSHAKE_S):
+                products_run = conn.recv()[1]
+        except (BrokenPipeError, EOFError):
+            pass                # it ended already: joined below
+        proc.join(HANDSHAKE_S)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(HANDSHAKE_S)
+        conn.close()
+    cross = [fa for fa in fleet.stream if fa.origin == "fleet"]
+    for job in FAILSLOW_JOBS:
+        hits = [fa.anomaly for fa in cross if fa.job_id == job
+                and fa.anomaly.kind == "fail_slow"
+                and fa.anomaly.metric == "cross_job_correlation"
+                and fa.anomaly.team is Team.INFRASTRUCTURE]
+        if not hits or any(a.evidence["jobs"] != sorted(FAILSLOW_JOBS)
+                           for a in hits):
+            fail(f"fleet: {job}: no cross_job_correlation naming "
+                 f"{list(FAILSLOW_JOBS)} from the fleet tier: "
+                 f"{[(fa.job_id, str(fa.anomaly)) for fa in cross]}")
+    for fa in cross:
+        log("fleet", f"fleet tier: {fa}")
+    return dict(jobs=out, cross_job=fleet_replay_tool().stream_rows(cross),
+                corunner_products=products_run)
+
+
+def check_live_jobs(fleet: FleetLive) -> dict:
+    """Each live job's stream (its own engine's anomalies, in push order)
+    against its batch ``engine_job`` result, byte for byte; no late rows
+    and no forced closes.  A [fleet] line a job."""
+    from repro_torch.core.report import anomalies_json
+    out = {}
+    for job, j in fleet.jobs.items():
+        fj = fleet.mux.job(job)
+        mine = sorted((fa for fa in fleet.stream if fa.job_id == job),
+                      key=lambda fa: fa.seq)
+        own = [fa.anomaly for fa in mine if fa.origin == "job"]
+        if anomalies_json(own) != j["batch"]:
+            fail(f"fleet: {job}: the live stream's anomalies "
+                 f"{[str(a) for a in own]} are not the batch engine's "
+                 f"{j['batch']}")
+        late = fj.late_events
+        forced = fleet.mux.telemetry.value("fleet.forced_closes", job=job)
+        if late or forced:
+            fail(f"fleet: {job}: {late} late rows, {forced} forced closes")
+        bracket = j["daemon"].telemetry.value("daemon.anchor_bracket_max_s")
+        host = fleet.mux.host_s.get(job, 0.0)
+        log("fleet", f"{job}: {fj.store.events_total} events "
+            f"({j['events']} in its sink), {len(fj.evaluated)} steps closed, "
+            f"{len(own)} anomalies ({len(mine) - len(own)} more from the "
+            f"fleet tier), late rows {late}, fleet host {host * 1e3:.1f} ms "
+            f"(ingest, diagnosis, leave), widest anchor bracket "
+            f"{bracket * 1e3:.3f} ms")
+        out[job] = dict(events=fj.store.events_total, steps=len(fj.evaluated),
+                        anomalies=len(own), fleet_anomalies=len(mine) - len(own),
+                        late_rows=late, forced_closes=forced, host_s=host,
+                        bracket_s=bracket)
+    return out
+
+
+def fleet_replays(fleet: FleetLive, live: str) -> dict:
+    """The spill directory replayed serially, on 4 threads and on 2 worker
+    processes (``tools/fleet_replay.py`` in an interpreter of its own:
+    forking this one, with its CUDA context and threads, is not safe),
+    each with the phase's profiles saved as JSON and each job added with
+    its live engine config first; each stream byte-equal to ``live``, the
+    stats alike, no late rows, no forced closes."""
+    import dataclasses
+    import shutil
+    from repro_torch.core.history import HistoryStore
+    tool = fleet_replay_tool()
+    shutil.rmtree(FLEET_HISTORY, ignore_errors=True)
+    saved = HistoryStore(str(FLEET_HISTORY))
+    for prof in fleet.history.snapshot_profiles().values():
+        saved.put(prof)
+    tool.write_spec(FLEET_SPEC, {j: v["cfg"] for j, v in fleet.jobs.items()},
+                    dataclasses.replace(fleet.cfg,
+                                        topology=dict(fleet.mux.topology)))
+    out = {}
+    for what, workers in (("serial", 1), ("threads", 4)):
+        t0 = time.perf_counter()
+        out[what] = tool.replay(FLEET_DIR, FLEET_HISTORY, FLEET_SPEC,
+                                workers, "thread")
+        out[what]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "fleet_replay.py"),
+         str(FLEET_DIR), "--history", str(FLEET_HISTORY), "--spec",
+         str(FLEET_SPEC), "--job-workers", "2", "--worker-kind", "process"],
+        capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        fail(f"fleet: the process replay exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
+    out["processes"] = json.loads(child.stdout.splitlines()[-1])
+    out["processes"]["wall_s"] = time.perf_counter() - t0
+    if out["processes"]["torch_imported"]:
+        fail("fleet: the process replay's interpreter imported torch")
+    n = len(fleet.jobs)         # a replay runs at most a worker a job
+    want = {"serial": ("serial", 1), "threads": ("thread", min(4, n)),
+            "processes": ("process", min(2, n))}
+    for what, res in out.items():
+        got = json.dumps(res["stream"])
+        if got != live:
+            fail(f"fleet: the {what} replay's stream is not the live one:\n"
+                 f"{got[:2000]}\nlive:\n{live[:2000]}")
+        if res["stats"] != out["serial"]["stats"]:
+            fail(f"fleet: the {what} replay's stats {res['stats']} are not "
+                 f"the serial one's {out['serial']['stats']}")
+        if (res["worker_kind"], res["job_workers"]) != want[what]:
+            fail(f"fleet: the {what} replay ran {res['job_workers']} "
+                 f"{res['worker_kind']} workers")
+        bad = {j: n for j, n in res["late_rows"].items() if n}
+        bad.update({j: n for j, n in res["forced_closes"].items() if n})
+        if bad:
+            fail(f"fleet: the {what} replay's late rows or forced closes "
+                 f"{bad}")
+        log("fleet", f"replay, {what} ({res['job_workers']} "
+            f"{res['worker_kind']}): {res['stats']['files']} files, "
+            f"{res['stats']['events']} events, {len(res['stream'])} "
+            f"anomalies byte-equal to the live stream, no late row; "
+            f"{res['wall_s']:.2f} s")
+    return {what: dict(stats=res["stats"], wall_s=res["wall_s"],
+                       replay_s=res["seconds"])
+            for what, res in out.items()}
+
+
+def fleet_archive(fleet: FleetLive, live_rows: list) -> dict:
+    """The trace archive over the spill directory, one archive a group of
+    jobs with one engine config (``ARCHIVE_GROUPS``): ``query_anomalies``
+    per job equal to the live stream, ``query_metrics`` throughput equal to
+    the live engines' ``StepMetrics``, rollup sidecars written, and a
+    second archive answering from them without decoding a trace; the
+    fleet weather printed."""
+    from repro_torch.archive import TraceArchive, format_fleet_weather
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.store import ROLLUP_SUFFIX
+    tool = fleet_replay_tool()
+    out = {}
+    for prefix in ARCHIVE_GROUPS:
+        jobs = sorted(j for j in fleet.jobs if j.startswith(prefix))
+        cfgs = {repr(fleet.jobs[j]["cfg"]) for j in jobs}
+        if len(cfgs) != 1:
+            fail(f"fleet: archive group {prefix}* has engine configs {cfgs}")
+        kw = dict(history=HistoryStore(str(FLEET_HISTORY)),
+                  engine_config=fleet.jobs[jobs[0]]["cfg"],
+                  fleet_config=FleetConfig(
+                      watermark_delay=1, fleet_detectors=FLEET_DETECTORS,
+                      topology=dict(fleet.mux.topology)),
+                  pattern=f"{prefix}*.fcs")
+        ar = TraceArchive(str(FLEET_DIR), **kw)
+        if ar.jobs != jobs:
+            fail(f"fleet: archive {prefix}* holds {ar.jobs}, not {jobs}")
+        series = {}
+        for job in jobs:
+            got = json.dumps(tool.stream_rows(ar.query_anomalies(job=job)))
+            want = json.dumps([r for r in live_rows if r["job"] == job])
+            if got != want:
+                fail(f"fleet: the archive's anomalies of {job} are not the "
+                     f"live stream's:\n{got[:2000]}\nlive:\n{want[:2000]}")
+            series[job] = ar.query_metrics(job, metric="throughput")
+            engine = fleet.mux.job(job).engine.metrics
+            want_series = [(s, engine[s].throughput) for s in sorted(engine)]
+            if series[job] != want_series:
+                fail(f"fleet: the archive's throughput of {job} "
+                     f"{series[job]} is not its engine's {want_series}")
+        sidecars = sorted(FLEET_DIR.glob(f"{prefix}*{ROLLUP_SUFFIX}"))
+        if len(sidecars) < len(jobs):
+            fail(f"fleet: archive {prefix}*: rollup sidecars {sidecars}")
+        again = TraceArchive(str(FLEET_DIR), **kw)
+        for job in jobs:
+            if again.query_metrics(job, metric="throughput") != series[job]:
+                fail(f"fleet: a second archive's throughput of {job} differs")
+        hits = again.telemetry.value("archive.rollup_disk_hits")
+        builds = again.telemetry.value("archive.rollup_builds")
+        if not hits or builds:
+            fail(f"fleet: the second archive {prefix}*: {hits} sidecar hits, "
+                 f"{builds} rollups built")
+        weather = ar.fleet_weather()
+        log("fleet", f"archive {prefix}*: {len(jobs)} jobs, anomalies and "
+            f"throughput equal to the live fleet's; {len(sidecars)} rollup "
+            f"sidecars, read back by a second archive ({int(hits)} hits, "
+            f"none built); its fleet weather:")
+        for line in format_fleet_weather(weather).splitlines():
+            log("fleet", f"  {line}")
+        out[prefix] = dict(jobs=jobs, sidecars=len(sidecars),
+                           disk_hits=hits, weather=weather)
+    return out
+
+
+def fleet_hang(trace_dir: Path) -> list:
+    """Each ring hang drill through the fleet: the drill's step of each
+    rank's spill as a file, replayed (``replay_file``) as one job of
+    ``RING_WORLD`` ranks; the multiplexer declares the hang once a
+    majority of ranks reported, one hang anomaly routed to operations,
+    equal to a batch engine's ``on_hang`` on the same stacks (no ring
+    progress: the fleet sees the spills only)."""
+    import shutil
+    import numpy as np
+    from repro_torch import store
+    from repro_torch.core.anomaly import Team
+    from repro_torch.core.engine import DiagnosticEngine, EngineConfig
+    from repro_torch.core.report import anomalies_json
+    from repro_torch.fleet import (DEFAULT_ROUTES, FleetConfig,
+                                   FleetMultiplexer, FleetReplayer)
+    from repro_torch.launch.mesh import HANG_FAULTS
+
+    n = RING_WORLD
+    spills = [store.read_trace(str(trace_dir / f"rank{r}.jsonl"))
+              for r in range(n)]
+    shutil.rmtree(FLEET_HANG_DIR, ignore_errors=True)
+    out = []
+    for i, fault in enumerate(HANG_FAULTS):
+        job = f"ring-hang-{fault}"
+        paths = []
+        for r, batch in enumerate(spills):
+            path = FLEET_HANG_DIR / job / f"rank{r}.fcs"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            store.write_trace(batch.take(np.flatnonzero(batch.step == 1 + i)),
+                              str(path))
+            paths.append(path)
+        cfg = EngineConfig(backend="ring", num_ranks=n)
+        t0 = time.perf_counter()
+        mux = FleetMultiplexer(FleetConfig(watermark_delay=1))
+        mux.add_job(job, cfg)
+        replayer = FleetReplayer(mux)
+        stacks, after = None, None
+        for r, path in enumerate(paths):
+            replayer.replay_file(job, str(path))
+            if stacks is None and mux.job(job).hang_reported:
+                stacks, after = dict(mux.job(job).store.hang_stacks), r
+        found = mux.finalize()
+        secs = time.perf_counter() - t0
+        if stacks is None:
+            fail(f"fleet: {job}: no hang declared from {n} ranks' spills")
+        hangs = [fa for fa in found if fa.anomaly.kind == "hang"]
+        want = anomalies_json(DiagnosticEngine(cfg).on_hang(stacks, None))
+        if (len(hangs) != 1
+                or hangs[0].route != DEFAULT_ROUTES[Team.OPERATIONS]
+                or anomalies_json([hangs[0].anomaly]) != want):
+            fail(f"fleet: {job}: {[str(fa) for fa in found]}, not one hang "
+                 f"to operations equal to on_hang's {want}")
+        log("fleet", f"{job}: hang declared after rank {after}'s spill "
+            f"({len(stacks)} of {n} ranks reported), one anomaly: "
+            f"{hangs[0]}; equal to on_hang on the same stacks; "
+            f"{secs * 1e3:.1f} ms")
+        out.append(dict(job=job, after_rank=after, ranks=sorted(stacks),
+                        anomaly=json.loads(want), host_s=secs,
+                        anomalies=len(found)))
+    return out
+
+
+def fleet_phase(seed: int, fleet: FleetLive, trace_dir: Path,
+                diagnosis: dict) -> dict:
+    """The fail-slow drill into the live fleet, then the fleet closed and
+    its stream held to each job's batch result, to three replays, to the
+    trace archive; the ring's hangs through the fleet; the phase's wall."""
+    t0 = time.perf_counter()
+    failslow = failslow_drill(seed, fleet)
+    fleet.stream.extend(fleet.mux.close())   # stops each daemon again
+    jobs = check_live_jobs(fleet)
+    for what, key in (("case2-drilled", ("regression", "flops",
+                                         "infrastructure")),
+                      ("case3-drilled", ("regression", "v_inter",
+                                         "algorithm"))):
+        expect(f"fleet {what}", [fa.anomaly for fa in fleet.stream
+                                 if fa.job_id == what], *key)
+    rows = fleet.rows()
+    replays = fleet_replays(fleet, json.dumps(rows))
+    archive = fleet_archive(fleet, rows)
+    hang = fleet_hang(trace_dir)
+    healthy = {f"{case} {job}": run["bracket_s"]
+               for case in ("case2", "case3")
+               for job, run in diagnosis[case]["jobs"].items()
+               if not run["fleet_job"]}
+    log("fleet", "widest anchor bracket, ms: fleet jobs "
+        f"{ {j: round(v['bracket_s'] * 1e3, 3) for j, v in jobs.items()} }, "
+        "the diagnose phase's jobs outside the fleet "
+        f"{ {j: round(v * 1e3, 3) for j, v in healthy.items()} }")
+    wall = time.perf_counter() - t0
+    log("fleet", f"phase wall {wall:.1f} s")
+    return dict(failslow=failslow, jobs=jobs, stream=rows, replays=replays,
+                archive=archive, hang=hang, brackets_outside_s=healthy,
+                wall_s=wall)
 
 
 # --------------------------------------------------------------------------- #
@@ -3689,11 +4261,22 @@ def main():
     ring_run = ring_path(args.seed, OUT_DIR / "ring_traces")
     walls["case2 and ring"] = time.perf_counter() - t0
 
-    # 4b. the port's diagnostic engine on the drills' traces
+    # 4b. the port's diagnostic engine on the drills' traces, the drilled
+    # jobs streaming live into the fleet
     t0 = time.perf_counter()
-    diagnosis = diagnose_phase(args.seed, ring_run, OUT_DIR / "ring_traces")
+    fleet = FleetLive()
+    diagnosis = diagnose_phase(args.seed, ring_run, OUT_DIR / "ring_traces",
+                               fleet)
     walls["diagnose"] = time.perf_counter() - t0
     log("wall", f"diagnose {walls['diagnose']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
+    # 4c. the fleet: the fail-slow drill, replays, the archive, the hangs
+    t0 = time.perf_counter()
+    fleet_run = fleet_phase(args.seed, fleet, OUT_DIR / "ring_traces",
+                            diagnosis)
+    walls["fleet"] = time.perf_counter() - t0
+    log("wall", f"fleet {walls['fleet']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
     # 5. serve, and 6. trace, for each serving path
@@ -3777,6 +4360,8 @@ def main():
     case3 = diagnosis["case3"]
     case3_jobs = {f"{case3['arch']} case3 {job} train": run["launches"]
                   for job, run in case3["jobs"].items()}
+    case3_jobs.update({f"{case3['arch']} fleet {job} train": run["launches"]
+                       for job, run in fleet_run["failslow"]["jobs"].items()})
     by_path.update(case3_jobs)
 
     def count(summary, label, paths, key=None, keys=()):
@@ -3841,7 +4426,8 @@ def main():
                    ssd_bwd_cases=ssd_bwd_cases, train=train_runs,
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
-                   have_zstd=have_zstd(), diagnose=diagnosis)
+                   have_zstd=have_zstd(), diagnose=diagnosis,
+                   fleet=fleet_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

@@ -1,11 +1,13 @@
 """Per-process tracing daemon (paper §4) for PyTorch on a CUDA card.
 
-The same entry points and spill plane as the JAX package's daemon
-(``step_begin``, ``step_end``, ``record_span``, ``register_kernel``, the
-hang heartbeat, ``add_sink``, the columnar ``add_batch_sink`` and the spill
-through ``store.SegmentedTraceWriter``: JSONL, FCS v1 or FCS v2 by the
-path's extension or ``log_codec``, compressed and rotated as configured),
-with device timing from CUDA events, as the paper's daemon did:
+The same entry points, spill plane and fleet seam as the JAX package's
+daemon (``step_begin``, ``step_end``, ``record_span``, ``register_kernel``,
+the hang heartbeat, ``add_sink``, the columnar ``add_batch_sink``, the
+spill through ``store.SegmentedTraceWriter``: JSONL, FCS v1 or FCS v2 by
+the path's extension or ``log_codec``, compressed and rotated as
+configured, and ``attach_fleet``, which streams the drains into a
+``fleet.FleetMultiplexer``), with device timing from CUDA events, as the
+paper's daemon did:
 
   * a traced op records a pair of ``torch.cuda.Event(enable_timing=True)``
     on the current stream around its launch and queues them on
@@ -85,7 +87,13 @@ class DaemonConfig:
     buffer_capacity: int = 200_000
     reconstruct: bool = True
     enabled: bool = True
-    # self-telemetry registry; None = a private one per daemon
+    # detector set for the engine diagnosing this daemon's job when it is
+    # attached to a fleet without an explicit EngineConfig (registry names
+    # / DetectorSpecs, see repro_torch.core.detectors); None = default set
+    detectors: Optional[list] = None
+    num_ranks: int = 1             # job-wide rank count for that engine
+    # self-telemetry registry; None = a private one per daemon.  A fleet's
+    # ``telemetry_snapshot`` merges its attached daemons' registries in
     telemetry: Optional[TelemetryRegistry] = None
 
 
@@ -218,8 +226,35 @@ class TracingDaemon:
 
     def stop(self):
         """Idempotent shutdown: safe on a never-attached or already-stopped
-        daemon and safe to call repeatedly."""
+        daemon and safe to call repeatedly: the fleet's ``close`` stops
+        every job's daemons without tracking which already exited."""
         self.detach()
+
+    def attach_fleet(self, mux, job_id: Optional[str] = None,
+                     engine_cfg=None):
+        """Fleet seam: stream this daemon's drains into a
+        ``repro_torch.fleet.FleetMultiplexer`` as job ``job_id`` (a batch
+        sink, one ``EventBatch`` a drain) and hand the daemon to the
+        multiplexer, so that ``mux.close()`` can ``stop()`` it.
+
+        ``engine_cfg`` configures the job's diagnostic engine.  Without
+        one, a daemon whose ``detectors``, ``num_ranks`` or ``backend`` is
+        not the default builds it from those; an all-default daemon leaves
+        it to the multiplexer's ``FleetConfig.backend``.  The sink runs on
+        the daemon thread, with diagnosis of the steps its drain closes;
+        a drain holds whole steps only (``_flush``), so a live job has no
+        late rows."""
+        jid = job_id if job_id is not None else f"job-rank{self.cfg.rank}"
+        if engine_cfg is None and (self.cfg.detectors is not None
+                                   or self.cfg.num_ranks > 1
+                                   or self.cfg.backend != DaemonConfig.backend):
+            from repro_torch.core.engine import EngineConfig
+            engine_cfg = EngineConfig(
+                backend=self.cfg.backend, num_ranks=self.cfg.num_ranks,
+                detectors=self.cfg.detectors)
+        mux.register_daemon(jid, self, engine_cfg)
+        self.add_batch_sink(lambda batch, _jid=jid: mux.ingest(_jid, batch))
+        return self
 
     def add_sink(self, sink: Callable[[list[TraceEvent]], None]):
         self._sinks.append(sink)

@@ -2,13 +2,15 @@
 
 Usage::
 
-    from repro import store
+    from repro_torch import store
 
     store.get_codec("fcs").write(batch, "job-a.fcs")     # append a segment
     batch = store.read_trace("logs/job-a.fcs")           # format-detected
     for chunk, skipped in store.iter_trace_chunks(path): ...
 
-See ``src/repro/store/README.md`` for the FCS on-disk layout.
+The port's copy of the JAX package's ``store`` package: the same codecs
+and on-disk bytes (the reference's ``store/README.md`` sets out the FCS
+layout).
 """
 from repro_torch.store.base import (CodecError, TraceCodec, codec_for_path,
                                     codecs, get_codec, register_codec,

@@ -39,10 +39,9 @@ from repro_torch.core.events import EventKind
 from repro_torch.store.fcs import _HEADER
 from test_torch_store import as_tuples, jsonl_rounded
 
-# the reference's fields that belong to the fleet and live planes, which
-# the port does not have yet
-NOT_PORTED = {"detectors", "num_ranks", "live_endpoint", "live_job_id",
-              "live_topology"}
+# the reference's fields that belong to the live plane (the socket sink
+# into a resident fleet service), which the port does not have yet
+NOT_PORTED = {"live_endpoint", "live_job_id", "live_topology"}
 
 
 def test_config_fields_and_defaults_are_the_references():

@@ -28,9 +28,7 @@ comparison is exact:
 The ring drills' hangs are diagnosed by the port's engine in
 ``tests/test_torch_ring.py``, beside its spawn of the ranks.
 """
-import ast
 import json
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -65,6 +63,7 @@ from repro_torch.core.anomaly import Anomaly as PortAnomaly
 from repro_torch.core.engine import Anomaly, DiagnosticEngine, EngineConfig
 from repro_torch.core.history import HistoryStore
 from repro_torch.runtime.train import RunConfig, Trainer
+from torch_ast import tree
 
 N = 32
 REF_SUGGESTION = "repro.kernels.padded_matmul"
@@ -523,7 +522,6 @@ def test_engine_reexports_the_anomaly_record():
     assert EngineTeam is Team
 
 
-SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["core/wasserstein.py", "core/metrics.py", "core/history.py",
           "core/regression.py", "core/failslow.py", "core/inspecting.py",
           "core/hang.py", "core/engine.py", "core/report.py",
@@ -532,46 +530,8 @@ COPIED = ["core/wasserstein.py", "core/metrics.py", "core/history.py",
           "core/detectors/fleet.py"]
 
 
-class _Normalised(ast.NodeTransformer):
-    """Drops module, class and function docstrings and writes ``pkg`` as
-    ``PKG`` in ``from`` imports and in the layout advice's module name."""
-
-    def __init__(self, pkg: str):
-        self.pkg = pkg
-
-    def _drop_docstring(self, node):
-        self.generic_visit(node)
-        body = node.body
-        if (body and isinstance(body[0], ast.Expr)
-                and isinstance(body[0].value, ast.Constant)
-                and isinstance(body[0].value.value, str)):
-            node.body = body[1:] or [ast.Pass()]
-        return node
-
-    visit_Module = visit_ClassDef = _drop_docstring
-    visit_FunctionDef = visit_AsyncFunctionDef = _drop_docstring
-
-    def visit_ImportFrom(self, node):
-        m = node.module or ""
-        if m == self.pkg or m.startswith(self.pkg + "."):
-            node.module = "PKG" + m[len(self.pkg):]
-        return node
-
-    def visit_Constant(self, node):
-        advice = f"{self.pkg}.kernels.padded_matmul"
-        if isinstance(node.value, str) and advice in node.value:
-            node.value = node.value.replace(advice,
-                                            "PKG.kernels.padded_matmul")
-        return node
-
-
-def _tree(pkg: str, rel: str) -> str:
-    text = (SRC / pkg / rel).read_text()
-    return ast.dump(_Normalised(pkg).visit(ast.parse(text)))
-
-
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_is_the_reference_but_for_names_and_docstrings(rel):
     """The same code: only docstrings, the package's name and the layout
     advice's module name (the one intended difference) may differ."""
-    assert _tree("repro_torch", rel) == _tree("repro", rel)
+    assert tree("repro_torch", rel) == tree("repro", rel)

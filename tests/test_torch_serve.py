@@ -175,25 +175,29 @@ print(" ".join(mods))
 print(len(mods))
 """
 
-# the diagnosis plane, the JAX package's numpy modules copied into the port
+# the diagnosis plane, the JAX package's numpy modules copied into the port:
+# the engine and its detectors, the fleet and the trace archive
 ENGINE_MODULES = tuple(f"repro_torch.core.{m}" for m in (
     "wasserstein", "metrics", "history", "regression", "failslow",
     "inspecting", "hang", "engine", "report", "detectors",
     "detectors.base", "detectors.registry", "detectors.builtins",
-    "detectors.fleet"))
+    "detectors.fleet")) + tuple(f"repro_torch.{m}" for m in (
+        "fleet", "fleet.stream", "fleet.store", "fleet.multiplexer",
+        "fleet.replay", "fleet.ipc", "archive", "archive.archive"))
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module imports with jax and repro blocked, the diagnosis
-    plane's 14 among them, and no source of the port or of chip_smoke.py
-    names them in an import, even in a function; nor does the diagnosis
-    plane name torch: it is numpy, as the reference's."""
+    plane's 22 among them (the engine's 14, the fleet's 6, the archive's
+    2), and no source of the port or of chip_smoke.py names them in an
+    import, even in a function; nor does the diagnosis plane name torch:
+    it is numpy, as the reference's."""
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 44
+    assert int(out.stdout.split()[-1]) >= 52
     assert set(ENGINE_MODULES) <= set(out.stdout.split())
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]

@@ -130,6 +130,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 to ``on_hang`` on the same stacks; a [fleet] line per job
                 (events, steps closed, anomalies, late rows, the fleet's
                 host ms) and the daemons' widest anchor brackets;
+     service  — the port's resident fleet service (``serve/``: FLW1
+                socket plane, file tail, checkpoints, query plane), each
+                service a spawned process that imports no torch, fed by two
+                llama3.2-1b jobs (B 8 x S 1024) whose daemons' live sinks
+                (``DaemonConfig.live_endpoint``) stream their drains:
+                svc-a (Case 3 drilled, 6 steps) into L (2 process
+                workers): L's stream equal to the replay of its spill,
+                with the v_inter finding, one frame a spill segment, no
+                drop, /jobs and /anomalies agreeing; svc-b (Case 3
+                healthy, 16 steps) into R, SIGKILLed before step 3, and R'
+                on R's port before step 5: drops and a reconnect counted,
+                frames + drops = the spill's segments, R' re-HELLO'd and
+                holding exactly the events sent after the reconnect; svc-b's
+                spill tailed by T, checkpointed and SIGKILLed before step
+                8, and T' restored past a garbage and a torn generation:
+                every spill byte decoded once, the stitched stream equal to
+                the replay; a [service] line a service and the phase's
+                wall (details.json ``service``);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -2789,6 +2807,567 @@ def fleet_phase(seed: int, fleet: FleetLive, trace_dir: Path,
 
 
 # --------------------------------------------------------------------------- #
+# phase 4d: service — the port's resident fleet service, fed by live daemons
+# --------------------------------------------------------------------------- #
+SERVICE_DIR = OUT_DIR / "service"
+SERVICE_HISTORY = SERVICE_DIR / "history"  # the diagnose phase's profiles
+SERVICE_TOPOLOGY = {"rack": "r-svc", "switch": "s-svc"}
+SERVICE_ENGINE = dict(backend="dense-train", num_ranks=1)  # Case 3's daemons'
+SVC_B_STEPS = 16
+SVC_KILL_R, SVC_START_R2, SVC_KILL_T = 3, 5, 8   # svc-b's hook, before steps
+SERVICE_START_S = 120.0   # a service process's start: interpreter, numpy
+SERVICE_WAIT_S = 60.0     # the longest wait for a reply or a condition
+SERVICE_POLL_S = 0.02
+
+
+def service_proc(commands, events, spec: dict):
+    """A ``FleetService`` in a process of its own, spawned from
+    ``chip_smoke.py``: a fresh interpreter that imports the port's service
+    plane and never torch, so that its process workers fork from a process
+    with no CUDA context.  ``spec``: the ``ServiceConfig`` fields
+    (``config``), the profiles' directory (``history``), whether to wait for
+    a "start" (with more fields) before building the service (``wait``), and
+    whether to ``restore()`` before ``start()`` (``restore``).
+
+    Sends on ``events``: ("spawned", info); ("ready", info) once started
+    (its ports, the restore's result and seconds); ("anomaly", fa) for each
+    anomaly as it is delivered; and an answer to each command from
+    ``commands``: "state" (tail stats, jobs, topology, counters), "settle"
+    (a ``collect()``, then the count delivered), "checkpoint" (its meta),
+    "finalize" (the final stats and counters, and the host CPU seconds
+    of the service from its construction on, its reaped workers'
+    included), after which it exits."""
+    import os
+    import signal
+    import threading
+
+    sys.path.insert(0, spec["src"])
+    # SIGTERM (the phase's cleanup) exits through the interpreter, which
+    # terminates the daemonic fleet workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.fleet import FleetConfig, FleetMultiplexer
+    from repro_torch.serve import FleetService, ServiceConfig
+
+    lock = threading.Lock()
+
+    def send(kind, body):
+        with lock:
+            events.send((kind, body))
+
+    def tail_stats(svc):
+        t = svc.tailer
+        return None if t is None else dict(
+            events=t.stats.events, bytes_decoded=t.stats.bytes_decoded,
+            files=t.stats.files, corrupt_files=t.stats.corrupt_files,
+            per_job=dict(t.stats.per_job))
+
+    def counters(svc):
+        return dict(svc.telemetry.snapshot().get("counters", {}))
+
+    send("spawned", dict(pid=os.getpid(), torch="torch" in sys.modules))
+    config = dict(spec["config"])
+    if spec.get("wait"):
+        cmd, more = commands.recv()
+        assert cmd == "start", cmd
+        config.update(more)
+    t0, cpu0 = time.perf_counter(), os.times()
+    svc = FleetService(
+        FleetMultiplexer(FleetConfig(watermark_delay=1,
+                                     fleet_detectors=FLEET_DETECTORS),
+                         history=HistoryStore(spec["history"])),
+        ServiceConfig(default_engine=EngineConfig(**SERVICE_ENGINE),
+                      **config),
+        on_anomaly=lambda fa, t: send("anomaly", fa))
+    restored = svc.restore() if spec.get("restore") else None
+    load_s = time.perf_counter() - t0
+    svc.start()
+    send("ready", dict(port=svc.port, query_port=svc.query_port,
+                       restored=restored, load_s=load_s,
+                       torch="torch" in sys.modules))
+    while True:
+        cmd, *_ = commands.recv()
+        if cmd == "state":
+            send("state", dict(tail=tail_stats(svc), jobs=svc.job_stats(),
+                               topology=dict(svc.mux.topology),
+                               per_job=dict(svc.stats.per_job),
+                               counters=counters(svc)))
+        elif cmd == "settle":
+            svc.collect()
+            send("settle", len(svc.snapshot_recent()))
+        elif cmd == "checkpoint":
+            send("checkpoint", svc.checkpoint())
+        elif cmd == "finalize":
+            svc.finalize()
+            cpu = os.times()
+            send("finalize", dict(
+                tail=tail_stats(svc), per_job=dict(svc.stats.per_job),
+                counters=counters(svc), errors=svc.errors,
+                cpu_s=cpu.user + cpu.system - cpu0.user - cpu0.system
+                + cpu.children_user + cpu.children_system,
+                torch="torch" in sys.modules))
+            return
+
+
+class ServiceProc:
+    """The chip_smoke side of a ``service_proc``: the spawned process, a
+    command pipe, and a reader thread that keeps every anomaly as it is
+    delivered and queues the replies."""
+
+    def __init__(self, ctx, name: str, spec: dict):
+        import queue
+        import threading
+        self.name, self.anomalies = name, []
+        self.replies: queue.Queue = queue.Queue()
+        cmd_r, self.commands = ctx.Pipe(duplex=False)
+        self.events, ev_w = ctx.Pipe(duplex=False)
+        self.t0, self.waiting = time.perf_counter(), spec.get("wait", False)
+        self.proc = ctx.Process(
+            target=service_proc, args=(cmd_r, ev_w, dict(
+                spec, src=str(ROOT / "src"), history=str(SERVICE_HISTORY))),
+            # not daemonic: a process-mode service has worker children;
+            # ``close`` ends it
+            name=f"flare-service-{name}", daemon=False)
+        self.proc.start()
+        cmd_r.close()
+        ev_w.close()
+        self.reader = threading.Thread(target=self._read, daemon=True,
+                                       name=f"flare-service-{name}-reader")
+        self.reader.start()
+        self.info: dict = {}
+
+    def _read(self):
+        while True:
+            try:
+                kind, body = self.events.recv()
+            except (EOFError, OSError):
+                self.replies.put(("exited", None))
+                return
+            if kind == "anomaly":
+                self.anomalies.append(body)
+            else:
+                self.replies.put((kind, body))
+
+    def reply(self, want: str, timeout: float = SERVICE_WAIT_S):
+        import queue
+        try:
+            kind, body = self.replies.get(timeout=timeout)
+        except queue.Empty:
+            fail(f"service: {self.name} sent no {want!r} in {timeout} s")
+        if kind != want:
+            fail(f"service: {self.name} sent {kind!r} ({body}), not {want!r}"
+                 f" (exit code {self.proc.exitcode})")
+        if isinstance(body, dict) and body.get("torch"):
+            fail(f"service: {self.name}'s process imported torch")
+        return body
+
+    def call(self, cmd: str, *args):
+        self.commands.send((cmd, *args))
+        return self.reply(cmd)
+
+    def ready(self, **more) -> dict:
+        """Waits for the process to start its service ("start" with
+        ``more`` first where it waits for one); returns its ready info."""
+        if self.waiting:
+            self.commands.send(("start", more))
+        self.info.update(self.reply("ready", SERVICE_START_S))
+        return self.info
+
+    def spawned(self) -> dict:
+        self.info.update(self.reply("spawned", SERVICE_START_S),
+                         spawned_s=time.perf_counter() - self.t0)
+        return self.info
+
+    def until(self, what: str, pred) -> dict:
+        """Polls "state" until ``pred(state)`` holds, under a deadline."""
+        deadline = time.perf_counter() + SERVICE_WAIT_S
+        while True:
+            state = self.call("state")
+            if pred(state):
+                return state
+            if time.perf_counter() > deadline:
+                fail(f"service: {self.name}: {what} not reached in "
+                     f"{SERVICE_WAIT_S} s: {state}")
+            time.sleep(SERVICE_POLL_S)
+
+    def kill(self):
+        self.proc.kill()
+        self.proc.join(SERVICE_WAIT_S)
+        self.reader.join(SERVICE_WAIT_S)
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(SERVICE_WAIT_S)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(SERVICE_WAIT_S)
+        self.commands.close()
+
+
+class LiveSinkTap:
+    """Wraps a daemon's live sink (test code: the package is unchanged):
+    for each call the daemon's step, the batch's events, whether it went
+    out, and the sink's reconnects after the call."""
+
+    def __init__(self, daemon):
+        self.daemon, self.sink, self.calls = daemon, daemon._live, []
+        i = daemon._batch_sinks.index(self.sink)
+        daemon._batch_sinks[i] = self
+
+    def __call__(self, batch):
+        ok = self.sink(batch)
+        self.calls.append((self.daemon._step, len(batch), ok,
+                           self.sink._reconnects.value))
+        return ok
+
+    def sent_after_reconnect(self) -> list:
+        return [c for c in self.calls if c[2] and c[3] >= 1]
+
+
+def service_trainer(seed: int, job: str, endpoint: str, steps: int,
+                    mask: str, prefetch: bool, hook=None):
+    """llama3.2-1b at full width through ``Trainer``, B 8 x S ``CASE3_S``,
+    spilling FCS into a directory of its own, its daemon replaced before
+    ``train()`` by one with the same config and a live endpoint."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.daemon import TracingDaemon
+    from repro_torch.runtime.train import RunConfig, Trainer
+    spill = SERVICE_DIR / job / f"{job}.fcs"
+    spill.parent.mkdir(parents=True, exist_ok=True)
+    run = RunConfig(model=get_config("llama3.2-1b"), global_batch=TRAIN_B,
+                    seq_len=CASE3_S, steps=steps, warmup_steps=2, seed=seed,
+                    mask_mode=mask, data_prefetch=prefetch,
+                    flare_log=str(spill))
+    trainer = Trainer(run, fault_hook=hook)
+    trainer.daemon = TracingDaemon(dataclasses.replace(
+        trainer.daemon.cfg, live_endpoint=endpoint, live_job_id=job,
+        live_topology=SERVICE_TOPOLOGY))
+    return trainer, spill
+
+
+def service_oracle(spill_dir: Path, job: str, topology: dict) -> list:
+    """The job's spill replayed serially into a fresh multiplexer with the
+    service's configuration and profiles, finalized: its stream rows."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.fleet import FleetConfig, FleetMultiplexer, FleetReplayer
+    mux = FleetMultiplexer(FleetConfig(watermark_delay=1,
+                                       fleet_detectors=FLEET_DETECTORS,
+                                       topology=topology),
+                           history=HistoryStore(str(SERVICE_HISTORY)))
+    mux.add_job(job, EngineConfig(**SERVICE_ENGINE))
+    FleetReplayer(mux).replay_dir(str(spill_dir), job_workers=1)
+    return service_rows(mux.finalize())
+
+
+def service_rows(fas) -> list:
+    return fleet_replay_tool().stream_rows(
+        sorted(fas, key=lambda a: (a.ts, a.job_id, a.seq)))
+
+
+def spill_facts(spill: Path) -> dict:
+    """Segments, events, bytes, step spans and hang_suspects of a spill."""
+    from repro_torch import store
+    from repro_torch.core.events import EventKind
+    from repro_torch.store.fcs import segment_stats
+    events = store.read_trace(str(spill)).to_events()
+    return dict(segments=len(list(segment_stats(str(spill)))),
+                events=len(events), bytes=spill.stat().st_size,
+                steps=sorted(e.step for e in events
+                             if e.kind == EventKind.STEP),
+                hang_suspects=sum(e.kind == EventKind.HANG_SUSPECT
+                                  for e in events))
+
+
+def same_rows(what: str, got: list, want: list):
+    if json.dumps(got) != json.dumps(want):
+        fail(f"service: {what}:\n{json.dumps(got)[:2000]}\nthe replay:\n"
+             f"{json.dumps(want)[:2000]}")
+
+
+def query(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=SERVICE_WAIT_S) as r:
+        return json.load(r)
+
+
+def service_phase(seed: int, fleet: FleetLive) -> dict:
+    """The port's resident fleet service (``repro_torch.serve``), each
+    service in a spawned process of its own, fed by the daemons of two
+    traced llama3.2-1b jobs (B 8 x S ``CASE3_S``) through their live socket
+    sinks, with the profiles the ``diagnose`` phase's healthy jobs learned:
+
+    * svc-a, Case 3's drilled setting, ``DRILL_STEPS`` steps, into service
+      L (socket plane, 2 process workers, the query plane): L's stream
+      equal to the replay of the job's spill, row for row, with the
+      drill's (regression, v_inter, algorithm); one frame a spill segment,
+      no drop; ``/jobs`` and ``/anomalies`` agreeing;
+    * svc-b, Case 3's healthy setting, ``SVC_B_STEPS`` steps, into service
+      R (socket plane, inline), SIGKILLed before step ``SVC_KILL_R``;
+      service R', spawned ahead and waiting, binds R's port before step
+      ``SVC_START_R2``: drops and a reconnect counted, frames + drops =
+      the spill's segments, R' re-HELLO'd and holding exactly the events
+      sent after the reconnect, the spill whole and free of hang_suspects;
+    * svc-b's spill tailed by service T (inline, checkpoints), which
+      before step ``SVC_KILL_T`` checkpoints and is SIGKILLed; after the
+      job, a garbage and a torn generation planted above the good one, and
+      T', spawned ahead, restores past them and finishes the tail: every
+      spill byte decoded once, the restored suffix strictly partial, and
+      T's rows up to the checkpoint with T''s equal to the replay."""
+    import multiprocessing as mp
+    import shutil
+    import torch
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.core.report import _json_coerce
+    from repro_torch.serve import fleet_anomaly_dict
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    SERVICE_DIR.mkdir(parents=True)
+    saved = HistoryStore(str(SERVICE_HISTORY))
+    for prof in fleet.history.snapshot_profiles().values():
+        saved.put(prof)
+    tail_dir, ckpt_dir = SERVICE_DIR / "svc-b", SERVICE_DIR / "ckpt-t"
+    tail_dir.mkdir()
+    kernels = train_kernels("llama3.2-1b")
+    ctx = mp.get_context("spawn")
+    t_cfg = dict(port=None, tail_dir=str(tail_dir), checkpoint_dir=str(
+        ckpt_dir), checkpoint_on_finalize=False)
+    procs = {
+        "L": ServiceProc(ctx, "L", dict(config=dict(
+            port=0, query_port=0, worker_kind="process", workers=2))),
+        "R": ServiceProc(ctx, "R", dict(config=dict(port=0))),
+        "R'": ServiceProc(ctx, "R'", dict(config={}, wait=True)),
+        "T": ServiceProc(ctx, "T", dict(config=t_cfg)),
+        "T'": ServiceProc(ctx, "T'", dict(config=t_cfg, wait=True,
+                                          restore=True)),
+    }
+    out: dict = {}
+    try:
+        for p in procs.values():
+            p.spawned()
+        for name in ("L", "R", "T"):
+            procs[name].ready()
+        L, R, R2, T, T2 = (procs[k] for k in ("L", "R", "R'", "T", "T'"))
+        log("service", "spawned L, R, R', T, T' (ready in "
+            + ", ".join(f"{n} {p.info['spawned_s']:.1f} s"
+                        for n, p in procs.items())
+            + "); no service process imported torch")
+
+        # svc-a into L
+        t0 = time.perf_counter()
+        trainer, spill_a = service_trainer(
+            seed, "svc-a", f"127.0.0.1:{L.info['port']}", DRILL_STEPS,
+            "naive", False)
+        for k, _, _ in kernels.values():
+            k.launches = 0
+        trainer.train()
+        launches_a = {lb: k.launches for lb, (k, _, _) in kernels.items()}
+        da = trainer.daemon
+        del trainer
+        torch.cuda.empty_cache()
+        job_s_a = time.perf_counter() - t0
+        qport = L.info["query_port"]
+        deadline = time.perf_counter() + SERVICE_WAIT_S
+        while not query(qport, "/jobs")["jobs"].get("svc-a", {}).get(
+                "departed"):
+            if time.perf_counter() > deadline:
+                fail("service: L: svc-a did not depart (BYE) in "
+                     f"{SERVICE_WAIT_S} s")
+            time.sleep(SERVICE_POLL_S)
+        L.call("settle")
+        jobs = query(qport, "/jobs")["jobs"]
+        recent = query(qport, "/anomalies")["anomalies"]
+        delivered = json.loads(json.dumps(
+            [fleet_anomaly_dict(fa) for fa in L.anomalies],
+            default=_json_coerce))
+        fin_l = L.call("finalize")
+        facts_a = spill_facts(spill_a)
+        rows_l = service_rows(L.anomalies)
+        same_rows("L's stream of svc-a", rows_l, service_oracle(
+            spill_a.parent, "svc-a", {"svc-a": SERVICE_TOPOLOGY}))
+        hit = expect("service L svc-a", [fa.anomaly for fa in L.anomalies],
+                     "regression", "v_inter", "algorithm")
+        live_a = {k: int(da.telemetry.value(f"daemon.live_{k}"))
+                  for k in ("frames", "dropped", "reconnects", "bytes")}
+        if (live_a["frames"] != facts_a["segments"] or live_a["dropped"]
+                or live_a["reconnects"]):
+            fail(f"service: svc-a's live sink {live_a}, its spill "
+                 f"{facts_a['segments']} segments")
+        if fin_l["counters"].get("serve.dropped_frames", 0):
+            fail(f"service: L dropped frames: {fin_l['counters']}")
+        if jobs["svc-a"]["events"] != facts_a["events"]:
+            fail(f"service: L's /jobs gives svc-a {jobs['svc-a']['events']} "
+                 f"events, its spill {facts_a['events']}")
+        if sorted(recent, key=json.dumps) != sorted(delivered,
+                                                    key=json.dumps):
+            fail(f"service: L's /anomalies {recent[:3]} is not its stream "
+                 f"{delivered[:3]}")
+        if fin_l["errors"]:
+            fail(f"service: L's workers failed: {fin_l['errors']}")
+        bracket_a = da.telemetry.value("daemon.anchor_bracket_max_s")
+        log("service", f"svc-a (Case 3 drilled, {DRILL_STEPS} steps, "
+            f"{job_s_a:.1f} s) into L (2 process workers): "
+            f"{len(rows_l)} anomalies equal to the replay of its spill, "
+            f"({hit.kind}, {hit.metric}, {hit.team.value}) from step "
+            f"{hit.step}; {live_a['frames']} frames = {facts_a['segments']} "
+            f"spill segments, 0 dropped, 0 reconnects; /jobs "
+            f"{jobs['svc-a']['events']} events = the spill's; /anomalies "
+            f"{len(recent)} rows = the stream's; L's host CPU "
+            f"{fin_l['cpu_s']:.2f} s (with its workers)")
+
+        # svc-b into R, then R'; its spill tailed by T
+        kill_at: dict = {}
+
+        def hook(step):
+            if step == SVC_KILL_R:
+                R.kill()
+                kill_at["R"], kill_at["calls"] = step, len(tap.calls)
+            elif step == SVC_START_R2:
+                R2.ready(port=R.info["port"])
+                kill_at["R2"] = step
+            elif step == SVC_KILL_T:
+                T.until("a decoded segment",
+                        lambda s: s["tail"]["bytes_decoded"] > 0)
+                kill_at["checkpoint"] = T.call("checkpoint")
+                T.kill()
+                kill_at["T"] = step
+
+        t0 = time.perf_counter()
+        trainer, spill_b = service_trainer(
+            seed, "svc-b", f"127.0.0.1:{R.info['port']}", SVC_B_STEPS, "fast",
+            True, hook)
+        tap = LiveSinkTap(trainer.daemon)
+        for k, _, _ in kernels.values():
+            k.launches = 0
+        trainer.train()
+        launches_b = {lb: k.launches for lb, (k, _, _) in kernels.items()}
+        db = trainer.daemon
+        del trainer
+        torch.cuda.empty_cache()
+        job_s_b = time.perf_counter() - t0
+        facts_b = spill_facts(spill_b)
+        if (facts_b["steps"] != list(range(SVC_B_STEPS))
+                or facts_b["hang_suspects"]):
+            fail(f"service: svc-b's spill holds steps {facts_b['steps']} and "
+                 f"{facts_b['hang_suspects']} hang_suspects")
+        live_b = {k: int(db.telemetry.value(f"daemon.live_{k}"))
+                  for k in ("frames", "dropped", "reconnects", "bytes")}
+        if live_b["dropped"] < 1 or live_b["reconnects"] < 1:
+            fail(f"service: svc-b's live sink through R's death: {live_b}")
+        if (live_b["frames"] + live_b["dropped"] != facts_b["segments"]
+                or len(tap.calls) != facts_b["segments"]):
+            fail(f"service: svc-b: {live_b} and {len(tap.calls)} sink calls "
+                 f"for {facts_b['segments']} spill segments")
+        st = R2.until("svc-b's BYE", lambda s: s["jobs"].get(
+            "svc-b", {}).get("departed"))
+        after = tap.sent_after_reconnect()
+        if st["topology"].get("svc-b") != SERVICE_TOPOLOGY:
+            fail(f"service: R' knows svc-b's topology as "
+                 f"{st['topology']}, not {SERVICE_TOPOLOGY} (re-HELLO)")
+        if st["per_job"] != {"svc-b": sum(c[1] for c in after)} or not after:
+            fail(f"service: R' holds {st['per_job']} events, the sink sent "
+                 f"{sum(c[1] for c in after)} after its reconnect")
+        fin_r2 = R2.call("finalize")
+        first_after = after[0][0]
+        # went out after the kill, before the reconnect: into R's socket
+        lost = [c for c in tap.calls[kill_at["calls"]:] if c[2] and not c[3]]
+        log("service", f"svc-b (Case 3 healthy, {SVC_B_STEPS} steps, "
+            f"{job_s_b:.1f} s) into R: R SIGKILLed before step "
+            f"{kill_at['R']}, R' bound its port before step "
+            f"{kill_at['R2']}, the sink's first frame to R' in step "
+            f"{first_after} (R down for {kill_at['R2'] - kill_at['R']} "
+            "steps); "
+            f"{live_b['frames']} frames + {live_b['dropped']} dropped = "
+            f"{facts_b['segments']} spill segments, {live_b['reconnects']} "
+            f"reconnect(s); R' learned {st['topology']['svc-b']} from the "
+            f"re-HELLO and holds {st['per_job']['svc-b']} events = the "
+            f"{len(after)} batches sent after the reconnect ({len(lost)} "
+            f"more went out into R's dead socket); the "
+            f"spill holds steps 0-{SVC_B_STEPS - 1}, no hang_suspect; R' "
+            f"host CPU {fin_r2['cpu_s']:.2f} s")
+
+        # T' restores past two planted generations and finishes the tail
+        meta = kill_at["checkpoint"]
+        pre = T.anomalies[:meta["anomalies_emitted"]]
+        if len(pre) != meta["anomalies_emitted"]:
+            fail(f"service: T's checkpoint claims {meta['anomalies_emitted']}"
+                 f" anomalies, {len(pre)} were delivered")
+        good = Path(meta["path"]).read_bytes()
+        planted = ["ckpt-99999990.flc", "ckpt-99999991.flc"]
+        (ckpt_dir / planted[0]).write_bytes(
+            b"\xde\xad\xbe\xef garbage, not a checkpoint " * 64)
+        (ckpt_dir / planted[1]).write_bytes(good[:len(good) // 2])
+        info = T2.ready()
+        restored = info["restored"]
+        if (restored is None or restored["generation"] != meta["generation"]
+                or len(restored["skipped"]) != 2
+                or not all(any(n in s for s in restored["skipped"])
+                           for n in planted)):
+            fail(f"service: T' restored {restored}, not generation "
+                 f"{meta['generation']} past {planted}")
+        T2.until("the spill's events", lambda s: s["tail"]["events"]
+                 >= facts_b["events"])
+        fin_t2 = T2.call("finalize")
+        suffix = facts_b["bytes"] - meta["tail_bytes_decoded"]
+        if fin_t2["tail"]["bytes_decoded"] != facts_b["bytes"]:
+            fail(f"service: T and T' decoded {fin_t2['tail']} of the spill's "
+                 f"{facts_b['bytes']} bytes")
+        if not 0 < suffix < facts_b["bytes"]:
+            fail(f"service: T' decoded a suffix of {suffix} of "
+                 f"{facts_b['bytes']} bytes")
+        rows_t = service_rows(pre + T2.anomalies)
+        same_rows("T's rows to its checkpoint with T''s", rows_t,
+                  service_oracle(tail_dir, "svc-b", {}))
+        bracket_b = db.telemetry.value("daemon.anchor_bracket_max_s")
+        log("service", f"T checkpointed generation {meta['generation']} "
+            f"({meta['bytes']} B, {meta['anomalies_emitted']} anomalies, "
+            f"{meta['tail_bytes_decoded']} spill bytes decoded) and was "
+            f"SIGKILLed before step {kill_at['T']}; T' skipped both planted "
+            f"generations, loaded generation {restored['generation']} in "
+            f"{info['load_s'] * 1e3:.1f} ms, decoded the {suffix}-byte suffix "
+            f"of {facts_b['bytes']}: every byte once; {len(rows_t)} stitched "
+            f"rows equal to the replay; T' host CPU {fin_t2['cpu_s']:.2f} s")
+        log("service", f"widest anchor bracket: svc-a "
+            f"{bracket_a * 1e3:.3f} ms, svc-b {bracket_b * 1e3:.3f} ms")
+        out = dict(
+            svc_a=dict(job_s=job_s_a, spill=facts_a, live=live_a,
+                       stream=rows_l, jobs=jobs["svc-a"],
+                       anomalies_endpoint=len(recent), host_cpu_s=fin_l[
+                           "cpu_s"], bracket_s=bracket_a, launches=launches_a,
+                       finding=[hit.kind, hit.metric, hit.team.value,
+                                hit.step]),
+            svc_b=dict(job_s=job_s_b, spill={k: v for k, v in facts_b.items()
+                                             if k != "steps"},
+                       live=live_b, sink_calls=tap.calls, killed_before=dict(
+                           R=kill_at["R"], T=kill_at["T"]),
+                       r2_bound_before=kill_at["R2"],
+                       sent_into_dead_socket=len(lost),
+                       first_frame_to_r2_step=first_after,
+                       r2_events=st["per_job"]["svc-b"],
+                       r2_host_cpu_s=fin_r2["cpu_s"], bracket_s=bracket_b,
+                       launches=launches_b),
+            restore=dict(generation=restored["generation"],
+                         skipped=len(restored["skipped"]),
+                         load_s=info["load_s"], checkpoint_bytes=meta[
+                             "bytes"], suffix_bytes=suffix,
+                         spill_bytes=facts_b["bytes"], rows=len(rows_t),
+                         t2_host_cpu_s=fin_t2["cpu_s"]),
+            spawned_s={n: p.info["spawned_s"] for n, p in procs.items()},
+            torch_in_services=False)
+    finally:
+        for p in procs.values():
+            p.close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("service", f"phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: serve
 # --------------------------------------------------------------------------- #
 def forward_launches(cfg) -> dict:
@@ -4279,6 +4858,13 @@ def main():
     log("wall", f"fleet {walls['fleet']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
+    # 4d. the resident fleet service, fed by two jobs' live sinks
+    t0 = time.perf_counter()
+    service_run = service_phase(args.seed, fleet)
+    walls["service"] = time.perf_counter() - t0
+    log("wall", f"service {walls['service']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
     spills = {}
@@ -4362,6 +4948,9 @@ def main():
                   for job, run in case3["jobs"].items()}
     case3_jobs.update({f"{case3['arch']} fleet {job} train": run["launches"]
                        for job, run in fleet_run["failslow"]["jobs"].items()})
+    case3_jobs.update({f"{case3['arch']} service {job} train":
+                       service_run[job.replace("-", "_")]["launches"]
+                       for job in ("svc-a", "svc-b")})
     by_path.update(case3_jobs)
 
     def count(summary, label, paths, key=None, keys=()):
@@ -4427,7 +5016,7 @@ def main():
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
                    have_zstd=have_zstd(), diagnose=diagnosis,
-                   fleet=fleet_run)
+                   fleet=fleet_run, service=service_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

@@ -5,9 +5,10 @@ daemon (``step_begin``, ``step_end``, ``record_span``, ``register_kernel``,
 the hang heartbeat, ``add_sink``, the columnar ``add_batch_sink``, the
 spill through ``store.SegmentedTraceWriter``: JSONL, FCS v1 or FCS v2 by
 the path's extension or ``log_codec``, compressed and rotated as
-configured, and ``attach_fleet``, which streams the drains into a
-``fleet.FleetMultiplexer``), with device timing from CUDA events, as the
-paper's daemon did:
+configured, ``attach_fleet``, which streams the drains into a
+``fleet.FleetMultiplexer``, and ``live_endpoint``, which streams them to a
+resident ``serve.FleetService`` through a ``serve.LiveBatchSink``), with
+device timing from CUDA events, as the paper's daemon did:
 
   * a traced op records a pair of ``torch.cuda.Event(enable_timing=True)``
     on the current stream around its launch and queues them on
@@ -95,6 +96,14 @@ class DaemonConfig:
     # self-telemetry registry; None = a private one per daemon.  A fleet's
     # ``telemetry_snapshot`` merges its attached daemons' registries in
     telemetry: Optional[TelemetryRegistry] = None
+    # live fleet service endpoint ("host:port"): each drain is FCS-framed
+    # (the repro_torch.serve wire protocol) and shipped from the daemon
+    # thread with reconnect and backoff; a dead or slow service costs
+    # counted drops (daemon.live_dropped), never a blocked heartbeat or a
+    # dead daemon, and the spill holds whatever live frames were lost
+    live_endpoint: Optional[str] = None
+    live_job_id: Optional[str] = None      # default: "job-rank<rank>"
+    live_topology: Optional[dict] = None   # rack/switch attrs, HELLO'd
 
 
 def _first_tensor_device(args, kwargs) -> Optional[torch.device]:
@@ -162,6 +171,17 @@ class TracingDaemon:
             self._spill = SegmentedTraceWriter(
                 self.cfg.log_path, codec=codec,
                 rotate_bytes=self.cfg.log_rotate_bytes)
+        self._live = None
+        if self.cfg.live_endpoint:
+            # imported here: a daemon without an endpoint never loads the
+            # service plane
+            from repro_torch.serve.client import LiveBatchSink
+            self._live = LiveBatchSink(
+                self.cfg.live_endpoint,
+                self.cfg.live_job_id or f"job-rank{self.cfg.rank}",
+                topology=self.cfg.live_topology,
+                telemetry=self.telemetry)
+            self.add_batch_sink(self._live)
 
     # ------------------------------------------------------------------ #
     # lifecycle
@@ -219,6 +239,9 @@ class TracingDaemon:
         self.interceptor.uninstall()
         self._probe_pending(wait=True)
         self._flush(final=True)
+        if self._live is not None:
+            self._live.close()        # best-effort BYE; reconnects if
+            #                           the daemon attaches again
         self._attached = False
         global _GLOBAL_DAEMON
         if _GLOBAL_DAEMON is self:

@@ -25,8 +25,8 @@ already has:
     parent mirrors back onto its own ``FleetJob``.
 
 The pool is RESIDENT: workers hold their open jobs' multiplexers between
-tasks, so a long-lived service (the JAX package's ``serve``, not yet
-ported) streams ``TASK_BATCHES`` frames at a job for hours and closes it
+tasks, so a long-lived service (``repro_torch.serve.FleetService``)
+streams ``TASK_BATCHES`` frames at a job for hours and closes it
 with ``TASK_CLOSE`` when it leaves the fleet. Each job is pinned to one
 worker at first submission (per-worker task queues keep a job's tasks
 in order); one-shot replay callers just ``submit`` everything and
@@ -263,8 +263,8 @@ class ProcessWorkerPool:
       threads, enqueues one shutdown sentinel per worker (closing every
       still-open job), consumes every result, joins, and raises if any
       worker errored or died.
-    * **resident** (the JAX package's ``serve.FleetService``, not yet
-      ported): ``start`` the drainer threads up front with callbacks,
+    * **resident** (``repro_torch.serve.FleetService``): ``start`` the
+      drainer threads up front with callbacks,
       ``submit`` tasks for as long as the service lives (``TASK_CLOSE``
       retires one job), and finally ``shutdown`` + ``join``.
 

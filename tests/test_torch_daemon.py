@@ -39,16 +39,15 @@ from repro_torch.core.events import EventKind
 from repro_torch.store.fcs import _HEADER
 from test_torch_store import as_tuples, jsonl_rounded
 
-# the reference's fields that belong to the live plane (the socket sink
-# into a resident fleet service), which the port does not have yet
-NOT_PORTED = {"live_endpoint", "live_job_id", "live_topology"}
-
-
 def test_config_fields_and_defaults_are_the_references():
+    """Every field of the reference's ``DaemonConfig``, the live plane's
+    ``live_endpoint``, ``live_job_id`` and ``live_topology`` among them, in
+    its order and with its default."""
     ref = {f.name: f.default for f in dataclasses.fields(
         ref_daemon.DaemonConfig)}
     port = {f.name: f.default for f in dataclasses.fields(dmod.DaemonConfig)}
-    assert port == {k: v for k, v in ref.items() if k not in NOT_PORTED}
+    assert list(port.items()) == list(ref.items())
+    assert {"live_endpoint", "live_job_id", "live_topology"} <= set(port)
     assert dmod.DaemonConfig().backend == "dense-train"
 
 

@@ -133,9 +133,11 @@ def test_copied_module_is_the_reference_but_for_names_and_docstrings(rel):
 
 def test_fleet_modules_import_no_torch():
     """The fleet is numpy, as the reference's: importing it (and the
-    archive) in a fresh interpreter loads no torch."""
+    archive and the resident service) in a fresh interpreter loads no
+    torch."""
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    code = ("import sys, repro_torch.fleet, repro_torch.archive; "
+    code = ("import sys, repro_torch.fleet, repro_torch.archive, "
+            "repro_torch.serve; "
             "print('torch' in sys.modules, 'jax' in sys.modules, "
             "'repro' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -184,14 +184,19 @@ ENGINE_MODULES = tuple(f"repro_torch.core.{m}" for m in (
     "detectors.fleet")) + tuple(f"repro_torch.{m}" for m in (
         "fleet", "fleet.stream", "fleet.store", "fleet.multiplexer",
         "fleet.replay", "fleet.ipc", "archive", "archive.archive"))
+# the resident fleet service over them, as numpy and stdlib as they are
+SERVE_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
+    "protocol", "client", "tail", "checkpoint", "service", "query")) + (
+        "repro_torch.serve",)
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module imports with jax and repro blocked, the diagnosis
     plane's 22 among them (the engine's 14, the fleet's 6, the archive's
-    2), and no source of the port or of chip_smoke.py names them in an
-    import, even in a function; nor does the diagnosis plane name torch:
-    it is numpy, as the reference's."""
+    2) and the service's 7, and no source of the port or of chip_smoke.py
+    names them in an import, even in a function; nor does the diagnosis
+    plane or the service name torch: they are numpy, as the
+    reference's."""
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
@@ -199,6 +204,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 52
     assert set(ENGINE_MODULES) <= set(out.stdout.split())
+    assert set(SERVE_MODULES) <= set(out.stdout.split())
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
@@ -211,7 +217,7 @@ def test_port_imports_neither_jax_nor_repro():
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{f}: imports {n}"
-    for m in ENGINE_MODULES:
+    for m in ENGINE_MODULES + SERVE_MODULES:
         rel = m.split(".")[1:]
         f = ROOT / "src" / "repro_torch" / Path(*rel[:-1]) / f"{rel[-1]}.py"
         if not f.exists():

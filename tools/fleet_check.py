@@ -5,11 +5,14 @@
 
 Runs ``chip_smoke.py``'s ring path (4 gloo ranks on the card, for the
 hang drills' traces), its ``diagnose`` phase with the drilled jobs
-streaming live into the fleet, and its ``fleet`` phase: the fail-slow
+streaming live into the fleet, its ``fleet`` phase: the fail-slow
 drill with the spawned co-runner, the live streams against the batch
 engine, the serial, thread and process replays of the spills, the trace
-archive and the ring's hangs through the fleet.  Builds only the kernels
-these paths launch.  Prints the card's name and power limit first; the
+archive and the ring's hangs through the fleet; and its ``service``
+phase: two llama3.2-1b jobs streaming through their daemons' live sinks
+into resident fleet services in processes of their own, through a
+service's SIGKILL and restart and a checkpointed service's restore.
+Builds only the kernels these paths launch.  Prints the card's name and power limit first; the
 phases' results go to ``smoke_out/fleet_check.json``.
 """
 from __future__ import annotations
@@ -56,9 +59,13 @@ def main():
     t0 = time.perf_counter()
     fleet_run = cs.fleet_phase(0, fleet, trace_dir, diagnosis)
     walls["fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    service_run = cs.service_phase(0, fleet)
+    walls["service"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_start
     (cs.OUT_DIR / "fleet_check.json").write_text(json.dumps(
-        dict(diagnose=diagnosis, fleet=fleet_run, walls=walls), indent=1))
+        dict(diagnose=diagnosis, fleet=fleet_run, service=service_run,
+             walls=walls), indent=1))
     cs.log("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 

@@ -148,6 +148,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 every spill byte decoded once, the stitched stream equal to
                 the replay; a [service] line a service and the phase's
                 wall (details.json ``service``);
+     simulate — the port's cluster simulator (``core/timeline.py``,
+                ``core/injectors/``, ``scenarios/``: numpy, the H100's
+                ceilings as ``program_from_config``'s defaults): the
+                scenario matrix over qwen2-0.5b, llama3.2-1b, mamba2-780m
+                and dbrx-132b at 32 ranks, held to the floors of
+                ``benchmarks/scenarios.py`` (``SCENARIO_FLOORS``: every
+                faulty cell caught with its team, culprit ranks and onset,
+                healthy cells silent, micro precision >= 0.95, recall 1.0,
+                6 scenarios and 8 fault kinds at least); the paper's scale,
+                ``examples/torch_diagnose_cluster_sim.py``'s four jobs of
+                llama-20b-paper at 1024 ranks (the underclocked rank 137,
+                the misaligned FFN with its 8484 -> 8512 advice and the
+                hang on link 611 -> 612 asserted; the GC-stall job printed
+                only, as the reference misses it); and one process-mode
+                service fed at once by four simulated 1024-rank jobs, one
+                step a frame through a ``LiveClient`` from a thread (two
+                with network jitter on rack0, an underclocked one and a
+                healthy one on rack1), interleaved with svc-m, a traced
+                llama3.2-1b job at Case 3's drilled setting on rack2
+                streaming through its daemon's live sink: each job's
+                stream equal to the replay of the five spills, the fleet
+                tier's cross_job_correlation on rack0, rank 137's
+                fail-slow, svc-m's v_inter, silence on the healthy job, no
+                drop (details.json ``simulate``);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -1998,13 +2022,13 @@ def anomaly_rows(found: list) -> list:
 
 
 def expect(what: str, found: list, kind: str, metric: str | None,
-           team: str):
+           team: str, phase: str = "diagnose"):
     """The drill's anomaly: the first of ``found`` with this kind, metric
     (any where None) and team; fails when there is none."""
     hit = [a for a in found if a.kind == kind and a.team.value == team
            and (metric is None or a.metric == metric)]
     if not hit:
-        fail(f"diagnose: {what}: no ({kind!r}, {metric!r}, {team}) anomaly "
+        fail(f"{phase}: {what}: no ({kind!r}, {metric!r}, {team}) anomaly "
              f"among {[(a.kind, a.metric, a.team.value) for a in found]}")
     return hit[0]
 
@@ -2303,15 +2327,20 @@ ARCHIVE_GROUPS = ("case2-", "case3-", "failslow-")
 
 
 @functools.cache
-def fleet_replay_tool():
-    """``tools/fleet_replay.py`` as a module: its stream rows, spec file
-    and in-process replay."""
+def repo_script(rel: str):
+    """A script of the checkout (``tools/*.py``, ``examples/*.py``) as a
+    module, loaded once."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "fleet_replay", ROOT / "tools" / "fleet_replay.py")
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fleet_replay_tool():
+    """``tools/fleet_replay.py`` as a module: its stream rows, spec file
+    and in-process replay."""
+    return repo_script("tools/fleet_replay.py")
 
 
 class FleetLive:
@@ -2925,7 +2954,8 @@ class ServiceProc:
         self.t0, self.waiting = time.perf_counter(), spec.get("wait", False)
         self.proc = ctx.Process(
             target=service_proc, args=(cmd_r, ev_w, dict(
-                spec, src=str(ROOT / "src"), history=str(SERVICE_HISTORY))),
+                spec, src=str(ROOT / "src"),
+                history=str(spec.get("history", SERVICE_HISTORY)))),
             # not daemonic: a process-mode service has worker children;
             # ``close`` ends it
             name=f"flare-service-{name}", daemon=False)
@@ -3027,15 +3057,18 @@ class LiveSinkTap:
 
 
 def service_trainer(seed: int, job: str, endpoint: str, steps: int,
-                    mask: str, prefetch: bool, hook=None):
+                    mask: str, prefetch: bool, hook=None,
+                    topology: dict = SERVICE_TOPOLOGY,
+                    spill_dir: Path | None = None):
     """llama3.2-1b at full width through ``Trainer``, B 8 x S ``CASE3_S``,
-    spilling FCS into a directory of its own, its daemon replaced before
-    ``train()`` by one with the same config and a live endpoint."""
+    spilling FCS into ``spill_dir`` (a directory of its own by default),
+    its daemon replaced before ``train()`` by one with the same config, a
+    live endpoint and ``topology``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.daemon import TracingDaemon
     from repro_torch.runtime.train import RunConfig, Trainer
-    spill = SERVICE_DIR / job / f"{job}.fcs"
+    spill = (spill_dir or SERVICE_DIR / job) / f"{job}.fcs"
     spill.parent.mkdir(parents=True, exist_ok=True)
     run = RunConfig(model=get_config("llama3.2-1b"), global_batch=TRAIN_B,
                     seq_len=CASE3_S, steps=steps, warmup_steps=2, seed=seed,
@@ -3044,7 +3077,7 @@ def service_trainer(seed: int, job: str, endpoint: str, steps: int,
     trainer = Trainer(run, fault_hook=hook)
     trainer.daemon = TracingDaemon(dataclasses.replace(
         trainer.daemon.cfg, live_endpoint=endpoint, live_job_id=job,
-        live_topology=SERVICE_TOPOLOGY))
+        live_topology=topology))
     return trainer, spill
 
 
@@ -3365,6 +3398,448 @@ def service_phase(seed: int, fleet: FleetLive) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log("service", f"phase wall {out['wall_s']:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 4e: simulate — the port's cluster simulator at the H100's ceilings
+# --------------------------------------------------------------------------- #
+SIM_DIR = OUT_DIR / "simulate"
+SIM_HISTORY = SIM_DIR / "history"  # svc-m's Case-3 profile, the 1024-rank one
+SIM_SPILLS = SIM_DIR / "spills"    # one FCS spill a job of the service drill
+# the scenario matrix's configs and floors, copied from the JAX package's
+# benchmarks/scenarios.py (FULL_CONFIGS, assert_floors)
+SCENARIO_CONFIGS = ("qwen2-0.5b", "llama3.2-1b", "mamba2-780m", "dbrx-132b")
+SCENARIO_FLOORS = dict(precision=0.95, recall=1.0, scenarios=6,
+                       fault_kinds=8)
+SIM_RANKS = 1024
+SIM_ENGINE = dict(backend="dense-train", num_ranks=SIM_RANKS)
+# the service drill's simulated jobs (the cluster example's program, seed
+# and steps): the injection's fields (None: healthy) and the placement
+_JITTER = dict(kind="network_jitter", factor=3.0, start_step=3)
+SIM_JOBS = {
+    "sim-jitter-a": (_JITTER, {"rack": "rack0", "switch": "sw0"}),
+    "sim-jitter-b": (_JITTER, {"rack": "rack0", "switch": "sw0"}),
+    "sim-underclock": (dict(kind="underclock", ranks=(137,), factor=2.4,
+                            start_step=3), {"rack": "rack1", "switch": "sw1"}),
+    "sim-healthy": (None, {"rack": "rack1", "switch": "sw1"}),
+}
+SVC_M = "svc-m"                     # the traced llama3.2-1b job beside them
+SVC_M_TOPOLOGY = {"rack": "rack2", "switch": "sw2"}
+
+
+def cluster_example():
+    """``examples/torch_diagnose_cluster_sim.py`` as a module: the
+    program, profile, jobs and diagnosis the phase drives."""
+    return repo_script("examples/torch_diagnose_cluster_sim.py")
+
+
+def scenario_floor_violations(cells, scores, fault_kinds) -> list:
+    """What of ``SCENARIO_FLOORS`` the graded cells break, a line each
+    (none: the floors hold), as ``benchmarks/scenarios.py`` asserts
+    them."""
+    def ids(bad):
+        return [f"{c.scenario}@{c.config}" for c in bad]
+    faulty = [c for c in cells if not c.healthy]
+    out = []
+    if len({c.scenario for c in cells}) < SCENARIO_FLOORS["scenarios"]:
+        out.append(f"matrix too small: {len(cells)} cells")
+    if len([k for k in fault_kinds if k]) < SCENARIO_FLOORS["fault_kinds"]:
+        out.append(f"fault taxonomy shrank: {fault_kinds}")
+    for what, bad in (
+            ("MISSED anomalies", [c for c in faulty if not c.caught]),
+            ("wrong team routing",
+             [c for c in faulty if c.caught and not c.team_ok]),
+            ("culprit ranks not attributed",
+             [c for c in faulty if c.caught and not c.ranks_ok]),
+            ("fired before injection onset",
+             [c for c in faulty if c.caught and not c.onset_ok]),
+            ("healthy cells raised anomalies",
+             [c for c in cells if c.healthy and c.anomalies])):
+        if bad:
+            out.append(f"{what}: {ids(bad)}")
+    if scores["micro_precision"] < SCENARIO_FLOORS["precision"]:
+        out.append(f"precision {scores['micro_precision']:.3f} < "
+                   f"{SCENARIO_FLOORS['precision']} (false positives: "
+                   f"{scores['false_positive_cells']})")
+    if scores["micro_recall"] < SCENARIO_FLOORS["recall"]:
+        out.append(f"recall {scores['micro_recall']:.3f} < "
+                   f"{SCENARIO_FLOORS['recall']}")
+    return out
+
+
+def sim_matrix() -> dict:
+    """The scenario matrix over ``SCENARIO_CONFIGS`` at
+    ``DEFAULT_NUM_RANKS`` ranks, at ``program_from_config``'s defaults,
+    held to ``SCENARIO_FLOORS``."""
+    import dataclasses
+    from repro_torch.core.timeline import program_from_config
+    from repro_torch.scenarios import (DEFAULT_NUM_RANKS, FAULT_KINDS,
+                                       SCENARIOS, run_matrix, score_matrix)
+
+    ceilings = dict(program_from_config.__kwdefaults__)
+    if (ceilings["chip_flops"], ceilings["link_bw"]) != (989e12, 5e10):
+        fail(f"simulate: program_from_config's ceilings {ceilings} are not "
+             "the H100's")
+    per, cells = {}, []
+    for config in SCENARIO_CONFIGS:
+        t0 = time.perf_counter()
+        got = run_matrix([config])
+        secs = time.perf_counter() - t0
+        s = score_matrix(got)
+        cells += got
+        per[config] = dict(cells=s["cells"],
+                           caught=s["cells"] - len(s["missed"]),
+                           micro_precision=s["micro_precision"],
+                           micro_recall=s["micro_recall"], seconds=secs,
+                           detectors=s["detectors"])
+        log("simulate", f"matrix {config}: {s['cells']} cells at "
+            f"{DEFAULT_NUM_RANKS} ranks, P {s['micro_precision']:.2f} R "
+            f"{s['micro_recall']:.2f}, {secs:.2f} s")
+    scores = score_matrix(cells)
+    bad = scenario_floor_violations(cells, scores, FAULT_KINDS)
+    if bad:
+        fail("simulate: the scenario matrix breaks the floors of "
+             "benchmarks/scenarios.py: " + "; ".join(bad))
+    log("simulate", f"matrix: {scores['cells']} cells "
+        f"({scores['faulty_cells']} faulty), {len(SCENARIOS)} scenarios, "
+        f"{len(FAULT_KINDS)} fault kinds, P {scores['micro_precision']:.2f} "
+        f"R {scores['micro_recall']:.2f}, nothing missed, misrouted or "
+        f"noisy; chip_flops {ceilings['chip_flops']:.3g}, link_bw "
+        f"{ceilings['link_bw']:.3g}, mfu {ceilings['mfu']}")
+    return dict(configs=per, ceilings=ceilings,
+                cells=[dataclasses.asdict(c) for c in cells],
+                **{k: scores[k] for k in (
+                    "detectors", "micro_precision", "micro_recall",
+                    "faulty_cells", "missed", "misrouted",
+                    "false_positive_cells")},
+                scenarios=len(SCENARIOS), fault_kinds=list(FAULT_KINDS))
+
+
+def sim_cluster(history) -> dict:
+    """``examples/torch_diagnose_cluster_sim.py`` at ``SIM_RANKS`` ranks:
+    the healthy profile learned into ``history``, then each job simulated
+    and diagnosed, its report printed.  The underclocked rank, the
+    misaligned FFN with its layout advice and the hung link are asserted;
+    the GC-stall job is printed only (the reference misses it at this
+    scale)."""
+    from repro_torch.core.report import anomaly_report
+
+    ex = cluster_example()
+    N = SIM_RANKS
+    prog = ex.program(N)
+    t0 = time.perf_counter()
+    prof = ex.learn_profile(prog, N, history)
+    learn_s = time.perf_counter() - t0
+    log("simulate", f"{ex.ARCH}, {ex.LAYER_GROUPS} layer groups, {N} ranks: "
+        f"profile of {ex.PROFILE_RUNS} clean runs x {ex.PROFILE_STEPS} steps "
+        f"in {learn_s:.2f} s (W1 threshold {prof.issue_w1_threshold:.4f}, "
+        f"v_inter {prof.v_inter_threshold:.3f}, v_minority "
+        f"{prof.v_minority_threshold:.3f})")
+    jobs, found = {}, {}
+    for name, inj in ex.jobs(N):
+        t0 = time.perf_counter()
+        sim, batch = ex.simulate_job(prog, N, inj)
+        sim_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = [a for a in ex.diagnose_job(N, history, sim, batch)
+               if a is not None]
+        engine_s = time.perf_counter() - t0
+        key = name.split(":")[0]
+        found[key] = got
+        log("simulate", f"{name}: {len(batch)} events simulated in "
+            f"{sim_s:.3f} s ({len(batch) / sim_s:.0f} events/s), the engine "
+            f"{engine_s:.3f} s, {len(got)} anomalies")
+        # the routed diagnoses, without their evidence
+        for line in anomaly_report(got).splitlines():
+            if "->" in line or "no anomalies" in line:
+                log("simulate", f"  {line.strip()}")
+        jobs[key] = dict(name=name, events=len(batch), sim_s=sim_s,
+                         engine_s=engine_s, anomalies=anomaly_rows(got),
+                         truth_rank=sim.hang.truth_rank if sim.hang else None)
+    what = f"simulate {N} ranks"
+    hit = expect(f"{what} job-2", found["job-2"], "fail_slow", "throughput",
+                 "operations", phase="simulate")
+    if 137 not in hit.ranks:
+        fail(f"simulate: job-2's fail-slow names ranks {hit.ranks}, not 137")
+    advice = [a.evidence.get("layout_advice") or {} for a in found["job-3"]
+              if (a.kind, a.metric, a.team.value)
+              == ("regression", "flops", "infrastructure")]
+    if not any(d.get("misaligned_dims") == [8484]
+               and d.get("padded_dims") == [8512] for d in advice):
+        fail(f"simulate: job-3 gives no FLOPS regression with the 8484 -> "
+             f"8512 advice: {[(a.kind, a.metric) for a in found['job-3']]}")
+    hang = expect(f"{what} job-4", found["job-4"], "hang", None,
+                  "operations", phase="simulate")
+    link = tuple(hang.evidence.get("link") or ())
+    if link != (611, 612) or jobs["job-4"]["truth_rank"] != 611:
+        fail(f"simulate: job-4's hang names link {link}, the simulator's "
+             f"truth rank {jobs['job-4']['truth_rank']}")
+    events = sum(j["events"] for j in jobs.values())
+    sim_s = sum(j["sim_s"] for j in jobs.values())
+    log("simulate", f"{N} ranks: job-2 fail_slow/throughput on ranks "
+        f"{hit.ranks} -> operations; job-3 {len(advice)} regression/flops "
+        f"-> infrastructure with the 8484 -> 8512 advice; job-4 hang on link "
+        f"{link[0]} -> {link[1]} -> operations, truth rank 611; job-1 (GC "
+        f"stalls, not asserted) {len(found['job-1'])} anomalies; the "
+        f"simulator {events / sim_s:.0f} events/s, the engine "
+        + ", ".join(f"{j['engine_s']:.3f}" for j in jobs.values())
+        + " s a job")
+    return dict(ranks=N, learn_s=learn_s, jobs=jobs,
+                sim_events_per_s=events / sim_s)
+
+
+def sim_service_jobs(ex, prog) -> dict:
+    """Each simulated job of ``SIM_JOBS``: its batch one step a piece, the
+    pieces written as an FCS spill of one segment a step."""
+    from repro_torch import store
+    from repro_torch.core.timeline import ClusterSimulator, Injection
+    SIM_SPILLS.mkdir(parents=True)
+    pieces = {}
+    for job, (inj, _) in SIM_JOBS.items():
+        batch = ClusterSimulator(
+            SIM_RANKS, prog, seed=ex.JOB_SEED,
+            injections=[Injection(**inj)] if inj else []).run_batch(
+                ex.JOB_STEPS)
+        order, steps, bounds = batch.step_index()
+        pieces[job] = [batch.take(order[bounds[i]:bounds[i + 1]])
+                       for i in range(steps.size)]
+        writer = store.SegmentedTraceWriter(str(SIM_SPILLS / f"{job}.fcs"),
+                                            codec="fcs")
+        for piece in pieces[job]:
+            writer.write(piece)
+    return pieces
+
+
+def sim_oracle() -> list:
+    """The five spills of the service drill replayed serially into one
+    fresh multiplexer with the service's configuration, placements and
+    profiles, the jobs registered in the service's order: the rows."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.fleet import FleetConfig, FleetMultiplexer, FleetReplayer
+    topology = {job: topo for job, (_, topo) in SIM_JOBS.items()}
+    topology[SVC_M] = SVC_M_TOPOLOGY
+    mux = FleetMultiplexer(FleetConfig(watermark_delay=1,
+                                       fleet_detectors=FLEET_DETECTORS,
+                                       topology=topology),
+                           history=HistoryStore(str(SIM_HISTORY)))
+    for job in SIM_JOBS:
+        mux.add_job(job, EngineConfig(**SIM_ENGINE))
+    mux.add_job(SVC_M, EngineConfig(**SERVICE_ENGINE))
+    FleetReplayer(mux).replay_dir(str(SIM_SPILLS), job_workers=1)
+    return service_rows(mux.finalize())
+
+
+def sim_service(seed: int, svc_a_bracket_s: float | None) -> dict:
+    """One process-mode service (2 workers, the query plane) fed at once
+    by the four simulated 1024-rank jobs of ``SIM_JOBS``, one step a frame
+    through a ``LiveClient`` on a thread of its own, and by svc-m, a
+    traced llama3.2-1b job at Case 3's drilled setting whose daemon's live
+    sink streams its drains; the simulated jobs' step s goes out as svc-m
+    starts its step s.  Each job's stream equal to the replay of the five
+    spills, the expected findings on each, no drop."""
+    import multiprocessing as mp
+    import queue
+    import threading
+    import torch
+    from repro_torch.serve import LiveClient
+
+    ex = cluster_example()
+    pieces = sim_service_jobs(ex, ex.program(SIM_RANKS))
+    names = [*SIM_JOBS, SVC_M]
+    kernels = train_kernels("llama3.2-1b")
+    M = ServiceProc(mp.get_context("spawn"), "M", dict(
+        config=dict(port=0, query_port=0, worker_kind="process", workers=2),
+        history=str(SIM_HISTORY)))
+    try:
+        M.spawned()
+        M.ready()
+        port, qport = M.info["port"], M.info["query_port"]
+        client = LiveClient("127.0.0.1", port)
+        for job, (_, topo) in SIM_JOBS.items():
+            client.hello(job, topo, SIM_ENGINE)
+        go: queue.Queue = queue.Queue()
+        sent: dict = {job: [] for job in SIM_JOBS}  # (step, events, bytes)
+        feed: dict = dict(errors=[])
+
+        def feeder():
+            try:
+                while (s := go.get()) is not None:
+                    feed.setdefault("first", time.perf_counter())
+                    for job, steps in pieces.items():
+                        n = client.send_batch(job, steps[s])
+                        sent[job].append((s, len(steps[s]), n))
+                    feed["last"] = time.perf_counter()
+                for job in pieces:
+                    client.bye(job)
+            except Exception as e:  # the phase fails on it after the join
+                feed["errors"].append(repr(e))
+            finally:
+                client.close()
+
+        thread = threading.Thread(target=feeder, daemon=True,
+                                  name="simulate-feeder")
+        thread.start()
+
+        def hook(step):
+            # the simulated jobs' step s as svc-m starts its step s: both
+            # run 6 steps (DRILL_STEPS, the example's JOB_STEPS)
+            go.put(step)
+
+        t0 = time.perf_counter()
+        trainer, spill_m = service_trainer(
+            seed, SVC_M, f"127.0.0.1:{port}", DRILL_STEPS, "naive", False,
+            hook, topology=SVC_M_TOPOLOGY, spill_dir=SIM_SPILLS)
+        for k, _, _ in kernels.values():
+            k.launches = 0
+        trainer.train()
+        launches = {lb: k.launches for lb, (k, _, _) in kernels.items()}
+        dm = trainer.daemon
+        del trainer
+        torch.cuda.empty_cache()
+        job_s = time.perf_counter() - t0
+        go.put(None)
+        thread.join(SERVICE_WAIT_S)
+        if thread.is_alive() or feed["errors"]:
+            state = "hangs" if thread.is_alive() else "failed"
+            fail(f"simulate: the feeder thread {state}: {feed['errors']}")
+        deadline = time.perf_counter() + SERVICE_WAIT_S
+        while not all(query(qport, "/jobs")["jobs"].get(j, {}).get(
+                "departed") for j in names):
+            if time.perf_counter() > deadline:
+                fail(f"simulate: M: not every job of {names} departed (BYE) "
+                     f"in {SERVICE_WAIT_S} s")
+            time.sleep(SERVICE_POLL_S)
+        M.call("settle")
+        settled = time.perf_counter()
+        jobs = query(qport, "/jobs")["jobs"]
+        fin = M.call("finalize")
+    finally:
+        M.close()
+
+    rows = service_rows(M.anomalies)
+    want = sim_oracle()
+    for job in names:
+        same_rows(f"M's stream of {job}", [r for r in rows if r["job"] == job],
+                  [r for r in want if r["job"] == job])
+    by_job = {job: [fa for fa in M.anomalies if fa.job_id == job]
+              for job in names}
+
+    def findings(job, origin, kind, metric, team):
+        return [fa for fa in by_job[job] if fa.origin == origin
+                and (fa.anomaly.kind, fa.anomaly.metric, fa.anomaly.team.value)
+                == (kind, metric, team)]
+
+    for job in ("sim-jitter-a", "sim-jitter-b"):
+        if not [fa for fa in findings(job, "fleet", "fail_slow",
+                                      "cross_job_correlation",
+                                      "infrastructure")
+                if fa.anomaly.evidence.get("rack") == "rack0"]:
+            fail(f"simulate: {job}: no fleet-tier cross_job_correlation on "
+                 f"rack0: {service_rows(by_job[job])}")
+    slow = findings("sim-underclock", "job", "fail_slow", "throughput",
+                    "operations")
+    if not any(137 in fa.anomaly.ranks for fa in slow):
+        fail(f"simulate: sim-underclock: no fail_slow/throughput on rank "
+             f"137: {service_rows(by_job['sim-underclock'])}")
+    if by_job["sim-healthy"]:
+        fail(f"simulate: sim-healthy is not silent: "
+             f"{service_rows(by_job['sim-healthy'])}")
+    vinter = findings(SVC_M, "job", "regression", "v_inter", "algorithm")
+    if not vinter or any(fa.origin == "fleet" for fa in by_job[SVC_M]):
+        fail(f"simulate: {SVC_M}: {service_rows(by_job[SVC_M])}")
+
+    facts_m = spill_facts(spill_m)
+    live_m = {k: int(dm.telemetry.value(f"daemon.live_{k}"))
+              for k in ("frames", "dropped", "reconnects", "bytes")}
+    frames_sim = sum(len(v) for v in sent.values())
+    counters = fin["counters"]
+    if (live_m["frames"] != facts_m["segments"] or live_m["dropped"]
+            or live_m["reconnects"]):
+        fail(f"simulate: {SVC_M}'s live sink {live_m}, its spill "
+             f"{facts_m['segments']} segments")
+    if any([s for s, _, _ in v] != list(range(ex.JOB_STEPS))
+           for v in sent.values()):
+        fail(f"simulate: the feeder sent {[len(v) for v in sent.values()]} "
+             f"frames a job, not {ex.JOB_STEPS}")
+    if (counters.get("serve.frames") != frames_sim + live_m["frames"]
+            or counters.get("serve.dropped_frames", 0)):
+        fail(f"simulate: M took {counters.get('serve.frames')} frames "
+             f"({counters.get('serve.dropped_frames', 0)} dropped), "
+             f"{frames_sim} + {live_m['frames']} were sent")
+    events = {job: sum(len(p) for p in pieces[job]) for job in SIM_JOBS}
+    events[SVC_M] = facts_m["events"]
+    if sorted(jobs) != sorted(names) or any(
+            jobs[j]["events"] != n for j, n in events.items()):
+        got = {j: v.get("events") for j, v in jobs.items()}
+        fail(f"simulate: M's /jobs {got}, the spills {events}")
+    if fin["errors"]:
+        fail(f"simulate: M's workers failed: {fin['errors']}")
+    bracket = dm.telemetry.value("daemon.anchor_bracket_max_s")
+    total = sum(events.values())
+    span_s = settled - feed["first"]
+    for job in names:
+        found = sorted({(fa.origin, fa.anomaly.kind, fa.anomaly.metric,
+                         fa.anomaly.team.value) for fa in by_job[job]})
+        rack = SIM_JOBS[job][1] if job in SIM_JOBS else SVC_M_TOPOLOGY
+        log("simulate", f"M {job} ({rack['rack']}): {events[job]} events, "
+            f"{len(by_job[job])} anomalies equal to the replay, "
+            f"{found or 'none'}")
+    log("simulate", f"M held {len(names)} jobs at once: {frames_sim} "
+        f"simulated frames (step s of each as svc-m started its step s) + "
+        f"{live_m['frames']} of svc-m's = {counters['serve.frames']}"
+        f" taken, 0 dropped, 0 reconnects; /jobs lists "
+        f"{', '.join(sorted(jobs))}; {total} events in {span_s:.2f} s from "
+        f"the first frame to settled ({total / span_s:.0f} events/s), the "
+        f"last simulated frame {settled - feed['last']:.2f} s before; M's "
+        f"host CPU {fin['cpu_s']:.2f} s (with its 2 workers, "
+        f"{total / fin['cpu_s']:.0f} events a CPU second); svc-m "
+        f"{job_s:.1f} s, its widest anchor bracket {bracket * 1e3:.3f} ms"
+        + ("" if svc_a_bracket_s is None else
+           f" (svc-a's in the service phase {svc_a_bracket_s * 1e3:.3f} ms)"))
+    return dict(jobs={job: dict(events=events[job], stream=[
+        r for r in rows if r["job"] == job]) for job in names},
+        frames_sim=frames_sim, sent=sent, live=live_m, spill=facts_m,
+        counters=counters, host_cpu_s=fin["cpu_s"], events=total,
+        span_s=span_s, events_per_s=total / span_s,
+        events_per_cpu_s=total / fin["cpu_s"], job_s=job_s,
+        bracket_s=bracket, launches=launches, spawned_s=M.info["spawned_s"],
+        torch_in_service=False)
+
+
+def simulate_phase(seed: int, fleet: FleetLive,
+                   svc_a_bracket_s: float | None = None) -> dict:
+    """The port's cluster simulator (``repro_torch.core.timeline``,
+    ``core/injectors``, ``scenarios``) at the H100's ceilings: the scenario
+    matrix (``sim_matrix``), the paper's 1024-rank drills
+    (``sim_cluster``) and one service fed at once by simulated jobs and a
+    traced job on the card (``sim_service``); the profiles of the
+    ``diagnose`` phase's healthy jobs (``fleet.history``) beside the
+    simulated jobs' in ``SIM_HISTORY``."""
+    import shutil
+    from repro_torch.core.history import HistoryStore
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    SIM_DIR.mkdir(parents=True)
+    history = HistoryStore(str(SIM_HISTORY))
+    for prof in fleet.history.snapshot_profiles().values():
+        history.put(prof)
+    walls = {}
+    t0 = time.perf_counter()
+    matrix = sim_matrix()
+    walls["matrix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cluster = sim_cluster(history)
+    walls["cluster"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    service = sim_service(seed, svc_a_bracket_s)
+    walls["service"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    log("simulate", f"phase wall {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+    return dict(matrix=matrix, cluster=cluster, service=service,
+                walls=walls, wall_s=wall)
 
 
 # --------------------------------------------------------------------------- #
@@ -4865,6 +5340,15 @@ def main():
     log("wall", f"service {walls['service']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
+    # 4e. the cluster simulator: the scenario matrix, the 1024-rank drills,
+    # and one service fed by simulated jobs beside a traced job
+    t0 = time.perf_counter()
+    sim_run = simulate_phase(args.seed, fleet,
+                             service_run["svc_a"]["bracket_s"])
+    walls["simulate"] = time.perf_counter() - t0
+    log("wall", f"simulate {walls['simulate']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
     spills = {}
@@ -4951,6 +5435,8 @@ def main():
     case3_jobs.update({f"{case3['arch']} service {job} train":
                        service_run[job.replace("-", "_")]["launches"]
                        for job in ("svc-a", "svc-b")})
+    case3_jobs[f"{case3['arch']} simulate {SVC_M} train"] = \
+        sim_run["service"]["launches"]
     by_path.update(case3_jobs)
 
     def count(summary, label, paths, key=None, keys=()):
@@ -5016,7 +5502,7 @@ def main():
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
                    have_zstd=have_zstd(), diagnose=diagnosis,
-                   fleet=fleet_run, service=service_run)
+                   fleet=fleet_run, service=service_run, simulate=sim_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

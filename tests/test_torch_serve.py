@@ -188,24 +188,36 @@ ENGINE_MODULES = tuple(f"repro_torch.core.{m}" for m in (
 SERVE_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
     "protocol", "client", "tail", "checkpoint", "service", "query")) + (
         "repro_torch.serve",)
+# the cluster simulator, its injectors and the scenario matrix, numpy
+# copies of the reference's as well
+SIM_MODULES = ("repro_torch.core.timeline", "repro_torch.core.injectors") \
+    + tuple(f"repro_torch.core.injectors.{m}" for m in (
+        "base", "registry", "builtins", "l4")) + ("repro_torch.scenarios",) \
+    + tuple(f"repro_torch.scenarios.{m}" for m in (
+        "base", "library", "runner"))
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module imports with jax and repro blocked, the diagnosis
     plane's 22 among them (the engine's 14, the fleet's 6, the archive's
-    2) and the service's 7, and no source of the port or of chip_smoke.py
-    names them in an import, even in a function; nor does the diagnosis
-    plane or the service name torch: they are numpy, as the
-    reference's."""
+    2), the service's 7 and the simulator's 10, and no source of the port,
+    of chip_smoke.py, of the port's example scripts or of
+    tools/sim_check.py names them in an import, even in a function; nor
+    does the diagnosis plane, the service or the simulator name torch:
+    they are numpy, as the reference's."""
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", _BLOCK_IMPORTS], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 52
+    assert int(out.stdout.split()[-1]) >= 62
     assert set(ENGINE_MODULES) <= set(out.stdout.split())
     assert set(SERVE_MODULES) <= set(out.stdout.split())
-    files = [ROOT / "chip_smoke.py",
+    assert set(SIM_MODULES) <= set(out.stdout.split())
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = [ROOT / "chip_smoke.py", ROOT / "tools" / "sim_check.py",
+             *examples,
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -217,7 +229,7 @@ def test_port_imports_neither_jax_nor_repro():
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{f}: imports {n}"
-    for m in ENGINE_MODULES + SERVE_MODULES:
+    for m in ENGINE_MODULES + SERVE_MODULES + SIM_MODULES:
         rel = m.split(".")[1:]
         f = ROOT / "src" / "repro_torch" / Path(*rel[:-1]) / f"{rel[-1]}.py"
         if not f.exists():

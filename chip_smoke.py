@@ -172,6 +172,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 tier's cross_job_correlation on rack0, rank 137's
                 fail-slow, svc-m's v_inter, silence on the healthy job, no
                 drop (details.json ``simulate``);
+     parallel — the port's parallel plane (``launch/mesh.py``'s meshes,
+                ``parallel/{sharding,pipeline}.py``, expert parallelism in
+                ``models/moe.py``) on 4 ranks on the card (gloo through
+                pinned host memory), each rank drawing the weights from
+                --seed and keeping only its block (``Spec("stage")``,
+                ``shard_experts``): llama3.2-1b's 16 blocks as a GPipe
+                pipeline of 4 stages, 8 microbatches of [1, 1024] as the
+                packed (h, x) pair, equal (torch.equal) to the blocks in
+                order one microbatch at a time on this process; one
+                dbrx-132b block through ``block_apply`` (B 2 x S 1024), its
+                16 experts parallel on a (data 1, model 4) and a (data 2,
+                model 2) mesh, the routing and kept slots identical to the
+                local block's on each data shard and y within the bf16
+                tolerance; walls beside the plain runs', the bubble share,
+                the bytes a tick, the resident bytes a rank, and each
+                path's launches of flash, the fused norm and the ring
+                combine, by kernel counts and by the ranks' traced spans
+                (details.json ``parallel``);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -3843,6 +3861,504 @@ def simulate_phase(seed: int, fleet: FleetLive,
 
 
 # --------------------------------------------------------------------------- #
+# phase 4f: parallel — the GPipe pipeline and expert parallelism on ranks
+# --------------------------------------------------------------------------- #
+PAR_DIR = OUT_DIR / "parallel"    # the ranks' traces
+PAR_WORLD = 4
+PIPE_ARCH = "llama3.2-1b"
+PIPE_STAGES, PIPE_M, PIPE_S = 4, 8, 1024     # stages, microbatches, tokens
+EP_ARCH = "dbrx-132b"
+EP_B, EP_S = 2, 1024
+# the dbrx block's expert-parallel paths: tag -> ((data, model) mesh,
+# capacity factor, None for the config's).  At the config's 1.25 the
+# seeded router drops no entry, so the last path halves the capacity
+# factor to hold the kept-slot check to dropped entries as well.
+EP_CASES = {"ep (1, 4)": ((1, 4), None), "ep (2, 2)": ((2, 2), None),
+            "ep (2, 2) cf 0.5": ((2, 2), 0.5)}
+# each path's traced daemon step; the step before it is its warm-up's
+PAR_STEPS = {"pipeline": 1, "ep (1, 4)": 3, "ep (2, 2)": 5,
+             "ep (2, 2) cf 0.5": 7}
+PAR_KERNELS = ("flash_attention[wgmma]", "fused_residual_rmsnorm",
+               "ring_combine")
+PAR_SPANS = ("flash_attention", "fused_residual_rmsnorm", "ring_combine")
+
+
+def par_draw(shapes: dict, cfg, seed: int, device) -> dict:
+    """Seeded bf16 weights of a block's parameters ({name: shape}, in
+    order): normal draws at the JAX init's stddev (``init_std``), norm
+    scales fp32 1 + 0.1·N(0, 1); the same in every process."""
+    import torch
+    from repro_torch.models.transformer import init_std
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("scale"):
+            out[name] = 1 + 0.1 * torch.randn(shape, generator=gen,
+                                              device=device)
+            continue
+        out[name] = torch.randn(shape, generator=gen, device=device,
+                                dtype=torch.bfloat16).mul_(
+                                    init_std(cfg, name))
+    return out
+
+
+def par_block_shapes(cfg, prefix: str = "") -> dict:
+    import torch
+    from repro_torch.models.transformer import Block
+    blk = Block(cfg, torch.bfloat16, "meta")
+    return {f"{prefix}{n}": tuple(p.shape) for n, p in blk.named_parameters()}
+
+
+def pipe_inputs(seed: int, device):
+    """llama3.2-1b's 16 blocks' weights and final norm ({port name:
+    tensor}) and the M microbatches' (h, x) pairs [M, 2, 1, S, D] after the
+    embedding (x a seeded draw, h its first norm)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rmsnorm
+    cfg = get_config(PIPE_ARCH)
+    shapes = {}
+    for i in range(cfg.num_layers):
+        shapes.update(par_block_shapes(cfg, f"layers.{i}."))
+    shapes["final_norm.scale"] = (cfg.d_model,)
+    state = par_draw(shapes, cfg, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn((PIPE_M, 1, PIPE_S, cfg.d_model), generator=gen,
+                    device=device, dtype=torch.bfloat16)
+    h = rmsnorm(state["layers.0.ln1.scale"], x, cfg.norm_eps)
+    return cfg, state, torch.stack([h, x], dim=1)
+
+
+def ep_inputs(seed: int, device, capacity_factor=None):
+    """One dbrx-132b block's config (its capacity factor replaced when one
+    is given), weights ({name: tensor}, all 16 experts), the scale of the
+    norm after it, and its input pair (h, x) [B, S, D]."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rmsnorm
+    cfg = get_config(EP_ARCH)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    shapes = par_block_shapes(cfg)
+    shapes["nxt.scale"] = (cfg.d_model,)
+    state = par_draw(shapes, cfg, seed + 2, device)
+    nxt = state.pop("nxt.scale")
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    return cfg, state, nxt, rmsnorm(state["ln1.scale"], x, cfg.norm_eps), x
+
+
+class MoeSpy:
+    """Keeps what the block's ``moe_apply`` computed: the routing that
+    ``route`` returned (expert ids and weights [T, k]) and the kept
+    entries that ``dispatch`` returned to ``expert_ff_local`` (True where
+    this rank's experts took the entry within their capacity)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, (moe.route, moe.dispatch)
+        self.routes, self.keeps = [], []
+
+        def route(*args, **kwargs):
+            out = self.orig[0](*args, **kwargs)
+            self.routes.append(out[:2])
+            return out
+
+        def dispatch(*args, **kwargs):
+            dest, keep = self.orig[1](*args, **kwargs)
+            self.keeps.append(keep)
+            return dest, keep
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.orig
+
+    def one(self) -> tuple:
+        """(expert ids, weights, kept) [T, k] of the one ``moe_apply``."""
+        if len(self.routes) != 1 or len(self.keeps) != 1:
+            fail(f"parallel: {len(self.routes)} routings and "
+                 f"{len(self.keeps)} dispatches, not one of each")
+        eids, w = self.routes[0]
+        return eids, w, self.keeps[0].view(eids.shape)
+
+
+def par_block(state: dict, cfg, shards: int = 1, prefix: str = ""):
+    """The port's ``Block`` holding ``state``'s ``prefix`` entries
+    (experts already cut to E / ``shards``)."""
+    import torch
+    from repro_torch.models.transformer import Block
+    blk = Block(cfg, torch.bfloat16, "meta", torch.float32, shards)
+    for name, p in list(blk.named_parameters()):
+        mod, _, leaf = name.rpartition(".")
+        setattr(blk.get_submodule(mod), leaf,
+                torch.nn.Parameter(state[prefix + name], requires_grad=False))
+    return blk
+
+
+def bits(t):
+    """A bf16 tensor as numpy int16 (its bits), to cross processes."""
+    import torch
+    return t.contiguous().view(torch.int16).cpu().numpy()
+
+
+def from_bits(a):
+    import torch
+    return torch.from_numpy(a).view(torch.bfloat16)
+
+
+def par_sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def par_counts(reset: bool = False) -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.ring_reduce import ops as ring
+    ks = dict(zip(PAR_KERNELS, (fa.KERNELS["wgmma"], fn.KERNEL,
+                                ring.KERNEL)))
+    out = {label: k.launches for label, k in ks.items()}
+    if reset:
+        for k in ks.values():
+            k.launches = 0
+    return out
+
+
+def parallel_rank(ctx, seed: int) -> dict:
+    """One rank of the parallel phase, in daemon steps (``PAR_STEPS``,
+    each after a warm-up step of its own): the llama3.2-1b pipeline on a
+    ("stage",) mesh of 4, then one dbrx-132b block through
+    ``block_apply`` with its experts parallel on each path of ``EP_CASES``.
+    Each rank draws the full weights from the seed and keeps only its
+    block: its stage's (``Spec("stage")``), its experts'
+    (``shard_experts``).  The kernels' counts are set to 0 just before
+    each path and read just after."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import block_apply
+    from repro_torch.parallel import pipeline as pp
+
+    dev, daemon, out = ctx.device, ctx.daemon, {}
+    pipe_mesh = make_mesh((PIPE_STAGES,), ("stage",))
+    ep_meshes = {}
+    for shape, _ in EP_CASES.values():
+        if shape not in ep_meshes:
+            ep_meshes[shape] = make_mesh(shape, ("data", "model"))
+
+    def run(step: int, what: str, fn):
+        par_sync(dev)
+        dist.barrier()
+        daemon.step_begin(step)
+        daemon.set_stack([f"step_{step}", what])
+        par_counts(reset=True)
+        t0 = time.perf_counter()
+        res = fn()
+        par_sync(dev)
+        wall = time.perf_counter() - t0
+        counts = par_counts()
+        daemon.step_end()
+        return res, wall, counts
+
+    # the pipeline
+    mesh = pipe_mesh
+    cfg, state, a = pipe_inputs(seed, dev)
+    stacked = pp.stack_block_params(state, cfg, PIPE_STAGES)
+    del state
+    block = pp.stage_block(stacked, mesh)
+    del stacked
+    torch.cuda.empty_cache()
+    positions = torch.arange(PIPE_S, device=dev)[None, :]
+    fn = pp.block_stage(cfg, positions)
+    step = PAR_STEPS["pipeline"]
+    run(step - 1, "warm-up", lambda: fn({k: v[0] for k, v in block.items()},
+                                        a[0]))
+    outs, wall, counts = run(step, "pipeline_apply",
+                             lambda: pp.pipeline_apply(fn, block, a, mesh))
+    resident = sum(t.numel() * t.element_size() for t in block.values())
+    out["pipeline"] = dict(
+        wall_s=wall, launches=counts, resident_bytes=resident,
+        tick_bytes=a[0].numel() * a.element_size(),
+        sha=hashlib.sha256(bits(outs).tobytes()).hexdigest(),
+        outs=bits(outs) if ctx.rank == 0 else None,
+        finite=bool(outs.isfinite().all()))
+    del block, outs, a
+    torch.cuda.empty_cache()
+
+    # expert parallelism, one block, on each mesh
+    for tag, (shape, cf) in EP_CASES.items():
+        mesh = ep_meshes[shape]
+        cfg, state, nxt, h, x = ep_inputs(seed, dev, cf)
+        coords = mesh.coords(ctx.rank)
+        d, m = coords
+        n = mesh.shape["model"]
+        state = moe.shard_experts(state, mesh, coords)
+        torch.cuda.empty_cache()
+        blk = par_block(state, cfg, n)
+        rows = EP_B // mesh.shape["data"]
+        h, x = (t[d * rows:(d + 1) * rows].contiguous() for t in (h, x))
+        positions = torch.arange(EP_S, device=dev)[None, :]
+
+        def apply():
+            return block_apply(blk, h, x, positions, cfg, lambda w: w, nxt,
+                               0, mesh=mesh)
+        run(PAR_STEPS[tag] - 1, "warm-up", apply)
+        with MoeSpy() as spy:
+            (yh, yx), wall, counts = run(PAR_STEPS[tag], "block_apply", apply)
+        e_loc = blk.moe.wi_gate.shape[0]
+        eids, w, keep = spy.one()
+        expert_bytes = sum(getattr(blk.moe, k).numel() * 2
+                           for k in moe.EXPERT_WEIGHTS)
+        out[tag] = dict(
+            coords=coords, wall_s=wall, launches=counts,
+            experts=e_loc, first_expert=m * e_loc, expert_bytes=expert_bytes,
+            capacity=moe.capacity(rows * EP_S, cfg),
+            capacity_factor=cfg.capacity_factor,
+            eids=eids.cpu().numpy(), weights=bits(w), keep=keep.cpu().numpy(),
+            sha=hashlib.sha256(bits(yx).tobytes() + bits(yh).tobytes())
+            .hexdigest(),
+            y=(bits(yh), bits(yx)) if m == 0 else None)
+        del blk, state, yh, yx
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_oracles(seed: int, device: str = "cuda") -> dict:
+    """The plain runs the phase holds the ranks to, on this process: the
+    16 llama blocks applied in order, one microbatch at a time (the port's
+    ``Block`` modules through ``block_apply``, nothing of
+    ``parallel/pipeline.py``, at the pipeline's shapes), and for each EP
+    path the dbrx block with all 16 experts on each data shard's tokens,
+    with the routing and kept entries it computed; walls beside them."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import block_apply
+
+    dev = torch.device(device)
+    cfg, state, a = pipe_inputs(seed, dev)
+    L = cfg.num_layers
+    blocks = [par_block(state, cfg, prefix=f"layers.{i}.") for i in range(L)]
+    nxts = [state[f"layers.{i + 1}.ln1.scale"] for i in range(L - 1)] + [
+        state["final_norm.scale"]]
+    positions = torch.arange(PIPE_S, device=dev)[None, :]
+
+    def in_order(mb):
+        h, x = mb[0], mb[1]
+        for i, (blk, nxt) in enumerate(zip(blocks, nxts)):
+            h, x = block_apply(blk, h, x, positions, cfg, lambda w: w, nxt,
+                               i)
+        return torch.stack([h, x])
+    in_order(a[0])                                         # warm-up
+    par_sync(dev)
+    t0 = time.perf_counter()
+    seq = torch.stack([in_order(mb) for mb in a])
+    par_sync(dev)
+    pipe = dict(wall_s=time.perf_counter() - t0, outs=seq.cpu(),
+                weight_bytes=sum(t.numel() * t.element_size()
+                                 for n, t in state.items()
+                                 if n != "layers.0.ln1.scale"))
+    del blocks, nxts, state, seq, a
+    torch.cuda.empty_cache()
+
+    positions = torch.arange(EP_S, device=dev)[None, :]
+    ep = {}
+    for tag, ((dp, _), cf) in EP_CASES.items():
+        cfg, state, nxt, h, x = ep_inputs(seed, dev, cf)
+        blk = par_block(state, cfg)
+        rows = EP_B // dp
+        shards = []
+        for d in range(dp):
+            hs, xs = (t[d * rows:(d + 1) * rows] for t in (h, x))
+            block_apply(blk, hs, xs, positions, cfg, lambda w: w, nxt, 0)
+            par_sync(dev)
+            with MoeSpy() as spy:
+                t0 = time.perf_counter()
+                yh, yx = block_apply(blk, hs, xs, positions, cfg,
+                                     lambda w: w, nxt, 0)
+                par_sync(dev)
+                wall = time.perf_counter() - t0
+            eids, w, keep = spy.one()
+            shards.append(dict(yh=yh.cpu(), yx=yx.cpu(), eids=eids.cpu(),
+                               weights=w.cpu(), keep=keep.cpu(), wall_s=wall))
+        ep[tag] = shards
+        expert_bytes = sum(getattr(blk.moe, k).numel() * 2
+                           for k in moe.EXPERT_WEIGHTS)
+        del blk, state, h, x, nxt
+        torch.cuda.empty_cache()
+    return dict(pipeline=pipe, ep=ep, expert_bytes=expert_bytes)
+
+
+def parallel_phase(seed: int, device: str = "cuda") -> dict:
+    """The parallel plane on the card (``parallel/mesh.py``'s meshes over
+    4 ranks on cuda:0, gloo through pinned host memory): the llama3.2-1b
+    GPipe pipeline equal (``torch.equal``) to its blocks in order, one
+    microbatch at a time, and one dbrx-132b block's expert parallelism on
+    a (1, 4) and a (2, 2) mesh, and on the (2, 2) mesh again at a capacity
+    factor that drops entries, with the routing and kept entries that the
+    ranks' ``moe_apply`` computed equal to the local block's, y within the
+    bf16 tolerance; each path's launches of
+    flash, the fused norm and the ring combine (kernel counts and the
+    ranks' traced spans).  A failing rank fails the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import load_jsonl
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel.pipeline import bubble_share
+
+    per_stage = get_config(PIPE_ARCH).num_layers // PIPE_STAGES
+    t_phase = time.perf_counter()
+    PAR_DIR.mkdir(parents=True, exist_ok=True)
+    for old in PAR_DIR.glob("rank*.jsonl"):
+        old.unlink()
+    t0 = time.perf_counter()
+    oracle = parallel_oracles(seed, device)
+    oracle_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_WORLD, seed, device=device,
+                      timeout=400.0, log_dir=str(PAR_DIR))
+    ranks_wall = time.perf_counter() - t0
+    spans = []
+    for r in range(PAR_WORLD):
+        evs = load_jsonl(str(PAR_DIR / f"rank{r}.jsonl"))
+        spans.append({tag: {name: sum(1 for e in evs if e.step == step
+                                      and e.name == name)
+                            for name in PAR_SPANS}
+                      for tag, step in PAR_STEPS.items()})
+
+    # the pipeline
+    pipes = [r["pipeline"] for r in ranks]
+    want = oracle["pipeline"]["outs"]
+    got = from_bits(pipes[0]["outs"])
+    if not all(p["finite"] for p in pipes):
+        fail("parallel: the pipeline's outputs are not finite")
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max()
+        fail(f"parallel: the pipeline's outputs differ from the blocks in "
+             f"order (max abs diff {float(diff):.3e})")
+    if len({p["sha"] for p in pipes}) != 1:
+        fail("parallel: the stages returned different outputs")
+    launches = {"pipeline": {k: sum(p["launches"][k] for p in pipes)
+                             for k in PAR_KERNELS}}
+    want_l = {"flash_attention[wgmma]": PIPE_M * per_stage,
+              "fused_residual_rmsnorm": 2 * PIPE_M * per_stage,
+              "ring_combine": PIPE_STAGES - 1}
+    for r, p in enumerate(pipes):
+        if p["launches"] != want_l:
+            fail(f"parallel: pipeline rank {r} launched {p['launches']}, "
+                 f"not {want_l}")
+    bubble = bubble_share(PIPE_STAGES, PIPE_M)
+    log("parallel", f"{PIPE_ARCH} GPipe, {PIPE_STAGES} stages of "
+        f"{per_stage} layers on a "
+        f"('stage',) mesh of {PAR_WORLD} ranks, M {PIPE_M} microbatches of "
+        f"[1, {PIPE_S}] as the packed (h, x) pair: equal (torch.equal) to "
+        f"the blocks in order one microbatch at a time on every stage; "
+        f"wall {max(p['wall_s'] for p in pipes):.3f} s (ranks "
+        f"{[round(p['wall_s'], 3) for p in pipes]}) against "
+        f"{oracle['pipeline']['wall_s']:.3f} s sequential; bubble share "
+        f"(S-1)/(M+S-1) = {bubble:.4f}; {pipes[0]['tick_bytes']} bytes "
+        f"exchanged a tick a rank; resident parameter bytes a rank "
+        f"{[p['resident_bytes'] for p in pipes]} (the oracle "
+        f"{oracle['pipeline']['weight_bytes']}); launches a rank "
+        f"{pipes[0]['launches']}, spans a rank "
+        f"{[s['pipeline'] for s in spans]}")
+
+    # expert parallelism
+    eps = {}
+    for tag, (shape, cf) in EP_CASES.items():
+        res = [r[tag] for r in ranks]
+        dp, n = shape
+        shards = oracle["ep"][tag]
+        errs, dropped = [], []
+        for d, o in enumerate(shards):
+            group = [x for x in res if x["coords"][0] == d]
+            for x in group:
+                if not (np.array_equal(x["eids"], o["eids"].numpy())
+                        and torch.equal(from_bits(x["weights"]),
+                                        o["weights"])):
+                    fail(f"parallel: {tag} rank at {x['coords']}: routing "
+                         f"differs from the local block's")
+                first = x["first_expert"]
+                mine = (x["eids"] >= first) & (x["eids"] < first
+                                               + x["experts"])
+                if (x["keep"] & ~mine).any():
+                    fail(f"parallel: {tag} rank at {x['coords']} kept an "
+                         f"entry of another rank's expert")
+            # each rank's dispatch kept only its own experts' entries, so
+            # their union is a partition of the ranks' kept entries
+            kept = np.logical_or.reduce([x["keep"] for x in group])
+            if not np.array_equal(kept, o["keep"].numpy()):
+                fail(f"parallel: {tag} data shard {d}: kept slots differ "
+                     f"from the local block's")
+            if len({x["sha"] for x in group}) != 1:
+                fail(f"parallel: {tag} data shard {d}: model ranks differ")
+            yh, yx = next(x["y"] for x in group if x["y"] is not None)
+            errs.append(max(max_err(from_bits(yx), o["yx"], "bfloat16"),
+                            max_err(from_bits(yh), o["yh"], "bfloat16")))
+            dropped.append(int((~o["keep"]).sum()))
+        if cf is not None and not sum(dropped):
+            fail(f"parallel: {tag} dropped no entry at capacity factor {cf}")
+        want_l = {"flash_attention[wgmma]": 1, "fused_residual_rmsnorm": 2,
+                  "ring_combine": (n - 1) + (dp - 1)}
+        for x in res:
+            if x["launches"] != want_l:
+                fail(f"parallel: {tag} rank at {x['coords']} launched "
+                     f"{x['launches']}, not {want_l}")
+        launches[tag] = {k: sum(x["launches"][k] for x in res)
+                         for k in PAR_KERNELS}
+        eps[tag] = dict(max_abs_err=max(errs), capacity=res[0]["capacity"],
+                        capacity_factor=res[0]["capacity_factor"],
+                        experts=res[0]["experts"],
+                        expert_bytes=[x["expert_bytes"] for x in res],
+                        walls_s=[x["wall_s"] for x in res],
+                        local_walls_s=[o["wall_s"] for o in shards],
+                        dropped_entries=dropped)
+        log("parallel", f"{EP_ARCH} block through block_apply, B {EP_B} x S "
+            f"{EP_S}, experts parallel on a (data {dp}, model {n}) mesh, "
+            f"capacity factor {res[0]['capacity_factor']}: "
+            f"{res[0]['experts']} experts a rank, "
+            f"{res[0]['expert_bytes']} expert bytes a rank (local block "
+            f"{oracle['expert_bytes']}), C {res[0]['capacity']}, entries "
+            f"dropped {dropped} a data shard; the routing that each rank "
+            f"computed and the union of the entries its dispatch kept "
+            f"identical to the local block's on each data shard, y max abs "
+            f"err {max(errs):.3e} (bf16 tolerance "
+            f"{TOLS['bfloat16']}); wall {max(x['wall_s'] for x in res):.4f}"
+            f" s (ranks {[round(x['wall_s'], 4) for x in res]}) against the "
+            f"local block's {[round(o['wall_s'], 4) for o in shards]} s; "
+            f"launches a rank {res[0]['launches']}, spans a rank "
+            f"{[s[tag] for s in spans]}")
+    for r, s in enumerate(spans):
+        for tag, c in s.items():
+            want_s = dict(zip(PAR_SPANS, (ranks[r][tag]["launches"][k]
+                                          for k in PAR_KERNELS)))
+            if c != want_s:
+                fail(f"parallel: rank {r}'s trace of {tag} has spans {c}, "
+                     f"not {want_s}")
+    wall = time.perf_counter() - t_phase
+    log("parallel", f"phase wall {wall:.1f} s (oracles {oracle_wall:.1f} s, "
+        f"4 spawned ranks {ranks_wall:.1f} s, CUDA start-up included)")
+    return dict(pipeline=dict(walls_s=[p["wall_s"] for p in pipes],
+                              sequential_wall_s=oracle["pipeline"]["wall_s"],
+                              bubble_share=bubble,
+                              tick_bytes=pipes[0]["tick_bytes"],
+                              resident_bytes=[p["resident_bytes"]
+                                              for p in pipes],
+                              oracle_weight_bytes=oracle["pipeline"][
+                                  "weight_bytes"]),
+                ep=eps, launches=launches, spans=spans, wall_s=wall,
+                oracle_wall_s=oracle_wall, ranks_wall_s=ranks_wall)
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: serve
 # --------------------------------------------------------------------------- #
 def forward_launches(cfg) -> dict:
@@ -5349,6 +5865,13 @@ def main():
     log("wall", f"simulate {walls['simulate']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
+    # 4f. the parallel plane: the GPipe pipeline and expert parallelism
+    t0 = time.perf_counter()
+    par_run = parallel_phase(args.seed)
+    walls["parallel"] = time.perf_counter() - t0
+    log("wall", f"parallel {walls['parallel']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # 5. serve, and 6. trace, for each serving path
     runs, traces, errs, fp32_launches, routing = {}, {}, {}, {}, {}
     spills = {}
@@ -5438,6 +5961,10 @@ def main():
     case3_jobs[f"{case3['arch']} simulate {SVC_M} train"] = \
         sim_run["service"]["launches"]
     by_path.update(case3_jobs)
+    par_paths = {f"{PIPE_ARCH if tag == 'pipeline' else EP_ARCH} parallel "
+                 f"{tag}, {PAR_WORLD} ranks": n
+                 for tag, n in par_run["launches"].items()}
+    by_path.update(par_paths)
 
     def count(summary, label, paths, key=None, keys=()):
         def of(p):
@@ -5483,12 +6010,13 @@ def main():
                            (ssd_bwd, "ssd_scan_bwd[wgmma]")):
         count(summary, label, trains)
     count(ssd_bwd_fp32, "ssd_scan_bwd[tf32x3]", agree)
-    combine["launches"] = ring_run["launches"]
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
             ring_run["launches"],
         f"ring all-reduce, {RING_ODD_NUMEL}-element bucket":
-            ring_run["odd_launches"]}
+            ring_run["odd_launches"],
+        **{p: n["ring_combine"] for p, n in par_paths.items()}}
+    combine["launches"] = sum(combine["launches_by_path"].values())
     details = dict(card=card, seed=args.seed, flash_cases=flash_cases,
                    fused_cases=fused_cases, fused_rows=fused_rows,
                    ssd_cases=ssd_cases, matmul_cases=matmul_cases,
@@ -5502,7 +6030,8 @@ def main():
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
                    have_zstd=have_zstd(), diagnose=diagnosis,
-                   fleet=fleet_run, service=service_run, simulate=sim_run)
+                   fleet=fleet_run, service=service_run, simulate=sim_run,
+                   parallel=par_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

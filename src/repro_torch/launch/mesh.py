@@ -1,8 +1,11 @@
-"""A multi-process ring of W ranks, each traced by its own FLARE daemon.
+"""Meshes of ranks, and a multi-process world of W ranks, each traced by
+its own FLARE daemon.
 
-The counterpart of the JAX package's ``launch/mesh.py::make_test_mesh``:
-where JAX fakes W devices in one process, here W ranks are W processes
-joined in one ``torch.distributed`` gloo group.
+The counterpart of the JAX package's ``launch/mesh.py``: where JAX fakes W
+devices in one process, here W ranks are W processes joined in one
+``torch.distributed`` gloo group.  The meshes laid over them
+(``Mesh``, ``make_mesh``, ``make_test_mesh``, ``make_production_mesh``,
+``dp_axes``) live in ``parallel/mesh.py`` and are re-exported here.
 
     results = run_ranks(fn, 4, *args, device="cuda", timeout=120.0)
 
@@ -49,6 +52,8 @@ from repro_torch.core.daemon import DaemonConfig, TracingDaemon
 from repro_torch.kernels import build_all
 from repro_torch.kernels.ring_reduce.ops import KERNEL as COMBINE_KERNEL
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.mesh import (  # noqa: F401  (re-exported)
+    Mesh, dp_axes, make_mesh, make_production_mesh, make_test_mesh)
 
 
 @dataclass

@@ -14,13 +14,15 @@ from repro_torch.models.zamba2 import Zamba2LM
 
 
 def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda",
-                remat: str = "none"):
+                remat: str = "none", mesh=None):
     """``TransformerLM`` for the dense, moe, audio and vlm families,
     ``MambaLM`` for ssm, ``Zamba2LM`` for hybrid: every family of the JAX
     package's zoo.  ``remat`` ("none", "dots", "full") is what a training
-    forward keeps for the backward, as the JAX ``build_model``'s."""
+    forward keeps for the backward, as the JAX ``build_model``'s; ``mesh``
+    shards the moe family's experts over its model axis, as the JAX
+    ``build_model``'s (the other families do not use it)."""
     if cfg.family in FAMILIES:
-        return TransformerLM(cfg, policy, device, remat)
+        return TransformerLM(cfg, policy, device, remat, mesh)
     if cfg.family == "ssm":
         return MambaLM(cfg, policy, device, remat)
     if cfg.family == "hybrid":

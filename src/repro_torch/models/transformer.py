@@ -77,16 +77,17 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Attention and an MLP; with ``num_experts`` set, the MoE FF in place
     of the MLP, or beside it with ``moe_dense_residual`` (the JAX
-    ``_layer_init``)."""
+    ``_layer_init``), of E / ``shards`` experts on a rank of a model axis
+    of ``shards`` (expert parallelism)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device,
-                 norm_dtype=torch.float32):
+                 norm_dtype=torch.float32, shards: int = 1):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device, norm_dtype)
         self.ln2 = RMSNorm(cfg.d_model, device, norm_dtype)
         self.attn = Attention(cfg, dtype, device)
-        self.moe = (moe_lib.MoE(cfg, dtype, device) if cfg.num_experts
-                    else None)
+        self.moe = (moe_lib.MoE(cfg, dtype, device, shards)
+                    if cfg.num_experts else None)
         self.mlp = (MLP(cfg.d_model, cfg.d_ff, dtype, device)
                     if not cfg.num_experts or cfg.moe_dense_residual
                     else None)
@@ -108,7 +109,8 @@ class CrossBlock(nn.Module):
 
 
 def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
-                i: int, cache=None, pos=None, kvs=None, auxs=None):
+                i: int, cache=None, pos=None, kvs=None, auxs=None,
+                mesh=None):
     """One block on its normed input ``h`` and residual stream ``x``;
     returns the next (normed input, residual) pair, normed by ``nxt`` (the
     scale of the norm that follows).  ``w`` casts a stored weight to the
@@ -117,7 +119,9 @@ def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
     dynamic_update_slice on a donated cache); else full causal
     self-attention, its (k, v) appended to ``kvs`` when given.  A moe
     block's FF is the MoE (plus the MLP on the same ``h`` with a dense
-    residual), its router's aux loss appended to ``auxs`` when given."""
+    residual), its router's aux loss appended to ``auxs`` when given, its
+    experts parallel over ``mesh``'s model axis when a mesh is given
+    (``moe.moe_apply``)."""
     eps = cfg.norm_eps
     a = blk.attn
     bias = (None,) * 3 if a.bq is None else (w(a.bq), w(a.bk), w(a.bv))
@@ -136,7 +140,7 @@ def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
     if blk.moe is None:
         y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
     else:
-        y, aux = moe_lib.moe_apply(blk.moe, h, cfg, w)
+        y, aux = moe_lib.moe_apply(blk.moe, h, cfg, w, mesh)
         if auxs is not None:
             auxs.append(aux)
         if m is not None:
@@ -205,10 +209,14 @@ class TransformerLM(LM):
     backward go through the flash-attention and fused-norm kernels on CUDA
     tensors (the moe family's dispatch and expert products are PyTorch, as
     the reference's are XLA).  The vlm family's calls take
-    ``vision_embeds`` [B, vision_tokens, vision_d]."""
+    ``vision_embeds`` [B, vision_tokens, vision_d].  With a ``mesh``
+    (``parallel/mesh.py``, connected) the moe family's experts are parallel
+    over its model axis: each layer holds this rank's experts (load a
+    state cut by ``moe.shard_experts``) and a call takes this rank's data
+    shard of the batch (the JAX model's ``mesh``)."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda", remat: str = "none"):
+                 device="cuda", remat: str = "none", mesh=None):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"TransformerLM serves the {'/'.join(FAMILIES)} families, "
@@ -220,9 +228,11 @@ class TransformerLM(LM):
                 f"layer, so num_layers is a multiple of "
                 f"{cfg.cross_attn_every + 1}, not {cfg.num_layers}")
         super().__init__(cfg, policy, device, remat)
+        self.mesh = mesh
         pd = policy.param_dtype
+        shards = moe_lib.model_shards(mesh)
         self.layers = nn.ModuleList(
-            Block(cfg, pd, self.device, policy.norm_dtype)
+            Block(cfg, pd, self.device, policy.norm_dtype, shards)
             for _ in range(cfg.n_self))
         self.cross = nn.ModuleList(
             CrossBlock(cfg, pd, self.device, policy.norm_dtype)
@@ -279,7 +289,7 @@ class TransformerLM(LM):
                     a = []
                     h, x = block_apply(blk, h, x, positions, cfg, self.cast,
                                        nxt, i, cache, pos,
-                                       kvs if keep else None, a)
+                                       kvs if keep else None, a, self.mesh)
                     return h, x, *a
                 h, x, *a = remat(self.remat, unit, h, x)
                 auxs += a

@@ -9,7 +9,11 @@ the port of the JAX package's ``optim/adamw.py``.
              ``[..., n_blocks]`` tail (blocks of ``QBLOCK`` along the last
              axis)
 
-Parameters, gradients and state are dicts keyed by parameter name.  The
+Parameters, gradients and state are dicts keyed by parameter name.
+``opt_state_specs`` gives the state's partition specs: each moment takes
+its parameter's spec plus ZeRO sharding over the data axes
+(``parallel/sharding.py::zero_spec``), computed on the reference's stacked
+shapes.  The
 update is plain tensor code under ``no_grad`` (the JAX package leaves it to
 XLA, outside any Pallas kernel) and writes the parameters and the state in
 place, where the JAX arrays are replaced: at full width that saves a copy
@@ -158,3 +162,38 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
             sv.copy_(v)
     state["count"].copy_(count)
     return params, state, {"grad_norm": gnorm}
+
+
+# --------------------------------------------------------------- state specs
+def opt_state_specs(p_specs: dict, params, mesh, cfg: AdamWConfig,
+                    zero: bool = True, model_cfg=None) -> dict:
+    """Partition specs of ``adamw_init``'s state (ZeRO over the data axes):
+    ``{"mu_nu": {name: {"m": spec, "v": spec}}, "count": Spec()}``, where
+    an int8 moment's spec is ``{"q": spec, "scale": spec}``, the scale's
+    sanitised on its ``[..., nblocks]`` shape.  ``params`` is a model or a
+    {name: tensor | shape} dict and ``p_specs`` its per-layer specs; with
+    ``model_cfg`` (a model's own by default) each spec is computed on the
+    reference's stacked shape, as ``sanitize_specs`` does, and its stacked
+    entries dropped."""
+    from repro_torch.parallel import sharding as sh
+
+    model_cfg = sh._cfg(params, model_cfg)
+
+    def one(name, shape):
+        dims = sh.stack_dims(name, model_cfg)
+        k, shape = len(dims), dims + shape
+        spec = sh._stacked(p_specs[name], k)
+        base = sh.zero_spec(spec, shape, mesh) if zero else spec
+        if cfg.state_dtype == "int8":
+            last = shape[-1] if shape else 1
+            scale_shape = shape[:-1] + ((last + QBLOCK - 1) // QBLOCK,)
+            scale = sh.sanitize_spec(base, scale_shape, mesh)
+            return {"q": sh.per_layer(base, k),
+                    "scale": sh.per_layer(scale, k)}
+        return sh.per_layer(base, k)
+
+    mu_nu = {}
+    for name, shape in sh._shapes(params).items():
+        s = one(name, shape)
+        mu_nu[name] = {"m": s, "v": s}
+    return {"mu_nu": mu_nu, "count": sh.Spec()}

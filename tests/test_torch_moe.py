@@ -388,7 +388,7 @@ def test_forward_launches_at_full_width():
             calls["fused"] += 1
             return out, x
 
-        def moe_apply(layer, x, cfg, w):
+        def moe_apply(layer, x, cfg, w, mesh=None):
             calls["moe"] += 1
             return x, torch.zeros((), device="meta")
 

@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""The parallel plane's phase on one CUDA card, in ~2 min.
+
+    python3 tools/parallel_check.py
+
+Runs ``chip_smoke.py``'s ``parallel`` phase alone: 4 ranks on the card
+(``launch/mesh.py``, gloo through pinned host memory) driving the
+llama3.2-1b GPipe pipeline (4 stages, 8 microbatches of 1024 tokens)
+against its blocks in order, and one dbrx-132b block's expert parallelism
+on a (1, 4) and a (2, 2) mesh, and on the (2, 2) mesh at a capacity
+factor of 0.5 that drops entries, against the local block.  Builds only the
+kernels the phase launches: flash attention forward (bf16 wgmma), the
+fused norm and the ring combine.  Prints the card's name and power limit
+first; the results go to ``smoke_out/parallel_check.json``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main():
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.ring_reduce import ops as ring
+
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    t_start = time.perf_counter()
+    build_all([fa.KERNELS["wgmma"], fn.KERNEL, ring.KERNEL])
+    cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
+    walls = {"build": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    par_run = cs.parallel_phase(0)
+    walls["parallel"] = time.perf_counter() - t0
+    walls["total"] = time.perf_counter() - t_start
+    (cs.OUT_DIR / "parallel_check.json").write_text(json.dumps(
+        dict(parallel=par_run, walls=walls), indent=1))
+    cs.log("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+
+
+if __name__ == "__main__":
+    main()

@@ -188,7 +188,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 tolerance; walls beside the plain runs', the bubble share,
                 the bytes a tick, the resident bytes a rank, and each
                 path's launches of flash, the fused norm and the ring
-                combine, by kernel counts and by the ranks' traced spans
+                combine, by kernel counts and by the ranks' traced spans;
+                llama3.2-1b whole, one prompt of 4096 tokens prefilled with
+                ``attn_impl="cp"`` on a (data 1, model 4) mesh (1024 query
+                rows a rank by ``chunked_attention``, the rows gathered by
+                the ring all-gather: the fused norm and no flash launch a
+                rank), its logits held to the one-process prefill's (the
+                flash kernel) by ``SERVE_BF16_SCALED``
                 (details.json ``parallel``);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
@@ -216,7 +222,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 124 x 33; qwen2-72b's cut 30, 60 x 33; llama3-405b's cut 8,
                 16 x 33); untraced and
                 traced walls; a profiler breakdown; the vlm's prefill
-                logits moving with its vision embeddings; fp32 prefill
+                logits moving with its vision embeddings, and its prefill
+                of one 4096-token prompt, S·T above 2^22, whose cross
+                layers take ``chunked_attention`` (the first one's q/k/v
+                also through ``direct_attention``, bf16 tolerance); fp32
+                prefill
                 logits on the card (the fp32 routes: flash and the SSD scan
                 on tf32x3) against the plain path on the CPU (the vlm on
                 its one-group cut, gates open; the moe paths on their
@@ -285,7 +295,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 anchors its thread took during each training path, the
                 widest anchor bracket, and the host time of an untraced
                 fused-norm call with the daemon attached and after it
-                detached.
+                detached;
+  8. dryrun   — ``repro_torch.launch.dryrun``'s cells, in a process of
+                their own started before phase 3 (meta tensors, no device:
+                it runs on the host's CPU beside the card's phases): every
+                cell of ``configs.cells()`` on the 16 x 16 and the 2 x 16 x
+                16 production meshes, an ``OK`` row each, printed here
+                (any ``FAIL`` fails the phase; JSON in smoke_out/dryrun/);
+                then its op analysis on one chip of
+                llama3.2-1b's training step (B 8 x S 512) and prefill (8 x
+                1024) against their medians timed on the card: the counted
+                flops at 989 TFLOP/s may not exceed the measured time by
+                more than 5 % (printed: compute term / measured, the counted
+                MFU, and memory term / measured, not held)
+                (details.json ``dryrun``; ``tools/dryrun_check.py`` runs
+                the phase alone).
 The wall time of each phase and of the whole run is printed ([wall]).
 The traces and a details.json are written to smoke_out/.
 The line before the last is the per-kernel JSON summary; the last line is
@@ -294,6 +318,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
 import itertools
 import json
@@ -311,12 +336,31 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+def terms(work: dict, peak: float) -> tuple:
+    """(operations ms, bytes ms) of a kernel's ``work`` (its ``ops.py``'s
+    ``work``, which the op analysis charges too): its products at
+    ``peak`` (the route's tensor-core rate) plus its other arithmetic at
+    the FP32 pipes' rate, and its bytes at the HBM rate."""
+    return ((work["flops"] / peak + work["ops"] / PEAK_FP32_FLOPS) * 1e3,
+            work["bytes"] / PEAK_BYTES * 1e3)
+
+
+def bound(work: dict, peak: float) -> tuple:
+    """(bound ms, by what) of a kernel's ``work``: the larger of
+    ``terms``."""
+    t_ops, t_bytes = terms(work, peak)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
         "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
 
 def fail(msg: str):
+    """Print the failure to stdout and to stderr (a caller that keeps only
+    one stream's tail still sees why), and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -535,8 +579,7 @@ def check_flash(gen, device):
     for (B, S, H, KV, hd), dtype in itertools.product(
             FLASH_TIMED, ("bfloat16", "float32")):
         key = flash_key(FLASH_TIMED, B, S, H, KV, hd)
-        pairs = S * (S + 1) / 2                  # causal (query, key) pairs
-        flops = 4.0 * B * H * hd * pairs
+        flops = ops.work(B, S, H, KV, hd, True)["flops"]
         dt = getattr(torch, dtype)
         q, k, v = qkv(B, S, H, KV, hd, dt)
         route = ops.route(dt, hd)
@@ -555,10 +598,9 @@ def check_flash(gen, device):
             ms, library_ms = (time_ms(fn, 20) for fn in fns.values())
         else:
             ms, library_ms = in_turns(fns, 20).values()
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
-        t_ops = flops / peak * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = terms(ops.work(B, S, H, KV, hd, True,
+                                        q.element_size()), peak)
         summaries[(route, *key)] = summary = dict(
             name=by_hd("flash_attention"
                        + ("" if route == "wgmma" else "_" + route), *key),
@@ -639,9 +681,8 @@ def check_fused(gen, device):
                     lambda: F.rms_norm(hh, (D,), sd, 1e-5), 100)
                 two_call_ms = time_ms(
                     lambda: F.rms_norm(torch.add(x, r), (D,), sd, 1e-5), 100)
-                nbytes = 4 * R * D * x.element_size() + D * 4
-                t_bytes = nbytes / PEAK_BYTES * 1e3
-                t_ops = 6.0 * R * D / PEAK_FP32_FLOPS * 1e3
+                t_ops, t_bytes = terms(ops.work(R, D, x.element_size()),
+                                       PEAK_BF16_FLOPS)
                 timed[(R, D, dtype)] = t = dict(
                     name="fused_residual_rmsnorm", route="cuda",
                     source="src/repro_torch/kernels/csrc/fused_norm.cu",
@@ -712,17 +753,6 @@ FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
 BWD_BF16_SCALED = 1e-2
 # the SDPA backends timed as the flash backward's yardstick
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
-
-
-def flash_bwd_bound(B, S, H, KV, hd, causal, itemsize, peak):
-    """(bound ms, by what) of the flash backward: 2.5x the forward's
-    operations (five products of its size against its two) at ``peak``;
-    bytes: q, k, v, o, dO and lse read, dq, dk, dv written."""
-    pairs = S * (S + 1) / 2 if causal else S * S
-    t_ops = 2.5 * 4.0 * B * H * hd * pairs / peak * 1e3
-    nbytes = 4 * B * S * (H + KV) * hd * itemsize + B * H * S * 4
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def in_turns(fns: dict, iters: int, **kw) -> dict:
@@ -858,12 +888,13 @@ def check_flash_bwd(gen, device):
                                                          True), 3)
         fastest = min(sdpa, key=sdpa.get)
         peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
-        bound_ms, bound_by = flash_bwd_bound(B, S, H, KV, hd, True,
-                                             q.element_size(), peak)
+        bound_ms, bound_by = bound(ops.work(B, S, H, KV, hd, True,
+                                            q.element_size(), backward=True),
+                                   peak)
         # the function's five products; both designs do seven (S and dP in
         # both of their kernels), whose floor is 1.4x the operations bound,
         # and tf32x3 three TF32 passes of each
-        flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
+        flops = ops.work(B, S, H, KV, hd, True, backward=True)["flops"]
         passes = 1 if r == "wgmma" else 3
         summaries[(r, *key)] = summary = dict(
             name=by_hd("flash_attention_bwd"
@@ -881,8 +912,9 @@ def check_flash_bwd(gen, device):
             shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
         if r == "tf32x3":
             summary.update(
-                fp32_pipe_bound_ms=flash_bwd_bound(
-                    B, S, H, KV, hd, True, 4, PEAK_FP32_FLOPS)[0],
+                fp32_pipe_bound_ms=bound(ops.work(
+                    B, S, H, KV, hd, True, 4, backward=True),
+                    PEAK_FP32_FLOPS)[0],
                 scratch_bytes=ops.tf32_scratch_bytes(B, S, H, KV, hd, True))
         log("kernels", f"flash_attention backward [{r}] timed at B{B} S{S} "
             f"H{H} KV{KV} hd{hd} {dtype} causal, in turns with SDPA: "
@@ -993,10 +1025,9 @@ def check_fused_bwd(gen, device):
     # the function's bytes: x, res, dy, dh read, dx written; scale read,
     # dscale written.  The kernel's dscale partials (its two-pass design,
     # not the function) are printed apart.
-    nbytes = 5 * R * D * 2 + 2 * D * 4
     partial_bytes = 2 * blocks * D * 4
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
+    t_ops, t_bytes = terms(ops.work(R, D, 2, backward=True),
+                           PEAK_BF16_FLOPS)
     summary = dict(
         name="fused_residual_rmsnorm_bwd", route="cuda",
         source=f"src/repro_torch/kernels/csrc/{ops.BWD_KERNEL.source}",
@@ -1039,8 +1070,8 @@ def check_fused_bwd(gen, device):
         plain_ms = time_ms(lambda: ops.fused_bwd_ref(x, r, s, dy, dh), 10)
         two_call_ms = time_ms(two_call_backward(x, r, s, dy, dh), 50,
                               behind_sleep=True)
-        t_bytes = (5 * R * D * x.element_size() + 2 * D * 4) / PEAK_BYTES * 1e3
-        t_ops = 12.0 * R * D / PEAK_FP32_FLOPS * 1e3
+        t_ops, t_bytes = terms(ops.work(R, D, x.element_size(),
+                                        backward=True), PEAK_BF16_FLOPS)
         key = keys[D] + ("" if dtype == "bfloat16" else "_fp32")
         summary[key] = w = dict(
             shape=[R, D], dtype=dtype, max_abs_err=err, ms=ms,
@@ -1074,37 +1105,6 @@ def ssd_inputs(gen, device, B, L, H, N, dtype):
     Bm = torch.randn(B, L, N, generator=gen, device=device).to(dt_)
     Cm = torch.randn(B, L, N, generator=gen, device=device).to(dt_)
     return x, dt, A, Bm, Cm
-
-
-def ssd_work_flops(B, L, H, P, N, chunk) -> float:
-    """Flops the SSD scan needs (2 per multiply-add) at these shapes, chunk
-    by chunk as the data runs, the ragged last chunk at its length: C·Bᵀ
-    over the causal (t, s) pairs once per (b, chunk), since Bm and Cm are
-    shared by the heads; per head the causal scores times x, the
-    inter-chunk C·S and the state update Bᵀ(w∘x).  (The trace's ``_meta``
-    keeps the JAX formula, which counts C·Bᵀ per head and whole.)"""
-    flops = 0.0
-    for c0 in range(0, L, chunk):
-        q = min(chunk, L - c0)
-        pairs = q * (q + 1) / 2
-        flops += 2 * pairs * N + H * (2 * pairs * P + 4 * q * N * P)
-    return B * flops
-
-
-def ssd_bwd_work_flops(B, L, H, P, N, chunk) -> float:
-    """Flops the SSD backward needs (2 per multiply-add) at these shapes,
-    chunk by chunk as the data runs, the ragged last chunk at its length:
-    C·Bᵀ over the causal pairs once per (b, chunk), since Bm and Cm are
-    shared by the heads; per head over the causal pairs dy·xᵀ, dx, dB and
-    dC (four products), and per row the chunk-start state (the forward's
-    recurrence, which the backward recomputes), S_prevᵀ·dy, dS·B, dSᵀ·x
-    and the state cotangent's dy·Cᵀ (five products of P·N)."""
-    flops = 0.0
-    for c0 in range(0, L, chunk):
-        q = min(chunk, L - c0)
-        pairs = q * (q + 1) / 2
-        flops += 2 * pairs * N + H * (4 * pairs * (P + N) + 10 * q * P * N)
-    return B * flops
 
 
 def ssd_bwd_design_flops(B, L, H, P, N, chunk, route="wgmma",
@@ -1153,7 +1153,7 @@ def check_ssd(gen, device):
     fp32 (split TF32), both on the tensor cores, each call on the route of
     its dtype by the routes' launch counts, against ``ssd_ref``, two fp32
     calls compared bitwise; then the serving shape timed on each route
-    beside the plain version, with the same work (``ssd_work_flops``) for
+    beside the plain version, with the same work (``ops.work``) for
     both, the fp32 route's bound at the TF32 peak beside its three passes'
     floor, the FP32-pipe bound and its scratch; zamba2's serving shape the
     same, into each summary's ``at_zamba2``.  Returns the bf16 and the fp32
@@ -1214,8 +1214,9 @@ def check_ssd(gen, device):
     summaries = {}
     for (B, L, H, N), dtype in itertools.product(
             SSD_TIMED, ("bfloat16", "float32")):
-        flops = ssd_work_flops(B, L, H, 64, N, chunk)
         x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+        w = ops.work(B, L, H, 64, N, chunk, x.element_size())
+        flops, nbytes = w["flops"], w["bytes"]
         route = ops.route(x.dtype)
         y, st = ops.ssd_cuda(x, dt, A, Bm, Cm, chunk)
         yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk)
@@ -1223,11 +1224,8 @@ def check_ssd(gen, device):
         del yr, sr
         ms = time_ms(lambda: ops.ssd_cuda(x, dt, A, Bm, Cm, chunk), 20)
         plain_ms = time_ms(lambda: ops.ssd_ref(x, dt, A, Bm, Cm, chunk), 3, 1)
-        nbytes = ((2 * x.numel() + 2 * Bm.numel()) * x.element_size()
-                  + 4 * (dt.numel() + A.numel() + st.numel()))
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
-        t_ops = flops / peak * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = terms(w, peak)
         summary = dict(
             name="ssd_scan" if route == "wgmma" else "ssd_scan_fp32",
             route="cuda",
@@ -1353,18 +1351,6 @@ def ssd_bwd_tol(name: str, dtype: str, B: int, L: int, chunk: int) -> dict:
     return tol
 
 
-def ssd_bwd_bound(B, L, H, N, chunk, itemsize, peak) -> tuple:
-    """(bound ms, by what, flops, bytes) of the SSD backward: the work of
-    ``ssd_bwd_work_flops`` at ``peak``; bytes: x, dy, Bm, Cm, dt and A
-    read, dx, dBm, dCm, ddt and dA written, each once."""
-    flops = ssd_bwd_work_flops(B, L, H, 64, N, chunk)
-    nbytes = ((3 * B * L * H * 64 + 4 * B * L * N) * itemsize
-              + 4 * (2 * B * L * H + 2 * H))
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
-
-
 def check_ssd_bwd(gen, device):
     """The SSD backward (``SSD_BWD_CASES``, ``ssd_bwd_case``) on both
     routes, then each timed at the training shape behind a queued sleep
@@ -1409,8 +1395,9 @@ def check_ssd_bwd(gen, device):
         ms = time_ms(lambda: ops.ssd_bwd_cuda(*args), 10, behind_sleep=True)
         plain_ms = time_ms(lambda: ops.ssd_bwd_ref(*args), 3, 1)
         peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
-        bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(
-            B, L, H, N, chunk, x.element_size(), peak)
+        w = ops.work(B, L, H, 64, N, chunk, x.element_size(), backward=True)
+        bound_ms, bound_by = bound(w, peak)
+        flops, nbytes = w["flops"], w["bytes"]
         summary = dict(
             name="ssd_scan_bwd" if r == "wgmma" else "ssd_scan_bwd_tf32x3",
             route="cuda",
@@ -1553,7 +1540,7 @@ def check_padded_matmul(gen, device):
             + ("; two calls bitwise equal" if route == "tf32x3" else ""))
 
     M, K, N = CASE2
-    flops = 2.0 * M * K * N
+    flops = ops.work(M, K, N)["flops"]
     summaries = {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -1603,10 +1590,9 @@ def check_padded_matmul(gen, device):
         op_ms = time_ms(lambda: ops.padded_matmul(a, b), iters, 1)
         plain_ms = time_ms(lambda: ops.matmul_ref(a, b), 5, 1)
         lib_aligned_ms = time_ms(lambda: torch.matmul(a, bp), 20)
-        nbytes = (M * K + K * N + M * N) * a.element_size()
+        nbytes = ops.work(M, K, N, a.element_size())["bytes"]
         peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32_FLOPS
-        t_ops = flops / peak * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = terms(ops.work(M, K, N, a.element_size()), peak)
         summaries[route] = summary = dict(
             name="padded_matmul" if route == "wgmma" else "padded_matmul_fp32",
             route="cuda",
@@ -1662,6 +1648,9 @@ RING_CHUNK = RING_NUMEL // RING_WORLD   # 1,638,400
 # 1024-element combine block, so it travels padded to 1,639,424 (1601 blocks)
 RING_ODD_NUMEL = RING_NUMEL + 1
 RING_ODD_CHUNK = 1601 * 1024
+# host visibility: reads of the counters behind a sleep, each sleep twice
+# the last (0.1 s to 1.6 s), until one read came before the sleep ended
+VISIBILITY_TRIES = 5
 
 
 def check_ring_combine(gen, device):
@@ -1734,26 +1723,42 @@ def check_ring_combine(gen, device):
 
     # host visibility: the combine queued behind a sleep on a side stream;
     # its pinned counters read without a synchronise are all zero, and
-    # complete after it
+    # complete after it.  An event recorded between the sleep and the
+    # combine, still pending after the read, proves that the read came
+    # before the combine could run; a read that a stalled host made only
+    # after the sleep proves nothing, and is made again behind a sleep
+    # twice as long
     C = RING_CHUNK
-    acc = torch.randn(C, generator=gen, device=device)
-    inc = torch.randn(C, generator=gen, device=device)
     side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        torch.cuda._sleep(200_000_000)       # ~0.1 s at the card's clock
-        out, prog = ops.ring_combine_cuda(acc, inc, 1024)
-    before = prog.numpy().copy()
-    side.synchronize()
-    after = prog.numpy().copy()
+    for attempt in range(VISIBILITY_TRIES):
+        acc = torch.randn(C, generator=gen, device=device)
+        inc = torch.randn(C, generator=gen, device=device)
+        slept = torch.cuda.Event()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # ~0.1 s at the card's clock, doubled on each attempt
+            torch.cuda._sleep(200_000_000 << attempt)
+            slept.record()
+            out, prog = ops.ring_combine_cuda(acc, inc, 1024)
+        before = prog.numpy().copy()
+        read_in_time = not slept.query()
+        side.synchronize()
+        after = prog.numpy().copy()
+        if not (after == ops.progress_ref(C, 1024).numpy()).all():
+            fail("ring_combine: counters incomplete after the stream "
+                 "synchronised")
+        if read_in_time:
+            break
+    else:
+        fail(f"ring_combine: in {VISIBILITY_TRIES} tries the host never read "
+             f"the counters before the sleep ahead of the combine ended")
     if before.any():
         fail(f"ring_combine: {int((before != 0).sum())} counters set before "
              f"the queued kernel could run")
-    if not (after == ops.progress_ref(C, 1024).numpy()).all():
-        fail("ring_combine: counters incomplete after the stream synchronised")
     log("kernels", f"ring_combine host visibility: {C // 1024} pinned "
-        f"counters read unsynchronised behind a sleep: all 0; after the "
-        f"sync: 1..{C // 1024}")
+        f"counters read unsynchronised behind a sleep (still running after "
+        f"the read; attempt {attempt + 1}): all 0; after the sync: "
+        f"1..{C // 1024}")
 
     # a large combine polled from the host while it runs (printed, not held)
     Cbig = 64 * 2 ** 20
@@ -1803,9 +1808,8 @@ def check_ring_combine(gen, device):
     host_ms = time_ms(lambda: ops.ring_combine_cuda(acc, inc, 1024), 200)
     host_given_ms = time_ms(lambda: ops.ring_combine_cuda(
         acc, inc, 1024, progress=rows[0]), 200)
-    nbytes = 3 * C * acc.element_size()
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = C / PEAK_FP32_FLOPS * 1e3
+    nbytes = ops.work(C, acc.element_size())["bytes"]
+    t_ops, t_bytes = terms(ops.work(C, acc.element_size()), PEAK_BF16_FLOPS)
     summary = dict(
         name="ring_combine", route="cuda",
         source="src/repro_torch/kernels/csrc/ring_combine.cu",
@@ -3875,9 +3879,19 @@ EP_B, EP_S = 2, 1024
 # factor to hold the kept-slot check to dropped entries as well.
 EP_CASES = {"ep (1, 4)": ((1, 4), None), "ep (2, 2)": ((2, 2), None),
             "ep (2, 2) cf 0.5": ((2, 2), 0.5)}
+# context parallelism: llama3.2-1b whole, one prompt of CP_S tokens, its
+# attention's query rows over a (data 1, model 4) mesh
+CP_ARCH = "llama3.2-1b"
+CP_B, CP_S = 1, 4096
+CP_MESH = (1, PAR_WORLD)
+# the CP prefill's logits against the one-process prefill's (the flash
+# kernel), bf16 serving: max |got - want| at most this share of max |want|
+SERVE_BF16_SCALED = 5e-2
 # each path's traced daemon step; the step before it is its warm-up's
 PAR_STEPS = {"pipeline": 1, "ep (1, 4)": 3, "ep (2, 2)": 5,
-             "ep (2, 2) cf 0.5": 7}
+             "ep (2, 2) cf 0.5": 7, "cp": 9}
+# each path's arch, for the kernels line's labels
+PAR_ARCHS = {"pipeline": PIPE_ARCH, "cp": CP_ARCH}
 PAR_KERNELS = ("flash_attention[wgmma]", "fused_residual_rmsnorm",
                "ring_combine")
 PAR_SPANS = ("flash_attention", "fused_residual_rmsnorm", "ring_combine")
@@ -3986,6 +4000,37 @@ class MoeSpy:
         return eids, w, self.keeps[0].view(eids.shape)
 
 
+class CpSpy:
+    """Keeps what ``context_parallel_attention`` did on this rank: the
+    query rows, key rows and q_offset of each ``chunked_attention`` call,
+    and the rows, result bytes and group size of each ring all-gather
+    that met the ranks' rows."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn_lib
+        self.lib = attn_lib
+        self.orig = (attn_lib.chunked_attention, attn_lib.ring_all_gather_local)
+        self.calls, self.gathers = [], []
+
+        def chunked(q, k, v, causal=True, q_offset=0, *a, **kw):
+            self.calls.append((q.shape[1], k.shape[1], int(q_offset)))
+            return self.orig[0](q, k, v, causal, q_offset, *a, **kw)
+
+        def gather(x, group=None, *a, **kw):
+            rows, progress = self.orig[1](x, group, *a, **kw)
+            self.gathers.append((x.shape[0], rows.numel()
+                                 * rows.element_size(), rows.shape[0]
+                                 // x.shape[0]))
+            return rows, progress
+        attn_lib.chunked_attention = chunked
+        attn_lib.ring_all_gather_local = gather
+        return self
+
+    def __exit__(self, *exc):
+        (self.lib.chunked_attention,
+         self.lib.ring_all_gather_local) = self.orig
+
+
 def par_block(state: dict, cfg, shards: int = 1, prefix: str = ""):
     """The port's ``Block`` holding ``state``'s ``prefix`` entries
     (experts already cut to E / ``shards``)."""
@@ -4029,11 +4074,36 @@ def par_counts(reset: bool = False) -> dict:
     return out
 
 
+def cp_inputs(seed: int, device, mesh=None):
+    """llama3.2-1b whole for the CP prefill: the serving model (bf16
+    weights drawn from ``seed`` on ``device``, the same in every process),
+    ``attn_impl="cp"`` over ``mesh`` when one is given (else the default
+    route, the flash kernel), and its prompt [CP_B, CP_S]."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.registry import build_model
+    cfg = get_config(CP_ARCH)
+    model = build_model(cfg, Policy(torch.bfloat16), device, mesh=mesh,
+                        attn_impl="cp" if mesh is not None else "auto")
+    model.init(torch.Generator(device=device).manual_seed(seed + 4))
+    tokens = torch.as_tensor(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab_size, (CP_B, CP_S)), device=device)
+    return cfg, model, tokens
+
+
+def cp_prefill(model, tokens):
+    return model.prefill(tokens, model.init_cache(CP_B, CP_S))
+
+
 def parallel_rank(ctx, seed: int) -> dict:
     """One rank of the parallel phase, in daemon steps (``PAR_STEPS``,
     each after a warm-up step of its own): the llama3.2-1b pipeline on a
     ("stage",) mesh of 4, then one dbrx-132b block through
-    ``block_apply`` with its experts parallel on each path of ``EP_CASES``.
+    ``block_apply`` with its experts parallel on each path of ``EP_CASES``,
+    then llama3.2-1b's context-parallel prefill on a (data 1, model 4)
+    mesh.
     Each rank draws the full weights from the seed and keeps only its
     block: its stage's (``Spec("stage")``), its experts'
     (``shard_experts``).  The kernels' counts are set to 0 just before
@@ -4050,7 +4120,7 @@ def parallel_rank(ctx, seed: int) -> dict:
     dev, daemon, out = ctx.device, ctx.daemon, {}
     pipe_mesh = make_mesh((PIPE_STAGES,), ("stage",))
     ep_meshes = {}
-    for shape, _ in EP_CASES.values():
+    for shape, _ in (*EP_CASES.values(), (CP_MESH, None)):
         if shape not in ep_meshes:
             ep_meshes[shape] = make_mesh(shape, ("data", "model"))
 
@@ -4128,6 +4198,23 @@ def parallel_rank(ctx, seed: int) -> dict:
             y=(bits(yh), bits(yx)) if m == 0 else None)
         del blk, state, yh, yx
         torch.cuda.empty_cache()
+
+    # context parallelism: the whole model, its attention's rows over the
+    # model axis
+    mesh = ep_meshes[CP_MESH]
+    _, model, tokens = cp_inputs(seed, dev, mesh)
+    run(PAR_STEPS["cp"] - 1, "warm-up", lambda: cp_prefill(model, tokens))
+    with CpSpy() as spy:
+        logits, wall, counts = run(PAR_STEPS["cp"], "prefill",
+                                   lambda: cp_prefill(model, tokens))
+    out["cp"] = dict(
+        coords=mesh.coords(ctx.rank), wall_s=wall, launches=counts,
+        calls=spy.calls, gathers=spy.gathers,
+        finite=bool(logits.isfinite().all()),
+        sha=hashlib.sha256(bits(logits).tobytes()).hexdigest(),
+        logits=bits(logits) if ctx.rank == 0 else None)
+    del model, logits
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4193,7 +4280,19 @@ def parallel_oracles(seed: int, device: str = "cuda") -> dict:
                            for k in moe.EXPERT_WEIGHTS)
         del blk, state, h, x, nxt
         torch.cuda.empty_cache()
-    return dict(pipeline=pipe, ep=ep, expert_bytes=expert_bytes)
+
+    # the CP prefill's oracle: the same weights and prompt in one process,
+    # attention on the flash kernel
+    _, model, tokens = cp_inputs(seed, dev)
+    cp_prefill(model, tokens)                              # warm-up
+    par_sync(dev)
+    t0 = time.perf_counter()
+    logits = cp_prefill(model, tokens)
+    par_sync(dev)
+    cp = dict(wall_s=time.perf_counter() - t0, logits=logits.cpu())
+    del model, logits
+    torch.cuda.empty_cache()
+    return dict(pipeline=pipe, ep=ep, expert_bytes=expert_bytes, cp=cp)
 
 
 def parallel_phase(seed: int, device: str = "cuda") -> dict:
@@ -4336,6 +4435,59 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
             f"local block's {[round(o['wall_s'], 4) for o in shards]} s; "
             f"launches a rank {res[0]['launches']}, spans a rank "
             f"{[s[tag] for s in spans]}")
+    # context parallelism
+    cps = [r["cp"] for r in ranks]
+    if not all(c["finite"] for c in cps):
+        fail("parallel: the CP prefill's logits are not finite")
+    if len({c["sha"] for c in cps}) != 1:
+        fail("parallel: the CP ranks returned different logits")
+    cp_err = scaled_err(from_bits(cps[0]["logits"]), oracle["cp"]["logits"],
+                        SERVE_BF16_SCALED)
+    cp_cfg = get_config(CP_ARCH)
+    want_l = {"flash_attention[wgmma]": 0,
+              "fused_residual_rmsnorm": 2 * cp_cfg.num_layers,
+              "ring_combine": 0}
+    s_loc = CP_S // CP_MESH[1]
+    o_bytes = CP_B * CP_S * cp_cfg.num_heads * cp_cfg.head_dim * 2
+    for c in cps:
+        if c["launches"] != want_l:
+            fail(f"parallel: cp rank at {c['coords']} launched "
+                 f"{c['launches']}, not {want_l}")
+        # what the rank's attention did: its own rows against every key,
+        # at its offset, and one all-gather of them a layer
+        want_c = [(s_loc, CP_S, c["coords"][1] * s_loc)] * cp_cfg.num_layers
+        if c["calls"] != want_c:
+            fail(f"parallel: cp rank at {c['coords']} called "
+                 f"chunked_attention with (q rows, k rows, q_offset) "
+                 f"{sorted(set(c['calls']))} x {len(c['calls'])}, not "
+                 f"{want_c[0]} x {len(want_c)}")
+        want_g = [(s_loc, o_bytes, CP_MESH[1])] * cp_cfg.num_layers
+        if c["gathers"] != want_g:
+            fail(f"parallel: cp rank at {c['coords']} ran all-gathers of "
+                 f"(rows, result bytes, ranks) {sorted(set(c['gathers']))} "
+                 f"x {len(c['gathers'])}, not {want_g[0]} x {len(want_g)}")
+    launches["cp"] = {k: sum(c["launches"][k] for c in cps)
+                      for k in PAR_KERNELS}
+    cp = dict(max_scaled_err=cp_err, walls_s=[c["wall_s"] for c in cps],
+              oracle_wall_s=oracle["cp"]["wall_s"],
+              calls={str(c["coords"]): sorted(set(c["calls"])) for c in cps},
+              gathers={str(c["coords"]): sorted(set(c["gathers"]))
+                       for c in cps},
+              launches_a_rank=cps[0]["launches"])
+    seen = "; ".join(
+        f"model rank {c['coords'][1]}: {len(c['calls'])} chunked_attention "
+        f"calls of (q rows, k rows, q_offset) {sorted(set(c['calls']))}, "
+        f"{len(c['gathers'])} ring all-gathers of (rows, result bytes, "
+        f"ranks) {sorted(set(c['gathers']))}" for c in cps)
+    log("parallel", f"{CP_ARCH} whole, prefill of B {CP_B} x S {CP_S} with "
+        f"attn_impl=\"cp\" on a (data {CP_MESH[0]}, model {CP_MESH[1]}) "
+        f"mesh, seen in each rank's attention: {seen}; logits max abs err "
+        f"{cp_err:.3e} of their largest magnitude against the one-process "
+        f"prefill (the flash kernel; criterion <= {SERVE_BF16_SCALED}); "
+        f"wall {max(cp['walls_s']):.3f} s (ranks "
+        f"{[round(w, 3) for w in cp['walls_s']]}) against "
+        f"{cp['oracle_wall_s']:.3f} s in one process; launches a rank "
+        f"{cps[0]['launches']}, spans a rank {[s['cp'] for s in spans]}")
     for r, s in enumerate(spans):
         for tag, c in s.items():
             want_s = dict(zip(PAR_SPANS, (ranks[r][tag]["launches"][k]
@@ -4354,7 +4506,7 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
                                               for p in pipes],
                               oracle_weight_bytes=oracle["pipeline"][
                                   "weight_bytes"]),
-                ep=eps, launches=launches, spans=spans, wall_s=wall,
+                ep=eps, cp=cp, launches=launches, spans=spans, wall_s=wall,
                 oracle_wall_s=oracle_wall, ranks_wall_s=ranks_wall)
 
 
@@ -4441,6 +4593,75 @@ def vision_embeds(cfg, batch: int, seed: int, device, dtype):
                        device=device).to(dtype)
 
 
+VLM_LONG_S = 4096     # the vlm's long prompt: S·T = 4096 · 1600 > 2^22
+
+
+def vlm_long_prefill(model, cfg, seed: int) -> dict:
+    """The vlm path's prefill of one prompt of ``VLM_LONG_S`` tokens: S·T
+    above 2^22, so its cross layers take ``chunked_attention``
+    (``transformer.cross_impl``), seen by a spy that keeps the first cross
+    layer's q, k and v; ``chunked_attention`` and ``direct_attention``
+    agree on them within the bf16 serving criterion (``scaled_err`` at
+    ``SERVE_BF16_SCALED`` of direct's largest magnitude; direct's fp32
+    scores [1, KV, G, S, T], 0.84 GB at the published widths); the logits
+    finite."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.transformer import cross_impl
+
+    T = cfg.vision_tokens
+    route = cross_impl(VLM_LONG_S, T)
+    if route != "chunked":
+        fail(f"vlm long prefill: S {VLM_LONG_S} x T {T} routes the cross "
+             f"layers to {route}")
+    seen, real = [], attn_lib.chunked_attention
+
+    def spy(q, k, v, *a, **kw):
+        if k.shape[1] == T and not seen:
+            seen.append((q.clone(), k.clone(), v.clone()))
+        return real(q, k, v, *a, **kw)
+
+    toks = torch.as_tensor(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, (1, VLM_LONG_S)), device="cuda")
+    vis = vision_embeds(cfg, 1, seed + 5, "cuda", torch.bfloat16)
+    attn_lib.chunked_attention = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(toks, model.init_cache(1, VLM_LONG_S), vis)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn_lib.chunked_attention = real
+    if not seen:
+        fail("vlm long prefill: no cross layer took chunked_attention")
+    if not bool(logits.isfinite().all()):
+        fail("vlm long prefill: logits are not finite")
+    q, k, v = seen[0]
+    with torch.no_grad():
+        got = attn_lib.chunked_attention(q, k, v, causal=False)
+        want = attn_lib.direct_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    rel = scaled_err(got, want, SERVE_BF16_SCALED)
+    err = float((got.float() - want.float()).abs().max())
+    res = dict(S=VLM_LONG_S, T=T, route=route, wall_s=wall,
+               cross_calls=len(seen), max_abs_err=err, max_scaled_err=rel,
+               want_max_abs=float(want.float().abs().max()),
+               direct_scores_bytes=4 * q.shape[2] * VLM_LONG_S * T)
+    log("serve", f"{cfg.name}{describe_cut(dict(num_layers=cfg.num_layers))}"
+        f" long prefill B1 S{VLM_LONG_S} x {T} vision tokens "
+        f"(S·T {VLM_LONG_S * T} > 2^22): cross layers on {route}, prefill "
+        f"wall {wall:.3f} s, logits finite; the first cross layer's q/k/v: "
+        f"chunked against direct max abs err {err:.3e}, {rel:.3e} of "
+        f"direct's largest magnitude {res['want_max_abs']:.3e} (criterion "
+        f"<= {SERVE_BF16_SCALED}); direct's scores "
+        f"{res['direct_scores_bytes'] / 1e9:.2f} GB)")
+    del got, want, q, k, v, logits, seen
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve(arch: str, cut: dict, seed: int, trace_path: Path,
           per_call: bool = False, tap: "SpillTap | None" = None):
     """Server.generate at full width and the path's depth (``cut``:
@@ -4454,8 +4675,9 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
     with each spill codec in turns; else one of each, for the run's
     time), and a profiler breakdown of a prefill and of a generate of
     ``PROFILE_NEW`` tokens.  A vlm
-    path opens its gates (``open_gates``), takes seeded vision embeddings
-    and shows that its prefill logits move when they change."""
+    path opens its gates (``open_gates``), takes seeded vision embeddings,
+    shows that its prefill logits move when they change, and runs one
+    prefill above S·T = 2^22 (``vlm_long_prefill``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, scale
@@ -4606,6 +4828,8 @@ def serve(arch: str, cut: dict, seed: int, trace_path: Path,
         if not moved["max_abs_diff"] > 1e-2 * moved["max_abs"]:
             fail(f"{arch}: the logits do not follow the vision embeddings")
         del la, lb, other
+        torch.cuda.empty_cache()
+        moved["long_prefill"] = vlm_long_prefill(server.model, cfg, seed)
     del server
     torch.cuda.empty_cache()
     return dict(arch=arch, cut=cut, layers=cfg.num_layers, B=B, S0=S0,
@@ -5647,6 +5871,193 @@ def long_attach_check(d, events: list, t_attach: float,
 
 
 # --------------------------------------------------------------------------- #
+# phase 8: dryrun — the dry-run's cells, and its count against the card
+# --------------------------------------------------------------------------- #
+DRYRUN_DIR = OUT_DIR / "dryrun"     # each cell's JSON
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_SLACK = 1.05     # a count may claim at most this of the measured
+DRYRUN_TIMED = 5        # timed steps and prefills a median
+
+
+# the dry-run's cells, in a process of their own: every cell of
+# configs.cells() on both production meshes (each meta run once), each OK
+# row or FAIL, into a JSON file
+DRYRUN_CHILD = """
+import json, os, sys, time
+os.nice(19)     # the host's cores go to the card's phases first
+from repro_torch.configs import cells
+from repro_torch.launch import dryrun
+out, t0, runs = {"rows": [], "fails": []}, time.perf_counter(), {}
+for multi_pod in (False, True):
+    for arch, shape, _ in cells():
+        try:
+            r = dryrun.run_cell(arch, shape, multi_pod, sys.argv[1],
+                                runs=runs)
+        except Exception as e:
+            out["fails"].append(f"FAIL {arch:22s} {shape:12s}: {e!r}"[:240])
+            continue
+        out["rows"].append(dict(
+            row=dryrun.row(r), key=f"{arch} {shape} {r['mesh']}",
+            dominant=r["dominant"], roofline_s=r["roofline_s"],
+            useful_flops_ratio=r["useful_flops_ratio"], memory=r["memory"],
+            flops_per_device=r["flops_per_device"],
+            bytes_per_device=r["bytes_per_device"],
+            total_wire_bytes=r["total_wire_bytes"],
+            analysis_s=r["analysis_s"]))
+out["wall_s"] = time.perf_counter() - t0
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_dryrun_cells():
+    """Start the dry-run's cells (``DRYRUN_CHILD``) in a process of their
+    own, on the host's CPU while the card runs the earlier phases, at the
+    lowest scheduling priority: its meta runs touch no device.  Returns the process; ``dryrun_phase``
+    waits for it."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    (DRYRUN_DIR / "cells.json").unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, str(DRYRUN_DIR),
+         str(DRYRUN_DIR / "cells.json")], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a run that fails before phase 8 leaves no process behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_cells(proc) -> dict:
+    """Waits for ``start_dryrun_cells``'s process and prints each cell's
+    ``OK`` row; any ``FAIL`` row, or the process failing, fails the phase.
+    Returns each cell's dominant term, roofline terms and useful ratio,
+    and the process's wall."""
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("dryrun: the cells' process ran past 600 s")
+    if proc.returncode != 0:
+        fail(f"dryrun: the cells' process exited {proc.returncode}: "
+             f"{text[-2000:]}")
+    res = json.loads((DRYRUN_DIR / "cells.json").read_text())
+    for r in res["rows"]:
+        log("dryrun", r["row"])
+    for f in res["fails"]:
+        log("dryrun", f)
+    if res["fails"]:
+        fail(f"dryrun: {len(res['fails'])} cells failed")
+    return dict(wall_s=res["wall_s"], cells={r.pop("key"): r
+                                             for r in res["rows"]})
+
+
+def dryrun_card_check(seed: int) -> dict:
+    """The op analysis on one chip against the card: ``DRYRUN_ARCH``'s
+    training step (B 8 x S 512, bf16 compute, fp32 parameters and moments,
+    one microbatch, as its training path) and its prefill (batch 8 x
+    prompt 1024, bf16 weights, as its serving path), each counted on meta
+    tensors and timed here (the median of ``DRYRUN_TIMED``, after a
+    warm-up).  No card computes faster than its peak, so a count whose
+    compute term (flops / 989 TFLOP/s) exceeds the measured time by more
+    than ``DRYRUN_SLACK`` fails; compute term / measured is the counted
+    MFU.  The memory term (eager traffic / 3.35 TB/s) is printed beside,
+    not held: activations that stay in the 50 MB L2 beat it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.models.layers import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.train import RunConfig, make_train_step
+
+    cfg = get_config(DRYRUN_ARCH)
+    rng = np.random.default_rng(seed + 6)
+
+    def timed(fn) -> list:
+        fn()
+        out = []
+        for _ in range(DRYRUN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)
+
+    def train_step(device):
+        run = RunConfig(model=cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                        device=device)
+        model = build_model(cfg, run.policy(), device)
+        if device == "cuda":
+            model.init(torch.Generator(device=device).manual_seed(seed + 6))
+        opt = adamw_init(dict(model.named_parameters()), run.opt)
+        step_fn = make_train_step(model, run)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+            TRAIN_B, TRAIN_S)), device=device)
+        batch = {"tokens": toks, "labels": toks}
+        return lambda: step_fn(opt, batch, 4)[1]["loss"]
+
+    def prefill(device):
+        model = build_model(cfg, Policy(torch.bfloat16), device)
+        if device == "cuda":
+            model.init(torch.Generator(device=device).manual_seed(seed + 6))
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 1024)),
+                               device=device)
+        return lambda: model.prefill(toks, model.init_cache(8, 1024))
+
+    out = {}
+    for what, make in (("train step", train_step), ("prefill", prefill)):
+        st = analyze(make("meta"))
+        fn = make("cuda")
+        ms = timed(fn)
+        del fn
+        torch.cuda.empty_cache()
+        med = ms[len(ms) // 2]
+        t_c = st["flops"] / dryrun.CHIP_PEAK_FLOPS * 1e3
+        t_m = st["traffic_bytes"] / dryrun.CHIP_HBM_BW * 1e3
+        out[what] = dict(flops=st["flops"], traffic_bytes=st["traffic_bytes"],
+                         kernels=st["kernels"], measured_ms=ms,
+                         median_ms=med, compute_ms=t_c, memory_ms=t_m,
+                         counted_mfu=t_c / med, memory_share=t_m / med)
+        log("dryrun", f"{DRYRUN_ARCH} {what}, op analysis on 1 chip: "
+            f"{st['flops']:.4e} flops, {st['traffic_bytes']:.4e} bytes "
+            f"(eager); measured median {med:.2f} ms of {ms}; compute term "
+            f"{t_c:.2f} ms = {t_c / med:.3f} of it (the counted MFU), memory "
+            f"term {t_m:.2f} ms = {t_m / med:.3f} of it (not held: L2)")
+        if t_c > DRYRUN_SLACK * med:
+            fail(f"dryrun: the {what}'s counted flops take {t_c:.2f} ms at "
+                 f"the peak, more than {DRYRUN_SLACK} x the measured "
+                 f"{med:.2f} ms")
+    return out
+
+
+def dryrun_phase(seed: int, proc) -> dict:
+    """The dry-run's cells (``dryrun_cells``, from the process that
+    ``start_dryrun_cells`` started), then its count against the card
+    (``dryrun_card_check``)."""
+    t0 = time.perf_counter()
+    cells = dryrun_cells(proc)
+    waited = time.perf_counter() - t0
+    doms = {}
+    for key, r in cells["cells"].items():
+        mesh = key.rsplit(" ", 1)[1]
+        d = doms.setdefault(mesh, {})
+        d[r["dominant"]] = d.get(r["dominant"], 0) + 1
+    log("dryrun", f"{len(cells['cells'])} cells OK on both meshes in "
+        f"{cells['wall_s']:.1f} s of their own process (waited "
+        f"{waited:.1f} s for it here); dominant terms by mesh {doms}")
+    card = dryrun_card_check(seed)
+    return dict(cells=cells["cells"], cells_s=cells["wall_s"],
+                waited_s=waited, dominant=doms, card=card,
+                wall_s=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------- #
 # phase 7: trace
 # --------------------------------------------------------------------------- #
 META_KEYS = {"flash_attention": {"flops", "shape"},
@@ -5809,6 +6220,10 @@ def main():
     if n["HGMMA"] or n["HMMA"]:
         fail(f"{fn.BWD_KERNEL.source}: {n} tensor-core instructions")
 
+    # the dry-run's cells start now, on the host's CPU, beside the card's
+    # phases; phase 8 waits for them
+    dry_proc = start_dryrun_cells()
+
     # 3. kernels
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -5941,6 +6356,14 @@ def main():
 
     long_attach = long_attach_check(long_daemon, long_events, t_long, anchors)
 
+    # 8. the dry-run: every cell on both production meshes, and its op
+    # analysis against the card
+    t0 = time.perf_counter()
+    dry_run = dryrun_phase(args.seed, dry_proc)
+    walls["dryrun"] = time.perf_counter() - t0
+    log("wall", f"dryrun {walls['dryrun']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # each summary's launches: the main path's runs of its kernel (for
     # flash, the paths of its head dim and group size: llama's, qwen2's and
     # musicgen's hd 64, zamba2's 80, the vlm's 128 at G 4, dbrx's at G 6,
@@ -5961,7 +6384,7 @@ def main():
     case3_jobs[f"{case3['arch']} simulate {SVC_M} train"] = \
         sim_run["service"]["launches"]
     by_path.update(case3_jobs)
-    par_paths = {f"{PIPE_ARCH if tag == 'pipeline' else EP_ARCH} parallel "
+    par_paths = {f"{PAR_ARCHS.get(tag, EP_ARCH)} parallel "
                  f"{tag}, {PAR_WORLD} ranks": n
                  for tag, n in par_run["launches"].items()}
     by_path.update(par_paths)
@@ -6031,7 +6454,7 @@ def main():
                    remat=remat, spills=spills, long_attach=long_attach,
                    have_zstd=have_zstd(), diagnose=diagnosis,
                    fleet=fleet_run, service=service_run, simulate=sim_run,
-                   parallel=par_run)
+                   parallel=par_run, dryrun=dry_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
     details["phase_wall_s"] = walls
     log("wall", "phases, s: " + ", ".join(f"{k} {v:.1f}"

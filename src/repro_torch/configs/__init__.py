@@ -6,7 +6,8 @@ architectures the port serves.  Each arch module exports ``CONFIG`` (the
 published shape) and ``REDUCED`` (same family, tiny, for CPU tests).
 ``scale(cfg, **overrides)`` cuts a config (the VLM's one-group training
 cut: ``num_layers=5``; the MoE training cuts: ``num_layers=1`` and, for
-arctic, ``num_experts=32``).
+arctic, ``num_experts=32``).  ``SHAPES`` are the JAX package's four input
+shapes and ``cells()`` its (arch, shape) cells, which the dry-run walks.
 """
 from __future__ import annotations
 
@@ -56,6 +57,11 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports 500k-token decode (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def d_inner(self) -> int:
@@ -142,6 +148,33 @@ class ModelConfig:
         return self.param_count() - all_experts + active
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        # decode processes ONE new token per sequence in the batch
+        n = 1 if self.kind == "decode" else self.seq_len
+        return n * self.global_batch
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+# the JAX package's assigned archs, in its order (every arch but the
+# paper's own llama-20b-paper)
+ASSIGNED_ARCHS = ["zamba2-2.7b", "dbrx-132b", "arctic-480b", "llama3-405b",
+                  "llama3.2-1b", "qwen2-0.5b", "qwen2-72b", "musicgen-large",
+                  "mamba2-780m", "llama-3.2-vision-11b"]
+
 ARCH_MODULES: dict[str, str] = {
     "llama3.2-1b": "llama3p2_1b",
     "qwen2-0.5b": "qwen2_0p5b",
@@ -173,6 +206,18 @@ def get_reduced(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return list(ARCH_MODULES)
+
+
+def cells(include_skipped: bool = False):
+    """Yield every assigned (arch, shape, skipped) cell; long_500k is
+    skipped for the archs that are not sub-quadratic."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skipped = shape.name == "long_500k" and not cfg.sub_quadratic
+            if skipped and not include_skipped:
+                continue
+            yield arch, shape.name, skipped
 
 
 def scale(cfg: ModelConfig, **overrides: Any) -> ModelConfig:

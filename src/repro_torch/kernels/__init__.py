@@ -34,6 +34,13 @@ routes picks one by dtype alone in its wrapper's ``route``, and each
 route's ``CudaKernel`` counts its own launches (two C entries of one
 source are two ``CudaKernel``s of one build).
 
+Meta route: each wrapper takes meta tensors too (``device="meta"``, as the
+dry-run builds its models): it applies the kernel's own argument checks,
+returns empty meta tensors of the outputs' shapes, launches nothing, and
+charges the kernel's work (its ``ops.py``'s ``work``, the formula the
+card's bounds use) to the op analysis in progress (``charge``;
+``launch/op_analysis.py``), never the plain version's operations.
+
 Build: each source is compiled on first use by ``nvcc`` into its own shared
 library under ``kernels/build/`` and loaded with ``ctypes``.  Every tensor
 pointer and the stream cross as ``c_void_p``; the C function returns
@@ -83,6 +90,18 @@ def traced_op(name: str, kind: str = "compute",
             return daemon.trace_call(name, ekind, fn, args, kwargs, meta_fn)
         return wrapped
     return deco
+
+
+# the op analyses in progress (``launch/op_analysis.py``), innermost last
+ANALYSES: list = []
+
+
+def charge(name: str, work: dict):
+    """Charge one kernel call's work (``{"flops", "ops", "bytes"}``, its
+    ``ops.py``'s ``work``) to the innermost op analysis in progress; a
+    meta route calls it once a call, and nothing counts it otherwise."""
+    if ANALYSES:
+        ANALYSES[-1].charge(name, work)
 
 
 def find_nvcc() -> str:

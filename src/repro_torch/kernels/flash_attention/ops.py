@@ -46,7 +46,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
+from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
+                                 traced_op)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)
@@ -101,6 +102,31 @@ def _scratch(q, k, backward):
     return [torch.empty(shape, dtype=torch.float32, device=q.device)
             for shape in tf32_scratch(B, S, H, k.shape[2], hd,
                                       backward).values()]
+
+
+def work(B: int, S: int, H: int, KV: int, hd: int, causal: bool = True,
+         itemsize: int = 2, backward: bool = False,
+         lse: bool = False) -> dict:
+    """The function's work, the bounds' formula: ``flops`` of its
+    tensor-core products (2 per multiply-add; forward Q·Kᵀ and P·V over
+    the (query, key) pairs, S(S+1)/2 of them causal; the backward's five
+    products 2.5x that), ``ops`` off the tensor cores (none counted), and
+    ``bytes`` each input read and each output written once: forward q, k,
+    v read, o written (and lse [B,H,S] fp32 with ``lse``); backward q, k,
+    v, o, dO and lse read, dq, dk, dv written."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4.0 * B * H * hd * pairs
+    if backward:
+        return {"flops": 2.5 * flops, "ops": 0.0,
+                "bytes": 4 * B * S * (H + KV) * hd * itemsize + 4 * B * H * S}
+    return {"flops": flops, "ops": 0.0,
+            "bytes": 2 * B * S * (H + KV) * hd * itemsize
+            + (4 * B * H * S if lse else 0)}
+
+
+def _work_of(q, k, causal, **kw) -> dict:
+    B, S, H, hd = q.shape
+    return work(B, S, H, k.shape[2], hd, causal, q.element_size(), **kw)
 
 
 def _meta(q, k, v, causal=True):
@@ -224,13 +250,20 @@ def attention_cuda(q, k, v, causal=True, return_lse=False):
     return (o, lse) if return_lse else o
 
 
-def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
-    """Launch the backward kernel of q's dtype (``BWD_ROUTES``); raises on
-    anything it does not take.  Returns (dq, dk, dv) in the inputs'
-    dtype."""
+def attention_meta(q, k, v, causal=True, return_lse=False):
+    """The meta route: the kernel's checks, empty meta outputs, the work
+    charged to the op analysis in progress; launches nothing."""
     check_operands(q, k, v)
-    r = BWD_ROUTES[q.dtype]
-    _check_cuda(q)
+    B, S, H, hd = q.shape
+    charge("flash_attention", _work_of(q, k, causal, lse=return_lse))
+    o = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    return (o, lse) if return_lse else o
+
+
+def _check_bwd(q, k, v, o, do, lse):
+    check_operands(q, k, v)
     B, S, H, hd = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -245,6 +278,23 @@ def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
         raise ValueError(f"flash_attention backward wants lse [B,H,S] = "
                          f"{(B, H, S)} contiguous float32 on {q.device}; got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
+def attention_bwd_meta(q, k, v, o, do, lse, causal=True):
+    """The backward's meta route (see ``attention_meta``)."""
+    _check_bwd(q, k, v, o, do, lse)
+    charge("flash_attention_bwd", _work_of(q, k, causal, backward=True))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def attention_bwd_cuda(q, k, v, o, do, lse, causal=True):
+    """Launch the backward kernel of q's dtype (``BWD_ROUTES``); raises on
+    anything it does not take.  Returns (dq, dk, dv) in the inputs'
+    dtype."""
+    _check_bwd(q, k, v, o, do, lse)
+    r = BWD_ROUTES[q.dtype]
+    _check_cuda(q)
+    B, S, H, hd = q.shape
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = [ptr(t) for t in (q, k, v, o, do, lse, delta, dq, dk, dv)]
@@ -260,12 +310,15 @@ def _forward(q, k, v, causal, return_lse=False):
         return attention_cuda(q, k, v, causal, return_lse)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, return_lse)
+    if q.device.type == "meta":
+        return attention_meta(q, k, v, causal, return_lse)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
 class FlashAttention(torch.autograd.Function):
     """The forward kernel with lse, and the backward kernel (plain versions
-    for CPU tensors).  Saves q, k, v, o and lse."""
+    for CPU tensors, meta routes for meta ones).  Saves q, k, v, o and
+    lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -277,8 +330,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = (attention_bwd_cuda if q.device.type == "cuda"
-               else attention_bwd_ref)
+        if q.device.type == "cuda":
+            bwd = attention_bwd_cuda
+        elif q.device.type == "meta":
+            bwd = attention_bwd_meta
+        else:
+            bwd = attention_bwd_ref
         dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, ctx.causal)
         return dq, dk, dv, None
 
@@ -287,8 +344,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal=True):
     """q [B,S,H,hd]; k/v [B,S,KV,hd] -> [B,S,H,hd].
 
-    CUDA tensors go to the kernels; CPU tensors to the plain versions.
-    When a gradient is wanted the call goes through ``FlashAttention``."""
+    CUDA tensors go to the kernels; CPU tensors to the plain versions;
+    meta tensors to the meta routes.  When a gradient is wanted the call
+    goes through ``FlashAttention``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal)

@@ -26,7 +26,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
+from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
+                                 traced_op)
 
 KERNEL = CudaKernel(
     "fused_norm.cu", "fused_residual_rmsnorm_launch",
@@ -48,6 +49,21 @@ def bwd_blocks(R: int, D: int, sms: int) -> int:
     blocks an SM, one for rows over ``BWD_WIDE_D`` (a block of 1024
     threads fills an SM), never more than R."""
     return min(R, (1 if D > BWD_WIDE_D else BWD_BLOCKS_PER_SM) * sms)
+
+
+def work(R: int, D: int, itemsize: int = 2, backward: bool = False,
+         dh: bool = True) -> dict:
+    """The function's work, the bounds' formula: no tensor-core ``flops``;
+    ``ops`` on the FP32 pipes, 6 an element forward (add, square, sum,
+    scale twice, the product), 12 backward; ``bytes`` each input read and
+    each output written once: forward x, res read, y, h written and scale
+    (fp32) read; backward x, res, dy (and dh) read, dx written, scale read
+    and dscale written (fp32)."""
+    if backward:
+        return {"flops": 0.0, "ops": 12.0 * R * D,
+                "bytes": (4 + dh) * R * D * itemsize + 2 * D * 4}
+    return {"flops": 0.0, "ops": 6.0 * R * D,
+            "bytes": 4 * R * D * itemsize + D * 4}
 
 
 def _meta(x, res, scale, eps=1e-5):
@@ -106,9 +122,15 @@ def fused_cuda(x, res, scale, eps=1e-5):
     return y, h
 
 
-def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
-    """Launch the backward kernel; raises on anything it does not take.
-    Returns (dx, dscale) as ``fused_bwd_ref``."""
+def fused_meta(x, res, scale, eps=1e-5):
+    """The meta route: the kernel's checks, empty meta outputs, the work
+    charged to the op analysis in progress; launches nothing."""
+    _check(x, res, scale)
+    charge("fused_residual_rmsnorm", work(*x.shape, x.element_size()))
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def _check_bwd(x, res, scale, dy, dh):
     _check(x, res, scale)
     for name, t in (("dy", dy), ("dh", dh)):
         if t is None and name == "dh":
@@ -120,10 +142,26 @@ def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
         if not t.is_contiguous():
             raise ValueError(f"fused_residual_rmsnorm backward takes a "
                              f"contiguous {name}")
-    R, D = x.shape
-    if D > BWD_MAX_D:
+    if x.shape[1] > BWD_MAX_D:
         raise ValueError(f"fused_residual_rmsnorm backward kernel takes D up "
-                         f"to {BWD_MAX_D}, not {D}")
+                         f"to {BWD_MAX_D}, not {x.shape[1]}")
+
+
+def fused_bwd_meta(x, res, scale, dy, dh=None, eps=1e-5):
+    """The backward's meta route (see ``fused_meta``)."""
+    _check_bwd(x, res, scale, dy, dh)
+    charge("fused_residual_rmsnorm_bwd",
+           work(*x.shape, x.element_size(), backward=True,
+                dh=dh is not None))
+    return (torch.empty_like(x),
+            torch.empty(x.shape[1], dtype=torch.float32, device=x.device))
+
+
+def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
+    """Launch the backward kernel; raises on anything it does not take.
+    Returns (dx, dscale) as ``fused_bwd_ref``."""
+    _check_bwd(x, res, scale, dy, dh)
+    R, D = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_rmsnorm kernels take CUDA tensors, "
                          f"not {x.device}")
@@ -145,14 +183,17 @@ def fused_bwd_cuda(x, res, scale, dy, dh=None, eps=1e-5):
 @traced_op("fused_residual_rmsnorm", "compute", _meta)
 def _forward(x, res, scale, eps=1e-5):
     """The traced call, one span a launch: the kernel on CUDA tensors, the
-    plain version on CPU ones.  It runs inside ``FusedResidualRMSNorm``'s
-    forward, so its span closes before autograd saves the inputs: under
-    remat, PyTorch stops a layer's recompute right there when this is the
-    layer's last op, which would otherwise end the span unrecorded."""
+    plain version on CPU ones, the meta route on meta ones.  It runs inside
+    ``FusedResidualRMSNorm``'s forward, so its span closes before autograd
+    saves the inputs: under remat, PyTorch stops a layer's recompute right
+    there when this is the layer's last op, which would otherwise end the
+    span unrecorded."""
     if x.device.type == "cuda":
         return fused_cuda(x, res, scale, eps)
     if x.device.type == "cpu":
         return fused_ref(x, res, scale, eps)
+    if x.device.type == "meta":
+        return fused_meta(x, res, scale, eps)
     raise ValueError(f"fused_residual_rmsnorm: unsupported device {x.device}")
 
 
@@ -175,7 +216,12 @@ class FusedResidualRMSNorm(torch.autograd.Function):
             dy = torch.zeros_like(x)
         if dh is not None:
             dh = dh.contiguous()
-        bwd = fused_bwd_cuda if x.device.type == "cuda" else fused_bwd_ref
+        if x.device.type == "cuda":
+            bwd = fused_bwd_cuda
+        elif x.device.type == "meta":
+            bwd = fused_bwd_meta
+        else:
+            bwd = fused_bwd_ref
         dx, dscale = bwd(x, res, scale, dy.contiguous(), dh, ctx.eps)
         return dx, dx, dscale.to(scale.dtype), None
 
@@ -183,9 +229,9 @@ class FusedResidualRMSNorm(torch.autograd.Function):
 def fused_residual_rmsnorm(x, res, scale, eps=1e-5):
     """x, res [R, D]; scale [D] -> (normed [R, D], new residual [R, D]).
 
-    CUDA tensors go to the kernels; CPU tensors to the plain versions.
-    When a gradient is wanted the call goes through
-    ``FusedResidualRMSNorm``."""
+    CUDA tensors go to the kernels; CPU tensors to the plain versions;
+    meta tensors to the meta routes.  When a gradient is wanted the call
+    goes through ``FusedResidualRMSNorm``."""
     if torch.is_grad_enabled() and (x.requires_grad or res.requires_grad
                                     or scale.requires_grad):
         return FusedResidualRMSNorm.apply(x, res, scale, eps)

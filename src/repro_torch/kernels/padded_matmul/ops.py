@@ -33,7 +33,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
+from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
+                                 traced_op)
 
 TILE = 128
 
@@ -55,6 +56,14 @@ def _pad_to(x, m0: int, m1: int):
     if p0 or p1:
         x = F.pad(x, (0, p1, 0, p0))
     return x
+
+
+def work(M: int, K: int, N: int, itemsize: int = 2) -> dict:
+    """The product's work, the bounds' formula: ``flops`` 2·M·K·N, no
+    ``ops`` off the tensor cores, ``bytes`` a and b read and the [M,N]
+    result written once."""
+    return {"flops": 2.0 * M * K * N, "ops": 0.0,
+            "bytes": (M * K + K * N + M * N) * itemsize}
 
 
 def _meta(a, b, **kw):
@@ -185,15 +194,27 @@ def matmul_cuda(a, b):
     return out if Nk == N else out[:, :N].contiguous()
 
 
+def matmul_meta(a, b):
+    """The meta route: the kernel's checks, an empty meta result, the work
+    charged to the op analysis in progress; launches nothing."""
+    check_operands(a, b)
+    (M, K), N = a.shape, b.shape[1]
+    charge("padded_matmul", work(M, K, N, a.element_size()))
+    return torch.empty((M, N), dtype=a.dtype, device=a.device)
+
+
 def matmul_tiled(a, b):
     """a [M,K] @ b [K,N] in a's dtype; every dimension must be a multiple
     of the 128 tile or below it (``padded_matmul`` pads).  CUDA tensors go
-    to the kernel; CPU tensors to the plain version."""
+    to the kernel; CPU tensors to the plain version; meta tensors to the
+    meta route."""
     _check_aligned(a, b)
     if a.device.type == "cuda":
         return matmul_cuda(a, b)
     if a.device.type == "cpu":
         return matmul_ref(a, b)
+    if a.device.type == "meta":
+        return matmul_meta(a, b)
     raise ValueError(f"matmul_tiled: unsupported device {a.device}")
 
 

@@ -34,7 +34,8 @@ from collections import deque
 
 import torch
 
-from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
+from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
+                                 traced_op)
 
 KERNEL = CudaKernel(
     "ring_combine.cu", "ring_combine_launch",
@@ -59,6 +60,13 @@ def _hold_until_done(progress, stream):
         while _IN_FLIGHT and _IN_FLIGHT[0][0].query():
             _IN_FLIGHT.popleft()
         _IN_FLIGHT.append((ev, progress))
+
+
+def work(C: int, itemsize: int = 4) -> dict:
+    """The combine's work, the bounds' formula: no tensor-core ``flops``,
+    C adds on the FP32 pipes (``ops``), ``bytes`` acc and incoming read and
+    the sum written once."""
+    return {"flops": 0.0, "ops": float(C), "bytes": 3 * C * itemsize}
 
 
 def _meta(acc, incoming, **kw):
@@ -148,14 +156,18 @@ def _counters(progress, n_blocks: int, pinned: bool):
     return progress
 
 
-def ring_combine_cuda(acc, incoming, block=1024, progress=None):
-    """Launch the CUDA kernel; raises on anything it does not take.
-    Returns ``(out, progress)`` without waiting for the kernel."""
-    block, n_blocks = _blocks(acc, incoming, block)
+def _check_dtypes(acc, incoming):
     if acc.dtype not in _DTYPE_CODE or incoming.dtype != acc.dtype:
         raise TypeError(f"ring_combine kernel takes float32 or bfloat16 "
                         f"acc/incoming of one dtype; got {acc.dtype}, "
                         f"{incoming.dtype}")
+
+
+def ring_combine_cuda(acc, incoming, block=1024, progress=None):
+    """Launch the CUDA kernel; raises on anything it does not take.
+    Returns ``(out, progress)`` without waiting for the kernel."""
+    block, n_blocks = _blocks(acc, incoming, block)
+    _check_dtypes(acc, incoming)
     if incoming.device != acc.device:
         raise ValueError("ring_combine: tensors on different devices")
     if not (acc.is_contiguous() and incoming.is_contiguous()):
@@ -172,6 +184,15 @@ def ring_combine_cuda(acc, incoming, block=1024, progress=None):
     return out, progress
 
 
+def ring_combine_meta(acc, incoming, block=1024, progress=None):
+    """The meta route: the kernel's checks, an empty meta sum and the
+    caller's (or zeroed) counters; launches nothing."""
+    block, n_blocks = _blocks(acc, incoming, block)
+    _check_dtypes(acc, incoming)
+    charge("ring_combine", work(acc.shape[0], acc.element_size()))
+    return torch.empty_like(acc), _counters(progress, n_blocks, pinned=False)
+
+
 @traced_op("ring_combine", "comm", _meta)
 def ring_combine(acc, incoming, block=1024, progress=None):
     """acc, incoming [C] -> (acc + incoming [C], progress [C // block]
@@ -179,9 +200,13 @@ def ring_combine(acc, incoming, block=1024, progress=None):
     ``progress``, if given, is the caller's counters to write (not
     cleared first).
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+    CUDA tensors go to the kernel; CPU tensors to the plain version; meta
+    tensors to the meta route (the kernel's checks, an empty meta sum and
+    zero counters, the work charged to the op analysis in progress)."""
     if acc.device.type == "cuda":
         return ring_combine_cuda(acc, incoming, block, progress)
+    if acc.device.type == "meta":
+        return ring_combine_meta(acc, incoming, block, progress)
     if acc.device.type == "cpu":
         block, n_blocks = _blocks(acc, incoming, block)
         done = progress_ref(acc.shape[0], block)

@@ -56,7 +56,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import CudaKernel, ptr, stream_ptr, traced_op
+from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
+                                 traced_op)
 
 HEAD_DIMS = (64,)
 STATE_DIMS = (64, 128)
@@ -130,6 +131,49 @@ def tf32_bwd_scratch_bytes(B: int, L: int, H: int, N: int,
     """Bytes of ``tf32_bwd_scratch`` (``cum`` 8 a value, the rest 4)."""
     return sum((8 if name == "cum" else 4) * math.prod(s) for name, s in
                tf32_bwd_scratch(B, L, H, N, chunk).items())
+
+
+def work(B: int, L: int, H: int, P: int, N: int, chunk: int = 256,
+         itemsize: int = 2, backward: bool = False,
+         initial_state: bool = False, d_final_state: bool = False) -> dict:
+    """The function's work, the bounds' formula, chunk by chunk as the
+    data runs (the ragged last chunk at its length); ``flops`` of its
+    products (2 per multiply-add), ``ops`` off the tensor cores (none
+    counted), ``bytes`` each input read and each output written once.
+
+    Forward: C·Bᵀ over the causal (t, s) pairs once per (b, chunk), since
+    Bm and Cm are shared by the heads; per head the causal scores times
+    x, the inter-chunk C·S and the state update Bᵀ(w∘x).  Bytes: x, Bm,
+    Cm read, y written (``itemsize``); dt, A read and the final state
+    written (fp32), the initial state read if given.  (The trace's
+    ``_meta`` keeps the JAX formula, which counts C·Bᵀ per head and
+    whole.)
+
+    Backward: C·Bᵀ once per (b, chunk); per head over the causal pairs
+    dy·xᵀ, dx, dB and dC (four products), and per row the chunk-start
+    state (the forward's recurrence, which the backward recomputes),
+    S_prevᵀ·dy, dS·B, dSᵀ·x and the state cotangent's dy·Cᵀ (five
+    products of P·N).  Bytes: x, dy, Bm, Cm, dt and A read, dx, dBm, dCm,
+    ddt and dA written (the initial state and the final state's
+    cotangent read if given)."""
+    flops = 0.0
+    for c0 in range(0, L, chunk):
+        q = min(chunk, L - c0)
+        pairs = q * (q + 1) / 2
+        if backward:
+            flops += 2 * pairs * N + H * (4 * pairs * (P + N)
+                                          + 10 * q * P * N)
+        else:
+            flops += 2 * pairs * N + H * (2 * pairs * P + 4 * q * N * P)
+    state = 4 * B * H * P * N
+    if backward:
+        nbytes = ((3 * B * L * H * P + 4 * B * L * N) * itemsize
+                  + 4 * (2 * B * L * H + 2 * H)
+                  + state * (initial_state + d_final_state))
+    else:
+        nbytes = ((2 * B * L * H * P + 2 * B * L * N) * itemsize
+                  + 4 * (B * L * H + H) + state * (1 + initial_state))
+    return {"flops": B * flops, "ops": 0.0, "bytes": nbytes}
 
 
 def _meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
@@ -376,13 +420,24 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     return y, state
 
 
-def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
-                 initial_state=None):
-    """Launch the backward kernels of x's dtype (``BWD_ROUTES``); raises on
-    anything they do not take.  Returns (dx, ddt, dA, dBm, dCm) as
-    ``ssd_bwd_ref``."""
+def _work_of(x, Bm, chunk, initial_state, **kw) -> dict:
+    B, L, H, P = x.shape
+    return work(B, L, H, P, Bm.shape[-1], chunk, x.element_size(),
+                initial_state=initial_state is not None, **kw)
+
+
+def ssd_meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
+    """The meta route: the kernel's checks, empty meta outputs, the work
+    charged to the op analysis in progress; launches nothing."""
     check_operands(x, dt, A, Bm, Cm, chunk, initial_state)
-    r = BWD_ROUTES[x.dtype]
+    B, L, H, P = x.shape
+    charge("ssd_scan", _work_of(x, Bm, chunk, initial_state))
+    return torch.empty_like(x), torch.empty(
+        (B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)
+
+
+def _check_bwd(x, dt, A, Bm, Cm, dy, d_final_state, chunk, initial_state):
+    check_operands(x, dt, A, Bm, Cm, chunk, initial_state)
     B, L, H, P = x.shape
     N = Bm.shape[-1]
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -404,6 +459,27 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("ssd_scan backward takes a contiguous, "
                              "16-byte-aligned dy and d_final_state")
+
+
+def ssd_bwd_meta(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
+                 initial_state=None):
+    """The backward's meta route (see ``ssd_meta``)."""
+    _check_bwd(x, dt, A, Bm, Cm, dy, d_final_state, chunk, initial_state)
+    charge("ssd_scan_bwd", _work_of(x, Bm, chunk, initial_state,
+                                    backward=True,
+                                    d_final_state=d_final_state is not None))
+    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
+
+
+def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
+                 initial_state=None):
+    """Launch the backward kernels of x's dtype (``BWD_ROUTES``); raises on
+    anything they do not take.  Returns (dx, ddt, dA, dBm, dCm) as
+    ``ssd_bwd_ref``."""
+    _check_bwd(x, dt, A, Bm, Cm, dy, d_final_state, chunk, initial_state)
+    r = BWD_ROUTES[x.dtype]
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan kernels take CUDA tensors, not "
                          f"{x.device}")
@@ -450,6 +526,8 @@ def _forward(x, dt, A, Bm, Cm, chunk, initial_state):
         return ssd_cuda(x, dt, A, Bm, Cm, chunk, initial_state)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    if x.device.type == "meta":
+        return ssd_meta(x, dt, A, Bm, Cm, chunk, initial_state)
     raise ValueError(f"ssd_scan: unsupported device {x.device}")
 
 
@@ -472,7 +550,12 @@ class SSDScan(torch.autograd.Function):
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if d_final_state is not None:
             d_final_state = d_final_state.contiguous()
-        bwd = ssd_bwd_cuda if x.device.type == "cuda" else ssd_bwd_ref
+        if x.device.type == "cuda":
+            bwd = ssd_bwd_cuda
+        elif x.device.type == "meta":
+            bwd = ssd_bwd_meta
+        else:
+            bwd = ssd_bwd_ref
         return (*bwd(x, dt, A, Bm, Cm, dy, d_final_state, ctx.chunk,
                      initial_state), None, None)
 
@@ -483,8 +566,9 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
     -> (y [B,L,H,P] in x's dtype, final_state [B,H,P,N] fp32).  Pass
     ``chunk`` as a keyword: the trace's flops are computed from it.
 
-    CUDA tensors go to the kernels; CPU tensors to the plain versions.
-    When a gradient is wanted the call goes through ``SSDScan``; an
+    CUDA tensors go to the kernels; CPU tensors to the plain versions;
+    meta tensors to the meta routes.  When a gradient is wanted the call
+    goes through ``SSDScan``; an
     ``initial_state`` that requires grad is refused."""
     if torch.is_grad_enabled():
         if initial_state is not None and initial_state.requires_grad:

@@ -4,29 +4,36 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, scale
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels.ssd_scan.ops import kernel_takes
 from repro_torch.models.layers import Policy
 from repro_torch.models.ssm_lm import MambaLM
-from repro_torch.models.transformer import FAMILIES, TransformerLM
+from repro_torch.models.transformer import AttnImpl, FAMILIES, TransformerLM
 from repro_torch.models.zamba2 import Zamba2LM
 
 
 def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda",
-                remat: str = "none", mesh=None):
+                remat: str = "none", mesh=None, attn_impl: str = "auto",
+                fold_depth: int = 4, q_chunk: int = 1024,
+                kv_chunk: int = 512):
     """``TransformerLM`` for the dense, moe, audio and vlm families,
     ``MambaLM`` for ssm, ``Zamba2LM`` for hybrid: every family of the JAX
     package's zoo.  ``remat`` ("none", "dots", "full") is what a training
     forward keeps for the backward, as the JAX ``build_model``'s; ``mesh``
-    shards the moe family's experts over its model axis, as the JAX
-    ``build_model``'s (the other families do not use it)."""
+    shards the moe family's experts over its model axis and, under
+    ``attn_impl="cp"``, the attention's query rows, as the JAX
+    ``build_model``'s (zamba2 takes no mesh).  ``attn_impl``
+    (``attention.IMPLS``), ``fold_depth``, ``q_chunk`` and ``kv_chunk``
+    choose the full-sequence self-attention path; the ssm family has
+    none."""
+    attn = AttnImpl(attn_impl, fold_depth, q_chunk, kv_chunk)
     if cfg.family in FAMILIES:
-        return TransformerLM(cfg, policy, device, remat, mesh)
+        return TransformerLM(cfg, policy, device, remat, mesh, attn)
     if cfg.family == "ssm":
         return MambaLM(cfg, policy, device, remat)
     if cfg.family == "hybrid":
-        return Zamba2LM(cfg, policy, device, remat)
+        return Zamba2LM(cfg, policy, device, remat, attn)
     raise NotImplementedError(
         f"the port has no model for the {cfg.family!r} family ({cfg.name})")
 
@@ -44,6 +51,22 @@ def kernel_refusal(cfg: ModelConfig) -> Optional[str]:
         return (f"the flash-attention kernels take head_dim {HEAD_DIMS}, "
                 f"not {cfg.head_dim}")
     return None
+
+
+def card_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` if the card's kernels take it, else ``cfg`` with the widths
+    they refuse raised to the smallest they take (head_dim 64; the SSD
+    scan's head_dim 64, state 64 and chunk 64): the reduced configs, cut
+    for the CPU, as the card runs them."""
+    if kernel_refusal(cfg) is None:
+        return cfg
+    kw = {}
+    if cfg.family in (*FAMILIES, "hybrid") and cfg.head_dim not in HEAD_DIMS:
+        kw["head_dim"] = 64
+    if cfg.family in ("ssm", "hybrid") and not kernel_takes(
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk):
+        kw.update(ssm_head_dim=64, ssm_state=64, ssm_chunk=64)
+    return scale(cfg, **kw)
 
 
 def modality_inputs(cfg: ModelConfig, batch: int) -> dict:

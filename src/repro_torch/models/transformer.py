@@ -108,9 +108,37 @@ class CrossBlock(nn.Module):
         self.kv_proj = param((cfg.vision_d, cfg.d_model), dtype, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class AttnImpl:
+    """How a model's full-sequence self-attention runs (the JAX models'
+    ``attn_impl``, ``fold_depth``, ``q_chunk`` and ``kv_chunk``): ``impl``
+    one of ``attention.IMPLS``; ``"cp"`` with a mesh is context-parallel
+    over its model axis."""
+
+    impl: str = "auto"
+    fold_depth: int = 4
+    q_chunk: int = 1024
+    kv_chunk: int = 512
+
+    def __post_init__(self):
+        if self.impl not in attn_lib.IMPLS:
+            raise ValueError(f"attn_impl is one of {attn_lib.IMPLS}, not "
+                             f"{self.impl!r}")
+
+    def __call__(self, q, k, v, mesh=None):
+        """Causal self-attention of q/k/v [B,S,*,hd] by this impl."""
+        if self.impl == "cp" and mesh is not None:
+            return attn_lib.context_parallel_attention(
+                q, k, v, mesh, causal=True, q_chunk=self.q_chunk,
+                kv_chunk=self.kv_chunk)
+        return attn_lib.attention(
+            q, k, v, causal=True, impl=self.impl, fold_depth=self.fold_depth,
+            q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+
+
 def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
                 i: int, cache=None, pos=None, kvs=None, auxs=None,
-                mesh=None):
+                mesh=None, attn: AttnImpl = AttnImpl()):
     """One block on its normed input ``h`` and residual stream ``x``;
     returns the next (normed input, residual) pair, normed by ``nxt`` (the
     scale of the norm that follows).  ``w`` casts a stored weight to the
@@ -121,14 +149,15 @@ def block_apply(blk: Block, h, x, positions, cfg: ModelConfig, w, nxt,
     block's FF is the MoE (plus the MLP on the same ``h`` with a dense
     residual), its router's aux loss appended to ``auxs`` when given, its
     experts parallel over ``mesh``'s model axis when a mesh is given
-    (``moe.moe_apply``)."""
+    (``moe.moe_apply``).  ``attn`` is the full-sequence attention's impl
+    (context-parallel over ``mesh``'s model axis under ``"cp"``)."""
     eps = cfg.norm_eps
     a = blk.attn
     bias = (None,) * 3 if a.bq is None else (w(a.bq), w(a.bk), w(a.bv))
     q, k, v = attn_lib.project_qkv(w(a.wq), w(a.wk), w(a.wv), h, positions,
                                    cfg.rope_theta, *bias)
     if cache is None:
-        o = attn_lib.attention(q, k, v, causal=True)
+        o = attn(q, k, v, mesh)
         if kvs is not None:
             kvs.append((k, v))
     else:
@@ -156,9 +185,8 @@ def cross_apply(blk: CrossBlock, h, x, vision, cfg: ModelConfig, w, nxt,
     through ``kv_proj`` and wk/wv, no RoPE (appended to ``kvs`` when
     given); ``cache`` given, they are its ``cross_k``/``cross_v`` slot g,
     which the prefill filled (the JAX decode recomputes K/V of x and
-    discards them).  Attention is ``direct_attention``, not causal, as the
-    JAX model's while S·T <= 2^22 (its chunked path beyond that computes
-    the same function)."""
+    discards them).  Attention is not causal: direct while S·T <= 2^22,
+    chunked above, as the JAX model's."""
     eps = cfg.norm_eps
     a = blk.attn
     if cache is None:
@@ -170,12 +198,23 @@ def cross_apply(blk: CrossBlock, h, x, vision, cfg: ModelConfig, w, nxt,
     else:
         q = attn_lib.project(w(a.wq), h)
         k, v = cache["cross_k"][g], cache["cross_v"][g]
-    o = attn_lib.direct_attention(q, k, v, causal=False)
+    o = attn_lib.attention(q, k, v, causal=False, impl=cross_impl(
+        q.shape[1], k.shape[1]))
     out = attn_lib.project_out(w(a.wo), o)
     h, x = fused(torch.tanh(w(a.gate)) * out, x, blk.ln2.scale, eps)
     m = blk.mlp
     y = L.mlp_apply(w(m.wi_gate), w(m.wi_up), w(m.wo), h)
     return fused(torch.tanh(w(blk.gate_mlp)) * y, x, nxt, eps)
+
+
+CROSS_DIRECT_MAX = 1 << 22   # the cross layers go direct up to this S·T
+
+
+def cross_impl(S: int, T: int) -> str:
+    """The cross layers' attention impl at S queries and T vision tokens:
+    ``"direct"`` while S·T <= 2^22, ``"chunked"`` above (the JAX
+    ``_cross_block``)."""
+    return "direct" if S * T <= CROSS_DIRECT_MAX else "chunked"
 
 
 def init_std(cfg: ModelConfig, name: str) -> Optional[float]:
@@ -213,10 +252,13 @@ class TransformerLM(LM):
     (``parallel/mesh.py``, connected) the moe family's experts are parallel
     over its model axis: each layer holds this rank's experts (load a
     state cut by ``moe.shard_experts``) and a call takes this rank's data
-    shard of the batch (the JAX model's ``mesh``)."""
+    shard of the batch (the JAX model's ``mesh``).  ``attn`` is how the
+    self-attention layers attend over the whole sequence (``AttnImpl``;
+    ``"cp"`` is context-parallel over the mesh's model axis)."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda", remat: str = "none", mesh=None):
+                 device="cuda", remat: str = "none", mesh=None,
+                 attn: AttnImpl = AttnImpl()):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"TransformerLM serves the {'/'.join(FAMILIES)} families, "
@@ -229,6 +271,7 @@ class TransformerLM(LM):
                 f"{cfg.cross_attn_every + 1}, not {cfg.num_layers}")
         super().__init__(cfg, policy, device, remat)
         self.mesh = mesh
+        self.attn = attn
         pd = policy.param_dtype
         shards = moe_lib.model_shards(mesh)
         self.layers = nn.ModuleList(
@@ -289,7 +332,8 @@ class TransformerLM(LM):
                     a = []
                     h, x = block_apply(blk, h, x, positions, cfg, self.cast,
                                        nxt, i, cache, pos,
-                                       kvs if keep else None, a, self.mesh)
+                                       kvs if keep else None, a, self.mesh,
+                                       self.attn)
                     return h, x, *a
                 h, x, *a = remat(self.remat, unit, h, x)
                 auxs += a

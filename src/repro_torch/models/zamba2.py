@@ -40,14 +40,18 @@ class Zamba2LM(LM):
     ``policy.norm_dtype``.  ``loss`` trains: its
     forward and backward go through the SSD-scan, flash-attention and
     fused-norm kernels on CUDA tensors; the shared block's gradient is the
-    sum over its applications, as autograd accumulates it."""
+    sum over its applications, as autograd accumulates it.  ``attn`` is
+    the shared block's full-sequence attention (``transformer.AttnImpl``;
+    no mesh, so ``"cp"`` is chunked, as in the JAX model)."""
 
     def __init__(self, cfg: ModelConfig, policy: L.Policy = L.Policy(),
-                 device="cuda", remat: str = "none"):
+                 device="cuda", remat: str = "none",
+                 attn: transformer.AttnImpl = transformer.AttnImpl()):
         if cfg.family != "hybrid":
             raise NotImplementedError(
                 f"Zamba2LM serves the hybrid family, not {cfg.family!r}")
         super().__init__(cfg, policy, device, remat)
+        self.attn = attn
         pd = policy.param_dtype
         self.layers = torch.nn.ModuleList(
             ssm_lm.MambaLayer(cfg, pd, self.device, policy.norm_dtype)
@@ -95,7 +99,7 @@ class Zamba2LM(LM):
                    else self.final_norm)
             return transformer.block_apply(sp, h, x, positions, cfg,
                                            self.cast, nxt.scale, g, cache,
-                                           pos, kvs)
+                                           pos, kvs, attn=self.attn)
 
         for g in range(self.n_groups):
             h, x = remat(self.remat, group, h, x, g)

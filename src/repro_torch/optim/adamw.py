@@ -166,7 +166,8 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
 
 # --------------------------------------------------------------- state specs
 def opt_state_specs(p_specs: dict, params, mesh, cfg: AdamWConfig,
-                    zero: bool = True, model_cfg=None) -> dict:
+                    zero: bool = True, model_cfg=None,
+                    stacked: bool = False) -> dict:
     """Partition specs of ``adamw_init``'s state (ZeRO over the data axes):
     ``{"mu_nu": {name: {"m": spec, "v": spec}}, "count": Spec()}``, where
     an int8 moment's spec is ``{"q": spec, "scale": spec}``, the scale's
@@ -174,7 +175,8 @@ def opt_state_specs(p_specs: dict, params, mesh, cfg: AdamWConfig,
     {name: tensor | shape} dict and ``p_specs`` its per-layer specs; with
     ``model_cfg`` (a model's own by default) each spec is computed on the
     reference's stacked shape, as ``sanitize_specs`` does, and its stacked
-    entries dropped."""
+    entries dropped; with ``stacked`` ``p_specs`` are stacked specs
+    (``param_specs(..., stacked=True)``) and so are the results."""
     from repro_torch.parallel import sharding as sh
 
     model_cfg = sh._cfg(params, model_cfg)
@@ -182,15 +184,17 @@ def opt_state_specs(p_specs: dict, params, mesh, cfg: AdamWConfig,
     def one(name, shape):
         dims = sh.stack_dims(name, model_cfg)
         k, shape = len(dims), dims + shape
-        spec = sh._stacked(p_specs[name], k)
+        spec = (sh.Spec(*p_specs[name]) if stacked
+                else sh._stacked(p_specs[name], k))
         base = sh.zero_spec(spec, shape, mesh) if zero else spec
+        cut = (lambda s: sh.Spec(*s)) if stacked else (
+            lambda s: sh.per_layer(s, k))
         if cfg.state_dtype == "int8":
             last = shape[-1] if shape else 1
             scale_shape = shape[:-1] + ((last + QBLOCK - 1) // QBLOCK,)
             scale = sh.sanitize_spec(base, scale_shape, mesh)
-            return {"q": sh.per_layer(base, k),
-                    "scale": sh.per_layer(scale, k)}
-        return sh.per_layer(base, k)
+            return {"q": cut(base), "scale": cut(scale)}
+        return cut(base)
 
     mu_nu = {}
     for name, shape in sh._shapes(params).items():

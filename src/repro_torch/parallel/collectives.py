@@ -27,6 +27,11 @@ replace it in a rank process to break a link.  The transport is
 ``dist.batch_isend_irecv`` on the group: under NCCL device tensors go as
 they are; gloo moves host memory, so a CUDA tensor is staged through
 pinned host buffers.  The combine always runs on the tensor's device.
+
+On a meta tensor a collective moves nothing: it returns an empty result
+of its shape and zero progress, and records its kind, result bytes and
+group size into the op analysis in progress (``launch/op_analysis.py``),
+if there is one.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels import ANALYSES
 from repro_torch.kernels.ring_reduce.ops import ring_combine
 
 COMBINE_BLOCK = 1024   # the TPU kernel's block
@@ -83,6 +89,15 @@ def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
 
 def _ring(group) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _meta(kind: str, result: torch.Tensor, n: int):
+    """A collective on meta tensors, with this (empty) result on ``n``
+    ranks: recorded into the op analysis in progress, if any."""
+    if ANALYSES:
+        ANALYSES[-1].collective(kind, result.numel() * result.element_size(),
+                                n)
+    return result
 
 
 def _progress(n: int, progress: Optional[torch.Tensor],
@@ -136,6 +151,9 @@ def ring_reduce_scatter_local(x: torch.Tensor, group=None,
         raise ValueError(f"ring_reduce_scatter: leading dim {x.shape[0]} is "
                          f"not a multiple of the group size {n}")
     chunk_shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    if x.is_meta:
+        return (_meta("reduce-scatter", x.new_empty(chunk_shape), n),
+                _progress(n, progress))
     flat = x.reshape(n, -1)
     chunk = flat.shape[1]
     pad = _chunk_pad(chunk)
@@ -167,6 +185,10 @@ def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,
     all-reduce passes slot_offset=1.
     """
     rank, n = _ring(group)
+    if x.is_meta:
+        return (_meta("all-gather", x.new_empty(
+            (n * x.shape[0],) + tuple(x.shape[1:])), n),
+            _progress(n, progress))
     out = x.new_zeros((n,) + tuple(x.shape))
     out[(rank + slot_offset) % n] = x
     progress = _progress(n, progress)
@@ -189,6 +211,8 @@ def ring_all_reduce_local(x: torch.Tensor, group=None,
     n = dist.get_world_size(group)
     steps = max(n - 1, 1)
     progress = _progress(n, progress, phases=2)
+    if x.is_meta:
+        return _meta("all-reduce", x.new_empty(x.shape), n), progress
     owned, _ = ring_reduce_scatter_local(x, group, progress[:steps], counters)
     full, _ = ring_all_gather_local(owned, group, slot_offset=1,
                                     progress=progress[steps:])

@@ -24,6 +24,11 @@ it: at published width ``zero_spec`` puts ``data`` on the layer axis of
 llama3.2-1b, mamba2-780m, musicgen-large and qwen2-72b, whose L a data
 extent of 16 divides.
 
+:func:`local_shape` is a tensor's per-device shard shape under a spec;
+:class:`Named` (the counterpart of JAX's ``NamedSharding``), :func:`named`
+and :func:`shaped_with_sharding` give the dry-run's inputs: meta tensors
+of their per-device shard shapes that carry their spec and global shape.
+
 The port has no ``constrain`` hook: eager PyTorch has no GSPMD layout
 hint, so :class:`MeshRules` gives the spec and its cleaning
 (:meth:`MeshRules.cleaned`) and nothing applies it to an activation.
@@ -222,17 +227,26 @@ def _stacked(spec, n_stack: int) -> Spec:
     return Spec(*((None,) * n_stack + tuple(spec)))
 
 
-def param_specs(params, cfg=None) -> dict:
+def param_specs(params, cfg=None, stacked: bool = False) -> dict:
     """{name: Spec} for a model's parameters or a {name: tensor | shape}
     dict (the reference's ``param_specs`` on its tree).  With a ``cfg`` (a
     model's own by default) each spec is the reference's on the stacked
-    shape, its stacked entries dropped."""
+    shape, its stacked entries dropped (kept with ``stacked``: the spec of
+    ``stack_dims(name, cfg) + shape``)."""
     cfg = _cfg(params, cfg)
     out = {}
     for name, shape in _shapes(params).items():
         k = len(stack_dims(name, cfg))
-        out[name] = per_layer(_match(_ref_path(name), k + len(shape)), k)
+        spec = _match(_ref_path(name), k + len(shape))
+        out[name] = Spec(*spec) if stacked else per_layer(spec, k)
     return out
+
+
+def ref_leaf(name: str) -> str:
+    """The reference's tree path of a port parameter, "/"-joined: every
+    layer's ``layers.<i>.attn.wq`` is the one stacked leaf
+    ``layers/attn/wq``."""
+    return "/".join(_ref_path(name))
 
 
 def sanitize_spec(spec, shape: tuple, mesh) -> Spec:
@@ -300,6 +314,60 @@ def zero_spec(spec, shape: tuple, mesh, axes: tuple = ("data",)) -> Spec:
             entries[i] = usable if len(usable) > 1 else usable[0]
             return Spec(*entries)
     return Spec(*spec)
+
+
+# --------------------------------------------------------------------------- #
+# Per-device shard shapes, and the dry-run's inputs
+# --------------------------------------------------------------------------- #
+def local_shape(shape: tuple, spec, mesh) -> tuple:
+    """The per-device shard shape of a tensor of ``shape`` under ``spec``
+    on ``mesh`` (JAX's ``NamedSharding.shard_shape``): a dim under axes of
+    extent n is cut in n equal parts, which must divide it."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, entry in zip(shape, entries):
+        n = 1 if entry is None else math.prod(mesh.shape[a]
+                                              for a in _names(entry))
+        if dim % n:
+            raise ValueError(f"local_shape: dim {dim} of {tuple(shape)} is "
+                             f"not a multiple of {n} ({entry!r})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class Named:
+    """A spec on a mesh, the counterpart of JAX's ``NamedSharding``."""
+
+    mesh: object
+    spec: Spec
+
+    def shard_shape(self, shape: tuple) -> tuple:
+        return local_shape(shape, self.spec, self.mesh)
+
+
+def named(mesh, specs: dict) -> dict:
+    """{name: Named} of a {name: Spec} dict (the reference's ``named``)."""
+    return {k: Named(mesh, s) for k, s in specs.items()}
+
+
+def shaped_with_sharding(shapes: dict, specs: dict, mesh,
+                         dtypes: Optional[dict] = None) -> dict:
+    """The dry-run's inputs (the reference's ``shaped_with_sharding``):
+    {name: a meta tensor of the per-device shard shape}, each carrying
+    ``.sharding`` (a :class:`Named`) and ``.global_shape``.  ``shapes``
+    maps names to tensors or shapes; ``dtypes`` (default: each tensor's,
+    else float32) their dtypes."""
+    out = {}
+    for name, v in shapes.items():
+        shape = tuple(getattr(v, "shape", v))
+        dtype = (dtypes or {}).get(name, getattr(v, "dtype", torch.float32))
+        sharding = Named(mesh, Spec(*specs[name]))
+        t = torch.empty(sharding.shard_shape(shape), dtype=dtype,
+                        device="meta")
+        t.sharding, t.global_shape = sharding, shape
+        out[name] = t
+    return out
 
 
 # --------------------------------------------------------------------------- #

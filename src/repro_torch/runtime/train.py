@@ -43,6 +43,7 @@ class RunConfig:
     warmup_steps: int = 20
     peak_lr: float = 3e-4
     remat: str = "none"       # none | dots | full (models/lm.py ``remat``)
+    attn_impl: str = "auto"   # auto | direct | chunked | folded | cp
     grad_accum_dtype: str = "float32"  # float32 | bfloat16 (microbatching)
     opt: AdamWConfig = field(default_factory=AdamWConfig)
     param_dtype: str = "float32"
@@ -72,14 +73,18 @@ def loss_and_grads(model, batch: dict,
     return loss.detach(), dict(zip(params, grads))
 
 
-def make_train_step(model, cfg: RunConfig):
+def make_train_step(model, cfg: RunConfig, grads=loss_and_grads,
+                    update=adamw_update):
     """Returns step_fn(opt_state, batch, step) -> (opt_state, metrics).
 
     The parameters are the model's own and are updated in place; ``batch``
     holds ``tokens`` and ``labels`` [B, S] on the model's device (and the
     vlm family's ``vision_embeds`` [B, T, vision_d]), each split on B into
     the microbatches; the metrics (``loss``, ``lr``, ``grad_norm``) are
-    device scalars."""
+    device scalars.  ``grads(model, batch, params)`` gives a microbatch's
+    loss and gradients and ``update`` applies them (``loss_and_grads`` and
+    ``adamw_update``; the dry-run counts one microbatch for all, and one
+    parameter's update for each of the same shape)."""
     params = dict(model.named_parameters())
     M = cfg.num_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
@@ -89,7 +94,7 @@ def make_train_step(model, cfg: RunConfig):
                            warmup_steps=cfg.warmup_steps,
                            total_steps=cfg.steps).to(model.device)
         if M <= 1:
-            loss, grads = loss_and_grads(model, batch, params)
+            loss, g = grads(model, batch, params)
         else:
             B = batch["tokens"].shape[0]
             if B % M:
@@ -100,14 +105,14 @@ def make_train_step(model, cfg: RunConfig):
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             parts = {k: v.chunk(M) for k, v in batch.items()}
             for i in range(M):
-                lm, g = loss_and_grads(
+                lm, gm = grads(
                     model, {k: v[i] for k, v in parts.items()}, params)
                 for k in gacc:
-                    gacc[k] += g[k].to(acc_dt)
+                    gacc[k] += gm[k].to(acc_dt)
                 loss = loss + lm
-            grads = {k: g / M for k, g in gacc.items()}
+            g = {k: a / M for k, a in gacc.items()}
             loss = loss / M
-        _, opt_state, om = adamw_update(grads, opt_state, params, cfg.opt, lr)
+        _, opt_state, om = update(g, opt_state, params, cfg.opt, lr)
         return opt_state, {"loss": loss, "lr": lr, **om}
 
     return step_fn
@@ -124,7 +129,7 @@ class Trainer:
                 "Trainer: no CUDA device; pass RunConfig(device='cpu') to "
                 "train on the CPU")
         self.model = build_model(cfg.model, cfg.policy(), self.device,
-                                 cfg.remat)
+                                 cfg.remat, attn_impl=cfg.attn_impl)
         self.step_fn = make_train_step(self.model, cfg)
         self.vision = self._vision_stub()
         self.fault_hook = fault_hook

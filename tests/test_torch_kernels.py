@@ -102,22 +102,42 @@ def test_fused_ref_is_the_unfused_math(rng):
 
 
 @pytest.mark.parametrize("op", ["fused", "flash", "ssd"])
-def test_wrappers_refuse_other_devices(op):
-    """Only CPU tensors take the plain version; others launch or raise."""
+def test_wrappers_refuse_other_devices(op, monkeypatch):
+    """Only CPU tensors take the plain version.  Meta tensors take the
+    meta route: the kernel's own checks, refusing what the kernel refuses
+    (here a width it has no instance for), and empty meta outputs, with
+    neither a launch nor the plain version; CUDA tensors launch or raise
+    (``test_attention_cuda_refuses_what_the_kernels_do_not_take``)."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.kernels.fused_norm.ops as fn_ops
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
+    for mod, ref in ((fn_ops, "fused_ref"), (fa_ops, "attention_ref"),
+                     (ssd_ops, "ssd_ref")):
+        monkeypatch.setattr(mod, ref, None)
     if op == "fused":
-        x = torch.empty(4, 8, device="meta")
-        with pytest.raises(ValueError, match="device"):
+        x = torch.empty(4, 8, device="meta", dtype=torch.float16)
+        with pytest.raises(TypeError, match="float32 or"):
             fused_residual_rmsnorm(x, x, torch.empty(8, device="meta"))
+        x = torch.empty(4, 8, device="meta")
+        y, h = fused_residual_rmsnorm(x, x, torch.empty(8, device="meta"))
+        assert y.is_meta and h.is_meta and y.shape == h.shape == x.shape
     elif op == "flash":
-        q = torch.empty(1, 4, 2, 64, device="meta")
-        with pytest.raises(ValueError, match="device"):
+        q = torch.empty(1, 4, 2, 16, device="meta")
+        with pytest.raises(ValueError, match="head_dim"):
             flash_attention(q, q, q)
+        q = torch.empty(1, 4, 2, 64, device="meta")
+        o = flash_attention(q, q, q)
+        assert o.is_meta and o.shape == q.shape
     else:
         x = torch.empty(1, 4, 2, 64, device="meta")
         bm = torch.empty(1, 4, 128, device="meta")
-        with pytest.raises(ValueError, match="device"):
-            ssd_scan(x, torch.empty(1, 4, 2, device="meta"),
-                     torch.empty(2, device="meta"), bm, bm, chunk=256)
+        args = (torch.empty(1, 4, 2, device="meta"),
+                torch.empty(2, device="meta"), bm, bm)
+        with pytest.raises(ValueError, match="chunk"):
+            ssd_scan(x, *args, chunk=100)
+        y, state = ssd_scan(x, *args, chunk=256)
+        assert y.is_meta and y.shape == x.shape
+        assert state.shape == (1, 2, 64, 128)
 
 
 def _tensor_core_attention(q, k, v, causal, block_k=128):

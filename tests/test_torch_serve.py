@@ -197,12 +197,19 @@ SIM_MODULES = ("repro_torch.core.timeline", "repro_torch.core.injectors") \
         "base", "library", "runner"))
 
 
+# the attention paths, the op analysis and the dry-run (torch)
+DRYRUN_MODULES = ("repro_torch.models.attention",
+                  "repro_torch.launch.op_analysis",
+                  "repro_torch.launch.dryrun")
+
+
 def test_port_imports_neither_jax_nor_repro():
     """Every module imports with jax and repro blocked, the diagnosis
     plane's 22 among them (the engine's 14, the fleet's 6, the archive's
-    2), the service's 7 and the simulator's 10, and no source of the port,
-    of chip_smoke.py, of the port's example scripts or of
-    tools/sim_check.py names them in an import, even in a function; nor
+    2), the service's 7, the simulator's 10 and the attention paths, op
+    analysis and dry-run, and no source of the port, of chip_smoke.py, of
+    the port's 7 example scripts or of tools/sim_check.py and
+    tools/dryrun_check.py names them in an import, even in a function; nor
     does the diagnosis plane, the service or the simulator name torch:
     they are numpy, as the reference's."""
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
@@ -214,10 +221,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert set(ENGINE_MODULES) <= set(out.stdout.split())
     assert set(SERVE_MODULES) <= set(out.stdout.split())
     assert set(SIM_MODULES) <= set(out.stdout.split())
+    assert set(DRYRUN_MODULES) <= set(out.stdout.split())
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 4
+    assert len(examples) == 7
     files = [ROOT / "chip_smoke.py", ROOT / "tools" / "sim_check.py",
-             *examples,
+             ROOT / "tools" / "dryrun_check.py", *examples,
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

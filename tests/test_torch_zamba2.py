@@ -246,7 +246,7 @@ def test_forward_launches_per_group():
         calls["ssd"] += 1
         return h
 
-    def block(blk, h, x, *a):
+    def block(blk, h, x, *a, **kw):
         calls["flash"] += 1
         calls["fused"] += 2          # attention's add + ln2, the MLP's + next
         return h, x

@@ -126,9 +126,9 @@ def check_backward():
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (BWD_BF16_SCALED, flash_bwd_bound, ptxas_usage,
-                            sass_mma, sdpa_backward_fns, time_flash_bwd,
-                            time_ms)
+    from chip_smoke import (BWD_BF16_SCALED, ptxas_usage, sass_mma,
+                            sdpa_backward_fns, time_flash_bwd, time_ms)
+    from chip_smoke import bound as work_bound
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
@@ -230,8 +230,8 @@ def check_backward():
         bwd, sdpa = time_flash_bwd(fa, q, k, v, do, True, 50)
         flops = 2.5 * 4.0 * B * H * hd * S * (S + 1) / 2
         peak = 989e12 if route == "wgmma" else 494.7e12
-        bound, by = flash_bwd_bound(B, S, H, KV, hd, True, q.element_size(),
-                                    peak)
+        bound, by = work_bound(fa.work(B, S, H, KV, hd, True, q.element_size(),
+                                     backward=True), peak)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -308,8 +308,8 @@ def check_ssd_backward():
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, ptxas_usage,
-                            sass_mma, ssd_bwd_bound, ssd_bwd_case,
-                            ssd_inputs, time_ms)
+                            sass_mma, ssd_bwd_case, ssd_inputs, time_ms)
+    from chip_smoke import bound as work_bound
     from repro_torch.kernels import build_all
     from repro_torch.kernels.ssd_scan import ops as ssd
 
@@ -351,8 +351,8 @@ def check_ssd_backward():
         ms = time_ms(lambda: ssd.ssd_bwd_cuda(*args), 10, behind_sleep=True)
         plain = time_ms(lambda: ssd.ssd_bwd_ref(*args), 3, 1)
         peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
-        bound, by, flops, nbytes = ssd_bwd_bound(B, L, H, N, chunk,
-                                                 x.element_size(), peak)
+        w = ssd.work(B, L, H, 64, N, chunk, x.element_size(), backward=True)
+        (bound, by), flops, nbytes = work_bound(w, peak), w["flops"], w["bytes"]
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -391,8 +391,9 @@ def check_f32flash():
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
-                            flash_bwd_bound, in_turns, ptxas_usage, sass_mma,
+                            in_turns, ptxas_usage, sass_mma,
                             time_flash_bwd)
+    from chip_smoke import bound as work_bound
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
 
@@ -506,7 +507,8 @@ def check_f32flash():
         o, lse = fa.attention_cuda(q, k, v, True, return_lse=True)
         parts = by_kernel(lambda: fa.attention_bwd_cuda(q, k, v, o, do, lse))
         bflops = 2.5 * flops
-        bound, by = flash_bwd_bound(B, S, H, KV, hd, True, 4, PEAK_TF32_FLOPS)
+        bound, by = work_bound(fa.work(B, S, H, KV, hd, True, 4, backward=True),
+                             PEAK_TF32_FLOPS)
         floor = 3 * 1.4 * bflops / PEAK_TF32_FLOPS * 1e3
         scratch = fa.tf32_scratch_bytes(B, S, H, KV, hd, backward=True)
         print(f"[time] flash bwd [tf32x3] B{B} S{S} H{H} KV{KV} hd{hd} fp32 "
@@ -666,7 +668,7 @@ def check_f32ssd():
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
-                            in_turns, max_err, ssd_inputs, ssd_work_flops)
+                            in_turns, max_err, ssd_inputs)
     from repro_torch.kernels.ssd_scan import ops as ssd
     by_kernel = _f32_setup([ssd.KERNELS["tf32x3"], ssd.KERNELS["wgmma"]])
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -705,7 +707,7 @@ def check_f32ssd():
             {"tf32x3": lambda: ssd.ssd_cuda(*xf, chunk),
              "wgmma": lambda: ssd.ssd_cuda(*xb, chunk)}, 10).values()
         parts = by_kernel(lambda: ssd.ssd_cuda(*xf, chunk))
-        flops = ssd_work_flops(B, L, H, 64, N, chunk)
+        flops = ssd.work(B, L, H, 64, N, chunk)["flops"]
         nbytes = (4 * (2 * xf[0].numel() + 2 * xf[3].numel() + xf[1].numel()
                        + H) + 4 * B * H * 64 * N)
         t_ops = flops / PEAK_TF32_FLOPS * 1e3
@@ -742,9 +744,10 @@ def check_f32ssdbwd():
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, ssd_bwd_bound,
+    from chip_smoke import (PEAK_FP32_FLOPS, PEAK_TF32_FLOPS,
                             ssd_bwd_case, ssd_bwd_design_flops, ssd_inputs,
                             time_ms)
+    from chip_smoke import bound as work_bound
     from repro_torch.kernels.ssd_scan import ops as ssd
     by_kernel = _f32_setup([ssd.BWD_KERNELS["tf32x3"],
                             ssd.BWD_KERNELS["wgmma"]])
@@ -773,8 +776,9 @@ def check_f32ssdbwd():
         bad += not same
         del runs
         parts = by_kernel(lambda: ssd.ssd_bwd_cuda(*args))
-        bound, by, flops, nbytes = ssd_bwd_bound(B, L, H, N, chunk, 4,
-                                                 PEAK_TF32_FLOPS)
+        w = ssd.work(B, L, H, 64, N, chunk, 4, backward=True)
+        (bound, by), flops, nbytes = (work_bound(w, PEAK_TF32_FLOPS),
+                                      w["flops"], w["bytes"])
         design = ssd_bwd_design_flops(B, L, H, 64, N, chunk, "tf32x3")
         print(f"[time] ssd bwd [tf32x3] B{B} L{L} H{H} N{N} chunk {chunk} "
               f"fp32: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
@@ -820,7 +824,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (RING_CHUNK, RING_ODD_CHUNK, in_turns, ptxas_usage,
-                            sass_mma, ssd_inputs, ssd_work_flops)
+                            sass_mma, ssd_inputs)
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.padded_matmul import ops as mm
@@ -918,7 +922,7 @@ def main():
             ms, fp32_ms = in_turns(
                 {"wgmma": lambda: ssd.ssd_cuda(*xb, chunk),
                  "tf32x3": lambda: ssd.ssd_cuda(*xf, chunk)}, 10).values()
-            flops = ssd_work_flops(B, L, H, 64, N, chunk)
+            flops = ssd.work(B, L, H, 64, N, chunk)["flops"]
             print(f"[time] ssd_scan B{B} L{L} H{H} P64 N{N} chunk {chunk}: "
                   f"wgmma (bf16) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
                   f"of the work), fp32 route (tf32x3) {fp32_ms:.4f} ms "

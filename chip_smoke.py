@@ -74,6 +74,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the training shape beside it, with the profiler's split by
                 kernel and two calls compared bitwise, the tf32x3 route's
                 [kernels] line with its three-pass design floor;
+                the widths the JAX package runs beside the published ones
+                (``check_widths``): its own kernel sweep shape for shape
+                (flash, ``FLASH_REF_SWEEP``; the SSD scan in fp32 at 4e-4
+                and in bf16; the fused norm forward and backward; the
+                matmul's and the ring combine's in their checks above),
+                flash forward and backward on both routes at head_dim 8,
+                16 and 32 (the reduced configs' and the sweep's), the SSD
+                forward and backward on both routes at head_dim 8 to 32
+                and state 8 to 128 against the plain version at the
+                requested chunk (16, 32, 48; the kernels run it at
+                ``kernel_chunk``), the widths no kernel takes refused on
+                CUDA tensors with nothing launched; flash at hd 8, 16 and
+                32 timed at the serving and training shapes beside SDPA
+                and cuDNN (hd 32's summary inside hd 16's, ``at_hd32``:
+                no path runs it), and the SSD scan forward and backward at
+                B 8, L 1024, H 48, P 16, N 16, each with its bound and the
+                padded tiles' work factor;
   4. case2    — the Case-2 op as called: one traced padded_matmul at the
                 paper's FFN shape (4096 x 8192 @ 8192 x 8484) in bf16 and
                 one in fp32, each on its route by the launch counts, and
@@ -205,8 +222,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 llama3-405b (dense): Server.generate at full width, the
                 depth cut where ``PATHS`` says (mamba2, musicgen and zamba2
                 12 layers, the vlm 2 groups, dbrx 8 layers, arctic 2,
-                qwen2-72b 30 and llama3-405b 8, which is what one card holds
-                of their weights; llama-20b-paper whole) (batch 8,
+                qwen2-72b 10 and llama3-405b 4 (one card holds 30 and 8 of
+                their layers' weights; cut further for time),
+                llama-20b-paper 16 of 62) (batch 8,
                 1024-token prompts, 32 new tokens, random weights from
                 --seed; the vlm's gates opened to
                 ``VLM_GATE`` and its vision embeddings a seeded draw) with
@@ -218,9 +236,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the fused norms again a decode step: zamba2's cut flash 2,
                 SSD scan 12, fused norm 16 x 33; qwen2 flash 24, fused 48 x
                 33; musicgen's cut 12, 24 x 33; the vlm's cut 8, 20 x 33;
-                dbrx's 8, 16 x 33; arctic's 2, 4 x 33; llama-20b-paper 62,
-                124 x 33; qwen2-72b's cut 30, 60 x 33; llama3-405b's cut 8,
-                16 x 33); untraced and
+                dbrx's 8, 16 x 33; arctic's 2, 4 x 33; llama-20b-paper's cut
+                16, 32 x 33; qwen2-72b's cut 10, 20 x 33; llama3-405b's cut
+                4, 8 x 33); untraced and
                 traced walls; a profiler breakdown; the vlm's prefill
                 logits moving with its vision embeddings, and its prefill
                 of one 4096-token prompt, S·T above 2^22, whose cross
@@ -259,9 +277,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (llama: flash forward and backward 16, on the wgmma routes
                 and none on tf32x3, fused forward and backward 32; mamba2:
                 SSD forward and backward 48 each on the wgmma routes, none
-                on tf32x3, fused forward and backward 48; zamba2: flash
-                forward and backward 9, SSD forward and backward 54, fused
-                forward and backward 72; qwen2 24 and 48, musicgen 48 and
+                on tf32x3, fused forward and backward 48; zamba2 cut to 24
+                of 54 layers for time: flash forward and
+                backward 4, SSD forward and backward 24, fused forward and
+                backward 32; qwen2 24 and 48, musicgen 48 and
                 96, the vlm cut 4 and 10; no plain version); the loss
                 finite and falling; a profiler breakdown of one step; one
                 fp32 step of the path's cut (llama, mamba2, qwen2 and
@@ -296,6 +315,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 widest anchor bracket, and the host time of an untraced
                 fused-norm call with the daemon attached and after it
                 detached;
+  6b. reduced — every arch's reduced config, the JAX package's at its
+                own widths (head_dim 16, 8 for qwen2-72b and llama3-405b;
+                mamba2's and zamba2's SSD at P 16, N 16, chunk 16), on the
+                card (``reduced_phase``): Server.generate (batch 2, prompt
+                64, 8 new, traced, the trace read back), Trainer.train (3
+                bf16 steps at B 2 x S 64, traced) and one fp32 step, each
+                kernel launched as often as the run needs and no plain
+                version called; fp32 prefill logits (S 64) against the
+                port's CPU run (rtol = atol = 2e-3, argmax equal); then
+                ``python -m repro_torch.launch.serve --reduced`` and
+                ``... .train --reduced`` (zamba2-2.7b) in processes of
+                their own (``tools/reduced_check.py`` runs the phase
+                alone);
   8. dryrun   — ``repro_torch.launch.dryrun``'s cells, in a process of
                 their own started before phase 3 (meta tensors, no device:
                 it runs on the host's CPU beside the card's phases): every
@@ -511,15 +543,29 @@ FLASH_GROUPS = [(2, 512, 14, 2, 64), (2, 512, 32, 32, 64),
                 (2, 200, 128, 8, 128)]
 FLASH_EDGES = [(2, S, 16, 4, hd) for S in (1, 63, 129)
                for hd in (64, 80, 128)]
+# the JAX package's own flash sweep (tests/test_kernels.py), shape for
+# shape, and the narrow head_dims of its reduced configs (16; 8 for
+# qwen2-72b and llama3-405b) at the sweep's shape, the reduced configs'
+# shapes (G 4 and 2), ragged S and S 1, both routes
+FLASH_REF_SWEEP = [(1, 256, 4, 2, 64), (2, 384, 6, 3, 32),
+                   (1, 128, 2, 1, 128)]
+FLASH_NARROW = [(2, 384, 6, 3, 8), (2, 384, 6, 3, 16), (2, 64, 4, 1, 16),
+                (2, 64, 8, 2, 8), (2, 129, 4, 4, 16), (2, 1, 4, 2, 8),
+                (2, 200, 16, 4, 32)]
 # the serving paths' flash shapes, each timed on both routes: llama3.2-1b
 # (hd 64; qwen2-0.5b and musicgen-large take hd 64 too, at G 7 and 1),
 # zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4), dbrx-132b (hd
 # 128, G 6), arctic-480b (hd 128, G 7), llama-20b-paper (G 5), qwen2-72b
-# (G 8) and llama3-405b (G 16)
+# (G 8) and llama3-405b (G 16); then the narrow head_dims at llama's
+# serving shape: 8 and 16 (the reduced configs'; their launches are the
+# ``reduced`` phase's) and 32 (the JAX sweep's, on no path: its timing
+# rides in hd 16's summary as ``at_hd32``)
 FLASH_TIMED = [(8, 1024, 32, 8, 64), (8, 1024, 32, 32, 80),
                (8, 1024, 32, 8, 128), (8, 1024, 48, 8, 128),
                (8, 1024, 56, 8, 128), (8, 1024, 40, 8, 128),
-               (8, 1024, 64, 8, 128), (8, 1024, 128, 8, 128)]
+               (8, 1024, 64, 8, 128), (8, 1024, 128, 8, 128),
+               (8, 1024, 32, 8, 8), (8, 1024, 32, 8, 16),
+               (8, 1024, 32, 8, 32)]
 
 
 def by_hd(name: str, hd: int, G: int | None = None) -> str:
@@ -558,7 +604,8 @@ def check_flash(gen, device):
 
     cases = []
     for (B, S, H, KV, hd), dtype in (
-            (sh, d) for sh in FLASH_SHAPES + FLASH_EDGES + FLASH_GROUPS
+            (sh, d) for sh in (FLASH_SHAPES + FLASH_EDGES + FLASH_GROUPS
+                               + FLASH_REF_SWEEP + FLASH_NARROW)
             for d in ("bfloat16", "float32")):
         for causal in (True, False):
             dt = getattr(torch, dtype)
@@ -612,7 +659,8 @@ def check_flash(gen, device):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=library_ms,
             library_call="torch.nn.functional.scaled_dot_product_attention",
-            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops,
+            padded_work_factor=flash_padded_factor(route, hd, False))
         if route == "tf32x3":
             # three TF32 passes a product: the design's floor; and the bound
             # of the FP32 pipes that the earlier fp32 kernel ran on
@@ -630,7 +678,16 @@ def check_flash(gen, device):
                if route == "tf32x3" else "") + ")")
         del q, k, v, qt, kt, vt
         tensor_core_fields(summary, ops.KERNELS[route], flops, route)
+    fold_hd32(summaries)
     return summaries, cases
+
+
+def fold_hd32(summaries: dict):
+    """Move each route's hd 32 summary (the JAX sweep's width, on no
+    path) into its hd 16 summary as ``at_hd32``, out of the kernels line."""
+    for route in ("wgmma", "tf32x3"):
+        summaries[route, 16, None]["at_hd32"] = summaries.pop(
+            (route, 32, None))
 
 
 # the paths' widths: llama3.2-1b and musicgen-large, mamba2-780m,
@@ -740,6 +797,19 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
                    ((2, 256, 64, 8, 128), "float32", False),
                    ((2, 129, 128, 8, 128), "bfloat16", False),
                    ((2, 256, 128, 8, 128), "float32", True)]
+# the flash backward at the JAX sweep's shapes (FLASH_REF_SWEEP) and at
+# head_dim 8 and 16 on the sweep's shape, each dtype and causal value; the
+# reduced configs' shapes and ragged S
+FLASH_BWD_CASES += [(sh, d, c) for sh in FLASH_REF_SWEEP
+                    + [(2, 384, 6, 3, 8), (2, 384, 6, 3, 16)]
+                    for d in ("bfloat16", "float32") for c in (True, False)]
+FLASH_BWD_CASES += [((2, 64, 4, 1, 16), "bfloat16", True),
+                    ((2, 64, 4, 1, 16), "float32", True),
+                    ((2, 64, 8, 2, 8), "bfloat16", True),
+                    ((2, 64, 8, 2, 8), "float32", True),
+                    ((2, 77, 4, 4, 16), "bfloat16", False),
+                    ((2, 77, 4, 4, 16), "float32", True),
+                    ((2, 200, 16, 4, 32), "float32", True)]
 # the training paths' flash shapes, each timed on both routes: llama3.2-1b
 # (hd 64), zamba2-2.7b (hd 80), llama-3.2-vision-11b (hd 128, G 4),
 # dbrx-132b (hd 128, G 6), arctic-480b (hd 128, G 7), llama-20b-paper (G
@@ -747,7 +817,9 @@ FLASH_BWD_CASES = [((8, 512, 32, 8, 64), "bfloat16", True),
 FLASH_BWD_TIMED = [(8, 512, 32, 8, 64), (8, 512, 32, 32, 80),
                    (8, 512, 32, 8, 128), (8, 512, 48, 8, 128),
                    (8, 512, 56, 8, 128), (8, 512, 40, 8, 128),
-                   (8, 512, 64, 8, 128), (8, 512, 128, 8, 128)]
+                   (8, 512, 64, 8, 128), (8, 512, 128, 8, 128),
+                   (8, 512, 32, 8, 8), (8, 512, 32, 8, 16),
+                   (8, 512, 32, 8, 32)]
 # a bf16 backward output: at most this fraction of its largest magnitude
 # off the plain version (one bf16 rounding of the largest is 2^-7 of it)
 BWD_BF16_SCALED = 1e-2
@@ -909,7 +981,8 @@ def check_flash_bwd(gen, device):
             f"scaled_dot_product_attention pinned to the {fastest} backend "
             f"(KV heads expanded)", sdpa_backward_ms=sdpa,
             design_floor_ms=max(bound_ms, passes * 1.4 * flops / peak * 1e3),
-            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops)
+            shape=[B, S, H, KV, hd], dtype=dtype, causal=True, flops=flops,
+            padded_work_factor=flash_padded_factor(r, hd, True))
         if r == "tf32x3":
             summary.update(
                 fp32_pipe_bound_ms=bound(ops.work(
@@ -943,6 +1016,7 @@ def check_flash_bwd(gen, device):
             f"KV{KV} hd{hd} bf16 causal: {plain_fwd:.4f} ms without lse, "
             f"{with_lse:.4f} ms with it")
     summaries["wgmma", 64, None]["forward_lse_ms"] = lse_times
+    fold_hd32(summaries)
     return summaries, cases
 
 
@@ -1087,16 +1161,16 @@ def check_fused_bwd(gen, device):
     return summary, cases
 
 
-def ssd_inputs(gen, device, B, L, H, N, dtype):
+def ssd_inputs(gen, device, B, L, H, N, dtype, P: int = 64):
     """SSD-scan inputs as the model makes them: dt = softplus(u + dt_bias)
     with u a normal draw and dt_bias = log(expm1(linspace(1e-3, 1e-1, H))),
     A = -exp(log(linspace(1, 16, H))).  A chunk's decay exp(cum_last) then
     runs from ~0.6 (head 0) to underflow (head H-1), so the carried state
-    reaches y and the final state."""
+    reaches y and the final state.  x is [B, L, H, P]."""
     import torch
     import torch.nn.functional as F
     dt_ = getattr(torch, dtype)
-    x = torch.randn(B, L, H, 64, generator=gen, device=device).to(dt_)
+    x = torch.randn(B, L, H, P, generator=gen, device=device).to(dt_)
     dt_bias = torch.log(torch.expm1(
         torch.linspace(1e-3, 1e-1, H, device=device)))
     dt = F.softplus(torch.randn(B, L, H, generator=gen, device=device)
@@ -1289,7 +1363,7 @@ SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
 
 
 def ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
-                 init=False) -> dict:
+                 init=False, P: int = 64) -> dict:
     """One SSD backward call on the route of its dtype (one launch of that
     instance, none of the other) against ``ssd_bwd_ref`` on the same
     inputs (dt as the model draws it, dy a normal draw, the final-state
@@ -1298,26 +1372,26 @@ def ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
     ``BWD_BF16_SCALED`` of each output's largest magnitude; dA and ddt with
     the atol of ``ssd_bwd_tol``.  A given final-state cotangent must move
     dx, ddt and dBm (dCm does not depend on it) by far more than the
-    tolerance.  Raises AssertionError on a mismatch."""
+    tolerance.  x is [B, L, H, P].  Raises AssertionError on a mismatch."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
-    x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype, P)
     dy = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
-    dS = (torch.randn(B, H, 64, N, generator=gen, device=device)
+    dS = (torch.randn(B, H, P, N, generator=gen, device=device)
           if final else None)
-    s0 = (0.5 * torch.randn(B, H, 64, N, generator=gen, device=device)
+    s0 = (0.5 * torch.randn(B, H, P, N, generator=gen, device=device)
           if init else None)
     route = ops.BWD_ROUTES[x.dtype]
     got = on_route(ops.BWD_KERNELS, route, lambda: ops.ssd_bwd_cuda(
         x, dt, A, Bm, Cm, dy, dS, chunk, s0))
     want = ops.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, dS, chunk, s0)
     torch.cuda.synchronize()
-    case = dict(shape=[B, L, H, 64, N], chunk=chunk, dtype=dtype,
+    case = dict(shape=[B, L, H, P, N], chunk=chunk, dtype=dtype,
                 route=route, d_final_state=final, initial_state=init,
                 max_abs_err={})
     for name, g, w in zip(SSD_BWD_NAMES, got, want):
-        case["max_abs_err"][name] = max_err(
-            g, w, dtype, ssd_bwd_tol(name, dtype, B, L, chunk))
+        case["max_abs_err"][name] = max_err(g, w, dtype, ssd_bwd_tol(
+            name, dtype, B, L, card_chunk(chunk)))
     if dtype == "bfloat16":
         case["scaled_err"] = {n: scaled_err(g, w, BWD_BF16_SCALED)
                               for n, g, w in zip(SSD_BWD_NAMES, got, want)}
@@ -1335,6 +1409,17 @@ def ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
     return case
 
 
+def card_chunk(chunk: int) -> int:
+    """The longer of a requested chunk and the one the SSD kernels run it
+    at (``kernel_chunk``): ddt's reverse cumsum spans it in one of the two
+    runs compared.  On the card at B 8, L 1024, H 48, P 16, N 16 and a
+    requested chunk 16, the fp32 route's ddt was 4.58e-3 off the plain
+    version at chunk 16 and 4.52e-3 off it at the kernel's 64: the error
+    is the kernel's sum over 64 rows (``tools/ssd_bwd_chunk_check.py``)."""
+    from repro_torch.kernels.ssd_scan.ops import kernel_chunk
+    return max(chunk, kernel_chunk(chunk))
+
+
 def ssd_bwd_tol(name: str, dtype: str, B: int, L: int, chunk: int) -> dict:
     """The elementwise tolerance of one SSD-backward output: the dtype's
     (``TOLS``), but for the two outputs that sum the reverse cumsum da of
@@ -1343,7 +1428,8 @@ def ssd_bwd_tol(name: str, dtype: str, B: int, L: int, chunk: int) -> dict:
     takes A·da_s, a sum over up to a chunk's rows (atol 3e-4·√chunk).  At
     the training shape |ddt| reaches ~5e3, where one fp32 ulp is 4.9e-4:
     a plain 3e-4 would hold a sum in another order to less than the
-    rounding of its own terms."""
+    rounding of its own terms.  The card's checks pass ``card_chunk``: the
+    longer of the chunk the kernel sums over and the plain version's."""
     tol = dict(TOLS[dtype])
     rows = {"dA": B * L, "ddt": min(chunk, L)}.get(name)
     if rows:
@@ -1458,6 +1544,236 @@ def check_ssd_bwd(gen, device):
     log("kernels", f"ssd_scan backward: the wgmma route is "
         f"{tc['fp32_route_factor']:.1f}x faster than the tf32x3 route")
     return tc, tf, cases
+
+
+# --------------------------------------------------------------------------- #
+# phase 3, continued: the widths of the JAX package's sweep and reduced zoo
+# --------------------------------------------------------------------------- #
+# the JAX package's own SSD-scan sweep (tests/test_kernels.py), shape for
+# shape: (B, L, H, P, N), chunk 32 where it divides L, else L; its
+# tolerance 4e-4 (fp32, the swept dtype; bf16 the bf16 one)
+REF_SSD_SWEEP = [(1, 64, 2, 8, 8), (2, 128, 3, 16, 8), (1, 96, 1, 32, 16)]
+REF_SSD_TOL = dict(rtol=4e-4, atol=4e-4)
+# the fused norm's sweep (R, D), both dtypes; the ring combine's and the
+# padded matmul's run in their own checks (``check_ring_combine``,
+# ``MATMUL_SWEEP``)
+REF_FUSED_SWEEP = [(256, 64), (512, 96), (128, 256)]
+# the SSD scan at the reduced mamba2's and zamba2's widths (P 16, N 16,
+# chunk 16, H 8: one whole head group), ragged L, initial states, a
+# partial head group (H 3), P 32 N 32 at chunk 48, P 8 at N 128: (B, L, H,
+# P, N, chunk, initial state)
+SSD_NARROW = [(2, 64, 8, 16, 16, 16, True), (2, 200, 8, 16, 16, 16, False),
+              (1, 333, 3, 16, 16, 16, True), (2, 130, 3, 32, 32, 48, True),
+              (2, 100, 2, 8, 128, 16, False)]
+# its backward: the sweep's shapes at its chunk, both dtypes, then the
+# reduced widths with a final-state cotangent and an initial state: (B, L,
+# H, P, N, chunk), dtype, final, initial
+SSD_BWD_NARROW = [
+    ((B, L, H, P, N, 32 if L % 32 == 0 else L), d, False, False)
+    for (B, L, H, P, N) in REF_SSD_SWEEP for d in ("float32", "bfloat16")] + [
+    ((2, 64, 8, 16, 16, 16), "float32", True, False),
+    ((2, 64, 8, 16, 16, 16), "bfloat16", True, False),
+    ((2, 200, 8, 16, 16, 16), "float32", True, True),
+    ((2, 200, 8, 16, 16, 16), "bfloat16", False, True),
+    ((1, 333, 3, 16, 16, 16), "float32", False, False),
+    ((2, 130, 3, 32, 32, 48), "float32", True, True),
+    ((2, 130, 3, 32, 32, 48), "bfloat16", True, False),
+    ((2, 100, 2, 8, 128, 16), "float32", False, True)]
+# the narrow SSD widths timed at a realistic size: mamba2's serving rows and
+# heads (B 8, L 1024, H 48) at the reduced configs' P 16, N 16, chunk 16
+SSD_NARROW_TIMED = (8, 1024, 48, 16, 16, 16)
+
+
+def flash_padded_factor(route: str, hd: int, backward: bool) -> float:
+    """The tensor-core work a route does at head_dim ``hd`` over the work
+    of its products at the true hd: bf16 tiles are whole 64-column boxes
+    (the products over hd take ceil(hd / 16) k16 steps, the products that
+    run at N hd run at N padded to 64; forward Q·Kᵀ and P·V, backward S and
+    dP in both kernels and dV, dK, dQ); tf32x3 takes the hd / 8 k8 steps
+    and runs at N hd, exact."""
+    if route != "wgmma":
+        return 1.0
+    k, n = -(-hd // 16) * 16, -(-hd // 64) * 64
+    return (4 * k + 3 * n) / (7 * hd) if backward else (k + n) / (2 * hd)
+
+
+def ssd_padded_factor(B, L, H, P, N, chunk, backward: bool) -> float:
+    """The SSD kernels' products at their padded tiles (head_dim 64, state
+    64 or 128) over the function's at the true widths (``ops.work``)."""
+    from repro_torch.kernels.ssd_scan import ops
+    c = ops.kernel_chunk(chunk)
+    pad = ops.work(B, L, H, 64, ops.padded_state(N), c, backward=backward)
+    return pad["flops"] / ops.work(B, L, H, P, N, c,
+                                   backward=backward)["flops"]
+
+
+def check_widths(gen, device):
+    """The widths the JAX package runs beside the published ones: its own
+    sweep of the SSD scan (fp32 at 4e-4, and bf16) and of the fused norm,
+    forward and backward (the flash sweep and the narrow flash widths run
+    in ``check_flash`` and ``check_flash_bwd``); the SSD scan forward
+    (``SSD_NARROW``) and backward (``SSD_BWD_NARROW``) at head_dim 8 to 32
+    and state 8 to 128 on both routes against the plain version at the
+    requested chunk, which the kernels run at ``kernel_chunk`` (the chunk
+    invariance the card relies on), each call on its route; the widths no
+    kernel takes refused on CUDA tensors with nothing launched; then the
+    SSD forward and backward timed on each route at ``SSD_NARROW_TIMED``
+    beside the plain version, with its bound and the padded tiles' work
+    factor.  Returns the summaries by (forward or backward, route) and the
+    cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_norm import ops as fn
+    from repro_torch.kernels.ssd_scan import ops
+
+    cases = []
+
+    def ssd_case(B, L, H, P, N, chunk, init, dtype, tol):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype, P)
+        s0 = (0.5 * torch.randn(B, H, P, N, generator=gen, device=device)
+              if init else None)
+        route = ops.route(x.dtype)
+        y, st = on_route(ops.KERNELS, route, lambda: ops.ssd_cuda(
+            x, dt, A, Bm, Cm, chunk, s0))
+        yr, sr = ops.ssd_ref(x, dt, A, Bm, Cm, chunk, s0)
+        torch.cuda.synchronize()
+        case = dict(shape=[B, L, H, P, N], chunk=chunk,
+                    kernel_chunk=ops.kernel_chunk(chunk), dtype=dtype,
+                    route=route, initial_state=init,
+                    max_abs_err_y=max_err(y, yr, dtype, tol),
+                    max_abs_err_state=max_err(st, sr, dtype, tol))
+        cases.append(case)
+        log("kernels", f"ssd_scan B{B} L{L} H{H} P{P} N{N} chunk {chunk} "
+            f"(runs at {case['kernel_chunk']}) {dtype} initial_state={init} "
+            f"[{route}]: max_abs_err y {case['max_abs_err_y']:.3e}, "
+            f"final_state {case['max_abs_err_state']:.3e}")
+
+    for (B, L, H, P, N) in REF_SSD_SWEEP:
+        chunk = 32 if L % 32 == 0 else L
+        ssd_case(B, L, H, P, N, chunk, False, "float32", REF_SSD_TOL)
+        ssd_case(B, L, H, P, N, chunk, False, "bfloat16", None)
+    for (B, L, H, P, N, chunk, init) in SSD_NARROW:
+        for dtype in ("float32", "bfloat16"):
+            ssd_case(B, L, H, P, N, chunk, init, dtype, None)
+    for (B, L, H, P, N, chunk), dtype, final, init in SSD_BWD_NARROW:
+        case = ssd_bwd_case(gen, device, B, L, H, N, chunk, dtype, final,
+                            init, P)
+        case["kernel_chunk"] = ops.kernel_chunk(chunk)
+        cases.append(case)
+        log("kernels", f"ssd_scan backward [{case['route']}] B{B} L{L} H{H} "
+            f"P{P} N{N} chunk {chunk} (runs at {case['kernel_chunk']}) "
+            f"{dtype} d_final_state={final} initial_state={init}: "
+            f"max_abs_err " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                        case["max_abs_err"].items()))
+    for (R, D) in REF_FUSED_SWEEP:
+        for dtype in ("float32", "bfloat16"):
+            dt_ = getattr(torch, dtype)
+            x, r, dy, dh = (torch.randn(R, D, generator=gen,
+                                        device=device).to(dt_)
+                            for _ in range(4))
+            s = torch.randn(D, generator=gen, device=device)
+            got = on_route({"fwd": fn.KERNEL}, "fwd",
+                           lambda: fn.fused_cuda(x, r, s))
+            want = fn.fused_ref(x, r, s)
+            gb = on_route({"bwd": fn.BWD_KERNEL}, "bwd",
+                          lambda: fn.fused_bwd_cuda(x, r, s, dy, dh))
+            wb = fn.fused_bwd_ref(x, r, s, dy, dh)
+            torch.cuda.synchronize()
+            err = max(max_err(g, w, dtype) for g, w in zip(got, want))
+            # dscale sums R rows in another order: atol 3e-4·√R, as
+            # ``check_fused_bwd``
+            err_bwd = max(max_err(gb[0], wb[0], dtype), max_err(
+                gb[1], wb[1], "float32", dict(rtol=3e-4,
+                                              atol=3e-4 * R ** 0.5)))
+            cases.append(dict(shape=[R, D], dtype=dtype, kernel="fused_norm",
+                              max_abs_err=err, max_abs_err_bwd=err_bwd))
+            log("kernels", f"fused_residual_rmsnorm R{R} D{D} {dtype} (the "
+                f"JAX sweep): max_abs_err {err:.3e}; backward with dh "
+                f"{err_bwd:.3e}")
+
+    # what no kernel takes raises on CUDA tensors, launching nothing
+    launched = {id(k): k.launches for k in (
+        *fa.KERNELS.values(), *ops.KERNELS.values())}
+    q = torch.zeros(1, 8, 2, 24, device=device)
+    x = torch.zeros(1, 8, 2, 24, device=device)
+    bm = torch.zeros(1, 8, 16, device=device)
+    refusals = {}
+    for name, call in (
+            ("flash_attention head_dim 24",
+             lambda: fa.attention_cuda(q, q, q)),
+            ("ssd_scan head_dim 24", lambda: ops.ssd_cuda(
+                x, torch.ones(1, 8, 2, device=device),
+                -torch.ones(2, device=device), bm, bm, 16))):
+        try:
+            call()
+        except ValueError as e:
+            refusals[name] = str(e)
+        else:
+            fail(f"{name}: a CUDA call the kernels do not take ran")
+    if {id(k): k.launches for k in (*fa.KERNELS.values(),
+                                    *ops.KERNELS.values())} != launched:
+        fail("a refused call launched a kernel")
+    log("kernels", "refused on CUDA tensors, nothing launched: " + "; ".join(
+        f"{n}: {m}" for n, m in refusals.items()))
+
+    # the narrow SSD widths timed at a realistic size, each route
+    B, L, H, P, N, chunk = SSD_NARROW_TIMED
+    kc = ops.kernel_chunk(chunk)
+    summaries = {}
+    for backward, dtype in itertools.product((False, True),
+                                             ("bfloat16", "float32")):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, device, B, L, H, N, dtype, P)
+        kernels = ops.BWD_KERNELS if backward else ops.KERNELS
+        r = (ops.BWD_ROUTES if backward else ops.ROUTES)[x.dtype]
+        if backward:
+            dy = torch.randn(x.shape, generator=gen, device=device).to(
+                x.dtype)
+            args = (x, dt, A, Bm, Cm, dy, None, chunk)
+            fn_k, fn_p = ops.ssd_bwd_cuda, ops.ssd_bwd_ref
+            err = max(max_err(g, w, dtype, ssd_bwd_tol(n, dtype, B, L,
+                                                        card_chunk(chunk)))
+                      for n, g, w in zip(SSD_BWD_NAMES, fn_k(*args),
+                                         fn_p(*args)))
+        else:
+            args = (x, dt, A, Bm, Cm, chunk)
+            fn_k, fn_p = ops.ssd_cuda, ops.ssd_ref
+            err = max(max_err(g, w, dtype) for g, w in zip(fn_k(*args),
+                                                           fn_p(*args)))
+        ms = time_ms(lambda: fn_k(*args), 10, behind_sleep=backward)
+        plain_ms = time_ms(lambda: fn_p(*args), 3, 1)
+        peak = PEAK_BF16_FLOPS if r == "wgmma" else PEAK_TF32_FLOPS
+        w = ops.work(B, L, H, P, N, kc, x.element_size(), backward=backward)
+        bound_ms, bound_by = bound(w, peak)
+        name = "ssd_scan" + ("_bwd" if backward else "") + (
+            "" if r == "wgmma" else "_tf32x3") + f"_p{P}n{N}"
+        summary = dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{kernels[r].source}",
+            replaces=("src/repro/models/mamba2.py:22 (XLA autodiff of "
+                      "ssd_chunked; port-only: the reference's backward has "
+                      "no Pallas kernel)" if backward
+                      else "src/repro/kernels/ssd_scan/kernel.py:53"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, library_call=None,
+            shape=[B, L, H, P, N], chunk=chunk, kernel_chunk=kc,
+            dtype=dtype, flops=w["flops"], bytes=w["bytes"],
+            padded_work_factor=ssd_padded_factor(B, L, H, P, N, chunk,
+                                                 backward))
+        if r == "tf32x3":
+            summary["scratch_bytes"] = (
+                ops.tf32_bwd_scratch_bytes(B, L, H, N, kc, P) if backward
+                else ops.tf32_scratch_bytes(B, L, N))
+        log("kernels", f"ssd_scan{' backward' if backward else ''} [{r}] "
+            f"timed at B{B} L{L} H{H} P{P} N{N} chunk {chunk} (runs at "
+            f"{kc}) {dtype}: {ms:.4f} ms (plain {plain_ms:.4f}; no library "
+            f"call; bound {bound_ms:.4f} by {bound_by}, {bound_ms / ms:.4f} "
+            f"of it; the padded tiles do "
+            f"{summary['padded_work_factor']:.2f}x the function's products)")
+        del x, dt, Bm, Cm, args
+        torch.cuda.empty_cache()
+        summaries["bwd" if backward else "fwd", r] = tensor_core_fields(
+            summary, kernels[r], w["flops"], r)
+    return summaries, cases
 
 
 # the paper's Case-2 FFN weight (benchmarks/case2_matmul.py) against one
@@ -4897,7 +5213,7 @@ def profile(fn, top: int = 10) -> dict:
                                          "flare::tf32x3"))])
 
 
-def agreement(arch: str, seed: int, S: int, cut: dict):
+def agreement(arch: str, seed: int, S: int, cut: dict, cfg=None):
     """fp32 prefill logits of the full-width model cut by ``cut``
     (``configs.scale`` overrides): the kernel path on the card against the
     plain path on the CPU, same weights (drawn on the card, copied to the
@@ -4908,14 +5224,15 @@ def agreement(arch: str, seed: int, S: int, cut: dict):
     differs between the two runs, with the top-k margins
     (``RoutingLog``).  Returns the max abs error, the launches of the
     card's prefill and the routing report (None but for the moe
-    family)."""
+    family).  ``cfg``, given, is the model instead (a reduced config).
+    """
     import numpy as np
     import torch
     from repro_torch.configs import get_config, scale
     from repro_torch.models.layers import Policy
     from repro_torch.models.registry import build_model
 
-    cfg = scale(get_config(arch), **cut)
+    cfg = cfg or scale(get_config(arch), **cut)
     kernels = {label: (op, route, k)
                for label, (op, route, k, _) in path_kernels(arch).items()}
     # an fp32 prefill: each routed op on tf32x3 as often as a forward runs
@@ -5100,7 +5417,7 @@ TRAIN_PATHS = {
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.1.mamba.A_log")),
     "zamba2-2.7b": dict(
-        layers=None,
+        layers=24,        # 4 of its 9 groups, cut for time
         agree_layers=6, agree_seq=512,
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.5.mamba.A_log", "shared_attn.attn.wq",
@@ -5543,8 +5860,8 @@ def check_train_trace(arch: str, events: list, steps: int) -> dict:
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
     span with ``flops`` = 6·N·tokens in each, and the forward's kernel
     spans (``forward_launches`` a step of the path's config: llama flash 16
-    and fused 32, mamba2 SSD scan 48 and fused 48, zamba2 SSD scan 54,
-    flash 9 and fused 72, the vlm cut flash 4 and fused 10) with CUDA-event
+    and fused 32, mamba2 SSD scan 48 and fused 48, zamba2's cut SSD scan
+    24, flash 4 and fused 32, the vlm cut flash 4 and fused 10) with CUDA-event
     durations, nested under their step."""
     from collections import Counter
     from repro_torch.core.events import EventKind
@@ -6114,6 +6431,200 @@ def check_trace(arch: str, events: list, new: int):
     return dict(prefill_s=prefill, decode_s=decode, per_name=per_name)
 
 
+# --------------------------------------------------------------------------- #
+# phase 5b: the reduced zoo on the card
+# --------------------------------------------------------------------------- #
+REDUCED_DIR = OUT_DIR / "reduced"
+REDUCED_SERVE = (2, 64, 8)      # batch, prompt, new tokens
+REDUCED_TRAIN = (2, 64, 3)      # batch, sequence, steps
+REDUCED_AGREE_S = 64
+# the launchers run once each as the user would, in processes of their own
+REDUCED_CLI = (("serve", "zamba2-2.7b", ["--batch", "2", "--prompt-len",
+                                         "64", "--new-tokens", "8"],
+                "generated (2, 72) tokens"),
+               ("train", "zamba2-2.7b", ["--steps", "3", "--batch", "2",
+                                         "--seq", "64"], "final loss:"))
+REDUCED_CLI_TIMEOUT_S = 300
+
+
+def reduced_serve(arch: str, seed: int) -> dict:
+    """The JAX package's reduced config of ``arch`` served on the card as
+    it is (``REDUCED_SERVE``; the vlm's gates opened and seeded vision
+    embeddings), the daemon spilling JSONL: each kernel of the path
+    launched as often as the generate runs it, no plain version called,
+    tokens in the vocabulary, and the trace read back (``check_trace``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = get_reduced(arch)
+    B, S0, new = REDUCED_SERVE
+    kernels = path_kernels(arch)
+    trace = REDUCED_DIR / f"serve_{arch}.jsonl"
+    trace.unlink(missing_ok=True)
+    server = Server(ServeConfig(model=cfg, batch=B, max_seq=S0 + new,
+                                seed=seed, log_path=str(trace)))
+    open_gates(server.model)
+    vis = vision_embeds(cfg, B, seed + 2, "cuda", torch.bfloat16)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S0)).astype(np.int32)
+    for _, _, k, _ in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with PlainCalls(cfg.family) as plain:
+        out = server.generate(prompts, new_tokens=new, vision_embeds=vis)
+    wall = time.perf_counter() - t0
+    launches = {label: k.launches for label, (_, _, k, _) in kernels.items()}
+    log_paths = server.daemon.log_paths
+    server.close()
+    want = {label: n(cfg, new) for label, (_, _, _, n) in kernels.items()}
+    log("reduced", f"{arch} serve B{B} prompt {S0} new {new}: launches "
+        f"{launches} (expected {want}); plain versions called "
+        f"{plain.calls}; wall {wall:.3f} s")
+    if launches != want:
+        fail(f"{arch} reduced: launch counts {launches} != {want}")
+    if any(plain.calls.values()):
+        fail(f"{arch} reduced: serving called plain versions on the card: "
+             f"{plain.calls}")
+    if (out.shape != (B, S0 + new) or not np.array_equal(out[:, :S0], prompts)
+            or out.min() < 0 or out.max() >= cfg.vocab_size):
+        fail(f"{arch} reduced: generate returned {out.shape} or a token "
+             f"outside [0, {cfg.vocab_size})")
+    trace_check = check_trace(f"{arch}", read_spill(log_paths), new)
+    return dict(launches=launches, plain_calls=plain.calls, wall_s=wall,
+                trace=trace_check)
+
+
+def reduced_train(arch: str, seed: int) -> dict:
+    """``Trainer.train`` of the reduced config on the card
+    (``REDUCED_TRAIN``, bf16 compute, fp32 parameters and moments, the
+    daemon spilling JSONL): each kernel launched as often as the steps run
+    it (``expected_step_launches``), no plain version called, the loss
+    finite, and the trace's step and kernel spans, each of the forward's
+    kernels a step with a device duration inside its step."""
+    import math
+    from collections import Counter
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.events import EventKind
+    from repro_torch.runtime.train import RunConfig, Trainer
+
+    cfg = get_reduced(arch)
+    B, S, steps = REDUCED_TRAIN
+    kernels = train_kernels(arch)
+    trace = REDUCED_DIR / f"train_{arch}.jsonl"
+    trace.unlink(missing_ok=True)
+    trainer = Trainer(RunConfig(model=cfg, global_batch=B, seq_len=S,
+                                steps=steps, warmup_steps=1, seed=seed,
+                                flare_log=str(trace)))
+    for k, _, _ in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with PlainCalls(cfg.family) as plain:
+        hist = trainer.train()
+    wall = time.perf_counter() - t0
+    launches = {label: k.launches for label, (k, _, _) in kernels.items()}
+    log_paths = trainer.daemon.log_paths
+    want = {label: n * steps for label, n in
+            expected_step_launches(arch, cfg, "bfloat16").items()}
+    losses = [rec["loss"] for rec in hist]
+    log("reduced", f"{arch} train B{B} S{S} {steps} steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches} (expected {want}); plain versions called "
+        f"{plain.calls}; wall {wall:.3f} s")
+    if launches != want:
+        fail(f"{arch} reduced: training launch counts {launches} != {want}")
+    if any(plain.calls.values()):
+        fail(f"{arch} reduced: training called plain versions on the card: "
+             f"{plain.calls}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{arch} reduced: training losses {losses}")
+    events = read_spill(log_paths)
+    seen = sorted(e.step for e in events if e.kind == EventKind.STEP)
+    if seen != list(range(steps)):
+        fail(f"{arch} reduced train: step spans {seen} != 0..{steps - 1}")
+    for name, n in forward_launches(cfg).items():
+        evs = [e for e in events if e.name == name]
+        if Counter(e.step for e in evs) != {s: n for s in range(steps)} or any(
+                e.duration <= 0 or e.meta.get("parent") != f"step_{e.step}"
+                for e in evs):
+            fail(f"{arch} reduced train: {len(evs)} {name} spans, not {n} a "
+                 f"step, each with a device duration inside its step")
+    # one step in fp32 compute: the fp32 routes (tf32x3) of each kernel
+    fp32 = Trainer(RunConfig(model=cfg, global_batch=B, seq_len=S, steps=1,
+                             warmup_steps=1, seed=seed, flare=False,
+                             compute_dtype="float32"))
+    for k, _, _ in kernels.values():
+        k.launches = 0
+    with PlainCalls(cfg.family) as plain32:
+        loss32 = fp32.train()[0]["loss"]
+    launches32 = {label: k.launches for label, (k, _, _) in kernels.items()}
+    want32 = expected_step_launches(arch, cfg, "float32")
+    log("reduced", f"{arch} one fp32 train step: loss {loss32:.4f}; launches "
+        f"{launches32} (expected {want32})")
+    if (launches32 != want32 or any(plain32.calls.values())
+            or not math.isfinite(loss32)):
+        fail(f"{arch} reduced fp32 step: launches {launches32} != {want32}, "
+             f"plain calls {plain32.calls} or loss {loss32}")
+    return dict(launches=launches, plain_calls=plain.calls, wall_s=wall,
+                losses=losses, events=len(events), fp32_step_loss=loss32,
+                fp32_step_launches=launches32)
+
+
+def reduced_cli(seed: int) -> dict:
+    """``python -m repro_torch.launch.serve`` and ``... .train`` with
+    ``--reduced``, each in a process of its own as a user starts it (the
+    card by default): exit 0 and the launcher's last line."""
+    import os
+    out = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for verb, arch, extra, done in REDUCED_CLI:
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{verb}", "--arch",
+               arch, "--reduced", "--seed", str(seed), *extra]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=REDUCED_CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        last = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+        log("reduced", f"{' '.join(cmd[1:])}: exit {p.returncode} in "
+            f"{wall:.1f} s; last line: {last}")
+        if p.returncode != 0 or done not in p.stdout:
+            fail(f"{' '.join(cmd[1:])} exited {p.returncode}: "
+                 f"{p.stderr[-2000:]}")
+        out[verb] = dict(cmd=cmd[1:], rc=p.returncode, wall_s=wall,
+                         last_line=last)
+    return out
+
+
+def reduced_phase(seed: int) -> dict:
+    """Every arch's reduced config (the JAX package's, at its own widths:
+    head_dim 16, 8 for qwen2-72b and llama3-405b; mamba2's and zamba2's
+    SSD at P 16, N 16, chunk 16) on the card: served (``reduced_serve``),
+    trained (``reduced_train``), its fp32 prefill logits against the
+    port's CPU run (``agreement``, the fp32 routes), then the two
+    launchers with ``--reduced`` (``reduced_cli``)."""
+    from repro_torch.configs import get_reduced, list_archs
+    REDUCED_DIR.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        cfg = get_reduced(arch)
+        run = runs[arch] = dict(serve=reduced_serve(arch, seed),
+                                train=reduced_train(arch, seed))
+        err, launches, routing = agreement(arch, seed, REDUCED_AGREE_S, {},
+                                           cfg=cfg)
+        run["agreement"] = dict(max_abs_err=err, launches=launches,
+                                routing=routing)
+        run["wall_s"] = time.perf_counter() - t0
+        widths = ([f"hd {cfg.head_dim}"] if cfg.family != "ssm" else []) + (
+            [f"SSD P {cfg.ssm_head_dim} N {cfg.ssm_state} chunk "
+             f"{cfg.ssm_chunk}"] if cfg.family in ("ssm", "hybrid") else [])
+        log("reduced", f"{arch} ({', '.join(widths)}): served, trained, "
+            f"fp32 prefill max_abs_err {err:.3e} "
+            f"card vs CPU, {run['wall_s']:.1f} s")
+    return dict(paths=runs, cli=reduced_cli(seed))
+
+
 # (arch, the serving run's cut, agreement prompt length, the agreement's
 # cut), each cut a dict of ``configs.scale`` overrides, {} for the
 # published config; widths are never cut.  Depths cut to keep the run in
@@ -6124,9 +6635,11 @@ def check_trace(arch: str, events: list, new: int):
 # experts).  The agreements run the serving cut, but for the vlm's one
 # group (5 layers) and the moe paths' training cuts (``train_cut``: one
 # layer; arctic 32 experts).  mamba2's and zamba2's S 320 is one full
-# chunk of 256 and a ragged one.  llama-20b-paper serves at its full depth
-# (34.8 GB of bf16 weights); one card holds qwen2-72b's for 30 of its 80
-# layers (57.6 GB) and llama3-405b's for 8 of 126 (59.4 GB); their fp32
+# chunk of 256 and a ragged one.  llama-20b-paper, whole on one card (34.8
+# GB of bf16 weights), serves 16 of its 62 layers, and qwen2-72b and
+# llama3-405b, which one card holds for 30 of 80 (57.6 GB) and 8 of 126
+# layers (59.4 GB), serve 10 and 4, cut to keep the phases
+# near 950 s with the width checks and the reduced phase; their fp32
 # agreements run cuts of 2, 2 and 1 layers (llama3-405b's one layer and
 # its embedding and head are 29.6 GB of fp32 on the card and again on the
 # CPU).
@@ -6141,9 +6654,9 @@ PATHS = (("llama3.2-1b", {}, 64, {}),
           dict(num_layers=1)),
          ("arctic-480b", dict(num_layers=2), 64,
           dict(num_layers=1, num_experts=32)),
-         ("llama-20b-paper", {}, 64, dict(num_layers=2)),
-         ("qwen2-72b", dict(num_layers=30), 64, dict(num_layers=2)),
-         ("llama3-405b", dict(num_layers=8), 64, dict(num_layers=1)))
+         ("llama-20b-paper", dict(num_layers=16), 64, dict(num_layers=2)),
+         ("qwen2-72b", dict(num_layers=10), 64, dict(num_layers=2)),
+         ("llama3-405b", dict(num_layers=4), 64, dict(num_layers=1)))
 
 
 def main():
@@ -6235,6 +6748,7 @@ def main():
     flash_bwd_sums, flash_bwd_cases = check_flash_bwd(gen, "cuda")
     fused_bwd, fused_bwd_cases = check_fused_bwd(gen, "cuda")
     ssd_bwd, ssd_bwd_fp32, ssd_bwd_cases = check_ssd_bwd(gen, "cuda")
+    narrow, width_cases = check_widths(gen, "cuda")
     walls["kernels"] = time.perf_counter() - t0
     log("wall", f"kernels {walls['kernels']:.1f} s, "
         f"{time.perf_counter() - t_start:.1f} s in all")
@@ -6356,6 +6870,13 @@ def main():
 
     long_attach = long_attach_check(long_daemon, long_events, t_long, anchors)
 
+    # 6b. the reduced zoo: every arch's reduced config served and trained
+    t0 = time.perf_counter()
+    reduced = reduced_phase(args.seed)
+    walls["reduced"] = time.perf_counter() - t0
+    log("wall", f"reduced {walls['reduced']:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
     # 8. the dry-run: every cell on both production meshes, and its op
     # analysis against the card
     t0 = time.perf_counter()
@@ -6368,8 +6889,19 @@ def main():
     # flash, the paths of its head dim and group size: llama's, qwen2's and
     # musicgen's hd 64, zamba2's 80, the vlm's 128 at G 4, dbrx's at G 6,
     # arctic's at G 7; ``path_flash_key``)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     cfgs = {arch: get_config(arch) for arch, *_ in PATHS}
+    cfgs.update({f"reduced:{arch}": get_reduced(arch)
+                 for arch in reduced["paths"]})
+    red_serve = {f"reduced:{a} serve": r["serve"]["launches"]
+                 for a, r in reduced["paths"].items()}
+    red_train = {f"reduced:{a} train": r["train"]["launches"]
+                 for a, r in reduced["paths"].items()}
+    red_fp32 = {f"reduced:{a} fp32 prefill": r["agreement"]["launches"]
+                for a, r in reduced["paths"].items()}
+    red_fp32.update({f"reduced:{a} fp32 train step":
+                     r["train"]["fp32_step_launches"]
+                     for a, r in reduced["paths"].items()})
     by_path = {arch: run["launches"] for arch, run in runs.items()}
     by_path.update({f"{arch} train": run["launches"]
                     for arch, run in train_runs.items()})
@@ -6402,17 +6934,23 @@ def main():
     for (route, *key), summary in flash_sums.items():
         keys = [tuple(k) for r, *k in flash_sums if r == route]
         if route == "wgmma":
-            count(summary, "flash_attention[wgmma]", by_path, tuple(key),
-                  keys)
+            count(summary, "flash_attention[wgmma]",
+                  {**by_path, **red_serve, **red_train}, tuple(key), keys)
         else:
             count(summary, "flash_attention[tf32x3]",
-                  {f"{a} fp32 prefill": n for a, n in fp32_launches.items()},
+                  {**{f"{a} fp32 prefill": n
+                      for a, n in fp32_launches.items()}, **red_fp32},
                   tuple(key), keys)
-    for summary, label in ((fused, "fused_residual_rmsnorm"),
-                           (scan, "ssd_scan[wgmma]")):
-        count(summary, label, by_path)
+    count(fused, "fused_residual_rmsnorm",
+          {**by_path, **red_serve, **red_train})
+    count(scan, "ssd_scan[wgmma]", by_path)
     count(scan_fp32, "ssd_scan[tf32x3]",
           {f"{a} fp32 prefill": n for a, n in fp32_launches.items()})
+    count(narrow["fwd", "wgmma"], "ssd_scan[wgmma]",
+          {**red_serve, **red_train})
+    count(narrow["fwd", "tf32x3"], "ssd_scan[tf32x3]", red_fp32)
+    count(narrow["bwd", "wgmma"], "ssd_scan_bwd[wgmma]", red_train)
+    count(narrow["bwd", "tf32x3"], "ssd_scan_bwd[tf32x3]", red_fp32)
     for summary, dtype, route in ((matmul, "bfloat16", "wgmma"),
                                   (matmul_fp32, "float32", "tf32x3")):
         n = case2[dtype]["launches"][route]
@@ -6428,10 +6966,11 @@ def main():
     for (route, *key), summary in flash_bwd_sums.items():
         keys = [tuple(k) for r, *k in flash_bwd_sums if r == route]
         count(summary, f"flash_attention_bwd[{route}]",
-              trains if route == "wgmma" else agree, tuple(key), keys)
-    for summary, label in ((fused_bwd, "fused_residual_rmsnorm_bwd"),
-                           (ssd_bwd, "ssd_scan_bwd[wgmma]")):
-        count(summary, label, trains)
+              {**trains, **red_train} if route == "wgmma"
+              else {**agree, **red_fp32}, tuple(key), keys)
+    count(fused_bwd, "fused_residual_rmsnorm_bwd",
+          {**trains, **red_train, **red_fp32})
+    count(ssd_bwd, "ssd_scan_bwd[wgmma]", trains)
     count(ssd_bwd_fp32, "ssd_scan_bwd[tf32x3]", agree)
     combine["launches_by_path"] = {
         f"ring all-reduce, 25 MB bucket ({RING_WORLD} ranks)":
@@ -6453,6 +6992,8 @@ def main():
                    train_agreement=train_agree, train_trace=train_traces,
                    remat=remat, spills=spills, long_attach=long_attach,
                    have_zstd=have_zstd(), diagnose=diagnosis,
+                   width_cases=width_cases, narrow_ssd=list(narrow.values()),
+                   reduced=reduced,
                    fleet=fleet_run, service=service_run, simulate=sim_run,
                    parallel=par_run, dryrun=dry_run)
     walls["total"] = details["wall_s"] = time.perf_counter() - t_start
@@ -6463,7 +7004,7 @@ def main():
     print(json.dumps({"kernels": [
         *flash_sums.values(), fused, scan, scan_fp32, matmul, matmul_fp32,
         combine, *flash_bwd_sums.values(), fused_bwd, ssd_bwd,
-        ssd_bwd_fp32]}), flush=True)
+        ssd_bwd_fp32, *narrow.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

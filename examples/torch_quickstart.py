@@ -3,10 +3,9 @@
     PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 
 The port's counterpart of ``examples/quickstart.py``: the same run and
-output, importing nothing but ``repro_torch``.  It trains on the card
-unless ``--device cpu`` is given; there the reduced config's head_dim is
-raised to the smallest the flash kernels take
-(``registry.card_config``).
+output, importing nothing but ``repro_torch``.  It trains the JAX
+package's reduced llama3.2-1b (head_dim 16) on the card unless ``--device
+cpu`` is given.
 """
 import argparse
 import os
@@ -16,7 +15,6 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.events import load_jsonl
 from repro_torch.core.metrics import aggregate_step, steps_in
 from repro_torch.core.report import ascii_timeline
-from repro_torch.models.registry import card_config
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train import RunConfig, Trainer
 
@@ -26,8 +24,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     cfg = get_reduced("llama3.2-1b")
-    if args.device == "cuda":
-        cfg = card_config(cfg)
     with tempfile.TemporaryDirectory() as d:
         log = os.path.join(d, "trace.jsonl")
         run = RunConfig(model=cfg, global_batch=4, seq_len=64, steps=20,

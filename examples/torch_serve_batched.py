@@ -3,10 +3,9 @@
     PYTHONPATH=src python examples/torch_serve_batched.py --arch qwen2-0.5b
 
 The port's counterpart of ``examples/serve_batched.py``: the same arguments
-and output, importing nothing but ``repro_torch``.  It serves on the card
-unless ``--device cpu`` is given; there the reduced config's widths that
-the kernels refuse are raised to the smallest they take
-(``registry.card_config``).
+and output, importing nothing but ``repro_torch``.  It serves the JAX
+package's reduced config of the arch, at its own widths, on the card
+unless ``--device cpu`` is given.
 """
 import argparse
 import time
@@ -14,7 +13,6 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_reduced, list_archs
-from repro_torch.models.registry import card_config
 from repro_torch.runtime.serve import ServeConfig, Server
 
 
@@ -28,8 +26,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch)
-    if args.device == "cuda":
-        cfg = card_config(cfg)
     server = Server(ServeConfig(model=cfg, batch=args.batch, max_seq=96,
                                 device=args.device))
     rng = np.random.default_rng(0)

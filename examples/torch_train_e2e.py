@@ -9,9 +9,7 @@ CPU-friendly default is the 10M scale for a few hundred steps; pass
 
 The port's counterpart of ``examples/train_e2e.py``: the same arguments,
 run and output, importing nothing but ``repro_torch``.  It trains on the
-card unless ``--device cpu`` is given; there the 10m model's head_dim 32
-is raised to 64, the smallest the flash kernels take
-(``registry.card_config``).
+card (the 10m model at its head_dim 32) unless ``--device cpu`` is given.
 """
 import argparse
 import tempfile
@@ -19,7 +17,6 @@ import tempfile
 import numpy as np
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.registry import card_config
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.supervisor import SimulatedFault, Supervisor
 from repro_torch.runtime.train import RunConfig, Trainer
@@ -46,8 +43,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = SCALES[args.scale]
-    if args.device == "cuda":
-        cfg = card_config(cfg)
     print(f"model: {cfg.name} ({cfg.param_count() / 1e6:.1f}M params)")
     crashed = {"done": False}
 

@@ -15,6 +15,17 @@ extern "C" const char* flare_cuda_error_string(int e) {
 
 namespace flare {
 
+// The SSD scan's widths (kernels/ssd_scan/ops.py's HEAD_DIMS and
+// STATE_DIMS), the one list its launchers check: every route's tiles are
+// head_dim padded to 64 columns and the state to 64 or 128, the true widths
+// taken at run time
+inline bool ssd_head_dim(int P) {
+  return P == 8 || P == 16 || P == 32 || P == 64;
+}
+inline bool ssd_state_dim(int N) {
+  return N == 8 || N == 16 || N == 32 || N == 64 || N == 128;
+}
+
 // Four consecutive elements <-> float4, for fp32 (one 16-byte access) and
 // bf16 (one 8-byte access).  Callers keep the address aligned to the access.
 template <typename T> struct Pack4;

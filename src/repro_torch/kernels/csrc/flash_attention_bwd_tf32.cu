@@ -75,9 +75,13 @@
 // whose columns 80-95 lie past the maps' inner dim and load as zeros (never
 // read: the products over hd take the 10 k8 steps of the real dims), and
 // the products over the sequence run at N 80 on the transposed tiles' 80
-// rows.  head_dim 64, 80 and 128 are template instances (dK/dV 192 KB and
-// dQ 224 KB of shared memory at 64 and 128, 186 KB and 166 KB at 80); the
-// wrapper refuses others.
+// rows.  At hd 8, 16 and 32 the direct tiles are one 32-column box (the
+// columns past hd zero, never read: the products over hd take the hd / 8
+// k8 steps), the products over the sequence run at N hd on the transposed
+// tiles' hd rows, and the steps, key tiles and warpgroups are hd 64's.
+// head_dim 8, 16, 32, 64, 80 and 128 are template instances (dK/dV 192 KB
+// and dQ 224 KB of shared memory at 64 and 128, 186 KB and 166 KB at 80);
+// the wrapper refuses others.
 
 #include "common.cuh"
 #include "flash_tf32_split.cuh"
@@ -106,6 +110,18 @@ __device__ __forceinline__ void ss_wgmma(float (&d)[16], uint64_t da,
   wgmma_m64n32k8_tf32_ss(d, da, db, scale_d);
 }
 // D[64,hd] += A[64,8] (registers) . B[8,hd] (shared, K-major), by hd
+__device__ __forceinline__ void rs_wgmma(float (&d)[4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n8k8_tf32_rs(d, a, db, 1);
+}
+__device__ __forceinline__ void rs_wgmma(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n16k8_tf32_rs(d, a, db, 1);
+}
+__device__ __forceinline__ void rs_wgmma(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n32k8_tf32_rs(d, a, db, 1);
+}
 __device__ __forceinline__ void rs_wgmma(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n64k8_tf32_rs(d, a, db, 1);
@@ -202,7 +218,7 @@ __host__ __device__ constexpr int kv_consumers() {
 }
 template <int HD>
 __host__ __device__ constexpr int step_q() {
-  return HD == 64 ? 32 : 16;
+  return HD <= 64 ? 32 : 16;
 }
 template <int HD>
 __host__ __device__ constexpr int kv_stages() {
@@ -495,11 +511,11 @@ dkdv_kernel(const __grid_constant__ DkdvMaps maps,
 // consumer warpgroups (64 rows each) and keys of a tile, per instance
 template <int HD>
 __host__ __device__ constexpr int dq_consumers() {
-  return HD == 64 ? 2 : 1;
+  return HD <= 64 ? 2 : 1;
 }
 template <int HD>
 __host__ __device__ constexpr int dq_keys() {
-  return HD == 64 ? 32 : 16;
+  return HD <= 64 ? 32 : 16;
 }
 constexpr int kDqStages = 2;
 
@@ -846,6 +862,15 @@ extern "C" int flash_attention_bwd_tf32_launch(
   float* gq = static_cast<float*>(dq);
   float* gk = static_cast<float*>(dk);
   float* gv = static_cast<float*>(dv);
+  if (hd == 8)
+    return launch_hd<8>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
+                         causal, s);
+  if (hd == 16)
+    return launch_hd<16>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
+                         causal, s);
+  if (hd == 32)
+    return launch_hd<32>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
+                         causal, s);
   if (hd == 64)
     return launch_hd<64>(qf, kf, vf, of, df, l, d, gq, gk, gv, w, B, S, H, KV,
                          causal, s);

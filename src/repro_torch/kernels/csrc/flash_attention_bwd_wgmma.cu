@@ -59,8 +59,11 @@
 // 80: the second box's columns 80-127 lie past the map's inner dim and load
 // as zeros, so the tiles and accumulators are hd 128's, the products over hd
 // take the 5 k16 steps of the real dims, and the zero columns of dQ, dK and
-// dV are not stored.  head_dim 64, 80 and 128 are template instances; the
-// wrapper refuses others.
+// dV are not stored.  head_dim 8, 16 and 32 are one 64-column box the same
+// way (hd 64's tiles and key counts): the products over hd take ceil(hd /
+// 16) k16 steps, dV and dK and dQ run at N 64, and only the hd real columns
+// are stored.  head_dim 8, 16, 32, 64, 80 and 128 are template instances;
+// the wrapper refuses others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -115,14 +118,15 @@ __device__ __forceinline__ void rs_wgmma(float (&d)[64],
 }
 
 // D[64,N] = A[64 rows of a, hd] . B[N rows of b, hd]^T over hd: both tiles
-// K-major stacks of 64-column blocks (the k16 steps of the real dims); a_rows / b_rows are the rows of
-// each whole tile (the distance between its column blocks)
+// K-major stacks of 64-column blocks (the k16 steps of the real dims, the
+// last one half zeros at hd 8); a_rows / b_rows are the rows of each whole
+// tile (the distance between its column blocks)
 template <int HD, int N2>
 __device__ __forceinline__ void issue_nt(float (&d)[N2],
                                          const __nv_bfloat16* a, int a_rows,
                                          const __nv_bfloat16* b, int b_rows) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
     const int c = kk / 4;
     const int off = (kk % 4) * 16;
     ss_wgmma(d, desc_sw128(a + c * a_rows * 64 + off, 16, 1024),
@@ -697,6 +701,15 @@ extern "C" int flash_attention_bwd_wgmma_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  if (hd == 8)
+    return launch_hd<8>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
+                         causal, s);
+  if (hd == 16)
+    return launch_hd<16>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
+                         causal, s);
+  if (hd == 32)
+    return launch_hd<32>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
+                         causal, s);
   if (hd == 64)
     return launch_hd<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H, KV,
                          causal, s);

@@ -47,7 +47,11 @@
 // path.  At hd 80 the q and K tiles are three 32-column boxes whose columns
 // 80-95 lie past the maps' inner dim and load as zeros (never read: Q.K^T
 // takes the 10 k8 steps of the real dims), and P.V runs at N 80 on V^T's 80
-// rows.  head_dim 64, 80 and 128 are template instances; the wrapper
+// rows.  At hd 8 and 16 the q and K tiles are one 32-column box, the
+// columns past hd zero (never read: Q.K^T takes the hd / 8 k8 steps of the
+// real dims), and P.V runs at N hd (m64n8k8, m64n16k8) on V^T's hd rows; hd
+// 32 is one whole box; these take hd 64's key tiles of 64 in 2 stages.
+// head_dim 8, 16, 32, 64, 80 and 128 are template instances; the wrapper
 // refuses others.
 
 #include "common.cuh"
@@ -70,10 +74,11 @@ template <int HD>
 __host__ __device__ constexpr int padded() {
   return (HD + 31) / 32 * 32;
 }
-// keys of a tile and the ring's depth, per instance (184-192 KB each)
+// keys of a tile and the ring's depth, per instance (184-192 KB each at
+// hd 64 and up)
 template <int HD>
 __host__ __device__ constexpr int block_k() {
-  return HD == 64 ? 64 : 32;
+  return HD <= 64 ? 64 : 32;
 }
 template <int HD>
 __host__ __device__ constexpr int stages() {
@@ -115,6 +120,18 @@ __device__ __forceinline__ void qk_wgmma(float (&d)[16], uint64_t da,
   wgmma_m64n32k8_tf32_ss(d, da, db, scale_d);
 }
 // O[64,hd] += P[64,8] (registers) . V[8,hd] (V^T K-major), by hd
+__device__ __forceinline__ void pv_wgmma(float (&o)[4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n8k8_tf32_rs(o, a, db, 1);
+}
+__device__ __forceinline__ void pv_wgmma(float (&o)[8],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n16k8_tf32_rs(o, a, db, 1);
+}
+__device__ __forceinline__ void pv_wgmma(float (&o)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n32k8_tf32_rs(o, a, db, 1);
+}
 __device__ __forceinline__ void pv_wgmma(float (&o)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n64k8_tf32_rs(o, a, db, 1);
@@ -496,6 +513,12 @@ extern "C" int flash_attention_tf32_launch(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   float* kp = static_cast<float*>(k_pair);
   float* t = static_cast<float*>(vt);
+  if (hd == 8)
+    return launch_hd<8>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
+  if (hd == 16)
+    return launch_hd<16>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
+  if (hd == 32)
+    return launch_hd<32>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
   if (hd == 64)
     return launch_hd<64>(qf, kf, vf, of, l, kp, t, B, S, H, KV, causal, s);
   if (hd == 80)

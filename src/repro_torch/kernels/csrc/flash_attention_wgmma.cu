@@ -31,6 +31,12 @@
 //     box's columns 80-127 lie past the map's inner dim and load as zeros,
 //     so the tiles are hd 128's; Q.K^T reads only the 5 k16 steps of the
 //     real dims, P.V runs at N 128 and its zero columns are not stored;
+//     head_dim 8, 16 and 32 (the JAX package's reduced configs and its
+//     kernel sweep) are one box of 64 columns the same way: the columns
+//     past hd load as zeros, Q.K^T takes ceil(hd / 16) k16 steps (at hd 8
+//     the step's columns 8-15 are zeros), P.V runs at N 64, and only the
+//     hd real columns of o are stored; the tensor cores do 64 / hd times
+//     the P.V work the function needs there, and Q.K^T up to twice;
 //   * warpgroups 0 and 1 own 64 q rows each: S = Q.K^T by m64n128k16 wgmma
 //     with both operands in shared memory (K [keys,hd] is K-major); the
 //     mask (keys >= S, and keys after the query when causal) only on the
@@ -44,8 +50,8 @@
 //     cores; O is rescaled once it has landed;
 //   * the two consumer warpgroups take turns to issue (named barriers),
 //     so that one's softmax overlaps the other's products.
-// head_dim 64, 80 and 128 are template instances; the wrapper refuses
-// others.
+// head_dim 8, 16, 32, 64, 80 and 128 are template instances; the wrapper
+// refuses others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -204,12 +210,12 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
     int tiles = 0;
 
     // S = Q.K^T over hd (64 rows x 128 keys), issued and committed: the
-    // k16 steps of the real dims only
+    // k16 steps of the real dims only (the last one half zeros at hd 8)
     auto issue_qk = [&](int st) {
       fence_regs(sacc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
         const int c = kk / 4;
         const int off = (kk % 4) * 16;
         const uint64_t da = desc_sw128(
@@ -443,6 +449,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (hd == 8) return launch_hd<8>(q, k, v, o, l, B, S, H, KV, causal, s);
+  if (hd == 16) return launch_hd<16>(q, k, v, o, l, B, S, H, KV, causal, s);
+  if (hd == 32) return launch_hd<32>(q, k, v, o, l, B, S, H, KV, causal, s);
   if (hd == 64) return launch_hd<64>(q, k, v, o, l, B, S, H, KV, causal, s);
   if (hd == 80) return launch_hd<80>(q, k, v, o, l, B, S, H, KV, causal, s);
   if (hd == 128) return launch_hd<128>(q, k, v, o, l, B, S, H, KV, causal, s);

@@ -155,6 +155,18 @@ int launch_split(const SplitJobs& jobs, int B, int S, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch_split at a width taken at run time, one of the instances W, Rest
+// that the caller names (the SSD scan's head_dim and state width);
+// cudaErrorInvalidValue for any other
+template <int W, int... Rest>
+int launch_split_at(int width, const SplitJobs& jobs, int B, int S,
+                    cudaStream_t stream) {
+  if (width == W) return launch_split<W>(jobs, B, S, stream);
+  if constexpr (sizeof...(Rest) > 0)
+    return launch_split_at<Rest...>(width, jobs, B, S, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // [B,S,heads,hd] fp32 (a direct split term) as a 4-D tensor map (hd,
 // heads, S, B) with a box of (32, 1, rows, 1)
 inline int map_rows(CUtensorMap* map, const void* p, int B, int S, int heads,

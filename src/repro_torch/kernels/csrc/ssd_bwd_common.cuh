@@ -171,25 +171,28 @@ ssd_bwd_finish_kernel(const float* __restrict__ dt, const float* __restrict__ A,
 }
 
 // dBm[b,l,n] = sum_g db_part[b,g,l,n] (the same for dC), groups in order,
-// in the inputs' type T; dA[h] = sum_b da_part[b,h], batch rows in order
+// in the inputs' type T; dA[h] = sum_b da_part[b,h], batch rows in order.
+// The partials' rows are NP wide (the kernels' padded state), dBm's and
+// dCm's N
 template <typename T>
 __global__ void __launch_bounds__(256)
 ssd_bwd_sum_kernel(const float* __restrict__ db_part,
                    const float* __restrict__ dc_part,
                    const float* __restrict__ da_part, T* __restrict__ dBm,
                    T* __restrict__ dCm, float* __restrict__ dA, int B, int L,
-                   int H, int N, int ng) {
+                   int H, int N, int NP, int ng) {
   const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
   const size_t per_b = static_cast<size_t>(L) * N;
+  const size_t part_b = static_cast<size_t>(L) * NP;
   if (i < static_cast<size_t>(B) * per_b) {
     const size_t b = i / per_b;
-    const size_t rem = i % per_b;
-    const float* pb = db_part + b * ng * per_b + rem;
-    const float* pc = dc_part + b * ng * per_b + rem;
+    const size_t rem = (i % per_b) / N * NP + i % N;
+    const float* pb = db_part + b * ng * part_b + rem;
+    const float* pc = dc_part + b * ng * part_b + rem;
     float sb = 0.f, sc = 0.f;
     for (int g = 0; g < ng; ++g) {
-      sb += pb[g * per_b];
-      sc += pc[g * per_b];
+      sb += pb[g * part_b];
+      sc += pc[g * part_b];
     }
     dBm[i] = flare::from_float<T>(sb);
     dCm[i] = flare::from_float<T>(sc);
@@ -208,8 +211,8 @@ int launch_finish_and_sum(const float* dt, const float* A, const double* cum,
                           const float* ddi, const float* dds, float* ddt,
                           float* da_part, const float* db_part,
                           const float* dc_part, T* dBm, T* dCm, float* dA,
-                          int B, int L, int H, int N, int chunk, int ng,
-                          cudaStream_t stream) {
+                          int B, int L, int H, int N, int NP, int chunk,
+                          int ng, cudaStream_t stream) {
   ssd_bwd_finish_kernel<<<B * H, kFinishThreads, 0, stream>>>(
       dt, A, cum, dss, rowe, ddi, dds, ddt, da_part, L, H, chunk);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
@@ -218,7 +221,7 @@ int launch_finish_and_sum(const float* dt, const float* A, const double* cum,
                        : static_cast<size_t>(H);
   ssd_bwd_sum_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                           stream>>>(db_part, dc_part, da_part, dBm, dCm, dA,
-                                    B, L, H, N, ng);
+                                    B, L, H, N, NP, ng);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -72,7 +72,7 @@
 //     which the others bring by one bulk copy.
 //
 // Design: seven launches on one stream, deterministic, no atomics.
-//   1-2. the pre-pass (one launch at N 64, two at N 128: one per hd);
+//   1-2. the pre-pass (one launch when N = P, else two: one per width);
 //   3. ssd_bwd_tf32_state_kernel, a block (one warpgroup) per (b, h): cum
 //      (fp64, into scratch), then chunks in order S^T = (w o B)^T x, the
 //      chunk-start states, and chunks in reverse dS^T from d_final_state
@@ -98,9 +98,18 @@
 // one block per SM; the state kernel 85 KB, one tile's loads at a time,
 // two blocks per SM.  Rows past L load as zeros (TMA fills them, the
 // pre-pass writes them) with dt = 0, so they add nothing and leave cum at
-// the last real row's value: any L is taken.  P = 64 and N in {64, 128} are
-// instances; chunk is a multiple of 64 up to 256.  The wrapper refuses
-// others.
+// the last real row's value: any L is taken.  The tiles are 64 columns of
+// x and dy (kP) and N = 64 or 128 columns of Bm / Cm (the two instances);
+// head_dim P in {8, 16, 32, 64} and state Ns in {8, 16, 32, 64, 128} are
+// taken at run time: the pre-pass splits dy, Bm and Cm at their true widths
+// (its instance by width), and every tensor map of x, dy, Bm, Cm and their
+// splits has the true widths, so the box columns (or, of a transposed
+// split, the rows) past them load as zeros, which add exact zeros to every
+// product and leave the states' and cotangents' rows past P and columns
+// past Ns zero; the initial state and the final state's cotangent are read,
+// dx, dBm and dCm written at their true widths, and the items and partials
+// the kernels pass keep the padded tiles.  chunk is a multiple of 64 up to
+// 256.  The wrapper refuses others.
 
 #include "common.cuh"
 #include "flash_tf32_split.cuh"
@@ -110,14 +119,14 @@
 namespace {
 
 using namespace flare::hopper;
-using flare::tf32x3::launch_split;
+using flare::tf32x3::launch_split_at;
 using flare::tf32x3::map_rows;
 using flare::tf32x3::map_transposed;
 using flare::tf32x3::permuted_row;
 using flare::tf32x3::SplitJobs;
 
 constexpr int kThreads = kScanThreads;     // one warpgroup
-constexpr int kP = 64;                     // head_dim
+constexpr int kP = 64;                     // the columns of an x or dy tile
 constexpr int kHalf = 64;                  // columns of an item
 constexpr int kItem = 2 * kTile * kHalf;   // floats of an item: hi, then lo
 constexpr uint32_t kItemBytes = kItem * 4;
@@ -412,11 +421,12 @@ __device__ __forceinline__ void state_tile(float (&st)[N / kHalf][32],
     });
 }
 
-// this thread's S^T fragment of a [P,N] state at src + st_off (null: zero)
+// this thread's S^T fragment of a [P,Ns] state at src + st_off (null:
+// zero), zero past P and Ns
 template <int N>
 __device__ __forceinline__ void load_state(float (&st)[N / kHalf][32],
                                            const float* src, size_t st_off,
-                                           int r0, int c0) {
+                                           int r0, int c0, int P, int Ns) {
 #pragma unroll
   for (int hh = 0; hh < N / kHalf; ++hh)
 #pragma unroll
@@ -425,7 +435,8 @@ __device__ __forceinline__ void load_state(float (&st)[N / kHalf][32],
       for (int e = 0; e < 4; ++e) {
         const int p = 8 * i + c0 + (e & 1);
         const int n = hh * kHalf + r0 + 8 * (e >> 1);
-        st[hh][4 * i + e] = src ? src[st_off + p * N + n] : 0.f;
+        st[hh][4 * i + e] =
+            src && p < P && n < Ns ? src[st_off + p * Ns + n] : 0.f;
       }
 }
 
@@ -442,7 +453,7 @@ ssd_bwd_tf32_state_kernel(__grid_constant__ const CUtensorMap map_b,
                           double* __restrict__ cum_out,
                           float* __restrict__ spt, float* __restrict__ ds,
                           float* __restrict__ dst, float* __restrict__ dss,
-                          int L, int H, int chunk) {
+                          int L, int H, int chunk, int P, int Ns) {
   constexpr int kH = N / kHalf;
   extern __shared__ uint8_t smem_raw[];
   StateSmem<N>& sm = *reinterpret_cast<StateSmem<N>*>(align_1024(smem_raw));
@@ -461,7 +472,7 @@ ssd_bwd_tf32_state_kernel(__grid_constant__ const CUtensorMap map_b,
   const int r0 = warp * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t st_off = bh * kP * N;
+  const size_t st_off = bh * P * Ns;   // init and dfinal [P, Ns]
   const float* dtb = dt + static_cast<size_t>(b) * L * H + h;
 
   if (tid == 0) {
@@ -511,7 +522,7 @@ ssd_bwd_tf32_state_kernel(__grid_constant__ const CUtensorMap map_b,
   float st[kH][32];
 
   // ---- chunks in order: S_prev, from the initial state ---------------- //
-  load_state<N>(st, init, st_off, r0, c0);
+  load_state<N>(st, init, st_off, r0, c0, P, Ns);
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * chunk;
     const int lc = min(chunk, L - t0);
@@ -542,7 +553,7 @@ ssd_bwd_tf32_state_kernel(__grid_constant__ const CUtensorMap map_b,
   }
 
   // ---- chunks in reverse: dS, from d_final_state ---------------------- //
-  load_state<N>(st, dfinal, st_off, r0, c0);
+  load_state<N>(st, dfinal, st_off, r0, c0, P, Ns);
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * chunk;
     const int lc = min(chunk, L - t0);
@@ -622,7 +633,7 @@ ssd_bwd_tf32_dxdb_kernel(__grid_constant__ const CUtensorMap map_x,
                          const float* __restrict__ dst, float* __restrict__ dx,
                          float* __restrict__ ddi, float* __restrict__ dds,
                          float* __restrict__ db_part, int B, int L, int H,
-                         int chunk, int group) {
+                         int chunk, int group, int P) {
   constexpr int kH = N / kHalf;
   extern __shared__ uint8_t smem_raw[];
   DxdbSmem<N>& sm = *reinterpret_cast<DxdbSmem<N>*>(align_1024(smem_raw));
@@ -886,11 +897,12 @@ ssd_bwd_tf32_dxdb_kernel(__grid_constant__ const CUtensorMap map_x,
           ddi[bh * Lp + s] = dd;
           dds[bh * Lp + s] = e[r] * sv;
         }
-        float* o = dx + ((static_cast<size_t>(b) * L + s) * H + h) * kP;
+        float* o = dx + ((static_cast<size_t>(b) * L + s) * H + h) * P;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          *reinterpret_cast<float2*>(o + 8 * i + c0) =
-              make_float2(dxa[4 * i + 2 * r], dxa[4 * i + 2 * r + 1]);
+          if (8 * i < P)
+            *reinterpret_cast<float2*>(o + 8 * i + c0) =
+                make_float2(dxa[4 * i + 2 * r], dxa[4 * i + 2 * r + 1]);
       }
     }
   }
@@ -1196,43 +1208,46 @@ template <int N>
 int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
              const float* Cm, const float* init, const float* dy,
              const float* dfinal, float* dx, float* ddt, float* dA, float* dBm,
-             float* dCm, const Scratch& w, int B, int L, int H, int chunk,
-             int group, cudaStream_t stream) {
+             float* dCm, const Scratch& w, int B, int L, int H, int P, int Ns,
+             int chunk, int group, cudaStream_t stream) {
   // the pre-pass: dy transposed, Bm and Cm direct and transposed, split
-  // once
+  // once, at their true widths (one launch when they are equal)
   SplitJobs jobs = {};
   jobs.job[0] = {dy, nullptr, w.dyt, nullptr, nullptr, H};
   SplitJobs rows = {};
   rows.job[0] = {Bm, w.bm_pair, w.bmt, nullptr, nullptr, 1};
   rows.job[1] = {Cm, w.cm_pair, w.cmt, nullptr, nullptr, 1};
-  if (N == kP) {
+  if (Ns == P) {
     jobs.job[1] = rows.job[0];
     jobs.job[2] = rows.job[1];
     jobs.n = 3;
-    if (int e = launch_split<kP>(jobs, B, L, stream)) return e;
+    if (int e = launch_split_at<8, 16, 32, 64>(P, jobs, B, L, stream))
+      return e;
   } else {
     jobs.n = 1;
     rows.n = 2;
-    if (int e = launch_split<kP>(jobs, B, L, stream)) return e;
-    if (int e = launch_split<N>(rows, B, L, stream)) return e;
+    if (int e = launch_split_at<8, 16, 32, 64>(P, jobs, B, L, stream))
+      return e;
+    if (int e = launch_split_at<8, 16, 32, 64, 128>(Ns, rows, B, L, stream))
+      return e;
   }
 
-  const size_t nb = static_cast<size_t>(B) * L * N;
+  const size_t nb = static_cast<size_t>(B) * L * Ns;
   CUtensorMap mx{}, mdy{}, mb{}, mc{};          // raw
   CUtensorMap mbh{}, mbl{}, mch{}, mcl{};       // direct pairs
   CUtensorMap mdyt{}, mbt{}, mct{};             // transposed splits
   int r = 0;
-  if ((r = map_rows(&mx, x, B, L, H, kP, kTile)) ||
-      (r = map_rows(&mdy, dy, B, L, H, kP, kTile)) ||
-      (r = map_rows(&mb, Bm, B, L, 1, N, kTile)) ||
-      (r = map_rows(&mc, Cm, B, L, 1, N, kTile)) ||
-      (r = map_rows(&mbh, w.bm_pair, B, L, 1, N, kTile)) ||
-      (r = map_rows(&mbl, w.bm_pair + nb, B, L, 1, N, kTile)) ||
-      (r = map_rows(&mch, w.cm_pair, B, L, 1, N, kTile)) ||
-      (r = map_rows(&mcl, w.cm_pair + nb, B, L, 1, N, kTile)) ||
-      (r = map_transposed(&mdyt, w.dyt, B, L, H, kP)) ||
-      (r = map_transposed(&mbt, w.bmt, B, L, 1, N, kHalf)) ||
-      (r = map_transposed(&mct, w.cmt, B, L, 1, N, kHalf)))
+  if ((r = map_rows(&mx, x, B, L, H, P, kTile)) ||
+      (r = map_rows(&mdy, dy, B, L, H, P, kTile)) ||
+      (r = map_rows(&mb, Bm, B, L, 1, Ns, kTile)) ||
+      (r = map_rows(&mc, Cm, B, L, 1, Ns, kTile)) ||
+      (r = map_rows(&mbh, w.bm_pair, B, L, 1, Ns, kTile)) ||
+      (r = map_rows(&mbl, w.bm_pair + nb, B, L, 1, Ns, kTile)) ||
+      (r = map_rows(&mch, w.cm_pair, B, L, 1, Ns, kTile)) ||
+      (r = map_rows(&mcl, w.cm_pair + nb, B, L, 1, Ns, kTile)) ||
+      (r = map_transposed(&mdyt, w.dyt, B, L, H, P, kP)) ||
+      (r = map_transposed(&mbt, w.bmt, B, L, 1, Ns, kHalf)) ||
+      (r = map_transposed(&mct, w.cmt, B, L, 1, Ns, kHalf)))
     return r;
   const int nc = (L + chunk - 1) / chunk;
   const int ng = (H + group - 1) / group;
@@ -1242,14 +1257,14 @@ int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
   if (int e = set_smem(ssd_bwd_tf32_state_kernel<N>, smem_state)) return e;
   ssd_bwd_tf32_state_kernel<N><<<B * H, kThreads, smem_state, stream>>>(
       mb, mc, mx, mdyt, dt, A, init, dfinal, w.cum, w.spt, w.ds, w.dst,
-      w.dss, L, H, chunk);
+      w.dss, L, H, chunk, P, Ns);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
   const size_t smem_dxdb = sizeof(DxdbSmem<N>) + 1024;
   if (int e = set_smem(ssd_bwd_tf32_dxdb_kernel<N>, smem_dxdb)) return e;
   ssd_bwd_tf32_dxdb_kernel<N><<<tiles, kThreads, smem_dxdb, stream>>>(
       mx, mb, mch, mcl, mdy, mdyt, mct, dt, w.cum, w.ds, w.dst, dx,
-      w.ddi, w.dds, w.db_part, B, L, H, chunk, group);
+      w.ddi, w.dds, w.db_part, B, L, H, chunk, group, P);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
   const size_t smem_dc = sizeof(DcSmem<N>) + 1024;
@@ -1261,8 +1276,8 @@ int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
 
   return launch_finish_and_sum<float>(dt, A, w.cum, w.dss, w.rowe, w.ddi,
                                       w.dds, ddt, w.da_part, w.db_part,
-                                      w.dc_part, dBm, dCm, dA, B, L, H, N,
-                                      chunk, ng, stream);
+                                      w.dc_part, dBm, dCm, dA, B, L, H, Ns,
+                                      N, chunk, ng, stream);
 }
 
 }  // namespace
@@ -1270,10 +1285,11 @@ int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
 // x, dy, dx: [B,L,H,P]; Bm, Cm, dBm, dCm: [B,L,N]; dt, ddt: [B,L,H]; A, dA:
 // [H]; init and dfinal (either may be null: zero) [B,H,P,N]; all float32.
 // Scratch (L16 = L rounded up to 16, nc = ceil(L / chunk), Lp = nc *
-// chunk, ng = ceil(H / group), kH = N / 64; ops.py::tf32_bwd_scratch):
-// dyt [B,H,P,2*L16]; bm_pair, cm_pair [2,B,L,N]; bmt, cmt [B,N,2*L16];
-// cum [B,H,Lp] float64; spt, ds, dst [B,H,nc,kH,2,64,64]; dss [B,H,nc];
-// rowe, ddi, dds [B,H,Lp]; db_part, dc_part [B,ng,L,N]; da_part [B,H];
+// chunk, ng = ceil(H / group), NP = N padded to 64 or 128, kH = NP / 64;
+// ops.py::tf32_bwd_scratch): dyt [B,H,P,2*L16]; bm_pair, cm_pair
+// [2,B,L,N]; bmt, cmt [B,N,2*L16]; cum [B,H,Lp] float64; spt, ds, dst
+// [B,H,nc,kH,2,64,64]; dss [B,H,nc]; rowe, ddi, dds [B,H,Lp]; db_part,
+// dc_part [B,ng,L,NP]; da_part [B,H];
 // float32 but cum.  Every tensor
 // contiguous and 16-byte aligned.  Launches the pre-pass, the state, dx/dB,
 // dC, finish and sum kernels in that order on `stream`.  Returns 0 or the
@@ -1286,8 +1302,9 @@ extern "C" int ssd_scan_bwd_tf32_launch(
     void* spt, void* ds, void* dst, void* dss, void* rowe, void* ddi,
     void* dds, void* db_part, void* dc_part, void* da_part, int B, int L,
     int H, int P, int N, int chunk, int group, void* stream) {
-  if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk ||
-      L < 0 || B < 0 || H < 0 || group < 1 || (N != 64 && N != 128))
+  if (!flare::ssd_head_dim(P) || !flare::ssd_state_dim(N) ||
+      chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk || L < 0 ||
+      B < 0 || H < 0 || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1315,9 +1332,9 @@ extern "C" int ssd_scan_bwd_tf32_launch(
   float* o[5] = {static_cast<float*>(dx), static_cast<float*>(ddt),
                  static_cast<float*>(dA), static_cast<float*>(dBm),
                  static_cast<float*>(dCm)};
-  if (N == 128)
+  if (N > 64)
     return launch_n<128>(xf, dtf, af, bf, cf, sf, dyf, df, o[0], o[1], o[2],
-                         o[3], o[4], w, B, L, H, chunk, group, s);
+                         o[3], o[4], w, B, L, H, P, N, chunk, group, s);
   return launch_n<64>(xf, dtf, af, bf, cf, sf, dyf, df, o[0], o[1], o[2],
-                      o[3], o[4], w, B, L, H, chunk, group, s);
+                      o[3], o[4], w, B, L, H, P, N, chunk, group, s);
 }

@@ -84,8 +84,15 @@
 // loads and scalar work overlap the other's products.
 // Rows past L load as zeros (TMA fills them) with dt = 0, so they add
 // nothing and leave cum at the last real row's value: any L is taken.
-// P = 64 and N in {64, 128} are instances; chunk is a multiple of 64 up to
-// 256.  The wrapper refuses others.
+// The tiles are 64 columns of x and dy (kP) and N = 64 or 128 columns of
+// Bm / Cm (the two instances); head_dim P in {8, 16, 32, 64} and state Ns
+// in {8, 16, 32, 64, 128} are taken at run time: the tensor maps of x, dy,
+// Bm and Cm have the true widths, so the box columns past them load as
+// zeros, which add exact zeros to every product and leave the states' and
+// cotangents' rows past P and columns past Ns zero; the initial state and
+// the final state's cotangent are read, dx, dBm and dCm written at their
+// true widths, and the scratch (S_prev, dS, the partials) keeps the padded
+// tiles.  chunk is a multiple of 64 up to 256.  The wrapper refuses others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -97,7 +104,7 @@ using namespace flare::hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = kScanThreads;  // one warpgroup
-constexpr int kP = 64;                  // head_dim
+constexpr int kP = 64;                  // the columns of an x or dy tile
 constexpr uint32_t kBlockBytes = 64 * 64 * 2;  // one swizzled [64][64] block
 
 // ------------------------------------------------------------- helpers --
@@ -277,7 +284,7 @@ ssd_bwd_state_kernel(__grid_constant__ const CUtensorMap map_x,
                      const float* __restrict__ dfinal,
                      double* __restrict__ cum_out, bf16* __restrict__ sp16,
                      bf16* __restrict__ ds16, float* __restrict__ dss, int L,
-                     int H, int chunk) {
+                     int H, int chunk, int P, int Ns) {
   constexpr uint32_t kItemBytes = kTile * N * 2 + kTile * kP * 2;
   extern __shared__ uint8_t smem_raw[];
   StateSmem<N>& sm = *reinterpret_cast<StateSmem<N>*>(align_1024(smem_raw));
@@ -296,7 +303,7 @@ ssd_bwd_state_kernel(__grid_constant__ const CUtensorMap map_x,
   const int r0 = warp * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t st_off = bh * kP * N;
+  const size_t st_off = bh * P * Ns;   // init and dfinal [P, Ns]
   const float* dtb = dt + static_cast<size_t>(b) * L * H + h;
 
   if (tid == 0) {
@@ -343,9 +350,9 @@ ssd_bwd_state_kernel(__grid_constant__ const CUtensorMap map_x,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float2 v = make_float2(0.f, 0.f);
-      if (init)
+      if (init && r0 + 8 * r < P && 8 * i < Ns)
         v = *reinterpret_cast<const float2*>(init + st_off +
-                                             (r0 + 8 * r) * N + 8 * i + c0);
+                                             (r0 + 8 * r) * Ns + 8 * i + c0);
       st[4 * i + 2 * r] = v.x;
       st[4 * i + 2 * r + 1] = v.y;
     }
@@ -382,9 +389,9 @@ ssd_bwd_state_kernel(__grid_constant__ const CUtensorMap map_x,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float2 v = make_float2(0.f, 0.f);
-      if (dfinal)
+      if (dfinal && r0 + 8 * r < P && 8 * i < Ns)
         v = *reinterpret_cast<const float2*>(dfinal + st_off +
-                                             (r0 + 8 * r) * N + 8 * i + c0);
+                                             (r0 + 8 * r) * Ns + 8 * i + c0);
       st[4 * i + 2 * r] = v.x;
       st[4 * i + 2 * r + 1] = v.y;
     }
@@ -462,7 +469,7 @@ ssd_bwd_dxdb_kernel(__grid_constant__ const CUtensorMap map_x,
                     const bf16* __restrict__ ds16, bf16* __restrict__ dx,
                     float* __restrict__ ddi, float* __restrict__ dds,
                     float* __restrict__ db_part, int B, int L, int H,
-                    int chunk, int group) {
+                    int chunk, int group, int P) {
   constexpr uint32_t kRowsBytes = kTile * N * 2;
   constexpr uint32_t kHeadBytes = kTile * kP * 2;
   constexpr uint32_t kStateBytes = 2 * kP * N * 2;
@@ -668,11 +675,12 @@ ssd_bwd_dxdb_kernel(__grid_constant__ const CUtensorMap map_x,
           ddi[bh * Lp + s] = dd;
           dds[bh * Lp + s] = e[r] * sv;
         }
-        bf16* o = dx + ((static_cast<size_t>(b) * L + s) * H + h) * kP;
+        bf16* o = dx + ((static_cast<size_t>(b) * L + s) * H + h) * P;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          *reinterpret_cast<uint32_t*>(o + 8 * i + c0) =
-              pack_bf16x2(dxa[4 * i + 2 * r], dxa[4 * i + 2 * r + 1]);
+          if (8 * i < P)
+            *reinterpret_cast<uint32_t*>(o + 8 * i + c0) =
+                pack_bf16x2(dxa[4 * i + 2 * r], dxa[4 * i + 2 * r + 1]);
       }
     }
   }
@@ -907,7 +915,8 @@ ssd_bwd_dc_kernel(__grid_constant__ const CUtensorMap map_x,
 
 // ---------------------------------------------------------------- host --
 
-// Bm / Cm [B,L,N] bf16 as a 3-D tensor map (N, L, B), box (64, 64, 1)
+// Bm / Cm [B,L,N] bf16 as a 3-D tensor map (N, L, B), box (64, 64, 1); the
+// box columns past N load as zeros
 int make_rows_map(CUtensorMap* map, const void* p, int B, int L, int N) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L),
@@ -918,13 +927,15 @@ int make_rows_map(CUtensorMap* map, const void* p, int B, int L, int N) {
   return make_map_bf16(map, p, 3, dims, strides, box);
 }
 
-// x / dy [B,L,H,P] bf16 as a 4-D tensor map (P, H, L, B), box (64, 1, 64, 1)
-int make_head_map(CUtensorMap* map, const void* p, int B, int L, int H) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kP),
+// x / dy [B,L,H,P] bf16 as a 4-D tensor map (P, H, L, B), box (64, 1, 64,
+// 1); the box columns past P load as zeros
+int make_head_map(CUtensorMap* map, const void* p, int B, int L, int H,
+                  int P) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = kP * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(P) * 2;
   const cuuint64_t strides[3] = {row, row * H,
                                  row * H * static_cast<cuuint64_t>(L)};
   const cuuint32_t box[4] = {64, 1, kTile, 1};
@@ -944,13 +955,13 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
              const void* dfinal, void* dx, void* ddt, void* dA, void* dBm,
              void* dCm, void* cum, void* sp16, void* ds16, void* dss,
              void* rowe, void* ddi, void* dds, void* db_part, void* dc_part,
-             void* da_part, int B, int L, int H, int chunk, int group,
-             cudaStream_t stream) {
+             void* da_part, int B, int L, int H, int P, int Ns, int chunk,
+             int group, cudaStream_t stream) {
   CUtensorMap mx{}, mdy{}, mb{}, mc{};
-  if (int e = make_head_map(&mx, x, B, L, H)) return e;
-  if (int e = make_head_map(&mdy, dy, B, L, H)) return e;
-  if (int e = make_rows_map(&mb, Bm, B, L, N)) return e;
-  if (int e = make_rows_map(&mc, Cm, B, L, N)) return e;
+  if (int e = make_head_map(&mx, x, B, L, H, P)) return e;
+  if (int e = make_head_map(&mdy, dy, B, L, H, P)) return e;
+  if (int e = make_rows_map(&mb, Bm, B, L, Ns)) return e;
+  if (int e = make_rows_map(&mc, Cm, B, L, Ns)) return e;
   const int nc = (L + chunk - 1) / chunk;
   const int ng = (H + group - 1) / group;
   const int tiles = (chunk / kTile) * nc * B * ng;
@@ -963,7 +974,7 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
       mx, mdy, mb, mc, dtf, static_cast<const float*>(A),
       static_cast<const float*>(init), static_cast<const float*>(dfinal),
       static_cast<double*>(cum), static_cast<bf16*>(sp16),
-      static_cast<bf16*>(ds16), static_cast<float*>(dss), L, H, chunk);
+      static_cast<bf16*>(ds16), static_cast<float*>(dss), L, H, chunk, P, Ns);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
   const size_t smem_dxdb = sizeof(DxdbSmem<N>) + 1024;
@@ -972,7 +983,7 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
       mx, mdy, mb, mc, dtf, cumd, static_cast<const bf16*>(ds16),
       static_cast<bf16*>(dx), static_cast<float*>(ddi),
       static_cast<float*>(dds), static_cast<float*>(db_part), B, L, H, chunk,
-      group);
+      group, P);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
 
   const size_t smem_dc = sizeof(DcSmem<N>) + 1024;
@@ -989,8 +1000,8 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<const float*>(dds), static_cast<float*>(ddt),
       static_cast<float*>(da_part), static_cast<const float*>(db_part),
       static_cast<const float*>(dc_part), static_cast<bf16*>(dBm),
-      static_cast<bf16*>(dCm), static_cast<float*>(dA), B, L, H, N, chunk, ng,
-      stream);
+      static_cast<bf16*>(dCm), static_cast<float*>(dA), B, L, H, Ns, N, chunk,
+      ng, stream);
 }
 
 }  // namespace
@@ -998,11 +1009,11 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
 // x, dy, dx: [B,L,H,P]; Bm, Cm, dBm, dCm: [B,L,N], bf16; dt, ddt: [B,L,H],
 // A, dA: [H], init and dfinal (either may be null: zero) [B,H,P,N],
 // float32.  Scratch (nc = ceil(L / chunk), Lp = nc * chunk, ng =
-// ceil(H / group)): cum [B,H,Lp] float64; sp16, ds16 [B,H,nc,2,P,N] bf16;
-// dss [B,H,nc], rowe, ddi, dds [B,H,Lp], db_part, dc_part [B,ng,L,N],
-// da_part [B,H], float32.  Every tensor contiguous and 16-byte aligned.
-// Launches the state, dx/dB, dC, finish and sum kernels in that order on
-// `stream`.  Returns 0 or the first cudaError_t (a launch's, or the tensor
+// ceil(H / group), NP = N padded to 64 or 128): cum [B,H,Lp] float64;
+// sp16, ds16 [B,H,nc,2,64,NP] bf16; dss [B,H,nc], rowe, ddi, dds [B,H,Lp],
+// db_part, dc_part [B,ng,L,NP], da_part [B,H], float32.  Every tensor
+// contiguous and 16-byte aligned.  Launches the state, dx/dB, dC, finish
+// and sum kernels in that order on `stream`.  Returns 0 or the first cudaError_t (a launch's, or the tensor
 // maps').
 extern "C" int ssd_scan_bwd_wgmma_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
@@ -1011,19 +1022,20 @@ extern "C" int ssd_scan_bwd_wgmma_launch(
     void* sp16, void* ds16, void* dss, void* rowe, void* ddi, void* dds,
     void* db_part, void* dc_part, void* da_part, int B, int L, int H, int P,
     int N, int chunk, int group, void* stream) {
-  if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk ||
-      L < 0 || B < 0 || H < 0 || group < 1 || (N != 64 && N != 128))
+  if (!flare::ssd_head_dim(P) || !flare::ssd_state_dim(N) ||
+      chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk || L < 0 ||
+      B < 0 || H < 0 || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || L == 0)
     return static_cast<int>(
         cudaMemsetAsync(dA, 0, static_cast<size_t>(H) * sizeof(float), s));
-  if (N == 128)
+  if (N > 64)
     return launch_n<128>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt, dA, dBm,
                          dCm, cum, sp16, ds16, dss, rowe, ddi, dds, db_part,
-                         dc_part, da_part, B, L, H, chunk, group, s);
+                         dc_part, da_part, B, L, H, P, N, chunk, group, s);
   return launch_n<64>(x, dt, A, Bm, Cm, init, dy, dfinal, dx, ddt, dA, dBm,
                       dCm, cum, sp16, ds16, dss, rowe, ddi, dds, db_part,
-                      dc_part, da_part, B, L, H, chunk, group, s);
+                      dc_part, da_part, B, L, H, P, N, chunk, group, s);
 }

@@ -62,8 +62,14 @@
 //     the scores and their products;
 //   * synchronisation: one warpgroup, so a block barrier is four warps;
 //     products are waited by wgmma.wait_group, loads by mbarriers.
-// P = 64 and N in {64, 128} are instances; chunk is a multiple of 64 up to
-// 256.  The wrapper refuses others.
+// The tiles are 64 columns of x (kP) and N = 64 or 128 columns of Bm / Cm
+// (the two instances); head_dim P in {8, 16, 32, 64} and state Ns in {8,
+// 16, 32, 64, 128} are taken at run time: the tensor maps of x and of the
+// Bm / Cm splits have the true widths, so the box columns past them load as
+// zeros, which add exact zeros to every product (the state's rows past P
+// and columns past Ns stay zero), and the initial state, y and the final
+// state are read and written at their true widths.  chunk is a multiple of
+// 64 up to 256.  The wrapper refuses others.
 
 #include "common.cuh"
 #include "flash_tf32_split.cuh"
@@ -72,14 +78,14 @@
 namespace {
 
 using namespace flare::hopper;
-using flare::tf32x3::launch_split;
+using flare::tf32x3::launch_split_at;
 using flare::tf32x3::map_rows;
 using flare::tf32x3::permuted_row;
 using flare::tf32x3::SplitJobs;
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kTile = 64;      // rows of a t or s tile (wgmma's M)
-constexpr int kP = 64;         // head_dim
+constexpr int kP = 64;         // the columns of an x tile: head_dim padded
 constexpr int kHalf = 64;      // n columns of a B_s item and an S half
 constexpr int kStages = 2;     // the B_s ring
 constexpr int kMaxChunk = 256;
@@ -137,7 +143,8 @@ ssd_tf32_kernel(__grid_constant__ const CUtensorMap map_x,
                 __grid_constant__ const CUtensorMap map_cl,
                 const float* __restrict__ dt, const float* __restrict__ A,
                 const float* __restrict__ init, float* __restrict__ y,
-                float* __restrict__ final_state, int L, int H, int chunk) {
+                float* __restrict__ final_state, int L, int H, int chunk,
+                int P, int Ns) {
   constexpr int kHalves = N / kHalf;            // B_s items per s tile
   constexpr int kCols = N / 32;                 // column blocks of C_t
   constexpr uint32_t kCBytes = 2 * kTile * N * 4;
@@ -234,9 +241,10 @@ ssd_tf32_kernel(__grid_constant__ const CUtensorMap map_x,
 
   // the fp32 state as S^T [n][p]: half hh holds rows n = 64 hh + r0,
   // r0 + 8, columns p = 8i + c0 + {0, 1} (the accumulator fragment of the
-  // state update, whose M is n)
+  // state update, whose M is n); the initial state [P, Ns] fills p < P,
+  // n < Ns
   float st[kHalves][32];
-  const size_t st_off = (static_cast<size_t>(b) * H + h) * kP * N;
+  const size_t st_off = (static_cast<size_t>(b) * H + h) * P * Ns;
 #pragma unroll
   for (int hh = 0; hh < kHalves; ++hh)
 #pragma unroll
@@ -245,7 +253,8 @@ ssd_tf32_kernel(__grid_constant__ const CUtensorMap map_x,
       for (int e = 0; e < 4; ++e) {
         const int p = 8 * i + c0 + (e & 1);
         const int n = hh * kHalf + r0 + 8 * (e >> 1);
-        st[hh][4 * i + e] = init ? init[st_off + p * N + n] : 0.f;
+        st[hh][4 * i + e] =
+            init && p < P && n < Ns ? init[st_off + p * Ns + n] : 0.f;
       }
 
   // wgmma descriptors of the tiles' starts; a k8 step adds its byte
@@ -579,16 +588,17 @@ ssd_tf32_kernel(__grid_constant__ const CUtensorMap map_x,
 
       }
 
-      // y rows < L, in fp32
+      // y rows < L, columns < P, in fp32
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int t = t0 + tl0 + 8 * r;
         if (t >= L) continue;
-        float* yr = y + ((static_cast<size_t>(b) * L + t) * H + h) * kP;
+        float* yr = y + ((static_cast<size_t>(b) * L + t) * H + h) * P;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          *reinterpret_cast<float2*>(yr + 8 * i + c0) =
-              make_float2(yacc[4 * i + 2 * r], yacc[4 * i + 2 * r + 1]);
+          if (8 * i < P)
+            *reinterpret_cast<float2*>(yr + 8 * i + c0) =
+                make_float2(yacc[4 * i + 2 * r], yacc[4 * i + 2 * r + 1]);
       }
     }
   }
@@ -601,15 +611,16 @@ ssd_tf32_kernel(__grid_constant__ const CUtensorMap map_x,
       for (int e = 0; e < 4; ++e) {
         const int p = 8 * i + c0 + (e & 1);
         const int n = hh * kHalf + r0 + 8 * (e >> 1);
-        final_state[st_off + p * N + n] = st[hh][4 * i + e];
+        if (p < P && n < Ns)
+          final_state[st_off + p * Ns + n] = st[hh][4 * i + e];
       }
 }
 
 template <int N>
 int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
              const float* Cm, const float* init, float* y, float* final_state,
-             float* bm_pair, float* cm_pair, int B, int L, int H, int chunk,
-             cudaStream_t stream) {
+             float* bm_pair, float* cm_pair, int B, int L, int H, int P,
+             int Ns, int chunk, cudaStream_t stream) {
   // at L = 0 the kernel only copies the initial state, and loads nothing
   CUtensorMap mx{}, mbh{}, mbl{}, mch{}, mcl{};
   if (L > 0) {
@@ -618,13 +629,14 @@ int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
     jobs.job[0] = {Bm, bm_pair, nullptr, nullptr, nullptr, 1};
     jobs.job[1] = {Cm, cm_pair, nullptr, nullptr, nullptr, 1};
     jobs.n = 2;
-    if (int e = launch_split<N>(jobs, B, L, stream)) return e;
-    const size_t n = static_cast<size_t>(B) * L * N;
-    if (int e = map_rows(&mx, x, B, L, H, kP, kTile)) return e;
-    if (int e = map_rows(&mbh, bm_pair, B, L, 1, N, kTile)) return e;
-    if (int e = map_rows(&mbl, bm_pair + n, B, L, 1, N, kTile)) return e;
-    if (int e = map_rows(&mch, cm_pair, B, L, 1, N, kTile)) return e;
-    if (int e = map_rows(&mcl, cm_pair + n, B, L, 1, N, kTile)) return e;
+    if (int e = launch_split_at<8, 16, 32, 64, 128>(Ns, jobs, B, L, stream))
+      return e;
+    const size_t n = static_cast<size_t>(B) * L * Ns;
+    if (int e = map_rows(&mx, x, B, L, H, P, kTile)) return e;
+    if (int e = map_rows(&mbh, bm_pair, B, L, 1, Ns, kTile)) return e;
+    if (int e = map_rows(&mbl, bm_pair + n, B, L, 1, Ns, kTile)) return e;
+    if (int e = map_rows(&mch, cm_pair, B, L, 1, Ns, kTile)) return e;
+    if (int e = map_rows(&mcl, cm_pair + n, B, L, 1, Ns, kTile)) return e;
   }
   const size_t smem = sizeof(Smem<N>) + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -632,7 +644,8 @@ int launch_n(const float* x, const float* dt, const float* A, const float* Bm,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   ssd_tf32_kernel<N><<<B * H, kThreads, smem, stream>>>(
-      mx, mbh, mbl, mch, mcl, dt, A, init, y, final_state, L, H, chunk);
+      mx, mbh, mbl, mch, mcl, dt, A, init, y, final_state, L, H, chunk, P,
+      Ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -650,8 +663,8 @@ extern "C" int ssd_scan_tf32_launch(const void* x, const void* dt,
                                     void* final_state, void* bm_pair,
                                     void* cm_pair, int B, int L, int H, int P,
                                     int N, int chunk, void* stream) {
-  if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk ||
-      L < 0)
+  if (!flare::ssd_head_dim(P) || !flare::ssd_state_dim(N) ||
+      chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk || L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -665,11 +678,9 @@ extern "C" int ssd_scan_tf32_launch(const void* x, const void* dt,
   float* ff = static_cast<float*>(final_state);
   float* bp = static_cast<float*>(bm_pair);
   float* cp = static_cast<float*>(cm_pair);
-  if (N == 128)
-    return launch_n<128>(xf, dtf, af, bf, cf, sf, yf, ff, bp, cp, B, L, H,
-                         chunk, s);
-  if (N == 64)
-    return launch_n<64>(xf, dtf, af, bf, cf, sf, yf, ff, bp, cp, B, L, H,
-                        chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 64)
+    return launch_n<128>(xf, dtf, af, bf, cf, sf, yf, ff, bp, cp, B, L, H, P,
+                         N, chunk, s);
+  return launch_n<64>(xf, dtf, af, bf, cf, sf, yf, ff, bp, cp, B, L, H, P, N,
+                      chunk, s);
 }

@@ -74,8 +74,16 @@
 // at the serving shape, ~13 us at peak); sharing it across the heads of a
 // batch row needs a block per (b, chunk) and the state passed between
 // them.
-// P = 64 and N in {64, 128} are instances; chunk is a multiple of 64 up to
-// 256.  The wrapper refuses others.
+// The tiles are 64 columns of x (kP) and N = 64 or 128 columns of Bm / Cm
+// (the two instances); head_dim P in {8, 16, 32, 64} and state Ns in {8,
+// 16, 32, 64, 128} are taken at run time: the tensor maps have the true
+// widths, so the box columns past them load as zeros, which add exact zeros
+// to every product (the state's rows past P and columns past Ns stay zero),
+// and the initial state, y and the final state are read and written at
+// their true widths.  At P 16 and Ns 16 (the JAX package's reduced mamba2
+// and zamba2) the tensor cores do 4x the products over p and n that the
+// function needs.  chunk is a multiple of 64 up to 256.  The wrapper
+// refuses others.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -86,7 +94,7 @@ using namespace flare::hopper;
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kTile = 64;      // rows of a t or s tile (wgmma's M)
-constexpr int kP = 64;         // head_dim
+constexpr int kP = 64;         // the columns of an x tile: head_dim padded
 constexpr int kMaxChunk = 256;
 
 // Operand tiles are N / 64 (or 1) column blocks of [64 rows][64] bf16 in
@@ -141,7 +149,8 @@ ssd_wgmma_kernel(__grid_constant__ const CUtensorMap map_x,
                  const float* __restrict__ dt, const float* __restrict__ A,
                  const float* __restrict__ init,
                  __nv_bfloat16* __restrict__ y,
-                 float* __restrict__ final_state, int L, int H, int chunk) {
+                 float* __restrict__ final_state, int L, int H, int chunk,
+                 int P, int Ns) {
   constexpr int kCols = N / 64;                 // column blocks of C, B, S16
   constexpr uint32_t kCBytes = kTile * N * 2;
   constexpr uint32_t kSBytes = kTile * N * 2 + kTile * kP * 2;
@@ -187,18 +196,19 @@ ssd_wgmma_kernel(__grid_constant__ const CUtensorMap map_x,
     }
   };
 
-  // the fp32 state [P, N]: this thread's rows p = r0, r0 + 8, columns
-  // n = 8i + c0 + {0, 1} (the accumulator fragment of the state update)
+  // the fp32 state [kP, N]: this thread's rows p = r0, r0 + 8, columns
+  // n = 8i + c0 + {0, 1} (the accumulator fragment of the state update);
+  // the initial state [P, Ns] fills rows p < P and columns n < Ns
   float st[N / 2];
-  const size_t st_off = (static_cast<size_t>(b) * H + h) * kP * N;
+  const size_t st_off = (static_cast<size_t>(b) * H + h) * P * Ns;
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float2 v = make_float2(0.f, 0.f);
-      if (init)
+      if (init && r0 + 8 * r < P && 8 * i < Ns)
         v = *reinterpret_cast<const float2*>(init + st_off +
-                                             (r0 + 8 * r) * N + 8 * i + c0);
+                                             (r0 + 8 * r) * Ns + 8 * i + c0);
       st[4 * i + 2 * r] = v.x;
       st[4 * i + 2 * r + 1] = v.y;
     }
@@ -450,17 +460,18 @@ ssd_wgmma_kernel(__grid_constant__ const CUtensorMap map_x,
         }
       }
 
-      // y rows < L, in bf16
+      // y rows < L, columns < P, in bf16
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int t = t0 + tl0 + 8 * r;
         if (t >= L) continue;
         __nv_bfloat16* yr =
-            y + ((static_cast<size_t>(b) * L + t) * H + h) * kP;
+            y + ((static_cast<size_t>(b) * L + t) * H + h) * P;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          *reinterpret_cast<uint32_t*>(yr + 8 * i + c0) =
-              pack_bf16x2(yacc[4 * i + 2 * r], yacc[4 * i + 2 * r + 1]);
+          if (8 * i < P)
+            *reinterpret_cast<uint32_t*>(yr + 8 * i + c0) =
+                pack_bf16x2(yacc[4 * i + 2 * r], yacc[4 * i + 2 * r + 1]);
       }
     }
   }
@@ -469,14 +480,15 @@ ssd_wgmma_kernel(__grid_constant__ const CUtensorMap map_x,
   for (int i = 0; i < N / 8; ++i) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(final_state + st_off + (r0 + 8 * r) * N +
-                                 8 * i + c0) =
-          make_float2(st[4 * i + 2 * r], st[4 * i + 2 * r + 1]);
+      if (r0 + 8 * r < P && 8 * i < Ns)
+        *reinterpret_cast<float2*>(final_state + st_off + (r0 + 8 * r) * Ns +
+                                   8 * i + c0) =
+            make_float2(st[4 * i + 2 * r], st[4 * i + 2 * r + 1]);
   }
 }
 
 // Bm / Cm [B,L,N] bf16 as a 3-D tensor map (N, L, B) with a box of
-// (64, 64, 1)
+// (64, 64, 1); the box columns past N load as zeros
 int make_rows_map(CUtensorMap* map, const void* p, int B, int L, int N) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L),
@@ -488,13 +500,13 @@ int make_rows_map(CUtensorMap* map, const void* p, int B, int L, int N) {
 }
 
 // x [B,L,H,P] bf16 as a 4-D tensor map (P, H, L, B) with a box of
-// (64, 1, 64, 1)
-int make_x_map(CUtensorMap* map, const void* p, int B, int L, int H) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kP),
+// (64, 1, 64, 1); the box columns past P load as zeros
+int make_x_map(CUtensorMap* map, const void* p, int B, int L, int H, int P) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = kP * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(P) * 2;
   const cuuint64_t strides[3] = {row, row * H,
                                  row * H * static_cast<cuuint64_t>(L)};
   const cuuint32_t box[4] = {64, 1, kTile, 1};
@@ -504,13 +516,14 @@ int make_x_map(CUtensorMap* map, const void* p, int B, int L, int H) {
 template <int N>
 int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* init, void* y, void* final_state,
-             int B, int L, int H, int chunk, cudaStream_t stream) {
+             int B, int L, int H, int P, int Ns, int chunk,
+             cudaStream_t stream) {
   // at L = 0 the kernel only copies the initial state, and loads nothing
   CUtensorMap mx{}, mb{}, mc{};
   if (L > 0) {
-    if (int e = make_x_map(&mx, x, B, L, H)) return e;
-    if (int e = make_rows_map(&mb, Bm, B, L, N)) return e;
-    if (int e = make_rows_map(&mc, Cm, B, L, N)) return e;
+    if (int e = make_x_map(&mx, x, B, L, H, P)) return e;
+    if (int e = make_rows_map(&mb, Bm, B, L, Ns)) return e;
+    if (int e = make_rows_map(&mc, Cm, B, L, Ns)) return e;
   }
   const size_t smem = sizeof(Smem<N>) + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -520,7 +533,7 @@ int launch_n(const void* x, const void* dt, const void* A, const void* Bm,
   ssd_wgmma_kernel<N><<<B * H, kThreads, smem, stream>>>(
       mx, mb, mc, static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(init), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(final_state), L, H, chunk);
+      static_cast<float*>(final_state), L, H, chunk, P, Ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,16 +548,14 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const void* dt,
                                      const void* Cm, const void* init, void* y,
                                      void* final_state, int B, int L, int H,
                                      int P, int N, int chunk, void* stream) {
-  if (P != kP || chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk ||
-      L < 0)
+  if (!flare::ssd_head_dim(P) || !flare::ssd_state_dim(N) ||
+      chunk % kTile != 0 || chunk < kTile || chunk > kMaxChunk || L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N == 128)
-    return launch_n<128>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H,
-                         chunk, s);
-  if (N == 64)
-    return launch_n<64>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H,
-                         chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 64)
+    return launch_n<128>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H, P,
+                         N, chunk, s);
+  return launch_n<64>(x, dt, A, Bm, Cm, init, y, final_state, B, L, H, P, N,
+                      chunk, s);
 }

@@ -6,9 +6,13 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 which is what prefill and training compute.  Bound on an H100: operations
 (4*B*S^2*H*hd flops, half of it causal).  Two hand-written forward
 kernels, one route per dtype (``route``), both on the tensor cores by
-wgmma with TMA, head_dim 64, 80 and 128 (80 in tiles of 128 columns on the
-bf16 routes and 96 on the fp32 ones, the columns past 80 loaded as zeros),
-any S (each masks its ragged edge):
+wgmma with TMA, head_dim ``HEAD_DIMS`` (8, 16, 32, 64, 80 and 128; a
+width off a whole tile in tiles of 64 or 128 columns on the bf16 routes
+and 32 or 96 on the fp32 ones, the tensor maps at the true head_dim so
+that the columns past it load as zeros, which add exact zeros to every
+product, and only the real columns stored; 8 to 32 are the JAX package's
+reduced configs and its kernel sweep), any S (each masks its ragged
+edge):
   * bf16 -> ``"wgmma"``, ``csrc/flash_attention_wgmma.cu``: Q.K^T and P.V
     in bf16, online softmax in fp32 registers, P rounded to bf16 for P.V;
   * fp32 -> ``"tf32x3"``, ``csrc/flash_attention_tf32.cu``: split TF32,
@@ -26,7 +30,7 @@ The backward is the recompute backward that the JAX package runs through
 XLA (``src/repro/models/attention.py:164-235``): it has no Pallas kernel,
 so it has no traced-op name either, and its time falls in the training
 step's span.  Two hand-written backward kernels, one route per dtype
-(``BWD_ROUTES``, the same split as the forward's), head_dim 64, 80 and 128,
+(``BWD_ROUTES``, the same split as the forward's), head_dim ``HEAD_DIMS``,
 any S, each with its own launch count, both deterministic (a dK/dV kernel
 over key tiles and a dQ kernel over q tiles, no atomics):
   * bf16 -> ``"wgmma"``, ``csrc/flash_attention_bwd_wgmma.cu``: S, dP and
@@ -50,7 +54,7 @@ from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
                                  traced_op)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _TF32_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]

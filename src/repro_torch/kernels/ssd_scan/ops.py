@@ -25,6 +25,16 @@ fp32 state in the accumulator registers:
 Both sum the cumulative decay in fp64.  Each route counts its own
 launches.
 
+Widths: every route's tiles are head_dim padded to 64 columns and the
+state to 64 or 128; the true head_dim (``HEAD_DIMS``) and state
+(``STATE_DIMS``) are taken at run time, the tensor maps at the true widths
+so that the columns past them load as zeros, which add exact zeros to every
+product; the inputs and outputs keep their true widths.  The chunk is a
+blocking of the scan, not a part of the function (every chunk gives the
+same y and final state up to rounding): a CUDA call runs at the chunk its
+64-row tiles take (``kernel_chunk``), the trace's ``_meta`` keeps the
+requested one, and the plain version runs the requested one.
+
 The backward is port-only: the JAX package differentiates ``ssd_chunked``
 (``src/repro/models/mamba2.py:22``) by XLA autodiff, so it has no Pallas
 kernel and no traced-op name, and its time falls in the training step's
@@ -59,8 +69,8 @@ import torch
 from repro_torch.kernels import (CudaKernel, charge, ptr, stream_ptr,
                                  traced_op)
 
-HEAD_DIMS = (64,)
-STATE_DIMS = (64, 128)
+HEAD_DIMS = (8, 16, 32, 64)
+STATE_DIMS = (8, 16, 32, 64, 128)
 TILE = 64          # the kernels' row tile; a chunk is 1 to 4 tiles
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -86,10 +96,22 @@ BWD_HEAD_GROUP = 8
 
 
 def kernel_takes(P: int, N: int, chunk: int) -> bool:
-    """Whether the CUDA kernels have an instance for head_dim ``P``, state
-    ``N`` and ``chunk``; the wrapper raises on anything else."""
-    return (P in HEAD_DIMS and N in STATE_DIMS and chunk % TILE == 0
-            and TILE <= chunk <= 4 * TILE)
+    """Whether the CUDA kernels take head_dim ``P``, state ``N`` and
+    ``chunk`` (any chunk >= 1, run at ``kernel_chunk``); the wrapper raises
+    on anything else."""
+    return P in HEAD_DIMS and N in STATE_DIMS and chunk >= 1
+
+
+def kernel_chunk(chunk: int) -> int:
+    """The chunk a CUDA call runs for a requested ``chunk``: a whole
+    number of the kernels' 64-row tiles, 1 to 4 of them (64 below 64, else
+    the largest multiple of 64 not above it, at most 256)."""
+    return min(4 * TILE, max(TILE, chunk // TILE * TILE))
+
+
+def padded_state(N: int) -> int:
+    """The kernels' state columns for state ``N``: 64 or 128."""
+    return TILE if N <= TILE else 2 * TILE
 
 
 def tf32_scratch(B: int, L: int, N: int) -> dict:
@@ -104,33 +126,36 @@ def tf32_scratch_bytes(B: int, L: int, N: int) -> int:
     return sum(4 * math.prod(s) for s in tf32_scratch(B, L, N).values())
 
 
-def tf32_bwd_scratch(B: int, L: int, H: int, N: int, chunk: int) -> dict:
+def tf32_bwd_scratch(B: int, L: int, H: int, N: int, chunk: int,
+                     P: int = 64) -> dict:
     """The shapes of the tf32x3 backward's scratch, by name, in the order
-    its C launch function takes them (``cum`` float64, the rest fp32):
-    the pre-pass's splits of dy, transposed [B,H,P,2·L16] (L16 = L rounded
-    up to 16), and of Bm and Cm, direct pairs [2,B,L,N] and transposed
-    [B,N,2·L16]; the state kernel's cum, its S_prevᵀ, dS and dSᵀ as split
-    64 x 64 items [B,H,nc,N/64,2,64,64] and ⟨dS, S_prev⟩; ddt's row terms;
-    the head groups' dB and dC partials; the (b, h) shares of dA."""
-    P = HEAD_DIMS[0]
+    its C launch function takes them (``cum`` float64, the rest fp32), for
+    head_dim ``P``, state ``N`` and the kernel's ``chunk``: the pre-pass's
+    splits at the true widths, of dy transposed [B,H,P,2·L16] (L16 = L
+    rounded up to 16), and of Bm and Cm, direct pairs [2,B,L,N] and
+    transposed [B,N,2·L16]; at the padded state NP (``padded_state``) the
+    state kernel's cum, its S_prevᵀ, dS and dSᵀ as split 64 x 64 items
+    [B,H,nc,NP/64,2,64,64] and ⟨dS, S_prev⟩; ddt's row terms; the head
+    groups' dB and dC partials [B,ng,L,NP]; the (b, h) shares of dA."""
+    NP = padded_state(N)
     nc = -(-L // chunk)
     Lp, L16 = nc * chunk, -(-L // 16) * 16
     ng = -(-H // BWD_HEAD_GROUP)
-    items = (B, H, nc, N // TILE, 2, TILE, TILE)
+    items = (B, H, nc, NP // TILE, 2, TILE, TILE)
     return {"dyt": (B, H, P, 2 * L16),
             "bm_pair": (2, B, L, N), "cm_pair": (2, B, L, N),
             "bmt": (B, N, 2 * L16), "cmt": (B, N, 2 * L16),
             "cum": (B, H, Lp), "spt": items, "ds": items, "dst": items,
             "dss": (B, H, nc), "rowe": (B, H, Lp), "ddi": (B, H, Lp),
-            "dds": (B, H, Lp), "db_part": (B, ng, L, N),
-            "dc_part": (B, ng, L, N), "da_part": (B, H)}
+            "dds": (B, H, Lp), "db_part": (B, ng, L, NP),
+            "dc_part": (B, ng, L, NP), "da_part": (B, H)}
 
 
-def tf32_bwd_scratch_bytes(B: int, L: int, H: int, N: int,
-                           chunk: int) -> int:
+def tf32_bwd_scratch_bytes(B: int, L: int, H: int, N: int, chunk: int,
+                           P: int = 64) -> int:
     """Bytes of ``tf32_bwd_scratch`` (``cum`` 8 a value, the rest 4)."""
     return sum((8 if name == "cum" else 4) * math.prod(s) for name, s in
-               tf32_bwd_scratch(B, L, H, N, chunk).items())
+               tf32_bwd_scratch(B, L, H, N, chunk, P).items())
 
 
 def work(B: int, L: int, H: int, P: int, N: int, chunk: int = 256,
@@ -371,8 +396,8 @@ def check_operands(x, dt, A, Bm, Cm, chunk=256, initial_state=None) -> str:
                          f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if not kernel_takes(P, N, chunk):
         raise ValueError(f"ssd_scan kernels take head_dim {HEAD_DIMS}, state "
-                         f"{STATE_DIMS} and chunk 64, 128, 192 or 256, not "
-                         f"P {P}, N {N}, chunk {chunk}")
+                         f"{STATE_DIMS} and a chunk >= 1, not P {P}, N {N}, "
+                         f"chunk {chunk}")
     r = route(x.dtype)
     if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan kernels take x/Bm/Cm of one dtype; got "
@@ -407,6 +432,7 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
                          f"{x.device}")
     B, L, H, P = x.shape
     N = Bm.shape[-1]
+    chunk = kernel_chunk(chunk)
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     init = None if initial_state is None else ptr(initial_state)
@@ -421,9 +447,11 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
 
 
 def _work_of(x, Bm, chunk, initial_state, **kw) -> dict:
+    """The work of a call at the chunk the kernels run."""
     B, L, H, P = x.shape
-    return work(B, L, H, P, Bm.shape[-1], chunk, x.element_size(),
-                initial_state=initial_state is not None, **kw)
+    return work(B, L, H, P, Bm.shape[-1], kernel_chunk(chunk),
+                x.element_size(), initial_state=initial_state is not None,
+                **kw)
 
 
 def ssd_meta(x, dt, A, Bm, Cm, chunk=256, initial_state=None):
@@ -483,6 +511,8 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan kernels take CUDA tensors, not "
                          f"{x.device}")
+    chunk = kernel_chunk(chunk)
+    NP = padded_state(N)
     nc = -(-L // chunk) if L else 0
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
@@ -496,8 +526,8 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
         # the scratch stays referenced until the launch is queued
         scratch = [torch.empty(shape, dtype=torch.float64 if name == "cum"
                                else torch.float32, device=x.device)
-                   for name, shape in tf32_bwd_scratch(B, L, H, N,
-                                                       chunk).items()]
+                   for name, shape in tf32_bwd_scratch(B, L, H, N, chunk,
+                                                       P).items()]
         BWD_KERNELS[r].launch(*args, *(ptr(t) for t in scratch), B, L, H, P,
                               N, chunk, BWD_HEAD_GROUP, stream_ptr(x.device))
         return dx, ddt, dA, dBm, dCm
@@ -505,14 +535,14 @@ def ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, d_final_state=None, chunk=256,
     ng = -(-H // BWD_HEAD_GROUP)
     cum = torch.empty((B, H, Lp), dtype=torch.float64, device=x.device)
     # the chunk-start states and the chunk-end cotangents as bf16 hi and lo
-    # tiles in the kernels' swizzled layout
-    sp16 = torch.empty((B, H, nc, 2, P, N), dtype=torch.bfloat16,
+    # tiles in the kernels' swizzled layout, at the padded widths
+    sp16 = torch.empty((B, H, nc, 2, TILE, NP), dtype=torch.bfloat16,
                        device=x.device)
     ds16 = torch.empty_like(sp16)
     dss = torch.empty((B, H, nc), **f32)              # <dS, S_prev>
     rowe, ddi, dds = torch.empty((3, B, H, Lp), **f32)  # ddt's row terms
-    dB_part = torch.empty((B, ng, L, N), **f32)       # per-group partials
-    dC_part = torch.empty((B, ng, L, N), **f32)
+    dB_part = torch.empty((B, ng, L, NP), **f32)      # per-group partials
+    dC_part = torch.empty((B, ng, L, NP), **f32)
     dA_part = torch.empty((B, H), **f32)              # per-(b, h) partials
     BWD_KERNELS[r].launch(*args, ptr(cum), ptr(sp16), ptr(ds16), ptr(dss),
                           ptr(rowe), ptr(ddi), ptr(dds), ptr(dB_part),

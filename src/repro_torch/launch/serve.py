@@ -8,7 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama-3.2-vision-11b      # vision embeddings: ones (a stub)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
-        --reduced --device cpu
+        --reduced                        # the JAX package's reduced config
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
         --reduced --device cpu
 
@@ -31,10 +31,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
-                    help="the arch's reduced config; the reduced configs "
-                    "run only with --device cpu, since the flash-attention "
-                    "kernels take head_dim 64, 80 or 128 and the SSD-scan "
-                    "kernel head_dim 64, state 64 or 128 and chunk 64-256")
+                    help="the arch's reduced config (the JAX package's, "
+                    "on the card or with --device cpu)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

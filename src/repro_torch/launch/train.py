@@ -41,10 +41,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
-                    help="the arch's reduced config; it trains only with "
-                    "--device cpu, since the flash-attention kernels take "
-                    "head_dim 64, 80 or 128 and the SSD-scan kernels head_dim "
-                    "64, state 64 or 128 and chunk 64-256")
+                    help="the arch's reduced config (the JAX package's, "
+                    "on the card or with --device cpu)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

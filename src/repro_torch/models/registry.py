@@ -4,9 +4,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs import ModelConfig, scale
+from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
-from repro_torch.kernels.ssd_scan.ops import kernel_takes
+from repro_torch.kernels.ssd_scan.ops import HEAD_DIMS as HEAD_DIMS_SSD
+from repro_torch.kernels.ssd_scan.ops import STATE_DIMS, kernel_takes
 from repro_torch.models.layers import Policy
 from repro_torch.models.ssm_lm import MambaLM
 from repro_torch.models.transformer import AttnImpl, FAMILIES, TransformerLM
@@ -39,34 +40,20 @@ def build_model(cfg: ModelConfig, policy: Policy = Policy(), device="cuda",
 
 
 def kernel_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why the card's kernels cannot run ``cfg``'s model (the reduced
-    configs' widths), or None: the SSD-scan kernels for the ssm and hybrid
-    families, flash attention for the transformer and hybrid ones."""
+    """Why the card's kernels cannot run ``cfg``'s model, or None: the
+    SSD-scan kernels for the ssm and hybrid families, flash attention for
+    the transformer and hybrid ones.  None for every config of the zoo,
+    published and reduced; a config scaled to a width no kernel takes is
+    refused here, before anything is built."""
     if cfg.family in ("ssm", "hybrid") and not kernel_takes(
             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk):
-        return (f"the SSD-scan kernel has no instance for head_dim "
-                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
-                f"{cfg.ssm_chunk}")
+        return (f"the SSD-scan kernels take head_dim {HEAD_DIMS_SSD} and "
+                f"state {STATE_DIMS}, not head_dim {cfg.ssm_head_dim}, "
+                f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
     if cfg.family in (*FAMILIES, "hybrid") and cfg.head_dim not in HEAD_DIMS:
         return (f"the flash-attention kernels take head_dim {HEAD_DIMS}, "
                 f"not {cfg.head_dim}")
     return None
-
-
-def card_config(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` if the card's kernels take it, else ``cfg`` with the widths
-    they refuse raised to the smallest they take (head_dim 64; the SSD
-    scan's head_dim 64, state 64 and chunk 64): the reduced configs, cut
-    for the CPU, as the card runs them."""
-    if kernel_refusal(cfg) is None:
-        return cfg
-    kw = {}
-    if cfg.family in (*FAMILIES, "hybrid") and cfg.head_dim not in HEAD_DIMS:
-        kw["head_dim"] = 64
-    if cfg.family in ("ssm", "hybrid") and not kernel_takes(
-            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk):
-        kw.update(ssm_head_dim=64, ssm_state=64, ssm_chunk=64)
-    return scale(cfg, **kw)
 
 
 def modality_inputs(cfg: ModelConfig, batch: int) -> dict:

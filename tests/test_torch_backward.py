@@ -176,13 +176,14 @@ def test_fused_bwd_ref_matches_autograd(rng, with_dh):
 
 
 def test_backward_wrappers_refuse_what_their_kernels_do_not_take():
-    """CPU tensors, head_dim 16 and float16 never reach a launch."""
+    """CPU tensors, head_dim 24 and float16 never reach a launch (head_dim
+    16, the reduced configs', is taken since the kernels widened)."""
     q = torch.zeros(1, 8, 2, 64)
     k = torch.zeros(1, 8, 1, 64)
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         attention_bwd_cuda(q, k, k, q, q, lse)
-    q16, k16 = q[..., :16].contiguous(), k[..., :16].contiguous()
+    q16, k16 = q[..., :24].contiguous(), k[..., :24].contiguous()
     with pytest.raises(ValueError, match="head_dim"):
         attention_bwd_cuda(q16, k16, k16, q16, q16, lse)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -105,7 +105,8 @@ def test_fused_ref_is_the_unfused_math(rng):
 def test_wrappers_refuse_other_devices(op, monkeypatch):
     """Only CPU tensors take the plain version.  Meta tensors take the
     meta route: the kernel's own checks, refusing what the kernel refuses
-    (here a width it has no instance for), and empty meta outputs, with
+    (here a width it has no instance for: flash head_dim 24, the SSD scan's
+    chunk 0), and empty meta outputs, with
     neither a launch nor the plain version; CUDA tensors launch or raise
     (``test_attention_cuda_refuses_what_the_kernels_do_not_take``)."""
     import repro_torch.kernels.flash_attention.ops as fa_ops
@@ -122,7 +123,7 @@ def test_wrappers_refuse_other_devices(op, monkeypatch):
         y, h = fused_residual_rmsnorm(x, x, torch.empty(8, device="meta"))
         assert y.is_meta and h.is_meta and y.shape == h.shape == x.shape
     elif op == "flash":
-        q = torch.empty(1, 4, 2, 16, device="meta")
+        q = torch.empty(1, 4, 2, 24, device="meta")
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention(q, q, q)
         q = torch.empty(1, 4, 2, 64, device="meta")
@@ -134,7 +135,7 @@ def test_wrappers_refuse_other_devices(op, monkeypatch):
         args = (torch.empty(1, 4, 2, device="meta"),
                 torch.empty(2, device="meta"), bm, bm)
         with pytest.raises(ValueError, match="chunk"):
-            ssd_scan(x, *args, chunk=100)
+            ssd_scan(x, *args, chunk=0)
         y, state = ssd_scan(x, *args, chunk=256)
         assert y.is_meta and y.shape == x.shape
         assert state.shape == (1, 2, 64, 128)
@@ -223,11 +224,13 @@ def test_attention_cuda_refuses_what_the_kernels_do_not_take(case):
     kv = torch.zeros(1, 8, 2, 64, dtype=bf)
     args, err, match = (q, kv, kv), ValueError, None
     if case in ("hd16", "hd96"):
+        # head_dim 16 (the reduced configs') is taken: only the CPU
+        # tensors are refused; 96 is taken by no kernel
         hd = int(case[2:])
         args = (torch.zeros(1, 8, 4, hd, dtype=bf),
                 torch.zeros(1, 8, 2, hd, dtype=bf),
                 torch.zeros(1, 8, 2, hd, dtype=bf))
-        match = "head_dim"
+        match = "head_dim" if hd == 96 else "CUDA tensors"
     elif case == "float16":
         args, err, match = (q.half(), kv.half(), kv.half()), TypeError, "float16"
     elif case == "mixed":

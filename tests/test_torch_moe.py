@@ -409,9 +409,9 @@ def test_forward_launches_at_full_width():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_is_taken_on_the_card(arch):
-    """hd 128 has flash kernels; the reduced configs' 16 is refused."""
+    """hd 128 has flash kernels, and so has the reduced configs' 16."""
     assert kernel_refusal(get_config(arch)) is None
-    assert "not 16" in kernel_refusal(get_reduced(arch))
+    assert kernel_refusal(get_reduced(arch)) is None
 
 
 @pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
@@ -432,11 +432,11 @@ def test_launchers_run_reduced_moe_on_the_cpu_only(monkeypatch, capsys,
                 "--flare-log", str(tmp_path / "t.jsonl")]
         done = "final loss:"
     monkeypatch.setattr(sys, "argv", argv)
-    if ok:
+    if ok or torch.cuda.is_available():
+        # the card takes the reduced config as it is
         launch.main()
         assert done in capsys.readouterr().out
     else:
-        with pytest.raises(SystemExit) as e:
+        # no card here: Server or Trainer refuses to build on CUDA
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             launch.main()
-        assert e.value.code == 2
-        assert "not 16" in capsys.readouterr().err

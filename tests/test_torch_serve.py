@@ -286,36 +286,35 @@ def test_launcher_serves_reduced_mamba_on_the_cpu_only(monkeypatch, capsys,
     monkeypatch.setattr(sys, "argv", [
         "serve", "--arch", "mamba2-780m", "--reduced", "--device", device,
         "--batch", "1", "--prompt-len", "20", "--new-tokens", "2"])
-    if ok:
+    if ok or torch.cuda.is_available():
+        # the card takes the reduced config as it is
         launch.main()
         assert "generated (1, 22) tokens" in capsys.readouterr().out
     else:
-        with pytest.raises(SystemExit) as e:
+        # no card here: the Server refuses to build on CUDA
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             launch.main()
-        assert e.value.code == 2
-        assert "--device cpu" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("device, ok", [("cuda", False), ("cpu", True)])
 def test_launcher_serves_reduced_llama_on_the_cpu_only(monkeypatch, capsys,
                                                         device, ok):
     """The reduced llama has head_dim 16, which the flash-attention kernels
-    do not take: on the card the launcher refuses it before it builds a
-    model."""
+    take: it serves on the card as on the CPU; without a card ``Server``
+    refuses ``--device cuda`` before it builds a model."""
     from repro_torch.launch import serve as launch
 
     monkeypatch.setattr(sys, "argv", [
         "serve", "--arch", "llama3.2-1b", "--reduced", "--device", device,
         "--batch", "1", "--prompt-len", "20", "--new-tokens", "2"])
-    if ok:
+    if ok or torch.cuda.is_available():
+        # the card takes the reduced config as it is
         launch.main()
         assert "generated (1, 22) tokens" in capsys.readouterr().out
     else:
-        with pytest.raises(SystemExit) as e:
+        # no card here: Server or Trainer refuses to build on CUDA
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             launch.main()
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "head_dim (64, 80, 128), not 16" in err and "--device cpu" in err
 
 
 def test_builder_names_nvcc_when_missing(monkeypatch, tmp_path):

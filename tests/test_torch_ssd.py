@@ -146,10 +146,11 @@ def test_meta_matches_jax(chunk):
 
 
 @pytest.mark.parametrize("cfg, takes", [(get_config("mamba2-780m"), True),
-                                        (get_reduced("mamba2-780m"), False)])
+                                        (get_reduced("mamba2-780m"), True)])
 def test_kernel_takes_the_full_config_only(cfg, takes):
-    """The CUDA kernel has an instance for the full mamba2-780m (P 64,
-    N 128, chunk 256), not for the reduced one (P 16, N 16, chunk 16)."""
+    """The CUDA kernels take the full mamba2-780m (P 64, N 128, chunk
+    256) and, since they widened, the reduced one (P 16, N 16, chunk 16,
+    run at the kernels' chunk 64)."""
     assert kernel_takes(cfg.ssm_head_dim, cfg.ssm_state,
                         cfg.ssm_chunk) is takes
 
@@ -301,13 +302,15 @@ def test_ssd_cuda_refuses_what_the_kernels_do_not_take(case):
     x, dt, A, Bm, Cm = _operands()
     kw, err, match = {}, ValueError, None
     if case == "P16":
+        # head_dim 16, state 32 and chunk 100 are taken (the kernels run the
+        # chunk at 64): only the CPU tensors are refused
         x, dt, A, Bm, Cm = _operands(P=16)
-        match = "head_dim"
+        match = "CUDA tensors"
     elif case == "N32":
         x, dt, A, Bm, Cm = _operands(N=32)
-        match = "state"
+        match = "CUDA tensors"
     elif case == "chunk100":
-        kw, match = {"chunk": 100}, "chunk"
+        kw, match = {"chunk": 100}, "CUDA tensors"
     elif case == "float16":
         x, dt, A, Bm, Cm = _operands(torch.float16)
         err, match = TypeError, "float16"

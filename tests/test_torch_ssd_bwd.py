@@ -435,13 +435,15 @@ def test_ssd_bwd_cuda_refuses_what_the_kernel_does_not_take(case):
     x, dt, A, Bm, Cm = _operands()
     dy, kw, err, match = torch.zeros_like(x), {}, ValueError, None
     if case == "P16":
+        # head_dim 16, state 32 and chunk 100 are taken (the kernels run the
+        # chunk at 64): only the CPU tensors are refused
         x, dt, A, Bm, Cm = _operands(P=16)
-        dy, match = torch.zeros_like(x), "head_dim"
+        dy, match = torch.zeros_like(x), "CUDA tensors"
     elif case == "N32":
         x, dt, A, Bm, Cm = _operands(N=32)
-        match = "state"
+        match = "CUDA tensors"
     elif case == "chunk100":
-        kw, match = {"chunk": 100}, "chunk"
+        kw, match = {"chunk": 100}, "CUDA tensors"
     elif case == "float16":
         x, dt, A, Bm, Cm = _operands(torch.float16)
         dy, err, match = torch.zeros_like(x), TypeError, "float16"

@@ -1341,7 +1341,10 @@ def check_ssd(gen, device):
 # the SSD backward: (B, L, H, N, chunk), dtype, with a final-state
 # cotangent, with an initial state: the training shape on both instances,
 # N 64, ragged L at chunk 256 and 128, H 12 and 20 (the last head group of
-# 8 cut short) on both routes, zamba2's training shape (H 80, N 64) on both
+# 8 cut short) on both routes, zamba2's training shape (H 80, N 64) on both,
+# and the fp32 route at N 64, chunk 64 over 16 chunks of L 1024, where the
+# states carried across the chunks at |A| 1 reach ddt
+# (tools/ssd_bwd_chunk_check.py holds both fp32 routes there to float64)
 SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((8, 512, 48, 128, 256), "float32", False, False),
                  ((2, 512, 16, 64, 256), "bfloat16", False, False),
@@ -1355,7 +1358,8 @@ SSD_BWD_CASES = [((8, 512, 48, 128, 256), "bfloat16", False, False),
                  ((2, 333, 20, 64, 128), "float32", True, True),
                  ((2, 333, 20, 64, 128), "bfloat16", False, True),
                  ((8, 512, 80, 64, 256), "bfloat16", False, False),
-                 ((8, 512, 80, 64, 256), "float32", False, False)]
+                 ((8, 512, 80, 64, 256), "float32", False, False),
+                 ((8, 1024, 48, 64, 64), "float32", False, False)]
 # the training paths' SSD shapes, each timed on both routes: (H, N) of
 # mamba2-780m (the summary line's) and of zamba2-2.7b (its ``at_zamba2``)
 SSD_BWD_TIMED = [(48, 128), (80, 64)]
@@ -4203,13 +4207,18 @@ CP_MESH = (1, PAR_WORLD)
 # the CP prefill's logits against the one-process prefill's (the flash
 # kernel), bf16 serving: max |got - want| at most this share of max |want|
 SERVE_BF16_SCALED = 5e-2
-# each path's traced daemon step; the step before it is its warm-up's
-PAR_STEPS = {"pipeline": 1, "ep (1, 4)": 3, "ep (2, 2)": 5,
-             "ep (2, 2) cf 0.5": 7, "cp": 9}
-# each path's arch, for the kernels line's labels
+# each path's traced daemon step, in the order they run: a forward path's
+# step follows its warm-up's, and its backward's (no warm-up) follows it
+PAR_STEPS = {"pipeline": 1, "pipeline bwd": 2, "ep (1, 4)": 4,
+             "ep (1, 4) bwd": 5, "ep (2, 2)": 7, "ep (2, 2) bwd": 8,
+             "ep (2, 2) cf 0.5": 10, "ep (2, 2) cf 0.5 bwd": 11, "cp": 13,
+             "cp bwd": 14}
+# each path's arch by the first word of its tag, for the kernels line
 PAR_ARCHS = {"pipeline": PIPE_ARCH, "cp": CP_ARCH}
 PAR_KERNELS = ("flash_attention[wgmma]", "fused_residual_rmsnorm",
-               "ring_combine")
+               "ring_combine", "flash_attention_bwd[wgmma]",
+               "fused_residual_rmsnorm_bwd")
+# the traced spans of the first three (the backward kernels have none)
 PAR_SPANS = ("flash_attention", "fused_residual_rmsnorm", "ring_combine")
 
 
@@ -4377,16 +4386,248 @@ def par_sync(device):
         torch.cuda.synchronize(device)
 
 
+def par_launches(**counts) -> dict:
+    """A path's expected launches a rank by ``PAR_KERNELS`` label, 0 where
+    none is named (a keyword is its label with "[wgmma]" as "_wgmma")."""
+    out = {k: counts.pop(k.replace("[", "_").rstrip("]"), 0)
+           for k in PAR_KERNELS}
+    if counts:
+        fail(f"par_launches: no kernel {sorted(counts)}")
+    return out
+
+
 def par_counts(reset: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_norm import ops as fn
     from repro_torch.kernels.ring_reduce import ops as ring
     ks = dict(zip(PAR_KERNELS, (fa.KERNELS["wgmma"], fn.KERNEL,
-                                ring.KERNEL)))
+                                ring.KERNEL, fa.BWD_KERNELS["wgmma"],
+                                fn.BWD_KERNEL)))
     out = {label: k.launches for label, k in ks.items()}
     if reset:
         for k in ks.values():
             k.launches = 0
+    return out
+
+
+def par_cotangent(shape: tuple, seed: int, device):
+    """A seeded bf16 output gradient of values k / 32, k in [-32, 32]: six
+    significant bits at most, so that the ring's sum of S <= 4 copies of
+    it scaled by 1 / S (the seeds of a loss replicated over S stages) is
+    exact, and every stage takes exactly this gradient, as the oracle
+    does."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-32, 33, shape, generator=gen, device=device).to(
+        torch.bfloat16) / 32
+
+
+def par_peak(device, reset: bool = False):
+    """The card's peak allocated bytes since the last reset (None off the
+    card)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+# an oracle's daemon step: its path's plus this, so that the spans of the
+# oracle's kernels never count as the path's
+PAR_ORACLE_STEP = 100
+
+
+def rank_turns(fn, daemon, step: int):
+    """``fn()`` on each rank in turn, one at a time on the card, the world
+    group's barrier between turns, so that an oracle's peak memory is one
+    rank's; each turn in daemon step ``step``.  Returns this rank's
+    result."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            daemon.step_begin(step)
+            daemon.set_stack([f"step_{step}", "oracle"])
+            out = fn()
+            daemon.step_end()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def grad_report(got, want) -> dict:
+    """A gradient against its oracle, raising nothing: bitwise equality,
+    the max abs error, the elements outside the bf16 tolerance at the
+    gradient's own scale (``TOLS``' atol times the oracle's max |.|, plus
+    its rtol times |want|: a bf16 gradient of magnitude 16-32 has an ulp
+    of 0.125, and a replicated parameter's is a sum of bf16 shares, each
+    rounded), the max abs error as a share of the oracle's max |.|, and
+    whether it is finite."""
+    import torch
+    tol = TOLS["bfloat16"]
+    got_f, want_f = got.reshape(-1), want.reshape(-1)
+    top = float(want_f.abs().max())
+    err, outside, finite = 0.0, 0, True
+    step = 1 << 26       # elements at a time: the fp32 copies stay small
+    for i in range(0, got_f.numel(), step):
+        g, w = got_f[i:i + step].float(), want_f[i:i + step].float()
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        outside += int((diff > tol["atol"] * top
+                        + tol["rtol"] * w.abs()).sum())
+        finite = finite and bool(g.isfinite().all())
+    return dict(equal=bool(torch.equal(got, want)), max_abs_err=err,
+                outside_bf16=outside, scaled=err / max(top, 1e-30),
+                finite=finite, shape=list(got.shape))
+
+
+def pipe_grad_oracle(seed: int, device, stage: int, per: int, c) -> dict:
+    """The pipeline's gradient for one stage, from llama3.2-1b's 16 blocks
+    in order, one microbatch at a time (the port's ``Block`` modules
+    through ``block_apply``, nothing of ``parallel/pipeline.py``), each
+    microbatch's output gradient ``c[mb]``: every parameter of the stage's
+    layers by its stacked name, [1, per, ...] (``nxt`` the next layer's
+    first norm, or the final norm), and the microbatches'.  The
+    microbatches' parameter gradients add up M - 1 first, as the
+    pipeline's reverse schedule adds them."""
+    import torch
+    from repro_torch.models.transformer import block_apply
+    cfg, state, a = pipe_inputs(seed, device)
+    L = cfg.num_layers
+    blocks = [par_block(state, cfg, prefix=f"layers.{i}.") for i in range(L)]
+    nxts = [state[f"layers.{i + 1}.ln1.scale"] for i in range(L - 1)] + [
+        state["final_norm.scale"]]
+    mine = range(stage * per, (stage + 1) * per)
+    leaves = {}
+    for i in mine:
+        for n, p in blocks[i].named_parameters():
+            if n != "ln1.scale":       # the layer's input comes normed
+                leaves[n, i] = p.requires_grad_()
+        nxts[i] = leaves["nxt", i] = nxts[i].detach().requires_grad_()
+    keys = list(leaves)
+    sums = dict.fromkeys(keys)
+    gx = torch.zeros_like(a)
+    positions = torch.arange(PIPE_S, device=device)[None, :]
+    for mb in reversed(range(PIPE_M)):
+        am = a[mb].detach().requires_grad_()
+        h, x = am[0], am[1]
+        for i, blk in enumerate(blocks):
+            h, x = block_apply(blk, h, x, positions, cfg, lambda w: w,
+                               nxts[i], i)
+        gs = torch.autograd.grad(torch.stack([h, x]),
+                                 [leaves[k] for k in keys] + [am], c[mb])
+        for k, g in zip(keys, gs):
+            sums[k] = g if sums[k] is None else sums[k] + g
+        gx[mb] = gs[-1]
+    out = {n: torch.stack([sums[n, i] for i in mine])[None]
+           for n in {k[0] for k in keys}}
+    out["x"] = gx
+    return out
+
+
+def ep_cotangents(seed: int, device) -> tuple:
+    """The EP block's output gradients (of h and x) [EP_B, EP_S, D]."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    shape = (EP_B, EP_S, get_config(EP_ARCH).d_model)
+    return tuple(torch.randn(shape, generator=gen, device=device,
+                             dtype=torch.bfloat16) for _ in range(2))
+
+
+def ep_spec(name: str):
+    """How a rank of an EP path holds a block tensor: the experts' weights
+    split over the model axis, every other parameter whole."""
+    from repro_torch.models.moe import EXPERT_WEIGHTS
+    from repro_torch.parallel.sharding import Spec
+    mod, _, leaf = name.rpartition(".")
+    return Spec("model") if (mod == "moe" and leaf in EXPERT_WEIGHTS) \
+        else Spec()
+
+
+def ep_grad_oracle(seed: int, device, cf, coords, e_loc: int,
+                   dp: int) -> dict:
+    """The EP block's gradient oracle for the rank at ``coords``: the local
+    block, all 16 experts, on each data shard's tokens, with the shard's
+    output gradients, its parameter gradients summed over the shards in
+    order (its experts' block cut out) and the rank's shard's (h, x)
+    gradients."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import block_apply
+    cfg, state, nxt, h, x = ep_inputs(seed, device, cf)
+    blk = par_block(state, cfg)
+    for p in blk.parameters():
+        p.requires_grad_()
+    nxt.requires_grad_()
+    ch, cx = ep_cotangents(seed, device)
+    positions = torch.arange(EP_S, device=device)[None, :]
+    rows = EP_B // dp
+    d, m = coords
+    out = {}
+    for dd in range(dp):
+        hs, xs = (t[dd * rows:(dd + 1) * rows].detach().requires_grad_()
+                  for t in (h, x))
+        yh, yx = block_apply(blk, hs, xs, positions, cfg, lambda w: w, nxt,
+                             0)
+        ((yh * ch[dd * rows:(dd + 1) * rows]).sum()
+         + (yx * cx[dd * rows:(dd + 1) * rows]).sum()).backward()
+        if dd == d:
+            out["h"], out["x"] = hs.grad, xs.grad
+    for n, p in blk.named_parameters():
+        if p.grad is not None:
+            leaf = n.rsplit(".", 1)[-1]
+            out[n] = (p.grad[m * e_loc:(m + 1) * e_loc].clone()
+                      if n.startswith("moe.") and leaf in moe.EXPERT_WEIGHTS
+                      else p.grad)
+    out["nxt"] = nxt.grad
+    return out
+
+
+CP_LOSS_ROWS = 512     # the CP loss's head and softmax, rows at a time
+
+
+def cp_loss(model, tokens, labels):
+    """``TransformerLM.loss`` of a dense model (the mean cross-entropy),
+    with the head and its fp32 softmax a block of ``CP_LOSS_ROWS`` rows at
+    a time, each recomputed in the backward (``torch.utils.checkpoint``):
+    the four CP ranks' whole fp32 logits at S 4096 (2.1 GB each, and as
+    much again for their gradient) would not fit the card beside the rest
+    of their backward."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import layers as L
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    h = model._blocks(model._embed(tokens), positions)[0]
+
+    def rows(h_rows, labels_rows):
+        return L.cross_entropy(model._head(h_rows), labels_rows) \
+            * labels_rows.numel()
+    total = sum(checkpoint(rows, h[:, i:i + CP_LOSS_ROWS],
+                           labels[:, i:i + CP_LOSS_ROWS], use_reentrant=False)
+                for i in range(0, S, CP_LOSS_ROWS))
+    return total / labels.numel()
+
+
+def cp_grad_oracle(model, tokens, labels, grads: dict) -> dict:
+    """The CP path's gradient against the one-process model's on the same
+    weights (the model's attention on its default route, the flash
+    kernel, no mesh): ``grad_report`` of each parameter; the model's own
+    gradients are cleared after."""
+    from repro_torch.models.transformer import AttnImpl
+    saved = model.attn, model.mesh
+    model.attn, model.mesh = AttnImpl(), None
+    try:
+        cp_loss(model, tokens, labels).backward()
+    finally:
+        model.attn, model.mesh = saved
+    out = {n: grad_report(g, dict(model.named_parameters())[n].grad)
+           for n, g in grads.items()}
+    for p in model.parameters():
+        p.grad = None
     return out
 
 
@@ -4426,14 +4667,24 @@ def parallel_rank(ctx, seed: int) -> dict:
     each path and read just after."""
     import hashlib
 
+    import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.parallel.mesh import make_mesh
     from repro_torch.models import moe
     from repro_torch.models.transformer import block_apply
     from repro_torch.parallel import pipeline as pp
+    from repro_torch.parallel.sharding import Spec, replicas, sum_replicated
 
     dev, daemon, out = ctx.device, ctx.daemon, {}
+    # autograd's first call with an output gradient imports its shape
+    # checks and starts the device's autograd thread: seconds on the card's
+    # host, which the pipeline's reverse schedule would pay on each stage
+    # in turn (on an H100's host its first backward took 20.7 s against
+    # 0.9 s after, tools/pipeline_bwd_profile.py); every rank pays it here
+    # at once
+    w = torch.ones(1, device=dev, requires_grad=True)
+    torch.autograd.grad(w * 2, w, torch.ones_like(w))
     pipe_mesh = make_mesh((PIPE_STAGES,), ("stage",))
     ep_meshes = {}
     for shape, _ in (*EP_CASES.values(), (CP_MESH, None)):
@@ -4476,7 +4727,39 @@ def parallel_rank(ctx, seed: int) -> dict:
         sha=hashlib.sha256(bits(outs).tobytes()).hexdigest(),
         outs=bits(outs) if ctx.rank == 0 else None,
         finite=bool(outs.isfinite().all()))
-    del block, outs, a
+    del outs
+
+    # its backward: the stage's block and the microbatches as leaves, the
+    # loss the same on every stage, so seeded with 1 / S
+    for v in block.values():
+        v.requires_grad_()
+    a.requires_grad_()
+    c = par_cotangent(tuple(a.shape), seed + 5, dev)
+
+    def pipe_backward():
+        o = pp.pipeline_apply(fn, block, a, mesh)
+        ((o * c).sum() / replicas(Spec(), mesh)).backward()
+        return sum_replicated(a.grad, Spec(), mesh)
+    par_peak(dev, reset=True)
+    ga, wall, counts = run(PAR_STEPS["pipeline bwd"], "pipeline_apply "
+                           "backward", pipe_backward)
+    peak = par_peak(dev)
+    stage = mesh.axis_index("stage")
+    grads = {k: v.grad for k, v in block.items()}
+    grads["x"] = ga
+    del pipe_backward, block, a, ga
+    t0 = time.perf_counter()
+    per = cfg.num_layers // PIPE_STAGES
+    report = rank_turns(
+        lambda: {k: grad_report(grads[k], w) for k, w in
+                 pipe_grad_oracle(seed, dev, stage, per, c).items()},
+        daemon, PAR_ORACLE_STEP + PAR_STEPS["pipeline bwd"])
+    out["pipeline bwd"] = dict(
+        wall_s=wall, launches=counts, grads=report, peak_bytes=peak,
+        oracle_turns_s=time.perf_counter() - t0,
+        grad_bytes=sum(g.numel() * g.element_size()
+                       for k, g in grads.items() if k != "x"))
+    del grads, c
     torch.cuda.empty_cache()
 
     # expert parallelism, one block, on each mesh
@@ -4512,7 +4795,45 @@ def parallel_rank(ctx, seed: int) -> dict:
             sha=hashlib.sha256(bits(yx).tobytes() + bits(yh).tobytes())
             .hexdigest(),
             y=(bits(yh), bits(yx)) if m == 0 else None)
-        del blk, state, yh, yx
+        del yh, yx
+
+        # its backward: the block's parameters, the next norm's scale and
+        # the shard's (h, x) as leaves; the shard's loss is held by its n
+        # model ranks, so seeded with 1 / n
+        for p in blk.parameters():
+            p.requires_grad_()
+        nxt.requires_grad_()
+        h.requires_grad_()
+        x.requires_grad_()
+        ch, cx = (t[d * rows:(d + 1) * rows] for t in ep_cotangents(seed,
+                                                                     dev))
+        specs = {n: ep_spec(n) for n, _ in blk.named_parameters()}
+        specs.update(nxt=Spec(), h=Spec("data"), x=Spec("data"))
+
+        def ep_backward():
+            yh, yx = block_apply(blk, h, x, positions, cfg, lambda w: w, nxt,
+                                 0, mesh=mesh)
+            (((yh * ch).sum() + (yx * cx).sum())
+             / replicas(Spec("data"), mesh)).backward()
+            held = {n: p.grad for n, p in blk.named_parameters()
+                    if p.grad is not None}
+            held.update(nxt=nxt.grad, h=h.grad, x=x.grad)
+            return {n: sum_replicated(g, specs[n], mesh)
+                    for n, g in held.items()}
+        grads, wall, counts = run(PAR_STEPS[tag + " bwd"], "block_apply "
+                                  "backward", ep_backward)
+        del ep_backward, apply, blk, state, h, x, nxt
+        t0 = time.perf_counter()
+        report = rank_turns(lambda: {
+            k: grad_report(grads[k], w) for k, w in ep_grad_oracle(
+                seed, dev, cf, coords, e_loc, mesh.shape["data"]).items()},
+            daemon, PAR_ORACLE_STEP + PAR_STEPS[tag + " bwd"])
+        out[tag + " bwd"] = dict(
+            coords=coords, wall_s=wall, launches=counts, grads=report,
+            oracle_turns_s=time.perf_counter() - t0,
+            sums=[(k, [mesh.shape[a] for a in mesh.axis_names
+                       if a not in specs[k]]) for k in grads])
+        del grads
         torch.cuda.empty_cache()
 
     # context parallelism: the whole model, its attention's rows over the
@@ -4529,7 +4850,34 @@ def parallel_rank(ctx, seed: int) -> dict:
         finite=bool(logits.isfinite().all()),
         sha=hashlib.sha256(bits(logits).tobytes()).hexdigest(),
         logits=bits(logits) if ctx.rank == 0 else None)
-    del model, logits
+    del logits
+
+    # its backward: the mean cross-entropy on seeded labels, the same on
+    # the 4 model ranks, so seeded with 1/4; every parameter whole on each
+    labels = torch.as_tensor(np.random.default_rng(seed + 6).integers(
+        0, model.cfg.vocab_size, (CP_B, CP_S)), device=dev)
+
+    def cp_backward():
+        (cp_loss(model, tokens, labels) / replicas(Spec(), mesh)).backward()
+        return {n: sum_replicated(p.grad, Spec(), mesh)
+                for n, p in model.named_parameters() if p.grad is not None}
+    par_peak(dev, reset=True)
+    grads, wall, counts = run(PAR_STEPS["cp bwd"], "loss backward",
+                              cp_backward)
+    peak = par_peak(dev)
+    del cp_backward
+    for p in model.parameters():
+        p.grad = None
+    t0 = time.perf_counter()
+    report = rank_turns(
+        lambda: cp_grad_oracle(model, tokens, labels, grads), daemon,
+        PAR_ORACLE_STEP + PAR_STEPS["cp bwd"])
+    out["cp bwd"] = dict(
+        coords=mesh.coords(ctx.rank), wall_s=wall, launches=counts,
+        grads=report, peak_bytes=peak, params=len(grads),
+        oracle_turns_s=time.perf_counter() - t0,
+        grad_bytes=sum(g.numel() * g.element_size() for g in grads.values()))
+    del model, grads
     torch.cuda.empty_cache()
     return out
 
@@ -4619,9 +4967,11 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
     a (1, 4) and a (2, 2) mesh, and on the (2, 2) mesh again at a capacity
     factor that drops entries, with the routing and kept entries that the
     ranks' ``moe_apply`` computed equal to the local block's, y within the
-    bf16 tolerance; each path's launches of
-    flash, the fused norm and the ring combine (kernel counts and the
-    ranks' traced spans).  A failing rank fails the phase."""
+    bf16 tolerance, and llama3.2-1b's context-parallel prefill; then each
+    path's backward against its oracle (``parallel_backward_checks``);
+    each path's launches of flash, the fused norm, their backwards and
+    the ring combine (kernel counts, and the ranks' traced spans of the
+    forward kernels).  A failing rank fails the phase."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4663,9 +5013,9 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
         fail("parallel: the stages returned different outputs")
     launches = {"pipeline": {k: sum(p["launches"][k] for p in pipes)
                              for k in PAR_KERNELS}}
-    want_l = {"flash_attention[wgmma]": PIPE_M * per_stage,
-              "fused_residual_rmsnorm": 2 * PIPE_M * per_stage,
-              "ring_combine": PIPE_STAGES - 1}
+    want_l = par_launches(flash_attention_wgmma=PIPE_M * per_stage,
+                          fused_residual_rmsnorm=2 * PIPE_M * per_stage,
+                          ring_combine=PIPE_STAGES - 1)
     for r, p in enumerate(pipes):
         if p["launches"] != want_l:
             fail(f"parallel: pipeline rank {r} launched {p['launches']}, "
@@ -4721,8 +5071,9 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
             dropped.append(int((~o["keep"]).sum()))
         if cf is not None and not sum(dropped):
             fail(f"parallel: {tag} dropped no entry at capacity factor {cf}")
-        want_l = {"flash_attention[wgmma]": 1, "fused_residual_rmsnorm": 2,
-                  "ring_combine": (n - 1) + (dp - 1)}
+        want_l = par_launches(flash_attention_wgmma=1,
+                              fused_residual_rmsnorm=2,
+                              ring_combine=(n - 1) + (dp - 1))
         for x in res:
             if x["launches"] != want_l:
                 fail(f"parallel: {tag} rank at {x['coords']} launched "
@@ -4760,9 +5111,7 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
     cp_err = scaled_err(from_bits(cps[0]["logits"]), oracle["cp"]["logits"],
                         SERVE_BF16_SCALED)
     cp_cfg = get_config(CP_ARCH)
-    want_l = {"flash_attention[wgmma]": 0,
-              "fused_residual_rmsnorm": 2 * cp_cfg.num_layers,
-              "ring_combine": 0}
+    want_l = par_launches(fused_residual_rmsnorm=2 * cp_cfg.num_layers)
     s_loc = CP_S // CP_MESH[1]
     o_bytes = CP_B * CP_S * cp_cfg.num_heads * cp_cfg.head_dim * 2
     for c in cps:
@@ -4804,6 +5153,7 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
         f"{[round(w, 3) for w in cp['walls_s']]}) against "
         f"{cp['oracle_wall_s']:.3f} s in one process; launches a rank "
         f"{cps[0]['launches']}, spans a rank {[s['cp'] for s in spans]}")
+    bwd = parallel_backward_checks(ranks, spans, launches)
     for r, s in enumerate(spans):
         for tag, c in s.items():
             want_s = dict(zip(PAR_SPANS, (ranks[r][tag]["launches"][k]
@@ -4822,8 +5172,143 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
                                               for p in pipes],
                               oracle_weight_bytes=oracle["pipeline"][
                                   "weight_bytes"]),
-                ep=eps, cp=cp, launches=launches, spans=spans, wall_s=wall,
-                oracle_wall_s=oracle_wall, ranks_wall_s=ranks_wall)
+                ep=eps, cp=cp, backward=bwd, launches=launches, spans=spans,
+                wall_s=wall, oracle_wall_s=oracle_wall,
+                ranks_wall_s=ranks_wall)
+
+
+def parallel_backward_checks(ranks: list, spans: list,
+                             launches: dict) -> dict:
+    """The parallel phase's backward paths against their oracles, each
+    computed on its rank in turn: the pipeline's gradients equal
+    (``torch.equal``) to the blocks' in order on every stage, the EP
+    block's within the bf16 tolerance of the local block's on each of
+    ``EP_CASES``, the CP model's within ``SERVE_BF16_SCALED`` of each
+    gradient's largest magnitude in the one-process model (the flash
+    kernel); each path's launches a rank (``launches`` gains each path's
+    sum over the ranks).  Returns the summaries."""
+    from repro_torch.configs import get_config
+
+    def off(report: dict, bad) -> str:
+        return ", ".join(f"{k} (max abs err {g['max_abs_err']:.3e}, "
+                         f"{g['outside_bf16']} outside bf16, scaled "
+                         f"{g['scaled']:.3e})" for k, g in report.items()
+                         if bad(g))
+
+    def counted(tag: str, res: list, want_l: dict):
+        for x in res:
+            if x["launches"] != want_l:
+                fail(f"parallel: {tag} rank at {x.get('coords')} launched "
+                     f"{x['launches']}, not {want_l}")
+        launches[tag] = {k: sum(x["launches"][k] for x in res)
+                         for k in PAR_KERNELS}
+
+    out = {}
+    per_stage = get_config(PIPE_ARCH).num_layers // PIPE_STAGES
+    pb = [r["pipeline bwd"] for r in ranks]
+    for r, p in enumerate(pb):
+        bad = off(p["grads"], lambda g: not (g["equal"] and g["finite"]))
+        if bad:
+            fail(f"parallel: pipeline backward, stage {r}: gradients not "
+                 f"equal to the blocks' in order: {bad}")
+    n_mb = PIPE_M * per_stage
+    counted("pipeline bwd", pb, par_launches(
+        flash_attention_wgmma=n_mb, fused_residual_rmsnorm=2 * n_mb,
+        flash_attention_bwd_wgmma=n_mb, fused_residual_rmsnorm_bwd=2 * n_mb,
+        ring_combine=3 * (PIPE_STAGES - 1)))
+    out["pipeline"] = dict(
+        walls_s=[p["wall_s"] for p in pb],
+        oracle_turns_s=pb[0]["oracle_turns_s"],
+        peak_bytes=[p["peak_bytes"] for p in pb],
+        grad_bytes=[p["grad_bytes"] for p in pb],
+        tensors=len(pb[0]["grads"]))
+    log("parallel", f"{PIPE_ARCH} GPipe backward, {PIPE_STAGES} stages, M "
+        f"{PIPE_M} (the forward with autograd's graph kept a tick, then the "
+        f"reverse schedule's {PIPE_M + PIPE_STAGES - 1} ticks; the loss "
+        f"seeded with 1/{PIPE_STAGES} on each stage, the microbatches' "
+        f"gradient summed over the stages): each stage's "
+        f"{len(pb[0]['grads']) - 1} parameter gradients and the "
+        f"microbatches' equal (torch.equal) to the blocks' in order one "
+        f"microbatch at a time; wall {max(out['pipeline']['walls_s']):.3f} "
+        f"s (ranks {[round(w, 3) for w in out['pipeline']['walls_s']]}); "
+        f"peak memory a rank {out['pipeline']['peak_bytes']} B; gradient "
+        f"bytes a stage {out['pipeline']['grad_bytes']}; the oracles in "
+        f"turns {pb[0]['oracle_turns_s']:.1f} s; launches a rank "
+        f"{pb[0]['launches']}, spans a rank "
+        f"{[s['pipeline bwd'] for s in spans]}")
+    for tag, ((dp, n), cf) in EP_CASES.items():
+        rb = [r[tag + " bwd"] for r in ranks]
+        for x in rb:
+            bad = off(x["grads"], lambda g: g["outside_bf16"]
+                      or not g["finite"])
+            if bad:
+                fail(f"parallel: {tag} backward, rank at {x['coords']}: "
+                     f"gradients outside the bf16 tolerance at their scale "
+                     f"of the local block's: {bad}")
+        summed = sum(size - 1 for _, sizes in rb[0]["sums"]
+                     for size in sizes)
+        counted(tag + " bwd", rb, par_launches(
+            flash_attention_wgmma=1, fused_residual_rmsnorm=2,
+            flash_attention_bwd_wgmma=1, fused_residual_rmsnorm_bwd=2,
+            ring_combine=(n - 1) + (dp - 1) + (n - 1) + summed))
+        grads = [g for x in rb for g in x["grads"].values()]
+        out[tag] = dict(
+            max_abs_err=max(g["max_abs_err"] for g in grads),
+            max_scaled=max(g["scaled"] for g in grads),
+            walls_s=[x["wall_s"] for x in rb],
+            oracle_turns_s=rb[0]["oracle_turns_s"],
+            tensors=len(rb[0]["grads"]))
+        cf_txt = "the config's" if cf is None else cf
+        log("parallel", f"{EP_ARCH} block backward on the (data {dp}, model "
+            f"{n}) mesh, capacity factor {cf_txt}: the "
+            f"shard's loss seeded with 1/{n}, each rank's "
+            f"{len(rb[0]['grads'])} gradients (its experts', the router's, "
+            f"attention's, the norms', h's and x's) summed over the axes "
+            f"they are replicated on, within the bf16 tolerance at their "
+            f"scale of the local block's (|d| <= 5e-2 max|want| + 5e-2 "
+            f"|want|) on each data shard: max abs err "
+            f"{out[tag]['max_abs_err']:.3e}, at most "
+            f"{out[tag]['max_scaled']:.3e} of a gradient's largest "
+            f"magnitude; wall {max(out[tag]['walls_s']):.4f} s (ranks "
+            f"{[round(w, 4) for w in out[tag]['walls_s']]}); the oracles in "
+            f"turns {rb[0]['oracle_turns_s']:.1f} s; launches a rank "
+            f"{rb[0]['launches']}, spans a rank "
+            f"{[s[tag + ' bwd'] for s in spans]}")
+    cb = [r["cp bwd"] for r in ranks]
+    for c in cb:
+        bad = off(c["grads"], lambda g: g["scaled"] > SERVE_BF16_SCALED
+                  or not g["finite"])
+        if bad:
+            fail(f"parallel: cp backward, rank at {c['coords']}: gradients "
+                 f"past {SERVE_BF16_SCALED} of the one-process model's "
+                 f"largest magnitude: {bad}")
+    cfg = get_config(CP_ARCH)
+    L, m = cfg.num_layers, CP_MESH[1]
+    counted("cp bwd", cb, par_launches(
+        fused_residual_rmsnorm=2 * L, fused_residual_rmsnorm_bwd=2 * L,
+        ring_combine=(m - 1) * (L + cb[0]["params"])))
+    worst = max((g["scaled"], k) for k, g in cb[0]["grads"].items())
+    out["cp"] = dict(
+        max_scaled=max(g["scaled"] for c in cb for g in c["grads"].values()),
+        worst=worst[1], walls_s=[c["wall_s"] for c in cb],
+        peak_bytes=[c["peak_bytes"] for c in cb],
+        grad_bytes=cb[0]["grad_bytes"], params=cb[0]["params"],
+        oracle_turns_s=cb[0]["oracle_turns_s"])
+    log("parallel", f"{CP_ARCH} whole, backward of the mean cross-entropy "
+        f"of B {CP_B} x S {CP_S} on seeded labels with attn_impl=\"cp\" on "
+        f"the (data {CP_MESH[0]}, model {m}) mesh (the loss seeded with "
+        f"1/{m}; each rank's rows' output gradient by the all-gather's "
+        f"backward reduce-scatter, then all {cb[0]['params']} parameter "
+        f"gradients, {cb[0]['grad_bytes']} bytes, summed over the model "
+        f"ranks): each within {out['cp']['max_scaled']:.3e} of its largest "
+        f"magnitude in the one-process model (the flash kernel; worst "
+        f"{worst[1]}; criterion <= {SERVE_BF16_SCALED}); wall "
+        f"{max(out['cp']['walls_s']):.3f} s (ranks "
+        f"{[round(w, 3) for w in out['cp']['walls_s']]}); peak memory a rank "
+        f"{out['cp']['peak_bytes']} B; the oracles in turns "
+        f"{cb[0]['oracle_turns_s']:.1f} s; launches a rank "
+        f"{cb[0]['launches']}, spans a rank {[s['cp bwd'] for s in spans]}")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -6916,7 +7401,7 @@ def main():
     case3_jobs[f"{case3['arch']} simulate {SVC_M} train"] = \
         sim_run["service"]["launches"]
     by_path.update(case3_jobs)
-    par_paths = {f"{PAR_ARCHS.get(tag, EP_ARCH)} parallel "
+    par_paths = {f"{PAR_ARCHS.get(tag.split()[0], EP_ARCH)} parallel "
                  f"{tag}, {PAR_WORLD} ranks": n
                  for tag, n in par_run["launches"].items()}
     by_path.update(par_paths)
@@ -6966,10 +7451,10 @@ def main():
     for (route, *key), summary in flash_bwd_sums.items():
         keys = [tuple(k) for r, *k in flash_bwd_sums if r == route]
         count(summary, f"flash_attention_bwd[{route}]",
-              {**trains, **red_train} if route == "wgmma"
+              {**trains, **red_train, **par_paths} if route == "wgmma"
               else {**agree, **red_fp32}, tuple(key), keys)
     count(fused_bwd, "fused_residual_rmsnorm_bwd",
-          {**trains, **red_train, **red_fp32})
+          {**trains, **red_train, **red_fp32, **par_paths})
     count(ssd_bwd, "ssd_scan_bwd[wgmma]", trains)
     count(ssd_bwd_fp32, "ssd_scan_bwd[tf32x3]", agree)
     combine["launches_by_path"] = {

@@ -184,6 +184,12 @@ class PyApiInterceptor:
             self.on_span(f"{info.module}@{info.func}", t0, time.perf_counter())
 
     def _gc_cb(self, phase, info):
+        # a collection on the daemon's own thread is its observer effect,
+        # as its API calls are; and the callbacks' bytecode can hand the
+        # GIL to the workload's thread between the start and stop times,
+        # so that such a span would enclose kernel issues of another step
+        if self._own_thread():
+            return
         if phase == "start":
             self._gc_t0 = time.perf_counter()
         elif phase == "stop" and self._gc_t0 is not None:

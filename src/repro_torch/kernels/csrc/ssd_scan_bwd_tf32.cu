@@ -76,7 +76,8 @@
 //   3. ssd_bwd_tf32_state_kernel, a block (one warpgroup) per (b, h): cum
 //      (fp64, into scratch), then chunks in order S^T = (w o B)^T x, the
 //      chunk-start states, and chunks in reverse dS^T from d_final_state
-//      with (exp(cum) o C)^T dy, by n halves of 64; <dS, S_prev>;
+//      with (exp(cum) o C)^T dy, by n halves of 64, each tile's products
+//      added to the carried state on the FP32 pipes; <dS, S_prev>;
 //   4. ssd_bwd_tf32_dxdb_kernel, a block per (b, 64-row s tile, group of 8
 //      heads), heaviest s tiles first: first the G^T tile of every t >= s of
 //      the chunk, once for the group, into shared memory as the accumulators
@@ -409,16 +410,29 @@ __device__ __forceinline__ void store_items(float* o,
 }
 
 // the tile's products of the state kernel: st[hh] += (f o rows[:, half
-// hh])^T . hdt, hdt the transposed split of x_s or dy_t
+// hh])^T . hdt, hdt the transposed split of x_s or dy_t.  The tile's sum
+// goes into a fresh accumulator that the FP32 pipes add to the state,
+// rounding to nearest: the tensor cores truncate the sums they
+// accumulate, and a state carried in the accumulators took a bias of up
+// to an ulp of the whole state a wgmma, over every tile of every chunk
+// of the sequence; where the decay is slow (|A| 1) the state and that
+// bias grow with L and reach ddt through <dS, S_prev> and the state terms
+// (tools/ssd_bwd_tf32_precision.py)
 template <int N>
 __device__ __forceinline__ void state_tile(float (&st)[N / kHalf][32],
                                            const float* hdt, const float* rows,
                                            const float* f) {
 #pragma unroll
-  for (int hh = 0; hh < N / kHalf; ++hh)
-    product<true>(st[hh], hdt, [&](Frag& hi, Frag& lo, int k4) {
+  for (int hh = 0; hh < N / kHalf; ++hh) {
+    float t[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) t[q] = 0.f;
+    product<true>(t, hdt, [&](Frag& hi, Frag& lo, int k4) {
       state_a(hi, lo, rows, f, hh * kHalf, k4);
     });
+#pragma unroll
+    for (int q = 0; q < 32; ++q) st[hh][q] += t[q];
+  }
 }
 
 // this thread's S^T fragment of a [P,Ns] state at src + st_off (null:

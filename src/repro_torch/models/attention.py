@@ -16,7 +16,7 @@ JAX package has no Pallas kernel for them):
     never computed;
   * ``context_parallel_attention``: each rank of a mesh's model axis takes
     1/M of the query rows against the whole K and V, the rows gathered by
-    the port's ring all-gather.
+    the port's ring all-gather (its backward a reduce-scatter).
 Decode stays plain PyTorch, as the JAX package has no kernel for it.  So
 does the VLM's cross-attention (queries of the text, keys and values of
 the image, S != T, not causal): direct up to S·T = 2^22, chunked above, as
@@ -268,18 +268,23 @@ def context_parallel_attention(q, k, v, mesh, *, causal=True, q_offset=0,
     model subgroup, so FLARE's ring progress counters see them.  q, k and
     v are this rank's (its data shard's batch, every row).  Where M does
     not divide S, or S/M is not a multiple of 16, every rank computes
-    ``chunked_attention`` whole (the JAX rule).  Forward only: the JAX
-    path's gradient (the k/v cotangents summed over the model axis) is
-    not ported."""
+    ``chunked_attention`` whole (the JAX rule).
+
+    The gradient: the all-gather's backward, a reduce-scatter on the same
+    ring, hands each rank its rows' output gradient summed over the model
+    ranks, and ``chunked_attention``'s backward gives dq of those rows and
+    the rows' share of dk and dv.  q, k and v are replicated over the
+    model axis, so by ``parallel/collectives.py``'s convention each rank
+    holds its share of their gradients (and of everything upstream), and
+    ``sharding.sum_replicated`` sums the shares over the model subgroup
+    through the ring, where the reference's ``shard_map`` psums the k/v
+    cotangents."""
     M = mesh.shape[model_axis]
     S = q.shape[1]
     if S % M or (S // M) % 16:
         return chunked_attention(q, k, v, causal, q_offset,
                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
     group = mesh.group(model_axis)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("context_parallel_attention has no "
-                                  "backward: run it under torch.no_grad")
     s_loc = S // M
     m = mesh.axis_index(model_axis)
     o = chunked_attention(q[:, m * s_loc:(m + 1) * s_loc], k, v, causal,

@@ -36,6 +36,17 @@ then meet in the ring's order of the ranks, not in ascending expert id, so
 y is equal to the local path's within rounding, not bitwise.  The aux loss
 is the reference's, of all data shards' tokens: the shares it is made of
 are averaged over the data axes.
+
+Both sums are the ring collectives' autograd functions, so the expert
+parallel path has the reference's gradient under the convention of
+``parallel/collectives.py``: a data shard's loss is held by its n model
+ranks and seeded with 1 / n (the aux loss, held by every rank, with 1 /
+(n·dp)); y's all-reduce hands each model rank the whole output gradient,
+so its experts get theirs, and the aux shares' all-reduce sums the data
+shards' cotangents.  Each rank's router and x gradients are then its
+share, summed over the axes they are replicated on by
+``sharding.sum_replicated`` (the router over every axis, x over the model
+axis, the experts over the data axes).
 """
 from __future__ import annotations
 

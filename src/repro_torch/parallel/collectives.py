@@ -32,6 +32,30 @@ On a meta tensor a collective moves nothing: it returns an empty result
 of its shape and zero progress, and records its kind, result bytes and
 group size into the op analysis in progress (``launch/op_analysis.py``),
 if there is one.
+
+Gradients.  Each collective is a ``torch.autograd.Function`` whose
+backward is the transposed collective on the same ring, through the same
+:func:`exchange` and, for a reduce-scatter, the same combine kernel: an
+all-reduce's backward is an all-reduce, an all-gather's a reduce-scatter
+(rank r gets the chunk its own input filled), a reduce-scatter's an
+all-gather, a permute's the reverse permute.  A backward has a progress
+vector and combine counters of its own: a caller that passes
+``grad_progress`` (and ``grad_counters``) reads them while the backward
+runs, as it reads the forward's, so the hang inspector sees a backward
+stall too.  On meta tensors a backward records its collective into the op
+analysis as a forward does.
+
+The convention every caller keeps (the transpose of the reference's
+``shard_map``): each rank seeds ``backward`` of its loss with 1 / (the
+number of ranks that hold that same loss), and the gradient of a tensor
+held whole on several ranks is summed over the mesh axes it is replicated
+on (``sharding.sum_replicated``).  Each rank's gradients are then its
+share of the one global loss's, and the sums are that loss's gradient.
+A collective's backward must run on every rank of its group once it runs
+on one, so its output must reach the loss on every rank; a missing output
+gradient counts as zeros.  On a CUDA tensor autograd runs a backward on
+its device thread, with the forward's stream current: the staging copies
+and the combine kernel queue on that stream, as in the forward.
 """
 from __future__ import annotations
 
@@ -56,11 +80,9 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def exchange(send: Optional[torch.Tensor], recv: torch.Tensor, dst: int,
-             src: int, group=None) -> torch.Tensor:
-    """One ring step's messages: send ``send`` to group rank ``dst`` (no
-    send if None) and receive from group rank ``src`` into ``recv``;
-    returns ``recv`` once the messages are done."""
+def _transfer(send: Optional[torch.Tensor], recv: torch.Tensor, dst: int,
+              src: int, group) -> torch.Tensor:
+    """The messages of one ring step (see :func:`exchange`)."""
     group = dist.group.WORLD if group is None else group
     staged = _staged(recv, group)
     hrecv = _pinned_like(recv) if staged else recv
@@ -73,6 +95,38 @@ def exchange(send: Optional[torch.Tensor], recv: torch.Tensor, dst: int,
     if staged:
         recv.copy_(hrecv, non_blocking=True)
     return recv
+
+
+class _Permute(torch.autograd.Function):
+    """``exchange`` of a tensor that needs a gradient: the gradient of what
+    this rank received goes back to ``src``, and the gradient of what it
+    sent comes from ``dst``."""
+
+    @staticmethod
+    def forward(ctx, send, recv, dst, src, group):
+        ctx.peers, ctx.group = (dst, src), group
+        ctx.sent = dict(size=send.shape, dtype=send.dtype, device=send.device)
+        ctx.mark_dirty(recv)
+        return _transfer(send, recv, dst, src, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dst, src = ctx.peers
+        back = exchange(grad.contiguous(), torch.empty(**ctx.sent), src, dst,
+                        ctx.group)
+        return back, None, None, None, None
+
+
+def exchange(send: Optional[torch.Tensor], recv: torch.Tensor, dst: int,
+             src: int, group=None) -> torch.Tensor:
+    """One ring step's messages: send ``send`` to group rank ``dst`` (no
+    send if None) and receive from group rank ``src`` into ``recv``;
+    returns ``recv`` once the messages are done.  Where ``send`` needs a
+    gradient, the result carries one: its backward is the reverse permute
+    (every rank of the ring must run it)."""
+    if send is not None and send.requires_grad and torch.is_grad_enabled():
+        return _Permute.apply(send, recv, dst, src, group)
+    return _transfer(send, recv, dst, src, group)
 
 
 def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
@@ -131,36 +185,24 @@ def combine_counters(x: torch.Tensor, n: int) -> torch.Tensor:
                        pin_memory=x.is_cuda)
 
 
-def ring_reduce_scatter_local(x: torch.Tensor, group=None,
-                              progress: Optional[torch.Tensor] = None,
-                              counters: Optional[torch.Tensor] = None):
-    """Per-rank body: x [n*chunk, ...] -> (owned chunk [chunk, ...],
-    progress).
-
-    Classic ring reduce-scatter: n - 1 steps; at step s each rank sends the
-    chunk it just accumulated to its right neighbour and combines the one it
-    receives; progress[s] = 1 once step s completed on this rank.  Rank r
-    ends owning the fully reduced chunk (r + 1) mod n.  Each combine is the
-    ring-combine kernel, whose per-block counters go to row s of
-    ``counters`` (:func:`combine_counters`; allocated if not given).  A
-    flattened chunk longer than one combine block travels padded with zeros
-    to a multiple of it.
-    """
+def _reduce_scatter(x: torch.Tensor, group, progress: torch.Tensor,
+                    counters: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reduce-scatter's ring (see :func:`ring_reduce_scatter_local`)."""
     rank, n = _ring(group)
     if x.shape[0] % n:
         raise ValueError(f"ring_reduce_scatter: leading dim {x.shape[0]} is "
                          f"not a multiple of the group size {n}")
     chunk_shape = (x.shape[0] // n,) + tuple(x.shape[1:])
     if x.is_meta:
-        return (_meta("reduce-scatter", x.new_empty(chunk_shape), n),
-                _progress(n, progress))
+        return _meta("reduce-scatter", x.new_empty(chunk_shape), n)
+    if n == 1:
+        return x.clone()
     flat = x.reshape(n, -1)
     chunk = flat.shape[1]
     pad = _chunk_pad(chunk)
     if pad:
         flat = F.pad(flat, (0, pad))
     acc = list(flat.unbind(0))    # flat chunks, views of x unless padded
-    progress = _progress(n, progress)
     if counters is None:
         counters = combine_counters(x, n)
     right, left = (rank + 1) % n, (rank - 1) % n
@@ -173,25 +215,18 @@ def ring_reduce_scatter_local(x: torch.Tensor, group=None,
                                         block=COMBINE_BLOCK,
                                         progress=counters[s])
         progress[s] = 1
-    return acc[(rank + 1) % n][:chunk].reshape(chunk_shape), progress
+    return acc[(rank + 1) % n][:chunk].reshape(chunk_shape)
 
 
-def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,
-                          progress: Optional[torch.Tensor] = None):
-    """Per-rank body: x [chunk, ...] -> (gathered [n*chunk, ...], progress).
-
-    ``slot_offset``: rank r's local chunk is global chunk (r + slot_offset)
-    mod n; reduce-scatter hands rank r chunk r + 1, so the composed
-    all-reduce passes slot_offset=1.
-    """
+def _all_gather(x: torch.Tensor, group, slot_offset: int,
+                progress: torch.Tensor) -> torch.Tensor:
+    """The all-gather's ring (see :func:`ring_all_gather_local`)."""
     rank, n = _ring(group)
+    shape = (n * x.shape[0],) + tuple(x.shape[1:])
     if x.is_meta:
-        return (_meta("all-gather", x.new_empty(
-            (n * x.shape[0],) + tuple(x.shape[1:])), n),
-            _progress(n, progress))
+        return _meta("all-gather", x.new_empty(shape), n)
     out = x.new_zeros((n,) + tuple(x.shape))
     out[(rank + slot_offset) % n] = x
-    progress = _progress(n, progress)
     right, left = (rank + 1) % n, (rank - 1) % n
     cur = x.contiguous()
     for s in range(n - 1):
@@ -199,24 +234,136 @@ def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,
         # the received chunk originated at rank (rank - s - 1)
         out[(rank - s - 1 + slot_offset) % n] = cur
         progress[s] = 1
-    return out.reshape((n * x.shape[0],) + tuple(x.shape[1:])), progress
+    return out.reshape(shape)
+
+
+def _all_reduce_ring(x: torch.Tensor, group, progress: torch.Tensor,
+                     counters: Optional[torch.Tensor]) -> torch.Tensor:
+    """Reduce-scatter then all-gather; ``progress`` of both phases."""
+    n = dist.get_world_size(group)
+    if x.is_meta:
+        return _meta("all-reduce", x.new_empty(x.shape), n)
+    steps = max(n - 1, 1)
+    owned = _reduce_scatter(x, group, progress[:steps], counters)
+    return _all_gather(owned, group, 1, progress[steps:])
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Backward: the all-gather that hands every rank its chunk's
+    gradient back (rank r owned chunk r + 1)."""
+
+    @staticmethod
+    def forward(ctx, x, group, progress, counters, grad_progress):
+        ctx.group, ctx.grad_progress = group, grad_progress
+        return _reduce_scatter(x, group, progress, counters)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        full = _all_gather(grad.contiguous(), ctx.group, 1,
+                           _progress(n, ctx.grad_progress))
+        return full, None, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Backward: the reduce-scatter of the gathered gradient that leaves
+    on rank r the slot its own chunk filled, (r + slot_offset) mod n: the
+    ring's reduce-scatter owns slot r + 1, so the slots are rolled by
+    1 - slot_offset first."""
+
+    @staticmethod
+    def forward(ctx, x, group, slot_offset, progress, grad_progress,
+                grad_counters):
+        ctx.group, ctx.slot_offset = group, slot_offset
+        ctx.grad_progress, ctx.grad_counters = grad_progress, grad_counters
+        return _all_gather(x, group, slot_offset, progress)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        shift = (1 - ctx.slot_offset) % n
+        if shift and not grad.is_meta:
+            grad = torch.roll(grad.reshape(n, -1), shift, 0).reshape(
+                grad.shape)
+        owned = _reduce_scatter(grad.contiguous(), ctx.group,
+                                _progress(n, ctx.grad_progress),
+                                ctx.grad_counters)
+        return owned, None, None, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Backward: the all-reduce of the gradient, on the same ring."""
+
+    @staticmethod
+    def forward(ctx, x, group, progress, counters, grad_progress,
+                grad_counters):
+        ctx.group = group
+        ctx.grad_progress, ctx.grad_counters = grad_progress, grad_counters
+        return _all_reduce_ring(x, group, progress, counters)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        full = _all_reduce_ring(grad.contiguous(), ctx.group,
+                                _progress(n, ctx.grad_progress, phases=2),
+                                ctx.grad_counters)
+        return full, None, None, None, None, None
+
+
+def ring_reduce_scatter_local(x: torch.Tensor, group=None,
+                              progress: Optional[torch.Tensor] = None,
+                              counters: Optional[torch.Tensor] = None,
+                              grad_progress: Optional[torch.Tensor] = None):
+    """Per-rank body: x [n*chunk, ...] -> (owned chunk [chunk, ...],
+    progress).
+
+    Classic ring reduce-scatter: n - 1 steps; at step s each rank sends the
+    chunk it just accumulated to its right neighbour and combines the one it
+    receives; progress[s] = 1 once step s completed on this rank.  Rank r
+    ends owning the fully reduced chunk (r + 1) mod n.  Each combine is the
+    ring-combine kernel, whose per-block counters go to row s of
+    ``counters`` (:func:`combine_counters`; allocated if not given).  A
+    flattened chunk longer than one combine block travels padded with zeros
+    to a multiple of it.  The backward is an all-gather (``grad_progress``
+    its progress, if given).
+    """
+    n = dist.get_world_size(group)
+    progress = _progress(n, progress)
+    return _ReduceScatter.apply(x, group, progress, counters,
+                                grad_progress), progress
+
+
+def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,
+                          progress: Optional[torch.Tensor] = None,
+                          grad_progress: Optional[torch.Tensor] = None,
+                          grad_counters: Optional[torch.Tensor] = None):
+    """Per-rank body: x [chunk, ...] -> (gathered [n*chunk, ...], progress).
+
+    ``slot_offset``: rank r's local chunk is global chunk (r + slot_offset)
+    mod n; reduce-scatter hands rank r chunk r + 1, so the composed
+    all-reduce passes slot_offset=1.  The backward is a reduce-scatter
+    (``grad_progress`` and ``grad_counters`` its progress and combine
+    counters, if given; ``combine_counters`` of the gathered shape).
+    """
+    n = dist.get_world_size(group)
+    progress = _progress(n, progress)
+    return _AllGather.apply(x, group, slot_offset, progress, grad_progress,
+                            grad_counters), progress
 
 
 def ring_all_reduce_local(x: torch.Tensor, group=None,
                           progress: Optional[torch.Tensor] = None,
-                          counters: Optional[torch.Tensor] = None):
+                          counters: Optional[torch.Tensor] = None,
+                          grad_progress: Optional[torch.Tensor] = None,
+                          grad_counters: Optional[torch.Tensor] = None):
     """Reduce-scatter then all-gather; 2·max(n - 1, 1) progress steps.
     ``progress``, if given, is written in place as the steps complete;
-    ``counters`` are the reduce-scatter's combine counters."""
+    ``counters`` are the reduce-scatter's combine counters.  The backward
+    is an all-reduce (``grad_progress`` and ``grad_counters`` its own)."""
     n = dist.get_world_size(group)
-    steps = max(n - 1, 1)
     progress = _progress(n, progress, phases=2)
-    if x.is_meta:
-        return _meta("all-reduce", x.new_empty(x.shape), n), progress
-    owned, _ = ring_reduce_scatter_local(x, group, progress[:steps], counters)
-    full, _ = ring_all_gather_local(owned, group, slot_offset=1,
-                                    progress=progress[steps:])
-    return full, progress
+    return _AllReduce.apply(x, group, progress, counters, grad_progress,
+                            grad_counters), progress
 
 
 def ring_all_reduce(x: torch.Tensor, group=None):

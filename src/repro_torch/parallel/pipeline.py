@@ -15,6 +15,21 @@ the card) where the reference takes a ``psum``, so every stage returns
 them all.  An inactive stage computes nothing (the reference computes and
 discards), which changes no output.
 
+The gradient.  ``pipeline_apply`` is one ``torch.autograd.Function``: its
+backward is the reference's schedule transposed, tick for tick from T - 1
+down to 0, so it never leans on autograd's order across ranks.  It first
+all-reduces the output gradient over the stages (the output sum's
+transpose, by ``parallel/collectives.py``'s convention: each stage's loss
+seeded with 1 / S where the loss is replicated); then at each tick every
+stage exchanges the reverse permute, sending the gradient of the input it
+took at tick t + 1 to stage - 1 (zeros where it took none, or from stage
+0) and receiving the gradient of its tick-t output from stage + 1, and
+takes the vjp of ``stage_fn`` (``torch.autograd.grad`` of the graph its
+forward kept for that tick) only where it was active.  The parameters'
+gradients add up microbatch M - 1 first.  ``x_microbatches`` is
+replicated over the stages: its gradient is stage 0's and zeros
+elsewhere, until ``sharding.sum_replicated`` sums it.
+
 Each rank holds only its own stage's parameters: the reference's
 ``P(axis)`` on the leading [S] axis, cut by ``sharding.shard``
 (:func:`stage_block`).  A transformer stage (:func:`block_stage`) carries
@@ -45,29 +60,32 @@ def stage_block(params_stacked: dict, mesh, axis: str = "stage") -> dict:
             for k, v in params_stacked.items()}
 
 
-def pipeline_apply(stage_fn: Callable, stage_params: dict,
-                   x_microbatches: torch.Tensor, mesh,
-                   axis: str = "stage") -> torch.Tensor:
-    """Run microbatches through the S pipeline stages of ``mesh``'s
-    ``axis``; every rank of the stage group calls it.
-
-    stage_fn(stage_params, x) -> x     (one stage's layers)
-    stage_params: this rank's block ({name: [1, ...]}, ``stage_block``)
-    x_microbatches: [M, mb, ...] activations, the same on every stage
-    Returns the [M, mb, ...] outputs of the last stage, on every stage."""
+def _forward(stage_fn: Callable, block: dict, xs: torch.Tensor, mesh,
+             axis: str, keep: bool):
+    """The fill-drain schedule.  Returns (the summed outputs, {tick: (the
+    stage's input, its output)} of the active ticks with their graphs
+    when ``keep``, else empty)."""
     S = mesh.shape[axis]
-    M = x_microbatches.shape[0]
-    T = M + S - 1  # total ticks (fill + steady + drain)
+    M = xs.shape[0]
     group = mesh.group(axis)
     stage = mesh.axis_index(axis)
-    sparams = {k: v[0] for k, v in stage_params.items()}
-    buf = torch.zeros_like(x_microbatches[0])  # current activation
-    outs = torch.zeros_like(x_microbatches)
-    for t in range(T):
-        inp = x_microbatches[min(max(t, 0), M - 1)] if stage == 0 else buf
+    buf = torch.zeros_like(xs[0])  # current activation
+    outs = torch.zeros_like(xs)
+    ticks = {}
+    for t in range(M + S - 1):   # fill + steady + drain
+        inp = xs[min(max(t, 0), M - 1)] if stage == 0 else buf
         mb = t - stage  # microbatch this stage processes at tick t
         active = 0 <= mb < M
-        y = stage_fn(sparams, inp) if active else buf
+        if active and keep:
+            inp = inp.detach().requires_grad_(stage > 0 or xs.requires_grad)
+            with torch.enable_grad():
+                y = stage_fn({k: v[0] for k, v in block.items()}, inp)
+            ticks[t] = (inp, y)
+            y = y.detach()
+        elif active:
+            y = stage_fn({k: v[0] for k, v in block.items()}, inp)
+        else:
+            y = buf
         # pass the activation to the next stage (ring; last -> 0 unused)
         buf = (exchange(y, torch.empty_like(y), (stage + 1) % S,
                         (stage - 1) % S, group) if S > 1 else y)
@@ -75,7 +93,78 @@ def pipeline_apply(stage_fn: Callable, stage_params: dict,
             outs[mb] = y
     # only the last stage holds real outputs; the sum over the stages
     # hands them to every stage
-    return ring_all_reduce(outs, group)[0]
+    return ring_all_reduce(outs, group)[0], ticks
+
+
+class _Pipeline(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, stage_fn, mesh, axis, names, keep, xs, *params):
+        block = dict(zip(names, params))
+        if keep:
+            block = {k: v.detach().requires_grad_(v.requires_grad)
+                     for k, v in block.items()}
+        outs, ticks = _forward(stage_fn, block, xs, mesh, axis, keep)
+        ctx.mesh, ctx.axis, ctx.ticks, ctx.block = mesh, axis, ticks, block
+        ctx.x_grad = xs.requires_grad
+        ctx.mb = dict(size=xs.shape[1:], dtype=xs.dtype, device=xs.device)
+        return outs
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis = ctx.mesh, ctx.axis
+        S, M = mesh.shape[axis], grad.shape[0]
+        group = mesh.group(axis)
+        stage = mesh.axis_index(axis)
+        grad = ring_all_reduce(grad.contiguous(), group)[0]
+        names = [k for k, v in ctx.block.items() if v.requires_grad]
+        sums = dict.fromkeys(names)
+        gx = torch.zeros_like(grad) if ctx.x_grad else None
+        zero = torch.zeros(**ctx.mb)
+        g_in = zero      # the gradient of this stage's input at tick t + 1
+        for t in reversed(range(M + S - 1)):
+            g_y = (exchange(g_in, torch.empty(**ctx.mb), (stage - 1) % S,
+                            (stage + 1) % S, group) if S > 1 else zero)
+            g_in = zero
+            if t not in ctx.ticks:
+                continue
+            mb = t - stage
+            if stage == S - 1:
+                g_y = g_y + grad[mb]
+            inp, y = ctx.ticks.pop(t)
+            wrt = [ctx.block[k] for k in names] + (
+                [inp] if inp.requires_grad else [])
+            gs = (torch.autograd.grad(y, wrt, g_y, allow_unused=True)
+                  if wrt else ())
+            for k, g in zip(names, gs):
+                if g is not None:
+                    sums[k] = g if sums[k] is None else sums[k] + g
+            if inp.requires_grad:
+                if stage > 0:
+                    g_in = gs[-1]
+                else:
+                    gx[mb] = gs[-1]
+        return (None, None, None, None, None, gx,
+                *(sums.get(k) for k in ctx.block))
+
+
+def pipeline_apply(stage_fn: Callable, stage_params: dict,
+                   x_microbatches: torch.Tensor, mesh,
+                   axis: str = "stage") -> torch.Tensor:
+    """Run microbatches through the S pipeline stages of ``mesh``'s
+    ``axis``; every rank of the stage group calls it, with the same
+    tensors needing a gradient, and under autograd runs its backward (see
+    the module note).
+
+    stage_fn(stage_params, x) -> x     (one stage's layers)
+    stage_params: this rank's block ({name: [1, ...]}, ``stage_block``)
+    x_microbatches: [M, mb, ...] activations, the same on every stage
+    Returns the [M, mb, ...] outputs of the last stage, on every stage."""
+    names = list(stage_params)
+    params = [stage_params[k] for k in names]
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_microbatches, *params))
+    return _Pipeline.apply(stage_fn, mesh, axis, names, keep, x_microbatches,
+                           *params)
 
 
 def _view(params: dict) -> SimpleNamespace:

@@ -34,6 +34,11 @@ hint, so :class:`MeshRules` gives the spec and its cleaning
 (:meth:`MeshRules.cleaned`) and nothing applies it to an activation.
 :func:`shard` cuts a rank's block of a tensor by a spec, and
 :func:`gather` puts the blocks back together over the mesh's subgroups.
+:func:`sum_replicated` is the gradient convention's sum (see
+``parallel/collectives.py``): a tensor's gradient summed over the mesh
+axes its spec leaves it whole on; :func:`replicas` counts the ranks that
+hold one such tensor, which is also what a replicated loss is seeded
+with the inverse of.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.parallel.collectives import ring_all_gather_local
+from repro_torch.parallel.collectives import (ring_all_gather_local,
+                                              ring_all_reduce)
 from repro_torch.parallel.mesh import dp_axes
 
 
@@ -414,3 +420,35 @@ def gather(block: torch.Tensor, spec, mesh) -> torch.Tensor:
             full, _ = ring_all_gather_local(moved, mesh.group(a))
             out = full.movedim(0, dim)
     return out.contiguous()
+
+
+# --------------------------------------------------------------------------- #
+# The gradient convention: seeds and the replicated-axis sum
+# --------------------------------------------------------------------------- #
+def _replicated(spec, mesh) -> tuple:
+    """The axes of ``mesh`` that no entry of ``spec`` names, in mesh
+    order: the axes a tensor under ``spec`` is held whole on."""
+    named: set = set()
+    for entry in spec:
+        if entry is not None:
+            named |= set(_names(entry))
+    return tuple(a for a in mesh.axis_names if a not in named)
+
+
+def replicas(spec, mesh) -> int:
+    """How many ranks of ``mesh`` hold one tensor under ``spec`` whole: a
+    loss of this spec is seeded with 1 / replicas on each of them."""
+    return math.prod(mesh.shape[a] for a in _replicated(spec, mesh))
+
+
+def sum_replicated(grad: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """``grad`` of a tensor under ``spec``, summed over every mesh axis the
+    tensor is replicated on (an axis of one rank adds nothing), each by the
+    ring all-reduce over this rank's subgroup of it.  Every rank of the
+    mesh calls it, for the same tensors in the same order; each gets the
+    one global loss's gradient of its block."""
+    with torch.no_grad():
+        for a in _replicated(spec, mesh):
+            if mesh.shape[a] > 1:
+                grad = ring_all_reduce(grad, mesh.group(a))[0]
+    return grad

@@ -423,3 +423,25 @@ def test_trainer_fcs_spill_gives_the_jsonl_runs_step_metrics(tmp_path):
         m_jsonl = aggregate_step({0: from_jsonl}, step)
         same_metrics(aggregate_step({0: rounded}, step), m_jsonl)
         assert abs(m_fcs.t_step - m_jsonl.t_step) <= 1e-6
+
+
+@pytest.mark.parametrize("thread,spans", [("flare-daemon", 0), ("worker", 1)])
+def test_gc_spans_skip_the_daemons_own_threads(thread, spans):
+    """A collection run on a thread of the daemon's (``flare-``) records no
+    GC span, as the daemon's own API calls record none; one on any other
+    thread records its span."""
+    import gc
+    import threading
+    from repro_torch.core.interceptor import PyApiInterceptor
+    got = []
+    icpt = PyApiInterceptor(on_span=lambda *a: None,
+                            on_gc=lambda name, t0, t1: got.append(name))
+    icpt.install()
+    try:
+        t = threading.Thread(target=gc.collect, name=thread)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+    finally:
+        icpt.uninstall()
+    assert len(got) == spans, got

@@ -11,8 +11,14 @@ requested chunk and at the kernel's, and the two plain versions against
 each other: the max abs error, |want| where it falls, and how many
 elements exceed ``chip_smoke.ssd_bwd_tol`` at each of the two chunks.
 The comparison shows whose sum ddt's error is, the kernel's or the
-blocking's (``chip_smoke.card_chunk``).  Prints the card's name and power
-limit first.
+blocking's (``chip_smoke.card_chunk``).  Then, at P 64, N 64, chunk 64 (B
+8, L 1024, H 48), both fp32 backwards, the kernel's and the plain
+version's, against the same gradients in float64 (autograd of the
+chunked scan written in float64, :func:`ssd_fwd64`): each output's max
+abs error from fp64, |fp64| where it falls, the largest |fp64|, the
+elements past ``chip_smoke.ssd_bwd_tol`` against fp64, and ddt's error
+beside max|A| and the error of A·da alone.  Prints the card's name and
+power limit first.
 """
 from __future__ import annotations
 
@@ -23,6 +29,69 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CASES = [(8, 1024, 48, 16, 16, 16), (8, 1024, 48, 64, 64, 64),
          (8, 512, 48, 64, 128, 256)]
+FP64_CASE = (8, 1024, 48, 64, 64, 64)      # B, L, H, P, N, chunk
+
+
+def ssd_fwd64(x, dt, A, Bm, Cm, chunk: int):
+    """``ssd_scan/ops.py::ssd_ref``'s chunked scan, every step in float64
+    (L a multiple of ``chunk``, no initial state): (y, final state)."""
+    import torch
+    B, L, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = L // Q
+    xc = x.view(B, nc, Q, H, P)
+    dtc = dt.view(B, nc, Q, H)
+    Bc, Cc = Bm.view(B, nc, Q, N), Cm.view(B, nc, Q, N)
+    cum = torch.cumsum(dtc * A, dim=2)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill(
+        ~tri[None, None, :, :, None], float("-inf"))
+    scores = (torch.einsum("bctn,bcsn->bcts", Cc, Bc)[..., None]
+              * torch.exp(seg) * dtc[:, :, None, :, :])
+    y = torch.einsum("bctsh,bcshp->bcthp", scores, xc)
+    last = cum[:, :, -1:, :]
+    w = torch.exp(last - cum) * dtc
+    S_c = torch.einsum("bcsh,bcsn,bcshp->bchpn", w, Bc, xc)
+    decay = torch.exp(last[:, :, 0, :])
+    S = x.new_zeros((B, H, P, N))
+    starts = []
+    for c in range(nc):
+        starts.append(S)
+        S = S * decay[:, c, :, None, None] + S_c[:, c]
+    y = y + torch.einsum("bcth,bctn,bchpn->bcthp", torch.exp(cum), Cc,
+                         torch.stack(starts, dim=1))
+    return y.reshape(B, L, H, P), S
+
+
+def fp64_check(cs, ops, gen):
+    """Both fp32 backwards against float64 at ``FP64_CASE``."""
+    import torch
+    B, L, H, P, N, chunk = FP64_CASE
+    x, dt, A, Bm, Cm = cs.ssd_inputs(gen, "cuda", B, L, H, N, "float32", P)
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    runs = {"kernel (tf32x3)": ops.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, None,
+                                                chunk),
+            "plain fp32": ops.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, None, chunk)}
+    ins = [t.double().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, _ = ssd_fwd64(*ins, chunk)
+    want = torch.autograd.grad(y, ins, dy.double())
+    cs.log("ssd_bwd", f"fp64 oracle at B{B} L{L} H{H} P{P} N{N} chunk "
+           f"{chunk}; max|A| {float(A.abs().max()):.3e}")
+    for tag, got in runs.items():
+        for name, g, w in zip(cs.SSD_BWD_NAMES, got, want):
+            d = (g.double() - w).abs()
+            i = int(d.argmax())
+            tol = cs.ssd_bwd_tol(name, "float32", B, L, cs.card_chunk(chunk))
+            outside = int((d > tol["atol"] + tol["rtol"] * w.abs()).sum())
+            cs.log("ssd_bwd", f"{tag} {name} against fp64: max "
+                   f"{float(d.max()):.3e} at |fp64| "
+                   f"{float(w.flatten()[i].abs()):.3e} (max |fp64| "
+                   f"{float(w.abs().max()):.3e}); past ssd_bwd_tol "
+                   f"{tol}: {outside}")
+    k, r = runs["kernel (tf32x3)"], runs["plain fp32"]
+    for name, a, b in zip(cs.SSD_BWD_NAMES, k, r):
+        cs.log("ssd_bwd", f"kernel against plain fp32, {name}: max "
+               f"{float((a - b).abs().max()):.3e}")
 
 
 def main():
@@ -68,6 +137,8 @@ def main():
             cs.log("ssd_bwd", f"P{P} N{N} {name}: the plain versions at "
                    f"chunk {chunk} and {kc} differ by "
                    f"{float((r - k).abs().max()):.3e}")
+        torch.cuda.empty_cache()
+    fp64_check(cs, ops, gen)
 
 
 if __name__ == "__main__":

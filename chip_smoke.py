@@ -211,8 +211,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 rows a rank by ``chunked_attention``, the rows gathered by
                 the ring all-gather: the fused norm and no flash launch a
                 rank), its logits held to the one-process prefill's (the
-                flash kernel) by ``SERVE_BF16_SCALED``
-                (details.json ``parallel``);
+                flash kernel) by ``SERVE_BF16_SCALED``; then, on the same
+                ranks, llama3.2-1b whole through 2 steps of the mesh
+                training step (``make_train_step(model, cfg, mesh=)``, its
+                fp32 AdamW state ZeRO-sharded over a (data 2, model 2)
+                mesh, B 8 x S 512, M 4), held to the one-process step on
+                each rank in turn (``mesh_checks``: step 0's gradient and
+                moments, step 1's update, each step's loss and grad_norm,
+                each rank's resident optimizer bytes, its launches and its
+                trace) (details.json ``parallel``);
   5. serve    — for each serving path (``PATHS``), llama3.2-1b (dense),
                 mamba2-780m (ssm), zamba2-2.7b (hybrid), qwen2-0.5b (dense:
                 qkv bias, tied head, G 7), musicgen-large (audio),
@@ -222,9 +229,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 llama3-405b (dense): Server.generate at full width, the
                 depth cut where ``PATHS`` says (mamba2, musicgen and zamba2
                 12 layers, the vlm 2 groups, dbrx 8 layers, arctic 2,
-                qwen2-72b 10 and llama3-405b 4 (one card holds 30 and 8 of
+                qwen2-72b 5 and llama3-405b 2 (one card holds 30 and 8 of
                 their layers' weights; cut further for time),
-                llama-20b-paper 16 of 62) (batch 8,
+                llama-20b-paper 8 of 62) (batch 8,
                 1024-token prompts, 32 new tokens, random weights from
                 --seed; the vlm's gates opened to
                 ``VLM_GATE`` and its vision embeddings a seeded draw) with
@@ -237,8 +244,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 SSD scan 12, fused norm 16 x 33; qwen2 flash 24, fused 48 x
                 33; musicgen's cut 12, 24 x 33; the vlm's cut 8, 20 x 33;
                 dbrx's 8, 16 x 33; arctic's 2, 4 x 33; llama-20b-paper's cut
-                16, 32 x 33; qwen2-72b's cut 10, 20 x 33; llama3-405b's cut
-                4, 8 x 33); untraced and
+                8, 16 x 33; qwen2-72b's cut 5, 10 x 33; llama3-405b's cut
+                2, 4 x 33); untraced and
                 traced walls; a profiler breakdown; the vlm's prefill
                 logits moving with its vision embeddings, and its prefill
                 of one 4096-token prompt, S·T above 2^22, whose cross
@@ -261,8 +268,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 llama-3.2-vision-11b cut to one group (4 self-attention
                 layers and 1 cross layer), dbrx-132b cut to one layer,
                 arctic-480b cut to one layer of 32 experts, and
-                llama-20b-paper, qwen2-72b and llama3-405b cut to what one
-                card trains on the JAX package's policy for them (fp32
+                llama-20b-paper, qwen2-72b and llama3-405b cut (10, 6 and
+                1 layers; one card holds 20, 6 and 1) on the JAX package's
+                policy for them (fp32
                 parameters and bf16 moments for the first, bf16 parameters
                 for the others, remat "full" for all three; bf16 moments
                 and a peak lr of 8e-5 for the two widest, where the
@@ -275,13 +283,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and the peak memory; the launch counts of every step (under
                 remat the forward kernels twice)
                 (llama: flash forward and backward 16, on the wgmma routes
-                and none on tf32x3, fused forward and backward 32; mamba2:
-                SSD forward and backward 48 each on the wgmma routes, none
-                on tf32x3, fused forward and backward 48; zamba2 cut to 24
+                and none on tf32x3, fused forward and backward 32; mamba2
+                cut to 24 of 48 layers for time: SSD forward and backward
+                24 each on the wgmma routes, none on tf32x3, fused forward
+                and backward 24; zamba2 cut to 12
                 of 54 layers for time: flash forward and
-                backward 4, SSD forward and backward 24, fused forward and
-                backward 32; qwen2 24 and 48, musicgen 48 and
-                96, the vlm cut 4 and 10; no plain version); the loss
+                backward 2, SSD forward and backward 12, fused forward and
+                backward 16; qwen2 24 and 48, musicgen cut to 24 of 48
+                layers 24 and 48, the vlm cut 4 and 10; no plain version);
+                the loss
                 finite and falling; a profiler breakdown of one step; one
                 fp32 step of the path's cut (llama, mamba2, qwen2 and
                 musicgen 2 layers, zamba2 one group of 6 and its shared
@@ -4185,7 +4195,8 @@ def simulate_phase(seed: int, fleet: FleetLive,
 
 
 # --------------------------------------------------------------------------- #
-# phase 4f: parallel — the GPipe pipeline and expert parallelism on ranks
+# phase 4f: parallel — the GPipe pipeline, expert and context parallelism
+# and the mesh training step on ranks
 # --------------------------------------------------------------------------- #
 PAR_DIR = OUT_DIR / "parallel"    # the ranks' traces
 PAR_WORLD = 4
@@ -4207,14 +4218,25 @@ CP_MESH = (1, PAR_WORLD)
 # the CP prefill's logits against the one-process prefill's (the flash
 # kernel), bf16 serving: max |got - want| at most this share of max |want|
 SERVE_BF16_SCALED = 5e-2
+# the mesh training step: llama3.2-1b whole on a (data, model) mesh, its
+# AdamW state ZeRO-sharded (``mesh_phase``)
+MESH_ARCH = "llama3.2-1b"
+MESH_SHAPE = (2, 2)                 # (data, model)
+MESH_B, MESH_S, MESH_STEPS = 8, 512, 2
+MESH_DIR = PAR_DIR / "mesh"         # the mesh ranks' traces
+MESH_LOSS_REL = 1e-2     # (d): loss and grad_norm against the oracle's
+MESH_UPDATE_REL = 1e-6   # (c): the update against adamw_update's
+MESH_TAGS = tuple(f"mesh step {s}" for s in range(MESH_STEPS))
+
 # each path's traced daemon step, in the order they run: a forward path's
 # step follows its warm-up's, and its backward's (no warm-up) follows it
 PAR_STEPS = {"pipeline": 1, "pipeline bwd": 2, "ep (1, 4)": 4,
              "ep (1, 4) bwd": 5, "ep (2, 2)": 7, "ep (2, 2) bwd": 8,
              "ep (2, 2) cf 0.5": 10, "ep (2, 2) cf 0.5 bwd": 11, "cp": 13,
-             "cp bwd": 14}
+             "cp bwd": 14,
+             **{tag: 16 + s for s, tag in enumerate(MESH_TAGS)}}
 # each path's arch by the first word of its tag, for the kernels line
-PAR_ARCHS = {"pipeline": PIPE_ARCH, "cp": CP_ARCH}
+PAR_ARCHS = {"pipeline": PIPE_ARCH, "cp": CP_ARCH, "mesh": MESH_ARCH}
 PAR_KERNELS = ("flash_attention[wgmma]", "fused_residual_rmsnorm",
                "ring_combine", "flash_attention_bwd[wgmma]",
                "fused_residual_rmsnorm_bwd")
@@ -4879,6 +4901,9 @@ def parallel_rank(ctx, seed: int) -> dict:
         grad_bytes=sum(g.numel() * g.element_size() for g in grads.values()))
     del model, grads
     torch.cuda.empty_cache()
+
+    # the mesh training step: its own mesh, model and state
+    out["mesh"] = mesh_rank(ctx, seed)
     return out
 
 
@@ -4971,7 +4996,8 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
     path's backward against its oracle (``parallel_backward_checks``);
     each path's launches of flash, the fused norm, their backwards and
     the ring combine (kernel counts, and the ranks' traced spans of the
-    forward kernels).  A failing rank fails the phase."""
+    forward kernels); last, on the same ranks, the mesh training step
+    (``mesh_rank``, ``mesh_checks``).  A failing rank fails the phase."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4989,7 +5015,7 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
     oracle_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = run_ranks(parallel_rank, PAR_WORLD, seed, device=device,
-                      timeout=400.0, log_dir=str(PAR_DIR))
+                      timeout=600.0, log_dir=str(PAR_DIR))
     ranks_wall = time.perf_counter() - t0
     spans = []
     for r in range(PAR_WORLD):
@@ -4997,7 +5023,8 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
         spans.append({tag: {name: sum(1 for e in evs if e.step == step
                                       and e.name == name)
                             for name in PAR_SPANS}
-                      for tag, step in PAR_STEPS.items()})
+                      for tag, step in PAR_STEPS.items()
+                      if tag not in MESH_TAGS})
 
     # the pipeline
     pipes = [r["pipeline"] for r in ranks]
@@ -5161,9 +5188,12 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
             if c != want_s:
                 fail(f"parallel: rank {r}'s trace of {tag} has spans {c}, "
                      f"not {want_s}")
+    mesh = mesh_checks([r["mesh"] for r in ranks], PAR_DIR)
+    launches.update(mesh["launches"])
     wall = time.perf_counter() - t_phase
     log("parallel", f"phase wall {wall:.1f} s (oracles {oracle_wall:.1f} s, "
-        f"4 spawned ranks {ranks_wall:.1f} s, CUDA start-up included)")
+        f"4 spawned ranks {ranks_wall:.1f} s, CUDA start-up included, of "
+        f"which the mesh step's path {mesh['wall_s']:.1f} s)")
     return dict(pipeline=dict(walls_s=[p["wall_s"] for p in pipes],
                               sequential_wall_s=oracle["pipeline"]["wall_s"],
                               bubble_share=bubble,
@@ -5172,7 +5202,8 @@ def parallel_phase(seed: int, device: str = "cuda") -> dict:
                                               for p in pipes],
                               oracle_weight_bytes=oracle["pipeline"][
                                   "weight_bytes"]),
-                ep=eps, cp=cp, backward=bwd, launches=launches, spans=spans,
+                ep=eps, cp=cp, backward=bwd, mesh=mesh, launches=launches,
+                spans=spans,
                 wall_s=wall, oracle_wall_s=oracle_wall,
                 ranks_wall_s=ranks_wall)
 
@@ -5308,6 +5339,442 @@ def parallel_backward_checks(ranks: list, spans: list,
         f"{out['cp']['peak_bytes']} B; the oracles in turns "
         f"{cb[0]['oracle_turns_s']:.1f} s; launches a rank "
         f"{cb[0]['launches']}, spans a rank {[s['cp bwd'] for s in spans]}")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 4f (end): the mesh training step, ZeRO-sharded AdamW over the ring
+# --------------------------------------------------------------------------- #
+
+
+def mesh_run_config(device):
+    """llama3.2-1b whole under the reference's ``dryrun_policy`` (fp32
+    parameters and moments, 4 microbatches, remat none), bf16 compute, B
+    8 x S 512, a warm-up of 1 step: step 0 updates the moments at lr 0,
+    step 1 the parameters at the peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train import RunConfig
+    pol = dryrun_policy(MESH_ARCH)
+    return RunConfig(model=get_config(MESH_ARCH), global_batch=MESH_B,
+                     seq_len=MESH_S, num_microbatches=pol.microbatches,
+                     steps=MESH_STEPS, warmup_steps=1,
+                     opt=AdamWConfig(state_dtype=pol.opt_dtype),
+                     param_dtype=pol.param_dtype, compute_dtype="bfloat16",
+                     remat=pol.remat, grad_accum_dtype=pol.grad_accum_dtype,
+                     device=str(device))
+
+
+def mesh_batches(seed: int, device) -> list:
+    """The global batches of the mesh steps, the same on every rank."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(seed + 8)
+    V = get_config(MESH_ARCH).vocab_size
+    return [{k: torch.as_tensor(rng.integers(0, V, (MESH_B, MESH_S)),
+                                device=device) for k in ("tokens", "labels")}
+            for _ in range(MESH_STEPS)]
+
+
+def mesh_state_bytes(run) -> int:
+    """(e): a rank's optimizer bytes under the reference's specs, counted
+    here from ``opt_state_specs(..., stacked=True)`` on the meta model: for
+    each reference leaf, ``local_shape`` of its stacked shape (a layer-axis
+    block counts the layers the rank owns), m and v."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.mesh import Mesh
+    mesh = Mesh(MESH_SHAPE, ("data", "model"))
+    cfg = run.model
+    shapes = sh._shapes(build_model(cfg, device="meta"))
+    raw = sh.param_specs(shapes, cfg, stacked=True)
+    stacked = {n: sh.stack_dims(n, cfg) + s for n, s in shapes.items()}
+    pspecs = {n: sh.sanitize_spec(raw[n], stacked[n], mesh) for n in shapes}
+    ospecs = opt_state_specs(pspecs, shapes, mesh, run.opt, model_cfg=cfg,
+                             stacked=True)["mu_nu"]
+    size = torch.empty((), dtype=getattr(torch, run.opt.state_dtype)
+                       ).element_size()
+    seen, total = set(), 0
+    for n in shapes:
+        leaf = sh.ref_leaf(n)
+        if leaf in seen:
+            continue
+        seen.add(leaf)
+        total += 2 * size * int(np.prod(sh.local_shape(
+            stacked[n], ospecs[n]["m"], mesh)))
+    return total
+
+
+def mesh_oracle(model, run, batches, zero, opt, coords) -> dict:
+    """The one-process step on the global batches, on this rank's own
+    model (whose parameters step 0 left as they were: lr 0): step 0's
+    loss, grad_norm, gradient and moments, step 1's loss and grad_norm
+    (its gradient, without an update), and the card's peak allocated
+    bytes over the oracle (``peak_bytes``).  The gradient and
+    moments are held against this rank's blocks of them, each leaf stacked
+    in the reference's order and cut by its spec (``grad_report``: the bf16
+    tolerance scaled by each tensor's largest magnitude)."""
+    import torch
+    from repro_torch.optim.adamw import adamw_init, adamw_update, global_norm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.train import make_train_step
+
+    params = dict(model.named_parameters())
+    par_peak(model.device, reset=True)
+    seen = {}
+
+    def capture(g, st, p, c, lr):
+        seen["g"] = g
+        return adamw_update(g, st, p, c, lr)
+
+    def norm_only(g, st, p, c, lr):
+        return p, st, {"grad_norm": global_norm(g.values())}
+
+    state = adamw_init(params, run.opt)
+    step0 = make_train_step(model, run, update=capture)
+    state, m0 = step0(state, batches[0], 0)
+    out = dict(loss=[float(m0["loss"])], grad_norm=[float(m0["grad_norm"])])
+
+    def stacked(leaf, get):
+        t = torch.stack([get(n) for n in leaf.names])
+        return sh.shard(t.reshape(leaf.shape), leaf.spec, zero.mesh, coords)
+
+    grads, moments = {}, {}
+    for leaf in zero.leaves:
+        grads[leaf.name] = grad_report(
+            zero.grads[leaf.name], stacked(leaf, lambda n: seen["g"][n]))
+        for k in ("m", "v"):
+            moments[f"{leaf.name}/{k}"] = grad_report(
+                opt["mu_nu"][leaf.name][k],
+                stacked(leaf, lambda n: state["mu_nu"][n][k]))
+    del seen["g"], state
+    torch.cuda.empty_cache()
+    _, m1 = make_train_step(model, run, update=norm_only)(
+        None, batches[1], 1)
+    out["loss"].append(float(m1["loss"]))
+    out["grad_norm"].append(float(m1["grad_norm"]))
+    return dict(out, grads=grads, moments=moments,
+                peak_bytes=par_peak(model.device))
+
+
+def mesh_update_check(zero, opt, params, state0, blocks0, count0,
+                      lr) -> dict:
+    """(c): step 1's update against ``adamw_update`` applied to the mesh's
+    own step-1 gradient blocks (``zero.grads``), from this rank's host
+    copies of its step-0 moments and parameter blocks (``state0``,
+    ``blocks0``), with the clip of the norm of the whole step-1 gradient
+    (its blocks' squares summed over the world in float64, each block's
+    once), a leaf at a time on the card.  Returns each tensor's max |got -
+    want| over its max |want|."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.parallel.sharding import replicas
+    sq = 0.0
+    for leaf in zero.leaves:
+        sq += float(torch.sum(torch.square(zero.grads[leaf.name].double()))
+                    ) / replicas(leaf.spec, zero.mesh)
+    total = torch.tensor([sq], dtype=torch.float64)
+    dist.all_reduce(total)
+    dev = count0.device
+    gnorm = torch.tensor(float(total[0]) ** 0.5, dtype=torch.float32,
+                         device=dev)
+
+    def rel(got, w):
+        return float((got.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+    out = {}
+    for leaf in zero.leaves:
+        k = leaf.name
+        want_p = {k: blocks0[k].to(dev)}
+        want_s = {k: {f: t.to(dev) for f, t in state0[k].items()}}
+        adamw_update({k: zero.grads[k]}, {"mu_nu": want_s,
+                                          "count": count0.clone()},
+                     want_p, zero.cfg, lr, gnorm=gnorm)
+        out[f"{k}/param"] = rel(zero.param_block(leaf, params), want_p[k])
+        for f in ("m", "v"):
+            out[f"{k}/{f}"] = rel(opt["mu_nu"][k][f], want_s[k][f])
+    return out
+
+
+def mesh_rank(ctx, seed: int) -> dict:
+    """One rank of the mesh step: llama3.2-1b whole on a (data 2, model 2)
+    mesh, ``make_train_step(model, cfg, mesh=)`` for ``MESH_STEPS`` steps
+    on the same global batches on every rank, each in a daemon step of its
+    own (``PAR_STEPS``) with a ``train_step_exec`` span, the kernels'
+    counts set to 0 just before and read just after; between them the
+    one-process oracle on this rank in turn (``mesh_oracle``) and the
+    copies that step 1's update is held to (``mesh_update_check``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.events import EventKind
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.runtime.train import make_train_step
+
+    t_body = time.perf_counter()
+    dev, daemon = ctx.device, ctx.daemon
+    w = torch.ones(1, device=dev, requires_grad=True)
+    torch.autograd.grad(w * 2, w, torch.ones_like(w))
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    coords = mesh.coords(ctx.rank)
+    run = mesh_run_config(dev)
+    cfg = run.model
+    model = build_model(cfg, run.policy(), dev, run.remat, mesh=mesh)
+    model.init(torch.Generator(device=dev).manual_seed(seed + 7))
+    params = dict(model.named_parameters())
+    step_fn = make_train_step(model, run, mesh=mesh)
+    zero = step_fn.zero
+    norm = zero.global_norm
+
+    def keep(blocks):                # each update's gradient blocks
+        zero.grads = blocks
+        return norm(blocks)
+    zero.global_norm = keep
+    opt = zero.init()
+    batches = mesh_batches(seed, dev)
+    rows = MESH_B // MESH_SHAPE[0]
+    flops = 6.0 * cfg.active_param_count() * rows * MESH_S
+    transfer = coll._transfer
+    gloo = {"s": 0.0}
+
+    def timed(*args, **kwargs):      # the ring's messages through gloo
+        t0 = time.perf_counter()
+        try:
+            return transfer(*args, **kwargs)
+        finally:
+            gloo["s"] += time.perf_counter() - t0
+
+    steps = []
+
+    def one(s: int):
+        nonlocal opt
+        tag = MESH_TAGS[s]
+        par_sync(dev)
+        dist.barrier()
+        daemon.step_begin(PAR_STEPS[tag])
+        daemon.set_stack([f"step_{PAR_STEPS[tag]}", "train_step"])
+        par_counts(reset=True)
+        par_peak(dev, reset=True)
+        gloo["s"] = 0.0
+        coll._transfer = timed
+        try:
+            t0 = time.perf_counter()
+            opt, m = step_fn(opt, batches[s], s)
+            loss = float(m["loss"])               # sync point
+            t_done = time.perf_counter()
+        finally:
+            coll._transfer = transfer
+        daemon.record_span(EventKind.KERNEL_COMPUTE, "train_step_exec", t0,
+                           t_done, flops=flops)
+        counts = par_counts()
+        peak = par_peak(dev)
+        daemon.step_end(tokens=rows * MESH_S, loss=loss)
+        steps.append(dict(wall_s=t_done - t0, gloo_s=gloo["s"],
+                          loss=loss, grad_norm=float(m["grad_norm"]),
+                          lr=float(m["lr"]), launches=counts,
+                          peak_bytes=peak))
+        return m
+
+    one(0)
+    resident = zero.resident_bytes(opt)
+    torch.cuda.empty_cache()        # every rank's, before the oracles
+    t0 = time.perf_counter()
+    oracle = rank_turns(lambda: mesh_oracle(model, run, batches, zero, opt,
+                                            coords),
+                        daemon, PAR_ORACLE_STEP + PAR_STEPS[MESH_TAGS[0]])
+    oracle_s = time.perf_counter() - t0
+    # step 1's inputs, kept in host memory for (c): the moments, the
+    # parameter blocks
+    state0 = {k: {f: t.to("cpu", copy=True) for f, t in v.items()}
+              for k, v in opt["mu_nu"].items()}
+    blocks0 = {leaf.name: zero.param_block(leaf, params).to("cpu",
+                                                            copy=True)
+               for leaf in zero.leaves}
+    count0 = opt["count"].clone()
+    zero.grads = None
+    torch.cuda.empty_cache()
+    m1 = one(1)
+    update = mesh_update_check(zero, opt, params, state0, blocks0, count0,
+                               m1["lr"])
+    del state0, blocks0
+    # the combines a step: each leaf's reduce-scatter, its sum over the
+    # axes its moments are replicated on, the norm's sums, the loss's mean
+    ring = sum(sum(mesh.shape[a] - 1 for a in sh_axes(leaf.rel, mesh))
+               + sum(n - 1 for a, n in mesh.shape.items()
+                     if a not in sh_axes(leaf.spec, mesh))
+               for leaf in zero.leaves)
+    ring += sum(sum(mesh.shape[a] - 1 for a in axes)
+                for axes in {leaf.sharded for leaf in zero.leaves})
+    ring += MESH_SHAPE[0] - 1                      # the loss's mean
+    out = dict(coords=coords, steps=steps, oracle=oracle,
+               oracle_turns_s=oracle_s, update=update,
+               resident_bytes=resident,
+               resident_end=zero.resident_bytes(opt),
+               ring_combines=ring, leaves=len(zero.leaves),
+               on_stack=sorted(leaf.name for leaf in zero.leaves
+                               if len(leaf.stack) and leaf.spec[0]),
+               finite=all(bool(p.isfinite().all()) for p in params.values()))
+    del model, params, opt, zero, step_fn
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_body
+    return out
+
+
+def sh_axes(spec, mesh) -> list:
+    """The axes of ``mesh`` of more than one rank that ``spec`` names, in
+    its order."""
+    return [a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))
+            if mesh.shape[a] > 1]
+
+
+def mesh_phase(seed: int, device: str = "cuda") -> dict:
+    """The mesh training step alone (``tools/parallel_check.py --only
+    mesh``; ``parallel_phase`` runs ``mesh_rank`` on its own ranks, after
+    the other paths): llama3.2-1b at full width on a
+    (data 2, model 2) mesh of 4 gloo ranks on cuda:0, 2 steps of
+    ``make_train_step(model, cfg, mesh=)`` (ZeRO-sharded AdamW over the
+    ring, ``optim/zero.py``), each rank traced by its own daemon.  Checks
+    (a) step 0's gradient blocks against the one-process step's gradient
+    and (b) the moments after step 0 against its moments, at the bf16
+    tolerance scaled by each tensor's largest magnitude (``grad_report``);
+    (c) step 1's parameters and moments within ``MESH_UPDATE_REL`` of
+    ``adamw_update`` from the mesh's own step-1 gradient and step-0 state;
+    (d) each step's loss and grad_norm within ``MESH_LOSS_REL`` of the
+    oracle's; (e) each rank's resident optimizer bytes equal to the
+    reference specs' count (``mesh_state_bytes``); (f) every rank's
+    launches of the five kernels, none 0, and its trace: a
+    ``train_step_exec`` span in each mesh step and every kernel span
+    nested in its step.  A failing check fails the phase.  Returns the
+    readings, ``launches`` by ``PAR_STEPS`` tag summed over the ranks."""
+    from repro_torch.launch.mesh import run_ranks
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    for old in MESH_DIR.glob("rank*.jsonl"):
+        old.unlink()
+    ranks = run_ranks(mesh_rank, PAR_WORLD, seed, device=device,
+                      timeout=600.0, log_dir=str(MESH_DIR))
+    return mesh_checks(ranks, MESH_DIR)
+
+
+def mesh_checks(ranks: list, log_dir) -> dict:
+    """``mesh_phase``'s checks of the ranks' ``mesh_rank`` results and of
+    their traces (``log_dir/rank{r}.jsonl``)."""
+    from repro_torch.core.events import load_jsonl
+
+    run = mesh_run_config("cpu")
+    want_bytes = mesh_state_bytes(run)
+    L, M = run.model.num_layers, run.num_microbatches
+    bad = []
+    for r, x in enumerate(ranks):
+        where = f"mesh rank {r} at {x['coords']}"
+        if not x["finite"]:
+            fail(f"parallel: {where}: parameters not finite")
+        for k, g in {**x["oracle"]["grads"],
+                     **x["oracle"]["moments"]}.items():
+            if g["outside_bf16"] or not g["finite"]:
+                bad.append(f"{where} {k} ({g['outside_bf16']} outside, "
+                           f"scaled {g['scaled']:.3e})")
+        for k, e in x["update"].items():
+            if not e <= MESH_UPDATE_REL:
+                bad.append(f"{where} step 1 update {k} {e:.3e}")
+        for s, st in enumerate(x["steps"]):
+            for key in ("loss", "grad_norm"):
+                want = x["oracle"][key][s]
+                if not abs(st[key] - want) <= MESH_LOSS_REL * abs(want):
+                    bad.append(f"{where} step {s} {key} {st[key]} against "
+                               f"the oracle's {want}")
+            want_l = par_launches(
+                flash_attention_wgmma=M * L, fused_residual_rmsnorm=2 * M * L,
+                flash_attention_bwd_wgmma=M * L,
+                fused_residual_rmsnorm_bwd=2 * M * L,
+                ring_combine=x["ring_combines"])
+            if st["launches"] != want_l or not all(want_l.values()):
+                bad.append(f"{where} step {s} launched {st['launches']}, "
+                           f"not {want_l}")
+        if not x["resident_bytes"] == x["resident_end"] == want_bytes:
+            bad.append(f"{where} holds {x['resident_bytes']} / "
+                       f"{x['resident_end']} optimizer bytes, not the "
+                       f"specs' {want_bytes}")
+        evs = load_jsonl(str(Path(log_dir) / f"rank{r}.jsonl"))
+        for tag in MESH_TAGS:
+            step = PAR_STEPS[tag]
+            mine = [e for e in evs if e.step == step]
+            execs = [e for e in mine if e.name == "train_step_exec"]
+            if len(execs) != 1:
+                bad.append(f"{where} {tag}: {len(execs)} train_step_exec "
+                           f"spans")
+            s = MESH_TAGS.index(tag)
+            for name, label in zip(PAR_SPANS, PAR_KERNELS):
+                spans = [e for e in mine if e.name == name]
+                if len(spans) != x["steps"][s]["launches"][label]:
+                    bad.append(f"{where} {tag}: {len(spans)} {name} spans, "
+                               f"{x['steps'][s]['launches'][label]} "
+                               f"launches")
+                if any(e.duration <= 0 or e.issue_latency < 0
+                       or e.meta.get("parent") != f"step_{step}"
+                       for e in spans):
+                    bad.append(f"{where} {tag}: a {name} span without a "
+                               f"device duration or outside its step")
+    if bad:
+        fail("parallel: mesh step: " + "; ".join(bad[:8]))
+    steps = [[x["steps"][s] for x in ranks] for s in range(MESH_STEPS)]
+    worst = max((g["scaled"], k) for x in ranks
+                for k, g in x["oracle"]["grads"].items())
+    worst_m = max((g["scaled"], k) for x in ranks
+                  for k, g in x["oracle"]["moments"].items())
+    worst_u = max((e, k) for x in ranks for k, e in x["update"].items())
+    out = dict(
+        walls_s=[[st["wall_s"] for st in s] for s in steps],
+        gloo_s=[[st["gloo_s"] for st in s] for s in steps],
+        peak_bytes=[[st["peak_bytes"] for st in s] for s in steps],
+        loss=[s[0]["loss"] for s in steps],
+        grad_norm=[s[0]["grad_norm"] for s in steps],
+        oracle_loss=ranks[0]["oracle"]["loss"],
+        oracle_grad_norm=ranks[0]["oracle"]["grad_norm"],
+        grad_scaled=worst[0], grad_worst=worst[1],
+        moment_scaled=worst_m[0], moment_worst=worst_m[1],
+        update_rel=worst_u[0], update_worst=worst_u[1],
+        resident_bytes=[x["resident_bytes"] for x in ranks],
+        spec_bytes=want_bytes, on_stack=ranks[0]["on_stack"],
+        launches={tag: {k: sum(st["launches"][k] for st in steps[i])
+                        for k in PAR_KERNELS}
+                  for i, tag in enumerate(MESH_TAGS)},
+        oracle_turns_s=ranks[0]["oracle_turns_s"],
+        oracle_peak_bytes=[x["oracle"]["peak_bytes"] for x in ranks],
+        wall_s=max(x["wall_s"] for x in ranks))
+    for s in range(MESH_STEPS):
+        log("parallel", f"{MESH_ARCH} whole, mesh step {s} on a (data "
+            f"{MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) mesh, B {MESH_B} x S "
+            f"{MESH_S}, M {M}, fp32 parameters and moments ZeRO-sharded: "
+            f"loss {out['loss'][s]:.6f} (oracle {out['oracle_loss'][s]:.6f}),"
+            f" grad_norm {out['grad_norm'][s]:.6f} (oracle "
+            f"{out['oracle_grad_norm'][s]:.6f}), lr {steps[s][0]['lr']:.3e};"
+            f" wall {max(out['walls_s'][s]):.3f} s (ranks "
+            f"{[round(w, 3) for w in out['walls_s'][s]]}), of it in gloo "
+            f"transfers {[round(g, 3) for g in out['gloo_s'][s]]} s; peak "
+            f"memory a rank {out['peak_bytes'][s]} B; launches a rank "
+            f"{steps[s][0]['launches']}")
+    log("parallel", f"{MESH_ARCH} mesh step against the one-process step "
+        f"(the oracles in turns {out['oracle_turns_s']:.1f} s, peak memory "
+        f"a rank in its turn {out['oracle_peak_bytes']} B): step 0's "
+        f"gradient blocks within {out['grad_scaled']:.3e} of each tensor's "
+        f"largest magnitude (worst {out['grad_worst']}), the moments after "
+        f"it within {out['moment_scaled']:.3e} (worst "
+        f"{out['moment_worst']}), 0 outside the bf16 tolerance at their "
+        f"scale; step 1's update within {out['update_rel']:.3e} relative "
+        f"of adamw_update's (worst {out['update_worst']}; criterion <= "
+        f"{MESH_UPDATE_REL}); resident optimizer bytes a rank "
+        f"{out['resident_bytes']} = the specs' {want_bytes} (data on the "
+        f"layer axis of {len(out['on_stack'])} leaves); the path's part "
+        f"of the ranks' wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -5858,10 +6325,13 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
 # 71.95 GB so (73.15 GB at two, which add an fp32 gradient accumulator);
 # musicgen-large's at 66.50 GB (81.73 GB at two; bf16 moments 53.58 GB at
 # one, 68.82 at two), so it keeps fp32 moments; the vlm cut's at 51.51 GB.
-# zamba2's cut is one group, 6 Mamba layers and one application of the
-# shared block: a 2-layer cut of it would hold no attention, and so run
-# neither flash kernel.  llama-3.2-vision-11b trains cut to one group (4
-# self-attention layers and 1 cross layer, full width): its 9.9 B
+# zamba2's agreement cut is one group, 6 Mamba layers and one application
+# of the shared block: a 2-layer cut of it would hold no attention, and so
+# run neither flash kernel.  For time, since the mesh step joined the
+# parallel phase, zamba2 trains 2 groups (was 4), mamba2 and musicgen 24
+# of their 48 layers (were whole) and llama-20b-paper 10 (was 20).
+# llama-3.2-vision-11b trains cut to one group (4 self-attention layers
+# and 1 cross layer, full width): its 9.9 B
 # parameters with fp32 gradients and moments would need ~159 GB; its fp32
 # agreement step is the same cut, with the gates open.  The moe paths
 # train one layer at full width (dbrx-132b all 16 experts, 4.49 B
@@ -5885,7 +6355,8 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_OVERHEAD_PAIRS = 12, 4, 8
 # (qwen2-72b 12.47 -> 9.38).  Each cut by tools/train_memory.py on the
 # card (B 8 x S 512, one microbatch, the path's dtypes and remat):
 # llama-20b-paper peaks at 72.88 GB with 20 layers (79.50 with 22, which
-# would leave less room than any other path has, 66.26 with 18), qwen2-72b
+# would leave less room than any other path has, 66.26 with 18; it trains
+# 10, for time), qwen2-72b
 # at 72.09 GB with 6 (7 run out of memory; int8 moments would take 10 in
 # 78.08 GB), llama3-405b at 76.00 GB with 1 (int8 61.46; 2 layers run out
 # of memory with either).  Their fp32 agreement steps run remat "full" too,
@@ -5897,12 +6368,12 @@ TRAIN_PATHS = {
         agree_grads=("embed.embedding", "layers.0.attn.wq",
                      "layers.1.ln2.scale")),
     "mamba2-780m": dict(
-        layers=None,
+        layers=24,        # half its 48, cut for time
         agree_layers=2, agree_seq=512,
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.1.mamba.A_log")),
     "zamba2-2.7b": dict(
-        layers=24,        # 4 of its 9 groups, cut for time
+        layers=12,        # 2 of its 9 groups, cut for time
         agree_layers=6, agree_seq=512,
         agree_grads=("embed.embedding", "layers.0.mamba.in_x",
                      "layers.5.mamba.A_log", "shared_attn.attn.wq",
@@ -5913,7 +6384,7 @@ TRAIN_PATHS = {
         agree_grads=("embed.embedding", "layers.0.attn.bq",
                      "layers.1.attn.wk", "layers.1.ln2.scale")),
     "musicgen-large": dict(
-        layers=None,
+        layers=24,        # half its 48, cut for time
         agree_layers=2, agree_seq=128,
         agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
                      "layers.1.mlp.wo")),
@@ -5937,7 +6408,7 @@ TRAIN_PATHS = {
                      "layers.0.moe.wo", "layers.0.mlp.wi_gate",
                      "layers.0.mlp.wo")),
     "llama-20b-paper": dict(
-        layers=20,
+        layers=10,        # 20 fit one card; cut for time
         param_dtype="float32", state_dtype="bfloat16", remat="full",
         agree_layers=2, agree_seq=128,
         agree_grads=("embed.embedding", "head.w", "layers.0.attn.wq",
@@ -6345,9 +6816,9 @@ def check_train_trace(arch: str, events: list, steps: int) -> dict:
     ``dataloader.next_batch`` span with ``tokens`` and a ``train_step_exec``
     span with ``flops`` = 6·N·tokens in each, and the forward's kernel
     spans (``forward_launches`` a step of the path's config: llama flash 16
-    and fused 32, mamba2 SSD scan 48 and fused 48, zamba2's cut SSD scan
-    24, flash 4 and fused 32, the vlm cut flash 4 and fused 10) with CUDA-event
-    durations, nested under their step."""
+    and fused 32, mamba2's cut SSD scan 24 and fused 24, zamba2's cut SSD
+    scan 12, flash 2 and fused 16, the vlm cut flash 4 and fused 10) with
+    CUDA-event durations, nested under their step."""
     from collections import Counter
     from repro_torch.core.events import EventKind
 
@@ -7121,10 +7592,11 @@ def reduced_phase(seed: int) -> dict:
 # group (5 layers) and the moe paths' training cuts (``train_cut``: one
 # layer; arctic 32 experts).  mamba2's and zamba2's S 320 is one full
 # chunk of 256 and a ragged one.  llama-20b-paper, whole on one card (34.8
-# GB of bf16 weights), serves 16 of its 62 layers, and qwen2-72b and
+# GB of bf16 weights), serves 8 of its 62 layers, and qwen2-72b and
 # llama3-405b, which one card holds for 30 of 80 (57.6 GB) and 8 of 126
-# layers (59.4 GB), serve 10 and 4, cut to keep the phases
-# near 950 s with the width checks and the reduced phase; their fp32
+# layers (59.4 GB), serve 5 and 2, cut to keep the phases near 950 s
+# with the width checks, the reduced phase and the mesh training step
+# (16, 10 and 4 before it); their fp32
 # agreements run cuts of 2, 2 and 1 layers (llama3-405b's one layer and
 # its embedding and head are 29.6 GB of fp32 on the card and again on the
 # CPU).
@@ -7139,9 +7611,9 @@ PATHS = (("llama3.2-1b", {}, 64, {}),
           dict(num_layers=1)),
          ("arctic-480b", dict(num_layers=2), 64,
           dict(num_layers=1, num_experts=32)),
-         ("llama-20b-paper", dict(num_layers=16), 64, dict(num_layers=2)),
-         ("qwen2-72b", dict(num_layers=10), 64, dict(num_layers=2)),
-         ("llama3-405b", dict(num_layers=4), 64, dict(num_layers=1)))
+         ("llama-20b-paper", dict(num_layers=8), 64, dict(num_layers=2)),
+         ("qwen2-72b", dict(num_layers=5), 64, dict(num_layers=2)),
+         ("llama3-405b", dict(num_layers=2), 64, dict(num_layers=1)))
 
 
 def main():

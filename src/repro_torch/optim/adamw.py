@@ -81,6 +81,25 @@ def _q_dec(s: dict, shape) -> torch.Tensor:
     return x[..., :last].reshape(shape)
 
 
+def _leaf(name: str) -> str:
+    """The reference's leaf of a port parameter: the layer index gone
+    (``parallel/sharding.py::ref_leaf``)."""
+    from repro_torch.parallel.sharding import ref_leaf
+    return ref_leaf(name)
+
+
+def _q_enc_stacked(group: list):
+    """Encode the int8 moments of 0-d parameters that the reference stacks
+    into one leaf (the vlm's per-layer gates), as that leaf: ``group`` is
+    [(state, m, v)] in layer order, and the 256-blocks and their absmax
+    run across the layers."""
+    for k, i in (("m", 1), ("v", 2)):
+        enc = _q_enc(torch.stack([g[i] for g in group]))
+        for j, g in enumerate(group):
+            g[0][k]["q"].copy_(enc["q"][j:j + 1])
+            g[0][k]["scale"].copy_(enc["scale"][j // QBLOCK:j // QBLOCK + 1])
+
+
 # --------------------------------------------------------------------- AdamW
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     def one(p):
@@ -117,16 +136,22 @@ def _step(p, g, m, v, cfg: AdamWConfig, clip, b1c, b2c, lr):
 
 @torch.no_grad()
 def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
-                 lr) -> tuple[dict, dict, dict]:
+                 lr, gnorm=None) -> tuple[dict, dict, dict]:
     """One AdamW step, in place on ``params`` and ``state``.  Returns
-    (params, state, {"grad_norm": fp32 scalar}).  A parameter of more than
+    (params, state, {"grad_norm": fp32 scalar}).  ``gnorm`` is the global
+    gradient norm the clip takes, ``global_norm`` of ``grads`` unless given
+    (the mesh step's ``params`` are a rank's blocks, whose norm is summed
+    over the ranks: ``optim/zero.py``).  A parameter of more than
     ``UPDATE_SLICE`` elements (the MoE experts' [E, D, F], the largest
     models' embeddings) is updated a slice of its leading axis at a time,
     so its float32 temporaries stay that small; each element's arithmetic
     is the same, and so are the int8 moments' blocks, which run along the
-    last axis."""
+    last axis.  The int8 moments of 0-d parameters are encoded as the
+    reference's stacked leaf of them (one absmax a 256-block across the
+    layers), ``params`` giving each leaf's parameters in layer order."""
     count = state["count"] + 1
-    gnorm = global_norm(grads[k] for k in params)
+    if gnorm is None:
+        gnorm = global_norm(grads[k] for k in params)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     cf = count.float()
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
@@ -134,6 +159,7 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
     lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
     consts = (cfg, clip, b1c, b2c, lr)
     int8 = cfg.state_dtype == "int8"
+    scalars: dict = {}      # int8: the 0-d parameters' moments by leaf
     for name, p in params.items():
         s = state["mu_nu"][name]
         moments = ([s[k][f] for k in ("m", "v") for f in ("q", "scale")]
@@ -151,6 +177,9 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
                                             pp.shape),
                              _q_dec({"q": vq, "scale": vscale}, pp.shape),
                              *consts)
+                if p.dim() == 0:
+                    scalars.setdefault(_leaf(name), []).append((s, m, v))
+                    continue
                 for (q, sc), val in (((mq, mscale), m), ((vq, vscale), v)):
                     enc = _q_enc(val)
                     q.copy_(enc["q"])
@@ -160,6 +189,8 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
             m, v = _step(pp, gg, sm.float(), sv.float(), *consts)
             sm.copy_(m)
             sv.copy_(v)
+    for group in scalars.values():
+        _q_enc_stacked(group)
     state["count"].copy_(count)
     return params, state, {"grad_norm": gnorm}
 

@@ -186,7 +186,8 @@ def combine_counters(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _reduce_scatter(x: torch.Tensor, group, progress: torch.Tensor,
-                    counters: Optional[torch.Tensor]) -> torch.Tensor:
+                    counters: Optional[torch.Tensor],
+                    slot_offset: int = 1) -> torch.Tensor:
     """The reduce-scatter's ring (see :func:`ring_reduce_scatter_local`)."""
     rank, n = _ring(group)
     if x.shape[0] % n:
@@ -203,6 +204,9 @@ def _reduce_scatter(x: torch.Tensor, group, progress: torch.Tensor,
     if pad:
         flat = F.pad(flat, (0, pad))
     acc = list(flat.unbind(0))    # flat chunks, views of x unless padded
+    shift = (1 - slot_offset) % n
+    if shift:       # the ring's chunk j is x's chunk j - shift
+        acc = acc[-shift:] + acc[:-shift]
     if counters is None:
         counters = combine_counters(x, n)
     right, left = (rank + 1) % n, (rank - 1) % n
@@ -250,19 +254,21 @@ def _all_reduce_ring(x: torch.Tensor, group, progress: torch.Tensor,
 
 class _ReduceScatter(torch.autograd.Function):
     """Backward: the all-gather that hands every rank its chunk's
-    gradient back (rank r owned chunk r + 1)."""
+    gradient back (rank r owned chunk r + slot_offset)."""
 
     @staticmethod
-    def forward(ctx, x, group, progress, counters, grad_progress):
+    def forward(ctx, x, group, progress, counters, grad_progress,
+                slot_offset):
         ctx.group, ctx.grad_progress = group, grad_progress
-        return _reduce_scatter(x, group, progress, counters)
+        ctx.slot_offset = slot_offset
+        return _reduce_scatter(x, group, progress, counters, slot_offset)
 
     @staticmethod
     def backward(ctx, grad):
         n = dist.get_world_size(ctx.group)
-        full = _all_gather(grad.contiguous(), ctx.group, 1,
+        full = _all_gather(grad.contiguous(), ctx.group, ctx.slot_offset,
                            _progress(n, ctx.grad_progress))
-        return full, None, None, None, None
+        return full, None, None, None, None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -313,14 +319,18 @@ class _AllReduce(torch.autograd.Function):
 def ring_reduce_scatter_local(x: torch.Tensor, group=None,
                               progress: Optional[torch.Tensor] = None,
                               counters: Optional[torch.Tensor] = None,
-                              grad_progress: Optional[torch.Tensor] = None):
+                              grad_progress: Optional[torch.Tensor] = None,
+                              slot_offset: int = 1):
     """Per-rank body: x [n*chunk, ...] -> (owned chunk [chunk, ...],
     progress).
 
     Classic ring reduce-scatter: n - 1 steps; at step s each rank sends the
     chunk it just accumulated to its right neighbour and combines the one it
     receives; progress[s] = 1 once step s completed on this rank.  Rank r
-    ends owning the fully reduced chunk (r + 1) mod n.  Each combine is the
+    ends owning the fully reduced chunk (r + slot_offset) mod n (the ring's
+    own r + 1 by default; 0 hands rank r chunk r, as ``sharding.shard``
+    cuts: the chunks enter the ring rotated, which moves no data).  Each
+    combine is the
     ring-combine kernel, whose per-block counters go to row s of
     ``counters`` (:func:`combine_counters`; allocated if not given).  A
     flattened chunk longer than one combine block travels padded with zeros
@@ -330,7 +340,7 @@ def ring_reduce_scatter_local(x: torch.Tensor, group=None,
     n = dist.get_world_size(group)
     progress = _progress(n, progress)
     return _ReduceScatter.apply(x, group, progress, counters,
-                                grad_progress), progress
+                                grad_progress, slot_offset), progress
 
 
 def ring_all_gather_local(x: torch.Tensor, group=None, slot_offset: int = 0,

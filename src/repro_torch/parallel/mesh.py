@@ -62,11 +62,13 @@ class Mesh:
             out.append(self.rank_of(c))
         return out
 
-    def connect(self) -> "Mesh":
+    def connect(self, timeout=None) -> "Mesh":
         """Create the axes' subgroups; every rank of the gloo world (whose
         size is the mesh's) calls this, with the same mesh, in the same
         order as its other ``dist.new_group`` calls.  The mesh covers the
-        world's first ``size`` ranks; any others hold no subgroup."""
+        world's first ``size`` ranks; any others hold no subgroup.
+        ``timeout`` (a ``datetime.timedelta``, the world's by default) ends
+        a stalled collective of the subgroups."""
         if dist.get_world_size() < self.size:
             raise ValueError(f"{self} needs {self.size} ranks, the world has "
                              f"{dist.get_world_size()}")
@@ -79,7 +81,8 @@ class Mesh:
                 if ranks in seen:
                     continue
                 seen.add(ranks)
-                g = dist.new_group(list(ranks), backend="gloo")
+                g = dist.new_group(list(ranks), backend="gloo",
+                                   timeout=timeout)
                 if me in ranks:
                     self._groups[a] = g
         return self
@@ -101,12 +104,12 @@ class Mesh:
         return self.coords(dist.get_rank())[self.axis_names.index(axis)]
 
 
-def make_mesh(shape: tuple, axis_names: tuple) -> Mesh:
+def make_mesh(shape: tuple, axis_names: tuple, timeout=None) -> Mesh:
     """A mesh of ``shape``, connected when a gloo world is up (every rank
-    calls it, and it covers the world's first ranks), shape-only
-    otherwise."""
+    calls it, and it covers the world's first ranks; ``timeout`` as in
+    :meth:`Mesh.connect`), shape-only otherwise."""
     mesh = Mesh(shape, axis_names)
-    return mesh.connect() if dist.is_initialized() else mesh
+    return mesh.connect(timeout) if dist.is_initialized() else mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

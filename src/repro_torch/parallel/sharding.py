@@ -32,8 +32,9 @@ of their per-device shard shapes that carry their spec and global shape.
 The port has no ``constrain`` hook: eager PyTorch has no GSPMD layout
 hint, so :class:`MeshRules` gives the spec and its cleaning
 (:meth:`MeshRules.cleaned`) and nothing applies it to an activation.
-:func:`shard` cuts a rank's block of a tensor by a spec, and
-:func:`gather` puts the blocks back together over the mesh's subgroups.
+:func:`shard` cuts a rank's block of a tensor by a spec,
+:func:`gather` puts the blocks back together over the mesh's subgroups,
+and :func:`reduce_scatter` sums every rank's tensor into the blocks.
 :func:`sum_replicated` is the gradient convention's sum (see
 ``parallel/collectives.py``): a tensor's gradient summed over the mesh
 axes its spec leaves it whole on; :func:`replicas` counts the ranks that
@@ -48,8 +49,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.parallel.collectives import (ring_all_gather_local,
-                                              ring_all_reduce)
+from repro_torch.parallel.collectives import (combine_counters,
+                                              ring_all_gather_local,
+                                              ring_all_reduce,
+                                              ring_reduce_scatter_local)
 from repro_torch.parallel.mesh import dp_axes
 
 
@@ -419,6 +422,34 @@ def gather(block: torch.Tensor, spec, mesh) -> torch.Tensor:
             moved = out.movedim(dim, 0).contiguous()
             full, _ = ring_all_gather_local(moved, mesh.group(a))
             out = full.movedim(0, dim)
+    return out.contiguous()
+
+
+def reduce_scatter(t: torch.Tensor, spec, mesh, watch=None) -> torch.Tensor:
+    """The inverse of :func:`gather`: every rank's ``t`` (one shape for
+    all) summed, and this rank's ``shard`` block of the sum under ``spec``
+    kept.  For each sharded dim, a ring reduce-scatter over the subgroup of
+    each of its axes, the slowest axis first, each rank keeping the chunk
+    of its own coordinate.  ``watch(axis, progress, counters)``, if given,
+    gets each ring's progress and combine counters before the ring starts
+    (a hang callback reads them while it runs)."""
+    out = t
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in _names(entry):
+            n = mesh.shape[a]
+            if n == 1:
+                continue
+            moved = out.movedim(dim, 0).contiguous()
+            progress = torch.zeros(max(n - 1, 1), dtype=torch.int32)
+            counters = combine_counters(moved, n)
+            if watch is not None:
+                watch(a, progress, counters)
+            chunk, _ = ring_reduce_scatter_local(
+                moved, mesh.group(a), progress=progress, counters=counters,
+                slot_offset=0)
+            out = chunk.movedim(0, dim)
     return out.contiguous()
 
 

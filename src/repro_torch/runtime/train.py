@@ -31,6 +31,10 @@ from repro_torch.models.layers import Policy
 from repro_torch.models.registry import build_model, modality_inputs
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.optim.zero import ZeroAdamW
+from repro_torch.parallel.collectives import ring_all_reduce
+from repro_torch.parallel.mesh import dp_axes
+from repro_torch.parallel.sharding import Spec, shard
 
 
 @dataclass
@@ -74,7 +78,7 @@ def loss_and_grads(model, batch: dict,
 
 
 def make_train_step(model, cfg: RunConfig, grads=loss_and_grads,
-                    update=adamw_update):
+                    update=adamw_update, mesh=None):
     """Returns step_fn(opt_state, batch, step) -> (opt_state, metrics).
 
     The parameters are the model's own and are updated in place; ``batch``
@@ -84,7 +88,15 @@ def make_train_step(model, cfg: RunConfig, grads=loss_and_grads,
     device scalars.  ``grads(model, batch, params)`` gives a microbatch's
     loss and gradients and ``update`` applies them (``loss_and_grads`` and
     ``adamw_update``; the dry-run counts one microbatch for all, and one
-    parameter's update for each of the same shape)."""
+    parameter's update for each of the same shape).
+
+    With a ``mesh`` (connected, ``parallel/mesh.py``) the step is the
+    reference's mesh step (:func:`_mesh_step`)."""
+    if mesh is not None:
+        if grads is not loss_and_grads or update is not adamw_update:
+            raise ValueError("make_train_step: a mesh step takes no grads= "
+                             "or update=")
+        return _mesh_step(model, cfg, mesh)
     params = dict(model.named_parameters())
     M = cfg.num_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
@@ -115,6 +127,83 @@ def make_train_step(model, cfg: RunConfig, grads=loss_and_grads,
         _, opt_state, om = update(g, opt_state, params, cfg.opt, lr)
         return opt_state, {"loss": loss, "lr": lr, **om}
 
+    return step_fn
+
+
+def _mesh_step(model, cfg: RunConfig, mesh):
+    """The mesh step: every rank of ``mesh`` calls ``step_fn(opt_state,
+    batch, step)`` with the same global batch, and gets the reference's
+    ``make_train_step(model, cfg, mesh)`` step (``src/repro/runtime/
+    train.py``).  ``model`` is this rank's (``build_model(..., mesh=mesh)``:
+    whole, its experts' block under expert parallelism); ``opt_state`` is
+    ``step_fn.zero.init()``'s, the rank's ZeRO blocks (``optim/zero.py``).
+
+    * The batch is split into the M microbatches first, and each rank takes
+      its rows of each over the dp axes (``Spec(dp)``, the reference's
+      layout of a microbatch), or all of them where the dp extent does not
+      divide B / M (the reference replicates).
+    * A rank's loss is the mean over its rows; the global loss is the mean
+      over the dp ranks, held whole by every rank of the other axes, so
+      each rank seeds its backward with 1 / (the mesh's ranks)
+      (``parallel/collectives.py``'s convention); the MoE aux loss, held
+      by every rank, takes the same seed.
+    * Gradients are accumulated in ``grad_accum_dtype`` across the
+      microbatches, each parameter's as soon as the backward has it
+      (``ZeroAdamW.sink``), then reduced to each rank's block of its
+      moments and the update runs there (``ZeroAdamW.update``); the
+      parameters are gathered back whole.
+    * The metrics are the global ones on every rank."""
+    if model.cfg.num_experts and getattr(model, "mesh", None) is not mesh:
+        raise ValueError("make_train_step: build the moe model with the "
+                         "step's mesh (its experts' block and the aux "
+                         "loss's mean over the data shards)")
+    zero = ZeroAdamW(model, mesh, cfg.opt)
+    params = dict(model.named_parameters())
+    M = max(cfg.num_microbatches, 1)
+    acc_dt = getattr(torch, cfg.grad_accum_dtype)
+    dp = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1)
+    n_dp = int(np.prod([mesh.shape[a] for a in dp]))
+    seed = 1.0 / mesh.size
+
+    def rows(v):
+        if n_dp > 1 and v.shape[0] % n_dp == 0:
+            return shard(v, Spec(dp), mesh, zero.coords)
+        return v
+
+    def step_fn(opt_state, batch, step):
+        lr = warmup_cosine(step, peak_lr=cfg.peak_lr,
+                           warmup_steps=cfg.warmup_steps,
+                           total_steps=cfg.steps).to(model.device)
+        B = batch["tokens"].shape[0]
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} "
+                             f"microbatches")
+        parts = {k: v.chunk(M) for k, v in batch.items()}
+        acc = zero.zeros(params, acc_dt)
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
+        hooks = zero.sink(acc, params)
+        try:
+            for i in range(M):
+                mb = {k: rows(v[i]) for k, v in parts.items()}
+                extra = {k: v for k, v in mb.items()
+                         if k not in ("tokens", "labels")}
+                lm = model.loss(mb["tokens"], mb["labels"], **extra)
+                (lm * seed).backward()
+                loss = loss + lm.detach()
+        finally:
+            for h in hooks:
+                h.remove()
+        if M > 1:
+            loss = loss / M
+        om = zero.update(acc, opt_state, params, lr, M)
+        if dp:
+            loss = loss.reshape(1)
+            for a in dp:
+                loss = ring_all_reduce(loss, mesh.group(a))[0]
+            loss = loss[0] / n_dp
+        return opt_state, {"loss": loss, "lr": lr, **om}
+
+    step_fn.zero = zero
     return step_fn
 
 

@@ -175,6 +175,10 @@ def backward_hang(ctx) -> list:
     transport = coll.exchange
     timeout0 = daemon.cfg.hang_timeout
     drills = []
+    # ranks 2 and 3 skip the llama pipeline that ranks 0 and 1 run just
+    # before: the drill's group connects within its timeout only if every
+    # rank starts it at once
+    dist.barrier()
     for i, f in enumerate(HANG_FAULTS):
         group = dist.new_group(backend="gloo", timeout=datetime.timedelta(
             seconds=launch_mesh.HANG_GROUP_TIMEOUT))

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """The parallel plane's phase on one CUDA card, forward and backward.
 
-    python3 tools/parallel_check.py
+    python3 tools/parallel_check.py [--only mesh]
 
-Runs ``chip_smoke.py``'s ``parallel`` phase alone: 4 ranks on the card
+Runs ``chip_smoke.py``'s ``parallel`` phase alone (with ``--only mesh``
+its last path alone: ``mesh_phase``, llama3.2-1b whole through 2 steps of
+``make_train_step(model, cfg, mesh=)`` on a (data 2, model 2) mesh, its
+AdamW state ZeRO-sharded, held to the one-process step): 4 ranks on the card
 (``launch/mesh.py``, gloo through pinned host memory) driving the
 llama3.2-1b GPipe pipeline (4 stages, 8 microbatches of 1024 tokens)
 against its blocks in order, one dbrx-132b block's expert parallelism on
@@ -25,6 +28,7 @@ three EP backwards 1.8, 5.6 and 4.6 s, the CP backward 12.4 s.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -35,6 +39,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("mesh",), default=None,
+                    help="run only the mesh training step's path")
+    args = ap.parse_args()
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -56,8 +64,9 @@ def main():
     cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
     walls = {"build": time.perf_counter() - t_start}
     t0 = time.perf_counter()
-    par_run = cs.parallel_phase(0)
-    walls["parallel"] = time.perf_counter() - t0
+    par_run = (cs.mesh_phase(0) if args.only == "mesh"
+               else cs.parallel_phase(0))
+    walls[args.only or "parallel"] = time.perf_counter() - t0
     walls["total"] = time.perf_counter() - t_start
     (cs.OUT_DIR / "parallel_check.json").write_text(json.dumps(
         dict(parallel=par_run, walls=walls), indent=1))
